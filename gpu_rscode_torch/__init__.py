@@ -11,7 +11,11 @@ Public surface:
   the reference formats.
 - ``python -m gpu_rscode_torch`` — the ``RS`` command line.
 - :mod:`gpu_rscode_torch.ops` — GF(2^w) tables, the plain GEMMs, the CUDA
-  kernel (``ops/csrc/gf_gemm.cu``) and the host inverse.
+  kernels (``ops/csrc/``: K1 ``gf_gemm.cu``, K2 ``gf_pack2.cu``, K3
+  ``gf_planes.cu``) and the host inverse.
+- ``python -m gpu_rscode_torch.tools.kernel_sweep`` /
+  ``python -m gpu_rscode_torch.tools.expand_probe`` — the kernel-formulation
+  measurements (K2, K3, the copy floor, the compute-only ceiling).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
 GPU and no device they raise.

@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -31,6 +32,10 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # same sources was reused).
 BUILD_LOG: dict[str, str] = {}
 BUILD_SECONDS: dict[str, float] = {}
+# Device operators packed from coefficient matrices, shared by the kernels'
+# wrappers; emptied when full.
+_OPERATORS: dict = {}
+_MAX_OPERATORS = 64
 
 
 def build_root() -> Path:
@@ -82,9 +87,41 @@ def build(name: str, sources: list[Path]) -> Path:
     return lib
 
 
+def build_many(libs: dict[str, list[Path]]) -> None:
+    """Run one ``nvcc`` per library, all at once; raises the first failure
+    after every build has ended."""
+    with ThreadPoolExecutor(max_workers=max(1, len(libs))) as pool:
+        futures = [pool.submit(build, name, sources) for name, sources in libs.items()]
+    for fut in futures:
+        fut.result()
+
+
 def load(name: str, sources: list[Path]) -> ctypes.CDLL:
-    """The loaded library, built at first use (once per process)."""
+    """The loaded library, built at first use (once per process).  Every
+    library exports ``rs_cuda_error_string``, bound here."""
     with _LOCK:
         if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(str(build(name, sources)))
+            lib = ctypes.CDLL(str(build(name, sources)))
+            lib.rs_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.rs_cuda_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
         return _LIBS[name]
+
+
+def cached_operator(key: tuple, make):
+    """The operator for ``key``, made by ``make()`` at first use and kept;
+    the key names the kernel, the coefficient matrix and the device."""
+    op = _OPERATORS.get(key)
+    if op is None:
+        if len(_OPERATORS) >= _MAX_OPERATORS:
+            _OPERATORS.clear()
+        op = _OPERATORS[key] = make()
+    return op
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise when a C entry returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: {lib.rs_cuda_error_string(err).decode()} (cudaError {err})"
+        )

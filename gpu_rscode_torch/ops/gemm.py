@@ -74,6 +74,17 @@ def _coeff(A, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(A, dtype=np.int64), device=device)
 
 
+def coefficients(A, k: int, w: int) -> np.ndarray:
+    """A kernel wrapper's (p, k) coefficient matrix as host int64, checked
+    against the data's depth ``k`` and the field GF(2^w)."""
+    A = np.asarray(A.cpu() if isinstance(A, torch.Tensor) else A).astype(np.int64)
+    if A.ndim != 2 or A.shape[1] != k:
+        raise ValueError(f"shape mismatch {A.shape} @ ({k}, m)")
+    if A.size and (A.min() < 0 or A.max() >= 1 << w):
+        raise ValueError(f"coefficient out of range for GF(2^{w})")
+    return A
+
+
 @functools.lru_cache(maxsize=None)
 def _np_bitmats(w: int) -> np.ndarray:
     return get_field(w).bitmats  # (2^w, w, w) uint8
@@ -87,6 +98,22 @@ def expand_bitmatrix(A, w: int = 8, device=None) -> torch.Tensor:
     p, k = A.shape
     blocks = bitmats[A]  # (p, k, w, w)
     return blocks.permute(0, 2, 1, 3).reshape(p * w, k * w)
+
+
+@functools.lru_cache(maxsize=None)
+def _np_nibble_mats(w: int) -> np.ndarray:
+    return get_field(w).nibble_mats  # (256, 8, 32) uint8
+
+
+def expand_nibblematrix(A, w: int = 8, device=None) -> torch.Tensor:
+    """(p, k) GF(2^8) matrix -> (p*w, k*32) 0/1 uint8 one-hot-nibble
+    operator: block (i, j) maps ``[one_hot(hi); one_hot(lo)]`` of data byte
+    j to the bit planes of ``A[i, j] * byte``."""
+    A = _coeff(A, device)
+    mats = torch.as_tensor(_np_nibble_mats(w), device=A.device)
+    p, k = A.shape
+    blocks = mats[A]  # (p, k, w, 32)
+    return blocks.permute(0, 2, 1, 3).reshape(p * w, k * 32)
 
 
 def to_bitplanes(B: torch.Tensor, w: int = 8) -> torch.Tensor:
@@ -120,7 +147,8 @@ def _exact_float32_matmul():
 
 
 def _dot_bits(a_bits: torch.Tensor, b_bits: torch.Tensor) -> torch.Tensor:
-    """Binary matmul with exact integer accumulation -> int32."""
+    """Integer matmul with exact accumulation -> int32 (sums below 2^24 on
+    CUDA, where it runs in float32)."""
     if a_bits.device.type == "cpu":
         return a_bits.to(torch.int32) @ b_bits.to(torch.int32)
     with _exact_float32_matmul():

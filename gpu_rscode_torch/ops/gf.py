@@ -85,6 +85,7 @@ class GaloisField:
         else:
             self.mul_table = None
         self._bitmats: np.ndarray | None = None
+        self._nibble_mats: np.ndarray | None = None
 
     def mul(self, a, b):
         """Elementwise GF multiply (branchless log/exp)."""
@@ -132,6 +133,25 @@ class GaloisField:
                 (prods[:, None, :].astype(np.int64) >> shifts[None, :, None]) & 1
             ).astype(np.uint8)
         return self._bitmats
+
+    @property
+    def nibble_mats(self) -> np.ndarray:
+        """(256, 8, 32) uint8 one-hot-nibble multiply operators (w=8 only).
+
+        ``nibble_mats[c][s, v]`` is bit s of ``c * val(v)``, with
+        ``val(v) = v << 4`` for v < 16 (high nibble) and ``val(v) = v - 16``
+        for v >= 16 (low nibble).  Since ``b = (hi << 4) ^ lo``, stacking
+        ``one_hot(hi)`` over ``one_hot(lo)`` gives
+        ``bits(c*b) = nibble_mats[c] @ stack mod 2``.
+        """
+        if self.w != 8:
+            raise ValueError("nibble operator is defined for w=8 only")
+        if self._nibble_mats is None:
+            vals = np.concatenate([np.arange(16, dtype=np.int64) << 4, np.arange(16, dtype=np.int64)])
+            prods = self.mul(np.arange(256, dtype=np.int64)[:, None], vals[None, :])
+            shifts = np.arange(8, dtype=np.int64)
+            self._nibble_mats = ((prods[:, None, :].astype(np.int64) >> shifts[None, :, None]) & 1).astype(np.uint8)
+        return self._nibble_mats
 
     def expand_bitmatrix(self, A: np.ndarray) -> np.ndarray:
         """(p, k) GF matrix -> (p*w, k*w) GF(2) operator; block (i, j) is

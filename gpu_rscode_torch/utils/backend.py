@@ -34,3 +34,9 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not cuda_devices_present():
         raise RuntimeError(f"device {str(dev)!r} requested but no CUDA device is present")
     return dev
+
+
+def backend_label() -> str:
+    """The label a measurement records for where it ran: "cuda" when a CUDA
+    device is present, else "cpu"."""
+    return "cuda" if cuda_devices_present() else "cpu"

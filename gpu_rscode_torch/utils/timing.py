@@ -23,6 +23,7 @@ class PhaseTimer:
         self.enabled = enabled
         self.acc: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
+        self.best: dict[str, float] = {}  # per-phase minimum duration
         self._t0 = time.perf_counter()
 
     @classmethod
@@ -40,8 +41,17 @@ class PhaseTimer:
         try:
             yield
         finally:
-            self.acc[name] += time.perf_counter() - t
-            self.counts[name] += 1
+            self.add(name, time.perf_counter() - t)
+
+    def add(self, name: str, seconds: float) -> None:
+        """Record a duration measured elsewhere (a device timer), with the
+        same accounting as a :meth:`phase` block."""
+        if not self.enabled:
+            return
+        self.acc[name] += seconds
+        self.counts[name] += 1
+        if name not in self.best or seconds < self.best[name]:
+            self.best[name] = seconds
 
     @property
     def total(self) -> float:

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: it imports no JAX and nothing of the JAX
-package, and ships its kernel source."""
+package, and ships its kernel sources."""
 
 import os
 import pathlib
@@ -17,6 +17,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import gpu_rscode_torch.api, gpu_rscode_torch.cli, gpu_rscode_torch.codec\n"
         "import gpu_rscode_torch.ops.cuda_gemm, gpu_rscode_torch.tools.make_conf\n"
+        "import gpu_rscode_torch.ops.cuda_pack2, gpu_rscode_torch.ops.cuda_planes, gpu_rscode_torch.obs.runlog\n"
+        "import gpu_rscode_torch.tools.kernel_sweep, gpu_rscode_torch.tools.expand_probe\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'gpu_rscode_tpu')))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -39,7 +41,8 @@ def test_no_file_of_the_port_mentions_the_jax_package():
 
 
 def test_kernel_source_ships_as_package_data():
-    assert (PORT / "ops" / "csrc" / "gf_gemm.cu").is_file()
+    for name in ("gf_gemm.cu", "gf_pack2.cu", "gf_planes.cu"):
+        assert (PORT / "ops" / "csrc" / name).is_file()
     pyproject = (REPO / "pyproject.toml").read_text()
     assert "gpu_rscode_torch*" in pyproject
     assert "ops/csrc/*.cu" in pyproject
