@@ -9,8 +9,11 @@ Phases, each fatal on failure:
   2. build the three CUDA kernel libraries from the checkout's sources, one
      nvcc each, all at once (timed);
   3. K1 against its plain PyTorch version on the card, bit-exact, over a
-     grid of shapes at w=8 and w=16 (ragged widths, p = k decode shapes up
-     to 128, the pre-parity fold_parity=False form);
+     grid of shapes at w=8 and w=16 in both forms (the folded bit-sliced
+     kernel and the pre-parity popcount kernel): ragged and misaligned
+     widths (m = 1, 31, 33, 1639, ...; rows that start off 16-byte
+     alignment), shapes that need several output tiles and depth chunks,
+     p = k decode shapes up to 128;
   4. the main path at the reference's published setting (k=10, n=14): a
      seeded 1 GiB file is encoded with api.encode_file on the card, parity
      is spot-checked against the GF oracle, the first 4 chunks are deleted
@@ -18,7 +21,8 @@ Phases, each fatal on failure:
      through K1); SHA-256 must match and K1 must have run;
   5. a w=16 round trip with --checksum through the CLI (--device cuda);
   6. timings: file encode/decode GB/s of phase 4, and K1 at the main path's
-     segment shape next to its bound and its plain version;
+     segment shapes next to its bound, the logic-op estimate of its
+     design and its plain version;
   7. K2 (pack2) and K3 (every expand+refold pair, the pinned mode, the copy
      floor) against their plain versions on the card, bit-exact, and the
      dispatch of every expansion name through gf_matmul_cuda;
@@ -73,6 +77,9 @@ SEED = 20261016
 MAIN_FILE_BYTES = 1024 * MiB
 # Columns of one 64 MiB segment of the main path's encode (6,710,784).
 SEGMENT_COLS = api._segment_cols(-(-MAIN_FILE_BYTES // 10), 10, api.DEFAULT_SEGMENT_BYTES)
+# 32-bit logic operations an sm_90 SM issues per clock (CUDA C++ Programming
+# Guide, arithmetic instruction throughput).
+LOGIC_OPS_PER_SM_CLOCK = 64
 LIBS = {"gf_gemm": cuda_gemm.SOURCES, "gf_pack2": cuda_pack2.SOURCES, "gf_planes": cuda_planes.SOURCES}
 
 
@@ -80,9 +87,9 @@ def log(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
-def smi_line() -> str:
+def smi_line(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
@@ -90,24 +97,39 @@ def smi_line() -> str:
 
 def bound_ms(p: int, k: int, m: int, w: int) -> float:
     """Least time for C = A.B over GF(2^w) at (p, k, m): B read once and C
-    written once at the device-memory rate.  The packed GF(2) product needs
-    about p*w*k*w/32 word ANDs, XORs and popcounts per column, which the
-    card's integer units issue faster than those bytes arrive."""
+    written once at the device-memory rate.  The GF(2) product itself needs
+    no multiply; what K1's design issues per column on the logic pipe is
+    estimated beside it (k1_logic_ops_per_col)."""
     return 1e3 * (k + p) * m * (w // 8) / HBM_BYTES_PER_S
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def k1_logic_ops_per_col(p: int, k: int, w: int) -> float:
+    """An estimate from the bit-sliced design, not a measurement: per column,
+    one LOP3 for each (output plane, input plane) pair of every tile, plus
+    five logic or shift ops per masked swap of the transposes (log2(w)
+    stages of w/2 swaps) on each input row of each tile and on each output
+    row, over the thread's 32 columns."""
+    rt, tiles, _ = cuda_gemm.bitslice_plan(p, k, w)
+    swaps = 5 * int(math.log2(w)) * (w // 2)
+    return (tiles * rt * w * k * w + (tiles * k + p) * swaps) / 32
 
+
+def time_ms(fn, iters: int, reps: int = 1, warmup: int = 2) -> float:
+    """Best milliseconds per call over ``reps`` loops of ``iters`` calls,
+    timed with CUDA events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    best = float("inf")
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 def sha256_file(path: str) -> str:
@@ -127,19 +149,28 @@ def random_symbols(rng, shape, w, device):
 
 
 def phase_kernel_grid(device) -> int:
-    """Kernel vs plain version on the card; returns the max abs error."""
+    """K1 vs its plain version on the card, both forms; returns the max abs
+    error."""
 
     shapes = [(2, 4, 256), (4, 10, 5000), (1, 1, 128), (8, 32, 1024), (3, 5, 100)]
     shapes += [(2, 4, m) for m in (64, 2048, 2049, 4097)]
     shapes += [(10, 10, 65537), (4, 10, 1 << 20)]
-    wide = {8: [(128, 128, 4097), (64, 200, 3000)], 16: [(64, 64, 4097), (128, 128, 2049)]}
+    # Ragged and misaligned widths (1639: the last segment of a 1 GiB
+    # encode), and depth 33.
+    shapes += [(p, k, m) for p, k in ((4, 10), (10, 10)) for m in (1, 31, 33, 1639)] + [(4, 33, 1639), (4, 33, 4097)]
+    # Several output tiles and depth chunks of the bit-sliced kernel.
+    wide = {8: [(128, 128, 4097), (64, 200, 3000), (16, 50, 1100), (16, 50, 70001)],
+            16: [(64, 64, 4097), (128, 128, 2049), (5, 7, 300), (9, 12, 130), (4, 33, 70001)]}
     worst = 0
     cases = 0
     rng = np.random.default_rng(SEED)
     for w in (8, 16):
-        for p, k, m in shapes + wide[w]:
+        # (p, k, m, elements B's first row sits past a 16-byte boundary)
+        grid = [(p, k, m, 0) for p, k, m in shapes + wide[w]] + [(4, 10, 65536, 1), (4, 10, 65536, 3)]
+        for p, k, m, skew in grid:
             A = rng.integers(0, 1 << w, size=(p, k))
-            B = random_symbols(rng, (k, m), w, device)
+            flat = random_symbols(rng, (skew + k * m,), w, device)
+            B = flat[skew:].view(k, m)
             for fold in (True, False):
                 got = cuda_gemm.gf_matmul_cuda(A, B, w, fold_parity=fold)
                 want = gf_matmul_bitplane(A, B, w, fold_parity=fold)
@@ -151,8 +182,8 @@ def phase_kernel_grid(device) -> int:
                 worst = max(worst, err)
                 cases += 1
                 if err:
-                    raise AssertionError(f"kernel != plain at w={w} p={p} k={k} m={m} fold={fold}: max err {err}")
-    log(phase="kernel_vs_plain", cases=cases, max_abs_err=worst, tolerance=0)
+                    raise AssertionError(f"kernel != plain at w={w} p={p} k={k} m={m} skew={skew} fold={fold}: max err {err}")
+    log(phase="kernel_vs_plain", kernel="K1", cases=cases, max_abs_err=worst, tolerance=0)
     return worst
 
 
@@ -248,12 +279,13 @@ def phase_cli_w16(work: str, seed: int, size: int) -> dict:
 
 
 def phase_timings(device) -> list[dict]:
-    """The kernel at the main path's shapes vs its bound and plain version."""
-
+    """K1 at the main path's shapes vs its bound, its logic-op estimate and
+    its plain version."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock_mhz = float(smi_line("clocks.max.sm").split()[0])
     rng = np.random.default_rng(7)
     rows = []
-    k = 10
-    m8 = api._segment_cols(-(-MAIN_FILE_BYTES // k), k, api.DEFAULT_SEGMENT_BYTES)
+    k, m8 = 10, SEGMENT_COLS
     # Decode as the main path launches it: the first 4 chunks are lost, so
     # only the 4 missing natives' rows of the inverse go through the kernel.
     # The whole p = k = 10 inverse is timed beside it.
@@ -270,11 +302,14 @@ def phase_timings(device) -> list[dict]:
         err = int((_widen(got) - _widen(want)).abs().max().item())
         if err:
             raise AssertionError(f"kernel != plain at the {label} timing shape")
-        ms = time_ms(lambda: cuda_gemm.gf_matmul_cuda(A, B, w), iters=20)
+        ms = time_ms(lambda: cuda_gemm.gf_matmul_cuda(A, B, w), iters=100, reps=3)
         plain = time_ms(lambda: gf_matmul_bitplane(A, B, w), iters=3, warmup=1)
+        ops = k1_logic_ops_per_col(p, k, w)
         row = dict(phase="kernel_timing", shape=label, w=w, p=p, k=k, m=m, ms=ms, plain_ms=plain,
                    bound_ms=bound_ms(p, k, m, w), bound_by="bytes", library_ms=None, max_abs_err=err,
-                   gbps=(k + p) * m * (w // 8) / (ms * 1e-3) / 1e9)
+                   gbps=(k + p) * m * (w // 8) / (ms * 1e-3) / 1e9,
+                   est_logic_ops_per_col=ops, sms=sms, max_sm_clock_mhz=clock_mhz,
+                   est_logic_ms=1e3 * ops * m / (sms * LOGIC_OPS_PER_SM_CLOCK * clock_mhz * 1e6))
         log(**row)
         rows.append(row)
     return rows
@@ -447,7 +482,7 @@ def kernel_entries(k1_err, grids, k1_timing=None, main_launches=None, new_timing
     t = new_timings or {}
     tl = tool_launches or {}
     return [
-        entry("K1 gf_gemm (fused GF(2^w) GEMM)", "gpu_rscode_torch/ops/csrc/gf_gemm.cu",
+        entry("K1 gf_gemm (bit-sliced GF(2^w) GEMM; pre-parity: popcount)", "gpu_rscode_torch/ops/csrc/gf_gemm.cu",
               "gpu_rscode_tpu/ops/pallas_gemm.py:307", main_launches, k1_err, k1_timing),
         entry("K2 gf_pack2 (packed two-column GF(2^8) GEMM)", "gpu_rscode_torch/ops/csrc/gf_pack2.cu",
               "gpu_rscode_tpu/ops/pallas_gemm.py:256", tl.get("K2"), grids["K2"].worst, t.get("pack2")),
@@ -460,6 +495,23 @@ def kernel_entries(k1_err, grids, k1_timing=None, main_launches=None, new_timing
     ]
 
 
+def ptxas_kernels(ptxas: str) -> list[dict]:
+    """Registers and spilled bytes of each kernel instance in ``-Xptxas=-v``
+    output, named ``gf_bitslice_kernel<w,rt>`` / ``gf_popcount_kernel<w,nw,cpt>``."""
+    out = []
+    for block in ptxas.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        found = re.search(r"(gf_(?:bitslice|popcount)_kernel)I((?:Li\d+E)+)", mangled)
+        name = mangled
+        if found:
+            name = f"{found.group(1)}<{','.join(re.findall(r'Li(-?[0-9]+)E', found.group(2)))}>"
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        out.append({"kernel": name, "registers": int(regs.group(1)) if regs else None,
+                    "spill_store_bytes": int(spill.group(1)) if spill else None})
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.build_many(LIBS)
@@ -470,6 +522,8 @@ def phase_build() -> None:
         spills = sorted({int(b) for b in re.findall(r"(\d+) bytes spill stores", ptxas)})
         log(phase="build", library=name, nvcc_seconds=_build.BUILD_SECONDS.get(name), kernels=len(regs),
             max_registers=max(regs, default=None), spill_store_bytes=spills)
+        if name == "gf_gemm":
+            log(phase="build", library=name, per_kernel=ptxas_kernels(ptxas))
     log(phase="build", parallel_wall_seconds=wall)
     cuda_gemm._lib(), cuda_pack2._lib(), cuda_planes._lib()
 

@@ -1,15 +1,19 @@
-"""The fused GF(2^w) GEMM as a hand-written CUDA kernel: the counterpart of
+"""The fused GF(2^w) GEMM as hand-written CUDA kernels: the counterpart of
 the JAX package's ``ops/pallas_gemm.py`` (``gf_matmul_pallas``).
 
-``gf_matmul_cuda`` computes ``C = A . B`` over GF(2^w) with the kernel in
-``csrc/gf_gemm.cu``.  Its plain version is
-:func:`.gemm.gf_matmul_bitplane`, which it takes only for a tensor on the
-CPU.  For a CUDA tensor it launches the kernel or raises: nothing catches a
-build or launch error.
+``gf_matmul_cuda`` computes ``C = A . B`` over GF(2^w) with the kernels in
+``csrc/gf_gemm.cu``: the folded form (``fold_parity=True``, every encode and
+decode) with the bit-sliced XOR kernel, the pre-parity form with the
+popcount kernel.  Its plain version is :func:`.gemm.gf_matmul_bitplane`,
+which it takes only for a tensor on the CPU.  For a CUDA tensor it launches
+one of the two kernels or raises: nothing catches a build or launch error.
 
-The operator is packed on the host from ``A`` (one row per output bit, its
-``k*w`` coefficients as bits of 32-bit words, zero-padded to the kernel's
-word bucket) and kept on the device per coefficient matrix.
+The bit-sliced kernel reads the operator as masks (:func:`pack_masks`: each
+operator bit spread to an all-ones or all-zeros 32-bit word, in the order
+the kernel streams them), tiled and staged as :func:`bitslice_plan` says.
+The popcount kernel reads it as packed words (:func:`pack_operator`).  Both
+are built on the host from ``A`` and kept on the device per coefficient
+matrix.
 
 ``expand`` names one of the JAX package's expansion formulations; it sends
 the product to the kernel that computes it on the card (:data:`EXPANSIONS`):
@@ -30,29 +34,61 @@ from . import _build
 from .gemm import coefficients, gf_matmul_bitplane
 from .gf import get_field
 
-# Kernel launches since the count was last reset.  Only the launch below
-# adds to it.
+# Kernel launches (either form) since the count was last reset.  Only the
+# launch below adds to it.
 LAUNCHES = 0
 
 SOURCES = [_build.CSRC / "gf_gemm.cu"]
+
+# The bit-sliced kernel's plan, chosen here (bitslice_plan); rs_gf_bitslice
+# refuses an rt it has no instance for or a chunk over a block's shared memory.
+TILE_PLANES = 64  # output planes a thread keeps in registers: rt * w <= 64
+MASK_SMEM_BYTES = 96 * 1024  # shared memory for one depth chunk of masks
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gf_gemm", SOURCES)
     if not hasattr(lib, "_rs_bound"):
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rs_gf_gemm.argtypes = [vp, vp, vp, i32, i32, i32, ctypes.c_longlong, i32, i32, vp]
-        lib.rs_gf_gemm.restype = i32
-        lib.rs_gf_gemm_words.argtypes = [i32, i32]
-        lib.rs_gf_gemm_words.restype = i32
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.rs_gf_bitslice.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, i32, i32, vp]
+        lib.rs_gf_bitslice.restype = i32
+        lib.rs_gf_popcount.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, vp]
+        lib.rs_gf_popcount.restype = i32
+        lib.rs_gf_popcount_words.argtypes = [i32, i32]
+        lib.rs_gf_popcount_words.restype = i32
         lib._rs_bound = True
     return lib
 
 
+def bitslice_plan(p: int, k: int, w: int) -> tuple[int, int, int]:
+    """``(rt, tiles, depth)`` of the bit-sliced kernel for a (p, k) matrix:
+    ``tiles`` output tiles of ``rt`` symbol rows (``rt * w <= 64`` planes,
+    the rows spread evenly), and ``depth`` input rows of masks staged in
+    shared memory at once."""
+    tiles = -(-p * w // TILE_PLANES)
+    rt = -(-p // tiles)
+    depth = min(k, MASK_SMEM_BYTES // (w * rt * w * 4))
+    return rt, tiles, depth
+
+
+def pack_masks(A: np.ndarray, w: int, rt: int, tiles: int) -> np.ndarray:
+    """(p, k) GF matrix -> (tiles, k, w, rt*w) uint32 masks: entry
+    ``[g, i, s, r*w + t]`` is all ones when output bit t of symbol row
+    ``g*rt + r`` takes bit s of input symbol i (entry ``((g*rt + r)*w + t,
+    i*w + s)`` of ``expand_bitmatrix(A)``), else zero; rows past p are zero."""
+    bits = get_field(w).expand_bitmatrix(A)  # (p*w, k*w) 0/1
+    pw, kw = bits.shape
+    padded = np.zeros((tiles * rt * w, kw), dtype=np.uint32)
+    padded[:pw] = bits
+    tiled = padded.reshape(tiles, rt * w, kw // w, w).transpose(0, 2, 3, 1)
+    return np.ascontiguousarray(tiled * np.uint32(0xFFFFFFFF))
+
+
 def pack_operator(A: np.ndarray, w: int, words: int) -> np.ndarray:
-    """(p, k) GF matrix -> (p*w, words) uint32 operator rows: bit ``i*w + s``
-    of row ``r`` is entry ``(r, i*w + s)`` of ``expand_bitmatrix(A)``, the
-    coefficient of output bit ``r`` on bit s of symbol i."""
+    """(p, k) GF matrix -> (p*w, words) uint32 operator rows of the popcount
+    kernel: bit ``i*w + s`` of row ``r`` is entry ``(r, i*w + s)`` of
+    ``expand_bitmatrix(A)``, the coefficient of output bit ``r`` on bit s of
+    symbol i."""
     bits = get_field(w).expand_bitmatrix(A)  # (p*w, k*w) 0/1
     pw, kw = bits.shape
     if kw > 32 * words:
@@ -63,10 +99,10 @@ def pack_operator(A: np.ndarray, w: int, words: int) -> np.ndarray:
     return (padded.reshape(pw, words, 32) * weights).sum(axis=2, dtype=np.uint32)
 
 
-def _operator(A: np.ndarray, w: int, words: int, device: torch.device) -> torch.Tensor:
+def _device_operator(kind: str, A: np.ndarray, w: int, layout: tuple, pack, device: torch.device) -> torch.Tensor:
     return _build.cached_operator(
-        ("gf_gemm", A.shape, A.tobytes(), w, words, str(device)),
-        lambda: torch.from_numpy(pack_operator(A, w, words).view(np.int32)).to(device),
+        (kind, A.shape, A.tobytes(), w, layout, str(device)),
+        lambda: torch.from_numpy(pack().view(np.int32)).to(device),
     )
 
 
@@ -98,7 +134,9 @@ def gf_matmul_cuda(A, B: torch.Tensor, w: int = 8, fold_parity: bool = True, exp
     Returns (p, m) symbols of B's dtype or, with ``fold_parity=False``, the
     (p*w, m) int32 bit-plane accumulators (pre-parity form).
 
-    ``expand=None`` runs K1, which takes no ``refold`` or ``tile``.  A named
+    ``expand=None`` runs K1 (the bit-sliced kernel, or with
+    ``fold_parity=False`` the popcount kernel), which takes no ``refold`` or
+    ``tile``.  A named
     expansion (a key of :data:`EXPANSIONS`) runs K2 or K3 at w=8 with
     folded output; ``refold`` ("sum" or "dot") defaults to "dot" at w=8,
     ``tile`` is the columns a CUDA block covers.
@@ -140,7 +178,7 @@ def _gf_matmul_k1(A, B: torch.Tensor, w: int, fold_parity: bool) -> torch.Tensor
     if B.device.type != "cuda":
         raise ValueError(f"gf_matmul_cuda runs on cuda or cpu tensors, got {B.device}")
     if w not in (8, 16):
-        raise ValueError(f"the CUDA kernel supports w=8 and w=16, got w={w}")
+        raise ValueError(f"the CUDA kernels support w=8 and w=16, got w={w}")
     want = torch.uint8 if w == 8 else torch.uint16
     if B.dtype != want:
         raise TypeError(f"B must be {want} at w={w}, got {B.dtype}")
@@ -154,15 +192,20 @@ def _gf_matmul_k1(A, B: torch.Tensor, w: int, fold_parity: bool) -> torch.Tensor
     if p == 0 or m == 0:
         return C
     lib = _lib()
-    words = lib.rs_gf_gemm_words(k, w)
-    if words < 0:
-        raise ValueError(f"depth k={k} at w={w} exceeds the kernel's operator width")
-    op = _operator(A, w, words, B.device)
-    with torch.cuda.device(B.device):
-        err = lib.rs_gf_gemm(
-            op.data_ptr(), B.data_ptr(), C.data_ptr(), k, p, w, m, words,
-            int(fold_parity), torch.cuda.current_stream(B.device).cuda_stream,
-        )
-    _build.check(lib, err, "gf_gemm")
+    stream = torch.cuda.current_stream(B.device).cuda_stream
+    if fold_parity:
+        rt, tiles, depth = bitslice_plan(p, k, w)
+        masks = _device_operator("gf_bitslice", A, w, (rt, tiles), lambda: pack_masks(A, w, rt, tiles), B.device)
+        with torch.cuda.device(B.device):
+            err = lib.rs_gf_bitslice(masks.data_ptr(), B.data_ptr(), C.data_ptr(), k, p, w, m, rt, tiles, depth, stream)
+        _build.check(lib, err, "gf_gemm (bit-sliced)")
+    else:
+        words = lib.rs_gf_popcount_words(k, w)
+        if words < 0:
+            raise ValueError(f"depth k={k} at w={w} exceeds the popcount kernel's operator width (k*w <= 2048 bits)")
+        op = _device_operator("gf_popcount", A, w, (words,), lambda: pack_operator(A, w, words), B.device)
+        with torch.cuda.device(B.device):
+            err = lib.rs_gf_popcount(op.data_ptr(), B.data_ptr(), C.data_ptr(), k, p, w, m, words, stream)
+        _build.check(lib, err, "gf_gemm (popcount)")
     LAUNCHES += 1
     return C

@@ -4,8 +4,9 @@ The port's CUDA wrapper (``gf_matmul_cuda``) on CPU tensors takes its plain
 version; it, ``gf_matmul_bitplane`` and ``gf_matmul_table`` are held
 bit-exact against the JAX ``gf_matmul`` strategies and against the Pallas
 kernel ``gf_matmul_pallas`` running interpreted on the CPU.  The CUDA
-kernel itself runs only on the card (chip_smoke.py); here its operator
-layout is checked by emulating the kernel's word arithmetic in NumPy."""
+kernels run only on the card (chip_smoke.py); here the pre-parity popcount
+kernel's operator layout is checked by emulating its word arithmetic in
+NumPy (the folded bit-sliced kernel's model is test_torch_k1_bitslice.py)."""
 
 import numpy as np
 import pytest
@@ -83,8 +84,9 @@ def test_preparity_accumulators_match_pallas_shift(w, p, k, m):
 
 
 def _emulate_kernel(A, B, w, fold_parity=True):
-    """NumPy model of gf_gemm.cu: packed operator words AND the column's
-    packed symbols, popcount per word, parity (or the sums) per bit."""
+    """NumPy model of gf_gemm.cu's popcount kernel: packed operator words
+    AND the column's packed symbols, popcount per word, the sums per bit
+    (or their parity, the folded symbols)."""
     k, m = B.shape
     words = -(-k * w // 32)
     op = cuda_gemm.pack_operator(A, w, words)
