@@ -25,13 +25,17 @@ Phases, each fatal on failure:
      design and its plain version;
   7. K2 (pack2) and K3 (every expand+refold pair, the pinned mode, the copy
      floor) against their plain versions on the card, bit-exact, and the
-     dispatch of every expansion name through gf_matmul_cuda;
+     dispatch of every expansion name through gf_matmul_cuda; K2 also at
+     its depth-slice edges, at the largest accumulator a slice can reach,
+     at tiles that are not a multiple of its 128-column step, and with
+     operators too large for shared memory;
   8. the kernel-formulation tools as entry points on the card at their
      default sizes (kernel_sweep 64 MB, expand_probe 320 MB): every result
      a number, and K2, K3's GEMM and K3's copy floor each launched;
   9. K2, each K3 pair, the compute-only ceiling and the copy floor timed at
      the main path's encode segment next to the bound, the plain version
-     and, for the copy floor, B[:p].clone().
+     and, for the copy floor, B[:p].clone(); K2 beside the instruction
+     estimate of its design.
 
 The last lines are nvidia-smi's name and power limit, the kernels JSON and
 the result JSON.  --quick runs phases 1-3 and 7 and prints the same three
@@ -112,6 +116,27 @@ def k1_logic_ops_per_col(p: int, k: int, w: int) -> float:
     rt, tiles, _ = cuda_gemm.bitslice_plan(p, k, w)
     swaps = 5 * int(math.log2(w)) * (w // 2)
     return (tiles * rt * w * k * w + (tiles * k + p) * swaps) / 32
+
+
+def k2_ops_per_col(p: int, k: int) -> float:
+    """An estimate from the tensor-core design of gf_pack2.cu, not a
+    measurement: thread instructions per column besides the mma.  A warp
+    step covers 128 columns as 8 mma column groups.  Per (step, pass over a
+    pair of m-tiles, depth slice) it copies the slice's rows into shared
+    memory (8 predicated 16-byte copies a lane with their addresses, about
+    60 instructions), controls its loop (about 30) and zeroes 64
+    accumulators (32).  Per k16-step and pass it reads 2 rows (4 reads) and
+    makes the B fragments with 48 shifts, masks and byte permutes, plus one
+    A fragment per m-tile.  Per slice and m-tile it refolds 8 column groups
+    at 18 instructions each (4 FADD, 2 PRMT, 2 masks, 2 shifts, 2 selects,
+    3 shuffles, 3 OR), and per m-tile it stores with 8 PRMT and two 16-byte
+    stores.  Each instruction runs on 32 threads, over 128 columns."""
+    groups = 8
+    mt, ks = -(-p // 2), -(-k // 2)
+    passes, slices = -(-mt // 2), -(-ks // 15)
+    warp_instr = (passes * slices * (60 + 30 + 4 * groups) + passes * ks * (groups // 2 + 6 * groups) + ks * mt
+                  + slices * mt * 18 * groups + mt * (groups + groups // 4))
+    return warp_instr * 32 / (16 * groups)
 
 
 def time_ms(fn, iters: int, reps: int = 1, warmup: int = 2) -> float:
@@ -343,17 +368,34 @@ def phase_new_kernels_vs_plain(device) -> dict:
     gen.manual_seed(SEED)
     rng = np.random.default_rng(SEED + 7)
     k2, planes, copy = Grid("K2"), Grid("K3-planes"), Grid("K3-copy-floor")
+    # k = 29-32 and 61-63: the edges of the kernel's 30-symbol depth slices
+    # and of the plain version's 31-symbol ones.
     for m in (511, 512, 4097, SEGMENT_COLS):
-        for k in (4, 10, 31, 32, 63, 128):
+        for k in (4, 10, 29, 30, 31, 32, 61, 62, 63, 128):
             B = _rand_u8(gen, (k, m), device)
             for p in (1, 4, 10):
                 A = rng.integers(0, 256, size=(p, k))
                 k2.check(cuda_pack2.gf_matmul_pack2(A, B), cuda_pack2.gf_matmul_pack2_plain(A, B), f"p={p} k={k} m={m}")
-    # Wide blocks over a ragged last one.
+    # Wide blocks over a ragged last one, and tiles off the 128-column step.
     A, B = rng.integers(0, 256, size=(4, 10)), _rand_u8(gen, (10, SEGMENT_COLS + 1), device)
-    for tile in (8192, 65536):
+    for tile in (100, 1000, 4097, 8192, 65536):
         k2.check(cuda_pack2.gf_matmul_pack2(A, B, tile=tile), cuda_pack2.gf_matmul_pack2_plain(A, B),
                  f"p=4 k=10 m={SEGMENT_COLS + 1} tile={tile}")
+    # Operators too large for shared memory: A fragments read from device
+    # memory, many passes over m-tile pairs, five depth slices.
+    for p, k, m in ((64, 128, 4097), (128, 128, 1000)):
+        A, B = rng.integers(0, 256, size=(p, k)), _rand_u8(gen, (k, m), device)
+        k2.check(cuda_pack2.gf_matmul_pack2(A, B), cuda_pack2.gf_matmul_pack2_plain(A, B), f"p={p} k={k} m={m}")
+    # The largest accumulator: every data byte 0xFF (every plane 257) and
+    # every coefficient the element whose bit matrix has the most ones in a
+    # row, so that row's sum is ones * 30 * (1024 + 257).
+    dense = int(get_field(8).bitmats.sum(axis=2).max(axis=1).argmax())
+    for k in (30, 31, 62):
+        B = torch.full((k, 4097), 0xFF, dtype=torch.uint8, device=device)
+        for p in (1, 4, 10):
+            A = np.full((p, k), dense)
+            k2.check(cuda_pack2.gf_matmul_pack2(A, B), cuda_pack2.gf_matmul_pack2_plain(A, B),
+                     f"largest sum: element {dense} p={p} k={k} bytes 0xFF")
     for expand, refold in cuda_planes.PAIRS:
         for k in (4, 10, 32):
             for m in (4097, 100003):
@@ -439,6 +481,8 @@ def phase_new_timings(device) -> dict:
     """K2, each K3 pair, the pinned ceiling and the copy floor at the main
     path's encode segment shape."""
     k, p, m = 10, 4, SEGMENT_COLS
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock_mhz = float(smi_line("clocks.max.sm").split()[0])
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 9)
     A = RSCodec(k, p, device=device).parity_block
@@ -458,12 +502,16 @@ def phase_new_timings(device) -> dict:
         err = int((fn().to(torch.int32) - plain().to(torch.int32)).abs().max().item())
         if err:
             raise AssertionError(f"{kernel} {label} != plain at the timing shape")
-        ms = time_ms(fn, iters=20)
+        ms = time_ms(fn, iters=100, reps=3) if kernel == "K2" else time_ms(fn, iters=20)
         row = dict(phase="kernel_timing", kernel=kernel, shape=f"encode k={k} p={p} m={m} ({label})", ms=ms,
                    plain_ms=time_ms(plain, iters=3, warmup=1), bound_ms=bound_ms(p, k, m, 8), bound_by="bytes",
                    library_ms=time_ms(library, iters=20) if library else None, max_abs_err=err,
                    data_gbps=k * m / (ms * 1e-3) / 1e9, traffic_gbps=(k + p) * m / (ms * 1e-3) / 1e9,
-                   tile=None if kernel == "K2" else cuda_planes.DEFAULT_TILE)
+                   tile=cuda_pack2.DEFAULT_TILE if kernel == "K2" else cuda_planes.DEFAULT_TILE)
+        if kernel == "K2":
+            ops = k2_ops_per_col(p, k)
+            row.update(est_ops_per_col=ops, sms=sms, max_sm_clock_mhz=clock_mhz,
+                       est_ops_ms=1e3 * ops * m / (sms * LOGIC_OPS_PER_SM_CLOCK * clock_mhz * 1e6))
         log(**row)
         rows[label] = row
     return rows
@@ -497,14 +545,16 @@ def kernel_entries(k1_err, grids, k1_timing=None, main_launches=None, new_timing
 
 def ptxas_kernels(ptxas: str) -> list[dict]:
     """Registers and spilled bytes of each kernel instance in ``-Xptxas=-v``
-    output, named ``gf_bitslice_kernel<w,rt>`` / ``gf_popcount_kernel<w,nw,cpt>``."""
+    output, named ``gf_bitslice_kernel<w,rt>`` / ``gf_popcount_kernel<w,nw,cpt>`` /
+    ``gf_pack2_kernel<1>`` (1: operator in shared memory, 0: read from device
+    memory)."""
     out = []
     for block in ptxas.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
-        found = re.search(r"(gf_(?:bitslice|popcount)_kernel)I((?:Li\d+E)+)", mangled)
+        found = re.search(r"(gf_[a-z0-9]+_kernel)I((?:L[ib]\d+E)+)", mangled)
         name = mangled
         if found:
-            name = f"{found.group(1)}<{','.join(re.findall(r'Li(-?[0-9]+)E', found.group(2)))}>"
+            name = f"{found.group(1)}<{','.join(re.findall(r'L[ib](-?[0-9]+)E', found.group(2)))}>"
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
         out.append({"kernel": name, "registers": int(regs.group(1)) if regs else None,
@@ -522,7 +572,7 @@ def phase_build() -> None:
         spills = sorted({int(b) for b in re.findall(r"(\d+) bytes spill stores", ptxas)})
         log(phase="build", library=name, nvcc_seconds=_build.BUILD_SECONDS.get(name), kernels=len(regs),
             max_registers=max(regs, default=None), spill_store_bytes=spills)
-        if name == "gf_gemm":
+        if name in ("gf_gemm", "gf_pack2"):
             log(phase="build", library=name, per_kernel=ptxas_kernels(ptxas))
     log(phase="build", parallel_wall_seconds=wall)
     cuda_gemm._lib(), cuda_pack2._lib(), cuda_planes._lib()

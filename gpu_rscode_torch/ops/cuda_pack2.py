@@ -2,16 +2,18 @@
 the counterpart of the JAX package's ``ops/pallas_gemm.py``
 ``_pallas_matmul_pack2`` (``gf_matmul_pallas(expand="pack2")``).
 
-Two adjacent data bytes share one integer lane; bit plane s of both is
+Two adjacent data bytes share one uint16 lane; bit plane s of both is
 ``(v >> s) & 0x0101``; the (p*8, k*8) bit operator selects the planes
 summed into each output bit's accumulator; ``acc & 0x0101`` refolded over
 the 8 output bits gives both output bytes of the lane.  Each 8-bit field
 stays carry-free while the depth is at most 248, so deeper products run as
-slices of at most 31 data symbols, XORed together.
+slices of at most 31 data symbols (30 in the kernel), XORed together.
 
 ``gf_matmul_pack2`` launches ``csrc/gf_pack2.cu`` for a CUDA tensor and
-takes :func:`gf_matmul_pack2_plain` only for a CPU tensor.  Nothing catches
-a build or launch error.
+takes :func:`gf_matmul_pack2_plain` only for a CPU tensor.  The kernel runs
+the product on the fp16 tensor cores with the operator as the A operand of
+``mma.sync.m16n8k16`` (:func:`pack_fragments`).  Nothing catches a build or
+launch error.
 """
 
 from __future__ import annotations
@@ -23,14 +25,14 @@ import torch
 
 from . import _build
 from .gemm import PLAIN_BLOCK_COLS, _dot_bits, coefficients, expand_bitmatrix
-from .gf import get_field
 
 # Kernel launches since the count was last reset.  Only the launch below
 # adds to it.
 LAUNCHES = 0
 
 K_SLICE = 31  # data symbols per carry-free depth slice: 31 * 8 = 248 < 256
-DEFAULT_TILE = 512  # columns per block: one lane per thread
+TILE_STEP = 128  # the kernel's column granularity: one warp step
+DEFAULT_TILE = 2048  # columns per block
 SOURCES = [_build.CSRC / "gf_pack2.cu"]
 
 
@@ -45,12 +47,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def tile_cols(tile: int | None, m: int) -> int:
-    """The columns a block covers: ``tile`` rounded up to even, at most the
-    padded width."""
+    """The columns a block covers: ``tile`` rounded up to a multiple of
+    :data:`TILE_STEP`, at most ``m`` rounded up the same way."""
     tile = DEFAULT_TILE if tile is None else int(tile)
     if tile <= 0:
         raise ValueError(f"tile must be positive, got {tile}")
-    return min(tile + tile % 2, max(2, m + m % 2))
+    return min(-(-tile // TILE_STEP) * TILE_STEP, max(TILE_STEP, -(-m // TILE_STEP) * TILE_STEP))
 
 
 def check_call(w: int, fold_parity: bool, refold) -> None:
@@ -63,19 +65,30 @@ def check_call(w: int, fold_parity: bool, refold) -> None:
         raise ValueError("pack2 has a fixed f32/packed-refold pipeline; acc_dtype and refold do not apply")
 
 
-def pack_operator(A: np.ndarray) -> np.ndarray:
-    """(p, k) GF(2^8) matrix -> (p, k) uint64 words: bit ``t*8 + s`` of word
-    (o, i) is entry (o*8 + t, i*8 + s) of ``expand_bitmatrix(A)``, the
-    coefficient of output bit t on data bit s."""
-    blocks = get_field(8).bitmats[A]  # (p, k, 8 t, 8 s)
-    weights = np.uint64(1) << np.arange(64, dtype=np.uint64)
-    return (blocks.reshape(*A.shape, 64).astype(np.uint64) * weights).sum(axis=2, dtype=np.uint64)
+def pack_fragments(A: np.ndarray) -> np.ndarray:
+    """(p, k) GF(2^8) matrix -> (mt, ks, 32, 4) uint32 A fragments of
+    ``mma.m16n8k16`` in fp16: ``expand_bitmatrix(A)`` (0/1, (p*8, k*8))
+    zero-padded to ``16 * mt`` rows (mt = ceil(p/2)) and ``16 * ks`` depth
+    (ks = ceil(k/2)).
+
+    Lane ``g*4 + t`` of tile (mt, ks) holds, in its registers 0..3, the
+    depth pairs t*2, t*2 + 1 (regs 0, 1) and 8 + t*2, 9 + t*2 (regs 2, 3) of
+    rows g (regs 0, 2) and g + 8 (regs 1, 3), the lower depth in the low
+    half."""
+    p, k = A.shape
+    mt, ks = -(-p // 2), -(-k // 2)
+    padded = np.zeros((16 * mt, 16 * ks), dtype=np.float16)
+    padded[:p * 8, :k * 8] = expand_bitmatrix(A, 8).numpy()
+    # rows: (mt, h, g) with row = mt*16 + h*8 + g; depth: (ks, kh, t, q)
+    x = padded.view(np.uint16).reshape(mt, 2, 8, ks, 2, 4, 2)
+    x = x.transpose(0, 3, 2, 5, 4, 1, 6)  # (mt, ks, g, t, kh, h, q)
+    return np.ascontiguousarray(x).reshape(mt, ks, 32, 8).view("<u4")
 
 
 def _operator(A: np.ndarray, device: torch.device) -> torch.Tensor:
     return _build.cached_operator(
         ("gf_pack2", A.shape, A.tobytes(), str(device)),
-        lambda: torch.from_numpy(pack_operator(A).view(np.int64)).to(device),
+        lambda: torch.from_numpy(pack_fragments(A).view(np.int32)).to(device),
     )
 
 
@@ -124,8 +137,8 @@ def gf_matmul_pack2(A, B: torch.Tensor, w: int = 8, fold_parity: bool = True, re
     """``C = A . B`` over GF(2^8) through K2.
 
     ``A``: (p, k) coefficients; ``B``: (k, m) contiguous uint8 tensor.
-    ``tile``: columns per CUDA block (rounded up to even, at most the
-    padded width; default 512).
+    ``tile``: columns per CUDA block (rounded up to a multiple of 128, at
+    most ``m`` rounded up the same way; default 2048).
     Returns (p, m) uint8.
     """
     global LAUNCHES

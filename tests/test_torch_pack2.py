@@ -5,8 +5,8 @@ JAX package.
 tensors are held bit-exact against the JAX ``gf_matmul_pallas(A, B,
 expand="pack2")`` running interpreted on the CPU (as tests/test_pallas.py
 runs it) and against the GF oracle.  The CUDA kernel runs only on the card
-(chip_smoke.py); here its operator words and in-kernel split-k are checked
-by a NumPy model of ``csrc/gf_pack2.cu``."""
+(chip_smoke.py); here the NumPy model of ``csrc/gf_pack2.cu`` in
+tests/test_torch_k2_mma.py is checked against the oracle too."""
 
 import numpy as np
 import pytest
@@ -16,6 +16,7 @@ from gpu_rscode_torch.ops import cuda_gemm, cuda_pack2
 from gpu_rscode_torch.ops.gemm import to_tensor
 from gpu_rscode_tpu.ops.gf import get_field
 from gpu_rscode_tpu.ops.pallas_gemm import gf_matmul_pallas
+from test_torch_k2_mma import model as k2_model
 
 
 def _operands(p, k, m, seed):
@@ -74,38 +75,10 @@ def test_pack2_refusals_match_jax(kwargs, match):
         cuda_pack2.gf_matmul_pack2(A, to_tensor(B), **kwargs)
 
 
-def _emulate_kernel(A, B):
-    """NumPy model of gf_pack2.cu: uint16 lanes, the (p, k) 64-bit operator
-    words; per depth slice (the outer loop, so a slice of B is loaded once)
-    and per output row, selected adds and the packed refold, XORed into the
-    row's partial result."""
-    k, m = B.shape
-    if m % 2:
-        B = np.pad(B, ((0, 0), (0, 1)))
-    lanes = B[:, 0::2].astype(np.int64) | (B[:, 1::2].astype(np.int64) << 8)
-    op = cuda_pack2.pack_operator(A.astype(np.int64))
-    assert op.dtype == np.uint64 and op.shape == A.shape
-    out = np.zeros((A.shape[0], lanes.shape[1]), dtype=np.int64)
-    for i0 in range(0, k, cuda_pack2.K_SLICE):
-        v = lanes[i0:i0 + cuda_pack2.K_SLICE]  # the slice, loaded once
-        for o in range(A.shape[0]):
-            acc = np.zeros((8, lanes.shape[1]), dtype=np.int64)
-            for i in range(v.shape[0]):
-                for s in range(8):
-                    plane = (v[i] >> s) & 0x0101
-                    for t in range(8):
-                        acc[t] += plane * int((int(op[o, i0 + i]) >> (t * 8 + s)) & 1)
-            assert acc.max() < 1 << 16  # each 8-bit field stays carry-free
-            out[o] ^= sum((acc[t] & 0x0101) << t for t in range(8))
-    got = np.empty((A.shape[0], 2 * lanes.shape[1]), dtype=np.uint8)
-    got[:, 0::2], got[:, 1::2] = out & 0xFF, out >> 8
-    return got[:, :m]
-
-
 @pytest.mark.parametrize("p,k,m", [(4, 10, 101), (2, 31, 64), (3, 32, 65), (1, 63, 40)])
 def test_kernel_model_matches_oracle(p, k, m):
     A, B = _operands(p, k, m, 100 + p + k + m)
-    np.testing.assert_array_equal(_emulate_kernel(A, B), get_field(8).matmul(A, B))
+    np.testing.assert_array_equal(k2_model(A, B), get_field(8).matmul(A, B))
 
 
 def test_pack2_cpu_contract():
