@@ -25,7 +25,9 @@ Phases, each fatal on failure:
      design and its plain version;
   7. K2 (pack2) and K3 (every expand+refold pair, the pinned mode, the copy
      floor) against their plain versions on the card, bit-exact, and the
-     dispatch of every expansion name through gf_matmul_cuda; K2 also at
+     dispatch of every expansion name through gf_matmul_cuda; K3's sum
+     kernel for the byte expansions (gf_planes_sum_kernel) also at depths
+     1-33, p = 1-10 and its largest sums; K2 also at
      its depth-slice edges, at the largest accumulator a slice can reach,
      at tiles that are not a multiple of its 128-column step, and with
      operators too large for shared memory;
@@ -34,8 +36,8 @@ Phases, each fatal on failure:
      a number, and K2, K3's GEMM and K3's copy floor each launched;
   9. K2, each K3 pair, the compute-only ceiling and the copy floor timed at
      the main path's encode segment next to the bound, the plain version
-     and, for the copy floor, B[:p].clone(); K2 beside the instruction
-     estimate of its design.
+     and, for the copy floor, B[:p].clone(); K2 and K3's sum kernel beside
+     the instruction estimate of their designs.
 
 The last lines are nvidia-smi's name and power limit, the kernels JSON and
 the result JSON.  --quick runs phases 1-3 and 7 and prints the same three
@@ -137,6 +139,34 @@ def k2_ops_per_col(p: int, k: int) -> float:
     warp_instr = (passes * slices * (60 + 30 + 4 * groups) + passes * ks * (groups // 2 + 6 * groups) + ks * mt
                   + slices * mt * 18 * groups + mt * (groups + groups // 4))
     return warp_instr * 32 / (16 * groups)
+
+
+# Thread instructions that make one plane register from a four-symbol word
+# (gf_planes_sum_kernel's plane_word; __vcmpne4 counted as the 4 integer
+# instructions it is emulated with).
+K3_PLANE_OPS = {"shift": 2, "shift_raw": 1, "cmp": 6, "sign": 5}
+
+
+def k3_ops_per_col(p: int, k: int, expand: str) -> float:
+    """An estimate from the design of gf_planes_sum_kernel, not a
+    measurement: thread instructions per column besides the mma, for the
+    byte expansions' sum refold.  A warp step covers 64 columns as 8 mma
+    column groups.  Per step it copies its k rows into shared memory (a
+    predicated 16-byte cp.async per 8 rows a lane, about 6 instructions
+    each, and about 20 for the commit, wait and loop).  Per pass over a pair
+    of m-tiles it zeroes 64 accumulators (32) and controls its loop (10);
+    per depth chunk and pass it reads 4 rows (4 LDS.64), transposes them
+    (16 PRMT), makes 16 plane registers and reads one A fragment per m-tile.
+    Per m-tile it refolds 8 groups at 10 instructions each (3 PRMT, a mask,
+    3 shuffles, 3 OR) and stores with 6 PRMT, its address and one 8-byte
+    store (10).  Each instruction runs on 32 threads, over 64 columns."""
+    groups, step = 8, 64
+    mt, kc = -(-p * 8 // 16), -(-k // 4)
+    passes = -(-mt // 2)
+    warp_instr = (6 * -(-k // 8) + 20 + passes * (32 + 10)
+                  + passes * kc * (4 + 16 + 2 * groups * K3_PLANE_OPS[expand]) + kc * mt
+                  + mt * (10 * groups + 10))
+    return warp_instr * 32 / step
 
 
 def time_ms(fn, iters: int, reps: int = 1, warmup: int = 2) -> float:
@@ -368,6 +398,7 @@ def phase_new_kernels_vs_plain(device) -> dict:
     gen.manual_seed(SEED)
     rng = np.random.default_rng(SEED + 7)
     k2, planes, copy = Grid("K2"), Grid("K3-planes"), Grid("K3-copy-floor")
+    planes_sum = Grid("K3-planes-sum")
     # k = 29-32 and 61-63: the edges of the kernel's 30-symbol depth slices
     # and of the plain version's 31-symbol ones.
     for m in (511, 512, 4097, SEGMENT_COLS):
@@ -397,6 +428,7 @@ def phase_new_kernels_vs_plain(device) -> dict:
             k2.check(cuda_pack2.gf_matmul_pack2(A, B), cuda_pack2.gf_matmul_pack2_plain(A, B),
                      f"largest sum: element {dense} p={p} k={k} bytes 0xFF")
     for expand, refold in cuda_planes.PAIRS:
+        grid = planes_sum if cuda_planes.is_sum_pair(expand, refold) else planes
         for k in (4, 10, 32):
             for m in (4097, 100003):
                 B = _rand_u8(gen, (k, m), device)
@@ -404,16 +436,35 @@ def phase_new_kernels_vs_plain(device) -> dict:
                     A = rng.integers(0, 256, size=(p, k))
                     want = cuda_planes.gf_matmul_planes_plain(A, B, expand, refold)
                     for tile in (256, 8192):
-                        planes.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, tile), want,
-                                     f"{expand}+{refold} p={p} k={k} m={m} tile={tile}")
+                        grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, tile), want,
+                                   f"{expand}+{refold} p={p} k={k} m={m} tile={tile}")
         # The sweep's widest tile: four blocks, the last one ragged.
         A, B = rng.integers(0, 256, size=(4, 10)), _rand_u8(gen, (10, 3 * 65536 + 4099), device)
-        planes.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, 65536),
-                     cuda_planes.gf_matmul_planes_plain(A, B, expand, refold), f"{expand}+{refold} tile=65536")
+        grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, 65536),
+                   cuda_planes.gf_matmul_planes_plain(A, B, expand, refold), f"{expand}+{refold} tile=65536")
         for tile in (256, 8192, 65536):
-            planes.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, tile, pinned=True),
-                         cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, tile, pinned=True),
-                         f"{expand}+{refold} pinned tile={tile}")
+            grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, tile, pinned=True),
+                       cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, tile, pinned=True),
+                       f"{expand}+{refold} pinned tile={tile}")
+    # The sum kernel at depths off its 4-symbol chunks, p off its m-tile
+    # pairs, m below one warp step and 16-byte rows at the segment's width,
+    # and its largest sums: every byte 0xFF, every coefficient the densest
+    # element.
+    for expand in cuda_planes.SUM_EXPANDS:
+        for k in (1, 3, 5, 33):
+            for m in (37, 4097, 65536):
+                B = _rand_u8(gen, (k, m), device)
+                for p in (1, 2, 4, 10):
+                    A = rng.integers(0, 256, size=(p, k))
+                    planes_sum.check(cuda_planes.gf_matmul_planes(A, B, expand, "sum"),
+                                     cuda_planes.gf_matmul_planes_plain(A, B, expand, "sum"),
+                                     f"{expand}+sum p={p} k={k} m={m}")
+        for k in (4, 33):
+            B = torch.full((k, 4096), 0xFF, dtype=torch.uint8, device=device)
+            A = np.full((10, k), dense)
+            planes_sum.check(cuda_planes.gf_matmul_planes(A, B, expand, "sum"),
+                             cuda_planes.gf_matmul_planes_plain(A, B, expand, "sum"),
+                             f"{expand}+sum largest sum: element {dense} k={k} bytes 0xFF")
     for k in (4, 10, 32):
         for m in (4097, 65536, SEGMENT_COLS):  # ragged (byte path) and 16-byte rows
             B = _rand_u8(gen, (k, m), device)
@@ -424,24 +475,26 @@ def phase_new_kernels_vs_plain(device) -> dict:
     A, B = rng.integers(0, 256, size=(4, 10)), _rand_u8(gen, (10, 4097), device)
     want = gf_matmul_bitplane(A, B, 8)
     for name, kernel in cuda_gemm.EXPANSIONS.items():
-        grid = k2 if kernel == "pack2" else planes
         for refold in ((None,) if kernel == "pack2" else (None, "sum", "dot")):
+            grid = k2 if kernel == "pack2" else planes_sum if cuda_planes.is_sum_pair(kernel, refold) else planes
             grid.check(cuda_gemm.gf_matmul_cuda(A, B, 8, expand=name, refold=refold), want, f"expand={name} refold={refold}")
-    for grid in (k2, planes, copy):
+    grids = (k2, planes, planes_sum, copy)
+    for grid in grids:
         log(phase="kernel_vs_plain", kernel=grid.name, cases=grid.cases, max_abs_err=grid.worst, tolerance=0)
-    return {grid.name: grid for grid in (k2, planes, copy)}
+    return {grid.name: grid for grid in grids}
 
 
 def _reset_counts() -> None:
     cuda_gemm.LAUNCHES = 0
     cuda_pack2.LAUNCHES = 0
     cuda_planes.LAUNCHES = 0
+    cuda_planes.SUM_LAUNCHES = 0
     cuda_planes.COPY_LAUNCHES = 0
 
 
 def _counts() -> dict:
-    return {"K1": cuda_gemm.LAUNCHES, "K2": cuda_pack2.LAUNCHES,
-            "K3-planes": cuda_planes.LAUNCHES, "K3-copy-floor": cuda_planes.COPY_LAUNCHES}
+    return {"K1": cuda_gemm.LAUNCHES, "K2": cuda_pack2.LAUNCHES, "K3-planes": cuda_planes.LAUNCHES,
+            "K3-planes-sum": cuda_planes.SUM_LAUNCHES, "K3-copy-floor": cuda_planes.COPY_LAUNCHES}
 
 
 def _run_tool(tool, argv: list[str]) -> list[dict]:
@@ -469,7 +522,7 @@ def phase_tools() -> dict:
     sweep = _run_tool(kernel_sweep, ["--trials", "1"])
     probe = _run_tool(expand_probe, ["--trials", "1"])
     launches = _counts()
-    for name in ("K2", "K3-planes", "K3-copy-floor"):
+    for name in ("K2", "K3-planes", "K3-planes-sum", "K3-copy-floor"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the tools: {launches}")
     log(phase="tools_launches", **launches)
@@ -489,7 +542,7 @@ def phase_new_timings(device) -> dict:
     B = _rand_u8(gen, (k, m), device)
     cases = [("K2", "pack2", lambda: cuda_pack2.gf_matmul_pack2(A, B), lambda: cuda_pack2.gf_matmul_pack2_plain(A, B), None)]
     for expand, refold in cuda_planes.PAIRS:
-        cases.append(("K3-planes", f"{expand}+{refold}",
+        cases.append(("K3-planes-sum" if cuda_planes.is_sum_pair(expand, refold) else "K3-planes", f"{expand}+{refold}",
                       functools.partial(cuda_planes.gf_matmul_planes, A, B, expand, refold),
                       functools.partial(cuda_planes.gf_matmul_planes_plain, A, B, expand, refold), None))
     cases.append(("K3-planes", "shift_raw+dot pinned (compute-only ceiling)",
@@ -502,14 +555,16 @@ def phase_new_timings(device) -> dict:
         err = int((fn().to(torch.int32) - plain().to(torch.int32)).abs().max().item())
         if err:
             raise AssertionError(f"{kernel} {label} != plain at the timing shape")
-        ms = time_ms(fn, iters=100, reps=3) if kernel == "K2" else time_ms(fn, iters=20)
+        ms = time_ms(fn, iters=100, reps=3)
         row = dict(phase="kernel_timing", kernel=kernel, shape=f"encode k={k} p={p} m={m} ({label})", ms=ms,
                    plain_ms=time_ms(plain, iters=3, warmup=1), bound_ms=bound_ms(p, k, m, 8), bound_by="bytes",
                    library_ms=time_ms(library, iters=20) if library else None, max_abs_err=err,
                    data_gbps=k * m / (ms * 1e-3) / 1e9, traffic_gbps=(k + p) * m / (ms * 1e-3) / 1e9,
                    tile=cuda_pack2.DEFAULT_TILE if kernel == "K2" else cuda_planes.DEFAULT_TILE)
-        if kernel == "K2":
-            ops = k2_ops_per_col(p, k)
+        ops = k2_ops_per_col(p, k) if kernel == "K2" else None
+        if kernel == "K3-planes-sum":
+            ops = k3_ops_per_col(p, k, label.split("+")[0])
+        if ops is not None:
             row.update(est_ops_per_col=ops, sms=sms, max_sm_clock_mhz=clock_mhz,
                        est_ops_ms=1e3 * ops * m / (sms * LOGIC_OPS_PER_SM_CLOCK * clock_mhz * 1e6))
         log(**row)
@@ -537,6 +592,9 @@ def kernel_entries(k1_err, grids, k1_timing=None, main_launches=None, new_timing
         entry("K3 gf_planes (bit-plane GEMM on int8 mma; timed: shift_raw+dot)", "gpu_rscode_torch/ops/csrc/gf_planes.cu",
               "gpu_rscode_tpu/tools/kernel_sweep.py:175", tl.get("K3-planes"), grids["K3-planes"].worst,
               t.get("shift_raw+dot")),
+        entry("K3 gf_planes_sum (bit-plane GEMM, byte expansions' sum refold, scaled u8 mma; timed: shift+sum)",
+              "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/tools/kernel_sweep.py:39",
+              tl.get("K3-planes-sum"), grids["K3-planes-sum"].worst, t.get("shift+sum")),
         entry("K3 copy_floor (the copy floor, K1's traffic)", "gpu_rscode_torch/ops/csrc/gf_planes.cu",
               "gpu_rscode_tpu/tools/kernel_sweep.py:73", tl.get("K3-copy-floor"), grids["K3-copy-floor"].worst,
               t.get("copy_floor")),
@@ -547,11 +605,11 @@ def ptxas_kernels(ptxas: str) -> list[dict]:
     """Registers and spilled bytes of each kernel instance in ``-Xptxas=-v``
     output, named ``gf_bitslice_kernel<w,rt>`` / ``gf_popcount_kernel<w,nw,cpt>`` /
     ``gf_pack2_kernel<1>`` (1: operator in shared memory, 0: read from device
-    memory)."""
+    memory) / ``gf_planes_kernel<expand,refold>`` / ``gf_planes_sum_kernel<expand>``."""
     out = []
     for block in ptxas.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
-        found = re.search(r"(gf_[a-z0-9]+_kernel)I((?:L[ib]\d+E)+)", mangled)
+        found = re.search(r"(gf_[a-z0-9_]+_kernel)I((?:L[ib]\d+E)+)", mangled)
         name = mangled
         if found:
             name = f"{found.group(1)}<{','.join(re.findall(r'L[ib](-?[0-9]+)E', found.group(2)))}>"
@@ -572,8 +630,7 @@ def phase_build() -> None:
         spills = sorted({int(b) for b in re.findall(r"(\d+) bytes spill stores", ptxas)})
         log(phase="build", library=name, nvcc_seconds=_build.BUILD_SECONDS.get(name), kernels=len(regs),
             max_registers=max(regs, default=None), spill_store_bytes=spills)
-        if name in ("gf_gemm", "gf_pack2"):
-            log(phase="build", library=name, per_kernel=ptxas_kernels(ptxas))
+        log(phase="build", library=name, per_kernel=ptxas_kernels(ptxas))
     log(phase="build", parallel_wall_seconds=wall)
     cuda_gemm._lib(), cuda_pack2._lib(), cuda_planes._lib()
 

@@ -294,8 +294,25 @@ def decode_file(
         raise FileNotFoundError(f"surviving chunk {nm!r} not found")
 
     with timer.phase("open chunks (io)"):
-        paths = [resolve(nm) for nm in names]
-        maps = [_open_chunk(path, chunk, row) for path, row in zip(paths, rows)]
+        # Open every survivor before raising, so that one error names every
+        # truncated or unreadable chunk.  A name never found still raises
+        # FileNotFoundError from resolve().
+        paths, maps, bad_open = [], [], {}
+        for nm, row in zip(names, rows):
+            path = resolve(nm)
+            try:
+                maps.append(_open_chunk(path, chunk, row))
+            except ChunkIntegrityError as e:
+                bad_open.update(e.bad_chunks)
+                continue
+            except OSError:
+                bad_open[row] = path
+                continue
+            paths.append(path)
+        if bad_open:
+            raise ChunkIntegrityError(
+                bad_open, reason="survivor chunks unreadable, truncated or vanished after selection"
+            )
 
     if verify_checksums is not False:
         if verify_checksums and not crcs:

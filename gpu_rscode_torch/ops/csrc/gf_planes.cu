@@ -46,6 +46,45 @@
 //   * tile is the number of columns a block covers (a multiple of 32); the
 //     ragged edge is masked per lane.
 //
+// gf_planes_sum_kernel<EXPAND>: the same product for the four byte
+//   expansions (shift, shift_raw, cmp, sign) with the sum refold;
+//   gf_planes_kernel runs the other pairs.  Bound as above; what costs
+//   instruction slots is building the planes and refolding, so the design
+//   cuts both per column:
+//   * The operator scaled by 2^s.  The host packs output plane s's operator
+//     row times 2^s (0 or 2^s <= 128: u8), so bit s of the int32
+//     accumulator is already output bit s (every term is a multiple of
+//     2^s).  mma.sync.m16n8k32 is u8 x u8, or u8 x s8 for sign's {0, -1}
+//     planes.  Plane values other than 0/1 (shift_raw's high bits, sign's
+//     -1) add only at or above bit s + 1, or keep bit s's parity.  The
+//     largest sum, 128 * 255 * 32 * kc, is below 2^31 for every k whose
+//     operator fits in shared memory.
+//   * Four-symbol plane words.  Inside a 32-deep chunk c, depth
+//     h*16 + t*4 + q is plane 4h + t of symbol 4c + q (the host packs A to
+//     that order), so B register b0 of lane (g, t) is plane t of symbols
+//     4c..4c+3 of its column and b1 plane 4 + t.  A lane reads rows
+//     4c..4c+3 at its 8 columns (two words each), transposes each 4x4 byte
+//     block with 8 PRMT to one word per column (byte q: symbol 4c + q), and
+//     makes each plane register from that word in 1-3 instructions.
+//   * A warp step is 64 columns as 8 mma column groups: n-index n of group
+//     j is column 8n + j, so lane g reads bytes 8g..8g+7 of a row, and one
+//     LDS.128 of A serves 8 mma.  m-tiles run in pairs (64 accumulators);
+//     the host pads the operator to an even number of m-tiles, so a pass
+//     has no branch and builds each plane register once for both.
+//   * Loads.  Each step's k rows (64 bytes each) are copied by cp.async
+//     into a per-warp shared-memory ring, up to kSumStages - 1 steps ahead
+//     of the compute; every pass over a pair of m-tiles reads them there.
+//     Rows at or past k are not copied: their operator columns are zero.
+//     Rows that do not start 16-byte aligned are copied byte by byte.
+//   * Refold.  A C fragment holds bit g of symbols 2mt (rows g) and
+//     2mt + 1 (rows g + 8) at n = 2t, 2t + 1.  Three PRMT gather the low
+//     bytes of the 4 accumulators into one word, one mask keeps bit g of
+//     each byte, and three xor-shuffles, each with an OR, collect bits 0-7.
+//     Lanes g < 4 then hold byte g of 8 group words: 8 consecutive output
+//     bytes of one symbol, made with 6 PRMT and stored as one 8-byte word.
+//   * tile (columns a block covers) is a multiple of the 64-column step;
+//     pinned reads block 0's columns as in gf_planes_kernel.
+//
 // copy_floor_kernel: C = B[:p], moving exactly K1's traffic.  Each block
 // brings its whole (k, tile) block of B into shared memory, in chunks that
 // fit, with cp.async (16 bytes a thread), then writes rows 0..p-1 out.
@@ -65,6 +104,12 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSmem = 227 * 1024;
 constexpr int kCopyBudget = 64 * 1024;
+// gf_planes_sum_kernel
+constexpr int kSumWarps = 4;
+constexpr int kSumThreads = kSumWarps * 32;
+constexpr int kSumGroups = 8;                  // mma column groups a warp step
+constexpr int kSumStepCols = 8 * kSumGroups;   // columns a warp step
+constexpr int kSumStages = 3;                  // step buffers a warp, at most
 
 enum Expand { kShift = 0, kShiftRaw = 1, kCmp = 2, kSign = 3, kNibble = 4 };
 enum Refold { kSum = 0, kDot = 1 };
@@ -304,6 +349,254 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__device__ __forceinline__ void mma_u8s8(int (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// Words x0..x3 (rows 0-3, 4 columns each) -> r0..r3 (columns 0-3, byte q
+// from row q).
+__device__ __forceinline__ void transpose4(uint32_t x0, uint32_t x1,
+                                           uint32_t x2, uint32_t x3,
+                                           uint32_t* r) {
+  const uint32_t a = __byte_perm(x0, x1, 0x5140);
+  const uint32_t b = __byte_perm(x2, x3, 0x5140);
+  const uint32_t c = __byte_perm(x0, x1, 0x7362);
+  const uint32_t d = __byte_perm(x2, x3, 0x7362);
+  r[0] = __byte_perm(a, b, 0x5410);
+  r[1] = __byte_perm(a, b, 0x7632);
+  r[2] = __byte_perm(c, d, 0x5410);
+  r[3] = __byte_perm(c, d, 0x7632);
+}
+
+// Plane s of the 4 symbols in word r, one per byte.  `bit` is
+// 0x01010101 << s.
+template <int EXPAND>
+__device__ __forceinline__ uint32_t plane_word(uint32_t r, int s,
+                                               uint32_t bit) {
+  if (EXPAND == kShiftRaw) return r >> s;  // bits from the next byte land at 2^1 and up
+  if (EXPAND == kCmp) return __vcmpne4(r & bit, 0u) & 0x01010101u;
+  if (EXPAND == kSign) return __vcmpne4(r & bit, 0u);  // 0 or 0xFF (-1)
+  return (r >> s) & 0x01010101u;
+}
+
+// Start copying the rows < k of one warp step (kSumStepCols columns from
+// read column `rcol`) into `buf` (row r at r * kSumStepCols).  Lane L copies
+// 16-byte piece L of rows 8i + L / 4; `src` points at its piece of row L / 4
+// and `rows8` is the stride of 8 rows.  In a ragged last step cp.async
+// fills the bytes past m with zeros.
+__device__ __forceinline__ void sum_fetch(uint8_t* buf, const uint8_t* src,
+                                          long long rows8, long long left,
+                                          int k, int lane) {
+  const int bytes = left >= 16 ? 16 : (left > 0 ? (int)left : 0);
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(buf) + lane * 16;
+  for (int row = lane >> 2, i = 0; row < k; row += 8, ++i) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %3, 0;\n"
+        " @p cp.async.cg.shared.global [%0], [%1], 16, %2;\n}\n" ::"r"(
+            dst + 512 * i),
+        "l"(src), "r"(bytes), "r"(bytes));
+    src += rows8;
+  }
+}
+
+// The same for rows that do not start 16-byte aligned: byte by byte, zero
+// past m.
+__device__ __noinline__ void sum_fetch_bytes(uint8_t* buf,
+                                             const uint8_t* __restrict__ B,
+                                             int k, long long m,
+                                             long long rcol, int lane) {
+  for (int idx = lane; idx < k * kSumStepCols; idx += 32) {
+    const int row = idx / kSumStepCols, b = idx % kSumStepCols;
+    buf[idx] = rcol + b < m ? B[(size_t)row * m + rcol + b] : 0;
+  }
+}
+
+// Store the first `left` (if below 8) of 8 output bytes, byte by byte: the
+// ragged edge, or rows that do not start 8-byte aligned.
+__device__ __noinline__ void sum_store_edge(uint8_t* dst, long long left,
+                                            uint32_t lo, uint32_t hi) {
+  for (int j = 0; j < 8 && j < left; ++j) {
+    dst[j] = (uint8_t)((j < 4 ? lo : hi) >> (8 * (j & 3)));
+  }
+}
+
+// m-tiles of gf_planes_sum_kernel's operator: rounded up to pairs.
+__host__ __device__ inline int sum_mtiles(int p) {
+  return ((p * 8 + 15) / 16 + 1) & ~1;
+}
+
+template <int EXPAND>
+__global__ void __launch_bounds__(kSumThreads)
+    gf_planes_sum_kernel(const uint4* __restrict__ opA,
+                         const uint8_t* __restrict__ B,
+                         uint8_t* __restrict__ C, int k, int p, long long m,
+                         int tile, int pinned, int stages) {
+  extern __shared__ uint4 smem[];
+  const int mtn = sum_mtiles(p);
+  const int kc = (k + 3) / 4;
+  const int na = mtn * kc * 32;
+  for (int i = threadIdx.x; i < na; i += kSumThreads) smem[i] = opA[i];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int buf_bytes = 4 * kc * kSumStepCols;
+  uint8_t* bufs = reinterpret_cast<uint8_t*>(smem + na) + warp * stages * buf_bytes;
+  const bool vec_in = ((uintptr_t)B & 15) == 0 && (m & 15) == 0;
+  const bool vec_out = ((uintptr_t)C & 7) == 0 && (m & 7) == 0;
+
+  // Column offsets within the block are 32-bit; the block's first write
+  // and read columns are the only 64-bit ones.
+  const long long blk0 = (long long)blockIdx.x * tile;
+  const int span = (int)(min(m, blk0 + tile) - blk0);
+  const long long rd0 = pinned ? 0 : blk0;
+  const int first = warp * kSumStepCols;
+  const int stride = kSumWarps * kSumStepCols;
+  const int nsteps = first < span ? (span - first + stride - 1) / stride : 0;
+  const long long rows8 = 8 * m;
+  const uint8_t* lane_src = B + (size_t)(lane >> 2) * m + rd0 + 16 * (lane & 3);
+
+  int f_step = 0, f_buf = 0;
+  auto fetch_next = [&]() {
+    if (f_step < nsteps) {
+      const int col = first + f_step * stride;
+      uint8_t* buf = bufs + f_buf * buf_bytes;
+      if (vec_in) {
+        sum_fetch(buf, lane_src + col, rows8, m - (rd0 + col) - 16 * (lane & 3), k, lane);
+      } else {
+        sum_fetch_bytes(buf, B, k, m, rd0 + col, lane);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    ++f_step;
+    f_buf = f_buf + 1 == stages ? 0 : f_buf + 1;
+  };
+  for (int n = 0; n < stages - 1; ++n) fetch_next();
+
+  const int sh0 = t, sh1 = t + 4;
+  const uint32_t bit0 = 0x01010101u << sh0, bit1 = 0x01010101u << sh1;
+  const uint32_t keep = 0x01010101u << g;
+  const uint32_t pick = (uint32_t)(g & 3) | ((uint32_t)((g & 3) + 4) << 4);
+  // This lane's output bytes of a step: symbol 2mt + g / 2, columns
+  // 16t + 8(g & 1) .. + 7.
+  const int c_off = 16 * t + 8 * (g & 1);
+  uint8_t* c_lane = C + c_off;
+  int cbuf = 0;
+  for (int n = 0; n < nsteps; ++n) {
+    fetch_next();
+    if (stages == 3) {
+      asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+    } else if (stages == 2) {
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncwarp();
+    const uint8_t* rows = bufs + cbuf * buf_bytes + 8 * g;
+    const long long col0 = blk0 + first + n * stride;
+    const bool full = vec_out && col0 + kSumStepCols <= m;
+    for (int mg = 0; mg < mtn; mg += 2) {
+      int acc[2][kSumGroups][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int j = 0; j < kSumGroups; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[u][j][r] = 0;
+      for (int c = 0; c < kc; ++c) {
+        const uint8_t* rc = rows + 4 * c * kSumStepCols;
+        uint2 x[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x[q] = *reinterpret_cast<const uint2*>(rc + q * kSumStepCols);
+        uint32_t r[kSumGroups];
+        transpose4(x[0].x, x[1].x, x[2].x, x[3].x, r);
+        transpose4(x[0].y, x[1].y, x[2].y, x[3].y, r + 4);
+        uint32_t b0[kSumGroups], b1[kSumGroups];
+#pragma unroll
+        for (int j = 0; j < kSumGroups; ++j) {
+          b0[j] = plane_word<EXPAND>(r[j], sh0, bit0);
+          b1[j] = plane_word<EXPAND>(r[j], sh1, bit1);
+        }
+        const uint4 a0 = smem[(mg * kc + c) * 32 + lane];
+        const uint4 a1 = smem[((mg + 1) * kc + c) * 32 + lane];
+#pragma unroll
+        for (int j = 0; j < kSumGroups; ++j) {
+          if (EXPAND == kSign) {
+            mma_u8s8(acc[0][j], a0, b0[j], b1[j]);
+            mma_u8s8(acc[1][j], a1, b0[j], b1[j]);
+          } else {
+            mma_u8(acc[0][j], a0, b0[j], b1[j]);
+            mma_u8(acc[1][j], a1, b0[j], b1[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int sym = 2 * (mg + u) + (g >> 1);
+        uint32_t w[kSumGroups];
+#pragma unroll
+        for (int j = 0; j < kSumGroups; ++j) {
+          const uint32_t lo = __byte_perm((uint32_t)acc[u][j][0], (uint32_t)acc[u][j][1], 0x0040);
+          const uint32_t hi = __byte_perm((uint32_t)acc[u][j][2], (uint32_t)acc[u][j][3], 0x4000);
+          uint32_t v = __byte_perm(lo, hi, 0x7610) & keep;
+          v |= __shfl_xor_sync(0xffffffffu, v, 4);
+          v |= __shfl_xor_sync(0xffffffffu, v, 8);
+          v |= __shfl_xor_sync(0xffffffffu, v, 16);
+          w[j] = v;
+        }
+        // Byte b of w[j]: symbol 2mt + b / 2 at column 16t + 8(b & 1) + j.
+        if (g < 4 && sym < p) {
+          const uint32_t lo = __byte_perm(__byte_perm(w[0], w[1], pick), __byte_perm(w[2], w[3], pick), 0x5410);
+          const uint32_t hi = __byte_perm(__byte_perm(w[4], w[5], pick), __byte_perm(w[6], w[7], pick), 0x5410);
+          uint8_t* dst = c_lane + (size_t)sym * m + col0;
+          if (full) {
+            *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
+          } else {
+            sum_store_edge(dst, m - (col0 + c_off), lo, hi);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    cbuf = cbuf + 1 == stages ? 0 : cbuf + 1;
+  }
+}
+
+// Dynamic shared memory of gf_planes_sum_kernel with `stages` step buffers
+// a warp.
+inline size_t sum_smem(int k, int p, int stages) {
+  const int kc = (k + 3) / 4;
+  return (size_t)sum_mtiles(p) * kc * 32 * sizeof(uint4) +
+         (size_t)kSumWarps * stages * 4 * kc * kSumStepCols;
+}
+
+template <int EXPAND>
+int launch_planes_sum(const void* opA, const void* B, void* C, int k, int p,
+                      long long m, int tile, int pinned, cudaStream_t stream) {
+  int stages = kSumStages;
+  while (stages > 1 && sum_smem(k, p, stages) > (size_t)kMaxSmem) --stages;
+  const size_t smem = sum_smem(k, p, stages);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gf_planes_sum_kernel<EXPAND>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = (m + tile - 1) / tile;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  gf_planes_sum_kernel<EXPAND><<<(unsigned)blocks, kSumThreads, smem, stream>>>(
+      static_cast<const uint4*>(opA), static_cast<const uint8_t*>(B),
+      static_cast<uint8_t*>(C), k, p, m, tile, pinned, stages);
+  return (int)cudaGetLastError();
+}
+
 template <int EXPAND, int REFOLD>
 int launch_planes(const void* opA, const void* opF, const void* B, void* C,
                   int k, int p, long long m, int tile, int pinned,
@@ -371,14 +664,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Every (expand, refold) pair: the sweep's bodies and both refolds of
-// every expansion the probe names.
-#define RS_PLANES_PAIRS(X)            \
-  X(kShift, kSum) X(kShift, kDot)     \
-  X(kShiftRaw, kSum) X(kShiftRaw, kDot) \
-  X(kCmp, kSum) X(kCmp, kDot)         \
-  X(kSign, kSum) X(kSign, kDot)       \
+// The (expand, refold) pairs gf_planes_kernel runs: every dot refold and
+// nibble's sum.  The byte expansions' sum refold is gf_planes_sum_kernel.
+#define RS_PLANES_PAIRS(X)                                   \
+  X(kShift, kDot) X(kShiftRaw, kDot) X(kCmp, kDot) X(kSign, kDot) \
   X(kNibble, kSum) X(kNibble, kDot)
+#define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign)
 
 }  // namespace
 
@@ -389,7 +680,10 @@ const char* rs_cuda_error_string(int err) {
 }
 
 // Dynamic shared memory the GEMM needs at (k, p), in bytes, and its limit.
+// For the byte expansions' sum refold: the least, with one step buffer a
+// warp (the launch takes up to kSumStages that fit).
 long long rs_gf_planes_smem(int k, int p, int expand, int refold) {
+  if (refold == kSum && expand != kNibble) return (long long)sum_smem(k, p, 1);
   return (long long)planes_smem(dims(k, p, expand), refold);
 }
 int rs_gf_planes_smem_limit() { return kMaxSmem; }
@@ -397,11 +691,13 @@ int rs_gf_planes_smem_limit() { return kMaxSmem; }
 // C = A . B over GF(2^8) with the (expand, refold) formulation.
 //   opA: operator fragments, opF: F fragments (refold dot; else unused).
 //   B: (k, m) uint8, C: (p, m) uint8, row-major.  tile: columns per block,
-//   a positive multiple of 32.  pinned != 0: every block reads block 0.
+//   a positive multiple of kSumStepCols.  pinned != 0: every block reads
+//   block 0.  The byte expansions' sum refold runs gf_planes_sum_kernel
+//   (opA packed for it), every other pair gf_planes_kernel.
 int rs_gf_planes(const void* opA, const void* opF, const void* B, void* C,
                  int k, int p, long long m, int tile, int expand, int refold,
                  int pinned, void* stream) {
-  if (k <= 0 || p <= 0 || m < 0 || tile <= 0 || tile % 32) {
+  if (k <= 0 || p <= 0 || m < 0 || tile <= 0 || tile % kSumStepCols) {
     return (int)cudaErrorInvalidValue;
   }
   if (m == 0) return (int)cudaSuccess;
@@ -411,6 +707,11 @@ int rs_gf_planes(const void* opA, const void* opF, const void* B, void* C,
     return launch_planes<E, R>(opA, opF, B, C, k, p, m, tile, pinned, s);
   RS_PLANES_PAIRS(RS_CALL)
 #undef RS_CALL
+#define RS_CALL_SUM(E)                                                  \
+  if (expand == E && refold == kSum)                                    \
+    return launch_planes_sum<E>(opA, B, C, k, p, m, tile, pinned, s);
+  RS_SUM_EXPANDS(RS_CALL_SUM)
+#undef RS_CALL_SUM
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,6 +9,10 @@ and refold variants of ``ops/pallas_gemm.py`` (``_kernel_body``).
 (p*8, k*32) one-hot-nibble operator for ``"nibble"``, and the parity of
 each accumulator is refolded into output bytes by a shift-sum (``"sum"``) or
 by a second product with the (p, p*8) bit-weight operator F (``"dot"``).
+The byte expansions' sum refold (:data:`SUM_EXPANDS` with ``"sum"``) runs
+``gf_planes_sum_kernel``, with the operator scaled by 2^s and packed for
+four-symbol plane words (:func:`sum_operator`); every other pair runs
+``gf_planes_kernel``.
 With ``pinned=True`` every block of ``tile`` columns computes on the first
 block's columns: the compute-only ceiling, whose result is the first
 block's output repeated.
@@ -33,14 +37,18 @@ from . import _build
 from .gemm import PLAIN_BLOCK_COLS, _dot_bits, coefficients, expand_bitmatrix, expand_nibblematrix
 
 # Launches since the counts were last reset; only the launches below add.
-LAUNCHES = 0  # the GEMM
+LAUNCHES = 0  # gf_planes_kernel
+SUM_LAUNCHES = 0  # gf_planes_sum_kernel
 COPY_LAUNCHES = 0  # the copy floor
 
 EXPANDS = {"shift": 0, "shift_raw": 1, "cmp": 2, "sign": 3, "nibble": 4}
 REFOLDS = {"sum": 0, "dot": 1}
 # The kernel source instantiates every (expand, refold) pair.
 PAIRS = tuple((e, r) for e in EXPANDS for r in REFOLDS)
+# With refold "sum" these run gf_planes_sum_kernel.
+SUM_EXPANDS = ("shift", "shift_raw", "cmp", "sign")
 DEFAULT_TILE = 8192
+TILE_STEP = 64  # columns of gf_planes_sum_kernel's warp step; tiles are multiples
 SOURCES = [_build.CSRC / "gf_planes.cu"]
 
 
@@ -61,12 +69,17 @@ def _lib() -> ctypes.CDLL:
 
 
 def tile_cols(tile: int | None, m: int) -> int:
-    """The columns a block covers: ``tile`` rounded up to a multiple of 32
-    and clamped to ``m`` rounded up the same way."""
+    """The columns a block covers: ``tile`` rounded up to a multiple of
+    :data:`TILE_STEP` and clamped to ``m`` rounded up the same way."""
     tile = DEFAULT_TILE if tile is None else int(tile)
     if tile <= 0:
         raise ValueError(f"tile must be positive, got {tile}")
-    return min(-(-tile // 32) * 32, max(32, -(-m // 32) * 32))
+    return min(-(-tile // TILE_STEP) * TILE_STEP, max(TILE_STEP, -(-m // TILE_STEP) * TILE_STEP))
+
+
+def is_sum_pair(expand: str, refold: str) -> bool:
+    """Whether (expand, refold) runs gf_planes_sum_kernel."""
+    return refold == "sum" and expand in SUM_EXPANDS
 
 
 def _check_pair(expand: str, refold: str) -> None:
@@ -184,6 +197,21 @@ def pack_fragments(op: np.ndarray, rows: int, depth: int) -> np.ndarray:
     return np.ascontiguousarray(x).reshape(mt, kc, 32, 4, 4).view("<u4").reshape(mt, kc, 32, 4)
 
 
+def sum_operator(A: np.ndarray) -> np.ndarray:
+    """gf_planes_sum_kernel's operator: the (p*8, k*8) bit operator with
+    row i*8 + s times 2^s, zero-padded to (16 * mt, 32 * kc) uint8 with mt
+    even (the kernel runs m-tiles in pairs), its columns in four-symbol
+    plane-word order: depth 32c + 16h + 4t + q of chunk c is plane 4h + t
+    of symbol 4c + q."""
+    p, k = A.shape
+    mt, kc = 2 * -(-p // 4), -(-k // 4)
+    op = expand_bitmatrix(A, 8).numpy().astype(np.int64) << np.tile(np.arange(8), p)[:, None]
+    padded = np.zeros((16 * mt, kc, 4, 8), dtype=np.uint8)  # (row, c, q, s)
+    padded[:p * 8].reshape(p * 8, 4 * kc, 8)[:, :k] = op.reshape(p * 8, k, 8)
+    # s = 4h + t -> (c, h, t, q)
+    return np.ascontiguousarray(padded.reshape(16 * mt, kc, 4, 2, 4).transpose(0, 1, 3, 4, 2)).reshape(16 * mt, 32 * kc)
+
+
 def _dims(k: int, p: int, expand: str) -> tuple[int, int, int, int]:
     mt = -(-p * 8 // 16)
     kc = k if expand == "nibble" else -(-k * 8 // 32)
@@ -194,7 +222,11 @@ def _operators(A: np.ndarray, expand: str, refold: str, device: torch.device):
     def make():
         p, k = A.shape
         mt, kc, mf, kf = _dims(k, p, expand)
-        opA = pack_fragments(_operator_bits(A, expand).numpy(), 16 * mt, 32 * kc)
+        if is_sum_pair(expand, refold):
+            op = sum_operator(A)
+            opA = pack_fragments(op, *op.shape)
+        else:
+            opA = pack_fragments(_operator_bits(A, expand).numpy(), 16 * mt, 32 * kc)
         opA = torch.from_numpy(opA.view(np.int32)).to(device)
         opF = None
         if refold == "dot":
@@ -222,10 +254,10 @@ def gf_matmul_planes(A, B: torch.Tensor, expand: str, refold: str, tile: int | N
     ``refold`` formulation (a key of :data:`EXPANDS` and of :data:`REFOLDS`).
 
     ``A``: (p, k) coefficients; ``B``: (k, m) uint8 tensor.  ``tile``:
-    columns per CUDA block (rounded up to a multiple of 32; default 8192).
-    Returns (p, m) uint8.
+    columns per CUDA block (rounded up to a multiple of :data:`TILE_STEP`;
+    default 8192).  Returns (p, m) uint8.
     """
-    global LAUNCHES
+    global LAUNCHES, SUM_LAUNCHES
     _check_pair(expand, refold)
     _check_data(B, "gf_matmul_planes")
     k, m = B.shape
@@ -251,7 +283,10 @@ def gf_matmul_planes(A, B: torch.Tensor, expand: str, refold: str, tile: int | N
                                C.data_ptr(), k, p, m, t, e, r, int(pinned),
                                torch.cuda.current_stream(B.device).cuda_stream)
     _build.check(lib, err, "gf_planes")
-    LAUNCHES += 1
+    if is_sum_pair(expand, refold):
+        SUM_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return C
 
 

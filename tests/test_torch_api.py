@@ -127,6 +127,47 @@ def test_corrupt_survivor_raises_and_bad_inputs(tmp_path):
         t_api.encode_file(path, 4, 2, w=4, device="cpu")
 
 
+def _damage(path, case):
+    """Damage the survivors of a k=4, p=2 archive as ``case`` says."""
+    if case == "truncated":  # chunks 1 and 2 cut to 10 bytes
+        for i in (1, 2):
+            with open(t_ff.chunk_file_name(path, i), "r+b") as fp:
+                fp.truncate(10)
+    elif case == "directory":  # chunk 1 unreadable: a directory in its place
+        os.unlink(t_ff.chunk_file_name(path, 1))
+        os.mkdir(t_ff.chunk_file_name(path, 1))
+
+
+@pytest.mark.parametrize("case,bad", [("truncated", {1, 2}), ("directory", {1}), ("sound", None)])
+def test_decode_names_every_bad_survivor_like_jax(tmp_path, case, bad):
+    """decode_file opens every survivor before it raises: one
+    ChunkIntegrityError names all the truncated and unreadable ones, in the
+    port as in the JAX package.  With every survivor sound both decode."""
+    results = {}
+    for name, api in (("torch", t_api), ("jax", j_api)):
+        d = tmp_path / name
+        d.mkdir()
+        path = str(d / "f.bin")
+        data = _write(path, 5_000, 7)
+        t_api.encode_file(path, 4, 2, device="cpu")
+        _damage(path, case)
+        conf = t_make_conf(6, 4, path, survivors=[0, 1, 2, 4])
+        kwargs = dict(device="cpu") if api is t_api else dict(strategy="bitplane")
+        try:
+            out = api.decode_file(path, conf, str(d / "out"), **kwargs)
+        except Exception as e:  # noqa: BLE001 - the class is what is compared
+            results[name] = (type(e).__name__, {i: os.path.basename(p) for i, p in getattr(e, "bad_chunks", {}).items()})
+        else:
+            assert _read(out) == data
+            results[name] = ("decoded", None)
+    assert results["torch"] == results["jax"]
+    if bad is None:
+        assert results["torch"] == ("decoded", None)
+    else:
+        assert results["torch"][0] == "ChunkIntegrityError"
+        assert set(results["torch"][1]) == bad
+
+
 def test_interleaved_archive_is_refused(tmp_path):
     path = str(tmp_path / "f.bin")
     _write(path, 5_000, 3)

@@ -1,0 +1,368 @@
+"""K3's sum refold for the four byte expansions (``ops/csrc/gf_planes.cu``,
+``gf_planes_sum_kernel``), modelled in NumPy and held against the JAX
+package.
+
+The kernel runs only on the card (``chip_smoke.py`` holds it bit-exact
+against its plain version there).  Here a NumPy model follows it register
+by register: the host-packed A fragments of ``mma.m16n8k32`` (the operator
+scaled by 2^s in four-symbol plane-word order, ``cuda_planes.sum_operator``),
+each step's rows in the warp's shared-memory buffer (rows past k and
+columns past m hold random bytes there, which must not change a stored
+byte), each lane's 8-byte reads, the PRMT transposes, the plane words of
+each expansion, the int32 mma sums, the refold's gather, mask and
+xor-shuffles (as lane permutations) and the 8-byte stores, the only place a
+lane writes.  The model's bytes must equal the JAX package's exactly
+(tolerance 0): ``GaloisField.matmul``, ``gf_matmul_pallas(expand=...,
+refold="sum", interpret=True)`` and ``kernel_sweep``'s bodies interpreted.
+"""
+
+import functools
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from gpu_rscode_torch.ops import cuda_planes
+from gpu_rscode_tpu.ops.gemm import expand_bitmatrix_jnp
+from gpu_rscode_tpu.ops.gf import get_field
+from gpu_rscode_tpu.ops.pallas_gemm import gf_matmul_pallas
+from gpu_rscode_tpu.tools import kernel_sweep as j_sweep
+
+LANES = 32
+# The model reads the kernel's layout from its source, so the two cannot drift.
+SOURCE = cuda_planes.SOURCES[0].read_text()
+
+
+def _const(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE).group(1))
+
+
+WARPS = _const("kSumWarps")
+GROUPS = _const("kSumGroups")
+STAGES = _const("kSumStages")
+STEP = 8 * GROUPS  # columns a warp step (kSumStepCols)
+IDX = np.arange(LANES)
+G, T = IDX >> 2, IDX & 3
+INT32 = 1 << 31
+# (JAX sweep body, expansion) pairs whose refold is "sum".
+SWEEP_BODIES = {"base": "shift", "cmp": "cmp", "sign": "sign", "signc": "sign"}
+
+
+def byte_perm(x, y, sel):
+    """CUDA's ``__byte_perm(x, y, sel)`` on uint32 arrays; ``sel`` may be
+    an array (one selector per lane)."""
+    both = (np.asarray(y, dtype=np.uint64) << np.uint64(32)) | np.asarray(x, dtype=np.uint64)
+    sel = np.asarray(sel, dtype=np.uint64)
+    out = np.zeros(np.broadcast(both, sel).shape, dtype=np.uint64)
+    for i in range(4):
+        src = (sel >> np.uint64(4 * i)) & np.uint64(7)
+        out |= ((both >> (np.uint64(8) * src)) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def vcmpne4(x, y):
+    """CUDA's ``__vcmpne4``: 0xFF in each byte where x and y differ."""
+    x, y = np.asarray(x, dtype=np.uint32), np.asarray(y, dtype=np.uint32)
+    out = np.zeros(np.broadcast(x, y).shape, dtype=np.uint32)
+    for q in range(4):
+        sh = np.uint32(8 * q)
+        out |= np.where(((x >> sh) & 0xFF) != ((y >> sh) & 0xFF), np.uint32(0xFF) << sh, np.uint32(0))
+    return out
+
+
+def transpose4(x0, x1, x2, x3):
+    """The kernel's ``transpose4``: 8 PRMT."""
+    a, b = byte_perm(x0, x1, 0x5140), byte_perm(x2, x3, 0x5140)
+    c, d = byte_perm(x0, x1, 0x7362), byte_perm(x2, x3, 0x7362)
+    return [byte_perm(a, b, 0x5410), byte_perm(a, b, 0x7632), byte_perm(c, d, 0x5410), byte_perm(c, d, 0x7632)]
+
+
+def plane_word(r, s, expand):
+    """The kernel's ``plane_word<EXPAND>``: plane s (per lane) of the 4
+    symbols in word r."""
+    s = np.asarray(s, dtype=np.uint32)
+    bit = np.uint32(0x01010101) << s
+    if expand == "shift_raw":
+        return r >> s
+    if expand == "cmp":
+        return vcmpne4(r & bit, 0) & np.uint32(0x01010101)
+    if expand == "sign":
+        return vcmpne4(r & bit, 0)
+    return (r >> s) & np.uint32(0x01010101)
+
+
+def unpack_a_tiles(frags: np.ndarray) -> np.ndarray:
+    """(mt, kc, 32, 4) uint32 A fragments -> (mt, kc, 16, 32) int64 tiles, in
+    the m16n8k32 8-bit A layout: lane g*4 + t holds rows g (regs 0, 2) and
+    g + 8 (regs 1, 3) at depth t*4.. (regs 0, 1) and 16 + t*4.. (regs 2, 3)."""
+    mt, kc = frags.shape[:2]
+    b = np.ascontiguousarray(frags).view(np.uint8).reshape(mt, kc, 8, 4, 2, 2, 4)  # g t kh h q
+    return b.transpose(0, 1, 5, 2, 4, 3, 6).reshape(mt, kc, 16, 32).astype(np.int64)
+
+
+def b_tile(b0: np.ndarray, b1: np.ndarray, signed: bool) -> np.ndarray:
+    """Per-lane B registers (S, 32) of one group -> (S, 32, 8) tiles: depth
+    t*4 + q of column g is byte q of b0 in lane (g, t), depth 16 + t*4 + q
+    byte q of b1."""
+    S = b0.shape[0]
+    regs = np.stack([b0, b1], axis=1).astype(np.uint32)  # (S, kh, 32)
+    by = np.ascontiguousarray(regs).view(np.uint8).reshape(S, 2, 8, 4, 4)  # S kh g t q
+    tile = by.transpose(0, 1, 3, 4, 2).reshape(S, 32, 8).astype(np.int64)
+    return np.where(tile >= 128, tile - 256, tile) if signed else tile
+
+
+def warp_steps(m: int, tile: int, pinned: bool):
+    """(write column, read column) of every warp step, in the kernel's block
+    and warp loops."""
+    steps = []
+    for blk0 in range(0, m, tile):
+        span = min(m, blk0 + tile) - blk0
+        rd0 = 0 if pinned else blk0
+        for warp in range(WARPS):
+            for col in range(warp * STEP, span, WARPS * STEP):
+                steps.append((blk0 + col, rd0 + col))
+    return sorted(steps)
+
+
+def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pinned: bool = False,
+          trace: list | None = None) -> np.ndarray:
+    """NumPy model of gf_planes_sum_kernel<expand>: (p, k) coefficients,
+    (k, m) uint8 -> (p, m) uint8.  ``tile`` as the wrapper rounds it.
+    ``trace`` collects every int32 accumulator after each depth chunk."""
+    p, k = A.shape
+    m = B.shape[1]
+    tile = cuda_planes.tile_cols(tile, m)
+    assert tile % STEP == 0
+    op = cuda_planes.sum_operator(A)
+    mtn, kc = op.shape[0] // 16, -(-k // 4)
+    assert mtn % 2 == 0  # m-tiles in pairs: a pass has no branch
+    a = unpack_a_tiles(cuda_planes.pack_fragments(op, 16 * mtn, 32 * kc))
+    steps = warp_steps(m, tile, pinned)
+    assert [w for w, _ in steps] == list(range(0, m, STEP))  # every step once, blocks ragged or not
+    S = len(steps)
+    rng = np.random.default_rng(k * 7919 + m)
+    # Each step's buffer: rows < k at the read columns below m; the rest is
+    # whatever the shared memory held.
+    buf = rng.integers(0, 256, size=(S, 4 * kc, STEP), dtype=np.uint8)
+    for i, (_, rcol) in enumerate(steps):
+        n = max(0, min(STEP, m - rcol))
+        buf[i, :k, :n] = B[:, rcol:rcol + n]
+    words = buf.reshape(S, 4 * kc, 8, 2, 4).copy().view("<u4")[..., 0]  # (S, rows, g, half)
+    out = rng.integers(0, 256, size=(p, m), dtype=np.uint8)  # torch.empty
+    writes = np.zeros((p, m), dtype=np.int64)
+    keep = np.uint32(0x01010101) << G.astype(np.uint32)
+    pick = (G & 3) | (((G & 3) + 4) << 4)
+    col0 = np.array([w for w, _ in steps])
+    for mg in range(0, mtn, 2):
+        acc = np.zeros((2, GROUPS, S, 16, 8), dtype=np.int64)
+        for c in range(kc):
+            # LDS.64 of rows 4c..4c+3 at bytes 8g..8g+7: x[q] = (lo, hi).
+            x = [words[:, 4 * c + q][:, G] for q in range(4)]  # (S, 32, half)
+            r = transpose4(*(xq[..., 0] for xq in x)) + transpose4(*(xq[..., 1] for xq in x))
+            b0 = [plane_word(r[j], T, expand) for j in range(GROUPS)]
+            b1 = [plane_word(r[j], T + 4, expand) for j in range(GROUPS)]
+            for u in range(2):
+                for j in range(GROUPS):
+                    acc[u, j] += np.matmul(a[mg + u, c], b_tile(b0[j], b1[j], expand == "sign"))
+                if trace is not None:
+                    trace.append(acc[u].copy())
+        assert np.abs(acc).max(initial=0) < INT32
+        for u in range(2):
+            acc32 = acc[u].astype(np.uint32)  # two's complement, as the registers hold it
+            w = []
+            for j in range(GROUPS):
+                c0, c1 = acc32[j][:, G, 2 * T], acc32[j][:, G, 2 * T + 1]
+                c2, c3 = acc32[j][:, G + 8, 2 * T], acc32[j][:, G + 8, 2 * T + 1]
+                v = byte_perm(byte_perm(c0, c1, 0x0040), byte_perm(c2, c3, 0x4000), 0x7610) & keep
+                v |= v[:, IDX ^ 4]
+                v |= v[:, IDX ^ 8]
+                v |= v[:, IDX ^ 16]
+                w.append(v)
+            lo = byte_perm(byte_perm(w[0], w[1], pick), byte_perm(w[2], w[3], pick), 0x5410)
+            hi = byte_perm(byte_perm(w[4], w[5], pick), byte_perm(w[6], w[7], pick), 0x5410)
+            for lane in range(LANES):
+                g, t = lane >> 2, lane & 3
+                sym = 2 * (mg + u) + (g >> 1)
+                if g >= 4 or sym >= p:
+                    continue
+                for e in range(8):
+                    cols = col0 + 16 * t + 8 * (g & 1) + e
+                    ok = cols < m
+                    word = lo[:, lane] if e < 4 else hi[:, lane]
+                    out[sym, cols[ok]] = (word[ok] >> np.uint32(8 * (e & 3))) & 0xFF
+                    writes[sym, cols[ok]] += 1
+    assert (writes == 1).all()  # every output byte written once, by the stores only
+    return out
+
+
+def _operands(p, k, m, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, size=(p, k), dtype=np.uint8),
+            rng.integers(0, 256, size=(k, m), dtype=np.uint8))
+
+
+def _jax_sweep_body(name, A, B, tile, pinned=False):
+    """``kernel_sweep.make_fn``'s pallas_call (k=10, p=4), interpreted."""
+    p, k, w = j_sweep.P, j_sweep.K, j_sweep.W
+    m = B.shape[1]
+    op = expand_bitmatrix_jnp(jnp.asarray(A), w).astype(jnp.int8)
+    b_map = (lambda i: (0, 0)) if pinned else (lambda i: (0, i))
+    return np.asarray(pl.pallas_call(
+        functools.partial(j_sweep.BODIES[name], w=w, k=k, p=p),
+        out_shape=jax.ShapeDtypeStruct((p, m), jnp.uint8),
+        grid=(pl.cdiv(m, tile),),
+        in_specs=[pl.BlockSpec((p * w, k * w), lambda i: (0, 0)), pl.BlockSpec((k, tile), b_map)],
+        out_specs=pl.BlockSpec((p, tile), lambda i: (0, i)),
+        interpret=True,
+    )(op, jnp.asarray(B)))
+
+
+def _densest_element() -> tuple[int, int]:
+    """The GF(2^8) element whose 8x8 bit matrix has the most ones in one row,
+    and that count."""
+    rows = get_field(8).bitmats.sum(axis=2).max(axis=1)
+    return int(rows.argmax()), int(rows.max())
+
+
+def test_source_constants():
+    """The layout the model reads from the source, the wrapper's tile
+    granularity, the mma of each expansion, and the pairs the new kernel
+    takes over from gf_planes_kernel."""
+    assert (WARPS, GROUPS, STAGES) == (4, 8, 3)
+    assert "constexpr int kSumStepCols = 8 * kSumGroups;" in SOURCE
+    assert cuda_planes.TILE_STEP == STEP
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32" in SOURCE
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32" in SOURCE
+    assert "#define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign)" in SOURCE
+    pairs = re.search(r"#define RS_PLANES_PAIRS\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
+    assert "kSum" not in pairs.replace("X(kNibble, kSum)", "")
+    assert set(cuda_planes.SUM_EXPANDS) == {"shift", "shift_raw", "cmp", "sign"}
+    assert all(cuda_planes.is_sum_pair(e, "sum") for e in cuda_planes.SUM_EXPANDS)
+    assert not cuda_planes.is_sum_pair("nibble", "sum") and not cuda_planes.is_sum_pair("shift", "dot")
+
+
+@pytest.mark.parametrize("p,k", [(1, 1), (4, 10), (3, 33), (10, 32)])
+def test_operator_is_scaled_and_permuted(p, k):
+    """The host-packed A fragments, read back in the mma layout, are the JAX
+    package's expand_bitmatrix with row i*8 + s times 2^s, its columns in
+    four-symbol plane-word order, zero-padded to whole pairs of m-tiles and
+    whole chunks."""
+    A, _ = _operands(p, k, 1, p * k)
+    mtn, kc = 2 * -(-p // 4), -(-k // 4)
+    tiles = unpack_a_tiles(cuda_planes.pack_fragments(cuda_planes.sum_operator(A), 16 * mtn, 32 * kc))
+    full = tiles.transpose(0, 2, 1, 3).reshape(16 * mtn, 32 * kc)
+    bits = np.asarray(expand_bitmatrix_jnp(A.astype(np.int32), 8)).astype(np.int64)
+    want = np.zeros_like(full)
+    for i in range(k):
+        for s in range(8):
+            want[:p * 8, 32 * (i // 4) + 16 * (s // 4) + 4 * (s % 4) + i % 4] = bits[:, i * 8 + s] << (np.arange(p * 8) % 8)
+    np.testing.assert_array_equal(full, want)
+    assert full.max() <= 128
+
+
+@pytest.mark.parametrize("expand", ["shift", "shift_raw", "cmp", "sign"])
+def test_plane_words(expand):
+    """Every byte value in every position of a word and every plane: the
+    plane word's byte q is, seen as the mma's u8 (s8 for sign), bit s of
+    byte q plus even multiples (shift_raw's higher bits), or its negation
+    (sign)."""
+    v = np.arange(256, dtype=np.uint32)
+    r = v | ((v ^ 0x5A) << 8) | ((v ^ 0xC3) << 16) | ((255 - v) << 24)
+    for s in range(8):
+        pw = plane_word(r, np.uint32(s), expand)
+        for q, byte in enumerate((v, v ^ 0x5A, v ^ 0xC3, 255 - v)):
+            got = ((pw >> np.uint32(8 * q)) & 0xFF).astype(np.int64)
+            bit = (byte >> s) & 1
+            if expand == "sign":
+                np.testing.assert_array_equal(np.where(got >= 128, got - 256, got), -bit.astype(np.int64))
+            elif expand == "shift_raw":
+                np.testing.assert_array_equal(got & 1, bit)
+            else:
+                np.testing.assert_array_equal(got, bit)
+
+
+def test_transpose4():
+    """The 8-PRMT transpose: byte q of output word j is byte j of input
+    word q."""
+    x = np.random.default_rng(3).integers(0, 1 << 32, size=(4, 64), dtype=np.uint64).astype(np.uint32)
+    r = transpose4(*x)
+    for j in range(4):
+        for q in range(4):
+            np.testing.assert_array_equal((r[j] >> np.uint32(8 * q)) & 0xFF, (x[q] >> np.uint32(8 * j)) & 0xFF)
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 5, 10, 32, 33])
+@pytest.mark.parametrize("expand", ["shift", "shift_raw", "cmp", "sign"])
+def test_model_matches_jax(expand, k):
+    """The model equals the GF oracle and, for the JAX package's expansion
+    names, gf_matmul_pallas(refold="sum") interpreted, at p = 1, 2, 4, 10:
+    ragged m (not a multiple of 4, 8 or 64) over two blocks of 128 columns,
+    and m below one warp step."""
+    gf = get_field(8)
+    for p in (1, 2, 4, 10):
+        for m in (203, 37):
+            A, B = _operands(p, k, m, 100 * k + 10 * p + m)
+            want = gf.matmul(A, B)
+            if expand != "cmp":  # "cmp" is the sweep's name only
+                np.testing.assert_array_equal(
+                    np.asarray(gf_matmul_pallas(A, B, expand=expand, refold="sum", interpret=True)), want)
+            np.testing.assert_array_equal(model(A, B, expand, tile=128), want, err_msg=f"p={p} m={m}")
+
+
+@pytest.mark.parametrize("pinned", [False, True])
+@pytest.mark.parametrize("name", sorted(SWEEP_BODIES))
+def test_model_matches_sweep_body(name, pinned):
+    """The model equals kernel_sweep's body of the same formulation
+    interpreted with make_fn's BlockSpecs, normal and pinned (every block
+    reads block 0), over a ragged last block."""
+    A, B = _operands(j_sweep.P, j_sweep.K, 600, 7 + len(name))
+    want = _jax_sweep_body(name, A, B, 256, pinned)
+    np.testing.assert_array_equal(model(A, B, SWEEP_BODIES[name], tile=256, pinned=pinned), want)
+    got = cuda_planes.gf_matmul_planes(A, torch.from_numpy(B), SWEEP_BODIES[name], "sum", 256, pinned=pinned)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("expand", ["shift", "shift_raw", "cmp", "sign"])
+def test_model_deep_and_pinned(expand):
+    """p = 10, k = 32: three passes over pairs of m-tiles (the last one
+    half padding), eight depth chunks; pinned with tiles of 64 and 192 columns
+    (the last block ragged) repeats block 0's output."""
+    A, B = _operands(10, 32, 500, 11)
+    want = get_field(8).matmul(A, B)
+    np.testing.assert_array_equal(model(A, B, expand, tile=128), want)
+    for tile in (64, 192):
+        np.testing.assert_array_equal(model(A, B, expand, tile=tile, pinned=True), want[:, np.arange(500) % tile])
+
+
+@pytest.mark.parametrize("expand", ["shift", "shift_raw", "cmp", "sign"])
+@pytest.mark.parametrize("k", [4, 33])
+def test_largest_sums_are_exact(expand, k):
+    """Every data byte 0xFF and every coefficient the densest element: the
+    densest rows sum 2^s * plane over every selected depth.  The largest
+    accumulator is what the sum predicts and below 2^31, and the bytes are
+    right."""
+    elem, ones = _densest_element()
+    A = np.full((4, k), elem, dtype=np.uint8)
+    B = np.full((k, 200), 0xFF, dtype=np.uint8)
+    trace = []
+    np.testing.assert_array_equal(model(A, B, expand, trace=trace), get_field(8).matmul(A, B))
+    top = max(int(np.abs(acc).max()) for acc in trace)
+    assert top < INT32
+    if expand != "shift_raw":  # planes are 0/1 (or 0/-1): sum = 2^s * ones * k at most
+        bits = np.asarray(expand_bitmatrix_jnp(A.astype(np.int32), 8)).astype(np.int64)
+        assert top == max(int(bits[r].sum()) << (r % 8) for r in range(bits.shape[0]))
+        assert top <= 128 * ones * k
+
+
+def test_plain_version_pinned_uses_the_wrapper_tile():
+    """The wrapper's tile rounds to the 64-column step; the plain version's
+    pinned output repeats block 0 at that width, as the model does."""
+    A, B = _operands(4, 10, 300, 12)
+    want = model(A, B, "shift", tile=100, pinned=True)
+    np.testing.assert_array_equal(want, get_field(8).matmul(A, B)[:, np.arange(300) % 128])
+    got = cuda_planes.gf_matmul_planes(A, torch.from_numpy(B), "shift", "sum", 100, pinned=True)
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -9,7 +9,9 @@ CPU.  The nibble operator, the field's nibble matrices and the dispatch of
 every JAX expansion name through ``gf_matmul_cuda`` are held against the
 JAX package.  The CUDA kernel runs only on the card (chip_smoke.py); here
 its fragment layout, in-register expansion and both refolds are checked by
-a NumPy model of ``csrc/gf_planes.cu`` at the level of mma fragments."""
+a NumPy model of ``csrc/gf_planes.cu`` at the level of mma fragments; the
+byte expansions' sum refold, which runs ``gf_planes_sum_kernel``, by the
+register model of ``test_torch_k3_sum.py``."""
 
 import functools
 
@@ -28,6 +30,7 @@ from gpu_rscode_tpu.ops.gemm import expand_bitmatrix_jnp, expand_nibblematrix_jn
 from gpu_rscode_tpu.ops.gf import get_field
 from gpu_rscode_tpu.ops.pallas_gemm import gf_matmul_pallas
 from gpu_rscode_tpu.tools import kernel_sweep as j_sweep
+from test_torch_k3_sum import model as sum_kernel_model
 
 K, P = j_sweep.K, j_sweep.P
 TILE = 128
@@ -139,10 +142,11 @@ def test_dispatch_names_and_refusals():
 def test_wrappers_cpu_contract():
     A, B = _operands(4, 10, 100, 63)
     Bt = torch.from_numpy(B)
-    before = (cuda_planes.LAUNCHES, cuda_planes.COPY_LAUNCHES)
+    before = (cuda_planes.LAUNCHES, cuda_planes.SUM_LAUNCHES, cuda_planes.COPY_LAUNCHES)
     cuda_planes.gf_matmul_planes(A, Bt, "shift", "sum")
+    cuda_planes.gf_matmul_planes(A, Bt, "shift", "dot")
     cuda_planes.copy_floor(Bt, 4)
-    assert (cuda_planes.LAUNCHES, cuda_planes.COPY_LAUNCHES) == before
+    assert (cuda_planes.LAUNCHES, cuda_planes.SUM_LAUNCHES, cuda_planes.COPY_LAUNCHES) == before
     with pytest.raises(TypeError, match="tensor"):
         cuda_planes.gf_matmul_planes(A, B, "shift", "sum")
     with pytest.raises(ValueError, match="0 < p <= k"):
@@ -193,6 +197,8 @@ def _expand4(b, s0, expand):
 
 
 def _emulate_kernel(A, B, expand, refold, tile, pinned=False):
+    if cuda_planes.is_sum_pair(expand, refold):
+        return sum_kernel_model(A, B, expand, tile, pinned)
     k, m = B.shape
     p = A.shape[0]
     mt, kc, mf, kf = cuda_planes._dims(k, p, expand)
@@ -279,10 +285,10 @@ def test_kernel_model_matches_oracle(expand, refold):
 
 @pytest.mark.parametrize("refold", ["sum", "dot"])
 def test_kernel_model_pinned_and_deep(refold):
-    A, B = _operands(17, 9, 40, 71)
+    A, B = _operands(17, 9, 100, 71)
     want = get_field(8).matmul(A, B)
-    np.testing.assert_array_equal(_emulate_kernel(A, B, "shift_raw", refold, 32, pinned=True),
-                                  want[:, np.arange(40) % 32])
+    np.testing.assert_array_equal(_emulate_kernel(A, B, "shift_raw", refold, 64, pinned=True),
+                                  want[:, np.arange(100) % 64])
 
 
 def test_fragment_packing_round_trips():
