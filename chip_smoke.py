@@ -18,8 +18,21 @@ Phases, each fatal on failure:
      seeded 1 GiB file is encoded with api.encode_file on the card, parity
      is spot-checked against the GF oracle, the first 4 chunks are deleted
      and api.decode_file rebuilds the file from the conf (4 missing natives
-     through K1); SHA-256 must match and K1 must have run;
+     through K1).  It runs twice in this process: serial (pipeline_depth=1,
+     RS_IO_WRITERS=0) and pipelined (depth 2, one writer).  Each run must
+     match the input's SHA-256, launch K1 only on the pipeline's compute
+     stream, stage every segment from pinned memory and read through the
+     native IO library (no NumPy fallback); the 14 chunks and .METADATA
+     must be byte-identical (SHA-256) between the two runs.  Each run's
+     wall, GB/s and phase seconds are logged (phases summing past the wall
+     are the overlap), and K1's share of the wall after phase 6;
   5. a w=16 round trip with --checksum through the CLI (--device cuda);
+     api.encode_fleet over three seeded 128 MiB files, each decoded with
+     its first 4 chunks lost and checked by SHA-256; a `-s 3 -p 64`
+     CLI round trip of one of them; and a 16 MiB file in 128 KiB segments
+     at depth 3 with two writers (about 130 segments, so every pinned
+     buffer and event is reused many times), w=8 and w=16, whose archive
+     must equal the CPU path's byte for byte;
   6. timings: file encode/decode GB/s of phase 4, and K1 at the main path's
      segment shapes next to its bound, the logic-op estimate of its
      design and its plain version;
@@ -60,16 +73,18 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from gpu_rscode_torch import api, cli
+from gpu_rscode_torch import api, cli, native
 from gpu_rscode_torch.codec import RSCodec
 from gpu_rscode_torch.models.vandermonde import vandermonde_matrix
 from gpu_rscode_torch.ops import _build, cuda_gemm, cuda_pack2, cuda_planes
 from gpu_rscode_torch.ops.gemm import _widen, gf_matmul_bitplane, to_tensor
 from gpu_rscode_torch.ops.gf import get_field
+from gpu_rscode_torch.parallel import pipeline
 from gpu_rscode_torch.tools import expand_probe, kernel_sweep
 from gpu_rscode_torch.tools.make_conf import make_conf
 from gpu_rscode_torch.utils.fileformat import chunk_file_name
@@ -242,10 +257,8 @@ def phase_kernel_grid(device) -> int:
     return worst
 
 
-def phase_main_path(work: str, seed: int, size: int) -> dict:
-
-    k, n = 10, 14
-    path = os.path.join(work, "main.bin")
+def write_seeded(path: str, seed: int, size: int) -> str:
+    """A file of ``size`` seeded random bytes; returns its SHA-256."""
     rng = np.random.default_rng(seed)
     h = hashlib.sha256()
     with open(path, "wb") as fp:
@@ -255,46 +268,154 @@ def phase_main_path(work: str, seed: int, size: int) -> dict:
             h.update(buf)
             fp.write(buf)
             left -= len(buf)
-    want_sha = h.hexdigest()
+    return h.hexdigest()
 
-    _reset_counts()
-    enc_timer = PhaseTimer()
-    t0 = time.perf_counter()
-    api.encode_file(path, k, n - k, timer=enc_timer)
-    t_enc = time.perf_counter() - t0
-    enc_launches = cuda_gemm.LAUNCHES
 
-    # Spot-check parity columns against the host oracle.
-    gf = get_field(8)
-    chunk = -(-size // k)
-    cols = np.sort(rng.choice(chunk, size=4096, replace=False))
-    nat = np.stack([np.memmap(chunk_file_name(path, i), dtype=np.uint8, mode="r")[cols] for i in range(k)])
-    par = np.stack([np.memmap(chunk_file_name(path, i), dtype=np.uint8, mode="r")[cols] for i in range(k, n)])
+def _reset_io_counts() -> None:
+    native.NATIVE_CALLS = native.FALLBACK_CALLS = 0
+    pipeline.PINNED_STAGES = pipeline.STREAM_DISPATCHES = 0
 
-    if not np.array_equal(gf.matmul(vandermonde_matrix(n - k, k, gf), nat), par):
-        raise AssertionError("parity spot-check against GaloisField.matmul failed")
 
-    for i in range(n - k):
-        os.unlink(chunk_file_name(path, i))
-    conf = make_conf(n, k, path)
-    out = path + ".out"
-    dec_timer = PhaseTimer()
-    t0 = time.perf_counter()
-    api.decode_file(path, conf, out, timer=dec_timer)
-    t_dec = time.perf_counter() - t0
-    launches = cuda_gemm.LAUNCHES
+def _io_counts() -> dict:
+    return {"native_io_calls": native.NATIVE_CALLS, "fallback_io_calls": native.FALLBACK_CALLS,
+            "pinned_stages": pipeline.PINNED_STAGES, "stream_dispatches": pipeline.STREAM_DISPATCHES}
+
+
+def check_pipeline(what: str, launches: int, io_counts: dict) -> None:
+    """K1 ran, each launch in a dispatch on the pipeline's compute stream
+    (one launch a dispatch), every dispatched segment was staged from
+    pinned memory, and the native IO library served every read and write."""
+    if launches <= 0:
+        raise AssertionError(f"{what}: K1 was not launched")
+    if io_counts["stream_dispatches"] != launches:
+        raise AssertionError(f"{what}: {launches} K1 launches but {io_counts['stream_dispatches']} on the compute stream")
+    if io_counts["pinned_stages"] != launches:
+        raise AssertionError(f"{what}: {io_counts['pinned_stages']} segments staged from pinned memory for {launches} dispatches")
+    if io_counts["native_io_calls"] <= 0 or io_counts["fallback_io_calls"]:
+        raise AssertionError(f"{what}: native IO calls {io_counts['native_io_calls']}, NumPy fallback calls "
+                             f"{io_counts['fallback_io_calls']}")
+
+
+def archive_digests(path: str, n: int) -> dict:
+    names = [chunk_file_name(path, i) for i in range(n)] + [path + ".METADATA"]
+    return {os.path.basename(f): sha256_file(f) for f in names}
+
+
+def run_main_path(path: str, want_sha: str, mode: str, depth: int, writers: str | None) -> tuple[dict, dict]:
+    """Encode and decode (first 4 chunks lost) of ``path`` at ``depth`` with
+    ``RS_IO_WRITERS=writers`` (None: the default); returns the logged
+    result and the archive's digests."""
+    k, n = 10, 14
+    size = os.path.getsize(path)
+    saved = os.environ.pop("RS_IO_WRITERS", None)
+    if writers is not None:
+        os.environ["RS_IO_WRITERS"] = writers
+    try:
+        _reset_counts()
+        _reset_io_counts()
+        enc_timer = PhaseTimer()
+        t0 = time.perf_counter()
+        api.encode_file(path, k, n - k, pipeline_depth=depth, timer=enc_timer)
+        t_enc = time.perf_counter() - t0
+        enc_launches, enc_io = cuda_gemm.LAUNCHES, _io_counts()
+        check_pipeline(f"{mode} encode", enc_launches, enc_io)
+        digests = archive_digests(path, n)
+
+        # Spot-check parity columns against the host oracle.
+        gf = get_field(8)
+        chunk = -(-size // k)
+        cols = np.sort(np.random.default_rng(SEED + 2).choice(chunk, size=4096, replace=False))
+        nat = np.stack([np.memmap(chunk_file_name(path, i), dtype=np.uint8, mode="r")[cols] for i in range(k)])
+        par = np.stack([np.memmap(chunk_file_name(path, i), dtype=np.uint8, mode="r")[cols] for i in range(k, n)])
+        if not np.array_equal(gf.matmul(vandermonde_matrix(n - k, k, gf), nat), par):
+            raise AssertionError(f"{mode}: parity spot-check against GaloisField.matmul failed")
+
+        for i in range(n - k):
+            os.unlink(chunk_file_name(path, i))
+        conf = make_conf(n, k, path)
+        out = path + ".out"
+        _reset_counts()
+        _reset_io_counts()
+        dec_timer = PhaseTimer()
+        t0 = time.perf_counter()
+        api.decode_file(path, conf, out, pipeline_depth=depth, timer=dec_timer)
+        t_dec = time.perf_counter() - t0
+        dec_launches, dec_io = cuda_gemm.LAUNCHES, _io_counts()
+        check_pipeline(f"{mode} decode", dec_launches, dec_io)
+    finally:
+        os.environ.pop("RS_IO_WRITERS", None)
+        if saved is not None:
+            os.environ["RS_IO_WRITERS"] = saved
     got_sha = sha256_file(out)
     if got_sha != want_sha:
-        raise AssertionError(f"decoded SHA-256 {got_sha} != input {want_sha}")
-    if launches <= 0 or enc_launches <= 0 or launches == enc_launches:
-        raise AssertionError(f"kernel launches on the main path: encode {enc_launches}, total {launches}")
+        raise AssertionError(f"{mode}: decoded SHA-256 {got_sha} != input {want_sha}")
     res = dict(
-        phase="main_path", bytes=size, k=k, n=n, sha256_match=True,
-        encode_s=t_enc, decode_s=t_dec,
+        phase="main_path", mode=mode, pipeline_depth=depth, rs_io_writers=writers or "default", bytes=size, k=k, n=n,
+        sha256_match=True, encode_s=t_enc, decode_s=t_dec,
         encode_gbps=size / t_enc / 1e9, decode_gbps=size / t_dec / 1e9,
-        launches=launches, encode_launches=enc_launches,
+        launches=enc_launches + dec_launches, encode_launches=enc_launches, decode_launches=dec_launches,
+        encode_io=enc_io, decode_io=dec_io,
         encode_phases_s=dict(enc_timer.acc), decode_phases_s=dict(dec_timer.acc),
+        encode_phase_sum_s=sum(enc_timer.acc.values()), decode_phase_sum_s=sum(dec_timer.acc.values()),
     )
+    log(**res)
+    for name in [conf, out, path + ".METADATA"] + [chunk_file_name(path, i) for i in range(n - k, n)]:
+        os.unlink(name)
+    return res, digests
+
+
+def phase_main_path(work: str, seed: int, size: int) -> dict:
+    """The 1 GiB main path serial, then pipelined; returns both results."""
+    path = os.path.join(work, "main.bin")
+    want_sha = write_seeded(path, seed, size)
+    serial, serial_digests = run_main_path(path, want_sha, "serial", 1, "0")
+    piped, piped_digests = run_main_path(path, want_sha, "pipelined", 2, None)
+    if serial_digests != piped_digests:
+        diff = sorted(name for name in serial_digests if serial_digests[name] != piped_digests.get(name))
+        raise AssertionError(f"serial and pipelined archives differ: {diff}")
+    log(phase="main_path_archives", identical=True, files=len(piped_digests), digests=piped_digests)
+    os.unlink(path)
+    return {"serial": serial, "pipelined": piped}
+
+
+def phase_fleet_and_cli(work: str, seed: int, size: int) -> dict:
+    """encode_fleet over three seeded files, each decoded with its first 4
+    chunks lost, then a ``-s 3 -p 64`` CLI round trip of the first."""
+    k, n = 10, 14
+    files = [os.path.join(work, f"fleet{i}.bin") for i in range(3)]
+    shas = [write_seeded(f, seed + i, size) for i, f in enumerate(files)]
+    _reset_counts()
+    _reset_io_counts()
+    t0 = time.perf_counter()
+    written = api.encode_fleet(files, k, n - k)
+    t_fleet = time.perf_counter() - t0
+    launches, io_counts = cuda_gemm.LAUNCHES, _io_counts()
+    check_pipeline("encode_fleet", launches, io_counts)
+    for f, sha in zip(files, shas):
+        if written[f] != [chunk_file_name(f, i) for i in range(n)] + [f + ".METADATA"]:
+            raise AssertionError(f"encode_fleet wrote {written[f]} for {f}")
+        for i in range(n - k):
+            os.unlink(chunk_file_name(f, i))
+        out = api.decode_file(f, make_conf(n, k, f), f + ".out")
+        if sha256_file(out) != sha:
+            raise AssertionError(f"encode_fleet: decoded SHA-256 of {f} differs from the input")
+    path = files[0]
+    before = cuda_gemm.LAUNCHES
+    flags = ["-s", "3", "-p", "64", "--device", "cuda"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["-k", str(k), "-n", str(n), "-e", path, *flags])
+        if rc != 0:
+            raise AssertionError(f"CLI encode {flags} exited {rc}")
+        for i in range(n - k):
+            os.unlink(chunk_file_name(path, i))
+        rc = cli.main(["-d", "-i", path, "-c", make_conf(n, k, path), "-o", path + ".cli", *flags])
+    if rc != 0:
+        raise AssertionError(f"CLI decode {flags} exited {rc}")
+    if sha256_file(path + ".cli") != shas[0]:
+        raise AssertionError("the -s 3 -p 64 CLI round trip changed the bytes")
+    res = dict(phase="fleet_and_cli", files=len(files), bytes_each=size, fleet_encode_s=t_fleet,
+               fleet_encode_gbps=len(files) * size / t_fleet / 1e9, fleet_launches=launches, fleet_io=io_counts,
+               sha256_match=True, cli_flags=flags, cli_launches=cuda_gemm.LAUNCHES - before, cli_match=True)
     log(**res)
     for name in os.listdir(work):
         os.unlink(os.path.join(work, name))
@@ -572,6 +693,63 @@ def phase_new_timings(device) -> dict:
     return rows
 
 
+def phase_short_segments(work: str, seed: int, size: int) -> dict:
+    """Many short segments (128 KiB, -p 1) at depth 3 with two writers, so
+    each pinned buffer, stream and event is reused about 30 times: the
+    archive must equal the CPU path's byte for byte (SHA-256), at w=8 and
+    w=16, and decode back to the input with its first 4 chunks lost."""
+    k, n = 10, 14
+    saved = os.environ.pop("RS_IO_WRITERS", None)
+    os.environ["RS_IO_WRITERS"] = "2"
+    rows = []
+    try:
+        for w in (8, 16):
+            archives, launches = {}, 0
+            for dev in ("cuda", "cpu"):
+                d = os.path.join(work, f"short_{dev}_{w}")
+                os.makedirs(d)
+                path = os.path.join(d, "s.bin")
+                sha = write_seeded(path, seed, size)
+                _reset_counts()
+                _reset_io_counts()
+                api.encode_file(path, k, n - k, w=w, device=dev, segment_bytes=128 * 1024, pipeline_depth=3,
+                                checksums=True)
+                if dev == "cuda":
+                    launches = cuda_gemm.LAUNCHES
+                    check_pipeline(f"short segments w={w}", launches, _io_counts())
+                archives[dev] = (path, archive_digests(path, n))
+            if archives["cuda"][1] != archives["cpu"][1]:
+                raise AssertionError(f"short segments w={w}: the CUDA pipeline's archive differs from the CPU path's")
+            path = archives["cuda"][0]
+            for i in range(n - k):
+                os.unlink(chunk_file_name(path, i))
+            out = api.decode_file(path, make_conf(n, k, path), path + ".out", segment_bytes=128 * 1024,
+                                  pipeline_depth=3)
+            if sha256_file(out) != sha:
+                raise AssertionError(f"short segments w={w}: decoded SHA-256 differs from the input")
+            rows.append({"w": w, "segments": launches, "archive_equals_cpu": True, "sha256_match": True})
+    finally:
+        os.environ.pop("RS_IO_WRITERS", None)
+        if saved is not None:
+            os.environ["RS_IO_WRITERS"] = saved
+    res = dict(phase="short_segments", bytes=size, segment_bytes=128 * 1024, pipeline_depth=3, rs_io_writers=2,
+               runs=rows)
+    log(**res)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    return res
+
+
+def log_compute_share(main_res: dict, timings: list[dict]) -> None:
+    """K1's share of each main-path run's wall: its launches times its
+    phase-6 time at the encode and the decode segment, over the wall."""
+    enc_ms, dec_ms = timings[0]["ms"], timings[1]["ms"]
+    for mode, res in main_res.items():
+        log(phase="compute_share", mode=mode, k1_encode_ms=enc_ms, k1_decode_ms=dec_ms,
+            encode=res["encode_launches"] * enc_ms * 1e-3 / res["encode_s"],
+            decode=res["decode_launches"] * dec_ms * 1e-3 / res["decode_s"])
+
+
 def kernel_entries(k1_err, grids, k1_timing=None, main_launches=None, new_timings=None, tool_launches=None) -> list:
     """The kernels line; without timings (--quick) the times are null."""
     segment = bound_ms(4, 10, SEGMENT_COLS, 8)
@@ -621,8 +799,13 @@ def ptxas_kernels(ptxas: str) -> list[dict]:
 
 
 def phase_build() -> None:
+    """The three kernel libraries (one nvcc each) and the native IO library
+    (g++), all at once."""
     t0 = time.perf_counter()
-    _build.build_many(LIBS)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host_io = pool.submit(native.library_path)
+        _build.build_many(LIBS)
+        host_io.result()
     wall = time.perf_counter() - t0
     for name in LIBS:
         ptxas = _build.BUILD_LOG.get(name, "")
@@ -631,8 +814,11 @@ def phase_build() -> None:
         log(phase="build", library=name, nvcc_seconds=_build.BUILD_SECONDS.get(name), kernels=len(regs),
             max_registers=max(regs, default=None), spill_store_bytes=spills)
         log(phase="build", library=name, per_kernel=ptxas_kernels(ptxas))
+    log(phase="build", library="rs_native_io", gxx_seconds=_build.BUILD_SECONDS.get("rs_native_io"),
+        path=os.path.relpath(native.library_path(), REPO))
     log(phase="build", parallel_wall_seconds=wall)
     cuda_gemm._lib(), cuda_pack2._lib(), cuda_planes._lib()
+    native.get_lib()  # raises NativeUnavailable: the card run must not take the fallback
 
 
 def main() -> int:
@@ -663,12 +849,16 @@ def main() -> int:
         try:
             main_res = phase_main_path(work, SEED, MAIN_FILE_BYTES)
             phase_cli_w16(work, SEED + 1, 64 * MiB)
+            phase_fleet_and_cli(work, SEED + 3, 128 * MiB)
+            phase_short_segments(work, SEED + 4, 16 * MiB)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         timings = phase_timings(device)
+        log_compute_share(main_res, timings)
         tools = phase_tools()
         new_timings = phase_new_timings(device)
-        kernels = kernel_entries(k1_err, grids, timings[0], main_res["launches"], new_timings, tools["launches"])
+        kernels = kernel_entries(k1_err, grids, timings[0], main_res["pipelined"]["launches"], new_timings,
+                                 tools["launches"])
     log(phase="wall", seconds=time.perf_counter() - t_start, quick=args.quick)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,25 @@
 """File-level encode/decode: the counterpart of the JAX package's
-``api.encode_file`` and ``api.decode_file`` (row layout, one device).
+``api.encode_file``, ``api.decode_file`` and ``api.encode_fleet`` (row
+layout, one device).
 
 * The file is striped into k contiguous ranges (``chunk_size =
   ceil(total/k)``) and streamed in column segments of about
   ``segment_bytes`` of natives, so any file size runs in bounded memory.
-  Each segment goes gather -> host-to-device copy -> GF-GEMM -> device-to-
-  host copy -> write, one after the other.
+* The segments stream through the five-stage pipeline of
+  :mod:`.parallel.pipeline`: a prefetch thread reads segment i+2 (native
+  preads, into pinned memory on CUDA), the H2D stream copies segment i+1,
+  the compute stream runs the GF-GEMM on segment i, the D2H stream copies
+  its output, and the ordered write-behind lane
+  (:mod:`.parallel.io_executor`) writes segment i-1.  ``pipeline_depth``
+  (the ``-s`` flag) is the number of segments in flight; depth 1 with
+  ``RS_IO_WRITERS=0`` runs the stages one after another.
 * Tail padding is explicit zeros, so parity is deterministic.
-* Natives are written straight from the source file; only parity is
-  computed on the device.
+* Natives are written straight from the source file, on the writer lane;
+  only parity is computed on the device.
 * Every output is written under a ``.rs_tmp`` name and promoted only when
-  all of it has landed (.METADATA last), so a failed encode leaves no
-  partial archive.
+  all of it has landed (.METADATA last), after the writer lane's barrier,
+  so a failed encode leaves no partial archive; cleanup runs only after
+  the lane's workers have joined.
 * Decode trusts the .METADATA matrix, inverts the survivor submatrix on the
   host and runs the GEMM only for the missing natives.
 * w=16 chunks hold little-endian uint16 symbols (``# gfwidth 16``).
@@ -20,13 +28,16 @@
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
-import torch
 
+from . import native
 from .codec import RSCodec
 from .models.vandermonde import total_matrix
 from .ops.gf import get_field
+from .parallel.io_executor import DrainExecutor, FleetPipeline
+from .parallel.pipeline import AsyncWindow, DeviceStagingRing, SegmentPrefetcher, StreamLoop
 from .utils.backend import resolve_device
 from .utils.fileformat import (
     append_checksums,
@@ -107,46 +118,53 @@ class _ArchiveCommit:
                 os.unlink(name)
 
 
-def _to_device(seg: np.ndarray, sym: int, device: torch.device) -> torch.Tensor:
-    """(rows, cols) host bytes -> (rows, cols/sym) symbols on ``device``."""
-    t = torch.from_numpy(seg).to(device)
-    return t.view(torch.uint16) if sym == 2 else t
+@contextmanager
+def _fleet_lane():
+    """The scaffold of a multi-file operation: one ordered write-behind
+    lane, archives committed behind their own writes, and ``abort`` (the
+    cleanups still registered) only after the lane's workers joined, so no
+    drain races a cleanup's closes and unlinks."""
+    pipe = FleetPipeline(DrainExecutor(ordered=True))
+    try:
+        with pipe.executor:
+            yield pipe
+    except BaseException:
+        pipe.abort()
+        raise
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """(rows, m) symbols on any device -> (rows, m*itemsize) host bytes."""
-    if t.dtype == torch.uint16:
-        t = t.view(torch.uint8)
-    return t.cpu().numpy()
+def _drain_ctx(fleet: FleetPipeline | None):
+    """The write-behind lane of one file loop: the fleet's shared lane, or
+    a fresh ordered executor whose context exit is the write barrier
+    (ordered: parity CRCs and shared-``fp`` writes advance segment by
+    segment)."""
+    if fleet is not None:
+        return nullcontext(fleet.executor)
+    return DrainExecutor(ordered=True)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _staging(prefetch, loop: StreamLoop, sym: int, depth: int, timer: PhaseTimer) -> DeviceStagingRing:
+    def stage(tag, segment):
+        with timer.phase("h2d (transfer)"):
+            return loop.stage(segment, sym)
+
+    return DeviceStagingRing(prefetch, stage, depth=depth)
 
 
-def _run_gemm(codec: RSCodec, op: str, A, seg: np.ndarray, sym: int, timer: PhaseTimer) -> np.ndarray:
-    """One segment through the device: H2D, GEMM, D2H (each timed)."""
-    with timer.phase("h2d (transfer)"):
-        data = _to_device(seg, sym, codec.device)
-        _sync(codec.device)
-    with timer.phase(f"{op} compute"):
-        out = codec.decode(A, data) if op == "decode" else codec.encode(data)
-        _sync(codec.device)
-    with timer.phase("d2h (transfer)"):
-        return _to_host(out)
-
-
-def _write_native_chunks(src, file_name, tmps, k, chunk, total_size, copy_step, crcs, timer) -> None:
+def _write_native_chunks(src, file_name, tmps, k, chunk, total_size, copy_step, crcs, timer, executor) -> None:
     """The k native chunk temp files: straight copies of the k file ranges,
-    tail zero-padded, in bounded slices, with optional CRC32."""
-    for i in range(k):
+    tail zero-padded, in bounded slices, with optional CRC32.  Each chunk's
+    copy is a drain on the writer lane ``executor`` (distinct files and
+    ``crcs`` keys, a read-only ``src``), so the caller goes on to stream
+    parity."""
+
+    def write_one(i: int) -> None:
         with timer.phase("write natives (io)"):
             lo, hi = i * chunk, min((i + 1) * chunk, total_size)
             crc = 0
             with open(tmps[chunk_file_name(file_name, i)], "wb") as fp:
                 for s in range(lo, hi, copy_step):
-                    buf = src[s : min(s + copy_step, hi)].tobytes()
+                    buf = src[s : min(s + copy_step, hi)]
                     fp.write(buf)
                     if crcs is not None:
                         crc = crc32_of(buf, crc)
@@ -160,6 +178,24 @@ def _write_native_chunks(src, file_name, tmps, k, chunk, total_size, copy_step, 
             if crcs is not None:
                 crcs[i] = crc
 
+    for i in range(k):
+        executor.submit(lambda i=i: write_one(i))
+
+
+def _drain_parity(tag, out, loop: StreamLoop, parity_files, timer: PhaseTimer, crcs, k: int) -> None:
+    """One segment's parity: wait for its D2H copy, write it, then advance
+    the parity CRCs (only after the write landed)."""
+    off, _cols = tag
+    with timer.phase("encode compute"):
+        parity = loop.result(out)
+    new_crcs = None
+    if crcs is not None:
+        new_crcs = {k + j: crc32_of(parity[j], crcs.get(k + j, 0)) for j in range(parity.shape[0])}
+    with timer.phase("write parity (io)"):
+        native.scatter_write(parity_files, parity, off)
+    if new_crcs is not None:
+        crcs.update(new_crcs)
+
 
 def encode_file(
     file_name: str,
@@ -170,22 +206,26 @@ def encode_file(
     strategy: str = "auto",
     device=None,
     segment_bytes: int = DEFAULT_SEGMENT_BYTES,
+    pipeline_depth: int = 2,
     checksums: bool = False,
     w: int = 8,
     timer: PhaseTimer | None = None,
+    _fleet: FleetPipeline | None = None,
 ) -> list[str]:
     """Encode ``file_name`` into n = k + p chunk files plus .METADATA and
     return the paths written.
 
     ``device``: None runs on CUDA (and raises with no GPU present);
-    ``"cpu"`` runs the plain PyTorch path.  ``checksums=True`` appends
-    per-chunk CRC32 lines to .METADATA.  ``w``: symbol width, 8 or 16.
+    ``"cpu"`` runs the plain PyTorch path.  ``pipeline_depth``: segments in
+    flight (the ``-s`` flag).  ``checksums=True`` appends per-chunk CRC32
+    lines to .METADATA.  ``w``: symbol width, 8 or 16.
     """
     timer = timer or PhaseTimer(enabled=False)
     if w not in (8, 16):
         raise ValueError(f"file-layer symbol width must be 8 or 16, got {w}")
     sym = w // 8
     k, p = native_num, parity_num
+    depth = max(1, pipeline_depth)
     codec = RSCodec(k, p, w=w, generator=generator, strategy=strategy, device=device)
     total_size = os.path.getsize(file_name)
     if total_size == 0:
@@ -195,31 +235,19 @@ def encode_file(
     src = np.memmap(file_name, dtype=np.uint8, mode="r")
     commit = _ArchiveCommit(file_name, k + p)
     crcs: dict[int, int] | None = {} if checksums else None
+    loop = StreamLoop(codec.device, k, seg_cols, depth)
 
-    def gather(off: int, cols: int) -> np.ndarray:
-        seg = np.zeros((k, cols), dtype=np.uint8)
-        for i in range(k):
-            lo = i * chunk + off
-            hi = min(lo + cols, (i + 1) * chunk, total_size)
-            if lo < hi:
-                seg[i, : hi - lo] = src[lo:hi]
-        return seg
+    def gather(off: int, cols: int):
+        # On the prefetch thread: native preads into the loop's buffer.
+        with timer.phase("stage segment (io)"):
+            slot, dst = loop.host_segment(cols)
+            return slot, native.stripe_read(file_name, chunk, k, off, cols, total_size, fallback_src=src, dst=dst)
 
     parity_files: list = []
-    try:
-        _write_native_chunks(src, file_name, commit.tmps, k, chunk, total_size, max(1, segment_bytes), crcs, timer)
-        for j in range(p):
-            parity_files.append(open(commit.tmps[chunk_file_name(file_name, k + j)], "wb"))
-        for off, cols in _segment_spans(chunk, seg_cols):
-            with timer.phase("stage segment (io)"):
-                seg = gather(off, cols)
-            parity = _run_gemm(codec, "encode", None, seg, sym, timer)
-            with timer.phase("write parity (io)"):
-                for j, fp in enumerate(parity_files):
-                    fp.seek(off)
-                    fp.write(parity[j].tobytes())
-                    if crcs is not None:
-                        crcs[k + j] = crc32_of(parity[j], crcs.get(k + j, 0))
+
+    def finalize() -> None:
+        # After every parity write landed: on this thread standalone, on
+        # the fleet's lane (behind this file's drains) in a fleet.
         for fp in parity_files:
             fp.close()
         with timer.phase("write metadata (io)"):
@@ -227,12 +255,74 @@ def encode_file(
             if crcs is not None:
                 append_checksums(commit.meta_tmp, crcs)
         commit.promote()
-    except BaseException:
+
+    def cleanup() -> None:
         for fp in parity_files:
-            fp.close()
+            if not fp.closed:
+                fp.close()
         commit.discard()
+
+    # In a fleet the cleanup runs from the fleet's abort, after its workers
+    # joined; never here, where this file's drains may still be queued.
+    key = _fleet.register(cleanup) if _fleet is not None else None
+    try:
+        with _drain_ctx(_fleet) as dex:
+            _write_native_chunks(src, file_name, commit.tmps, k, chunk, total_size, max(1, segment_bytes), crcs,
+                                 timer, dex)
+            for j in range(p):
+                parity_files.append(open(commit.tmps[chunk_file_name(file_name, k + j)], "wb"))
+            with SegmentPrefetcher(_segment_spans(chunk, seg_cols), gather, depth=depth) as prefetch, AsyncWindow(
+                depth, lambda tag, out: _drain_parity(tag, out, loop, parity_files, timer, crcs, k), executor=dex
+            ) as window:
+                for tag, staged in _staging(prefetch, loop, sym, depth, timer):
+                    with timer.phase("encode dispatch"):
+                        out = loop.dispatch(codec.encode, staged)
+                    window.push(tag, out)
+        if _fleet is not None:
+            _fleet.commit(key, finalize)
+        else:
+            finalize()
+    except BaseException:
+        if _fleet is None:
+            cleanup()
         raise
     return commit.written
+
+
+def encode_fleet(
+    files,
+    native_num: int,
+    parity_num: int,
+    *,
+    generator: str = "vandermonde",
+    strategy: str = "auto",
+    device=None,
+    segment_bytes: int = DEFAULT_SEGMENT_BYTES,
+    pipeline_depth: int = 2,
+    checksums: bool = False,
+    w: int = 8,
+    timer: PhaseTimer | None = None,
+) -> dict[str, list[str]]:
+    """Encode many files back to back through one shared write-behind lane:
+    file j+1's native copies, reads and dispatches run while file j's
+    parity drains, and each file's .METADATA and promote are committed
+    behind its own writes.
+
+    All or nothing per file (each keeps :func:`encode_file`'s atomicity),
+    fail-fast across the fleet: the first failing file raises, later files
+    are not tried, and every uncommitted file's temps are removed.  Returns
+    ``{file: [paths written]}``.
+    """
+    timer = timer or PhaseTimer(enabled=False)
+    results: dict[str, list[str]] = {}
+    with _fleet_lane() as pipe:
+        for f in list(files):
+            results[f] = encode_file(
+                f, native_num, parity_num, generator=generator, strategy=strategy, device=device,
+                segment_bytes=segment_bytes, pipeline_depth=pipeline_depth, checksums=checksums, w=w,
+                timer=timer, _fleet=pipe,
+            )
+    return results
 
 
 def _open_chunk(path: str, chunk: int, index: int) -> np.ndarray:
@@ -251,12 +341,14 @@ def decode_file(
     strategy: str = "auto",
     device=None,
     segment_bytes: int = DEFAULT_SEGMENT_BYTES,
+    pipeline_depth: int = 2,
     verify_checksums: bool | None = None,
     timer: PhaseTimer | None = None,
 ) -> str:
     """Rebuild ``in_file`` from the k surviving chunks listed in
     ``conf_file`` and return the output path (``in_file`` by default).
 
+    ``pipeline_depth``: segments in flight (the ``-s`` flag).
     ``verify_checksums``: None verifies survivors against the CRC32 lines
     when .METADATA has them, True requires them, False skips.  A corrupt
     survivor raises :class:`ChunkIntegrityError` naming it.
@@ -351,36 +443,75 @@ def decode_file(
     dec_missing = dec_mat[missing] if missing else None
     seg_cols = _segment_cols(chunk, k, segment_bytes)
 
-    out_fp = open(tmp_path, "wb")
+    depth = max(1, pipeline_depth)
+    spans = _segment_spans(chunk, seg_cols)
+    loop = StreamLoop(device, k, seg_cols, depth) if dec_missing is not None else None
+    # Read fds for the native gather; only the recovery path stages
+    # segments, the all-natives path copies from the memmaps.
+    fps = [open(path, "rb") for path in paths] if loop is not None else []
     try:
+        out_fp = open(tmp_path, "wb")
+    except BaseException:
+        for fp in fps:
+            fp.close()
+        raise
 
-        def write_row(i: int, off: int, cols: int, row_bytes) -> None:
-            lo = i * chunk + off
-            if lo >= total_size:
-                return
-            hi = min(lo + cols, total_size)
-            out_fp.seek(lo)
-            out_fp.write(np.asarray(row_bytes[: hi - lo]).tobytes())
+    def close_all() -> None:
+        for fp in [out_fp, *fps]:
+            if not fp.closed:
+                fp.close()
 
-        for off, cols in _segment_spans(chunk, seg_cols):
-            rec = None
-            if dec_missing is not None:
-                with timer.phase("stage segment (io)"):
-                    seg = np.empty((k, cols), dtype=np.uint8)
-                    for idx, mm in enumerate(maps):
-                        seg[idx] = mm[off : off + cols]
-                rec = _run_gemm(codec, "decode", dec_missing, seg, sym, timer)
-            with timer.phase("write output (io)"):
-                for i in range(k):
-                    if i in native_pos:
-                        write_row(i, off, cols, maps[native_pos[i]][off : off + cols])
-                    else:
-                        write_row(i, off, cols, rec[rec_row[i]])
+    def write_row(i: int, off: int, cols: int, row_bytes) -> None:
+        lo = i * chunk + off
+        if lo >= total_size:
+            return
+        hi = min(lo + cols, total_size)
+        out_fp.seek(lo)
+        out_fp.write(row_bytes[: hi - lo])
+
+    def drain(tag, out) -> None:
+        # On the ordered writer lane: segments land in column order through
+        # the shared out_fp.
+        off, cols = tag
+        rec = None
+        if out is not None:
+            with timer.phase("decode compute"):
+                rec = loop.result(out)
+        with timer.phase("write output (io)"):
+            for i in range(k):
+                if i in native_pos:
+                    write_row(i, off, cols, maps[native_pos[i]][off : off + cols])
+                else:
+                    write_row(i, off, cols, rec[rec_row[i]])
+
+    def gather(off: int, cols: int):
+        # On the prefetch thread: native preads of the k survivors.
+        with timer.phase("stage segment (io)"):
+            slot, dst = loop.host_segment(cols)
+            return slot, native.gather_rows(fps, off, cols, fallback_maps=maps, dst=dst)
+
+    try:
+        # The lane's exit is the write barrier (and, on an error, joins its
+        # workers before the cleanup below).
+        with DrainExecutor(ordered=True) as dex:
+            if loop is None:
+                # Every native survived: a pure copy through the window.
+                with AsyncWindow(depth, drain, executor=dex) as window:
+                    for tag in spans:
+                        window.push(tag, None)
+            else:
+                with SegmentPrefetcher(spans, gather, depth=depth) as prefetch, AsyncWindow(
+                    depth, drain, executor=dex
+                ) as window:
+                    for tag, staged in _staging(prefetch, loop, sym, depth, timer):
+                        with timer.phase("decode dispatch"):
+                            out = loop.dispatch(lambda seg: codec.decode(dec_missing, seg), staged)
+                        window.push(tag, out)
         out_fp.truncate(total_size)
-        out_fp.close()
+        close_all()
         os.replace(tmp_path, out_path)
     except BaseException:
-        out_fp.close()
+        close_all()
         if os.path.exists(tmp_path):
             os.unlink(tmp_path)
         raise

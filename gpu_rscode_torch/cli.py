@@ -1,11 +1,14 @@
 """Command line, flag-compatible with the reference ``RS`` tool.
 
-Encode ``-k <k> -n <n> -e <file>``; decode ``-d -i <file> -c <conf>
-[-o <out>]``; ``-h`` prints usage.  Upper- and lower-case flags are both
-accepted, and ``-i/-c/-o`` are valid only after ``-d``, as in the
-reference.  Extensions: ``--width 8|16``, ``--checksum`` (encode: CRC32
-lines in .METADATA; decode verifies them), ``--strategy`` and
-``--device``.
+Encode ``-k <k> -n <n> -e <file> [more files]``; decode ``-d -i <file> -c
+<conf> [-o <out>]``; ``-h`` prints usage.  Upper- and lower-case flags are
+both accepted, and ``-i/-c/-o`` are valid only after ``-d``, as in the
+reference.  Performance flags as in the reference: ``-s`` (pipeline depth)
+and ``-p`` (segment-size hint, p x 128 KiB).  Extensions: ``--width
+8|16``, ``--checksum`` (encode: CRC32 lines in .METADATA; decode verifies
+them), ``--no-verify``, ``--generator``, ``--segment-bytes``,
+``--strategy`` and ``--device``.  Extra files after the flags of an encode
+go through :func:`.api.encode_fleet`.
 
 ``--device`` defaults to CUDA; without a GPU the command fails unless
 ``--device cpu`` is given.
@@ -22,13 +25,24 @@ from .utils.timing import PhaseTimer
 _USAGE = """Usage: python -m gpu_rscode_torch
 [-h]: show usage information
 Encode: [-k|-K nativeBlockNum] [-n|-N totalBlockNum] [-e|-E fileName]
+        (extra positional files after the flags encode a whole batch
+        through one shared write-behind lane: file j+1 reads/dispatches
+        while file j's writes drain)
 Decode: [-d|-D] [-i|-I originalFileName] [-c|-C config] [-o|-O output]
 For encoding, the -k, -n, and -e options are all necessary.
 For decoding, the -d, -i, and -c options are all necessary.
 If -o is not set, the original file name is used as the output file name.
-Extensions: [--width 8|16] [--checksum]
+Performance-tuning options:
+[-p|-P]: per-dispatch segment-size hint (p * 128 KiB per segment)
+[-s|-S]: pipeline depth (segments in flight, default 2)
+Extensions: [--generator vandermonde|cauchy]
             [--strategy auto|cuda|bitplane|table] (auto: the CUDA kernel
             on a GPU, bitplane on the CPU)
+            [--segment-bytes N]
+            [--checksum]  (encode: record per-chunk CRC32 in .METADATA)
+            [--no-verify] (decode: skip checksum verification)
+            [--width 8|16] (encode: GF symbol width; 16 = wide-symbol
+            extension recorded in .METADATA, decode auto-detects)
             [--device DEVICE] (default cuda; cpu runs the plain PyTorch
             path; with no GPU and no --device the command fails)"""
 
@@ -44,21 +58,24 @@ def main(argv: list[str] | None = None) -> int:
     try:
         opts, extra = getopt.gnu_getopt(
             argv,
-            "K:k:N:n:E:e:I:i:C:c:O:o:DdHh",
-            ["width=", "checksum", "strategy=", "device="],
+            "S:s:P:p:K:k:N:n:E:e:I:i:C:c:O:o:DdHh",
+            ["width=", "checksum", "no-verify", "generator=", "segment-bytes=", "strategy=", "device="],
         )
     except getopt.GetoptError as e:
         return _fail(f"rs: {e}")
-    if extra:
-        return _fail(f"rs: unexpected arguments {extra}")
-
     native_num = total_num = 0
+    pipeline_depth, tile_hint, segment_bytes = 2, 0, None
     in_file = conf_file = out_file = None
     op = None
-    width, checksum, strategy, device = 8, False, "auto", None
+    width, checksum, no_verify = 8, False, False
+    generator, strategy, device = "vandermonde", "auto", None
     for flag, val in opts:
         f = flag.lower()
-        if f == "-k":
+        if f == "-s":
+            pipeline_depth = int(val)
+        elif f == "-p":
+            tile_hint = int(val)
+        elif f == "-k":
             native_num = int(val)
         elif f == "-n":
             total_num = int(val)
@@ -82,6 +99,12 @@ def main(argv: list[str] | None = None) -> int:
             width = int(val)
         elif f == "--checksum":
             checksum = True
+        elif f == "--no-verify":
+            no_verify = True
+        elif f == "--generator":
+            generator = val
+        elif f == "--segment-bytes":
+            segment_bytes = int(val)
         elif f == "--strategy":
             strategy = val
         elif f == "--device":
@@ -93,8 +116,12 @@ def main(argv: list[str] | None = None) -> int:
         return _fail(f"rs: unknown --strategy {strategy!r}; valid strategies are " + "|".join(VALID_STRATEGIES))
     if op is None:
         return _fail("rs: choose encode (-e) or decode (-d)")
+    if extra and op != "encode":
+        return _fail(f"rs: unexpected arguments {extra}")
     if checksum and op != "encode":
         return _fail("rs: --checksum is encode-only (decode verifies automatically)")
+    if no_verify and op != "decode":
+        return _fail("rs: --no-verify is decode-only")
     if width != 8 and op != "encode":
         return _fail("rs: --width is encode-only (decode reads it from .METADATA)")
     if width not in (8, 16):
@@ -102,6 +129,13 @@ def main(argv: list[str] | None = None) -> int:
 
     from . import api
 
+    kwargs = dict(strategy=strategy, device=device, pipeline_depth=max(1, pipeline_depth))
+    if segment_bytes:
+        kwargs["segment_bytes"] = segment_bytes
+    elif tile_hint:
+        # -p caps the per-dispatch column extent, the closest analog of the
+        # reference's gridDim.x cap (encode.cu:348-355).
+        kwargs["segment_bytes"] = max(1, tile_hint) * 128 * 1024
     timer = PhaseTimer(enabled=True)
     try:
         if op == "encode":
@@ -109,15 +143,18 @@ def main(argv: list[str] | None = None) -> int:
                 return _fail("rs: encoding requires -k, -n and -e")
             if total_num <= native_num:
                 return _fail(f"rs: need n > k (got n={total_num}, k={native_num})")
-            api.encode_file(
-                in_file, native_num, total_num - native_num,
-                checksums=checksum, w=width, strategy=strategy, device=device, timer=timer,
-            )
-            nbytes = os.path.getsize(in_file)
+            files = [in_file, *extra]
+            encode_kwargs = dict(generator=generator, checksums=checksum, w=width, timer=timer, **kwargs)
+            if extra:
+                api.encode_fleet(files, native_num, total_num - native_num, **encode_kwargs)
+            else:
+                api.encode_file(in_file, native_num, total_num - native_num, **encode_kwargs)
+            nbytes = sum(os.path.getsize(f) for f in files)
         else:
             if not in_file or not conf_file:
                 return _fail("rs: decoding requires -i and -c")
-            out = api.decode_file(in_file, conf_file, out_file, strategy=strategy, device=device, timer=timer)
+            out = api.decode_file(in_file, conf_file, out_file, verify_checksums=False if no_verify else None,
+                                  timer=timer, **kwargs)
             nbytes = os.path.getsize(out)
     except (ValueError, RuntimeError, OSError) as e:
         print(f"rs: error: {e}", file=sys.stderr)

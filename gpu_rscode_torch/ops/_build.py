@@ -1,9 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
-Each kernel library is compiled by ``nvcc`` from the sources under
+Each CUDA kernel library is compiled by ``nvcc`` from the sources under
 ``ops/csrc/`` at first use, into ``build/gpu_rscode_torch/<name>-<hash>/``
-at the root of the checkout.  The hash covers the sources and the flags, so an edited source
-rebuilds and an unchanged one is reused.  The library has a plain C
+at the root of the checkout (the host IO library of :mod:`..native` the
+same way, by ``g++``).  The hash covers the sources and the flags, so an
+edited source rebuilds and an unchanged one is reused; a build lands under
+a pid-suffixed name and is renamed into place, so processes that build at
+once never load a half-written library.  The library has a plain C
 interface and is loaded with ``ctypes``; no PyTorch header is compiled.
 """
 
@@ -18,6 +21,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
@@ -55,35 +60,43 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def _digest(sources: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(sources: list[Path], flags, salt: bytes) -> str:
+    h = hashlib.sha256(" ".join(flags).encode() + salt)
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(name: str, sources: list[Path]) -> Path:
+def build(name: str, sources: list[Path], *, compiler: str | None = None, flags=NVCC_FLAGS,
+          salt: bytes = b"") -> Path:
     """Compile ``sources`` into ``lib<name>.so`` unless an identical build
-    exists; returns the library's path.  A failed build raises with the
-    compiler's output."""
-    out_dir = build_root() / f"{name}-{_digest(sources)}"
+    exists; returns the library's path.  ``compiler`` defaults to ``nvcc``;
+    ``salt`` enters the hash beside the sources and flags (the host IO
+    library passes the build machine's CPU, compiler and C library, since
+    it is built for that machine).  A
+    failed build raises with the compiler's output."""
+    out_dir = build_root() / f"{name}-{_digest(sources, flags, salt)}"
     lib = out_dir / f"lib{name}.so"
     if lib.exists():
         BUILD_SECONDS.setdefault(name, 0.0)
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [compiler or find_nvcc(), *flags, "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_SECONDS[name] = time.perf_counter() - t0
-    BUILD_LOG[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {name} (exit {proc.returncode}):\n{BUILD_LOG[name]}"
-        )
-    os.replace(tmp, lib)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{os.path.basename(cmd[0])} failed for {name} (exit {proc.returncode}):\n{BUILD_LOG[name]}"
+            )
+        os.replace(tmp, lib)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
     return lib
 
 
@@ -114,6 +127,10 @@ def cached_operator(key: tuple, make):
     op = _OPERATORS.get(key)
     if op is None:
         if len(_OPERATORS) >= _MAX_OPERATORS:
+            # A kernel queued on another stream may still read an operator
+            # about to be freed: let the device finish first.
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
             _OPERATORS.clear()
         op = _OPERATORS[key] = make()
     return op

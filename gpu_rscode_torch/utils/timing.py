@@ -1,6 +1,10 @@
 """Phase timing: a minimal counterpart of the JAX package's
 ``utils/timing.py`` (no tracing hook).
 
+Phases land from three threads at once in a pipelined file operation (the
+dispatch loop, the segment prefetcher and the write-behind lane), so every
+record is taken under a lock.
+
 Phases tagged ``(io)``, ``(transfer)`` or ``(stage)`` count as
 communication, everything else as computation, the split the reference
 encoder reports.  A phase that ends in a device synchronisation times the
@@ -9,6 +13,7 @@ device work; the others time host work.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -24,6 +29,8 @@ class PhaseTimer:
         self.acc: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
         self.best: dict[str, float] = {}  # per-phase minimum duration
+        # += on the dicts is read-modify-write; phases come from several threads.
+        self._rec_lock = threading.Lock()
         self._t0 = time.perf_counter()
 
     @classmethod
@@ -48,10 +55,11 @@ class PhaseTimer:
         same accounting as a :meth:`phase` block."""
         if not self.enabled:
             return
-        self.acc[name] += seconds
-        self.counts[name] += 1
-        if name not in self.best or seconds < self.best[name]:
-            self.best[name] = seconds
+        with self._rec_lock:
+            self.acc[name] += seconds
+            self.counts[name] += 1
+            if name not in self.best or seconds < self.best[name]:
+                self.best[name] = seconds
 
     @property
     def total(self) -> float:

@@ -220,3 +220,161 @@ def test_entry_points_raise_without_a_device(tmp_path, monkeypatch, capsys):
         t_api.decode_file(path, t_make_conf(6, 4, path), str(tmp_path / "o"))
     assert t_cli.main(["-k", "4", "-n", "6", "-e", path]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+# ---- the pipelined file loops -------------------------------------------------
+
+PIPE_SIZE = 200_003  # k=4: 13 segments of 4096 columns, the last one ragged
+PIPE_SEG = 4 * 4096
+
+
+def _archive(path, n):
+    return {os.path.basename(f): _read(f) for f in [t_ff.chunk_file_name(path, i) for i in range(n)]
+            + [t_ff.metadata_file_name(path)]}
+
+
+@pytest.fixture(scope="module")
+def jax_archives(tmp_path_factory):
+    """The JAX package's archive and decoded file per (w, checksums),
+    computed once for the whole matrix below."""
+    cache = {}
+
+    def get(w, checksums):
+        if (w, checksums) not in cache:
+            d = tmp_path_factory.mktemp(f"jax_w{w}_{int(checksums)}")
+            path = str(d / "f.bin")
+            data = _write(path, PIPE_SIZE, 99)
+            j_api.encode_file(path, 4, 2, w=w, checksums=checksums, strategy="bitplane", segment_bytes=PIPE_SEG)
+            archive = _archive(path, 6)
+            conf = j_make_conf(6, 4, path, survivors=[2, 3, 4, 5], out=str(d / "conf"))
+            decoded = _read(j_api.decode_file(path, conf, str(d / "out"), strategy="bitplane", segment_bytes=PIPE_SEG))
+            assert decoded == data
+            cache[w, checksums] = (data, archive)
+        return cache[w, checksums]
+
+    return get
+
+
+@pytest.mark.parametrize("checksums", [False, True])
+@pytest.mark.parametrize("w", [8, 16])
+@pytest.mark.parametrize("writers", ["0", "1", "2"])
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_pipelined_encode_decode_byte_identical_to_jax(tmp_path, monkeypatch, jax_archives, depth, writers, w,
+                                                       checksums):
+    """Every depth and writer count gives the JAX package's chunks,
+    .METADATA (CRC lines included) and decoded bytes."""
+    monkeypatch.setenv("RS_IO_WRITERS", writers)
+    data, want = jax_archives(w, checksums)
+    path = str(tmp_path / "f.bin")
+    with open(path, "wb") as fp:
+        fp.write(data)
+    t_api.encode_file(path, 4, 2, w=w, checksums=checksums, device="cpu", segment_bytes=PIPE_SEG,
+                      pipeline_depth=depth)
+    assert _archive(path, 6) == want
+    assert not [f for f in os.listdir(tmp_path) if f.endswith(".rs_tmp")]
+    for survivors in ([2, 3, 4, 5], [0, 1, 2, 3]):  # two natives rebuilt; every native present
+        conf = t_make_conf(6, 4, path, survivors=survivors, out=str(tmp_path / "conf"))
+        out = t_api.decode_file(path, conf, str(tmp_path / "out"), device="cpu", segment_bytes=PIPE_SEG,
+                                pipeline_depth=depth)
+        assert _read(out) == data
+    assert not [f for f in os.listdir(tmp_path) if f.endswith(".rs_tmp")]
+
+
+@pytest.mark.parametrize("checksums", [False, True])
+def test_encode_fleet_byte_identical_to_jax(tmp_path, checksums):
+    sizes = [70_001, 5, 130_000]
+    archives = {}
+    for name, api in (("torch", t_api), ("jax", j_api)):
+        d = tmp_path / name
+        d.mkdir()
+        files = [str(d / f"f{i}.bin") for i in range(len(sizes))]
+        for i, (f, size) in enumerate(zip(files, sizes)):
+            _write(f, size, 30 + i)
+        kwargs = dict(device="cpu") if api is t_api else dict(strategy="bitplane")
+        res = api.encode_fleet(files, 4, 2, checksums=checksums, segment_bytes=PIPE_SEG, **kwargs)
+        assert list(res) == files
+        archives[name] = [_archive(f, 6) for f in files]
+        assert sorted(os.listdir(d)) == sorted(
+            os.path.basename(p) for f in files for p in [f, *res[f]]
+        )
+    assert archives["torch"] == archives["jax"]
+
+
+@pytest.mark.parametrize("writers", ["0", "1"])
+def test_writer_exception_fails_encode_atomically(tmp_path, monkeypatch, writers):
+    """A parity write that fails on the writer lane (its second drain)
+    fails the encode and leaves no chunk, temp or .METADATA behind."""
+    monkeypatch.setenv("RS_IO_WRITERS", writers)
+    from gpu_rscode_torch import native
+
+    calls = []
+    real = native.scatter_write
+
+    def failing(files, arr, off):
+        calls.append(off)
+        if len(calls) >= 2:
+            raise OSError("disk gone (writer lane)")
+        return real(files, arr, off)
+
+    monkeypatch.setattr(native, "scatter_write", failing)
+    path = str(tmp_path / "f.bin")
+    _write(path, PIPE_SIZE, 3)
+    with pytest.raises(OSError, match="disk gone"):
+        t_api.encode_file(path, 4, 2, device="cpu", segment_bytes=PIPE_SEG, checksums=True)
+    assert sorted(os.listdir(tmp_path)) == ["f.bin"]
+
+
+@pytest.mark.parametrize("writers", ["0", "1"])
+def test_writer_exception_fails_decode_and_cleans_tmp(tmp_path, monkeypatch, writers):
+    """A drain that fails on its second segment (the wait for the
+    recovered rows) fails the decode and leaves no output or .rs_tmp."""
+    monkeypatch.setenv("RS_IO_WRITERS", writers)
+    from gpu_rscode_torch.parallel import pipeline
+
+    path = str(tmp_path / "f.bin")
+    _write(path, PIPE_SIZE, 4)
+    t_api.encode_file(path, 4, 2, device="cpu", segment_bytes=PIPE_SEG)
+    conf = t_make_conf(6, 4, path)
+    calls = []
+    real = pipeline.StreamLoop.result
+
+    def failing(self, handle):
+        calls.append(1)
+        if len(calls) >= 2:
+            raise OSError("D2H wedged")
+        return real(self, handle)
+
+    monkeypatch.setattr(pipeline.StreamLoop, "result", failing)
+    out = str(tmp_path / "out.bin")
+    with pytest.raises(OSError, match="D2H wedged"):
+        t_api.decode_file(path, conf, out, device="cpu", segment_bytes=PIPE_SEG)
+    assert not os.path.exists(out + ".rs_tmp")
+    assert not os.path.exists(out)
+
+
+def test_fleet_failure_keeps_committed_files_and_cleans_the_rest(tmp_path, monkeypatch):
+    """encode_fleet fails fast: a file committed before the failure keeps
+    its archive; the failing file and the ones after it leave nothing."""
+    monkeypatch.setenv("RS_IO_WRITERS", "1")
+    from gpu_rscode_torch import native
+
+    files = [str(tmp_path / f"f{i}.bin") for i in range(3)]
+    for i, f in enumerate(files):
+        _write(f, 60_000, 40 + i)
+    calls = []
+    real = native.scatter_write
+    per_file = len(t_api._segment_spans(15_000, 4096))  # 4 parity drains a file
+
+    def failing(files_, arr, off):
+        calls.append(off)
+        if len(calls) == per_file + 2:  # the second file's second drain
+            raise OSError("disk gone")
+        return real(files_, arr, off)
+
+    monkeypatch.setattr(native, "scatter_write", failing)
+    with pytest.raises(OSError, match="disk gone"):
+        t_api.encode_fleet(files, 4, 2, device="cpu", segment_bytes=PIPE_SEG)
+    left = sorted(os.listdir(tmp_path))
+    first = sorted(os.path.basename(p) for p in [files[0], *[t_ff.chunk_file_name(files[0], i) for i in range(6)],
+                                                 t_ff.metadata_file_name(files[0])])
+    assert left == sorted(first + ["f1.bin", "f2.bin"])

@@ -19,6 +19,7 @@ def test_port_imports_no_jax():
         "import gpu_rscode_torch.ops.cuda_gemm, gpu_rscode_torch.tools.make_conf\n"
         "import gpu_rscode_torch.ops.cuda_pack2, gpu_rscode_torch.ops.cuda_planes, gpu_rscode_torch.obs.runlog\n"
         "import gpu_rscode_torch.tools.kernel_sweep, gpu_rscode_torch.tools.expand_probe\n"
+        "import gpu_rscode_torch.native, gpu_rscode_torch.parallel.pipeline, gpu_rscode_torch.parallel.io_executor\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'gpu_rscode_tpu')))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -34,7 +35,7 @@ def test_no_file_of_the_port_mentions_the_jax_package():
     offenders = [
         str(path.relative_to(REPO))
         for path in PORT.rglob("*")
-        if path.is_file() and path.suffix in (".py", ".cu", ".cuh", ".h")
+        if path.is_file() and path.suffix in (".py", ".cu", ".cuh", ".h", ".cpp")
         and ("gpu_rscode_tpu" in path.read_text() or "import jax" in path.read_text())
     ]
     assert not offenders
@@ -43,6 +44,8 @@ def test_no_file_of_the_port_mentions_the_jax_package():
 def test_kernel_source_ships_as_package_data():
     for name in ("gf_gemm.cu", "gf_pack2.cu", "gf_planes.cu"):
         assert (PORT / "ops" / "csrc" / name).is_file()
+    assert (PORT / "native" / "rs_native_io.cpp").is_file()
     pyproject = (REPO / "pyproject.toml").read_text()
     assert "gpu_rscode_torch*" in pyproject
     assert "ops/csrc/*.cu" in pyproject
+    assert "native/*.cpp" in pyproject
