@@ -33,9 +33,29 @@ Phases, each fatal on failure:
      at depth 3 with two writers (about 130 segments, so every pinned
      buffer and event is reused many times), w=8 and w=16, whose archive
      must equal the CPU path's byte for byte;
+  5b. the resilience reads at the main path's setting (k=10, n=14, a
+     seeded 1 GiB file, --checksum, 64 MiB segments): the archive is
+     damaged (chunk 0 deleted, chunk 5 one byte short, one byte of parity
+     chunk 12 flipped) and scan_file must name the damage; auto_decode_file
+     must rebuild the input (SHA-256) from a natives-first conf;
+     repair_file must rebuild chunks 0, 5 and 12 to their saved SHA-256
+     and leave a clean scan; decode_file with a pool, where a wrapper on
+     native.gather_rows truncates a chosen survivor before the 4th
+     segment, must swap it once and resume; repair_fleet over three
+     128 MiB archives, each with another lost pair, must invert the group
+     in one batched call on the card with every inverse verified and no
+     host re-solve, and rebuild every chunk byte for byte, then
+     decode_fleet must give their SHA-256s; and the archive re-encoded
+     without checksums, 64 bytes of one chunk flipped, must be named
+     silent_bitrot by scan_file(syndrome=True) and restored by
+     locate_decode_file.  Every GEMM runs K1 on the compute stream from
+     pinned staging; each operation's wall, GB/s (of the 1 GiB file, or
+     of the fleet's bytes) and K1 launches are logged, and the batched
+     inversion's device time beside the host loop's;
   6. timings: file encode/decode GB/s of phase 4, and K1 at the main path's
-     segment shapes next to its bound, the logic-op estimate of its
-     design and its plain version;
+     segment shapes and at phase 5b's syndrome (r=4, depth 14) and repair
+     (3 targets, k=10) shapes next to its bound, the logic-op estimate of
+     its design and its plain version;
   7. K2 (pack2) and K3 (every expand+refold pair, the pinned mode, the copy
      floor) against their plain versions on the card, bit-exact, and the
      dispatch of every expansion name through gf_matmul_cuda; K3's sum
@@ -80,9 +100,11 @@ import torch
 
 from gpu_rscode_torch import api, cli, native
 from gpu_rscode_torch.codec import RSCodec
+from gpu_rscode_torch.gf_decode import LocateContext
 from gpu_rscode_torch.models.vandermonde import vandermonde_matrix
 from gpu_rscode_torch.ops import _build, cuda_gemm, cuda_pack2, cuda_planes
 from gpu_rscode_torch.ops.gemm import _widen, gf_matmul_bitplane, to_tensor
+from gpu_rscode_torch.ops import inverse
 from gpu_rscode_torch.ops.gf import get_field
 from gpu_rscode_torch.parallel import pipeline
 from gpu_rscode_torch.tools import expand_probe, kernel_sweep
@@ -281,15 +303,17 @@ def _io_counts() -> dict:
             "pinned_stages": pipeline.PINNED_STAGES, "stream_dispatches": pipeline.STREAM_DISPATCHES}
 
 
-def check_pipeline(what: str, launches: int, io_counts: dict) -> None:
+def check_pipeline(what: str, launches: int, io_counts: dict, staged_ahead: bool = False) -> None:
     """K1 ran, each launch in a dispatch on the pipeline's compute stream
     (one launch a dispatch), every dispatched segment was staged from
-    pinned memory, and the native IO library served every read and write."""
+    pinned memory, and the native IO library served every read and write.
+    ``staged_ahead``: a run that failed and resumed may have staged
+    segments it never dispatched."""
     if launches <= 0:
         raise AssertionError(f"{what}: K1 was not launched")
     if io_counts["stream_dispatches"] != launches:
         raise AssertionError(f"{what}: {launches} K1 launches but {io_counts['stream_dispatches']} on the compute stream")
-    if io_counts["pinned_stages"] != launches:
+    if io_counts["pinned_stages"] < launches or (io_counts["pinned_stages"] != launches and not staged_ahead):
         raise AssertionError(f"{what}: {io_counts['pinned_stages']} segments staged from pinned memory for {launches} dispatches")
     if io_counts["native_io_calls"] <= 0 or io_counts["fallback_io_calls"]:
         raise AssertionError(f"{what}: native IO calls {io_counts['native_io_calls']}, NumPy fallback calls "
@@ -297,8 +321,11 @@ def check_pipeline(what: str, launches: int, io_counts: dict) -> None:
 
 
 def archive_digests(path: str, n: int) -> dict:
+    """SHA-256 of each chunk and .METADATA, hashed on 8 threads (hashlib
+    and the reads release the GIL)."""
     names = [chunk_file_name(path, i) for i in range(n)] + [path + ".METADATA"]
-    return {os.path.basename(f): sha256_file(f) for f in names}
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return dict(zip((os.path.basename(f) for f in names), pool.map(sha256_file, names)))
 
 
 def run_main_path(path: str, want_sha: str, mode: str, depth: int, writers: str | None) -> tuple[dict, dict]:
@@ -456,23 +483,30 @@ def phase_cli_w16(work: str, seed: int, size: int) -> dict:
 
 def phase_timings(device) -> list[dict]:
     """K1 at the main path's shapes vs its bound, its logic-op estimate and
-    its plain version."""
+    its plain version: encode and decode (rows 0 and 1, which the compute
+    share reads), then the resilience reads' syndrome and repair shapes."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     clock_mhz = float(smi_line("clocks.max.sm").split()[0])
     rng = np.random.default_rng(7)
-    rows = []
     k, m8 = 10, SEGMENT_COLS
+    gf = get_field(8)
+    total = RSCodec(k, 4, device=device).total_matrix
     # Decode as the main path launches it: the first 4 chunks are lost, so
     # only the 4 missing natives' rows of the inverse go through the kernel.
     # The whole p = k = 10 inverse is timed beside it.
-    for label, w, m, inv_rows in (("encode k=10 p=4", 8, m8, None),
-                                  ("decode k=10, 4 missing natives", 8, m8, 4),
-                                  ("decode p=k=10", 8, m8, 10),
-                                  ("encode w=16 k=10 p=4", 16, m8 // 2, None)):
-        codec = RSCodec(k, 4, w=w, device=device)
-        A = codec.parity_block if inv_rows is None else codec.decode_matrix(list(range(4, 14)))[:inv_rows]
-        p = A.shape[0]
-        B = random_symbols(rng, (k, m), w, device)
+    shapes = [("encode k=10 p=4", 8, m8, RSCodec(k, 4, device=device).parity_block),
+              ("decode k=10, 4 missing natives", 8, m8, inverse.invert_matrix(total[4:14], gf)[:4]),
+              ("decode p=k=10", 8, m8, inverse.invert_matrix(total[4:14], gf)),
+              ("encode w=16 k=10 p=4", 16, m8 // 2, RSCodec(k, 4, w=16, device=device).parity_block),
+              # The syndrome check of a healthy archive: r=4 rows, depth 14.
+              ("syndrome r=4 depth 14", 8, m8, LocateContext(total, k, 4, 8, list(range(14))).check),
+              # Repair of chunks 0, 5 and 12 from the first 10 healthy.
+              ("repair 3 targets k=10", 8, m8,
+               gf.matmul(total[[0, 5, 12]], inverse.invert_matrix(total[[1, 2, 3, 4, 6, 7, 8, 9, 10, 11]], gf)))]
+    rows = []
+    for label, w, m, A in shapes:
+        p, depth = A.shape
+        B = random_symbols(rng, (depth, m), w, device)
         got = cuda_gemm.gf_matmul_cuda(A, B, w)
         want = gf_matmul_bitplane(A, B, w)
         err = int((_widen(got) - _widen(want)).abs().max().item())
@@ -480,10 +514,10 @@ def phase_timings(device) -> list[dict]:
             raise AssertionError(f"kernel != plain at the {label} timing shape")
         ms = time_ms(lambda: cuda_gemm.gf_matmul_cuda(A, B, w), iters=100, reps=3)
         plain = time_ms(lambda: gf_matmul_bitplane(A, B, w), iters=3, warmup=1)
-        ops = k1_logic_ops_per_col(p, k, w)
-        row = dict(phase="kernel_timing", shape=label, w=w, p=p, k=k, m=m, ms=ms, plain_ms=plain,
-                   bound_ms=bound_ms(p, k, m, w), bound_by="bytes", library_ms=None, max_abs_err=err,
-                   gbps=(k + p) * m * (w // 8) / (ms * 1e-3) / 1e9,
+        ops = k1_logic_ops_per_col(p, depth, w)
+        row = dict(phase="kernel_timing", shape=label, w=w, p=p, k=depth, m=m, ms=ms, plain_ms=plain,
+                   bound_ms=bound_ms(p, depth, m, w), bound_by="bytes", library_ms=None, max_abs_err=err,
+                   gbps=(depth + p) * m * (w // 8) / (ms * 1e-3) / 1e9,
                    est_logic_ops_per_col=ops, sms=sms, max_sm_clock_mhz=clock_mhz,
                    est_logic_ms=1e3 * ops * m / (sms * LOGIC_OPS_PER_SM_CLOCK * clock_mhz * 1e6))
         log(**row)
@@ -740,6 +774,227 @@ def phase_short_segments(work: str, seed: int, size: int) -> dict:
     return res
 
 
+class Ops:
+    """Each operation of the resilience phase with the counts set to 0 just
+    before it and read just after: its wall, GB/s over ``nbytes`` and K1
+    launches.  An operation with a GEMM must launch K1 only on the
+    pipeline's compute stream from pinned staging (``check_pipeline``);
+    one without must launch nothing."""
+
+    def __init__(self, smi: str):
+        self.smi, self.rows = smi, {}
+
+    def run(self, name: str, fn, nbytes: int, gemm: bool = True, staged_ahead: bool = False):
+        _reset_counts()
+        _reset_io_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        wall = time.perf_counter() - t0
+        launches, io_counts = cuda_gemm.LAUNCHES, _io_counts()
+        if gemm:
+            check_pipeline(name, launches, io_counts, staged_ahead)
+        elif launches or io_counts["stream_dispatches"]:
+            raise AssertionError(f"{name}: {launches} K1 launches where no GEMM belongs")
+        self.rows[name] = dict(wall_s=wall, gbps=nbytes / wall / 1e9, bytes=nbytes, k1_launches=launches,
+                               io=io_counts)
+        log(phase="resilience_op", op=name, nvidia_smi=self.smi, **self.rows[name])
+        return result
+
+    @property
+    def launches(self) -> int:
+        return sum(row["k1_launches"] for row in self.rows.values())
+
+
+def _flip(path: str, offsets) -> None:
+    """XOR 0xA5 into the bytes of ``path`` at ``offsets``."""
+    with open(path, "r+b") as fp:
+        for off in offsets:
+            fp.seek(int(off))
+            b = fp.read(1)[0]
+            fp.seek(int(off))
+            fp.write(bytes([b ^ 0xA5]))
+
+
+def _midstream_swap(path: str, want_sha: str, ops: Ops, size: int) -> dict:
+    """decode_file from natives 1-9 and parity 10 with the pool [11, 12, 13]:
+    a wrapper on native.gather_rows truncates chunk 10 just before the 4th
+    segment's gather, whose short read must swap chunk 10 for a pool chunk
+    once and resume from the first uncommitted segment."""
+    k, n = 10, 14
+    chunk = -(-size // k)
+    seg_cols = api._segment_cols(chunk, k, api.DEFAULT_SEGMENT_BYTES)
+    victim = chunk_file_name(path, 10)
+    os.unlink(chunk_file_name(path, 0))
+    conf = path + ".swap.conf"
+    with open(conf, "w") as fp:
+        fp.write("".join(os.path.basename(chunk_file_name(path, i)) + "\n" for i in range(1, 11)))
+    real = native.gather_rows
+    seen = {"calls": 0, "failures": 0, "failed_off": None, "resume_off": None, "victim_after": False}
+
+    def gather_rows(files, off, cols, fallback_maps=None, dst=None):
+        seen["calls"] += 1
+        names = [f.name for f in files]
+        if seen["calls"] == 4:
+            os.truncate(victim, 3 * seg_cols)
+        elif seen["failed_off"] is not None:
+            seen["resume_off"] = off if seen["resume_off"] is None else seen["resume_off"]
+            seen["victim_after"] |= victim in names
+        try:
+            return real(files, off, cols, fallback_maps=fallback_maps, dst=dst)
+        except OSError:
+            seen["failures"] += 1
+            seen["failed_off"] = off
+            raise
+
+    out = path + ".swap.out"
+    native.gather_rows = gather_rows
+    try:
+        ops.run("midstream_swap_decode", lambda: api.decode_file(path, conf, out, _fallback_rows=[11, 12, 13]), size,
+                staged_ahead=True)
+    finally:
+        native.gather_rows = real
+    if sha256_file(out) != want_sha:
+        raise AssertionError("mid-stream swap: the decoded SHA-256 differs from the input")
+    if seen["failures"] != 1 or seen["failed_off"] != 3 * seg_cols or seen["resume_off"] is None:
+        raise AssertionError(f"mid-stream swap: expected one failed gather at segment 3 and a resume, saw {seen}")
+    resume_seg = seen["resume_off"] // seg_cols
+    if resume_seg > 3 or seen["victim_after"]:
+        raise AssertionError(f"mid-stream swap: resumed at segment {resume_seg} or still read chunk 10: {seen}")
+    os.unlink(out)
+    return dict(failed_segment=3, resume_segment=resume_seg, reselects=seen["failures"], gathers=seen["calls"],
+                segments=len(api._segment_spans(chunk, seg_cols)))
+
+
+def _fleet_reads(work: str, seed: int, size: int, ops: Ops, device) -> dict:
+    """repair_fleet over three 128 MiB archives, each with another lost
+    pair, then decode_fleet with two natives of each lost."""
+    k, n = 10, 14
+    files = [os.path.join(work, f"rfleet{i}.bin") for i in range(3)]
+    shas = [write_seeded(f, seed + i, size) for i, f in enumerate(files)]
+    api.encode_fleet(files, k, n - k, checksums=True)
+    saved = {f: archive_digests(f, n) for f in files}
+    lost = {files[0]: [0, 1], files[1]: [2, 12], files[2]: [5, 13]}
+    for f, pair in lost.items():
+        for i in pair:
+            os.unlink(chunk_file_name(f, i))
+    batches, host_solves = [], []
+    real_batch, real_select = inverse.invert_matrix_torch_batch, api._select_decodable_subset
+
+    def batch_spy(Ms, w=8, **kw):
+        invs, oks = real_batch(Ms, w, **kw)
+        batches.append({"shape": list(np.shape(Ms)), "pivot": kw.get("pivot"), "device": str(invs.device),
+                        "ok": [bool(v) for v in oks.cpu()]})
+        return invs, oks
+
+    def select_spy(scan, **kw):
+        host_solves.append(scan.in_file)
+        return real_select(scan, **kw)
+
+    api.clear_subset_cache()
+    inverse.invert_matrix_torch_batch, api._select_decodable_subset = batch_spy, select_spy
+    try:
+        got = ops.run("repair_fleet", lambda: api.repair_fleet(files), len(files) * size)
+    finally:
+        inverse.invert_matrix_torch_batch, api._select_decodable_subset = real_batch, real_select
+    if got != lost:
+        raise AssertionError(f"repair_fleet rebuilt {got}, expected {lost}")
+    if (len(batches) != 1 or batches[0]["shape"] != [3, k, k] or batches[0]["pivot"] is not False
+            or batches[0]["device"] != str(device) or not all(batches[0]["ok"]) or host_solves):
+        raise AssertionError(f"repair_fleet: batched inversions {batches}, host re-solves {host_solves}")
+    for f in files:
+        if archive_digests(f, n) != saved[f]:
+            raise AssertionError(f"repair_fleet: {f}'s archive differs from the one encoded")
+
+    # The group's inversion alone: the batched call on the card (CUDA
+    # events around the H2D of the matrices and the elimination) against
+    # the host inverter's loop.
+    gf = get_field(8)
+    total = api._checked_total_matrix(api.read_archive_meta(files[0] + ".METADATA")).astype(gf.dtype)
+    Ms = np.stack([total[inverse.mds_nopivot_order([i for i in range(n) if i not in pair][:k], k)]
+                   for pair in lost.values()])
+    device_ms = time_ms(lambda: inverse.invert_matrix_torch_batch(Ms, 8, pivot=False, device=device), iters=20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        for M in Ms:
+            inverse.invert_matrix(M, gf)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20
+
+    for f in files:
+        for i in (0, 1):
+            os.unlink(chunk_file_name(f, i))
+    outs = ops.run("decode_fleet", lambda: api.decode_fleet(files, {f: f + ".out" for f in files}), len(files) * size)
+    for f, sha in zip(files, shas):
+        if sha256_file(outs[f]) != sha:
+            raise AssertionError(f"decode_fleet: the decoded SHA-256 of {f} differs from the input")
+    return dict(batched_inversions=batches, host_resolves=len(host_solves), invert_batch_device_ms=device_ms,
+                invert_host_loop_ms=host_ms, fleet_bytes=len(files) * size, sha256_match=True)
+
+
+def phase_resilience(work: str, seed: int, size: int, device) -> dict:
+    """Scan, auto-decode, repair, the mid-stream swap, the fleets and the
+    error-locating reads at k=10, n=14 on ``size`` bytes; returns the
+    logged result, with the K1 launches of the whole phase."""
+    t0 = time.perf_counter()
+    k, n = 10, 14
+    smi = smi_line()
+    ops = Ops(smi)
+    path = os.path.join(work, "res.bin")
+    want_sha = write_seeded(path, seed, size)
+    chunk = -(-size // k)
+    ops.run("encode_checksum", lambda: api.encode_file(path, k, n - k, checksums=True), size)
+    saved = archive_digests(path, n)
+
+    os.unlink(chunk_file_name(path, 0))
+    os.truncate(chunk_file_name(path, 5), chunk - 1)
+    _flip(chunk_file_name(path, 12), [chunk // 2])
+    report = ops.run("scan", lambda: api.scan_file(path), size, gemm=False)
+    want = dict(healthy=[i for i in range(n) if i not in (0, 5, 12)], corrupt=[5, 12], missing=[0], decodable=True)
+    if {key: report[key] for key in want} != want:
+        raise AssertionError(f"scan_file reported {report}, expected {want}")
+
+    out = ops.run("auto_decode", lambda: api.auto_decode_file(path, path + ".auto.out"), size)
+    if sha256_file(out) != want_sha:
+        raise AssertionError("auto_decode_file: the decoded SHA-256 differs from the input")
+    with open(path + ".auto.conf") as fp:
+        conf = [int(os.path.basename(line).split("_")[1]) for line in fp.read().split()]
+    if conf != [1, 2, 3, 4, 6, 7, 8, 9, 10, 11]:
+        raise AssertionError(f"auto_decode_file chose {conf}, expected the healthy natives first")
+    os.unlink(out)
+
+    rebuilt = ops.run("repair", lambda: api.repair_file(path), size)
+    if rebuilt != [0, 5, 12]:
+        raise AssertionError(f"repair_file rebuilt {rebuilt}, expected [0, 5, 12]")
+    if archive_digests(path, n) != saved:
+        raise AssertionError("repair_file: the archive differs from the one encoded")
+    clean = api.scan_file(path)
+    if clean["healthy"] != list(range(n)) or clean["corrupt"] or clean["missing"]:
+        raise AssertionError(f"the scan after repair_file is not clean: {clean}")
+
+    swap = _midstream_swap(path, want_sha, ops, size)
+    fleets = _fleet_reads(work, seed + 10, 128 * MiB, ops, device)
+
+    # Silent bitrot: the same input re-encoded without checksums, 64 bytes
+    # of chunk 3 flipped at scattered columns.
+    ops.run("encode_plain", lambda: api.encode_file(path, k, n - k), size)
+    cols = np.sort(np.random.default_rng(seed + 20).choice(chunk, size=64, replace=False))
+    _flip(chunk_file_name(path, 3), cols)
+    report = ops.run("scan_syndrome", lambda: api.scan_file(path, syndrome=True), size)
+    syn = report.get("syndrome", {})
+    if (syn.get("verdict") != "silent_bitrot" or syn.get("silent_bitrot") != [3] or syn.get("symbol_errors") != 64
+            or report["corrupt"] != [3] or report["decodable"] is not True):
+        raise AssertionError(f"scan_file(syndrome=True) reported {report}")
+    out = ops.run("locate_decode", lambda: api.locate_decode_file(path, path + ".loc.out"), size)
+    if sha256_file(out) != want_sha:
+        raise AssertionError("locate_decode_file: the decoded SHA-256 differs from the input")
+
+    res = dict(phase="resilience", nvidia_smi=smi, bytes=size, k=k, n=n, ops=ops.rows, midstream=swap, fleet=fleets,
+               silent_bitrot=syn, k1_launches=ops.launches, seconds=time.perf_counter() - t0)
+    log(**res)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    return res
+
+
 def log_compute_share(main_res: dict, timings: list[dict]) -> None:
     """K1's share of each main-path run's wall: its launches times its
     phase-6 time at the encode and the decode segment, over the wall."""
@@ -851,13 +1106,15 @@ def main() -> int:
             phase_cli_w16(work, SEED + 1, 64 * MiB)
             phase_fleet_and_cli(work, SEED + 3, 128 * MiB)
             phase_short_segments(work, SEED + 4, 16 * MiB)
+            resilience = phase_resilience(work, SEED + 5, MAIN_FILE_BYTES, device)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         timings = phase_timings(device)
         log_compute_share(main_res, timings)
         tools = phase_tools()
         new_timings = phase_new_timings(device)
-        kernels = kernel_entries(k1_err, grids, timings[0], main_res["pipelined"]["launches"], new_timings,
+        kernels = kernel_entries(k1_err, grids, timings[0],
+                                 main_res["pipelined"]["launches"] + resilience["k1_launches"], new_timings,
                                  tools["launches"])
     log(phase="wall", seconds=time.perf_counter() - t_start, quick=args.quick)
     print(smi)

@@ -1,6 +1,8 @@
-"""File-level encode/decode: the counterpart of the JAX package's
+"""File-level operations: the counterpart of the JAX package's
 ``api.encode_file``, ``api.decode_file`` and ``api.encode_fleet`` (row
-layout, one device).
+layout, one device), and of its resilience reads: ``scan_file``,
+``auto_decode_file``, ``decode_fleet``, ``repair_file``, ``repair_fleet``
+and ``locate_decode_file``.
 
 * The file is striped into k contiguous ranges (``chunk_size =
   ceil(total/k)``) and streamed in column segments of about
@@ -23,12 +25,26 @@ layout, one device).
 * Decode trusts the .METADATA matrix, inverts the survivor submatrix on the
   host and runs the GEMM only for the missing natives.
 * w=16 chunks hold little-endian uint16 symbols (``# gfwidth 16``).
+* The resilience reads find the healthy chunks by size and CRC
+  (:func:`scan_file`), choose k of them, natives first, whose submatrix
+  inverts (cached per archive generation), decode without a hand-written
+  conf (:func:`auto_decode_file`, which swaps a survivor that fails
+  mid-stream and resumes), rebuild lost or corrupt chunks in place
+  (:func:`repair_file`; :func:`repair_fleet` inverts a whole fleet's
+  survivor matrices in one batched call on the device), and locate silent
+  bitrot from the parity-check syndromes (:func:`locate_decode_file`).
+  Every GEMM of these paths is a segment loop through :class:`StreamLoop`
+  (K1 on the compute stream on CUDA).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
+import threading
+from collections import OrderedDict
 from contextlib import contextmanager, nullcontext
+from itertools import combinations
 
 import numpy as np
 
@@ -36,6 +52,7 @@ from . import native
 from .codec import RSCodec
 from .models.vandermonde import total_matrix
 from .ops.gf import get_field
+from .ops.inverse import SingularMatrixError, invert_matrix
 from .parallel.io_executor import DrainExecutor, FleetPipeline
 from .parallel.pipeline import AsyncWindow, DeviceStagingRing, SegmentPrefetcher, StreamLoop
 from .utils.backend import resolve_device
@@ -45,16 +62,26 @@ from .utils.fileformat import (
     chunk_file_name,
     chunk_size_for,
     crc32_of,
+    journal_path,
     metadata_file_name,
     parse_chunk_index,
     read_archive_meta,
     read_conf,
+    rewrite_checksums,
+    write_conf,
     write_metadata,
 )
+from .utils.retry import int_env
 from .utils.timing import PhaseTimer
 
 # Natives per segment: bounds the host and device working set per dispatch.
 DEFAULT_SEGMENT_BYTES = 64 * 1024 * 1024
+
+
+class UndecidedSubsetError(ValueError):
+    """The survivor-subset search hit its candidate cap without finding an
+    invertible k-subset.  More combinations exist, so the archive is not
+    proven unrecoverable (``scan_file`` reports ``decodable: "unknown"``)."""
 
 
 class ChunkIntegrityError(ValueError):
@@ -325,6 +352,31 @@ def encode_fleet(
     return results
 
 
+def _checked_total_matrix(meta) -> np.ndarray:
+    """The archive's total matrix: as .METADATA gives it (decode trusts the
+    file), or regenerated for the sizes-only dialect; an entry past
+    GF(2^w) raises."""
+    total_mat = meta.total_mat
+    if total_mat is None:
+        # Sizes-only metadata: the canonical [I; Vandermonde] matrix.
+        total_mat = total_matrix(meta.parity_num, meta.native_num, get_field(meta.w))
+    if int(total_mat.max(initial=0)) >= (1 << meta.w):
+        raise ValueError(
+            f"metadata matrix entry {int(total_mat.max())} out of range for GF(2^{meta.w}) — corrupt or foreign "
+            ".METADATA"
+        )
+    return total_mat
+
+
+def _write_empty_atomic(out_path: str) -> str:
+    """A zero-byte output (the decode of a totalSize=0 archive), written
+    under a ``.rs_tmp`` name and renamed."""
+    tmp_path = out_path + ".rs_tmp"
+    open(tmp_path, "wb").close()
+    os.replace(tmp_path, out_path)
+    return out_path
+
+
 def _open_chunk(path: str, chunk: int, index: int) -> np.ndarray:
     """Read-only byte view of a chunk file, checked against the chunk size."""
     mm = np.zeros(0, dtype=np.uint8) if chunk == 0 else np.memmap(path, dtype=np.uint8, mode="r")
@@ -344,6 +396,8 @@ def decode_file(
     pipeline_depth: int = 2,
     verify_checksums: bool | None = None,
     timer: PhaseTimer | None = None,
+    _fleet: FleetPipeline | None = None,
+    _fallback_rows: list[int] | None = None,
 ) -> str:
     """Rebuild ``in_file`` from the k surviving chunks listed in
     ``conf_file`` and return the output path (``in_file`` by default).
@@ -352,6 +406,16 @@ def decode_file(
     ``verify_checksums``: None verifies survivors against the CRC32 lines
     when .METADATA has them, True requires them, False skips.  A corrupt
     survivor raises :class:`ChunkIntegrityError` naming it.
+
+    ``_fallback_rows`` (private, from :func:`auto_decode_file`): healthy
+    chunk indices beside ``in_file`` that the conf did not choose.  With
+    such a pool, a survivor that fails mid-stream (a read error pinned on
+    it by ``os.fstat``) is swapped for a pool chunk, the decode matrix is
+    re-derived, and the stream resumes from the first uncommitted segment,
+    at most ``RS_RETRY_RESELECT`` times (default 3).  When the pool cannot
+    cover it, the failure raises :class:`ChunkIntegrityError` naming the
+    survivor.  ``_fleet`` (private, from :func:`decode_fleet`): the shared
+    write-behind lane; the output is committed behind its own writes.
     """
     timer = timer or PhaseTimer(enabled=False)
     device = resolve_device(device)
@@ -363,13 +427,7 @@ def decode_file(
     _check_gfwidth(w, meta_path)
     if meta.layout != "row":
         raise ValueError(f"chunk layout {meta.layout!r} in {meta_path!r} is not supported by this port (row only)")
-    if total_mat is None:
-        # Sizes-only metadata: the canonical [I; Vandermonde] matrix.
-        total_mat = total_matrix(p, k, get_field(w))
-    if int(total_mat.max(initial=0)) >= (1 << w):
-        raise ValueError(
-            f"metadata matrix entry {int(total_mat.max())} out of range for GF(2^{w}) — corrupt or foreign .METADATA"
-        )
+    total_mat = _checked_total_matrix(meta)
     sym = w // 8
     chunk = meta.chunk
     names = read_conf(conf_file)
@@ -423,43 +481,72 @@ def decode_file(
                 raise ChunkIntegrityError(bad)
 
     out_path = output or in_file
-    tmp_path = out_path + ".rs_tmp"
     if total_size == 0:
-        open(tmp_path, "wb").close()
-        os.replace(tmp_path, out_path)
-        return out_path
+        return _write_empty_atomic(out_path)
+    tmp_path = out_path + ".rs_tmp"
 
     codec = RSCodec(k, p, w=w, strategy=strategy, device=device)
     total_mat = total_mat.astype(codec.gf.dtype)
-    with timer.phase("invert matrix"):
-        dec_mat = codec.decode_matrix_from(total_mat, rows)
     # Partial recovery: with a systematic matrix, surviving natives are
     # already the answer; only the missing native rows go through the GEMM
     # (their rows of the inverse; the dropped rows are unit vectors).
     systematic = np.array_equal(total_mat[:k], np.eye(k, dtype=total_mat.dtype))
-    native_pos = {r: idx for idx, r in enumerate(rows) if r < k} if systematic else {}
-    missing = [i for i in range(k) if i not in native_pos]
-    rec_row = {i: j for j, i in enumerate(missing)}
-    dec_missing = dec_mat[missing] if missing else None
     seg_cols = _segment_cols(chunk, k, segment_bytes)
-
     depth = max(1, pipeline_depth)
-    spans = _segment_spans(chunk, seg_cols)
-    loop = StreamLoop(device, k, seg_cols, depth) if dec_missing is not None else None
-    # Read fds for the native gather; only the recovery path stages
-    # segments, the all-natives path copies from the memmaps.
-    fps = [open(path, "rb") for path in paths] if loop is not None else []
+    segments = _segment_spans(chunk, seg_cols)
+
+    # The survivor set and all that derives from it: a degraded decode
+    # swaps a survivor that fails mid-stream for a pool chunk and resumes,
+    # and _derive() rebuilds the rest.
+    st: dict = {"rows": list(rows), "maps": list(maps), "paths": list(paths), "fps": []}
+
+    def _derive() -> None:
+        with timer.phase("invert matrix"):
+            dec_mat = codec.decode_matrix_from(total_mat, st["rows"])
+        native_pos = {r: idx for idx, r in enumerate(st["rows"]) if r < k} if systematic else {}
+        missing = [i for i in range(k) if i not in native_pos]
+        st["native_pos"] = native_pos
+        st["rec_row"] = {i: j for j, i in enumerate(missing)}
+        st["dec_missing"] = dec_mat[missing] if missing else None
+        for fp in st["fps"]:
+            fp.close()
+        # Read fds and a stream loop for the native gather; only the
+        # recovery path stages segments, the all-natives path copies from
+        # the memmaps.  A resume gets a fresh loop: the prefetcher that
+        # failed took its pinned buffers with it.
+        recover = st["dec_missing"] is not None
+        st["loop"] = StreamLoop(device, k, seg_cols, depth) if recover else None
+        st["fps"] = [open(path, "rb") for path in st["paths"]] if recover else []
+
+    _derive()
     try:
         out_fp = open(tmp_path, "wb")
     except BaseException:
-        for fp in fps:
+        for fp in st["fps"]:
             fp.close()
         raise
 
-    def close_all() -> None:
-        for fp in [out_fp, *fps]:
+    def finalize() -> None:
+        # After every output write landed: on this thread standalone, on
+        # the fleet's lane (behind this file's drains) in a fleet.
+        out_fp.truncate(total_size)
+        out_fp.close()
+        for fp in st["fps"]:
+            fp.close()
+        os.replace(tmp_path, out_path)
+
+    def cleanup() -> None:
+        for fp in [out_fp, *st["fps"]]:
             if not fp.closed:
                 fp.close()
+        if os.path.exists(tmp_path):
+            os.unlink(tmp_path)
+
+    # Segments fully written.  Drains commit in dispatch order (the ordered
+    # lane), and each attempt dispatches in ascending order from its resume
+    # point, so this is the length of the committed prefix: where a
+    # degraded decode resumes.
+    committed = {"n": 0}
 
     def write_row(i: int, off: int, cols: int, row_bytes) -> None:
         lo = i * chunk + off
@@ -469,50 +556,987 @@ def decode_file(
         out_fp.seek(lo)
         out_fp.write(row_bytes[: hi - lo])
 
-    def drain(tag, out) -> None:
-        # On the ordered writer lane: segments land in column order through
-        # the shared out_fp.
-        off, cols = tag
-        rec = None
-        if out is not None:
-            with timer.phase("decode compute"):
-                rec = loop.result(out)
-        with timer.phase("write output (io)"):
-            for i in range(k):
-                if i in native_pos:
-                    write_row(i, off, cols, maps[native_pos[i]][off : off + cols])
-                else:
-                    write_row(i, off, cols, rec[rec_row[i]])
+    def _stream(segs) -> None:
+        # Bind this attempt's survivor state: drains a fleet lane already
+        # queued keep the set their recovery GEMM used (any valid set
+        # recovers the same bytes).
+        native_pos, rec_row, dec_missing = st["native_pos"], st["rec_row"], st["dec_missing"]
+        maps_l, fps_l, loop = st["maps"], st["fps"], st["loop"]
 
-    def gather(off: int, cols: int):
-        # On the prefetch thread: native preads of the k survivors.
-        with timer.phase("stage segment (io)"):
-            slot, dst = loop.host_segment(cols)
-            return slot, native.gather_rows(fps, off, cols, fallback_maps=maps, dst=dst)
+        def drain(tag, out) -> None:
+            # On the ordered writer lane: segments land in column order
+            # through the shared out_fp.
+            off, cols = tag
+            rec = None
+            if out is not None:
+                with timer.phase("decode compute"):
+                    rec = loop.result(out)
+            with timer.phase("write output (io)"):
+                for i in range(k):
+                    if i in native_pos:
+                        write_row(i, off, cols, maps_l[native_pos[i]][off : off + cols])
+                    else:
+                        write_row(i, off, cols, rec[rec_row[i]])
+            committed["n"] = max(committed["n"], off // seg_cols + 1)
 
-    try:
-        # The lane's exit is the write barrier (and, on an error, joins its
-        # workers before the cleanup below).
-        with DrainExecutor(ordered=True) as dex:
-            if loop is None:
+        def gather(off: int, cols: int):
+            # On the prefetch thread: native preads of the k survivors.
+            with timer.phase("stage segment (io)"):
+                slot, dst = loop.host_segment(cols)
+                return slot, native.gather_rows(fps_l, off, cols, fallback_maps=maps_l, dst=dst)
+
+        # The lane's exit is the write barrier (standalone; in a fleet the
+        # shared lane's); on an error it joins its workers first.
+        with _drain_ctx(_fleet) as dex:
+            if dec_missing is None:
                 # Every native survived: a pure copy through the window.
                 with AsyncWindow(depth, drain, executor=dex) as window:
-                    for tag in spans:
+                    for tag in segs:
                         window.push(tag, None)
-            else:
-                with SegmentPrefetcher(spans, gather, depth=depth) as prefetch, AsyncWindow(
-                    depth, drain, executor=dex
-                ) as window:
-                    for tag, staged in _staging(prefetch, loop, sym, depth, timer):
-                        with timer.phase("decode dispatch"):
-                            out = loop.dispatch(lambda seg: codec.decode(dec_missing, seg), staged)
-                        window.push(tag, out)
-        out_fp.truncate(total_size)
-        close_all()
+                return
+            with SegmentPrefetcher(segs, gather, depth=depth) as prefetch, AsyncWindow(
+                depth, drain, executor=dex
+            ) as window:
+                for tag, staged in _staging(prefetch, loop, sym, depth, timer):
+                    with timer.phase("decode dispatch"):
+                        out = loop.dispatch(lambda seg: codec.decode(dec_missing, seg), staged)
+                    window.push(tag, out)
+
+    def _attribute() -> list[int]:
+        """Survivor rows a mid-stream read failure pins on: a chunk
+        truncated or unlinked under the decode shows in its fstat."""
+        bad = []
+        for r, fp in zip(st["rows"], st["fps"]):
+            try:
+                if os.fstat(fp.fileno()).st_size < chunk:
+                    bad.append(r)
+            except OSError:
+                bad.append(r)
+        return bad
+
+    pool = [r for r in (_fallback_rows or []) if r not in set(st["rows"])]
+    # A swapped-in pool chunk is CRC-checked whenever the pre-pass above
+    # checked the survivors.
+    verify_swaps = verify_checksums is not False and bool(crcs)
+
+    def _reselect(bad: list[int]) -> bool:
+        """Swap the failed survivors for pool chunks and re-derive the
+        decode state; False when the pool cannot cover them (or every
+        replacement set is singular)."""
+        keep = [(r, m, path) for r, m, path in zip(st["rows"], st["maps"], st["paths"]) if r not in bad]
+        while True:
+            fresh = []
+            while pool and len(keep) + len(fresh) < k:
+                r = pool.pop(0)
+                path = chunk_file_name(in_file, r)
+                try:
+                    m = _open_chunk(path, chunk, r)
+                    if verify_swaps and r in crcs and chunk_crc32(m, chunk, segment_bytes) != crcs[r]:
+                        continue  # rotted after the scan; try the next
+                except (ValueError, OSError):
+                    continue  # this pool chunk is damaged too
+                fresh.append((r, m, path))
+            if len(keep) + len(fresh) < k:
+                return False
+            merged = keep + fresh
+            st["rows"] = [r for r, _, _ in merged]
+            st["maps"] = [m for _, m, _ in merged]
+            st["paths"] = [path for _, _, path in merged]
+            try:
+                _derive()
+            except SingularMatrixError:
+                continue  # a non-MDS corner: try further pool chunks
+            return True
+
+    key = _fleet.register(cleanup) if _fleet is not None else None
+    reselects = 0
+    max_reselects = max(0, int_env("RS_RETRY_RESELECT", 3))
+    try:
+        while True:
+            try:
+                _stream(segments[committed["n"] :])
+                break
+            except OSError as e:
+                bad = [r for r in _attribute() if r in st["rows"]]
+                if not bad:
+                    raise  # unattributable (e.g. a write-side error)
+                # Name the failing rows' paths now: a failed _reselect
+                # leaves st without them.
+                bad_paths = {r: path for r, path in zip(st["rows"], st["paths"]) if r in bad}
+                swapped = False
+                if reselects < max_reselects:
+                    if _fleet is not None:
+                        # Let this archive's queued drains land, so that
+                        # ``committed`` is final before the resume point.
+                        _fleet.executor.flush()
+                    swapped = _reselect(bad)
+                if not swapped:
+                    # The open-time contract: name the failing survivor, so
+                    # that auto_decode_file can exclude it and reselect.
+                    raise ChunkIntegrityError(bad_paths, reason="survivor chunk failed mid-stream reads") from e
+                reselects += 1
+        if _fleet is not None:
+            _fleet.commit(key, finalize)
+        else:
+            finalize()
+    except BaseException:
+        if _fleet is None:
+            cleanup()
+        raise
+    return out_path
+
+
+# -- survivor discovery and selection -------------------------------------------
+
+
+class _ChunkScan:
+    """An archive's metadata fields plus which chunk indices are healthy,
+    damaged (truncated, unreadable or CRC-failing) or missing."""
+
+    def __init__(self, in_file, total_size, p, k, total_mat, w, crcs, chunk, healthy, bad, layout="row",
+                 generation=0):
+        self.in_file = in_file
+        self.total_size = total_size
+        self.p = p
+        self.k = k
+        self.total_mat = total_mat
+        self.w = w
+        self.crcs = crcs
+        self.chunk = chunk
+        self.healthy = healthy  # indices of full-size, CRC-clean files
+        self.bad = bad  # {index: path} present but damaged
+        self.layout = layout
+        self.generation = generation  # the update commit counter
+        self.missing = sorted(set(range(k + p)) - set(healthy) - set(bad))
+
+    @property
+    def unhealthy(self) -> list[int]:
+        """Every chunk index that needs repair (damaged or absent)."""
+        return sorted(set(self.bad) | set(self.missing))
+
+    def excluding(self, bad: dict[int, str]) -> "_ChunkScan":
+        """This scan with ``bad`` demoted from healthy: how auto-decode folds
+        in failures found after the scan before it reselects."""
+        return _ChunkScan(self.in_file, self.total_size, self.p, self.k, self.total_mat, self.w, self.crcs,
+                          self.chunk, [i for i in self.healthy if i not in bad], {**self.bad, **bad},
+                          layout=self.layout, generation=self.generation)
+
+
+def _scan_chunks(in_file: str, segment_bytes: int) -> _ChunkScan:
+    """Chunk health next to ``in_file``: a file shorter than the chunk is
+    truncated, an unreadable one a read error, one whose CRC32 differs
+    from its ``# crc32`` line a mismatch; all three are damage.  Files the
+    metadata has no CRC for are healthy when full-size."""
+    meta_path = metadata_file_name(in_file)
+    meta = read_archive_meta(meta_path)
+    k, p = meta.native_num, meta.parity_num
+    _check_gfwidth(meta.w, meta_path)
+    total_mat = _checked_total_matrix(meta)
+    chunk, crcs = meta.chunk, meta.crcs
+    healthy: list[int] = []
+    bad: dict[int, str] = {}
+    for i in range(k + p):
+        path = chunk_file_name(in_file, i)
+        if not os.path.exists(path):
+            continue
+        if os.path.getsize(path) < chunk:
+            bad[i] = path  # truncated: damage, not loss
+            continue
+        if i in crcs:
+            try:
+                mm = _open_chunk(path, chunk, i)
+            except ChunkIntegrityError:
+                bad[i] = path  # shrank since the size check
+                continue
+            except OSError:
+                bad[i] = path  # unreadable: damage to record, the scan goes on
+                continue
+            if chunk_crc32(mm, chunk, segment_bytes) != crcs[i]:
+                bad[i] = path
+                continue
+        healthy.append(i)
+    return _ChunkScan(in_file, meta.total_size, p, k, total_mat, meta.w, crcs, chunk, healthy, bad,
+                      layout=meta.layout, generation=meta.generation)
+
+
+# The generation-keyed survivor-subset cache: one chosen subset and its
+# verified inverse per (archive, generation).  Scans of the same archive
+# generation resolve to the pinned subset while it stays healthy; an
+# update bumps the generation and a re-encode with another matrix changes
+# the digest, and either makes the entry stale.
+_SUBSET_CACHE: "OrderedDict[str, dict]" = OrderedDict()
+_SUBSET_LOCK = threading.Lock()
+_SUBSET_CACHE_MAX = 128
+_SUBSET_STATS = {"hits": 0, "misses": 0, "stale": 0}
+
+
+def clear_subset_cache() -> None:
+    """Drop the survivor-subset cache and reset its stats."""
+    with _SUBSET_LOCK:
+        _SUBSET_CACHE.clear()
+        for key in _SUBSET_STATS:
+            _SUBSET_STATS[key] = 0
+
+
+def subset_cache_stats() -> dict:
+    """Entries, and this process's hits, misses and stale entries."""
+    with _SUBSET_LOCK:
+        return {"entries": len(_SUBSET_CACHE), **_SUBSET_STATS}
+
+
+def matrix_digest(A, w: int) -> str:
+    """A stable identity of a coefficient matrix (blake2b, 8 bytes)."""
+    A = np.ascontiguousarray(np.asarray(A))
+    h = hashlib.blake2b(digest_size=8)
+    h.update(f"{w}:{A.shape[0]}x{A.shape[1]}:{A.dtype.str}".encode())
+    h.update(A.tobytes())
+    return h.hexdigest()
+
+
+def _cached_subset(scan: _ChunkScan):
+    """The pinned (chosen, inverse) of this archive generation, or None
+    when absent, stale, of another matrix, or not fully healthy in this
+    scan."""
+    key = os.path.abspath(scan.in_file)
+    with _SUBSET_LOCK:
+        ent = _SUBSET_CACHE.get(key)
+    if ent is None:
+        return None
+    if (ent["generation"] != scan.generation or ent["mat_digest"] != matrix_digest(scan.total_mat, scan.w)
+            or len(ent["chosen"]) != scan.k):
+        with _SUBSET_LOCK:
+            if _SUBSET_CACHE.get(key) is ent:
+                del _SUBSET_CACHE[key]
+            _SUBSET_STATS["stale"] += 1
+        return None
+    if not set(ent["chosen"]) <= set(scan.healthy):
+        # Not stale: unavailable under this scan's damage only.
+        return None
+    with _SUBSET_LOCK:
+        if key in _SUBSET_CACHE:
+            _SUBSET_CACHE.move_to_end(key)
+        _SUBSET_STATS["hits"] += 1
+    return list(ent["chosen"]), ent["inv"]
+
+
+def _remember_subset(scan: _ChunkScan, chosen, inv) -> None:
+    key = os.path.abspath(scan.in_file)
+    ent = {"generation": scan.generation, "mat_digest": matrix_digest(scan.total_mat, scan.w),
+           "chosen": tuple(int(c) for c in chosen), "inv": inv}
+    with _SUBSET_LOCK:
+        _SUBSET_CACHE[key] = ent
+        _SUBSET_CACHE.move_to_end(key)
+        while len(_SUBSET_CACHE) > _SUBSET_CACHE_MAX:
+            _SUBSET_CACHE.popitem(last=False)
+        _SUBSET_STATS["misses"] += 1
+
+
+def _select_decodable_subset(scan: _ChunkScan, *, cap: int = 100, skip: int = 0):
+    """k healthy chunk indices whose submatrix inverts, and the inverse.
+
+    Candidates in natives-first order (surviving natives are copied, not
+    computed), then with parity; a singular candidate moves on to the next.
+    ``skip``/``cap`` window the candidate stream, so that a caller that
+    caught :class:`UndecidedSubsetError` continues where the last batch
+    stopped.  A search from the start consults the subset cache first.
+    """
+    k = scan.k
+    if len(scan.healthy) < k:
+        raise ValueError(
+            f"only {len(scan.healthy)} healthy chunks of the k={k} needed "
+            f"(corrupt: {sorted(scan.bad)}, missing: {scan.missing})"
+        )
+    if skip == 0:
+        hit = _cached_subset(scan)
+        if hit is not None:
+            return hit
+    gf = get_field(scan.w)
+    mat = scan.total_mat.astype(gf.dtype)
+    capped = False
+    for attempt, subset in enumerate(combinations(scan.healthy, k)):
+        if attempt < skip:
+            continue
+        if attempt >= skip + cap:
+            capped = True
+            break
+        try:
+            inv = invert_matrix(mat[list(subset)], gf)
+        except SingularMatrixError:
+            continue
+        _remember_subset(scan, subset, inv)
+        return list(subset), inv
+    if capped:
+        raise UndecidedSubsetError(
+            f"no decodable k={k} subset within candidate subsets [{skip}, {skip + cap}) of healthy chunks "
+            f"{scan.healthy}; more combinations exist — this archive is not proven unrecoverable"
+        )
+    raise ValueError(f"no decodable k={k} subset among healthy chunks {scan.healthy}")
+
+
+def _select_subset_retrying(scan: _ChunkScan, attempts: int | None = None):
+    """:func:`_select_decodable_subset`, going on into the next batch of
+    100 candidates after an :class:`UndecidedSubsetError`, up to
+    ``RS_RETRY_SUBSET_ATTEMPTS`` batches (default 3)."""
+    cap = 100
+    attempts = max(1, int_env("RS_RETRY_SUBSET_ATTEMPTS", 3)) if attempts is None else max(1, attempts)
+    last: UndecidedSubsetError | None = None
+    for batch in range(attempts):
+        try:
+            return _select_decodable_subset(scan, cap=cap, skip=batch * cap)
+        except UndecidedSubsetError as e:
+            last = e
+    raise last
+
+
+def scan_file(in_file: str, *, segment_bytes: int = DEFAULT_SEGMENT_BYTES, syndrome: bool = False,
+              device=None) -> dict:
+    """Read-only health report of an archive (the scrubbing half of repair).
+
+    Returns ``{"k", "p", "w", "checksummed", "layout", "generation",
+    "pending_journal", "healthy", "corrupt", "missing", "decodable"}``:
+    ``corrupt`` lists present but damaged chunks (truncated, unreadable or
+    CRC-failing), ``missing`` absent ones; ``decodable`` is True when >= k
+    healthy chunks hold an invertible subset (so every damaged chunk is
+    repairable), False when not, and ``"unknown"`` when the subset search
+    hit its cap.
+
+    ``syndrome=True`` adds the parity-check sweep over every present chunk
+    (through the device's GEMM), which attributes silent bitrot to its
+    chunk without any CRC: located chunks move from ``healthy`` to
+    ``corrupt`` and the report gains ``{"syndrome": {"verdict",
+    "silent_bitrot", "symbol_errors", "complete"}}``.  A verdict of
+    ``unlocatable`` (damage beyond t = floor((p - missing) / 2) in some
+    column) makes a True ``decodable`` ``"unknown"``.
+
+    ``device``: where the syndrome GEMM runs; None means CUDA and raises
+    with no GPU present.
+    """
+    device = resolve_device(device)
+    scan = _scan_chunks(in_file, segment_bytes)
+    syn_report = None
+    if syndrome:
+        verdict, located, nerr, complete = _syndrome_sweep(in_file, scan, device=device, segment_bytes=segment_bytes)
+        syn_report = {"verdict": verdict, "silent_bitrot": sorted(located), "symbol_errors": nerr,
+                      "complete": complete}
+        # Demote located chunks only on a complete sweep: an unlocatable
+        # one stopped early, so its located set covers only a prefix.
+        if located and verdict == "silent_bitrot":
+            scan = scan.excluding({i: chunk_file_name(in_file, i) for i in located})
+    try:
+        _select_decodable_subset(scan)
+        ok = True
+    except UndecidedSubsetError:
+        ok = "unknown"
+    except ValueError:
+        ok = False
+    if syn_report is not None and syn_report["verdict"] == "unlocatable":
+        ok = "unknown" if ok is True else ok  # erasure-decodable maybe, the bytes unproven
+    report = {
+        "k": scan.k,
+        "p": scan.p,
+        "w": scan.w,
+        "checksummed": bool(scan.crcs),
+        "layout": scan.layout,
+        "generation": scan.generation,
+        # A torn in-place update's undo journal; reported, never resolved
+        # by a read-only scan.
+        "pending_journal": os.path.exists(journal_path(in_file)),
+        "healthy": scan.healthy,
+        "corrupt": sorted(scan.bad),
+        "missing": scan.missing,
+        "decodable": ok,
+    }
+    if syn_report is not None:
+        report["syndrome"] = syn_report
+    return report
+
+
+def auto_decode_file(in_file: str, output: str | None = None, *, conf_out: str | None = None,
+                     **decode_kwargs) -> str:
+    """Decode without a hand-written conf: scan the chunks beside
+    ``in_file``, drop damaged ones, choose k survivors (natives first)
+    whose submatrix inverts, write them as a conf (``conf_out``, default
+    ``<in_file>.auto.conf``) and run :func:`decode_file` with it.
+    ``decode_kwargs`` pass through (``verify_checksums`` defaults to False:
+    the scan has CRC-checked the chunks it chose).
+
+    The unselected healthy chunks go to :func:`decode_file` as its pool for
+    a mid-stream survivor swap.  A survivor that fails after the scan
+    (truncated or unlinked before its open, or mid-stream beyond what the
+    pool covers) raises :class:`ChunkIntegrityError`; the named chunks are
+    then excluded, and the archive rescanned and reselected, up to
+    ``RS_RETRY_RESELECT`` more attempts.  On an archive without CRC lines
+    (``RS_LOCATE=auto``, the default) or always (``RS_LOCATE=force``) the
+    first attempt is :func:`locate_decode_file`, so silent bitrot cannot
+    reach the output; when the reselections run out, one locate attempt
+    comes last (not under ``RS_LOCATE=off``).
+
+    Raises ValueError when fewer than k healthy chunks remain or no subset
+    inverts.  ``device`` (in ``decode_kwargs``): None means CUDA and
+    raises with no GPU present.
+    """
+    from .gf_decode import UnlocatableError
+
+    decode_kwargs["device"] = resolve_device(decode_kwargs.get("device"))
+    segment_bytes = decode_kwargs.get("segment_bytes", DEFAULT_SEGMENT_BYTES)
+    conf_path = conf_out or (in_file + ".auto.conf")
+    attempts = max(1, int_env("RS_RETRY_RESELECT", 3) + 1)
+    excluded: dict[int, str] = {}
+    locate_mode = _locate_mode()
+    locate_kwargs = {key: decode_kwargs[key] for key in ("strategy", "device", "segment_bytes", "pipeline_depth",
+                                                         "timer") if key in decode_kwargs}
+    locate_kwargs["conf_out"] = conf_path
+
+    for attempt in range(attempts):
+        scan = _scan_chunks(in_file, segment_bytes)
+        if excluded:
+            scan = scan.excluding(excluded)
+        # Locate first where no CRC protects this decode (with CRC lines the
+        # scan has verified every chunk already).  A locate failure other
+        # than UnlocatableError falls to the erasure ladder below, which
+        # owns the reselection.
+        locate_first = locate_mode == "force" or (locate_mode == "auto" and not scan.crcs)
+        if attempt == 0 and scan.total_size > 0 and locate_first and _locate_context(scan) is not None:
+            try:
+                return locate_decode_file(in_file, output, _scan=scan, **locate_kwargs)
+            except UnlocatableError:
+                raise  # never fall back to a silently wrong erasure decode
+            except (ValueError, OSError):
+                pass
+        chosen, _ = _select_subset_retrying(scan)
+        write_conf(conf_path, [os.path.basename(chunk_file_name(in_file, i)) for i in chosen])
+        kwargs = dict(decode_kwargs)
+        if kwargs.get("verify_checksums") is None:
+            kwargs["verify_checksums"] = False
+        try:
+            return decode_file(in_file, conf_path, output, _fallback_rows=[i for i in scan.healthy if i not in chosen],
+                               **kwargs)
+        except (ChunkIntegrityError, FileNotFoundError) as e:
+            if isinstance(e, ChunkIntegrityError):
+                excluded.update(e.bad_chunks)
+            if attempt + 1 >= attempts:
+                # The last rung: one error-locating attempt over a fresh
+                # scan; its own failure re-raises the ladder's error.
+                if locate_mode != "off":
+                    rescan = _scan_chunks(in_file, segment_bytes)
+                    if _locate_context(rescan) is not None:
+                        try:
+                            return locate_decode_file(in_file, output, _scan=rescan, **locate_kwargs)
+                        except (ValueError, OSError):
+                            raise e from None
+                raise
+    raise AssertionError("unreachable: the last attempt returns or raises")
+
+
+def decode_fleet(
+    files,
+    outputs: dict[str, str] | None = None,
+    *,
+    strategy: str = "auto",
+    device=None,
+    segment_bytes: int = DEFAULT_SEGMENT_BYTES,
+    pipeline_depth: int = 2,
+    verify_checksums: bool | None = None,
+    timer: PhaseTimer | None = None,
+) -> dict[str, str]:
+    """:func:`auto_decode_file` of many archives through one shared
+    write-behind lane: archive j+1's scan, reads and dispatches run while
+    archive j's output writes drain, and each output is committed behind
+    its own writes.  ``outputs`` maps an archive to its output path
+    (default: in place).  Fail-fast: the first failing archive raises;
+    outputs committed before stay, uncommitted temps are removed.  Returns
+    ``{file: output path}``."""
+    timer = timer or PhaseTimer(enabled=False)
+    device = resolve_device(device)
+    outputs = outputs or {}
+    results: dict[str, str] = {}
+    with _fleet_lane() as pipe:
+        for f in list(files):
+            results[f] = auto_decode_file(
+                f, outputs.get(f), strategy=strategy, device=device, segment_bytes=segment_bytes,
+                pipeline_depth=pipeline_depth, verify_checksums=verify_checksums, timer=timer, _fleet=pipe,
+            )
+    return results
+
+
+# -- error-locating decode ---------------------------------------------------------
+#
+# Silent bitrot, a damaged chunk that no CRC catches, passes straight
+# through an erasure decode.  The locate path reads every present chunk,
+# computes each segment's parity-check syndromes on the device
+# (RSCodec.syndrome), locates and corrects the errors on the host
+# (gf_decode), and only then runs the recovery GEMM.  A column whose damage
+# exceeds t = floor((p - erasures) / 2) raises UnlocatableError, never a
+# wrong output.
+
+
+def _locate_mode() -> str:
+    """``RS_LOCATE``: ``auto`` (default: locate where no CRC protects a
+    decode), ``off`` or ``force``."""
+    v = os.environ.get("RS_LOCATE", "auto").strip().lower()
+    if v in ("0", "off", "no", "false"):
+        return "off"
+    if v in ("1", "force", "always"):
+        return "force"
+    return "auto"
+
+
+def _locate_context(scan: _ChunkScan):
+    """A :class:`.gf_decode.LocateContext` for this scan, or None when
+    locating does not apply (zero-size archive, fewer than k healthy
+    chunks, more erasures than parity, a non-systematic matrix)."""
+    from .gf_decode import LocateContext
+
+    if scan.chunk == 0 or len(scan.healthy) < scan.k:
+        return None
+    try:
+        return LocateContext(scan.total_mat, scan.k, scan.p, scan.w, scan.healthy)
+    except ValueError:
+        return None
+
+
+def _stage_copy(loop: StreamLoop, arr: np.ndarray, sym: int, rows=None):
+    """Stage host bytes ``arr`` (or its ``rows``) through one of ``loop``'s
+    staging buffers: the locate loop keeps its own copy of each segment,
+    which it corrects in place and writes out after the GEMMs."""
+    slot, dst = loop.host_segment(arr.shape[1])
+    if rows is None:
+        dst[...] = arr
+    else:
+        np.take(arr, rows, axis=0, out=dst)
+    return loop.stage((slot, dst), sym)
+
+
+def _locate_segment_fixes(ctx, codec: RSCodec, loop: StreamLoop, seg: np.ndarray, sym: int, timer: PhaseTimer):
+    """One segment's syndrome check: S = check . seg through the GEMM on
+    the device, then the host locate; returns the verified corrections
+    ({column: [(chunk, magnitude)]}).  Raises
+    :class:`.gf_decode.UnlocatableError` past the t bound."""
+    if ctx.r == 0:
+        return {}
+    with timer.phase("syndrome dispatch"):
+        out = loop.dispatch(lambda d: codec.syndrome(ctx.check, d), _stage_copy(loop, seg, sym))
+    with timer.phase("syndrome locate"):
+        S = loop.result(out)
+        S = S.view(np.uint16) if sym == 2 else S
+        return ctx.locate(S.astype(np.int64))
+
+
+def _survivor_reader(paths: list[str], timer: PhaseTimer):
+    """(files, segment producer) for a locate loop over ``paths``: each
+    segment is gathered into a fresh host buffer, which the caller
+    corrects in place."""
+    fps = [open(path, "rb") for path in paths]
+    try:
+        maps = [np.memmap(path, dtype=np.uint8, mode="r") for path in paths]
+    except BaseException:
+        for fp in fps:
+            fp.close()
+        raise
+
+    def gather(off: int, cols: int) -> np.ndarray:
+        with timer.phase("stage segment (io)"):
+            return native.gather_rows(fps, off, cols, fallback_maps=maps)
+
+    return fps, gather
+
+
+def _syndrome_sweep(in_file: str, scan: _ChunkScan, *, strategy: str = "auto", device=None,
+                    segment_bytes: int = DEFAULT_SEGMENT_BYTES, timer: PhaseTimer | None = None):
+    """Read-only syndrome check over an archive's present chunks; returns
+    ``(verdict, located_chunks, symbol_errors, complete)``.  The verdict is
+    ``clean``, ``silent_bitrot`` (with the rotten chunks attributed),
+    ``unlocatable`` (damage beyond t somewhere: the sweep stops there, so
+    ``complete`` is False and the located set is partial) or
+    ``no_headroom`` (nothing checkable: erasures took the whole check, or
+    the matrix is not systematic)."""
+    from .gf_decode import UnlocatableError
+
+    timer = timer or PhaseTimer(enabled=False)
+    ctx = _locate_context(scan)
+    if ctx is None or ctx.r == 0:
+        return "no_headroom", set(), 0, True
+    codec = RSCodec(scan.k, scan.p, w=scan.w, strategy=strategy, device=device)
+    sym = scan.w // 8
+    seg_cols = _segment_cols(scan.chunk, scan.k, segment_bytes)
+    loop = StreamLoop(codec.device, len(ctx.survivors), seg_cols, 1)
+    fps, gather = _survivor_reader([chunk_file_name(in_file, i) for i in ctx.survivors], timer)
+    located: set[int] = set()
+    errors = 0
+    try:
+        with SegmentPrefetcher(_segment_spans(scan.chunk, seg_cols), gather, depth=2) as prefetch:
+            for _tag, seg in prefetch:
+                try:
+                    fixes = _locate_segment_fixes(ctx, codec, loop, seg, sym, timer)
+                except UnlocatableError:
+                    return "unlocatable", located, errors, False
+                for col_fixes in fixes.values():
+                    located.update(chunk_idx for chunk_idx, _mag in col_fixes)
+                    errors += len(col_fixes)
+    finally:
+        for fp in fps:
+            fp.close()
+    return ("silent_bitrot" if located else "clean"), located, errors, True
+
+
+def locate_decode_file(
+    in_file: str,
+    output: str | None = None,
+    *,
+    strategy: str = "auto",
+    device=None,
+    segment_bytes: int = DEFAULT_SEGMENT_BYTES,
+    pipeline_depth: int = 2,
+    conf_out: str | None = None,
+    timer: PhaseTimer | None = None,
+    _scan: _ChunkScan | None = None,
+) -> str:
+    """Rebuild ``in_file`` with error-locating decode (CLI ``-d
+    --locate``): no conf and no CRC needed.  Silent bitrot in up to t =
+    floor((p - missing) / 2) chunks of a symbol column is found from the
+    parity-check syndromes, attributed and corrected before the recovery
+    GEMM runs.  Every present full-size chunk is read; missing or
+    truncated ones are erasures (2 * errors + erasures <= p per column).
+    Raises :class:`.gf_decode.UnlocatableError` when a column's damage
+    exceeds the bound, and writes nothing then.  ``device``: None means
+    CUDA and raises with no GPU present.
+    """
+    from .gf_decode import correct_segment, is_systematic
+
+    timer = timer or PhaseTimer(enabled=False)
+    device = resolve_device(device)
+    if _scan is not None:
+        scan = _scan  # auto_decode_file's fresh scan
+    else:
+        with timer.phase("scan chunks (io)"):
+            scan = _scan_chunks(in_file, segment_bytes)
+    if scan.total_size == 0:
+        _select_decodable_subset(scan)
+        return _write_empty_atomic(output or in_file)
+    ctx = _locate_context(scan)
+    if ctx is None:
+        if not is_systematic(scan.total_mat, scan.k):
+            raise ValueError(
+                f"{in_file!r}: error-locating decode needs a systematic total matrix; this archive's metadata is "
+                "foreign — use the erasure decoder (-d --auto)"
+            )
+        raise ValueError(
+            f"only {len(scan.healthy)} healthy chunks of the k={scan.k} needed (corrupt: {sorted(scan.bad)}, "
+            f"missing: {scan.missing}) — past erasure recovery, locate cannot help"
+        )
+    if scan.layout != "row":
+        raise ValueError(f"chunk layout {scan.layout!r} of {in_file!r} is not supported by this port (row only)")
+    k, w = scan.k, scan.w
+    sym = w // 8
+    chunk = scan.chunk
+    seg_cols = _segment_cols(chunk, k, segment_bytes)
+    codec = RSCodec(k, scan.p, w=w, strategy=strategy, device=device)
+    gf = get_field(w)
+
+    # The recovery GEMM serves natives lost to erasure; located errors are
+    # patched in place, so present natives pass straight through.  With no
+    # native missing, the natives themselves are the survivor set.
+    missing = [i for i in range(k) if i not in set(ctx.survivors)]
+    if missing:
+        with timer.phase("invert matrix"):
+            chosen, inv = _select_decodable_subset(scan)
+        dec_missing = np.asarray(inv).astype(gf.dtype)[missing]
+    else:
+        chosen, dec_missing = list(range(k)), None
+    row_of = {c: i for i, c in enumerate(ctx.survivors)}
+    chosen_rows = [row_of[c] for c in chosen]
+    rec_row = {i: j for j, i in enumerate(missing)}
+    if conf_out:
+        write_conf(conf_out, [os.path.basename(chunk_file_name(in_file, i)) for i in chosen])
+
+    out_path = output or in_file
+    tmp_path = out_path + ".rs_tmp"
+    check_loop = StreamLoop(codec.device, len(ctx.survivors), seg_cols, 1)
+    rec_loop = StreamLoop(codec.device, k, seg_cols, 1) if dec_missing is not None else None
+    fps, gather = _survivor_reader([chunk_file_name(in_file, i) for i in ctx.survivors], timer)
+    try:
+        out_fp = open(tmp_path, "wb")
+    except BaseException:
+        for fp in fps:
+            fp.close()
+        raise
+
+    def write_row(i: int, off: int, cols: int, row_bytes) -> None:
+        lo = i * chunk + off
+        if lo >= scan.total_size:
+            return
+        hi = min(lo + cols, scan.total_size)
+        out_fp.seek(lo)
+        out_fp.write(np.ascontiguousarray(row_bytes[: hi - lo]))
+
+    try:
+        # One segment at a time (the prefetch overlaps the reads): the host
+        # locate between the syndrome GEMM and the recovery GEMM is a
+        # barrier.  A robustness path; the write-behind lane stays with
+        # decode_file.
+        with SegmentPrefetcher(_segment_spans(chunk, seg_cols), gather, depth=max(1, pipeline_depth)) as prefetch:
+            for (off, cols), seg in prefetch:
+                fixes = _locate_segment_fixes(ctx, codec, check_loop, seg, sym, timer)
+                if fixes:
+                    correct_segment(seg.view(np.uint16) if sym == 2 else seg, fixes, row_of)
+                rec = None
+                if dec_missing is not None:
+                    with timer.phase("locate dispatch"):
+                        out = rec_loop.dispatch(lambda d: codec.decode(dec_missing, d),
+                                                _stage_copy(rec_loop, seg, sym, chosen_rows))
+                    with timer.phase("decode compute"):
+                        rec = rec_loop.result(out)
+                with timer.phase("write output (io)"):
+                    for i in range(k):
+                        if i in row_of:
+                            write_row(i, off, cols, seg[row_of[i]])
+                    for i in missing:
+                        write_row(i, off, cols, rec[rec_row[i]])
+        out_fp.truncate(scan.total_size)
+        out_fp.close()
         os.replace(tmp_path, out_path)
     except BaseException:
-        close_all()
+        if not out_fp.closed:
+            out_fp.close()
         if os.path.exists(tmp_path):
             os.unlink(tmp_path)
         raise
+    finally:
+        for fp in fps:
+            fp.close()
     return out_path
+
+
+# -- repair ------------------------------------------------------------------------
+
+
+def repair_file(
+    in_file: str,
+    *,
+    strategy: str = "auto",
+    device=None,
+    segment_bytes: int = DEFAULT_SEGMENT_BYTES,
+    pipeline_depth: int = 2,
+    mesh=None,
+    stripe_sharded: bool = False,
+    timer: PhaseTimer | None = None,
+) -> list[int]:
+    """Regenerate every lost or damaged chunk of an archive, in place.
+
+    Any chunk row t is a GF-linear function of a decodable survivor set:
+    ``row_t = T[t] . inv(T[chosen])``, so all targets, natives and parity
+    alike, rebuild in one streamed GEMM over the chosen survivors.  Each
+    rebuilt chunk is written to a ``.rs_tmp`` name and renamed only when
+    all of it landed; the CRC lines are refreshed when .METADATA has them.
+    Returns the indices rebuilt ([] for a healthy archive).  Raises
+    ValueError when fewer than k healthy chunks remain.  ``device``: None
+    means CUDA and raises with no GPU present.  The ``mesh`` and
+    ``stripe_sharded`` forms are not ported yet and raise
+    NotImplementedError.
+    """
+    if mesh is not None or stripe_sharded:
+        raise NotImplementedError("repair_file over a device mesh (mesh=, stripe_sharded=) is not ported yet")
+    timer = timer or PhaseTimer(enabled=False)
+    device = resolve_device(device)
+    with timer.phase("scan chunks (io)"):
+        scan = _scan_chunks(in_file, segment_bytes)
+    targets = scan.unhealthy
+    if not targets:
+        return []
+    if scan.chunk == 0:
+        # Zero-size archive: every chunk is the empty file.  Still held to
+        # the >= k healthy rule, as scan_file's decodable verdict is.
+        _select_decodable_subset(scan)
+        for t in targets:
+            _write_empty_atomic(chunk_file_name(in_file, t))
+        if scan.crcs:
+            rewrite_checksums(metadata_file_name(in_file), {**scan.crcs, **{t: 0 for t in targets}})  # crc32(b"") == 0
+        return targets
+    with timer.phase("invert matrix"):
+        chosen, inv = _select_decodable_subset(scan)
+    return _repair_streamed(in_file, scan, chosen, inv, strategy=strategy, device=device, segment_bytes=segment_bytes,
+                            pipeline_depth=pipeline_depth, timer=timer)
+
+
+def _repair_streamed(in_file: str, scan: _ChunkScan, chosen: list[int], inv, *, strategy: str, device,
+                     segment_bytes: int, pipeline_depth: int, timer: PhaseTimer,
+                     fleet: FleetPipeline | None = None) -> list[int]:
+    """The streamed rebuild of :func:`repair_file`, given a scan and a
+    chosen survivor subset with its inverse.  With ``fleet`` the archive's
+    promote and CRC commit queue on the fleet's lane behind its writes,
+    while the caller streams the next archive."""
+    targets = scan.unhealthy
+    with timer.phase("rebuild matrix"):
+        gf = get_field(scan.w)
+        mat = scan.total_mat.astype(gf.dtype)
+        rebuild_mat = gf.matmul(mat[targets], np.asarray(inv).astype(gf.dtype))  # (targets, k)
+    codec = RSCodec(scan.k, scan.p, w=scan.w, strategy=strategy, device=device)
+    sym = scan.w // 8
+    chunk = scan.chunk
+    seg_cols = _segment_cols(chunk, scan.k, segment_bytes)
+    depth = max(1, pipeline_depth)
+    loop = StreamLoop(codec.device, scan.k, seg_cols, depth)
+    surv_paths = [chunk_file_name(in_file, i) for i in chosen]
+    surv_fps = [open(path, "rb") for path in surv_paths]
+    surv_maps = [np.memmap(path, dtype=np.uint8, mode="r") for path in surv_paths]
+    # A failed repair must not destroy a damaged-but-present chunk: rebuild
+    # into temps, rename when every segment landed.
+    tmp_paths = {t: chunk_file_name(in_file, t) + ".rs_tmp" for t in targets}
+    out_fps = {t: open(tmp_paths[t], "wb") for t in targets}
+    new_crcs: dict[int, int] = {}
+
+    def drain(tag, out) -> None:
+        off, _cols = tag
+        with timer.phase("repair compute"):
+            reb = loop.result(out)
+        delta = {t: crc32_of(reb[j], new_crcs.get(t, 0)) for j, t in enumerate(targets)} if scan.crcs else None
+        with timer.phase("write chunks (io)"):
+            native.scatter_write([out_fps[t] for t in targets], reb, off)
+        if delta is not None:
+            new_crcs.update(delta)  # only after the write landed
+
+    def gather(off: int, cols: int):
+        # On the prefetch thread: survivor reads overlap the chunk writes.
+        with timer.phase("stage segment (io)"):
+            slot, dst = loop.host_segment(cols)
+            return slot, native.gather_rows(surv_fps, off, cols, fallback_maps=surv_maps, dst=dst)
+
+    def finalize() -> None:
+        for t in targets:
+            out_fps[t].close()
+        for fp in surv_fps:
+            fp.close()
+        for t in targets:
+            os.replace(tmp_paths[t], chunk_file_name(in_file, t))
+        if scan.crcs:
+            with timer.phase("write metadata (io)"):
+                rewrite_checksums(metadata_file_name(in_file), {**scan.crcs, **new_crcs})
+
+    def cleanup() -> None:
+        for fp in surv_fps:
+            if not fp.closed:
+                fp.close()
+        for t, fp in out_fps.items():
+            if not fp.closed:
+                fp.close()
+            if os.path.exists(tmp_paths[t]):
+                os.unlink(tmp_paths[t])
+
+    key = fleet.register(cleanup) if fleet is not None else None
+    try:
+        with _drain_ctx(fleet) as dex:
+            with SegmentPrefetcher(_segment_spans(chunk, seg_cols), gather, depth=depth) as prefetch, AsyncWindow(
+                depth, drain, executor=dex
+            ) as window:
+                for tag, staged in _staging(prefetch, loop, sym, depth, timer):
+                    with timer.phase("repair dispatch"):
+                        out = loop.dispatch(lambda seg: codec.decode(rebuild_mat, seg), staged)
+                    window.push(tag, out)
+        if fleet is not None:
+            fleet.commit(key, finalize)
+        else:
+            finalize()
+    except BaseException:
+        if fleet is None:
+            cleanup()
+        raise
+    return targets
+
+
+def repair_fleet(
+    files,
+    *,
+    strategy: str = "auto",
+    device=None,
+    segment_bytes: int = DEFAULT_SEGMENT_BYTES,
+    pipeline_depth: int = 2,
+    timer: PhaseTimer | None = None,
+) -> dict[str, list[int]]:
+    """Scan and repair many archives in one pass.
+
+    Every archive is scanned and its survivor inverse solved before any
+    rebuild is written: when one is unscannable or unrecoverable, raises
+    ValueError naming each such archive and repairs nothing.  The damaged
+    archives are grouped by (k, w); the subset cache is consulted first,
+    and each group's first-choice survivor submatrices (in
+    :func:`.ops.inverse.mds_nopivot_order`) are inverted in one batched
+    call on the device without pivoting.  Each inverse is verified on the
+    host with one GF product against the identity; a failure is re-solved
+    by the host subset search.  The rebuilds then interleave through one
+    shared write-behind lane.  Returns ``{file: [rebuilt indices]}``.
+    ``device``: None means CUDA and raises with no GPU present.
+    """
+    from .ops import inverse
+
+    timer = timer or PhaseTimer(enabled=False)
+    device = resolve_device(device)
+    files = list(files)
+    errors: dict[str, str] = {}
+    with timer.phase("scan chunks (io)"):
+        scans: dict[str, _ChunkScan] = {}
+        for f in files:
+            try:
+                scans[f] = _scan_chunks(f, segment_bytes)
+            except Exception as e:  # noqa: BLE001 - every archive's error is reported together below
+                errors[f] = f"{type(e).__name__}: {e}"
+    # First-choice subsets grouped by (k, w): healthy is in index order, so
+    # healthy[:k] is the natives-first candidate the search tries first.
+    chosen_inv: dict[str, tuple[list[int], np.ndarray]] = {}
+    groups: dict[tuple[int, int], list[str]] = {}
+    for f, s in scans.items():
+        if not s.unhealthy:
+            continue
+        if s.chunk == 0:
+            # Zero-size archives skip the inversion, not the validation.
+            try:
+                _select_decodable_subset(s)
+            except ValueError as e:
+                errors[f] = str(e)
+            continue
+        if len(s.healthy) < s.k:
+            errors[f] = f"only {len(s.healthy)} healthy chunks of the k={s.k} needed (corrupt: {sorted(s.bad)}, " \
+                        f"missing: {s.missing})"
+            continue
+        hit = _cached_subset(s)
+        if hit is not None:
+            chosen_inv[f] = hit
+            continue
+        groups.setdefault((s.k, s.w), []).append(f)
+    with timer.phase("invert matrices (batched)"):
+        for (k, w), group in groups.items():
+            gf = get_field(w)
+            ordered = {f: inverse.mds_nopivot_order(scans[f].healthy[:k], k) for f in group}
+            subs = [scans[f].total_mat[ordered[f]].astype(gf.dtype) for f in group]
+            invs, oks = inverse.invert_matrix_torch_batch(np.stack(subs), w, pivot=False, device=device)
+            invs = invs.cpu().numpy().astype(gf.dtype)
+            oks = oks.cpu().numpy()
+            eye = np.eye(k, dtype=gf.dtype)
+            for j, f in enumerate(group):
+                if bool(oks[j]) and np.array_equal(gf.matmul(subs[j], invs[j]), eye):
+                    chosen_inv[f] = (ordered[f], invs[j])
+                    _remember_subset(scans[f], ordered[f], invs[j])
+                    continue
+                # A zero pivot (or a wrong inverse, never written): the host
+                # search tries the other subsets.
+                try:
+                    chosen_inv[f] = _select_decodable_subset(scans[f])
+                except ValueError as e:
+                    errors[f] = str(e)
+    if errors:
+        raise ValueError("unrecoverable archives (nothing repaired): "
+                         + "; ".join(f"{f}: {msg}" for f, msg in sorted(errors.items())))
+    results: dict[str, list[int]] = {}
+    with _fleet_lane() as pipe:
+        for f in files:
+            s = scans[f]
+            if not s.unhealthy:
+                results[f] = []
+            elif s.chunk == 0:
+                results[f] = repair_file(f, strategy=strategy, device=device, segment_bytes=segment_bytes,
+                                         pipeline_depth=pipeline_depth, timer=timer)
+            else:
+                chosen, inv = chosen_inv[f]
+                results[f] = _repair_streamed(f, s, chosen, inv, strategy=strategy, device=device,
+                                              segment_bytes=segment_bytes, pipeline_depth=pipeline_depth,
+                                              timer=timer, fleet=pipe)
+    return results

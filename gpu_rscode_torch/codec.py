@@ -93,6 +93,12 @@ class RSCodec:
         """(r, k) recovery rows x (k, m) surviving chunks -> (r, m) natives."""
         return self._matmul(decode_mat, chunks)
 
+    def syndrome(self, check_mat, chunks) -> torch.Tensor:
+        """(r, s) parity-check rows x (s, m) stacked chunk rows -> (r, m)
+        syndromes; a zero column is a consistent codeword column.  The depth
+        s is the number of chunks present (up to n), not k."""
+        return self._matmul(check_mat, chunks)
+
     def _matmul(self, A, B) -> torch.Tensor:
         B = to_tensor(B, self.device)
         if self.strategy == "cuda":

@@ -93,6 +93,14 @@ class GaloisField:
         b = np.asarray(b, dtype=np.int64)
         return self.exp[self.log[a] + self.log[b]]
 
+    def div(self, a, b):
+        """Elementwise GF divide; division by zero raises."""
+        a = np.asarray(a, dtype=np.int64)
+        b = np.asarray(b, dtype=np.int64)
+        if np.any(b == 0):
+            raise ZeroDivisionError("GF division by zero")
+        return self.exp[self.log[a] + self.order - self.log[b]]
+
     def pow(self, a, e):
         """GF power with 0**0 == 1 and 0**e == 0 for e > 0."""
         a = np.asarray(a, dtype=np.int64)

@@ -10,7 +10,7 @@ only), byte-compatible with it and with the reference encoder:
   ``parityBlockNum nativeBlockNum``; then the (k+p) x k total matrix,
   identity block first, each entry "%d " and "\\n" per row.  Extension
   lines start with ``#``: ``# gfwidth 16``, ``# crc32 <i> <8-hex>``,
-  ``# layout <name>``.
+  ``# layout <name>``, ``# generation <g>`` (the update commit counter).
 * conf file: k lines, each a surviving chunk file name; the row index is
   the integer right after the first character (the reference's
   ``atoi(name + 1)``).
@@ -42,6 +42,11 @@ def chunk_size_for(total_size: int, native_num: int, sym: int = 1) -> int:
     return -(-chunk // sym) * sym
 
 
+def journal_path(file_name: str) -> str:
+    """The undo journal a torn in-place update leaves next to an archive."""
+    return file_name + ".rs_journal"
+
+
 def write_metadata(path: str, total_size: int, parity_num: int, native_num: int, total_mat: np.ndarray, w: int = 8) -> None:
     rows = native_num + parity_num
     if total_mat.shape != (rows, native_num):
@@ -60,9 +65,9 @@ class ArchiveMeta:
     ``total_mat`` is None for the sizes-only metadata dialect (the caller
     regenerates the canonical [I; Vandermonde] matrix)."""
 
-    __slots__ = ("path", "total_size", "parity_num", "native_num", "total_mat", "w", "crcs", "layout")
+    __slots__ = ("path", "total_size", "parity_num", "native_num", "total_mat", "w", "crcs", "layout", "generation")
 
-    def __init__(self, path, total_size, parity_num, native_num, total_mat, w, crcs, layout):
+    def __init__(self, path, total_size, parity_num, native_num, total_mat, w, crcs, layout, generation=0):
         self.path = path
         self.total_size = total_size
         self.parity_num = parity_num
@@ -71,6 +76,7 @@ class ArchiveMeta:
         self.w = w
         self.crcs = crcs
         self.layout = layout
+        self.generation = generation
 
     @property
     def sym(self) -> int:
@@ -103,6 +109,13 @@ def _parse_layout(text: str) -> str:
         if len(args) == 1:
             return args[0]
     return "row"
+
+
+def _parse_generation(text: str) -> int:
+    for args in _extension(text, "generation"):
+        if len(args) == 1 and args[0].isdigit():
+            return int(args[0])
+    return 0
 
 
 def _parse_checksums(text: str) -> dict[int, int]:
@@ -161,7 +174,8 @@ def read_archive_meta(path: str) -> ArchiveMeta:
             f"metadata declares n={native_num + parity_num} chunks in {path!r} "
             f"but GF(2^{w}) supports at most {1 << w}"
         )
-    return ArchiveMeta(path, total_size, parity_num, native_num, mat, w, _parse_checksums(text), _parse_layout(text))
+    return ArchiveMeta(path, total_size, parity_num, native_num, mat, w, _parse_checksums(text), _parse_layout(text),
+                       _parse_generation(text))
 
 
 def append_checksums(path: str, crcs: dict[int, int]) -> None:
@@ -170,6 +184,38 @@ def append_checksums(path: str, crcs: dict[int, int]) -> None:
     with open(path, "a") as fp:
         for i in sorted(crcs):
             fp.write(f"# crc32 {i} {crcs[i] & 0xFFFFFFFF:08x}\n")
+
+
+def rewrite_checksums(path: str, crcs: dict[int, int]) -> None:
+    """Replace every ``# crc32`` line of a metadata file with ``crcs``
+    (repair refreshes the rebuilt chunks' CRCs).  Every other line is kept
+    byte for byte, and the ``# generation`` line moves to the end, as the
+    JAX package's metadata rewrite leaves it.  Crash-safe: a temp file,
+    fsync, an atomic rename and an fsync of the directory."""
+    with open(path) as fp:
+        lines = fp.readlines()
+    generation = _parse_generation("".join(lines))
+    kept = [ln for ln in lines if ln.split()[:2] not in (["#", "generation"], ["#", "crc32"])]
+    tmp = path + ".tmp"
+    with open(tmp, "w") as fp:
+        fp.writelines(kept)
+        for i in sorted(crcs):
+            fp.write(f"# crc32 {i} {crcs[i] & 0xFFFFFFFF:08x}\n")
+        if generation:
+            fp.write(f"# generation {generation}\n")
+        fp.flush()
+        os.fsync(fp.fileno())
+    os.replace(tmp, path)
+    try:
+        fd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
 
 
 def crc32_of(buf, crc: int = 0) -> int:

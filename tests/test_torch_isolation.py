@@ -20,6 +20,7 @@ def test_port_imports_no_jax():
         "import gpu_rscode_torch.ops.cuda_pack2, gpu_rscode_torch.ops.cuda_planes, gpu_rscode_torch.obs.runlog\n"
         "import gpu_rscode_torch.tools.kernel_sweep, gpu_rscode_torch.tools.expand_probe\n"
         "import gpu_rscode_torch.native, gpu_rscode_torch.parallel.pipeline, gpu_rscode_torch.parallel.io_executor\n"
+        "import gpu_rscode_torch.gf_decode, gpu_rscode_torch.utils.retry, gpu_rscode_torch.ops.inverse\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'gpu_rscode_tpu')))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
