@@ -13,7 +13,8 @@ Phases, each fatal on failure:
      kernel and the pre-parity popcount kernel): ragged and misaligned
      widths (m = 1, 31, 33, 1639, ...; rows that start off 16-byte
      alignment), shapes that need several output tiles and depth chunks,
-     p = k decode shapes up to 128;
+     p = k decode shapes up to 128, and the update's E·Δ widths (2, 3,
+     409-411, 822, 411,007 columns);
   4. the main path at the reference's published setting (k=10, n=14): a
      seeded 1 GiB file is encoded with api.encode_file on the card, parity
      is spot-checked against the GF oracle, the first 4 chunks are deleted
@@ -52,9 +53,27 @@ Phases, each fatal on failure:
      pinned staging; each operation's wall, GB/s (of the 1 GiB file, or
      of the fleet's bytes) and K1 launches are logged, and the batched
      inversion's device time beside the host loop's;
+  5c. the interleaved layout and the in-place updates at the main path's
+     setting (k=10, n=14, w=8, --checksum, 64 MiB segments, a seeded 1 GiB
+     file): an interleaved encode; its chunk 0 lost, auto_decode_file
+     (SHA-256) and repair_file (the saved digests); a copy without CRC
+     lines with 64 bytes of chunk 3 flipped, locate_decode_file; a 64 MiB
+     append_file, a 64 MiB update_file at 300,000,007 and update_file_many
+     of 1,000 seeded 4 KiB edits in one group, which must take ONE stacked
+     K1 launch; a 4 MiB update under RS_UPDATE_CRASH=mid_patch, which must
+     leave a pending journal that recover_archive rolls back to the pre-op
+     digests; on a row archive of another seeded file, a 64 MiB update
+     across rows 1 and 2, a 7-byte append past its 6-byte slack refused
+     and a 6-byte append taken.  The source file is each archive's host
+     mirror, edited alongside: a re-encode of it (same layout) must give
+     byte-identical chunks and # crc32 lines, and a decode with chunks 0-3
+     lost its SHA-256.  Each operation's wall, GB/s of its payload, K1
+     launches (on the compute stream from pinned staging) and phases are
+     logged;
   6. timings: file encode/decode GB/s of phase 4, and K1 at the main path's
-     segment shapes and at phase 5b's syndrome (r=4, depth 14) and repair
-     (3 targets, k=10) shapes next to its bound, the logic-op estimate of
+     segment shapes, at phase 5b's syndrome (r=4, depth 14) and repair
+     (3 targets, k=10) shapes and at phase 5c's E·Δ shapes (the stacked
+     group, one 4 KiB window) next to its bound, the logic-op estimate of
      its design and its plain version;
   7. K2 (pack2) and K3 (every expand+refold pair, the pinned mode, the copy
      floor) against their plain versions on the card, bit-exact, and the
@@ -250,6 +269,9 @@ def phase_kernel_grid(device) -> int:
     # Ragged and misaligned widths (1639: the last segment of a 1 GiB
     # encode), and depth 33.
     shapes += [(p, k, m) for p, k in ((4, 10), (10, 10)) for m in (1, 31, 33, 1639)] + [(4, 33, 1639), (4, 33, 4097)]
+    # The in-place update's widths (phase 5c): a one-symbol edit, 4 KiB
+    # windows (409-411 columns) alone and stacked, a stacked group.
+    shapes += [(4, 10, m) for m in (2, 3, 409, 410, 411, 822, 411_007)]
     # Several output tiles and depth chunks of the bit-sliced kernel.
     wide = {8: [(128, 128, 4097), (64, 200, 3000), (16, 50, 1100), (16, 50, 70001)],
             16: [(64, 64, 4097), (128, 128, 2049), (5, 7, 300), (9, 12, 130), (4, 33, 70001)]}
@@ -303,10 +325,13 @@ def _io_counts() -> dict:
             "pinned_stages": pipeline.PINNED_STAGES, "stream_dispatches": pipeline.STREAM_DISPATCHES}
 
 
-def check_pipeline(what: str, launches: int, io_counts: dict, staged_ahead: bool = False) -> None:
+def check_pipeline(what: str, launches: int, io_counts: dict, staged_ahead: bool = False,
+                   native_io: bool = True) -> None:
     """K1 ran, each launch in a dispatch on the pipeline's compute stream
     (one launch a dispatch), every dispatched segment was staged from
-    pinned memory, and the native IO library served every read and write.
+    pinned memory, and the native IO library served every read and write
+    (``native_io=False``: an operation that makes no such call, the
+    in-place update's preads and pwrites, but no fallback call either).
     ``staged_ahead``: a run that failed and resumed may have staged
     segments it never dispatched."""
     if launches <= 0:
@@ -315,7 +340,7 @@ def check_pipeline(what: str, launches: int, io_counts: dict, staged_ahead: bool
         raise AssertionError(f"{what}: {launches} K1 launches but {io_counts['stream_dispatches']} on the compute stream")
     if io_counts["pinned_stages"] < launches or (io_counts["pinned_stages"] != launches and not staged_ahead):
         raise AssertionError(f"{what}: {io_counts['pinned_stages']} segments staged from pinned memory for {launches} dispatches")
-    if io_counts["native_io_calls"] <= 0 or io_counts["fallback_io_calls"]:
+    if (native_io and io_counts["native_io_calls"] <= 0) or io_counts["fallback_io_calls"]:
         raise AssertionError(f"{what}: native IO calls {io_counts['native_io_calls']}, NumPy fallback calls "
                              f"{io_counts['fallback_io_calls']}")
 
@@ -481,10 +506,12 @@ def phase_cli_w16(work: str, seed: int, size: int) -> dict:
     return res
 
 
-def phase_timings(device) -> list[dict]:
+def phase_timings(device, group_cols: int) -> list[dict]:
     """K1 at the main path's shapes vs its bound, its logic-op estimate and
     its plain version: encode and decode (rows 0 and 1, which the compute
-    share reads), then the resilience reads' syndrome and repair shapes."""
+    share reads), then the resilience reads' syndrome and repair shapes and
+    the update's E·Δ shapes (phase 5c's stacked group of ``group_cols``
+    columns, one 4 KiB interleaved window)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     clock_mhz = float(smi_line("clocks.max.sm").split()[0])
     rng = np.random.default_rng(7)
@@ -502,7 +529,10 @@ def phase_timings(device) -> list[dict]:
               ("syndrome r=4 depth 14", 8, m8, LocateContext(total, k, 4, 8, list(range(14))).check),
               # Repair of chunks 0, 5 and 12 from the first 10 healthy.
               ("repair 3 targets k=10", 8, m8,
-               gf.matmul(total[[0, 5, 12]], inverse.invert_matrix(total[[1, 2, 3, 4, 6, 7, 8, 9, 10, 11]], gf)))]
+               gf.matmul(total[[0, 5, 12]], inverse.invert_matrix(total[[1, 2, 3, 4, 6, 7, 8, 9, 10, 11]], gf))),
+              # E·Δ of the update: the group's stacked windows, one 4 KiB window.
+              ("update group stacked k=10 p=4", 8, group_cols, RSCodec(k, 4, device=device).parity_block),
+              ("update one 4 KiB window k=10 p=4", 8, 411, RSCodec(k, 4, device=device).parity_block)]
     rows = []
     for label, w, m, A in shapes:
         p, depth = A.shape
@@ -775,16 +805,17 @@ def phase_short_segments(work: str, seed: int, size: int) -> dict:
 
 
 class Ops:
-    """Each operation of the resilience phase with the counts set to 0 just
-    before it and read just after: its wall, GB/s over ``nbytes`` and K1
-    launches.  An operation with a GEMM must launch K1 only on the
-    pipeline's compute stream from pinned staging (``check_pipeline``);
-    one without must launch nothing."""
+    """Each operation of a phase with the counts set to 0 just before it and
+    read just after: its wall, GB/s over ``nbytes``, K1 launches and, given
+    a ``timer``, its phases.  An operation with a GEMM must launch K1 only
+    on the pipeline's compute stream from pinned staging
+    (``check_pipeline``); one without must launch nothing."""
 
-    def __init__(self, smi: str):
-        self.smi, self.rows = smi, {}
+    def __init__(self, smi: str, label: str = "resilience_op"):
+        self.smi, self.label, self.rows = smi, label, {}
 
-    def run(self, name: str, fn, nbytes: int, gemm: bool = True, staged_ahead: bool = False):
+    def run(self, name: str, fn, nbytes: int, gemm: bool = True, staged_ahead: bool = False, native_io: bool = True,
+            timer: PhaseTimer | None = None):
         _reset_counts()
         _reset_io_counts()
         t0 = time.perf_counter()
@@ -792,13 +823,21 @@ class Ops:
         wall = time.perf_counter() - t0
         launches, io_counts = cuda_gemm.LAUNCHES, _io_counts()
         if gemm:
-            check_pipeline(name, launches, io_counts, staged_ahead)
+            check_pipeline(name, launches, io_counts, staged_ahead, native_io)
         elif launches or io_counts["stream_dispatches"]:
             raise AssertionError(f"{name}: {launches} K1 launches where no GEMM belongs")
         self.rows[name] = dict(wall_s=wall, gbps=nbytes / wall / 1e9, bytes=nbytes, k1_launches=launches,
                                io=io_counts)
-        log(phase="resilience_op", op=name, nvidia_smi=self.smi, **self.rows[name])
+        if timer is not None:
+            self.rows[name]["phases_s"] = dict(timer.acc)
+        log(phase=self.label, op=name, nvidia_smi=self.smi, **self.rows[name])
         return result
+
+    def timed(self, name: str, fn, nbytes: int, **kw):
+        """:meth:`run` of ``fn(timer)`` with a fresh PhaseTimer, its phases
+        logged beside the wall."""
+        timer = PhaseTimer()
+        return self.run(name, lambda: fn(timer), nbytes, timer=timer, **kw)
 
     @property
     def launches(self) -> int:
@@ -995,6 +1034,194 @@ def phase_resilience(work: str, seed: int, size: int, device) -> dict:
     return res
 
 
+def _pwrite_file(path: str, data: bytes, off: int) -> None:
+    """The host mirror's edit: ``data`` at byte ``off`` of ``path``."""
+    fd = os.open(path, os.O_WRONLY)
+    try:
+        if os.pwrite(fd, data, off) != len(data):
+            raise AssertionError(f"short pwrite into the mirror {path}")
+    finally:
+        os.close(fd)
+
+
+def _crc_lines(path: str) -> list[str]:
+    with open(path + ".METADATA") as fp:
+        return [ln for ln in fp.read().splitlines() if ln.startswith("# crc32")]
+
+
+def _prove(path: str, layout: str, work: str, device, segment_bytes: int, ops: Ops) -> dict:
+    """``path`` is the archive and, edited alongside it, its host mirror:
+    a from-scratch encode of the mirror (same layout) in a second directory
+    must give byte-identical chunk files and ``# crc32`` lines, and a decode
+    of the archive with chunks 0-3 lost must give the mirror's SHA-256."""
+    k, n = 10, 14
+    proof_dir = os.path.join(work, f"proof_{layout}")
+    os.makedirs(proof_dir)
+    twin = os.path.join(proof_dir, os.path.basename(path))
+    os.link(path, twin)  # the mirror's bytes, under the archive's name
+    size = os.path.getsize(path)
+    ops.timed(f"proof_reencode_{layout}", lambda t: api.encode_file(twin, k, n - k, checksums=True, layout=layout,
+                                                                     device=device, segment_bytes=segment_bytes,
+                                                                     timer=t), size)
+    got, want = archive_digests(path, n), archive_digests(twin, n)  # keyed by base name, the same in both
+    diff = [name for name in got if not name.endswith(".METADATA") and got[name] != want[name]]
+    if diff or _crc_lines(path) != _crc_lines(twin):
+        raise AssertionError(f"{layout}: the updated archive differs from a re-encode of the mirror: {diff}")
+    mirror_sha = sha256_file(path)
+    for i in range(4):
+        os.unlink(chunk_file_name(path, i))
+    out = path + ".proof.out"
+    ops.timed(f"proof_decode_{layout}", lambda t: api.decode_file(path, make_conf(n, k, path), out, device=device,
+                                                                  segment_bytes=segment_bytes, timer=t), size)
+    if sha256_file(out) != mirror_sha:
+        raise AssertionError(f"{layout}: the decode with chunks 0-3 lost differs from the mirror")
+    return dict(chunks_equal_reencode=True, crc_lines_equal=True, decode_sha256_equals_mirror=True,
+                mirror_sha256=mirror_sha)
+
+
+def phase_updates(work: str, seed: int, size: int, device, segment_bytes: int = api.DEFAULT_SEGMENT_BYTES) -> dict:
+    """The interleaved layout and the in-place updates at k=10, n=14, w=8
+    with checksums on ``size`` seeded bytes: the interleaved encode, its
+    reads (auto-decode, repair, locate), an append, an update, a group of
+    1,000 4 KiB edits (one stacked K1 launch), a torn update rolled back,
+    and on a row archive an update across the row-1/row-2 boundary and the
+    appends on either side of its tail slack; each archive then proven
+    against a re-encode of its host mirror.  Returns the logged result."""
+    from gpu_rscode_torch.update import SimulatedCrash, UpdateError
+    from gpu_rscode_torch.update.group import _merge_windows
+    from gpu_rscode_torch.update.layout import touched_windows
+    from gpu_rscode_torch.utils.fileformat import chunk_size_for_layout, metadata_file_name, rewrite_metadata_lines
+
+    t0 = time.perf_counter()
+    k, n = 10, 14
+    smi = smi_line()
+    ops = Ops(smi, label="update_op")
+    rng = np.random.default_rng(seed + 1)
+    path = os.path.join(work, "upd.bin")  # the archive's input, then its host mirror
+    want_sha = write_seeded(path, seed, size)
+    chunk = chunk_size_for_layout(size, k, 1, "interleaved")
+    kw = dict(device=device, segment_bytes=segment_bytes)
+
+    ops.timed("encode_interleaved", lambda t: api.encode_file(path, k, n - k, checksums=True, layout="interleaved",
+                                                               timer=t, **kw), size)
+    saved = archive_digests(path, n)
+
+    # The reads of an interleaved archive.
+    os.unlink(chunk_file_name(path, 0))
+    out = ops.timed("auto_decode_interleaved", lambda t: api.auto_decode_file(path, path + ".auto.out", timer=t,
+                                                                               **kw), size)
+    if sha256_file(out) != want_sha:
+        raise AssertionError("interleaved auto_decode_file: the SHA-256 differs from the input")
+    os.unlink(out)
+    rebuilt = ops.timed("repair_interleaved", lambda t: api.repair_file(path, timer=t, **kw), size)
+    if rebuilt != [0] or archive_digests(path, n) != saved:
+        raise AssertionError(f"interleaved repair_file rebuilt {rebuilt} or changed the archive")
+    # A copy without CRC lines (chunks linked, chunk 3 copied), 64 bytes of
+    # chunk 3 flipped at scattered columns, for the error-locating decode.
+    loc_dir = os.path.join(work, "locate")
+    os.makedirs(loc_dir)
+    loc = os.path.join(loc_dir, "upd.bin")
+    for i in range(n):
+        (shutil.copyfile if i == 3 else os.link)(chunk_file_name(path, i), chunk_file_name(loc, i))
+    shutil.copyfile(metadata_file_name(path), metadata_file_name(loc))
+    rewrite_metadata_lines(metadata_file_name(loc), crcs={})
+    _flip(chunk_file_name(loc, 3), np.sort(np.random.default_rng(seed + 20).choice(chunk, size=64, replace=False)))
+    out = ops.timed("locate_decode_interleaved", lambda t: api.locate_decode_file(loc, loc + ".out", timer=t, **kw),
+                    size)
+    if sha256_file(out) != want_sha:
+        raise AssertionError("interleaved locate_decode_file: the SHA-256 differs from the input")
+    shutil.rmtree(loc_dir)
+
+    # Append, update, group update: each applied to the mirror too.
+    big = min(64 * MiB, size // 16)  # 64 MiB at 1 GiB; smaller in a dry run at a small size
+    tail = rng.bytes(big)
+    res_append = ops.timed("append_64MiB", lambda t: api.append_file(path, tail, timer=t, **kw), len(tail),
+                           native_io=False)
+    with open(path, "ab") as fp:
+        fp.write(tail)
+    at = min(300_000_007, size // 3 + 7)
+    edit = rng.bytes(big)
+    res_update = ops.timed("update_64MiB", lambda t: api.update_file(path, at, edit, timer=t, **kw), len(edit),
+                           native_io=False)
+    _pwrite_file(path, edit, at)
+    total = os.path.getsize(path)
+    slots = np.sort(rng.choice(total // 8192, size=1000, replace=False))
+    edits = [{"op": "update", "at": int(slot) * 8192 + int(rng.integers(0, 4096)), "data": rng.bytes(4096)}
+             for slot in slots]
+    res_group = ops.timed("group_1000x4KiB", lambda t: api.update_file_many(path, edits, group_edits=len(edits),
+                                                                            timer=t, **kw),
+                          4096 * len(edits), native_io=False)
+    if ops.rows["group_1000x4KiB"]["k1_launches"] != 1 or res_group["groups"] != 1:
+        raise AssertionError(f"the group of 1,000 edits took {ops.rows['group_1000x4KiB']['k1_launches']} K1 "
+                             f"launches in {res_group['groups']} group(s), not one stacked launch")
+    # The one launch's width: the group's merged column windows, stacked.
+    windows = _merge_windows([win for e in edits for win in touched_windows("interleaved", e["at"], 4096, k, 1,
+                                                                            chunk_size_for_layout(total, k, 1,
+                                                                                                  "interleaved"))])
+    group_cols = sum(hi - lo for lo, hi in windows)
+    for e in edits:
+        _pwrite_file(path, e["data"], e["at"])
+
+    # A torn 4 MiB update: natives patched, parity not; recover rolls back.
+    pre = archive_digests(path, n)
+    os.environ["RS_UPDATE_CRASH"] = "mid_patch"
+    try:
+        api.update_file(path, min(123_456_789, size // 5 + 9), rng.bytes(big // 16), **kw)
+        raise AssertionError("RS_UPDATE_CRASH=mid_patch did not raise SimulatedCrash")
+    except SimulatedCrash:
+        pass
+    finally:
+        del os.environ["RS_UPDATE_CRASH"]
+    pending = api.scan_file(path, device=device)["pending_journal"]
+    verdict = api.recover_archive(path)
+    after = archive_digests(path, n)
+    if not pending or verdict != "rolled_back" or after != pre:
+        raise AssertionError(f"torn update: pending_journal {pending}, recover {verdict!r}, "
+                             f"archive restored {after == pre}")
+    torn = dict(simulated_crash=True, pending_journal=pending, recovered=verdict, digests_equal_pre_op=True)
+    proof_interleaved = _prove(path, "interleaved", work, device, segment_bytes, ops)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    # The row layout: an update across the row-1/row-2 boundary, then the
+    # appends on either side of the tail slack (6 bytes for 1 GiB, k=10).
+    row = os.path.join(work, "row.bin")
+    write_seeded(row, seed + 2, size)
+    ops.timed("encode_row", lambda t: api.encode_file(row, k, n - k, checksums=True, timer=t, **kw), size)
+    row_chunk = chunk_size_for_layout(size, k, 1, "row")
+    row_at = 2 * row_chunk - big // 2
+    edit = rng.bytes(big)
+    res_row = ops.timed("update_64MiB_row_boundary", lambda t: api.update_file(row, row_at, edit, timer=t, **kw),
+                        len(edit), native_io=False)
+    _pwrite_file(row, edit, row_at)
+    slack = k * row_chunk - size
+    pre = archive_digests(row, n)
+    try:
+        api.append_file(row, rng.bytes(slack + 1), **kw)
+        raise AssertionError(f"a {slack + 1}-byte append past the row archive's {slack}-byte slack was taken")
+    except UpdateError as e:
+        refused = str(e)
+    if archive_digests(row, n) != pre:
+        raise AssertionError("the refused row append changed the archive")
+    fit = rng.bytes(slack)
+    res_fit = ops.timed(f"append_{slack}B_row", lambda t: api.append_file(row, fit, timer=t, **kw), slack,
+                        native_io=False)
+    with open(row, "ab") as fp:
+        fp.write(fit)
+    proof_row = _prove(row, "row", work, device, segment_bytes, ops)
+
+    res = dict(phase="updates", nvidia_smi=smi, bytes=size, k=k, n=n, ops=ops.rows,
+               summaries={"append": res_append, "update": res_update, "group": res_group, "row_update": res_row,
+                          "row_append": res_fit},
+               group_stacked_cols=group_cols, torn_update=torn, row_slack=slack, row_refused=refused,
+               proof={"interleaved": proof_interleaved, "row": proof_row},
+               k1_launches=ops.launches, seconds=time.perf_counter() - t0)
+    log(**res)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    return res
+
+
 def log_compute_share(main_res: dict, timings: list[dict]) -> None:
     """K1's share of each main-path run's wall: its launches times its
     phase-6 time at the encode and the decode segment, over the wall."""
@@ -1107,14 +1334,16 @@ def main() -> int:
             phase_fleet_and_cli(work, SEED + 3, 128 * MiB)
             phase_short_segments(work, SEED + 4, 16 * MiB)
             resilience = phase_resilience(work, SEED + 5, MAIN_FILE_BYTES, device)
+            updates = phase_updates(work, SEED + 6, MAIN_FILE_BYTES, device)
         finally:
             shutil.rmtree(work, ignore_errors=True)
-        timings = phase_timings(device)
+        timings = phase_timings(device, updates["group_stacked_cols"])
         log_compute_share(main_res, timings)
         tools = phase_tools()
         new_timings = phase_new_timings(device)
         kernels = kernel_entries(k1_err, grids, timings[0],
-                                 main_res["pipelined"]["launches"] + resilience["k1_launches"], new_timings,
+                                 main_res["pipelined"]["launches"] + resilience["k1_launches"]
+                                 + updates["k1_launches"], new_timings,
                                  tools["launches"])
     log(phase="wall", seconds=time.perf_counter() - t_start, quick=args.quick)
     print(smi)

@@ -1,11 +1,14 @@
 """File-level operations: the counterpart of the JAX package's
-``api.encode_file``, ``api.decode_file`` and ``api.encode_fleet`` (row
-layout, one device), and of its resilience reads: ``scan_file``,
-``auto_decode_file``, ``decode_fleet``, ``repair_file``, ``repair_fleet``
-and ``locate_decode_file``.
+``api.encode_file``, ``api.decode_file`` and ``api.encode_fleet`` (one
+device), of its resilience reads: ``scan_file``, ``auto_decode_file``,
+``decode_fleet``, ``repair_file``, ``repair_fleet`` and
+``locate_decode_file``, and of its in-place updates: ``update_file``,
+``append_file``, ``update_file_many`` and ``recover_archive``
+(:mod:`.update`).
 
 * The file is striped into k contiguous ranges (``chunk_size =
-  ceil(total/k)``) and streamed in column segments of about
+  ceil(total/k)``), or under the interleaved layout symbol s goes to row
+  ``s % k``, column ``s // k``, and streamed in column segments of about
   ``segment_bytes`` of natives, so any file size runs in bounded memory.
 * The segments stream through the five-stage pipeline of
   :mod:`.parallel.pipeline`: a prefetch thread reads segment i+2 (native
@@ -43,7 +46,7 @@ import hashlib
 import os
 import threading
 from collections import OrderedDict
-from contextlib import contextmanager, nullcontext
+from contextlib import closing, contextmanager, nullcontext
 from itertools import combinations
 
 import numpy as np
@@ -61,6 +64,7 @@ from .utils.fileformat import (
     chunk_crc32,
     chunk_file_name,
     chunk_size_for,
+    chunk_size_for_layout,
     crc32_of,
     journal_path,
     metadata_file_name,
@@ -236,6 +240,7 @@ def encode_file(
     pipeline_depth: int = 2,
     checksums: bool = False,
     w: int = 8,
+    layout: str = "row",
     timer: PhaseTimer | None = None,
     _fleet: FleetPipeline | None = None,
 ) -> list[str]:
@@ -245,7 +250,10 @@ def encode_file(
     ``device``: None runs on CUDA (and raises with no GPU present);
     ``"cpu"`` runs the plain PyTorch path.  ``pipeline_depth``: segments in
     flight (the ``-s`` flag).  ``checksums=True`` appends per-chunk CRC32
-    lines to .METADATA.  ``w``: symbol width, 8 or 16.
+    lines to .METADATA.  ``w``: symbol width, 8 or 16.  ``layout``:
+    ``"row"`` (the reference's) or ``"interleaved"`` (file symbol s in row
+    ``s % k``, column ``s // k``; an append touches only the tail column
+    block, ``# layout interleaved`` in .METADATA).
     """
     timer = timer or PhaseTimer(enabled=False)
     if w not in (8, 16):
@@ -257,6 +265,11 @@ def encode_file(
     total_size = os.path.getsize(file_name)
     if total_size == 0:
         raise ValueError(f"refusing to encode empty file {file_name!r}")
+    if layout not in ("row", "interleaved"):
+        raise ValueError(f"unknown chunk layout {layout!r} (want row or interleaved)")
+    if layout == "interleaved":
+        return _encode_file_interleaved(file_name, codec, total_size, segment_bytes=segment_bytes, depth=depth,
+                                        checksums=checksums, timer=timer, _fleet=_fleet)
     chunk = chunk_size_for(total_size, k, sym)
     seg_cols = _segment_cols(chunk, k, segment_bytes)
     src = np.memmap(file_name, dtype=np.uint8, mode="r")
@@ -316,6 +329,90 @@ def encode_file(
     return commit.written
 
 
+def _encode_file_interleaved(file_name: str, codec: RSCodec, total_size: int, *, segment_bytes: int, depth: int,
+                             checksums: bool, timer: PhaseTimer, _fleet: FleetPipeline | None) -> list[str]:
+    """:func:`encode_file` under the interleaved layout: each segment is one
+    contiguous read of the file (bytes ``[off*k, (off + cols)*k)``)
+    transposed straight into a pinned slot of the loop
+    (:func:`.native.interleave_read`); the slot stays held until the drain
+    has written its natives, then the parity.  The same ``.rs_tmp``
+    atomicity, CRC lines, write-behind lane and fleet composition."""
+    k, p, w = codec.native_num, codec.parity_num, codec.w
+    sym = w // 8
+    chunk = chunk_size_for_layout(total_size, k, sym, "interleaved")
+    seg_cols = _segment_cols(chunk, k, segment_bytes)
+    src = np.memmap(file_name, dtype=np.uint8, mode="r")
+    commit = _ArchiveCommit(file_name, k + p)
+    crcs: dict[int, int] | None = {} if checksums else None
+    loop = StreamLoop(codec.device, k, seg_cols, depth, hold=True)
+    files: list = []
+
+    def gather(off: int, cols: int):
+        # On the prefetch thread: one contiguous read, transposed into the slot.
+        with timer.phase("stage segment (io)"):
+            slot, dst = loop.host_segment(cols)
+            return slot, native.interleave_read(file_name, k, sym, off, cols, total_size, fallback_src=src, dst=dst)
+
+    def drain(tag, payload) -> None:
+        off, _cols = tag
+        (slot, natives), out = payload
+        with timer.phase("encode compute"):
+            parity = loop.result(out)
+        new_crcs = None
+        if crcs is not None:
+            new_crcs = {i: crc32_of(natives[i], crcs.get(i, 0)) for i in range(k)}
+            new_crcs.update({k + j: crc32_of(parity[j], crcs.get(k + j, 0)) for j in range(p)})
+        with timer.phase("write natives (io)"):
+            native.scatter_write(files[:k], natives, off)
+        loop.release(slot)
+        with timer.phase("write parity (io)"):
+            native.scatter_write(files[k:], parity, off)
+        if new_crcs is not None:
+            crcs.update(new_crcs)
+
+    def finalize() -> None:
+        for fp in files:
+            fp.close()
+        with timer.phase("write metadata (io)"):
+            write_metadata(commit.meta_tmp, total_size, p, k, codec.total_matrix, w=w, layout="interleaved")
+            if crcs is not None:
+                append_checksums(commit.meta_tmp, crcs)
+        commit.promote()
+
+    def cleanup() -> None:
+        for fp in files:
+            if not fp.closed:
+                fp.close()
+        commit.discard()
+
+    def stage(tag, segment):
+        with timer.phase("h2d (transfer)"):
+            return segment, loop.stage(segment, sym)
+
+    key = _fleet.register(cleanup) if _fleet is not None else None
+    try:
+        with _drain_ctx(_fleet) as dex:
+            for name in commit.written[:-1]:
+                files.append(open(commit.tmps[name], "wb"))
+            # The loop closes before the prefetcher joins: a prefetch
+            # waiting for a held slot must not outlive a failed stream.
+            with SegmentPrefetcher(_segment_spans(chunk, seg_cols), gather, depth=depth) as prefetch, \
+                    closing(loop), AsyncWindow(depth, drain, executor=dex) as window:
+                for tag, (segment, staged) in DeviceStagingRing(prefetch, stage, depth=depth):
+                    with timer.phase("encode dispatch"):
+                        out = loop.dispatch(codec.encode, staged)
+                    window.push(tag, (segment, out))
+        if _fleet is not None:
+            _fleet.commit(key, finalize)
+        else:
+            finalize()
+    except BaseException:
+        if _fleet is None:
+            cleanup()
+        raise
+    return commit.written
+
+
 def encode_fleet(
     files,
     native_num: int,
@@ -328,6 +425,7 @@ def encode_fleet(
     pipeline_depth: int = 2,
     checksums: bool = False,
     w: int = 8,
+    layout: str = "row",
     timer: PhaseTimer | None = None,
 ) -> dict[str, list[str]]:
     """Encode many files back to back through one shared write-behind lane:
@@ -347,7 +445,7 @@ def encode_fleet(
             results[f] = encode_file(
                 f, native_num, parity_num, generator=generator, strategy=strategy, device=device,
                 segment_bytes=segment_bytes, pipeline_depth=pipeline_depth, checksums=checksums, w=w,
-                timer=timer, _fleet=pipe,
+                layout=layout, timer=timer, _fleet=pipe,
             )
     return results
 
@@ -425,8 +523,7 @@ def decode_file(
     total_size, p, k = meta.total_size, meta.parity_num, meta.native_num
     total_mat, w, crcs = meta.total_mat, meta.w, meta.crcs
     _check_gfwidth(w, meta_path)
-    if meta.layout != "row":
-        raise ValueError(f"chunk layout {meta.layout!r} in {meta_path!r} is not supported by this port (row only)")
+    layout = meta.layout
     total_mat = _checked_total_matrix(meta)
     sym = w // 8
     chunk = meta.chunk
@@ -572,11 +669,14 @@ def decode_file(
                 with timer.phase("decode compute"):
                     rec = loop.result(out)
             with timer.phase("write output (io)"):
-                for i in range(k):
-                    if i in native_pos:
-                        write_row(i, off, cols, maps_l[native_pos[i]][off : off + cols])
-                    else:
-                        write_row(i, off, cols, rec[rec_row[i]])
+                rows_out = [maps_l[native_pos[i]][off : off + cols] if i in native_pos else rec[rec_row[i]]
+                            for i in range(k)]
+                if layout == "interleaved":
+                    # The window's k rows are one contiguous file range.
+                    native.deinterleave_write(out_fp, rows_out, sym, off, total_size)
+                else:
+                    for i, row_bytes in enumerate(rows_out):
+                        write_row(i, off, cols, row_bytes)
             committed["n"] = max(committed["n"], off // seg_cols + 1)
 
         def gather(off: int, cols: int):
@@ -1095,18 +1195,6 @@ def _locate_context(scan: _ChunkScan):
         return None
 
 
-def _stage_copy(loop: StreamLoop, arr: np.ndarray, sym: int, rows=None):
-    """Stage host bytes ``arr`` (or its ``rows``) through one of ``loop``'s
-    staging buffers: the locate loop keeps its own copy of each segment,
-    which it corrects in place and writes out after the GEMMs."""
-    slot, dst = loop.host_segment(arr.shape[1])
-    if rows is None:
-        dst[...] = arr
-    else:
-        np.take(arr, rows, axis=0, out=dst)
-    return loop.stage((slot, dst), sym)
-
-
 def _locate_segment_fixes(ctx, codec: RSCodec, loop: StreamLoop, seg: np.ndarray, sym: int, timer: PhaseTimer):
     """One segment's syndrome check: S = check . seg through the GEMM on
     the device, then the host locate; returns the verified corrections
@@ -1115,7 +1203,7 @@ def _locate_segment_fixes(ctx, codec: RSCodec, loop: StreamLoop, seg: np.ndarray
     if ctx.r == 0:
         return {}
     with timer.phase("syndrome dispatch"):
-        out = loop.dispatch(lambda d: codec.syndrome(ctx.check, d), _stage_copy(loop, seg, sym))
+        out = loop.dispatch(lambda d: codec.syndrome(ctx.check, d), loop.stage_copy(seg, sym))
     with timer.phase("syndrome locate"):
         S = loop.result(out)
         S = S.view(np.uint16) if sym == 2 else S
@@ -1224,8 +1312,6 @@ def locate_decode_file(
             f"only {len(scan.healthy)} healthy chunks of the k={scan.k} needed (corrupt: {sorted(scan.bad)}, "
             f"missing: {scan.missing}) — past erasure recovery, locate cannot help"
         )
-    if scan.layout != "row":
-        raise ValueError(f"chunk layout {scan.layout!r} of {in_file!r} is not supported by this port (row only)")
     k, w = scan.k, scan.w
     sym = w // 8
     chunk = scan.chunk
@@ -1283,15 +1369,16 @@ def locate_decode_file(
                 if dec_missing is not None:
                     with timer.phase("locate dispatch"):
                         out = rec_loop.dispatch(lambda d: codec.decode(dec_missing, d),
-                                                _stage_copy(rec_loop, seg, sym, chosen_rows))
+                                                rec_loop.stage_copy(seg, sym, chosen_rows))
                     with timer.phase("decode compute"):
                         rec = rec_loop.result(out)
                 with timer.phase("write output (io)"):
-                    for i in range(k):
-                        if i in row_of:
-                            write_row(i, off, cols, seg[row_of[i]])
-                    for i in missing:
-                        write_row(i, off, cols, rec[rec_row[i]])
+                    rows_out = [seg[row_of[i]] if i in row_of else rec[rec_row[i]] for i in range(k)]
+                    if scan.layout == "interleaved":
+                        native.deinterleave_write(out_fp, rows_out, sym, off, scan.total_size)
+                    else:
+                        for i, row_bytes in enumerate(rows_out):
+                            write_row(i, off, cols, row_bytes)
         out_fp.truncate(scan.total_size)
         out_fp.close()
         os.replace(tmp_path, out_path)
@@ -1540,3 +1627,85 @@ def repair_fleet(
                                               segment_bytes=segment_bytes, pipeline_depth=pipeline_depth,
                                               timer=timer, fleet=pipe)
     return results
+
+
+# -- in-place update and append (update/) -------------------------------------------
+#
+# RS is linear: parity' = parity ^ E.delta, so an edit moves only its touched
+# column windows, and an append to an interleaved archive only the tail
+# column block.  Both are crash-atomic: an undo journal before any in-place
+# byte, then one generation-bumping .METADATA rewrite as the commit point,
+# rolled back on failure or at the next open (recover_archive).
+
+
+def update_file(file_name: str, at: int, data=None, *, src: str | None = None, strategy: str = "auto", device=None,
+                segment_bytes: int = DEFAULT_SEGMENT_BYTES, timer: PhaseTimer | None = None) -> dict:
+    """Overwrite bytes [at, at+len) of the archived file in place (``rs
+    update ARCHIVE --at OFF --in DELTA``).
+
+    Only the touched columns are read and rewritten: Δ = new ^ old per
+    touched native column, ``E·Δ`` through K1 on the compute stream (on
+    CUDA), the parity XOR-patched through an ordered pwrite lane, the CRC
+    lines fixed by seekable CRC arithmetic, and the metadata committed
+    atomically with a generation bump.  The new bytes come as ``data`` or
+    a file path ``src``.  Works on both chunk layouts; the touched chunks
+    must be healthy.  ``device``: None means CUDA and raises with no GPU
+    present.  Returns the op summary (bytes, segments, chunks_touched,
+    generation, ...)."""
+    from .update import apply_update
+
+    # The _observed_file_op("update") wrapper and the health plane's
+    # record_damage("update") hook here once those planes are ported.
+    return apply_update(file_name, at, data, src=src, strategy=strategy, device=device,
+                        segment_bytes=segment_bytes, timer=timer)
+
+
+def append_file(file_name: str, data=None, *, src: str | None = None, strategy: str = "auto", device=None,
+                segment_bytes: int = DEFAULT_SEGMENT_BYTES, timer: PhaseTimer | None = None) -> dict:
+    """Grow the archived file by the payload bytes (``rs append ARCHIVE
+    --in DATA``).  An interleaved archive grows every chunk by just the
+    tail column block; a row-layout archive takes appends within its
+    tail-padding slack (a larger chunk would re-stripe the whole file).
+    ``device``: None means CUDA and raises with no GPU present.  Returns
+    the op summary with the new ``total_size``."""
+    from .update import apply_append
+
+    # The _observed_file_op("append") wrapper and the health plane's
+    # record_damage("update") hook here once those planes are ported.
+    return apply_append(file_name, data, src=src, strategy=strategy, device=device, segment_bytes=segment_bytes,
+                        timer=timer)
+
+
+def update_file_many(file_name: str, edits, *, strategy: str = "auto", device=None,
+                     segment_bytes: int = DEFAULT_SEGMENT_BYTES, timer: PhaseTimer | None = None,
+                     group_edits: int | None = None, group_tag: str | None = None, stage_hook=None) -> dict:
+    """Apply an ORDERED batch of edits/appends to one archive under group
+    commit (``rs update ARCHIVE --edits FILE``).
+
+    ``edits``: dicts ``{"op": "update", "at": OFF, "data": bytes | "src":
+    path}`` or ``{"op": "append", "data"/"src": ...}``.  Byte-identical to
+    applying them one :func:`update_file` / :func:`append_file` at a time
+    (later edits win overlapping bytes), but each window group of up to
+    ``RS_UPDATE_GROUP_WINDOW`` edits (``group_edits`` overrides it) runs its
+    adjacent column blocks as ONE stacked ``E·Δ`` GEMM and commits under
+    ONE journal fsync chain, ONE .METADATA rewrite and ONE generation bump,
+    all or nothing.  ``group_tag`` names the group in the summary
+    (``group_id``); ``stage_hook("device_done")`` fires when every ``E·Δ``
+    is back on the host.  ``device``: None means CUDA and raises with no
+    GPU present.  Returns the aggregate summary."""
+    from .update import apply_update_many
+
+    # The _observed_file_op("update_many") wrapper and the health plane's
+    # record_damage("update") hook here once those planes are ported.
+    return apply_update_many(file_name, edits, strategy=strategy, device=device, segment_bytes=segment_bytes,
+                             timer=timer, group_edits=group_edits, group_tag=group_tag, stage_hook=stage_hook)
+
+
+def recover_archive(file_name: str) -> str:
+    """Resolve a pending update/append journal next to ``file_name`` (every
+    update and append runs it first; ``rs update --recover`` runs it
+    alone).  Returns ``none``, ``stale_discarded``, ``invalid_discarded``
+    or ``rolled_back``."""
+    from .update import recover
+
+    return recover(file_name)

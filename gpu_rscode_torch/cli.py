@@ -14,7 +14,11 @@ go through :func:`.api.encode_fleet`.  The resilience reads: ``-d -i <file>
 (:func:`.api.locate_decode_file`), ``--repair -i <file> [more archives]``
 (:func:`.api.repair_file` / :func:`.api.repair_fleet`) and ``--scrub -i
 <file> [--syndrome]`` (:func:`.api.scan_file`: one JSON line, exit 1 when
-the archive is not decodable).
+the archive is not decodable).  ``--layout row|interleaved`` picks the
+encode's chunk layout.  The subcommands ``update`` and ``append``
+(:func:`.api.update_file`, :func:`.api.update_file_many` with ``--edits``,
+:func:`.api.append_file`, :func:`.api.recover_archive` with ``--recover``)
+patch an archive in place.
 
 ``--device`` defaults to CUDA; without a GPU the command fails unless
 ``--device cpu`` is given.
@@ -50,6 +54,10 @@ Extensions: [--generator vandermonde|cauchy]
             [--no-verify] (decode: skip checksum verification)
             [--width 8|16] (encode: GF symbol width; 16 = wide-symbol
             extension recorded in .METADATA, decode auto-detects)
+            [--layout row|interleaved] (encode: chunk layout; interleaved
+            = append-mode extension — file symbol s lives in row s%k,
+            so rs append only touches the tail column block; recorded
+            in .METADATA, decode auto-detects)
             [--auto] (decode without -c: discover healthy chunks, skip
             corrupt ones via CRC32, pick a decodable subset.  Extra
             positional archives after the flags decode a whole batch
@@ -69,7 +77,23 @@ Extensions: [--generator vandermonde|cauchy]
             — syndromes attribute silent bitrot to its chunk index with
             no CRCs, reported as state "silent_bitrot")
             [--device DEVICE] (default cuda; cpu runs the plain PyTorch
-            path; with no GPU and no --device the command fails)"""
+            path; with no GPU and no --device the command fails)
+Subcommands: update ARCHIVE --at OFF --in DELTA [--recover] [--json]
+            (delta-parity partial-stripe update: overwrite a byte range
+            of the archived file in place — parity' = parity XOR E*delta,
+            only the touched segment columns move; crash-atomic via the
+            undo journal + metadata generation; per-chunk CRCs fixed by
+            seekable crc32-combine.  --recover resolves a torn op's
+            journal and exits; --edits FILE coalesces a batch of
+            OFFSET:PAYLOADFILE / append:PAYLOADFILE records into
+            group-committed window groups of up to RS_UPDATE_GROUP_WINDOW
+            edits — one journal fsync chain + one metadata commit per
+            group, each group all-or-nothing)
+            append ARCHIVE --in DATA [--json]
+            (append-mode encoding: grow the archive without touching
+            cold segments — unbounded on interleaved-layout archives,
+            slack-bounded on row-layout ones; torn appends roll back at
+            the next open)"""
 
 
 def _fail(msg: str) -> int:
@@ -78,13 +102,140 @@ def _fail(msg: str) -> int:
     return 2
 
 
+def _update_main(argv: list[str], op: str) -> int:
+    """The ``update`` / ``append`` subcommands: delta-parity partial-stripe
+    updates and append-mode encoding, parity' = parity ^ E.delta over the
+    touched columns only."""
+    import argparse
+
+    from .codec import VALID_STRATEGIES
+
+    ap = argparse.ArgumentParser(
+        prog=f"rs {op}",
+        description=(
+            "Patch a byte range of an encoded archive in place: only the touched segment columns are read, the "
+            "parity delta E*delta is XOR-patched, and per-chunk CRCs are fixed incrementally (crash-atomic via the "
+            "undo journal)."
+            if op == "update" else
+            "Grow an encoded archive: interleaved-layout archives extend every chunk by just the tail column block "
+            "(cold columns untouched); row-layout archives accept appends bounded by their tail-padding slack.  "
+            "Torn appends roll back at the next open."
+        ),
+    )
+    ap.add_argument("archive", help="the encoded file (chunk files and .METADATA live next to it)")
+    if op == "update":
+        ap.add_argument("--at", type=int, default=None, help="byte offset of the edit in the original file")
+        ap.add_argument("--recover", action="store_true",
+                        help="only resolve a pending torn update/append journal (rollback), then exit")
+        ap.add_argument("--edits", metavar="FILE", default=None,
+                        help="group-commit batch mode: coalesce the edits listed in FILE into window groups of up to "
+                        "RS_UPDATE_GROUP_WINDOW edits, each group independently all-or-nothing (one journal fsync "
+                        "chain + one metadata commit per group).  One edit per line, OFFSET:PAYLOADFILE for an update "
+                        "or append:PAYLOADFILE for an append; '#' comments and blank lines are skipped; payload paths "
+                        "resolve relative to FILE's directory")
+    ap.add_argument("--in", dest="in_path", metavar="FILE", default=None,
+                    help=("the replacement bytes" if op == "update" else "the bytes to append"))
+    ap.add_argument("--strategy", default="auto", choices=VALID_STRATEGIES)
+    ap.add_argument("--segment-bytes", type=int, default=None, help="column block sizing (default 64 MiB of natives)")
+    ap.add_argument("--json", action="store_true", help="emit the op summary as one JSON line")
+    ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="where E*delta runs (default cuda; cpu runs the plain PyTorch path)")
+    try:
+        args = ap.parse_args(argv)
+    except SystemExit as e:
+        return int(e.code or 0)
+
+    from . import api
+    from .update import SimulatedCrash
+
+    try:
+        if op == "update" and args.recover:
+            verdict = api.recover_archive(args.archive)
+            print(json.dumps({"archive": args.archive, "recovered": verdict}))
+            return 0
+        timer = PhaseTimer(enabled=not args.quiet)
+        kwargs = dict(strategy=args.strategy, device=args.device, timer=timer)
+        if args.segment_bytes:
+            kwargs["segment_bytes"] = args.segment_bytes
+        if op == "update" and args.edits is not None:
+            if args.in_path is not None or args.at is not None:
+                print("rs update: --edits replaces --at/--in (the batch file lists every edit)", file=sys.stderr)
+                return 2
+            try:
+                edits = _parse_edit_lines(args.edits)
+            except (OSError, ValueError) as e:
+                print(f"rs update: bad --edits file: {e}", file=sys.stderr)
+                return 2
+            summary = api.update_file_many(args.archive, edits, **kwargs)
+        else:
+            if args.in_path is None:
+                print(f"rs {op}: --in FILE is required", file=sys.stderr)
+                return 2
+            if op == "update" and args.at is None:
+                print("rs update: --at OFFSET is required", file=sys.stderr)
+                return 2
+            if op == "update":
+                summary = api.update_file(args.archive, args.at, src=args.in_path, **kwargs)
+            else:
+                summary = api.append_file(args.archive, src=args.in_path, **kwargs)
+    except SimulatedCrash:
+        raise  # RS_UPDATE_CRASH stops the process dead, as a power cut would
+    except (ValueError, RuntimeError, OSError) as e:
+        print(f"rs {op}: error: {e}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(summary))
+    elif not args.quiet:
+        print(f"== {op} {args.archive} ==")
+        if summary.get("op") == "group":
+            print(f"{summary['edits']} edit(s) in {summary['groups']} group(s) -> {summary['bytes']} payload bytes, "
+                  f"{summary['windows']} window(s), {summary['segments']} segment block(s), chunks "
+                  f"{summary['chunks_touched']}, generation {summary['generation']}, total {summary['total_size']}")
+        else:
+            print(f"{summary['bytes']} payload bytes -> {summary['segments']} segment block(s), chunks "
+                  f"{summary['chunks_touched']}, generation {summary['generation']}, total {summary['total_size']}")
+        print(timer.summary(data_bytes=summary["bytes"]))
+    return 0
+
+
+def _parse_edit_lines(path: str) -> list[dict]:
+    """The ``--edits`` batch file: one ``OFFSET:PAYLOADFILE`` or
+    ``append:PAYLOADFILE`` record per line; payload paths resolve relative
+    to the batch file."""
+    base = os.path.dirname(os.path.abspath(path))
+    edits: list[dict] = []
+    with open(path) as fp:
+        for ln, line in enumerate(fp, 1):
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            head, sep, payload = line.partition(":")
+            if not sep or not payload:
+                raise ValueError(f"line {ln}: want OFFSET:PAYLOADFILE or append:PAYLOADFILE, got {line!r}")
+            src = os.path.join(base, payload.strip())
+            if head.strip() == "append":
+                edits.append({"op": "append", "src": src})
+            else:
+                try:
+                    at = int(head)
+                except ValueError:
+                    raise ValueError(f"line {ln}: offset {head!r} is not an integer (or the keyword 'append')") from None
+                edits.append({"op": "update", "at": at, "src": src})
+    if not edits:
+        raise ValueError("no edit records (every line blank or comment)")
+    return edits
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in ("update", "append"):
+        return _update_main(argv[1:], argv[0])
     try:
         opts, extra = getopt.gnu_getopt(
             argv,
             "S:s:P:p:K:k:N:n:E:e:I:i:C:c:O:o:DdHh",
-            ["width=", "checksum", "no-verify", "generator=", "segment-bytes=", "strategy=", "device=", "auto", "locate",
+            ["width=", "layout=", "checksum", "no-verify", "generator=", "segment-bytes=", "strategy=", "device=", "auto", "locate",
              "repair", "scrub", "syndrome"],
         )
     except getopt.GetoptError as e:
@@ -99,6 +250,7 @@ def main(argv: list[str] | None = None) -> int:
     in_file = conf_file = out_file = None
     op = None
     width, checksum, no_verify = 8, False, False
+    layout = "row"
     generator, strategy, device = "vandermonde", "auto", None
     auto = locate = repair = scrub = syndrome = False
     repair_requested = bool(flags_seen & {"--repair", "--scrub"})
@@ -130,6 +282,8 @@ def main(argv: list[str] | None = None) -> int:
             return 0
         elif f == "--width":
             width = int(val)
+        elif f == "--layout":
+            layout = val
         elif f == "--checksum":
             checksum = True
         elif f == "--no-verify":
@@ -179,6 +333,11 @@ def main(argv: list[str] | None = None) -> int:
         return _fail("rs: --width is encode-only (decode reads it from .METADATA)")
     if width not in (8, 16):
         return _fail(f"rs: --width must be 8 or 16, got {width}")
+    if layout != "row":
+        if op != "encode":
+            return _fail("rs: --layout is encode-only (decode reads it from .METADATA)")
+        if layout != "interleaved":
+            return _fail(f"rs: --layout must be row or interleaved, got {layout}")
     if auto and op != "decode":
         return _fail("rs: --auto is decode-only")
     if auto and conf_file:
@@ -214,7 +373,7 @@ def main(argv: list[str] | None = None) -> int:
             if total_num <= native_num:
                 return _fail(f"rs: need n > k (got n={total_num}, k={native_num})")
             files = [in_file, *extra]
-            encode_kwargs = dict(generator=generator, checksums=checksum, w=width, timer=timer, **kwargs)
+            encode_kwargs = dict(generator=generator, checksums=checksum, w=width, layout=layout, timer=timer, **kwargs)
             if extra:
                 api.encode_fleet(files, native_num, total_num - native_num, **encode_kwargs)
             else:

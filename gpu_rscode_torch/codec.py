@@ -2,7 +2,8 @@
 
 The counterpart of the JAX package's ``codec.py``: a small object holding
 the host NumPy total matrix ``[I; G]`` whose ``encode``/``decode`` run one
-GF-GEMM over a (rows, m) stripe on the codec's device.  The k x k decode
+GF-GEMM over a (rows, m) stripe on the codec's device (``update`` is the
+in-place update's parity delta, the same GEMM).  The k x k decode
 inverse is computed on the host (:mod:`.ops.inverse`).
 
 Strategies: ``cuda`` (the hand-written kernel, :mod:`.ops.cuda_gemm`),
@@ -92,6 +93,12 @@ class RSCodec:
     def decode(self, decode_mat, chunks) -> torch.Tensor:
         """(r, k) recovery rows x (k, m) surviving chunks -> (r, m) natives."""
         return self._matmul(decode_mat, chunks)
+
+    def update(self, parity_mat, delta) -> torch.Tensor:
+        """(p, k) parity coefficient block E x (k, m) native-symbol delta ->
+        (p, m) parity delta: RS is linear, so ``parity' = parity ^ E.delta``
+        over just the columns an edit touched."""
+        return self._matmul(parity_mat, delta)
 
     def syndrome(self, check_mat, chunks) -> torch.Tensor:
         """(r, s) parity-check rows x (s, m) stacked chunk rows -> (r, m)

@@ -10,9 +10,11 @@ library is a speed feature, the Python path is the contract.  :data:`NATIVE_CALL
 :data:`FALLBACK_CALLS` count which of the two served each call, so a run
 can show that the fallback did not.
 
-``stripe_read`` and ``gather_rows`` take ``dst=``: a (k, cols) C-contiguous
-uint8 array to read into (the pipeline passes a view of a pinned buffer),
-in place of a fresh one.
+``stripe_read``, ``gather_rows`` and ``interleave_read`` take ``dst=``: a
+(k, cols) C-contiguous uint8 array to read into (the pipeline passes a view
+of a pinned buffer), in place of a fresh one.  ``interleave_read`` and
+``deinterleave_write`` are the interleaved layout's staging pair: one
+contiguous file range transposed into the k rows of a segment, and back.
 """
 
 from __future__ import annotations
@@ -95,6 +97,10 @@ def get_lib() -> ctypes.CDLL:
         lib.rs_gather_rows.restype = i32
         lib.rs_scatter_write.argtypes = [ctypes.POINTER(i32), u8p, i32, i64, i64]
         lib.rs_scatter_write.restype = i32
+        lib.rs_interleave_read.argtypes = [ctypes.c_char_p, u8p, i32, i32, i64, i64, i64]
+        lib.rs_interleave_read.restype = i64
+        lib.rs_deinterleave_write.argtypes = [i32, ctypes.POINTER(ctypes.c_void_p), i32, i32, i64, i64, i64]
+        lib.rs_deinterleave_write.restype = i32
         _lib = lib
         return lib
 
@@ -194,3 +200,61 @@ def scatter_write(files, arr: np.ndarray, off: int) -> None:
     fds = (ctypes.c_int * p)(*[fp.fileno() for fp in files])
     if lib.rs_scatter_write(fds, arr, p, cols, off) != 0:
         raise OSError("rs_scatter_write failed (short write)")
+
+
+def interleave_read(path: str, k: int, sym: int, off: int, cols: int, total_size: int,
+                    fallback_src: np.ndarray | None = None, dst: np.ndarray | None = None) -> np.ndarray:
+    """(k, cols) interleaved segment at chunk bytes ``[off, off + cols)``:
+    the file bytes ``[off*k, (off + cols)*k)``, cut at ``total_size`` and
+    zero-padded, with file symbol j of the range at row ``j % k``, column
+    ``j // k``.  ``off`` and ``cols`` are multiples of ``sym``.  A file
+    shorter than ``total_size`` raises ``OSError``."""
+    dst = _dst(dst, k, cols)
+    lib = _native()
+    if lib is not None:
+        _count(True)
+        if lib.rs_interleave_read(path.encode(), dst, k, sym, off, cols, total_size) < 0:
+            raise OSError(f"rs_interleave_read failed for {path!r} (I/O error or truncated file)")
+        return dst
+    _count(False)
+    src = fallback_src if fallback_src is not None else np.memmap(path, dtype=np.uint8, mode="r")
+    lo = off * k
+    hi = max(lo, min(lo + cols * k, total_size))
+    got = src[lo:hi]
+    if got.shape[0] != hi - lo:
+        raise OSError(f"short read from {path!r} at byte {lo} (truncated file)")
+    full = (hi - lo) // (k * sym)
+    out = dst.reshape(k, cols // sym, sym)
+    out[:, :full] = got[: full * k * sym].reshape(full, k, sym).transpose(1, 0, 2)
+    if full < cols // sym:
+        tail = np.zeros(k * sym, dtype=np.uint8)
+        tail[: hi - lo - full * k * sym] = got[full * k * sym :]
+        out[:, full] = tail.reshape(k, sym)
+        out[:, full + 1 :] = 0
+    return dst
+
+
+def deinterleave_write(fp, rows, sym: int, off: int, total_size: int) -> None:
+    """Write the k rows (each the chunk bytes ``[off, off + cols)`` of one
+    native) to the open binary file ``fp`` as the contiguous file bytes
+    ``[off*k, (off + cols)*k)``, cut at ``total_size``."""
+    rows = [np.ascontiguousarray(r, dtype=np.uint8) for r in rows]
+    k, cols = len(rows), rows[0].shape[0]
+    lo = off * k
+    hi = min(lo + cols * k, total_size)
+    if hi <= lo:
+        return
+    lib = _native()
+    if lib is None:
+        _count(False)
+        buf = np.empty((cols // sym, k, sym), dtype=np.uint8)
+        for i, r in enumerate(rows):
+            buf[:, i] = r.reshape(cols // sym, sym)
+        fp.seek(lo)
+        fp.write(buf.reshape(-1)[: hi - lo])
+        return
+    _count(True)
+    fp.flush()  # nothing buffered may straddle the pwrite
+    ptrs = (ctypes.c_void_p * k)(*[r.ctypes.data for r in rows])
+    if lib.rs_deinterleave_write(fp.fileno(), ptrs, k, sym, off, cols, total_size) != 0:
+        raise OSError("rs_deinterleave_write failed (short write)")

@@ -6,6 +6,10 @@
 // segment from k chunk files (rs_gather_rows), and the p parity rows of a
 // segment to p chunk files (rs_scatter_write).  The destination of a read
 // may be pinned memory, so a segment lands where the H2D copy reads it.
+// The interleaved chunk layout (file symbol s in row s % k, column s / k)
+// has its own pair: one contiguous file range transposed into the k rows of
+// a segment (rs_interleave_read), and k rows transposed back into one
+// contiguous output range (rs_deinterleave_write).
 //
 // The rows of a call are independent (distinct fds or offsets), so they fan
 // out over a few std::thread workers; one thread copies a page-cache or
@@ -69,9 +73,106 @@ bool run_rows(int k, int nt, Fn fn) {
   return ok.load();
 }
 
+// Symbol columns a worker of the interleave pair transposes at once: the
+// block's file bytes (k * sym * kBlockCols) stay in the worker's cache.
+constexpr long long kBlockCols = 16384;
+
+// fn(c0, c1) over symbol-column blocks [c0, c1) of [0, ncols), the blocks
+// dealt round-robin to the threads of run_rows.
+template <typename Fn>
+bool run_blocks(long long ncols, long long bytes, Fn fn) {
+  const long long nblocks = (ncols + kBlockCols - 1) / kBlockCols;
+  const int nb = nblocks > 1 << 30 ? 1 << 30 : static_cast<int>(nblocks);
+  return run_rows(nb, io_threads(nb, bytes), [&](int b) {
+    const long long c0 = static_cast<long long>(b) * kBlockCols;
+    const long long c1 = c0 + kBlockCols < ncols ? c0 + kBlockCols : ncols;
+    return fn(c0, c1);
+  });
+}
+
 }  // namespace
 
 extern "C" {
+
+// The interleaved segment at chunk bytes [off, off + cols) into dst[k x cols]:
+// file bytes [off*k, (off + cols)*k), cut at total_size and zero-padded, with
+// file symbol j of the range (sym bytes) at row j % k, column j / k.  off and
+// cols are multiples of sym.  Returns the file bytes read, or -1 when the
+// file cannot be opened or ends before total_size.
+long long rs_interleave_read(const char* path, uint8_t* dst, int k, int sym,
+                             long long off, long long cols,
+                             long long total_size) {
+  const int fd = open(path, O_RDONLY);
+  if (fd < 0) return -1;
+  const long long lo = off * k;
+  const long long stride = static_cast<long long>(k) * sym;  // file bytes a column
+  std::atomic<long long> got_total{0};
+  const bool ok = run_blocks(cols / sym, cols * k, [&](long long c0, long long c1) {
+    std::vector<uint8_t> buf(static_cast<size_t>((c1 - c0) * stride));
+    const long long blo = lo + c0 * stride;
+    long long want = total_size - blo;
+    if (want > static_cast<long long>(buf.size())) want = buf.size();
+    if (want < 0) want = 0;
+    long long done = 0;
+    while (done < want) {
+      const ssize_t n = pread(fd, buf.data() + done,
+                              static_cast<size_t>(want - done), blo + done);
+      if (n <= 0) return false;
+      done += n;
+    }
+    got_total.fetch_add(done, std::memory_order_relaxed);
+    std::memset(buf.data() + done, 0, buf.size() - static_cast<size_t>(done));
+    for (int r = 0; r < k; ++r) {
+      uint8_t* row = dst + static_cast<long long>(r) * cols + c0 * sym;
+      const uint8_t* in = buf.data() + static_cast<long long>(r) * sym;
+      if (sym == 1) {
+        for (long long c = 0; c < c1 - c0; ++c) row[c] = in[c * stride];
+      } else {
+        for (long long c = 0; c < c1 - c0; ++c)
+          std::memcpy(row + c * sym, in + c * stride, static_cast<size_t>(sym));
+      }
+    }
+    return true;
+  });
+  close(fd);
+  return ok ? got_total.load() : -1;
+}
+
+// The inverse: k rows of cols bytes (chunk bytes [off, off + cols) of the k
+// natives) written to fd as the contiguous file bytes [off*k, (off + cols)*k),
+// cut at total_size.  Returns 0, or -1 on a failed or short write.
+int rs_deinterleave_write(int fd, const uint8_t* const* rows, int k, int sym,
+                          long long off, long long cols,
+                          long long total_size) {
+  const long long lo = off * k;
+  const long long stride = static_cast<long long>(k) * sym;
+  const bool ok = run_blocks(cols / sym, cols * k, [&](long long c0, long long c1) {
+    const long long blo = lo + c0 * stride;
+    long long want = total_size - blo;
+    if (want > (c1 - c0) * stride) want = (c1 - c0) * stride;
+    if (want <= 0) return true;
+    std::vector<uint8_t> buf(static_cast<size_t>((c1 - c0) * stride));
+    for (int r = 0; r < k; ++r) {
+      const uint8_t* row = rows[r] + c0 * sym;
+      uint8_t* out = buf.data() + static_cast<long long>(r) * sym;
+      if (sym == 1) {
+        for (long long c = 0; c < c1 - c0; ++c) out[c * stride] = row[c];
+      } else {
+        for (long long c = 0; c < c1 - c0; ++c)
+          std::memcpy(out + c * stride, row + c * sym, static_cast<size_t>(sym));
+      }
+    }
+    long long done = 0;
+    while (done < want) {
+      const ssize_t n = pwrite(fd, buf.data() + done,
+                               static_cast<size_t>(want - done), blo + done);
+      if (n <= 0) return false;
+      done += n;
+    }
+    return true;
+  });
+  return ok ? 0 : -1;
+}
 
 // The k stripe rows of a file segment into dst[k x cols]: row i is bytes
 // [i*chunk + off, i*chunk + off + cols) of the file, cut at the chunk's end

@@ -13,6 +13,8 @@ taken off the dispatch thread.
   in submit order on one worker (shared-``fp`` writes and incremental CRCs
   need it), ``ordered=False`` lets ``workers`` threads race offset-addressed
   writes.  ``workers=0`` drains inline on the caller (``RS_IO_WRITERS=0``).
+  ``submit_pwrite`` queues one offset-addressed ``os.pwrite``, the patch
+  lane of the in-place update.
 * :class:`FleetPipeline`: per-archive commit for multi-file operations.
   Each archive's finalize (close, promote, checksum lines) rides the shared
   ordered lane behind that archive's own writes, so the next archive's
@@ -132,6 +134,21 @@ class DrainExecutor:
                                "(worker threads not started)")
         self._check_error()
         self._q.put(fn)
+
+    def submit_pwrite(self, fileno: int, data: bytes, offset: int) -> None:
+        """Queue one offset-addressed ``os.pwrite``: the patch lane of the
+        in-place update (:mod:`..update`).  An ``ordered=True`` executor
+        commits patches in submit order, the ascending-offset order per
+        chunk that the incremental CRCs are accounted in; a short write
+        raises ``OSError``."""
+        nbytes = len(data)
+
+        def task() -> None:
+            done = os.pwrite(fileno, data, offset)
+            if done != nbytes:
+                raise OSError(f"short pwrite ({done} of {nbytes} bytes at {offset})")
+
+        self.submit(task)
 
     def flush(self) -> None:
         """Barrier: wait until every submitted drain ran (or was discarded

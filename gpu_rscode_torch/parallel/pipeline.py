@@ -225,18 +225,31 @@ class StreamLoop:
 
     On the CPU: fresh NumPy buffers, ``torch.from_numpy`` staging, ``fn``
     run at dispatch, and its output's bytes as the result.
+
+    ``hold=True``: :meth:`stage` keeps the slot taken until
+    :meth:`release`, for a segment whose host bytes a drain still reads
+    after its H2D copy (the interleaved encode writes its natives from the
+    slot).  The ring then also covers the staging ring and the window, and
+    :meth:`host_segment` waits for a release; :meth:`close` ends such a
+    wait.
     """
 
-    def __init__(self, device: torch.device, rows: int, seg_cols: int, depth: int):
+    def __init__(self, device: torch.device, rows: int, seg_cols: int, depth: int, hold: bool = False):
         self.device = device
         self.rows = rows
+        self.hold = hold
         self.cuda = device.type == "cuda"
+        self._closed = False
         if not self.cuda:
             return
         self.h2d = torch.cuda.Stream(device)
         self.compute = torch.cuda.Stream(device)
         self.d2h = torch.cuda.Stream(device)
-        slots = max(1, depth) + 2
+        # Held slots sit in the prefetch queue, the staging ring and the
+        # window (depth each, one more in hand in the last two) and on the
+        # writer lane, whose drains release them; one slot past the first
+        # three means a waiting prefetch always has a drain to wait for.
+        slots = max(1, depth) * 3 + 3 if hold else max(1, depth) + 2
         self._bufs = [torch.empty(rows * seg_cols, dtype=torch.uint8, pin_memory=True) for _ in range(slots)]
         self._events: list[torch.cuda.Event | None] = [None] * slots
         self._free: queue.Queue = queue.Queue()
@@ -246,13 +259,23 @@ class StreamLoop:
     def _host_view(self, slot: int, cols: int) -> torch.Tensor:
         return self._bufs[slot][: self.rows * cols].view(self.rows, cols)
 
+    def _take(self) -> int:
+        if not self.hold:
+            try:
+                return self._free.get_nowait()
+            except queue.Empty:
+                raise RuntimeError("no free pinned buffer: the prefetcher runs deeper than the StreamLoop's depth") from None
+        while not self._closed:
+            try:
+                return self._free.get(timeout=0.1)
+            except queue.Empty:
+                continue
+        raise RuntimeError("the StreamLoop was closed while a segment waited for a pinned buffer")
+
     def host_segment(self, cols: int) -> tuple[int | None, np.ndarray]:
         if not self.cuda:
             return None, np.empty((self.rows, cols), dtype=np.uint8)
-        try:
-            slot = self._free.get_nowait()
-        except queue.Empty:
-            raise RuntimeError("no free pinned buffer: the prefetcher runs deeper than the StreamLoop's depth") from None
+        slot = self._take()
         event = self._events[slot]
         if event is not None:
             event.synchronize()
@@ -273,9 +296,30 @@ class StreamLoop:
             event = torch.cuda.Event()
             event.record(self.h2d)
         self._events[slot] = event
-        self._free.put(slot)
+        if not self.hold:
+            self._free.put(slot)
         PINNED_STAGES += 1
         return (dev.view(torch.uint16) if sym == 2 else dev), event
+
+    def stage_copy(self, arr: np.ndarray, sym: int, rows=None):
+        """Copy host bytes ``arr`` (or its ``rows``) into a free slot and
+        stage it: for a segment the caller keeps and reuses (the locate
+        loop corrects its own copy in place; the update keeps its delta)."""
+        slot, dst = self.host_segment(arr.shape[1])
+        if rows is None:
+            dst[...] = arr
+        else:
+            np.take(arr, rows, axis=0, out=dst)
+        return self.stage((slot, dst), sym)
+
+    def release(self, slot: int | None) -> None:
+        """Return a held slot (``hold=True``) once its host bytes are used."""
+        if self.cuda and self.hold and slot is not None:
+            self._free.put(slot)
+
+    def close(self) -> None:
+        """End any wait in :meth:`host_segment` (the loop's stream is over)."""
+        self._closed = True
 
     def dispatch(self, fn: Callable[[torch.Tensor], torch.Tensor], staged):
         global STREAM_DISPATCHES

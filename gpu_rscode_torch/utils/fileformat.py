@@ -1,11 +1,13 @@
 """On-disk formats: chunk files, .METADATA, conf files.
 
-The port's own copy of the JAX package's ``utils/fileformat.py`` (row layout
-only), byte-compatible with it and with the reference encoder:
+The port's own copy of the JAX package's ``utils/fileformat.py``,
+byte-compatible with it and with the reference encoder:
 
 * chunk file ``_<i>_<fileName>``, i in [0, n): i < k natives, i >= k parity;
-  each holds ``chunk_size = ceil(total_size / k)`` bytes, rounded up to the
-  symbol size, the tail zero-padded.
+  under the row layout each holds ``chunk_size = ceil(total_size / k)``
+  bytes, rounded up to the symbol size, the tail zero-padded; under the
+  interleaved layout ``ceil(total_size / (k * sym))`` symbols
+  (:func:`chunk_size_for_layout`).
 * ``<fileName>.METADATA`` text: line 1 ``totalSize``; line 2
   ``parityBlockNum nativeBlockNum``; then the (k+p) x k total matrix,
   identity block first, each entry "%d " and "\\n" per row.  Extension
@@ -42,12 +44,37 @@ def chunk_size_for(total_size: int, native_num: int, sym: int = 1) -> int:
     return -(-chunk // sym) * sym
 
 
+def chunk_size_for_layout(total_size: int, native_num: int, sym: int = 1, layout: str = "row") -> int:
+    """Bytes per chunk under either chunk layout: ``row`` as
+    :func:`chunk_size_for`; ``interleaved`` (file symbol s in row ``s % k``
+    at column ``s // k``) ``ceil(total / (k * sym))`` symbols."""
+    if layout == "interleaved":
+        return -(-total_size // (native_num * sym)) * sym
+    return chunk_size_for(total_size, native_num, sym)
+
+
 def journal_path(file_name: str) -> str:
     """The undo journal a torn in-place update leaves next to an archive."""
     return file_name + ".rs_journal"
 
 
-def write_metadata(path: str, total_size: int, parity_num: int, native_num: int, total_mat: np.ndarray, w: int = 8) -> None:
+def fsync_dir(path: str) -> None:
+    """fsync the directory holding ``path``, so a rename or unlink in it is
+    durable (best effort: some filesystems refuse a directory fd)."""
+    try:
+        fd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def write_metadata(path: str, total_size: int, parity_num: int, native_num: int, total_mat: np.ndarray, w: int = 8,
+                   layout: str = "row") -> None:
     rows = native_num + parity_num
     if total_mat.shape != (rows, native_num):
         raise ValueError(f"total matrix shape {total_mat.shape} != {(rows, native_num)}")
@@ -58,6 +85,8 @@ def write_metadata(path: str, total_size: int, parity_num: int, native_num: int,
             fp.write("".join(f"{int(v)} " for v in total_mat[i]) + "\n")
         if w != 8:
             fp.write(f"# gfwidth {w}\n")
+        if layout != "row":
+            fp.write(f"# layout {layout}\n")
 
 
 class ArchiveMeta:
@@ -84,7 +113,7 @@ class ArchiveMeta:
 
     @property
     def chunk(self) -> int:
-        return chunk_size_for(self.total_size, self.native_num, self.sym)
+        return chunk_size_for_layout(self.total_size, self.native_num, self.sym, self.layout)
 
 
 def _extension(text: str, name: str) -> list[list[str]]:
@@ -107,8 +136,16 @@ def _parse_field_width(text: str) -> int:
 def _parse_layout(text: str) -> str:
     for args in _extension(text, "layout"):
         if len(args) == 1:
+            if args[0] not in ("row", "interleaved"):
+                raise ValueError(f"unsupported chunk layout {args[0]!r} (this build handles row and interleaved)")
             return args[0]
     return "row"
+
+
+def read_layout(path: str) -> str:
+    """Chunk layout of a metadata file: its ``# layout`` line, or ``row``."""
+    with open(path) as fp:
+        return _parse_layout(fp.read())
 
 
 def _parse_generation(text: str) -> int:
@@ -186,36 +223,45 @@ def append_checksums(path: str, crcs: dict[int, int]) -> None:
             fp.write(f"# crc32 {i} {crcs[i] & 0xFFFFFFFF:08x}\n")
 
 
-def rewrite_checksums(path: str, crcs: dict[int, int]) -> None:
-    """Replace every ``# crc32`` line of a metadata file with ``crcs``
-    (repair refreshes the rebuilt chunks' CRCs).  Every other line is kept
-    byte for byte, and the ``# generation`` line moves to the end, as the
-    JAX package's metadata rewrite leaves it.  Crash-safe: a temp file,
-    fsync, an atomic rename and an fsync of the directory."""
+def rewrite_metadata_lines(path: str, *, total_size: int | None = None, crcs: dict[int, int] | None = None,
+                           bump_generation: bool = False) -> int:
+    """Crash-safe in-place .METADATA mutation; returns the generation
+    recorded.  Optionally replaces the totalSize line (an append grows it),
+    replaces every ``# crc32`` line with ``crcs`` (None keeps them) and
+    bumps the ``# generation`` counter (the update commit).  Every other
+    line is kept byte for byte, and the ``# generation`` line moves to the
+    end.  A temp file, fsync, an atomic rename and an fsync of the
+    directory: a crash leaves the whole old file or the whole new one."""
     with open(path) as fp:
         lines = fp.readlines()
-    generation = _parse_generation("".join(lines))
-    kept = [ln for ln in lines if ln.split()[:2] not in (["#", "generation"], ["#", "crc32"])]
+    generation = _parse_generation("".join(lines)) + int(bump_generation)
+    kept = []
+    for ln in lines:
+        head = ln.split()[:2]
+        if head == ["#", "generation"] or (crcs is not None and head == ["#", "crc32"]):
+            continue
+        kept.append(ln)
+    if total_size is not None:
+        kept[0] = f"{total_size}\n"
     tmp = path + ".tmp"
     with open(tmp, "w") as fp:
         fp.writelines(kept)
-        for i in sorted(crcs):
+        for i in sorted(crcs or {}):
             fp.write(f"# crc32 {i} {crcs[i] & 0xFFFFFFFF:08x}\n")
         if generation:
             fp.write(f"# generation {generation}\n")
         fp.flush()
         os.fsync(fp.fileno())
     os.replace(tmp, path)
-    try:
-        fd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
-    except OSError:
-        return
-    try:
-        os.fsync(fd)
-    except OSError:
-        pass
-    finally:
-        os.close(fd)
+    # The rename must be durable before the caller unlinks the undo journal.
+    fsync_dir(path)
+    return generation
+
+
+def rewrite_checksums(path: str, crcs: dict[int, int]) -> None:
+    """Replace every ``# crc32`` line with ``crcs`` (repair refreshes the
+    rebuilt chunks' CRCs), the generation kept."""
+    rewrite_metadata_lines(path, crcs=crcs)
 
 
 def crc32_of(buf, crc: int = 0) -> int:

@@ -169,11 +169,21 @@ def test_decode_names_every_bad_survivor_like_jax(tmp_path, case, bad):
 
 
 def test_interleaved_archive_is_refused(tmp_path):
+    """The port reads the interleaved layout now (it refused it before the
+    layout was ported): the JAX package's interleaved archive decodes to
+    the input, and only a layout neither package knows is refused."""
     path = str(tmp_path / "f.bin")
-    _write(path, 5_000, 3)
+    data = _write(path, 5_000, 3)
     j_api.encode_file(path, 4, 2, strategy="bitplane", layout="interleaved")
+    conf = j_make_conf(6, 4, path, survivors=[2, 3, 4, 5], out=str(tmp_path / "conf"))
+    assert _read(t_api.decode_file(path, conf, str(tmp_path / "o"), device="cpu")) == data
+    meta = t_ff.metadata_file_name(path)
+    with open(meta) as fp:
+        text = fp.read()
+    with open(meta, "w") as fp:
+        fp.write(text.replace("# layout interleaved", "# layout diagonal"))
     with pytest.raises(ValueError, match="layout"):
-        t_api.decode_file(path, j_make_conf(6, 4, path), str(tmp_path / "o"), device="cpu")
+        t_api.decode_file(path, conf, str(tmp_path / "o2"), device="cpu")
 
 
 @pytest.mark.parametrize("chunk,k,seg", [(5000, 4, 4096), (107374183, 10, 64 << 20), (100, 4, 4096), (300, 3, 128)])

@@ -236,3 +236,121 @@ def test_resilience_flag_errors_like_jax(tmp_path, capsys, argv):
     full = argv[:1] + (["-i", path] if argv != ["--scrub"] else []) + argv[1:]
     assert t_cli.main(full + ["--device", "cpu"]) == j_cli.main(full) == 2
     capsys.readouterr()
+
+
+# ----- the interleaved layout and the update / append subcommands ---------------
+
+
+@pytest.mark.parametrize("flags", [[], ["--checksum"], ["--checksum", "--width", "16", "-s", "3", "-p", "1"]])
+def test_layout_interleaved_encode_byte_identical_to_jax(tmp_path, capsys, flags):
+    runs = _both(tmp_path, lambda paths: ["-k", "4", "-n", "6", "-e", paths[0], "--layout", "interleaved", *flags])
+    assert runs["torch"][0] == runs["jax"][0] == 0
+    assert runs["torch"][1] == runs["jax"][1]
+    assert b"# layout interleaved\n" in runs["torch"][1][0]["f0.bin.METADATA"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["-d", "-i", "f", "-c", "c", "--layout", "interleaved"], ["-k", "4", "-n", "6", "-e", "f", "--layout", "diagonal"],
+    ["--scrub", "-i", "f", "--layout", "interleaved"],
+])
+def test_layout_flag_errors_like_jax(capsys, argv):
+    errs = []
+    for cli, extra in ((t_cli, ["--device", "cpu"]), (j_cli, [])):
+        assert cli.main(argv + extra) == 2
+        errs.append(capsys.readouterr().err.splitlines()[0])
+    assert errs[0] == errs[1] and "--layout" in errs[0]
+
+
+def _update_archives(tmp_path, layout):
+    """The same seeded file encoded by the JAX CLI into ``torch/`` and
+    ``jax/``, plus payload files; returns ({cli: path}, data)."""
+    paths = {}
+    for name in ("torch", "jax"):
+        d = tmp_path / name
+        d.mkdir()
+        paths[name] = str(d / "f.bin")
+        data = _write(paths[name], SIZE, 33)
+        assert j_cli.main(["-k", "4", "-n", "6", "-e", paths[name], "--checksum", "--layout", layout]) == 0
+    for name, size in (("delta", 5_000), ("tail", 1 if layout == "row" else 7_000), ("e1", 100), ("e2", 64)):
+        _write(str(tmp_path / name), size, size)
+    with open(tmp_path / "batch.txt", "w") as fp:
+        fp.write("# two edits and an append\n10:e1\n\n250000:e2\nappend:tail\n" if layout == "interleaved"
+                 else "10:e1\n250000:e2\n")
+    return paths, data
+
+
+def _sub(cli, argv, capsys, path, tmp_path):
+    capsys.readouterr()
+    rc = cli.main(argv + (["--device", "cpu"] if cli is t_cli else []))
+    cap = capsys.readouterr()
+    scrub = lambda text: text.replace(path, "F").replace(str(tmp_path), "D")  # noqa: E731
+    head = "\n".join(ln for ln in cap.out.splitlines() if not ln.startswith("  "))  # not the phase times
+    return rc, scrub(head).strip(), scrub(cap.err).strip()
+
+
+@pytest.mark.parametrize("layout", ["row", "interleaved"])
+def test_update_and_append_subcommands_like_jax(tmp_path, capsys, layout, monkeypatch):
+    paths, data = _update_archives(tmp_path, layout)
+    steps = [
+        ["update", "{p}", "--at", "12345", "--in", str(tmp_path / "delta"), "--json"],
+        ["append", "{p}", "--in", str(tmp_path / "tail"), "--json", "--segment-bytes", "8192"],
+        ["update", "{p}", "--edits", str(tmp_path / "batch.txt"), "--json"],
+        ["update", "{p}", "--at", "7", "--in", str(tmp_path / "e1")],
+        ["update", "{p}", "--recover"],
+    ]
+    for step in steps:
+        outs = {}
+        for name, cli in (("torch", t_cli), ("jax", j_cli)):
+            argv = [a.replace("{p}", paths[name]) for a in step]
+            outs[name] = _sub(cli, argv, capsys, paths[name], tmp_path / name)
+        assert outs["torch"] == outs["jax"], step
+        assert outs["torch"][0] == 0
+        if "--json" in step:
+            assert json.loads(outs["torch"][1])["generation"] >= 1
+        assert _archive(paths["torch"], 6) == _archive(paths["jax"], 6)
+    # A torn update, then --recover: the same verdict line, the pre-op archive.
+    pre = _archive(paths["torch"], 6)
+    monkeypatch.setenv("RS_UPDATE_CRASH", "mid_patch")
+    for name, cli in (("torch", t_cli), ("jax", j_cli)):
+        with pytest.raises(RuntimeError):
+            cli.main(["update", paths[name], "--at", "0", "--in", str(tmp_path / "delta")]
+                     + (["--device", "cpu"] if cli is t_cli else []))
+    monkeypatch.delenv("RS_UPDATE_CRASH")
+    capsys.readouterr()
+    outs = {name: _sub(cli, ["update", paths[name], "--recover"], capsys, paths[name], tmp_path / name)
+            for name, cli in (("torch", t_cli), ("jax", j_cli))}
+    assert outs["torch"] == outs["jax"]
+    assert json.loads(outs["torch"][1]) == {"archive": "F", "recovered": "rolled_back"}
+    assert _archive(paths["torch"], 6) == pre == _archive(paths["jax"], 6)
+
+
+@pytest.mark.parametrize("argv,rc", [
+    (["update", "{p}"], 2),
+    (["update", "{p}", "--in", "{d}"], 2),
+    (["append", "{p}"], 2),
+    (["update", "{p}", "--edits", "{b}", "--at", "3"], 2),
+    (["update", "{p}", "--edits", "{d}"], 2),
+    (["update", "{p}", "--edits", "{missing}"], 2),
+    (["update", "{p}", "--at", "399990", "--in", "{d}"], 1),
+    (["append", "{p}", "--in", "{d}"], 1),
+    (["update", "{missing}", "--at", "0", "--in", "{d}"], 1),
+    (["update", "--at", "0"], 2),
+    (["update", "{p}", "--at", "x", "--in", "{d}"], 2),
+])
+def test_update_usage_errors_like_jax(tmp_path, capsys, argv, rc):
+    paths, _ = _update_archives(tmp_path, "row")
+    with open(tmp_path / "bad.txt", "w") as fp:
+        fp.write("not-a-record\n")
+    outs = {}
+    for name, cli in (("torch", t_cli), ("jax", j_cli)):
+        subs = {"{p}": paths[name], "{d}": str(tmp_path / "delta"), "{b}": str(tmp_path / "batch.txt"),
+                "{missing}": str(tmp_path / "nope")}
+        full = [subs.get(a, a) for a in argv]
+        if full[-1] == str(tmp_path / "delta") and "--edits" in full:
+            full[-1] = str(tmp_path / "bad.txt")
+        outs[name] = _sub(cli, full, capsys, paths[name], tmp_path / name)
+    assert outs["torch"][0] == outs["jax"][0] == rc
+    # The error line (argparse's usage text above it lists each package's
+    # own --strategy choices and the port's --device).
+    assert outs["torch"][2].splitlines()[-1] == outs["jax"][2].splitlines()[-1]
+    assert _archive(paths["torch"], 6) == _archive(paths["jax"], 6)
