@@ -70,6 +70,26 @@ Phases, each fatal on failure:
      lost its SHA-256.  Each operation's wall, GB/s of its payload, K1
      launches (on the compute stream from pinned staging) and phases are
      logged;
+  5d. the strategies xor and ring (plain PyTorch XOR chains over packed bit
+     planes, no hand-written kernel): phase 4's 1 GiB file encoded under
+     each, pipelined, must give chunks and .METADATA byte-identical to the
+     cuda archive of phase 4, and decode with chunks 0-3 lost to its
+     SHA-256; locate_decode_file under xor on phase 5b's bitrotted archive
+     with native 0 lost, then with the bitrot undone, must restore the
+     input, and every segment it did not correct must feed its recovery
+     GEMM from the syndrome GEMM's pack (the corrected ones re-stage); a
+     4 MiB update_file under xor on a copy of phase 5c's interleaved
+     archive must equal the same update under cuda on another copy; a
+     64 MiB w=16 CLI round trip under each.  Each of these runs with the
+     counts reset: K1 must not be launched, the codec's plain GEMMs must
+     not be called, and every stream dispatch must be an xor or ring
+     pipeline call.  Both are also held bit-exact against K1 on the card
+     over K1's grid shapes with k <= 16, p <= 8 (w 8 and 16, ragged and
+     misaligned), and timed at the encode and decode segments (pack,
+     chain, unpack, the whole dispatch and its host enqueue time, CUDA
+     events, best of 3) beside K1 and the bound, with each schedule's XOR
+     count, its device ops a dispatch and its build time cold and from a
+     warm schedule store;
   6. timings: file encode/decode GB/s of phase 4, and K1 at the main path's
      segment shapes, at phase 5b's syndrome (r=4, depth 14) and repair
      (3 targets, k=10) shapes and at phase 5c's E·Δ shapes (the stacked
@@ -92,8 +112,8 @@ Phases, each fatal on failure:
      the instruction estimate of their designs.
 
 The last lines are nvidia-smi's name and power limit, the kernels JSON and
-the result JSON.  --quick runs phases 1-3 and 7 and prints the same three
-lines, with the times it did not take as null.
+the result JSON.  --quick runs phases 1-3, 7 and phase 5d's grid and prints
+the same three lines, with the times it did not take as null.
 """
 
 from __future__ import annotations
@@ -116,12 +136,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gpu_rscode_torch import api, cli, native
+from gpu_rscode_torch import codec as codec_module
 from gpu_rscode_torch.codec import RSCodec
 from gpu_rscode_torch.gf_decode import LocateContext
 from gpu_rscode_torch.models.vandermonde import vandermonde_matrix
-from gpu_rscode_torch.ops import _build, cuda_gemm, cuda_pack2, cuda_planes
+from gpu_rscode_torch.ops import _build, cuda_gemm, cuda_pack2, cuda_planes, ring_gemm, xor_gemm
 from gpu_rscode_torch.ops.gemm import _widen, gf_matmul_bitplane, to_tensor
 from gpu_rscode_torch.ops import inverse
 from gpu_rscode_torch.ops.gf import get_field
@@ -416,8 +438,10 @@ def run_main_path(path: str, want_sha: str, mode: str, depth: int, writers: str 
     return res, digests
 
 
-def phase_main_path(work: str, seed: int, size: int) -> dict:
-    """The 1 GiB main path serial, then pipelined; returns both results."""
+def phase_main_path(work: str, seed: int, size: int) -> tuple[dict, dict, str, str]:
+    """The 1 GiB main path serial, then pipelined; returns both results, the
+    cuda archive's digests, and the input file (left for phase 5d) with its
+    SHA-256."""
     path = os.path.join(work, "main.bin")
     want_sha = write_seeded(path, seed, size)
     serial, serial_digests = run_main_path(path, want_sha, "serial", 1, "0")
@@ -426,8 +450,178 @@ def phase_main_path(work: str, seed: int, size: int) -> dict:
         diff = sorted(name for name in serial_digests if serial_digests[name] != piped_digests.get(name))
         raise AssertionError(f"serial and pipelined archives differ: {diff}")
     log(phase="main_path_archives", identical=True, files=len(piped_digests), digests=piped_digests)
+    return {"serial": serial, "pipelined": piped}, piped_digests, path, want_sha
+
+
+STRATEGIES = ("xor", "ring")
+
+
+def _strategy_calls() -> int:
+    """Dispatches of every xor and ring pipeline of this process so far."""
+    return sum(d["calls"] for d in xor_gemm.pipeline_stats() + ring_gemm.ring_pipeline_stats())
+
+
+@contextlib.contextmanager
+def _no_plain_gemm():
+    """While the strategies run, the codec's plain GEMMs raise: on CUDA, xor
+    and ring must reach neither K1 nor the bitplane or table path."""
+    saved = codec_module.gf_matmul_bitplane, codec_module.gf_matmul_table
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain GEMM was called under strategy xor or ring")
+
+    codec_module.gf_matmul_bitplane = codec_module.gf_matmul_table = refuse
+    try:
+        yield
+    finally:
+        codec_module.gf_matmul_bitplane, codec_module.gf_matmul_table = saved
+
+
+def run_strategy(name: str, strategy: str, fn, nbytes: int, smi: str, timer: PhaseTimer | None = None,
+                 native_io: bool = True, resident: int = 0):
+    """One operation under ``strategy`` with the counts set to 0 just before
+    it and read just after: K1 must not move, every stream dispatch must be
+    an xor or ring pipeline call, and every dispatch but the ``resident``
+    ones (which read planes already on the card) staged from pinned memory.
+    Returns the operation's result and its logged row."""
+    _reset_counts()
+    _reset_io_counts()
+    calls0, reuse0 = _strategy_calls(), dict(xor_gemm.PACK_REUSE)
+    t0 = time.perf_counter()
+    with _no_plain_gemm():
+        result = fn()
+    wall = time.perf_counter() - t0
+    io_counts, calls = _io_counts(), _strategy_calls() - calls0
+    reuse = {key: xor_gemm.PACK_REUSE[key] - reuse0[key] for key in reuse0}
+    resident = resident(reuse) if callable(resident) else resident
+    if cuda_gemm.LAUNCHES:
+        raise AssertionError(f"{name}: strategy {strategy} launched K1 {cuda_gemm.LAUNCHES} times")
+    if calls <= 0 or io_counts["stream_dispatches"] != calls:
+        raise AssertionError(f"{name}: {calls} {strategy} dispatches, {io_counts['stream_dispatches']} on the compute "
+                             "stream")
+    if io_counts["pinned_stages"] != calls - resident:
+        raise AssertionError(f"{name}: {io_counts['pinned_stages']} pinned stages for {calls} dispatches, {resident} "
+                             "of them on resident planes")
+    if (native_io and io_counts["native_io_calls"] <= 0) or io_counts["fallback_io_calls"]:
+        raise AssertionError(f"{name}: native IO calls {io_counts['native_io_calls']}, NumPy fallback calls "
+                             f"{io_counts['fallback_io_calls']}")
+    row = dict(strategy=strategy, wall_s=wall, gbps=nbytes / wall / 1e9, bytes=nbytes, k1_launches=0,
+               dispatches=calls, pack_reuse=reuse, io=io_counts)
+    if timer is not None:
+        row["phases_s"] = dict(timer.acc)
+    log(phase="strategies", op=name, nvidia_smi=smi, **row)
+    return result, row
+
+
+def phase_strategies_main(path: str, want_sha: str, cuda_digests: dict) -> dict:
+    """Phase 5d on the main path: ``path`` (phase 4's 1 GiB input) encoded
+    pipelined under xor, then ring, each archive byte-identical to phase 4's
+    cuda archive, then decoded with chunks 0-3 lost to its SHA-256.
+    Deletes ``path`` at the end."""
+    k, n = 10, 14
+    size = os.path.getsize(path)
+    smi = smi_line()
+    rows = {}
+    for strategy in STRATEGIES:
+        enc_timer, dec_timer = PhaseTimer(), PhaseTimer()
+        _, enc = run_strategy(f"encode_{strategy}", strategy,
+                              lambda: api.encode_file(path, k, n - k, strategy=strategy, timer=enc_timer), size, smi,
+                              enc_timer)
+        digests = archive_digests(path, n)
+        if digests != cuda_digests:
+            diff = sorted(name for name in digests if digests[name] != cuda_digests.get(name))
+            raise AssertionError(f"the {strategy} archive differs from the cuda archive: {diff}")
+        for i in range(n - k):
+            os.unlink(chunk_file_name(path, i))
+        conf, out = make_conf(n, k, path), path + ".out"
+        _, dec = run_strategy(f"decode_{strategy}", strategy,
+                              lambda: api.decode_file(path, conf, out, strategy=strategy, timer=dec_timer), size, smi,
+                              dec_timer)
+        if sha256_file(out) != want_sha:
+            raise AssertionError(f"{strategy}: the decoded SHA-256 differs from the input")
+        for name in [conf, out, path + ".METADATA"] + [chunk_file_name(path, i) for i in range(n - k, n)]:
+            os.unlink(name)
+        rows[strategy] = {"encode": enc, "decode": dec, "archive_equals_cuda": True, "sha256_match": True}
     os.unlink(path)
-    return {"serial": serial, "pipelined": piped}
+    return rows
+
+
+def _locate_under_xor(path: str, want_sha: str, rot_cols) -> dict:
+    """Phase 5d's locate decode under xor on phase 5b's archive (64 bytes of
+    chunk 3 flipped at ``rot_cols``) with native 0 lost, then again with
+    the bitrot undone.  The recovery GEMM of every segment that was not
+    corrected reads the syndrome GEMM's pack (a resident dispatch); each
+    corrected one re-stages its patched rows."""
+    from gpu_rscode_torch import gf_decode
+
+    k = 10
+    size = os.path.getsize(path)
+    chunk = -(-size // k)
+    segments = len(api._segment_spans(chunk, api._segment_cols(chunk, k, api.DEFAULT_SEGMENT_BYTES)))
+    os.unlink(chunk_file_name(path, 0))
+    real = gf_decode.correct_segment
+    corrected = [0]
+
+    def correct_segment(*args, **kwargs):
+        corrected[0] += 1
+        return real(*args, **kwargs)
+
+    smi = smi_line()
+    res = {}
+    for label in ("bitrot", "clean"):
+        if label == "clean":
+            _flip(chunk_file_name(path, 3), rot_cols)  # XOR 0xA5 again: the bitrot undone
+        corrected[0] = 0
+        gf_decode.correct_segment = correct_segment
+        try:
+            # Each segment: one pack for the syndrome GEMM (which reads it),
+            # and for the recovery GEMM either the planes again (resident)
+            # or a re-staged, re-packed segment.
+            out, row = run_strategy(f"locate_decode_xor_{label}", "xor",
+                                    lambda: api.locate_decode_file(path, path + ".xloc", strategy="xor"), size, smi,
+                                    resident=lambda reuse: reuse["reused"] - segments)
+        finally:
+            gf_decode.correct_segment = real
+        if sha256_file(out) != want_sha:
+            raise AssertionError(f"locate_decode_file under xor ({label}): the SHA-256 differs from the input")
+        os.unlink(out)
+        reused = row["pack_reuse"]["reused"] - segments
+        restaged = row["pack_reuse"]["packed"] - segments
+        if restaged != corrected[0] or reused + restaged != segments or (label == "clean" and restaged):
+            raise AssertionError(f"locate under xor ({label}): {segments} segments, {reused} reused their pack, "
+                                 f"{restaged} re-staged, {corrected[0]} corrected")
+        res[label] = dict(row, segments=segments, segments_reused_pack=reused, segments_restaged=restaged,
+                          segments_corrected=corrected[0])
+        log(phase="strategies", op=f"locate_xor_{label}_reuse", segments=segments, reused=reused, restaged=restaged,
+            corrected=corrected[0])
+    return res
+
+
+def _update_under_xor(path: str, at: int, edit: bytes, device) -> dict:
+    """Phase 5d's update: ``edit`` at ``at`` through update_file under xor
+    on one copy of the interleaved archive ``path`` and under cuda on
+    another; the two archives must be byte-identical."""
+    from gpu_rscode_torch.utils.fileformat import metadata_file_name
+
+    n = 14
+    copies = {}
+    for strategy in ("xor", "cuda"):
+        d = os.path.join(os.path.dirname(path), f"update_{strategy}")
+        os.makedirs(d)
+        copies[strategy] = os.path.join(d, os.path.basename(path))
+        for i in range(n):
+            shutil.copyfile(chunk_file_name(path, i), chunk_file_name(copies[strategy], i))
+        shutil.copyfile(metadata_file_name(path), metadata_file_name(copies[strategy]))
+    timer = PhaseTimer()
+    summary, row = run_strategy("update_4MiB_xor", "xor",
+                                lambda: api.update_file(copies["xor"], at, edit, strategy="xor", device=device,
+                                                        timer=timer), len(edit), smi_line(), timer, native_io=False)
+    api.update_file(copies["cuda"], at, edit, strategy="cuda", device=device)
+    if archive_digests(copies["xor"], n) != archive_digests(copies["cuda"], n):
+        raise AssertionError("the 4 MiB update under xor differs from the same update under cuda")
+    for p in copies.values():
+        shutil.rmtree(os.path.dirname(p))
+    return dict(row, summary=summary, equals_cuda=True)
 
 
 def phase_fleet_and_cli(work: str, seed: int, size: int) -> dict:
@@ -474,32 +668,43 @@ def phase_fleet_and_cli(work: str, seed: int, size: int) -> dict:
     return res
 
 
-def phase_cli_w16(work: str, seed: int, size: int) -> dict:
-
+def phase_cli_w16(work: str, seed: int, size: int, strategy: str | None = None) -> dict:
+    """A w=16 round trip with --checksum through the CLI on the card; with
+    ``strategy`` (phase 5d) under --strategy, where K1 must not move and no
+    plain GEMM may be called."""
     k, n = 10, 14
     path = os.path.join(work, "wide.bin")
     data = np.random.default_rng(seed).bytes(size)
     with open(path, "wb") as fp:
         fp.write(data)
-    before = cuda_gemm.LAUNCHES
-    rc = cli.main(["-k", str(k), "-n", str(n), "-e", path, "--width", "16", "--checksum", "--device", "cuda"])
-    if rc != 0:
-        raise AssertionError(f"CLI encode exited {rc}")
-    with open(path + ".METADATA") as fp:
-        meta = fp.read()
-    if "# gfwidth 16" not in meta or meta.count("# crc32") != n:
-        raise AssertionError("w=16 metadata lacks its gfwidth or crc32 lines")
-    for i in range(n - k):
-        os.unlink(chunk_file_name(path, i))
-    conf = make_conf(n, k, path)
-    out = path + ".out"
-    rc = cli.main(["-d", "-i", path, "-c", conf, "-o", out, "--device", "cuda"])
-    if rc != 0:
-        raise AssertionError(f"CLI decode exited {rc}")
+    flags = ["--device", "cuda"] + (["--strategy", strategy] if strategy else [])
+    before, calls0 = cuda_gemm.LAUNCHES, _strategy_calls()
+    t0 = time.perf_counter()
+    with _no_plain_gemm() if strategy else contextlib.nullcontext():
+        rc = cli.main(["-k", str(k), "-n", str(n), "-e", path, "--width", "16", "--checksum", "--quiet", *flags])
+        if rc != 0:
+            raise AssertionError(f"CLI encode exited {rc}")
+        with open(path + ".METADATA") as fp:
+            meta = fp.read()
+        if "# gfwidth 16" not in meta or meta.count("# crc32") != n:
+            raise AssertionError("w=16 metadata lacks its gfwidth or crc32 lines")
+        for i in range(n - k):
+            os.unlink(chunk_file_name(path, i))
+        conf = make_conf(n, k, path)
+        out = path + ".out"
+        rc = cli.main(["-d", "-i", path, "-c", conf, "-o", out, "--quiet", *flags])
+        if rc != 0:
+            raise AssertionError(f"CLI decode exited {rc}")
+    wall = time.perf_counter() - t0
     with open(out, "rb") as fp:
         if fp.read() != data:
             raise AssertionError("w=16 CLI round trip changed the bytes")
-    res = dict(phase="cli_w16", bytes=size, launches=cuda_gemm.LAUNCHES - before, match=True)
+    launches = cuda_gemm.LAUNCHES - before
+    if strategy and (launches or _strategy_calls() - calls0 <= 0):
+        raise AssertionError(f"w=16 CLI under {strategy}: {launches} K1 launches, "
+                             f"{_strategy_calls() - calls0} {strategy} dispatches")
+    res = dict(phase="strategies" if strategy else "cli_w16", op="cli_w16", strategy=strategy or "auto", bytes=size,
+               launches=launches, dispatches=_strategy_calls() - calls0, round_trip_s=wall, match=True)
     log(**res)
     for name in os.listdir(work):
         os.unlink(os.path.join(work, name))
@@ -552,6 +757,128 @@ def phase_timings(device, group_cols: int) -> list[dict]:
                    est_logic_ms=1e3 * ops * m / (sms * LOGIC_OPS_PER_SM_CLOCK * clock_mhz * 1e6))
         log(**row)
         rows.append(row)
+    return rows
+
+
+def phase_strategies_grid(device) -> dict:
+    """Phase 5d's grid: gf_matmul_xor and gf_matmul_ring against K1 on the
+    card, bit-exact, over K1's grid shapes with k <= 16 and p <= 8 (ragged
+    widths, a misaligned first row, the update's E·Δ widths), at w 8 and
+    16; no plain GEMM is called.  Returns the grids by strategy."""
+    rng = np.random.default_rng(SEED + 11)
+    ragged = (1, 2, 31, 33, 64, 128, 409, 1639, 2049, 4097)
+    shapes = {8: [(4, 10, m) for m in ragged + (411, 822, 65537, 411_007, 1 << 20)]
+              + [(p, k, m) for p, k in ((1, 1), (2, 4), (3, 5), (8, 16), (6, 12), (7, 3), (1, 16), (8, 1))
+                 for m in (100, 1031, 4097)],
+              16: [(4, 10, m) for m in (1, 33, 1639, 65537)]
+              + [(p, k, m) for p, k in ((1, 1), (3, 5), (8, 16), (2, 7)) for m in (130, 2049)]}
+    grids = {strategy: Grid(f"{strategy} (plain PyTorch XOR chains) vs K1") for strategy in STRATEGIES}
+    t0 = time.perf_counter()
+    with _no_plain_gemm():
+        for w, grid in shapes.items():
+            coeffs = {}
+            for i, (p, k, m) in enumerate(grid):
+                A = coeffs.setdefault((p, k), rng.integers(0, 1 << w, size=(p, k)))
+                skew = 3 if i == 0 else 0
+                B = random_symbols(rng, (skew + k * m,), w, device)[skew:].view(k, m)
+                want = cuda_gemm.gf_matmul_cuda(A, B, w)
+                grids["xor"].check(xor_gemm.gf_matmul_xor(A, B, w), want, f"w={w} p={p} k={k} m={m} skew={skew}")
+                grids["ring"].check(ring_gemm.gf_matmul_ring(A, B, w), want, f"w={w} p={p} k={k} m={m} skew={skew}")
+    for strategy, grid in grids.items():
+        log(phase="strategies_vs_k1", strategy=strategy, cases=grid.cases, max_abs_err=grid.worst, tolerance=0,
+            seconds=time.perf_counter() - t0)
+    return grids
+
+
+class _DeviceOps(TorchDispatchMode):
+    """Counts the ATen operations that launch work (no views, no
+    allocations) issued inside the mode."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view and not func.overloadpacket.__name__.endswith("empty"):
+            self.ops += 1
+        return func(*args, **(kwargs or {}))
+
+
+def phase_strategies_timings(device, work: str) -> list[dict]:
+    """Phase 5d's timings at the encode (k=10, p=4) and decode (p=k=10)
+    segments: each strategy's whole dispatch, its pack, chain and unpack
+    (CUDA events, best of 3), the host's enqueue time of one dispatch (best
+    of 3, no synchronise inside), its device ops, the schedule's XOR count
+    and its build time cold and from a warm store; K1 and the bound at the
+    same shape beside them."""
+    k, m = 10, SEGMENT_COLS
+    gf = get_field(8)
+    smi = smi_line()
+    rng = np.random.default_rng(SEED + 12)
+    total = RSCodec(k, 4, device=device).total_matrix
+    shapes = [("encode k=10 p=4", total[k:]), ("decode p=k=10", inverse.invert_matrix(total[4:14], gf))]
+    saved = os.environ.get("RS_SCHEDULE_STORE")
+    os.environ["RS_SCHEDULE_STORE"] = os.path.join(work, "schedule_store.jsonl")
+    rows = []
+    try:
+        for label, A in shapes:
+            p = A.shape[0]
+            B = random_symbols(rng, (k, m), 8, device)
+            want = cuda_gemm.gf_matmul_cuda(A, B, 8)
+            k1_ms = time_ms(lambda: cuda_gemm.gf_matmul_cuda(A, B, 8), iters=100, reps=3)
+            for strategy, build, get, matmul, stats in (
+                    ("xor", xor_gemm.build_schedule, xor_gemm.get_pipeline, xor_gemm.gf_matmul_xor,
+                     xor_gemm.store_stats),
+                    ("ring", ring_gemm.build_ring_schedule, ring_gemm.get_ring_pipeline, ring_gemm.gf_matmul_ring,
+                     ring_gemm.ring_store_stats)):
+                xor_gemm.clear_pipeline_cache()
+                t0 = time.perf_counter()
+                sched = build(A, 8)
+                cold = time.perf_counter() - t0
+                xor_gemm.clear_pipeline_cache()
+                built = stats()["built"]
+                t0 = time.perf_counter()
+                build(A, 8)
+                warm = time.perf_counter() - t0
+                if stats()["built"] != built:
+                    raise AssertionError(f"{strategy} {label}: the warm store rebuilt the schedule")
+                with _no_plain_gemm():
+                    got = matmul(A, B, 8)
+                    torch.cuda.synchronize()
+                    err = int((_widen(got) - _widen(want)).abs().max().item())
+                    if err:
+                        raise AssertionError(f"{strategy} != K1 at the {label} timing shape")
+                    pipe = get(A, (k, m), np.uint8, 8, "cuda")
+                    planes = xor_gemm._pack(B, 8).unbind(0)
+                    outs = torch.empty((p * 8, m // 32), dtype=torch.int32, device=device)
+                    pack_ms = time_ms(lambda: xor_gemm._pack(B, 8), iters=5, reps=3)
+                    chain_ms = time_ms(lambda: pipe._chain(planes, outs), iters=5, reps=3)
+                    unpack_ms = time_ms(lambda: xor_gemm._unpack(outs, 8, p), iters=5, reps=3)
+                    ms = time_ms(lambda: matmul(A, B, 8), iters=5, reps=3)
+                    enqueue = []
+                    for _ in range(3):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        matmul(A, B, 8)
+                        enqueue.append(time.perf_counter() - t0)
+                        torch.cuda.synchronize()
+                    with _DeviceOps() as counted:
+                        matmul(A, B, 8)
+                    torch.cuda.synchronize()
+                row = dict(phase="strategy_timing", strategy=strategy, shape=label, p=p, k=k, m=m, nvidia_smi=smi,
+                           ms=ms, pack_ms=pack_ms, chain_ms=chain_ms, unpack_ms=unpack_ms,
+                           host_enqueue_ms=1e3 * min(enqueue), device_ops=counted.ops, xors=sched.xors,
+                           terms_naive=sched.terms_naive, terms_cse=sched.terms_cse, build_cold_s=cold,
+                           build_warm_s=warm, opt=pipe.describe()["opt"], k1_ms=k1_ms,
+                           bound_ms=bound_ms(p, k, m, 8), bound_by="bytes", max_abs_err=err)
+                log(**row)
+                rows.append(row)
+    finally:
+        if saved is None:
+            os.environ.pop("RS_SCHEDULE_STORE", None)
+        else:
+            os.environ["RS_SCHEDULE_STORE"] = saved
+        xor_gemm.clear_pipeline_cache()
     return rows
 
 
@@ -1025,9 +1352,13 @@ def phase_resilience(work: str, seed: int, size: int, device) -> dict:
     out = ops.run("locate_decode", lambda: api.locate_decode_file(path, path + ".loc.out"), size)
     if sha256_file(out) != want_sha:
         raise AssertionError("locate_decode_file: the decoded SHA-256 differs from the input")
+    os.unlink(out)
+    t_xor = time.perf_counter()
+    locate_xor = _locate_under_xor(path, want_sha, cols)  # phase 5d, on this archive
 
     res = dict(phase="resilience", nvidia_smi=smi, bytes=size, k=k, n=n, ops=ops.rows, midstream=swap, fleet=fleets,
-               silent_bitrot=syn, k1_launches=ops.launches, seconds=time.perf_counter() - t0)
+               silent_bitrot=syn, k1_launches=ops.launches, locate_xor=locate_xor,
+               seconds=time.perf_counter() - t0, locate_xor_seconds=time.perf_counter() - t_xor)
     log(**res)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -1179,6 +1510,9 @@ def phase_updates(work: str, seed: int, size: int, device, segment_bytes: int = 
         raise AssertionError(f"torn update: pending_journal {pending}, recover {verdict!r}, "
                              f"archive restored {after == pre}")
     torn = dict(simulated_crash=True, pending_journal=pending, recovered=verdict, digests_equal_pre_op=True)
+    t_xor = time.perf_counter()
+    update_xor = _update_under_xor(path, min(555_555_555, size // 2 + 5), rng.bytes(big // 16), device)  # phase 5d
+    update_xor["seconds"] = time.perf_counter() - t_xor
     proof_interleaved = _prove(path, "interleaved", work, device, segment_bytes, ops)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -1213,7 +1547,8 @@ def phase_updates(work: str, seed: int, size: int, device, segment_bytes: int = 
     res = dict(phase="updates", nvidia_smi=smi, bytes=size, k=k, n=n, ops=ops.rows,
                summaries={"append": res_append, "update": res_update, "group": res_group, "row_update": res_row,
                           "row_append": res_fit},
-               group_stacked_cols=group_cols, torn_update=torn, row_slack=slack, row_refused=refused,
+               group_stacked_cols=group_cols, torn_update=torn, update_xor=update_xor, row_slack=slack,
+               row_refused=refused,
                proof={"interleaved": proof_interleaved, "row": proof_row},
                k1_launches=ops.launches, seconds=time.perf_counter() - t0)
     log(**res)
@@ -1322,6 +1657,7 @@ def main() -> int:
     phase_build()
     k1_err = phase_kernel_grid(device)
     grids = phase_new_kernels_vs_plain(device)
+    phase_strategies_grid(device)
     if args.quick:
         kernels = kernel_entries(k1_err, grids)
     else:
@@ -1329,14 +1665,25 @@ def main() -> int:
         os.makedirs(work_root, exist_ok=True)
         work = tempfile.mkdtemp(dir=work_root)
         try:
-            main_res = phase_main_path(work, SEED, MAIN_FILE_BYTES)
+            main_res, cuda_digests, main_file, main_sha = phase_main_path(work, SEED, MAIN_FILE_BYTES)
+            t_5d = time.perf_counter()
+            strategies = phase_strategies_main(main_file, main_sha, cuda_digests)
+            for strategy in STRATEGIES:
+                strategies[f"cli_w16_{strategy}"] = phase_cli_w16(work, SEED + 1, 64 * MiB, strategy)
+            strategies["seconds"] = time.perf_counter() - t_5d
             phase_cli_w16(work, SEED + 1, 64 * MiB)
             phase_fleet_and_cli(work, SEED + 3, 128 * MiB)
             phase_short_segments(work, SEED + 4, 16 * MiB)
             resilience = phase_resilience(work, SEED + 5, MAIN_FILE_BYTES, device)
             updates = phase_updates(work, SEED + 6, MAIN_FILE_BYTES, device)
+            t_5d = time.perf_counter()
+            strategies["timings"] = phase_strategies_timings(device, work)
+            strategies["timings_seconds"] = time.perf_counter() - t_5d
         finally:
             shutil.rmtree(work, ignore_errors=True)
+        log(phase="strategies_summary", main_and_cli_seconds=strategies["seconds"],
+            timings_seconds=strategies["timings_seconds"], locate_xor_seconds=resilience["locate_xor_seconds"],
+            update_xor_seconds=updates["update_xor"]["seconds"])
         timings = phase_timings(device, updates["group_stacked_cols"])
         log_compute_share(main_res, timings)
         tools = phase_tools()

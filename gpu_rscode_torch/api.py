@@ -1195,19 +1195,31 @@ def _locate_context(scan: _ChunkScan):
         return None
 
 
-def _locate_segment_fixes(ctx, codec: RSCodec, loop: StreamLoop, seg: np.ndarray, sym: int, timer: PhaseTimer):
+def _locate_segment_fixes(ctx, codec: RSCodec, loop: StreamLoop, seg: np.ndarray, sym: int, timer: PhaseTimer,
+                          want_packed: bool = False):
     """One segment's syndrome check: S = check . seg through the GEMM on
-    the device, then the host locate; returns the verified corrections
-    ({column: [(chunk, magnitude)]}).  Raises
-    :class:`.gf_decode.UnlocatableError` past the t bound."""
+    the device, then the host locate.  Returns ``(fixes, packed)``: the
+    verified corrections ({column: [(chunk, magnitude)]}) and, with
+    ``want_packed`` under the xor or ring strategy, the segment's
+    :class:`.ops.xor_gemm.PackedOperand`, so the caller's recovery GEMM
+    reuses the pack this syndrome GEMM paid for (None otherwise).  The
+    planes stay on ``loop``'s device, in its compute stream's order.
+    Raises :class:`.gf_decode.UnlocatableError` past the t bound."""
     if ctx.r == 0:
-        return {}
+        return {}, None
+    packed = None
+
+    def syndrome(d):
+        nonlocal packed
+        packed = codec.pack_operand(d) if want_packed else None
+        return codec.syndrome(ctx.check, packed if packed is not None else d)
+
     with timer.phase("syndrome dispatch"):
-        out = loop.dispatch(lambda d: codec.syndrome(ctx.check, d), loop.stage_copy(seg, sym))
+        out = loop.dispatch(syndrome, loop.stage_copy(seg, sym))
     with timer.phase("syndrome locate"):
         S = loop.result(out)
         S = S.view(np.uint16) if sym == 2 else S
-        return ctx.locate(S.astype(np.int64))
+        return ctx.locate(S.astype(np.int64)), packed
 
 
 def _survivor_reader(paths: list[str], timer: PhaseTimer):
@@ -1255,7 +1267,7 @@ def _syndrome_sweep(in_file: str, scan: _ChunkScan, *, strategy: str = "auto", d
         with SegmentPrefetcher(_segment_spans(scan.chunk, seg_cols), gather, depth=2) as prefetch:
             for _tag, seg in prefetch:
                 try:
-                    fixes = _locate_segment_fixes(ctx, codec, loop, seg, sym, timer)
+                    fixes, _ = _locate_segment_fixes(ctx, codec, loop, seg, sym, timer)
                 except UnlocatableError:
                     return "unlocatable", located, errors, False
                 for col_fixes in fixes.values():
@@ -1362,16 +1374,30 @@ def locate_decode_file(
         # decode_file.
         with SegmentPrefetcher(_segment_spans(chunk, seg_cols), gather, depth=max(1, pipeline_depth)) as prefetch:
             for (off, cols), seg in prefetch:
-                fixes = _locate_segment_fixes(ctx, codec, check_loop, seg, sym, timer)
+                # Under xor and ring the syndrome GEMM packs the whole
+                # survivor stack; the recovery GEMM reads a subset of the
+                # same rows, so it selects their planes from that pack
+                # instead of staging and packing them again.
+                fixes, packed = _locate_segment_fixes(ctx, codec, check_loop, seg, sym, timer,
+                                                      want_packed=dec_missing is not None)
                 if fixes:
                     correct_segment(seg.view(np.uint16) if sym == 2 else seg, fixes, row_of)
+                    # The planes predate the patch: the recovery GEMM
+                    # re-stages the corrected bytes.
+                    packed = None
                 rec = None
                 if dec_missing is not None:
                     with timer.phase("locate dispatch"):
-                        out = rec_loop.dispatch(lambda d: codec.decode(dec_missing, d),
-                                                rec_loop.stage_copy(seg, sym, chosen_rows))
+                        if packed is not None:
+                            # The planes are on check_loop's compute stream.
+                            loop, chosen = check_loop, packed.select(chosen_rows)
+                            out = loop.dispatch_resident(lambda: codec.decode(dec_missing, chosen))
+                        else:
+                            loop = rec_loop
+                            out = loop.dispatch(lambda d: codec.decode(dec_missing, d),
+                                                loop.stage_copy(seg, sym, chosen_rows))
                     with timer.phase("decode compute"):
-                        rec = rec_loop.result(out)
+                        rec = loop.result(out)
                 with timer.phase("write output (io)"):
                     rows_out = [seg[row_of[i]] if i in row_of else rec[rec_row[i]] for i in range(k)]
                     if scan.layout == "interleaved":

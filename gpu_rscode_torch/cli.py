@@ -7,8 +7,9 @@ with ``--repair`` and ``--scrub``), as in the reference.  Performance flags as i
 and ``-p`` (segment-size hint, p x 128 KiB).  Extensions: ``--width
 8|16``, ``--checksum`` (encode: CRC32 lines in .METADATA; decode verifies
 them), ``--no-verify``, ``--generator``, ``--segment-bytes``,
-``--strategy`` and ``--device``.  Extra files after the flags of an encode
-go through :func:`.api.encode_fleet`.  The resilience reads: ``-d -i <file>
+``--strategy`` (``xor`` and ``ring`` included), ``--quiet`` (no timing
+report) and ``--device``.  Extra files after the flags of an encode go
+through :func:`.api.encode_fleet`.  The resilience reads: ``-d -i <file>
 --auto [more archives]`` (:func:`.api.auto_decode_file`, or
 :func:`.api.decode_fleet` for several), ``-d -i <file> --locate``
 (:func:`.api.locate_decode_file`), ``--repair -i <file> [more archives]``
@@ -47,9 +48,11 @@ Performance-tuning options:
 [-p|-P]: per-dispatch segment-size hint (p * 128 KiB per segment)
 [-s|-S]: pipeline depth (segments in flight, default 2)
 Extensions: [--generator vandermonde|cauchy]
-            [--strategy auto|cuda|bitplane|table] (auto: the CUDA kernel
-            on a GPU, bitplane on the CPU)
-            [--segment-bytes N]
+            [--strategy auto|cuda|bitplane|table|xor|ring] (auto: the CUDA
+            kernel on a GPU, bitplane on the CPU; xor = bit-sliced XOR
+            chains with Paar CSE, ring = polynomial-ring lowering, both
+            w 8 and 16 only)
+            [--segment-bytes N] [--quiet] (no timing report)
             [--checksum]  (encode: record per-chunk CRC32 in .METADATA)
             [--no-verify] (decode: skip checksum verification)
             [--width 8|16] (encode: GF symbol width; 16 = wide-symbol
@@ -236,7 +239,7 @@ def main(argv: list[str] | None = None) -> int:
             argv,
             "S:s:P:p:K:k:N:n:E:e:I:i:C:c:O:o:DdHh",
             ["width=", "layout=", "checksum", "no-verify", "generator=", "segment-bytes=", "strategy=", "device=", "auto", "locate",
-             "repair", "scrub", "syndrome"],
+             "repair", "scrub", "syndrome", "quiet"],
         )
     except getopt.GetoptError as e:
         return _fail(f"rs: {e}")
@@ -252,7 +255,7 @@ def main(argv: list[str] | None = None) -> int:
     width, checksum, no_verify = 8, False, False
     layout = "row"
     generator, strategy, device = "vandermonde", "auto", None
-    auto = locate = repair = scrub = syndrome = False
+    auto = locate = repair = scrub = syndrome = quiet = False
     repair_requested = bool(flags_seen & {"--repair", "--scrub"})
     for flag, val in opts:
         f = flag.lower()
@@ -306,6 +309,8 @@ def main(argv: list[str] | None = None) -> int:
             scrub = True
         elif f == "--syndrome":
             syndrome = True
+        elif f == "--quiet":
+            quiet = True
 
     from .codec import VALID_STRATEGIES
 
@@ -419,8 +424,9 @@ def main(argv: list[str] | None = None) -> int:
         print(f"rs: error: {e}", file=sys.stderr)
         return 1
 
-    print(f"== {op} {in_file} ==")
-    print(timer.summary(data_bytes=nbytes))
+    if not quiet:
+        print(f"== {op} {in_file} ==")
+        print(timer.summary(data_bytes=nbytes))
     return 0
 
 

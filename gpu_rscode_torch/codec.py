@@ -7,9 +7,11 @@ in-place update's parity delta, the same GEMM).  The k x k decode
 inverse is computed on the host (:mod:`.ops.inverse`).
 
 Strategies: ``cuda`` (the hand-written kernel, :mod:`.ops.cuda_gemm`),
-``bitplane`` and ``table`` (plain PyTorch, :mod:`.ops.gemm`).  ``auto``
-resolves to ``cuda`` on a CUDA device and to ``bitplane`` on the CPU.  A
-kernel failure raises; nothing demotes to another strategy.
+``bitplane`` and ``table`` (plain PyTorch, :mod:`.ops.gemm`), ``xor`` and
+``ring`` (XOR chains over packed bit planes, :mod:`.ops.xor_gemm` and
+:mod:`.ops.ring_gemm`, w=8 and w=16 only).  ``auto`` resolves to ``cuda`` on
+a CUDA device and to ``bitplane`` on the CPU.  A kernel failure raises;
+nothing demotes to another strategy.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from .ops.gf import get_field
 from .ops.inverse import invert_matrix
 from .utils.backend import resolve_device
 
-VALID_STRATEGIES = ("auto", "cuda", "bitplane", "table")
+VALID_STRATEGIES = ("auto", "cuda", "bitplane", "table", "xor", "ring")
 
 
 class RSCodec:
@@ -50,6 +52,8 @@ class RSCodec:
             raise ValueError(
                 f"unknown strategy {strategy!r}: valid strategies are {', '.join(VALID_STRATEGIES)}"
             )
+        if strategy in ("xor", "ring") and w not in (8, 16):
+            raise ValueError(f"strategy={strategy!r} supports GF(2^8) and GF(2^16) only")
         self.device = resolve_device(device)
         if strategy == "auto":
             strategy = "cuda" if self.device.type == "cuda" else "bitplane"
@@ -106,8 +110,41 @@ class RSCodec:
         s is the number of chunks present (up to n), not k."""
         return self._matmul(check_mat, chunks)
 
+    def pack_operand(self, data):
+        """Pack a staged (rows, m) segment's bit planes once, for the chained
+        xor / ring GEMMs that read the same rows: the returned
+        :class:`.ops.xor_gemm.PackedOperand` goes to :meth:`syndrome` /
+        :meth:`decode` in place of the segment, and its ``select`` hands a
+        row subset to the next GEMM with no second pack.  None when the
+        reuse does not apply (another strategy, ``RS_XOR_PACK_REUSE=0``),
+        so a caller falls back with one ``is None`` check."""
+        from .ops import xor_gemm
+
+        if self.strategy not in ("xor", "ring") or not xor_gemm.pack_reuse_enabled():
+            return None
+        data = to_tensor(data, self.device)
+        cols_true = data.shape[1]
+        cols = xor_gemm.padded_cols(cols_true)
+        if cols != cols_true:
+            data = xor_gemm.pad_operand(data, cols)
+        return xor_gemm.pack_operand(data, self.w, cols_true=cols_true)
+
     def _matmul(self, A, B) -> torch.Tensor:
-        B = to_tensor(B, self.device)
+        from .ops.xor_gemm import PackedOperand
+
+        if isinstance(B, PackedOperand):
+            if self.strategy not in ("xor", "ring"):
+                raise ValueError("packed operands require strategy='xor' or 'ring' on a single-device codec")
+        else:
+            B = to_tensor(B, self.device)
+        if self.strategy == "xor":
+            from .ops.xor_gemm import gf_matmul_xor
+
+            return gf_matmul_xor(A, B, self.w)
+        if self.strategy == "ring":
+            from .ops.ring_gemm import gf_matmul_ring
+
+            return gf_matmul_ring(A, B, self.w)
         if self.strategy == "cuda":
             from .ops.cuda_gemm import gf_matmul_cuda
 

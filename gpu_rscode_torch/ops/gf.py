@@ -128,6 +128,13 @@ class GaloisField:
             out ^= self.mul(A[:, t][:, None], B[t][None, :])
         return out
 
+    def bitmatrix(self, v: int) -> np.ndarray:
+        """(w, w) uint8 GF(2) operator of multiply-by-v: ``M[i, j]`` is bit i
+        of ``v * 2^j``, so ``bits(v*b) = M @ bits(b) mod 2``."""
+        cols = self.mul(int(v), 1 << np.arange(self.w, dtype=np.int64))
+        shifts = np.arange(self.w, dtype=np.int64)
+        return ((cols[None, :].astype(np.int64) >> shifts[:, None]) & 1).astype(np.uint8)
+
     @property
     def bitmats(self) -> np.ndarray:
         """(2^w, w, w) uint8 GF(2) multiply operators: ``bitmats[v][i, j]``

@@ -322,14 +322,26 @@ class StreamLoop:
         self._closed = True
 
     def dispatch(self, fn: Callable[[torch.Tensor], torch.Tensor], staged):
-        global STREAM_DISPATCHES
         if not self.cuda:
             return fn(staged)
         data, h2d_done = staged
         self.compute.wait_event(h2d_done)
+        data.record_stream(self.compute)
+        return self._compute(lambda: fn(data))
+
+    def dispatch_resident(self, fn: Callable[[], torch.Tensor]):
+        """:meth:`dispatch` of ``fn()``, which reads only what earlier
+        dispatches of this loop left on the device (the locate decode's
+        packed planes): no staging, and stream order on the compute stream
+        is the only wait."""
+        if not self.cuda:
+            return fn()
+        return self._compute(fn)
+
+    def _compute(self, thunk: Callable[[], torch.Tensor]):
+        global STREAM_DISPATCHES
         with torch.cuda.stream(self.compute):
-            data.record_stream(self.compute)
-            out = fn(data)
+            out = thunk()
             computed = torch.cuda.Event()
             computed.record(self.compute)
         STREAM_DISPATCHES += 1

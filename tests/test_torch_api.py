@@ -210,7 +210,7 @@ def test_cli_round_trip_subprocess(tmp_path):
 def test_cli_usage_errors(capsys):
     assert t_cli.main(["-h"]) == 0
     assert t_cli.main(["-i", "x"]) == 2  # -i before -d
-    assert t_cli.main(["-k", "4", "-n", "6", "-e", "f", "--strategy", "xor"]) == 2
+    assert t_cli.main(["-k", "4", "-n", "6", "-e", "f", "--strategy", "pallas"]) == 2  # unknown here (xor and ring are strategies)
     assert t_cli.main(["-k", "4", "-n", "4", "-e", "f", "--device", "cpu"]) == 2
     assert t_cli.main(["-d", "-i", "f", "-c", "c", "--width", "16"]) == 2
     assert t_cli.main(["-k", "4", "-n", "6", "-e", "f", "--width", "12"]) == 2

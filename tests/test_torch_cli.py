@@ -2,7 +2,9 @@
 with the pipeline: ``-s``, ``-p``, ``--segment-bytes``, ``--generator``,
 ``--no-verify`` and the batch encode of extra positional files; and on the
 resilience reads: ``--scrub`` (``--syndrome``), ``-d --auto`` (one archive
-or a batch), ``--repair`` (one archive or a fleet) and ``-d --locate``.
+or a batch), ``--repair`` (one archive or a fleet) and ``-d --locate``; on
+``--quiet`` and on ``--strategy xor|ring`` (the main command and the
+``update`` subcommand).
 Both CLIs run on copies of the same files; chunk files, .METADATA, decoded
 bytes, the printed reports and the exit codes must be identical."""
 
@@ -354,3 +356,55 @@ def test_update_usage_errors_like_jax(tmp_path, capsys, argv, rc):
     # own --strategy choices and the port's --device).
     assert outs["torch"][2].splitlines()[-1] == outs["jax"][2].splitlines()[-1]
     assert _archive(paths["torch"], 6) == _archive(paths["jax"], 6)
+
+
+def test_quiet_encode_prints_nothing_like_jax(tmp_path, capsys):
+    """``--quiet`` on the main command: exit 0, nothing on stdout, the same
+    archive as the JAX CLI's."""
+    outs = {}
+    for name, cli in (("torch", t_cli), ("jax", j_cli)):
+        d = tmp_path / name
+        d.mkdir()
+        path = str(d / "f.bin")
+        _write(path, 5_000, 7)
+        capsys.readouterr()
+        rc = cli.main(["-k", "4", "-n", "6", "-e", path, "--quiet"] + (["--device", "cpu"] if cli is t_cli else []))
+        outs[name] = (rc, capsys.readouterr().out, _archive(path, 6))
+    assert outs["torch"] == outs["jax"]
+    assert outs["torch"][:2] == (0, "")
+
+
+@pytest.mark.parametrize("strategy", ["xor", "ring"])
+def test_strategy_round_trip_like_jax(tmp_path, capsys, strategy):
+    """``--strategy xor|ring``: the encode's archive, an ``update`` of it,
+    then ``-d --auto`` with a native lost, all equal to the JAX CLI's under
+    the same strategy."""
+    flags = ["--strategy", strategy, "--quiet"]
+    res = _both(tmp_path, lambda ps: ["-k", "4", "-n", "6", "-e", ps[0], "--checksum", "-p", "1"] + flags,
+                sizes=(50_000,))
+    assert res["torch"][0] == res["jax"][0] == 0
+    assert res["torch"][1] == res["jax"][1]
+    _write(str(tmp_path / "delta"), 3_000, 3)
+    paths = {name: res[name][3][0] for name in res}
+    for name, cli in (("torch", t_cli), ("jax", j_cli)):
+        dev = ["--device", "cpu"] if cli is t_cli else []
+        assert cli.main(["update", paths[name], "--at", "777", "--in", str(tmp_path / "delta")] + flags + dev) == 0
+    assert _archive(paths["torch"], 6) == _archive(paths["jax"], 6)
+    for name, cli in (("torch", t_cli), ("jax", j_cli)):
+        os.unlink(t_ff.chunk_file_name(paths[name], 0))
+        dev = ["--device", "cpu"] if cli is t_cli else []
+        assert cli.main(["-d", "--auto", "-i", paths[name], "-o", paths[name] + ".out"] + flags + dev) == 0
+    want = bytearray(res["torch"][2][0])
+    want[777:3_777] = _read(str(tmp_path / "delta"))
+    assert _read(paths["torch"] + ".out") == _read(paths["jax"] + ".out") == bytes(want)
+    assert capsys.readouterr().out == ""
+
+
+def test_strategy_refusals_like_jax(tmp_path, capsys):
+    f = str(tmp_path / "f.bin")
+    _write(f, 1000, 1)
+    assert t_cli.main(["-k", "2", "-n", "4", "-e", f, "--strategy", "warp", "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "unknown --strategy" in err and "xor|ring" in err
+    assert t_cli.main(["update", f, "--at", "0", "--in", f, "--strategy", "warp"]) == 2
+    assert "invalid choice" in capsys.readouterr().err

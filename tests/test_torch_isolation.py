@@ -22,6 +22,7 @@ def test_port_imports_no_jax():
         "import gpu_rscode_torch.native, gpu_rscode_torch.parallel.pipeline, gpu_rscode_torch.parallel.io_executor\n"
         "import gpu_rscode_torch.gf_decode, gpu_rscode_torch.utils.retry, gpu_rscode_torch.ops.inverse\n"
         "import gpu_rscode_torch.update, gpu_rscode_torch.update.group\n"
+        "import gpu_rscode_torch.ops.xor_gemm, gpu_rscode_torch.ops.ring_gemm, gpu_rscode_torch.ops.xor_opt\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'gpu_rscode_tpu')))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
