@@ -90,6 +90,23 @@ Phases, each fatal on failure:
      events, best of 3) beside K1 and the bound, with each schedule's XOR
      count, its device ops a dispatch and its build time cold and from a
      warm schedule store;
+  5e. the plan layer (gpu_rscode_torch/plan.py: bucketed plans replayed
+     from CUDA graphs; tune.py; the native host codec): phase 4's 1 GiB
+     file with RS_PLAN=0 (eager, exact widths) serial and pipelined, each
+     archive byte-identical to phase 4's (layer on), then the layer on
+     again, pipelined and warm, where every encode and decode dispatch must
+     be a graph replay; the same file under --strategy cpu (archive equal
+     to cuda's, decode to the input, no NumPy-oracle call) and native.gemm
+     at the encode segment; after phase 5d's timings, a ragged file (64 MiB
+     + 12,345 bytes) under cuda, xor and ring, eager, cold and warm (every
+     warm dispatch, the tail's included, a replay; every archive equal to
+     the eager cuda one); the dispatch table (cuda, xor, ring at the encode
+     and decode segments: device ms and host enqueue ms eager against the
+     graph replay, device ops a dispatch, plan counts); and the autotuner
+     in measure mode at k=10, p=4, w=8, whose winner a fresh process in
+     prior mode must read back from the store.  Every phase logs the plan
+     layer's calls, captures and replays; K1 counts eager launches plus the
+     launches inside replays (k1_runs);
   6. timings: file encode/decode GB/s of phase 4, and K1 at the main path's
      segment shapes, at phase 5b's syndrome (r=4, depth 14) and repair
      (3 targets, k=10) shapes and at phase 5c's E·Δ shapes (the stacked
@@ -138,12 +155,12 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from gpu_rscode_torch import api, cli, native
-from gpu_rscode_torch import codec as codec_module
+from gpu_rscode_torch import api, cli, native, plan, tune
 from gpu_rscode_torch.codec import RSCodec
 from gpu_rscode_torch.gf_decode import LocateContext
 from gpu_rscode_torch.models.vandermonde import vandermonde_matrix
 from gpu_rscode_torch.ops import _build, cuda_gemm, cuda_pack2, cuda_planes, ring_gemm, xor_gemm
+from gpu_rscode_torch.ops import gemm as gemm_module
 from gpu_rscode_torch.ops.gemm import _widen, gf_matmul_bitplane, to_tensor
 from gpu_rscode_torch.ops import inverse
 from gpu_rscode_torch.ops.gf import get_field
@@ -388,10 +405,11 @@ def run_main_path(path: str, want_sha: str, mode: str, depth: int, writers: str 
         _reset_counts()
         _reset_io_counts()
         enc_timer = PhaseTimer()
+        plan0 = _plan_counts()
         t0 = time.perf_counter()
         api.encode_file(path, k, n - k, pipeline_depth=depth, timer=enc_timer)
         t_enc = time.perf_counter() - t0
-        enc_launches, enc_io = cuda_gemm.LAUNCHES, _io_counts()
+        enc_launches, enc_io, enc_plan = k1_runs(), _io_counts(), _plan_delta(plan0)
         check_pipeline(f"{mode} encode", enc_launches, enc_io)
         digests = archive_digests(path, n)
 
@@ -411,10 +429,11 @@ def run_main_path(path: str, want_sha: str, mode: str, depth: int, writers: str 
         _reset_counts()
         _reset_io_counts()
         dec_timer = PhaseTimer()
+        plan0 = _plan_counts()
         t0 = time.perf_counter()
         api.decode_file(path, conf, out, pipeline_depth=depth, timer=dec_timer)
         t_dec = time.perf_counter() - t0
-        dec_launches, dec_io = cuda_gemm.LAUNCHES, _io_counts()
+        dec_launches, dec_io, dec_plan = k1_runs(), _io_counts(), _plan_delta(plan0)
         check_pipeline(f"{mode} decode", dec_launches, dec_io)
     finally:
         os.environ.pop("RS_IO_WRITERS", None)
@@ -428,7 +447,7 @@ def run_main_path(path: str, want_sha: str, mode: str, depth: int, writers: str 
         sha256_match=True, encode_s=t_enc, decode_s=t_dec,
         encode_gbps=size / t_enc / 1e9, decode_gbps=size / t_dec / 1e9,
         launches=enc_launches + dec_launches, encode_launches=enc_launches, decode_launches=dec_launches,
-        encode_io=enc_io, decode_io=dec_io,
+        encode_io=enc_io, decode_io=dec_io, rs_plan=plan.enabled(), encode_plan=enc_plan, decode_plan=dec_plan,
         encode_phases_s=dict(enc_timer.acc), decode_phases_s=dict(dec_timer.acc),
         encode_phase_sum_s=sum(enc_timer.acc.values()), decode_phase_sum_s=sum(dec_timer.acc.values()),
     )
@@ -456,6 +475,279 @@ def phase_main_path(work: str, seed: int, size: int) -> tuple[dict, dict, str, s
 STRATEGIES = ("xor", "ring")
 
 
+# -- phase 5e: the plan layer (bucketed plans replayed from CUDA graphs) ------
+
+
+def _plan_counts() -> dict:
+    st = plan.PLAN_CACHE.stats()
+    return {key: st[key] for key in ("hits", "misses", "calls", "captures", "replays")}
+
+
+def _plan_delta(before: dict) -> dict:
+    after = _plan_counts()
+    return {key: after[key] - before[key] for key in before}
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Environment variables set (None: removed) inside the block."""
+    saved = {key: os.environ.get(key) for key in values}
+    for key, val in values.items():
+        if val is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = val
+    try:
+        yield
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+
+
+def _check_graphed(what: str, counts: dict, dispatches: int, warm: bool) -> None:
+    """Every dispatch of a run went through a captured graph: a replay, or
+    (unless ``warm``) the eager first dispatch of a staging buffer after
+    which its graph was captured."""
+    if counts["calls"] != dispatches or counts["captures"] + counts["replays"] != dispatches:
+        raise AssertionError(f"{what}: {dispatches} stream dispatches, plan counts {counts}")
+    if warm and counts["replays"] != dispatches:
+        raise AssertionError(f"{what}: a warm run captured again: {counts}")
+
+
+def phase_plan_main(path: str, want_sha: str, cuda_digests: dict) -> dict:
+    """Phase 5e on the 1 GiB main path: ``RS_PLAN=0`` (eager, exact widths)
+    serial and pipelined, each archive byte-identical to phase 4's (plan
+    layer on); the layer on again, pipelined, now warm: every dispatch a
+    graph replay; and ``--strategy cpu`` (the native host codec): the
+    archive equal to cuda's and the decode to the input, no oracle call."""
+    k, n = 10, 14
+    size = os.path.getsize(path)
+    rows = {}
+    with _env(RS_PLAN="0"):
+        for mode, depth, writers in (("eager serial", 1, "0"), ("eager pipelined", 2, None)):
+            res, digests = run_main_path(path, want_sha, mode, depth, writers)
+            if digests != cuda_digests:
+                raise AssertionError(f"{mode}: the RS_PLAN=0 archive differs from the plan layer's")
+            if res["encode_plan"]["calls"] or res["decode_plan"]["calls"]:
+                raise AssertionError(f"{mode}: RS_PLAN=0 dispatched through plans: {res['encode_plan']}")
+            rows[mode] = res
+    res, digests = run_main_path(path, want_sha, "graphs pipelined (warm)", 2, None)
+    if digests != cuda_digests:
+        raise AssertionError("the warm plan run's archive differs from phase 4's")
+    _check_graphed("warm plan encode", res["encode_plan"], res["encode_io"]["stream_dispatches"], warm=True)
+    _check_graphed("warm plan decode", res["decode_plan"], res["decode_io"]["stream_dispatches"], warm=True)
+    rows["graphs pipelined (warm)"] = res
+
+    # --strategy cpu: the host codec on the same file.
+    _reset_counts()
+    _reset_io_counts()
+    native.GEMM_CALLS = native.GEMM_FALLBACK_CALLS = 0
+    t0 = time.perf_counter()
+    api.encode_file(path, k, n - k, strategy="cpu")
+    t_enc = time.perf_counter() - t0
+    if archive_digests(path, n) != cuda_digests:
+        raise AssertionError("the --strategy cpu archive differs from the cuda archive")
+    enc_calls = native.GEMM_CALLS
+    for i in range(n - k):
+        os.unlink(chunk_file_name(path, i))
+    conf, out = make_conf(n, k, path), path + ".out"
+    t0 = time.perf_counter()
+    api.decode_file(path, conf, out, strategy="cpu")
+    t_dec = time.perf_counter() - t0
+    if sha256_file(out) != want_sha:
+        raise AssertionError("--strategy cpu: the decoded SHA-256 differs from the input")
+    io_counts = _io_counts()
+    if (native.GEMM_FALLBACK_CALLS or enc_calls <= 0 or native.GEMM_CALLS <= enc_calls or k1_runs()
+            or io_counts["stream_dispatches"] or io_counts["pinned_stages"]):
+        raise AssertionError(f"--strategy cpu: native GEMM calls {native.GEMM_CALLS}, fallback calls "
+                             f"{native.GEMM_FALLBACK_CALLS}, K1 {k1_runs()}, io {io_counts}")
+    rng = np.random.default_rng(SEED + 14)
+    A = RSCodec(k, n - k, device="cpu").parity_block
+    Bh = rng.integers(0, 256, size=(k, SEGMENT_COLS), dtype=np.uint8)
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native.gemm(A, Bh)
+        best = min(best, time.perf_counter() - t0)
+    rows["cpu"] = dict(encode_s=t_enc, decode_s=t_dec, encode_gbps=size / t_enc / 1e9, decode_gbps=size / t_dec / 1e9,
+                       native_gemm_calls=native.GEMM_CALLS, fallback_calls=native.GEMM_FALLBACK_CALLS,
+                       archive_equals_cuda=True, sha256_match=True, native_gemm_segment_s=best,
+                       native_gemm_gbps=k * SEGMENT_COLS / best / 1e9, host_cores=os.cpu_count())
+    log(phase="plan_cpu_strategy", nvidia_smi=smi_line(), **rows["cpu"])
+    for name in [conf, out, path + ".METADATA"] + [chunk_file_name(path, i) for i in range(n - k, n)]:
+        os.unlink(name)
+    log(phase="plan_main", nvidia_smi=smi_line(),
+        gbps={mode: {"encode": r["encode_gbps"], "decode": r["decode_gbps"]} for mode, r in rows.items()},
+        plan={mode: {"encode": r.get("encode_plan"), "decode": r.get("decode_plan")} for mode, r in rows.items()})
+    return rows
+
+
+def _ragged_op(what: str, fn, strategy: str, warm: bool) -> dict:
+    _reset_counts()
+    _reset_io_counts()
+    plan0 = _plan_counts()
+    t0 = time.perf_counter()
+    fn()
+    wall = time.perf_counter() - t0
+    counts, io_counts = _plan_delta(plan0), _io_counts()
+    if strategy == "cuda" and k1_runs() != io_counts["stream_dispatches"]:
+        raise AssertionError(f"{what}: {k1_runs()} K1 runs for {io_counts['stream_dispatches']} dispatches")
+    if strategy != "cuda" and (k1_runs() or cuda_gemm.CAPTURED):
+        raise AssertionError(f"{what}: K1 ran under {strategy}")
+    if plan.enabled():
+        _check_graphed(what, counts, io_counts["stream_dispatches"], warm)
+    return dict(wall_s=wall, plan=counts, dispatches=io_counts["stream_dispatches"])
+
+
+def phase_plan_ragged(work: str, seed: int) -> dict:
+    """Phase 5e's ragged file (64 MiB + 12,345 bytes: one full segment and a
+    1,337-column tail in the 2,048 bucket) under cuda, xor and ring: encoded
+    and decoded (chunks 0-3 lost) with RS_PLAN=0, then twice with the layer
+    on; the second run must replay a captured graph at every dispatch, the
+    tail's included, and every archive must equal the eager cuda one."""
+    k, n = 10, 14
+    size = 64 * MiB + 12_345
+    path = os.path.join(work, "ragged.bin")
+    want_sha = write_seeded(path, seed, size)
+    want = None
+    rows = {}
+    for strategy in ("cuda",) + STRATEGIES:
+        for run, rs_plan in (("eager", "0"), ("cold", None), ("warm", None)):
+            with _env(RS_PLAN=rs_plan):
+                enc = _ragged_op(f"ragged {strategy} {run} encode",
+                                 lambda: api.encode_file(path, k, n - k, strategy=strategy), strategy, run == "warm")
+                digests = archive_digests(path, n)
+                want = want or digests
+                if digests != want:
+                    raise AssertionError(f"ragged {strategy} {run}: the archive differs from the eager cuda one")
+                for i in range(n - k):
+                    os.unlink(chunk_file_name(path, i))
+                conf, out = make_conf(n, k, path), path + ".out"
+                dec = _ragged_op(f"ragged {strategy} {run} decode",
+                                 lambda: api.decode_file(path, conf, out, strategy=strategy), strategy, run == "warm")
+                if sha256_file(out) != want_sha:
+                    raise AssertionError(f"ragged {strategy} {run}: the decoded SHA-256 differs from the input")
+                for name in [conf, out, path + ".METADATA"] + [chunk_file_name(path, i) for i in range(n - k, n)]:
+                    os.unlink(name)
+            rows[f"{strategy} {run}"] = {"encode": enc, "decode": dec}
+    os.unlink(path)
+    res = dict(phase="plan_ragged", nvidia_smi=smi_line(), bytes=size, runs=rows, archives_equal=True,
+               sha256_match=True)
+    log(**res)
+    return res
+
+
+def phase_plan_dispatch(device) -> list[dict]:
+    """Phase 5e's dispatch table: cuda, xor and ring at the encode (k=10,
+    p=4) and decode (p=k=10) segments, eager (``plan.eager``, what
+    ``RS_PLAN=0`` runs) against the plan layer on a staging buffer (a graph
+    replay): device ms (CUDA events, best of 3), the host's enqueue ms of
+    one dispatch (best of 3, no synchronise inside), the device ops a
+    dispatch issues (the ATen ops of the eager call; K1's kernels a replay
+    runs) and the plan's counts.  Every graph dispatch must equal
+    the eager output."""
+    k, m = 10, SEGMENT_COLS
+    gf = get_field(8)
+    smi = smi_line()
+    rng = np.random.default_rng(SEED + 13)
+    total = RSCodec(k, 4, device=device).total_matrix
+    shapes = [("encode k=10 p=4", total[k:]), ("decode p=k=10", inverse.invert_matrix(total[4:14], gf))]
+    B = random_symbols(rng, (k, m), 8, device)
+    slot = plan.STAGING.acquire(device, k * m)
+    arr = slot.tensor.view(k, m)
+    arr.copy_(B)
+    staged = plan.StagedSegment(arr, m, m, slot=slot)
+    iters = {"cuda": 50, "xor": 10, "ring": 10}
+    rows = []
+
+    def enqueue_ms(fn) -> float:
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return 1e3 * best
+
+    try:
+        for label, A in shapes:
+            p = A.shape[0]
+            for strategy in ("cuda",) + STRATEGIES:
+                def eager():
+                    return plan.eager(strategy, A, B, 8)
+
+                def graphed():
+                    return plan.dispatch(A, staged, w=8, strategy=strategy)
+
+                want = eager().clone()
+                with _DeviceOps() as counted:
+                    eager()
+                torch.cuda.synchronize()
+                eager_ms = time_ms(eager, iters=iters[strategy], reps=3)
+                eager_enq = enqueue_ms(eager)
+                before, replayed0 = _plan_counts(), cuda_gemm.REPLAYED
+                first = graphed().clone()  # the eager first dispatch, then the capture
+                replayed = graphed().clone()
+                graph_ms = time_ms(graphed, iters=iters[strategy], reps=3)
+                graph_enq = enqueue_ms(graphed)
+                torch.cuda.synchronize()
+                err = max(int((_widen(got) - _widen(want)).abs().max().item()) for got in (first, replayed))
+                if err:
+                    raise AssertionError(f"{strategy} {label}: the graph replay differs from the eager dispatch")
+                counts = _plan_delta(before)
+                # The buffer's graph may exist already (the pool hands out
+                # the main path's buffers): then every call is a replay.
+                if counts["captures"] > 1 or counts["captures"] + counts["replays"] != counts["calls"]:
+                    raise AssertionError(f"{strategy} {label}: plan counts {counts}")
+                row = dict(phase="plan_dispatch", strategy=strategy, shape=label, p=p, k=k, m=m, nvidia_smi=smi,
+                           eager_ms=eager_ms, graph_ms=graph_ms, eager_enqueue_ms=eager_enq,
+                           graph_enqueue_ms=graph_enq, device_ops=counted.ops,
+                           k1_kernels_per_graph=(cuda_gemm.REPLAYED - replayed0) / counts["replays"], plan=counts,
+                           bound_ms=bound_ms(p, k, m, 8), bound_by="bytes", max_abs_err=err)
+                log(**row)
+                rows.append(row)
+    finally:
+        done = torch.cuda.Event()
+        done.record()
+        plan.STAGING.release(slot, done)
+    return rows
+
+
+def phase_tune(device, work: str) -> dict:
+    """Phase 5e's autotuner: RS_STRATEGY_AUTOTUNE=measure at k=10, p=4,
+    w=8 on the card times every candidate through the plan layer (the
+    graph strategies as replays) and persists the winner in a fresh store;
+    a fresh process in prior mode must resolve the same winner from it
+    (source "ledger")."""
+    store = os.path.join(work, "tune_store.jsonl")
+    with _env(RS_STRATEGY_AUTOTUNE="measure", RS_SCHEDULE_STORE=store):
+        tune.clear_decisions()
+        t0 = time.perf_counter()
+        winner = tune.resolve_auto(10, 4, 8, device=device)
+        seconds = time.perf_counter() - t0
+        decision = tune.decisions()["cuda|10|4|8"]
+    code = ("import json\nfrom gpu_rscode_torch import tune\n"
+            "s = tune.resolve_auto(10, 4, 8, device='cuda')\n"
+            "print(json.dumps({'strategy': s, 'source': tune.decisions()['cuda|10|4|8']['source']}))\n")
+    env = dict(os.environ, RS_STRATEGY_AUTOTUNE="prior", RS_SCHEDULE_STORE=store, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"the fresh prior-mode process failed: {proc.stderr[-2000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    if fresh != {"strategy": winner, "source": "ledger"}:
+        raise AssertionError(f"measure mode chose {winner}; the fresh process resolved {fresh}")
+    tune.clear_decisions()
+    res = dict(phase="plan_tune", nvidia_smi=smi_line(), k=10, p=4, w=8, winner=winner, gbps=decision["gbps"],
+               measure_seconds=seconds, fresh_process=fresh, stripe_bytes_per_chunk=tune._MEASURE_COLS)
+    log(**res)
+    return res
+
+
 def _strategy_calls() -> int:
     """Dispatches of every xor and ring pipeline of this process so far."""
     return sum(d["calls"] for d in xor_gemm.pipeline_stats() + ring_gemm.ring_pipeline_stats())
@@ -464,17 +756,19 @@ def _strategy_calls() -> int:
 @contextlib.contextmanager
 def _no_plain_gemm():
     """While the strategies run, the codec's plain GEMMs raise: on CUDA, xor
-    and ring must reach neither K1 nor the bitplane or table path."""
-    saved = codec_module.gf_matmul_bitplane, codec_module.gf_matmul_table
+    and ring must reach neither K1 nor the bitplane or table path (the
+    codec reaches them through plan.eager, which looks them up in
+    ops.gemm at each call)."""
+    saved = gemm_module.gf_matmul_bitplane, gemm_module.gf_matmul_table
 
     def refuse(*args, **kwargs):
         raise AssertionError("a plain GEMM was called under strategy xor or ring")
 
-    codec_module.gf_matmul_bitplane = codec_module.gf_matmul_table = refuse
+    gemm_module.gf_matmul_bitplane = gemm_module.gf_matmul_table = refuse
     try:
         yield
     finally:
-        codec_module.gf_matmul_bitplane, codec_module.gf_matmul_table = saved
+        gemm_module.gf_matmul_bitplane, gemm_module.gf_matmul_table = saved
 
 
 def run_strategy(name: str, strategy: str, fn, nbytes: int, smi: str, timer: PhaseTimer | None = None,
@@ -486,16 +780,17 @@ def run_strategy(name: str, strategy: str, fn, nbytes: int, smi: str, timer: Pha
     Returns the operation's result and its logged row."""
     _reset_counts()
     _reset_io_counts()
-    calls0, reuse0 = _strategy_calls(), dict(xor_gemm.PACK_REUSE)
+    calls0, reuse0, plan0 = _strategy_calls(), dict(xor_gemm.PACK_REUSE), _plan_counts()
     t0 = time.perf_counter()
     with _no_plain_gemm():
         result = fn()
     wall = time.perf_counter() - t0
+    plan_counts = _plan_delta(plan0)
     io_counts, calls = _io_counts(), _strategy_calls() - calls0
     reuse = {key: xor_gemm.PACK_REUSE[key] - reuse0[key] for key in reuse0}
     resident = resident(reuse) if callable(resident) else resident
-    if cuda_gemm.LAUNCHES:
-        raise AssertionError(f"{name}: strategy {strategy} launched K1 {cuda_gemm.LAUNCHES} times")
+    if k1_runs() or cuda_gemm.CAPTURED:
+        raise AssertionError(f"{name}: strategy {strategy} ran K1 {k1_runs()} times ({cuda_gemm.CAPTURED} captured)")
     if calls <= 0 or io_counts["stream_dispatches"] != calls:
         raise AssertionError(f"{name}: {calls} {strategy} dispatches, {io_counts['stream_dispatches']} on the compute "
                              "stream")
@@ -506,7 +801,7 @@ def run_strategy(name: str, strategy: str, fn, nbytes: int, smi: str, timer: Pha
         raise AssertionError(f"{name}: native IO calls {io_counts['native_io_calls']}, NumPy fallback calls "
                              f"{io_counts['fallback_io_calls']}")
     row = dict(strategy=strategy, wall_s=wall, gbps=nbytes / wall / 1e9, bytes=nbytes, k1_launches=0,
-               dispatches=calls, pack_reuse=reuse, io=io_counts)
+               dispatches=calls, pack_reuse=reuse, io=io_counts, plan=plan_counts)
     if timer is not None:
         row["phases_s"] = dict(timer.acc)
     log(phase="strategies", op=name, nvidia_smi=smi, **row)
@@ -527,6 +822,7 @@ def phase_strategies_main(path: str, want_sha: str, cuda_digests: dict) -> dict:
         _, enc = run_strategy(f"encode_{strategy}", strategy,
                               lambda: api.encode_file(path, k, n - k, strategy=strategy, timer=enc_timer), size, smi,
                               enc_timer)
+        _check_graphed(f"encode_{strategy}", enc["plan"], enc["dispatches"], warm=False)
         digests = archive_digests(path, n)
         if digests != cuda_digests:
             diff = sorted(name for name in digests if digests[name] != cuda_digests.get(name))
@@ -537,6 +833,7 @@ def phase_strategies_main(path: str, want_sha: str, cuda_digests: dict) -> dict:
         _, dec = run_strategy(f"decode_{strategy}", strategy,
                               lambda: api.decode_file(path, conf, out, strategy=strategy, timer=dec_timer), size, smi,
                               dec_timer)
+        _check_graphed(f"decode_{strategy}", dec["plan"], dec["dispatches"], warm=False)
         if sha256_file(out) != want_sha:
             raise AssertionError(f"{strategy}: the decoded SHA-256 differs from the input")
         for name in [conf, out, path + ".METADATA"] + [chunk_file_name(path, i) for i in range(n - k, n)]:
@@ -635,7 +932,7 @@ def phase_fleet_and_cli(work: str, seed: int, size: int) -> dict:
     t0 = time.perf_counter()
     written = api.encode_fleet(files, k, n - k)
     t_fleet = time.perf_counter() - t0
-    launches, io_counts = cuda_gemm.LAUNCHES, _io_counts()
+    launches, io_counts = k1_runs(), _io_counts()
     check_pipeline("encode_fleet", launches, io_counts)
     for f, sha in zip(files, shas):
         if written[f] != [chunk_file_name(f, i) for i in range(n)] + [f + ".METADATA"]:
@@ -646,7 +943,7 @@ def phase_fleet_and_cli(work: str, seed: int, size: int) -> dict:
         if sha256_file(out) != sha:
             raise AssertionError(f"encode_fleet: decoded SHA-256 of {f} differs from the input")
     path = files[0]
-    before = cuda_gemm.LAUNCHES
+    before = k1_runs()
     flags = ["-s", "3", "-p", "64", "--device", "cuda"]
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(["-k", str(k), "-n", str(n), "-e", path, *flags])
@@ -661,7 +958,7 @@ def phase_fleet_and_cli(work: str, seed: int, size: int) -> dict:
         raise AssertionError("the -s 3 -p 64 CLI round trip changed the bytes")
     res = dict(phase="fleet_and_cli", files=len(files), bytes_each=size, fleet_encode_s=t_fleet,
                fleet_encode_gbps=len(files) * size / t_fleet / 1e9, fleet_launches=launches, fleet_io=io_counts,
-               sha256_match=True, cli_flags=flags, cli_launches=cuda_gemm.LAUNCHES - before, cli_match=True)
+               sha256_match=True, cli_flags=flags, cli_launches=k1_runs() - before, cli_match=True)
     log(**res)
     for name in os.listdir(work):
         os.unlink(os.path.join(work, name))
@@ -678,7 +975,7 @@ def phase_cli_w16(work: str, seed: int, size: int, strategy: str | None = None) 
     with open(path, "wb") as fp:
         fp.write(data)
     flags = ["--device", "cuda"] + (["--strategy", strategy] if strategy else [])
-    before, calls0 = cuda_gemm.LAUNCHES, _strategy_calls()
+    before, calls0 = k1_runs(), _strategy_calls()
     t0 = time.perf_counter()
     with _no_plain_gemm() if strategy else contextlib.nullcontext():
         rc = cli.main(["-k", str(k), "-n", str(n), "-e", path, "--width", "16", "--checksum", "--quiet", *flags])
@@ -699,7 +996,7 @@ def phase_cli_w16(work: str, seed: int, size: int, strategy: str | None = None) 
     with open(out, "rb") as fp:
         if fp.read() != data:
             raise AssertionError("w=16 CLI round trip changed the bytes")
-    launches = cuda_gemm.LAUNCHES - before
+    launches = k1_runs() - before
     if strategy and (launches or _strategy_calls() - calls0 <= 0):
         raise AssertionError(f"w=16 CLI under {strategy}: {launches} K1 launches, "
                              f"{_strategy_calls() - calls0} {strategy} dispatches")
@@ -997,15 +1294,23 @@ def phase_new_kernels_vs_plain(device) -> dict:
 
 
 def _reset_counts() -> None:
-    cuda_gemm.LAUNCHES = 0
+    cuda_gemm.LAUNCHES = cuda_gemm.CAPTURED = cuda_gemm.REPLAYED = 0
     cuda_pack2.LAUNCHES = 0
     cuda_planes.LAUNCHES = 0
     cuda_planes.SUM_LAUNCHES = 0
     cuda_planes.COPY_LAUNCHES = 0
 
 
+def k1_runs() -> int:
+    """K1 kernels that ran since the counts were reset: eager launches and
+    the launches inside CUDA-graph replays (the plan layer's), one a
+    dispatch either way.  Launches recorded into a graph at its capture ran
+    nothing then, and count in cuda_gemm.CAPTURED only."""
+    return cuda_gemm.LAUNCHES + cuda_gemm.REPLAYED
+
+
 def _counts() -> dict:
-    return {"K1": cuda_gemm.LAUNCHES, "K2": cuda_pack2.LAUNCHES, "K3-planes": cuda_planes.LAUNCHES,
+    return {"K1": k1_runs(), "K2": cuda_pack2.LAUNCHES, "K3-planes": cuda_planes.LAUNCHES,
             "K3-planes-sum": cuda_planes.SUM_LAUNCHES, "K3-copy-floor": cuda_planes.COPY_LAUNCHES}
 
 
@@ -1106,7 +1411,7 @@ def phase_short_segments(work: str, seed: int, size: int) -> dict:
                 api.encode_file(path, k, n - k, w=w, device=dev, segment_bytes=128 * 1024, pipeline_depth=3,
                                 checksums=True)
                 if dev == "cuda":
-                    launches = cuda_gemm.LAUNCHES
+                    launches = k1_runs()
                     check_pipeline(f"short segments w={w}", launches, _io_counts())
                 archives[dev] = (path, archive_digests(path, n))
             if archives["cuda"][1] != archives["cpu"][1]:
@@ -1145,16 +1450,17 @@ class Ops:
             timer: PhaseTimer | None = None):
         _reset_counts()
         _reset_io_counts()
+        plan0 = _plan_counts()
         t0 = time.perf_counter()
         result = fn()
         wall = time.perf_counter() - t0
-        launches, io_counts = cuda_gemm.LAUNCHES, _io_counts()
+        launches, io_counts = k1_runs(), _io_counts()
         if gemm:
             check_pipeline(name, launches, io_counts, staged_ahead, native_io)
         elif launches or io_counts["stream_dispatches"]:
             raise AssertionError(f"{name}: {launches} K1 launches where no GEMM belongs")
         self.rows[name] = dict(wall_s=wall, gbps=nbytes / wall / 1e9, bytes=nbytes, k1_launches=launches,
-                               io=io_counts)
+                               io=io_counts, plan=_plan_delta(plan0))
         if timer is not None:
             self.rows[name]["phases_s"] = dict(timer.acc)
         log(phase=self.label, op=name, nvidia_smi=self.smi, **self.rows[name])
@@ -1616,13 +1922,15 @@ def ptxas_kernels(ptxas: str) -> list[dict]:
 
 
 def phase_build() -> None:
-    """The three kernel libraries (one nvcc each) and the native IO library
-    (g++), all at once."""
+    """The three kernel libraries (one nvcc each) and the native IO and GEMM
+    libraries (g++), all at once."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    with ThreadPoolExecutor(max_workers=2) as pool:
         host_io = pool.submit(native.library_path)
+        host_gemm = pool.submit(native.gemm_library_path)
         _build.build_many(LIBS)
         host_io.result()
+        host_gemm.result()
     wall = time.perf_counter() - t0
     for name in LIBS:
         ptxas = _build.BUILD_LOG.get(name, "")
@@ -1631,11 +1939,13 @@ def phase_build() -> None:
         log(phase="build", library=name, nvcc_seconds=_build.BUILD_SECONDS.get(name), kernels=len(regs),
             max_registers=max(regs, default=None), spill_store_bytes=spills)
         log(phase="build", library=name, per_kernel=ptxas_kernels(ptxas))
-    log(phase="build", library="rs_native_io", gxx_seconds=_build.BUILD_SECONDS.get("rs_native_io"),
-        path=os.path.relpath(native.library_path(), REPO))
+    for name, lib_path in (("rs_native_io", native.library_path), ("rs_native_gemm", native.gemm_library_path)):
+        log(phase="build", library=name, gxx_seconds=_build.BUILD_SECONDS.get(name),
+            path=os.path.relpath(lib_path(), REPO))
     log(phase="build", parallel_wall_seconds=wall)
     cuda_gemm._lib(), cuda_pack2._lib(), cuda_planes._lib()
     native.get_lib()  # raises NativeUnavailable: the card run must not take the fallback
+    native.get_gemm_lib()
 
 
 def main() -> int:
@@ -1666,6 +1976,9 @@ def main() -> int:
         work = tempfile.mkdtemp(dir=work_root)
         try:
             main_res, cuda_digests, main_file, main_sha = phase_main_path(work, SEED, MAIN_FILE_BYTES)
+            t_5e = time.perf_counter()
+            plan_res = {"main": phase_plan_main(main_file, main_sha, cuda_digests)}
+            plan_res["seconds"] = time.perf_counter() - t_5e
             t_5d = time.perf_counter()
             strategies = phase_strategies_main(main_file, main_sha, cuda_digests)
             for strategy in STRATEGIES:
@@ -1679,11 +1992,19 @@ def main() -> int:
             t_5d = time.perf_counter()
             strategies["timings"] = phase_strategies_timings(device, work)
             strategies["timings_seconds"] = time.perf_counter() - t_5d
+            t_5e = time.perf_counter()
+            plan_res["ragged"] = phase_plan_ragged(work, SEED + 7)
+            plan_res["dispatch"] = phase_plan_dispatch(device)
+            plan_res["tune"] = phase_tune(device, work)
+            plan_res["seconds"] += time.perf_counter() - t_5e
         finally:
             shutil.rmtree(work, ignore_errors=True)
         log(phase="strategies_summary", main_and_cli_seconds=strategies["seconds"],
             timings_seconds=strategies["timings_seconds"], locate_xor_seconds=resilience["locate_xor_seconds"],
             update_xor_seconds=updates["update_xor"]["seconds"])
+        log(phase="plan_summary", seconds=plan_res["seconds"], cache=plan.PLAN_CACHE.stats()["staging"],
+            plans=plan.PLAN_CACHE.stats()["executables"], tune_winner=plan_res["tune"]["winner"],
+            peak_device_gib=torch.cuda.max_memory_allocated(device) / (1 << 30))
         timings = phase_timings(device, updates["group_stacked_cols"])
         log_compute_share(main_res, timings)
         tools = phase_tools()

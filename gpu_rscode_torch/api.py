@@ -52,7 +52,8 @@ from itertools import combinations
 import numpy as np
 
 from . import native
-from .codec import RSCodec
+from . import plan as _plan
+from .codec import RSCodec, entry_device
 from .models.vandermonde import total_matrix
 from .ops.gf import get_field
 from .ops.inverse import SingularMatrixError, invert_matrix
@@ -180,6 +181,34 @@ def _staging(prefetch, loop: StreamLoop, sym: int, depth: int, timer: PhaseTimer
             return loop.stage(segment, sym)
 
     return DeviceStagingRing(prefetch, stage, depth=depth)
+
+
+def warm_plan(native_num: int, parity_num: int, *, w: int = 8, generator: str = "vandermonde", strategy: str = "auto",
+              segment_bytes: int = DEFAULT_SEGMENT_BYTES, file_bytes: int | None = None, device=None) -> dict:
+    """Build the encode plan of one bucket before the first real request
+    (a resident process pays the build, and on the card the graph capture,
+    here).  Stages one zero segment of the bucket the workload will hit
+    (``file_bytes`` sizes it as :func:`encode_file` would; default one
+    full segment) into the first staging buffer of the pool
+    (:func:`.plan.stage_segment`) and dispatches it; every later encode
+    with the same (k, p, w, strategy) shape finds the plan in
+    :data:`.plan.PLAN_CACHE`, and on the card the graph of that buffer
+    captured.  Returns the resolved
+    shape (``auto`` pinned to its choice), as the JAX package's
+    ``warm_plan`` does.
+    """
+    if w not in (8, 16):
+        raise ValueError(f"file-layer symbol width must be 8 or 16, got {w}")
+    sym = w // 8
+    codec = RSCodec(native_num, parity_num, w=w, generator=generator, strategy=strategy, device=device)
+    chunk = chunk_size_for(file_bytes, native_num, sym) if file_bytes else max(sym, segment_bytes)
+    seg_cols = _segment_cols(chunk, native_num, segment_bytes)
+    seg = np.zeros((native_num, seg_cols // sym), dtype=codec.gf.dtype)
+    staged = _plan.stage_segment(seg, seg_cols // sym, codec.device)
+    codec.encode(staged).cpu()  # waits: the plan is built (and its graph captured)
+    _plan.release(staged)
+    return {"k": native_num, "p": parity_num, "w": w, "strategy": codec.strategy, "generator": generator,
+            "cols": seg_cols}
 
 
 def _write_native_chunks(src, file_name, tmps, k, chunk, total_size, copy_step, crcs, timer, executor) -> None:
@@ -516,7 +545,7 @@ def decode_file(
     write-behind lane; the output is committed behind its own writes.
     """
     timer = timer or PhaseTimer(enabled=False)
-    device = resolve_device(device)
+    device = entry_device(device, strategy)
     meta_path = metadata_file_name(in_file)
     with timer.phase("read metadata (io)"):
         meta = read_archive_meta(meta_path)
@@ -612,7 +641,7 @@ def decode_file(
         # the memmaps.  A resume gets a fresh loop: the prefetcher that
         # failed took its pinned buffers with it.
         recover = st["dec_missing"] is not None
-        st["loop"] = StreamLoop(device, k, seg_cols, depth) if recover else None
+        st["loop"] = StreamLoop(codec.device, k, seg_cols, depth) if recover else None
         st["fps"] = [open(path, "rb") for path in st["paths"]] if recover else []
 
     _derive()
@@ -1077,7 +1106,7 @@ def auto_decode_file(in_file: str, output: str | None = None, *, conf_out: str |
     """
     from .gf_decode import UnlocatableError
 
-    decode_kwargs["device"] = resolve_device(decode_kwargs.get("device"))
+    decode_kwargs["device"] = entry_device(decode_kwargs.get("device"), decode_kwargs.get("strategy", "auto"))
     segment_bytes = decode_kwargs.get("segment_bytes", DEFAULT_SEGMENT_BYTES)
     conf_path = conf_out or (in_file + ".auto.conf")
     attempts = max(1, int_env("RS_RETRY_RESELECT", 3) + 1)
@@ -1147,7 +1176,7 @@ def decode_fleet(
     outputs committed before stay, uncommitted temps are removed.  Returns
     ``{file: output path}``."""
     timer = timer or PhaseTimer(enabled=False)
-    device = resolve_device(device)
+    device = entry_device(device, strategy)
     outputs = outputs or {}
     results: dict[str, str] = {}
     with _fleet_lane() as pipe:
@@ -1304,7 +1333,7 @@ def locate_decode_file(
     from .gf_decode import correct_segment, is_systematic
 
     timer = timer or PhaseTimer(enabled=False)
-    device = resolve_device(device)
+    device = entry_device(device, strategy)
     if _scan is not None:
         scan = _scan  # auto_decode_file's fresh scan
     else:
@@ -1450,7 +1479,7 @@ def repair_file(
     if mesh is not None or stripe_sharded:
         raise NotImplementedError("repair_file over a device mesh (mesh=, stripe_sharded=) is not ported yet")
     timer = timer or PhaseTimer(enabled=False)
-    device = resolve_device(device)
+    device = entry_device(device, strategy)
     with timer.phase("scan chunks (io)"):
         scan = _scan_chunks(in_file, segment_bytes)
     targets = scan.unhealthy
@@ -1582,7 +1611,7 @@ def repair_fleet(
     from .ops import inverse
 
     timer = timer or PhaseTimer(enabled=False)
-    device = resolve_device(device)
+    device = entry_device(device, strategy)
     files = list(files)
     errors: dict[str, str] = {}
     with timer.phase("scan chunks (io)"):

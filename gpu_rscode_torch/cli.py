@@ -7,7 +7,9 @@ with ``--repair`` and ``--scrub``), as in the reference.  Performance flags as i
 and ``-p`` (segment-size hint, p x 128 KiB).  Extensions: ``--width
 8|16``, ``--checksum`` (encode: CRC32 lines in .METADATA; decode verifies
 them), ``--no-verify``, ``--generator``, ``--segment-bytes``,
-``--strategy`` (``xor`` and ``ring`` included), ``--quiet`` (no timing
+``--strategy`` (``xor``, ``ring`` and the native host codec ``cpu``
+included; the ``update`` and ``append`` subcommands take it too),
+``--quiet`` (no timing
 report) and ``--device``.  Extra files after the flags of an encode go
 through :func:`.api.encode_fleet`.  The resilience reads: ``-d -i <file>
 --auto [more archives]`` (:func:`.api.auto_decode_file`, or
@@ -22,7 +24,7 @@ encode's chunk layout.  The subcommands ``update`` and ``append``
 patch an archive in place.
 
 ``--device`` defaults to CUDA; without a GPU the command fails unless
-``--device cpu`` is given.
+``--device cpu`` or ``--strategy cpu`` is given.
 """
 
 from __future__ import annotations
@@ -48,10 +50,12 @@ Performance-tuning options:
 [-p|-P]: per-dispatch segment-size hint (p * 128 KiB per segment)
 [-s|-S]: pipeline depth (segments in flight, default 2)
 Extensions: [--generator vandermonde|cauchy]
-            [--strategy auto|cuda|bitplane|table|xor|ring] (auto: the CUDA
-            kernel on a GPU, bitplane on the CPU; xor = bit-sliced XOR
-            chains with Paar CSE, ring = polynomial-ring lowering, both
-            w 8 and 16 only)
+            [--strategy auto|cuda|bitplane|table|xor|ring|cpu] (auto: the
+            CUDA kernel on a GPU, bitplane on the CPU, unless a measured
+            decision in the schedule store says otherwise; xor =
+            bit-sliced XOR chains with Paar CSE, ring = polynomial-ring
+            lowering, both w 8 and 16 only; cpu = the native host codec,
+            w 8 only, needs no GPU)
             [--segment-bytes N] [--quiet] (no timing report)
             [--checksum]  (encode: record per-chunk CRC32 in .METADATA)
             [--no-verify] (decode: skip checksum verification)

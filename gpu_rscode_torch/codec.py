@@ -9,9 +9,15 @@ inverse is computed on the host (:mod:`.ops.inverse`).
 Strategies: ``cuda`` (the hand-written kernel, :mod:`.ops.cuda_gemm`),
 ``bitplane`` and ``table`` (plain PyTorch, :mod:`.ops.gemm`), ``xor`` and
 ``ring`` (XOR chains over packed bit planes, :mod:`.ops.xor_gemm` and
-:mod:`.ops.ring_gemm`, w=8 and w=16 only).  ``auto`` resolves to ``cuda`` on
-a CUDA device and to ``bitplane`` on the CPU.  A kernel failure raises;
-nothing demotes to another strategy.
+:mod:`.ops.ring_gemm`, w=8 and w=16 only), ``cpu`` (the native host codec,
+:func:`.native.gemm`, w=8 only: it computes on the host, needs no GPU, and
+is refused when its library does not build).  ``auto`` resolves through
+:func:`.tune.resolve_auto`: ``cuda`` on a CUDA device and ``bitplane`` on
+the CPU unless a measured or persisted decision says otherwise.  Every GEMM
+goes through the plan layer (:func:`.plan.dispatch`) while it is on, and
+through the strategy's function (:func:`.plan.eager`) with ``RS_PLAN=0``.
+A kernel, capture or replay failure raises; nothing demotes to another
+strategy.
 """
 
 from __future__ import annotations
@@ -19,13 +25,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import plan as _plan
 from .models.vandermonde import generator_matrix
-from .ops.gemm import gf_matmul_bitplane, gf_matmul_table, to_tensor
+from .ops.gemm import to_tensor
 from .ops.gf import get_field
 from .ops.inverse import invert_matrix
+from .tune import VALID_STRATEGIES, resolve_auto
 from .utils.backend import resolve_device
 
-VALID_STRATEGIES = ("auto", "cuda", "bitplane", "table", "xor", "ring")
+
+def entry_device(device, strategy: str) -> torch.device:
+    """The device a file operation under ``strategy`` runs on: the host for
+    ``cpu`` (an explicit request for the host, which needs no GPU), else
+    :func:`.utils.backend.resolve_device`."""
+    if strategy == "cpu":
+        if device is not None and torch.device(device).type != "cpu":
+            raise ValueError(f"strategy='cpu' computes on the host; it cannot run on {device!r}")
+        return torch.device("cpu")
+    return resolve_device(device)
 
 
 class RSCodec:
@@ -54,9 +71,19 @@ class RSCodec:
             )
         if strategy in ("xor", "ring") and w not in (8, 16):
             raise ValueError(f"strategy={strategy!r} supports GF(2^8) and GF(2^16) only")
-        self.device = resolve_device(device)
+        self.device = entry_device(device, strategy)
         if strategy == "auto":
-            strategy = "cuda" if self.device.type == "cuda" else "bitplane"
+            strategy = resolve_auto(native_num, parity_num, w, device=self.device, generator=generator)
+        if strategy == "cpu":
+            # Validated up front: failing mid-stream would leave partial
+            # output files behind.
+            from . import native
+
+            if w != 8:
+                raise ValueError("strategy='cpu' supports GF(2^8) only")
+            if not native.available():
+                raise RuntimeError("strategy='cpu' needs the native GEMM library, which did not build here")
+            self.device = torch.device("cpu")
         self.gf = get_field(w)
         self.w = w
         self.native_num = native_num
@@ -115,19 +142,24 @@ class RSCodec:
         xor / ring GEMMs that read the same rows: the returned
         :class:`.ops.xor_gemm.PackedOperand` goes to :meth:`syndrome` /
         :meth:`decode` in place of the segment, and its ``select`` hands a
-        row subset to the next GEMM with no second pack.  None when the
-        reuse does not apply (another strategy, ``RS_XOR_PACK_REUSE=0``),
-        so a caller falls back with one ``is None`` check."""
+        row subset to the next GEMM with no second pack.  A
+        :class:`.plan.StagedSegment` is packed at its bucket width (its
+        ``cap`` travels with the planes).  None when the reuse does not
+        apply (another strategy, ``RS_XOR_PACK_REUSE=0``), so a caller falls
+        back with one ``is None`` check."""
         from .ops import xor_gemm
 
         if self.strategy not in ("xor", "ring") or not xor_gemm.pack_reuse_enabled():
             return None
-        data = to_tensor(data, self.device)
-        cols_true = data.shape[1]
-        cols = xor_gemm.padded_cols(cols_true)
-        if cols != cols_true:
-            data = xor_gemm.pad_operand(data, cols)
-        return xor_gemm.pack_operand(data, self.w, cols_true=cols_true)
+        if isinstance(data, _plan.StagedSegment):
+            arr, cols_true, cap = data.array, data.cols, data.cap
+        else:
+            arr = to_tensor(data, self.device)
+            cols_true, cap = arr.shape[1], None
+        cols = xor_gemm.padded_cols(arr.shape[1])
+        if cols != arr.shape[1]:
+            arr = xor_gemm.pad_operand(arr, cols)
+        return xor_gemm.pack_operand(arr, self.w, cols_true=cols_true, cap=cap)
 
     def _matmul(self, A, B) -> torch.Tensor:
         from .ops.xor_gemm import PackedOperand
@@ -135,23 +167,13 @@ class RSCodec:
         if isinstance(B, PackedOperand):
             if self.strategy not in ("xor", "ring"):
                 raise ValueError("packed operands require strategy='xor' or 'ring' on a single-device codec")
-        else:
+        elif not isinstance(B, _plan.StagedSegment):
             B = to_tensor(B, self.device)
-        if self.strategy == "xor":
-            from .ops.xor_gemm import gf_matmul_xor
-
-            return gf_matmul_xor(A, B, self.w)
-        if self.strategy == "ring":
-            from .ops.ring_gemm import gf_matmul_ring
-
-            return gf_matmul_ring(A, B, self.w)
-        if self.strategy == "cuda":
-            from .ops.cuda_gemm import gf_matmul_cuda
-
-            return gf_matmul_cuda(A, B.contiguous(), self.w)
-        if self.strategy == "table":
-            return gf_matmul_table(A, B, self.w)
-        return gf_matmul_bitplane(A, B, self.w)
+        # A staged segment is bucket-padded: it goes through the plan layer,
+        # which trims, even if RS_PLAN was switched off since it was staged.
+        if _plan.enabled() or isinstance(B, _plan.StagedSegment):
+            return _plan.dispatch(A, B, w=self.w, strategy=self.strategy)
+        return _plan.eager(self.strategy, A, B, self.w)
 
     def decode_matrix(self, survivor_rows) -> np.ndarray:
         """Inverse of the k x k submatrix of the total matrix selected by

@@ -15,11 +15,20 @@ can show that the fallback did not.
 of a pinned buffer), in place of a fresh one.  ``interleave_read`` and
 ``deinterleave_write`` are the interleaved layout's staging pair: one
 contiguous file range transposed into the k rows of a segment, and back.
+
+The GEMM/invert half (``rs_native_gemm.cpp``, a library of its own built
+the same way) is the host GF(2^8) codec behind ``strategy="cpu"``:
+:func:`gemm` and :func:`invert`.  :func:`available` says whether it
+builds; ``RSCodec(strategy="cpu")`` is refused when it does not, so the
+strategy never names the NumPy oracle.  Called directly without a
+toolchain, :func:`gemm` and :func:`invert` take the oracle, counted in
+:data:`GEMM_FALLBACK_CALLS` (the library's calls in :data:`GEMM_CALLS`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 import threading
 from pathlib import Path
@@ -29,16 +38,22 @@ import numpy as np
 from ..ops import _build
 
 SRC = Path(__file__).resolve().parent / "rs_native_io.cpp"
+GEMM_SRC = Path(__file__).resolve().parent / "rs_native_gemm.cpp"
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _build_failed = False
+_gemm_lib: ctypes.CDLL | None = None
+_gemm_build_failed = False
 
 # Calls served by the library and by the NumPy fallback since the counts
 # were last reset (prefetch and writer threads add to them at once).
 NATIVE_CALLS = 0
 FALLBACK_CALLS = 0
+# GEMM and invert calls served by the library and by the NumPy oracle.
+GEMM_CALLS = 0
+GEMM_FALLBACK_CALLS = 0
 _count_lock = threading.Lock()
 
 
@@ -53,6 +68,15 @@ def _count(native: bool) -> None:
             NATIVE_CALLS += 1
         else:
             FALLBACK_CALLS += 1
+
+
+def _count_gemm(native: bool) -> None:
+    global GEMM_CALLS, GEMM_FALLBACK_CALLS
+    with _count_lock:
+        if native:
+            GEMM_CALLS += 1
+        else:
+            GEMM_FALLBACK_CALLS += 1
 
 
 def _machine_salt() -> bytes:
@@ -110,6 +134,89 @@ def _native():
         return get_lib()
     except NativeUnavailable:
         return None
+
+
+def gemm_library_path() -> Path:
+    """Where the GEMM/invert library is (built at first call)."""
+    return _build.build("rs_native_gemm", [GEMM_SRC], compiler="g++", flags=FLAGS, salt=_machine_salt())
+
+
+def get_gemm_lib() -> ctypes.CDLL:
+    """The loaded GEMM/invert library, built at first use; raises
+    :class:`NativeUnavailable` when it cannot be built or loaded."""
+    global _gemm_lib, _gemm_build_failed
+    with _lock:
+        if _gemm_lib is not None:
+            return _gemm_lib
+        if _gemm_build_failed:
+            raise NativeUnavailable("the native GEMM library failed to build earlier in this process")
+        try:
+            lib = ctypes.CDLL(str(gemm_library_path()))
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            _gemm_build_failed = True
+            raise NativeUnavailable(f"cannot build or load rs_native_gemm: {e}") from e
+        u8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
+        lib.rs_gf_init.restype = ctypes.c_int
+        lib.rs_gemm.argtypes = [u8p, u8p, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+        lib.rs_gemm.restype = None
+        lib.rs_invert.argtypes = [u8p, u8p, ctypes.c_int]
+        lib.rs_invert.restype = ctypes.c_int
+        lib.rs_gf_init()
+        _gemm_lib = lib
+        return lib
+
+
+def available() -> bool:
+    """Whether the GEMM/invert library builds and loads here."""
+    try:
+        get_gemm_lib()
+        return True
+    except NativeUnavailable:
+        return False
+
+
+def gemm(A: np.ndarray, B: np.ndarray, nthreads: int = 0) -> np.ndarray:
+    """(p, k) x (k, m) -> (p, m) over GF(2^8) on the host, on ``nthreads``
+    threads (0: every core).  Without the library, the NumPy oracle
+    (counted in :data:`GEMM_FALLBACK_CALLS`)."""
+    A = np.ascontiguousarray(A, dtype=np.uint8)
+    B = np.ascontiguousarray(B, dtype=np.uint8)
+    p, k = A.shape
+    if B.ndim != 2 or B.shape[0] != k:
+        raise ValueError(f"shape mismatch {A.shape} @ {B.shape}")
+    try:
+        lib = get_gemm_lib()
+    except NativeUnavailable:
+        from ..ops.gf import get_field
+
+        _count_gemm(False)
+        return get_field(8).matmul(A, B)
+    _count_gemm(True)
+    C = np.empty((p, B.shape[1]), dtype=np.uint8)
+    lib.rs_gemm(A, B, C, p, k, B.shape[1], nthreads or os.cpu_count() or 1)
+    return C
+
+
+def invert(M: np.ndarray) -> np.ndarray:
+    """Gauss-Jordan inverse of a k x k GF(2^8) matrix on the host; raises
+    :class:`..ops.inverse.SingularMatrixError` when it is singular.
+    Without the library, the NumPy inverter (counted in
+    :data:`GEMM_FALLBACK_CALLS`)."""
+    from ..ops.inverse import SingularMatrixError, invert_matrix
+
+    M = np.ascontiguousarray(M, dtype=np.uint8)
+    if M.ndim != 2 or M.shape[0] != M.shape[1]:
+        raise ValueError(f"invert needs a square matrix, got {M.shape}")
+    try:
+        lib = get_gemm_lib()
+    except NativeUnavailable:
+        _count_gemm(False)
+        return invert_matrix(M)
+    _count_gemm(True)
+    out = np.empty_like(M)
+    if lib.rs_invert(M, out, M.shape[0]) != 0:
+        raise SingularMatrixError("matrix not invertible (native)")
+    return out
 
 
 def _dst(dst: np.ndarray | None, rows: int, cols: int) -> np.ndarray:

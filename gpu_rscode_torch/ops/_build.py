@@ -12,6 +12,7 @@ interface and is loaded with ``ctypes``; no PyTorch header is compiled.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -41,6 +42,8 @@ BUILD_SECONDS: dict[str, float] = {}
 # wrappers; emptied when full.
 _OPERATORS: dict = {}
 _MAX_OPERATORS = 64
+# Per thread: the lists collect_operators() is filling.
+_COLLECTING = threading.local()
 
 
 def build_root() -> Path:
@@ -121,11 +124,31 @@ def load(name: str, sources: list[Path]) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+@contextlib.contextmanager
+def collect_operators():
+    """Collect every operator :func:`cached_operator` hands out on this
+    thread inside the block: a CUDA graph captured there reads them at
+    their addresses, so its owner keeps them alive past a clear of the
+    cache."""
+    stack = _COLLECTING.__dict__.setdefault("stack", [])
+    ops: list = []
+    stack.append(ops)
+    try:
+        yield ops
+    finally:
+        stack.pop()
+
+
 def cached_operator(key: tuple, make):
     """The operator for ``key``, made by ``make()`` at first use and kept;
-    the key names the kernel, the coefficient matrix and the device."""
+    the key names the kernel, the coefficient matrix and the device.  A
+    miss during a CUDA graph capture raises: making the operator copies it
+    to the device synchronously, which a capture refuses (the plan layer
+    runs each dispatch eagerly before it captures it)."""
     op = _OPERATORS.get(key)
     if op is None:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"device operator {key[0]} missing from the cache during a CUDA graph capture")
         if len(_OPERATORS) >= _MAX_OPERATORS:
             # A kernel queued on another stream may still read an operator
             # about to be freed: let the device finish first.
@@ -133,6 +156,8 @@ def cached_operator(key: tuple, make):
                 torch.cuda.synchronize()
             _OPERATORS.clear()
         op = _OPERATORS[key] = make()
+    for ops in getattr(_COLLECTING, "stack", ()):
+        ops.append(op)
     return op
 
 

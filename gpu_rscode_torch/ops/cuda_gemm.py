@@ -34,9 +34,13 @@ from . import _build
 from .gemm import coefficients, gf_matmul_bitplane
 from .gf import get_field
 
-# Kernel launches (either form) since the count was last reset.  Only the
-# launch below adds to it.
+# Kernel launches (either form) since the counts were last reset.  Only the
+# launch below adds to LAUNCHES (an eager launch, which runs at once) or
+# CAPTURED (a launch recorded into a CUDA graph, which runs nothing then);
+# the plan layer adds to REPLAYED the K1 kernels each graph replay runs.
 LAUNCHES = 0
+CAPTURED = 0
+REPLAYED = 0
 
 SOURCES = [_build.CSRC / "gf_gemm.cu"]
 
@@ -170,7 +174,7 @@ def _gf_matmul_expand(A, B, w, fold_parity, expand, refold, tile) -> torch.Tenso
 
 
 def _gf_matmul_k1(A, B: torch.Tensor, w: int, fold_parity: bool) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, CAPTURED
     if not isinstance(B, torch.Tensor):
         raise TypeError(f"B must be a tensor, got {type(B).__name__}")
     if B.device.type == "cpu":
@@ -207,5 +211,8 @@ def _gf_matmul_k1(A, B: torch.Tensor, w: int, fold_parity: bool) -> torch.Tensor
         with torch.cuda.device(B.device):
             err = lib.rs_gf_popcount(op.data_ptr(), B.data_ptr(), C.data_ptr(), k, p, w, m, words, stream)
         _build.check(lib, err, "gf_gemm (popcount)")
-    LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
     return C

@@ -652,18 +652,22 @@ class PackedOperand:
     handle; the second one skips the pack.  ``planes`` is the row-major
     tuple of ``rows * w`` plane vectors (1-D int32 tensors); :meth:`select`
     restricts it to a row subset without a copy.  ``cols_true`` is the
-    width before the 32-column padding.
+    width before the padding (the 32-column one, and a staged segment's
+    bucket pad); ``cap`` is the plan-ladder cap of a staged segment's
+    bucket (None otherwise), so the plan layer finds the same bucket.
     """
 
-    __slots__ = ("planes", "rows", "cols", "w", "dtype", "cols_true")
+    __slots__ = ("planes", "rows", "cols", "w", "dtype", "cols_true", "cap")
 
-    def __init__(self, planes, rows: int, cols: int, w: int, dtype, cols_true: int | None = None):
+    def __init__(self, planes, rows: int, cols: int, w: int, dtype, cols_true: int | None = None,
+                 cap: int | None = None):
         self.planes = tuple(planes)
         self.rows = int(rows)
         self.cols = int(cols)
         self.w = int(w)
         self.dtype = np.dtype(dtype)
         self.cols_true = int(cols_true) if cols_true is not None else cols
+        self.cap = cap
 
     @property
     def device(self) -> torch.device:
@@ -678,14 +682,15 @@ class PackedOperand:
             if not 0 <= r < self.rows:
                 raise ValueError(f"row {r} out of range for packed operand of {self.rows} rows")
             planes.extend(self.planes[r * w:(r + 1) * w])
-        return PackedOperand(planes, len(planes) // w, self.cols, w, self.dtype, cols_true=self.cols_true)
+        return PackedOperand(planes, len(planes) // w, self.cols, w, self.dtype, cols_true=self.cols_true,
+                             cap=self.cap)
 
 
 def _np_dtype(t: torch.Tensor) -> np.dtype:
     return np.dtype(np.uint16) if t.dtype == torch.uint16 else np.dtype(np.uint8)
 
 
-def pack_operand(B: torch.Tensor, w: int, *, cols_true: int | None = None) -> PackedOperand:
+def pack_operand(B: torch.Tensor, w: int, *, cols_true: int | None = None, cap: int | None = None) -> PackedOperand:
     """Pack a (rows, cols) symbol tensor once for reuse across chained
     GEMMs.  ``cols`` must already be 32-aligned (:func:`padded_cols`)."""
     rows, cols = B.shape
@@ -693,7 +698,7 @@ def pack_operand(B: torch.Tensor, w: int, *, cols_true: int | None = None) -> Pa
         raise ValueError(f"packed operand cols must be {_COL_ALIGN}-aligned, got {cols}")
     planes = _pack(B, w).unbind(0)
     _count_pack_reuse("packed")
-    return PackedOperand(planes, rows, cols, w, _np_dtype(B), cols_true=cols_true)
+    return PackedOperand(planes, rows, cols, w, _np_dtype(B), cols_true=cols_true, cap=cap)
 
 
 # -- pipeline ----------------------------------------------------------------

@@ -23,11 +23,14 @@ from __future__ import annotations
 
 import queue
 import threading
+import weakref
 from collections.abc import Callable, Iterable
 from typing import Any
 
 import numpy as np
 import torch
+
+from .. import plan as _plan
 
 # Segments staged from pinned memory through the H2D stream, and dispatches
 # launched on the compute stream, since the counts were last reset.  Only
@@ -196,6 +199,17 @@ class SegmentPrefetcher:
         return False
 
 
+def _return_slots(slots: set, h2d, compute) -> None:
+    if not slots:
+        return
+    h2d.wait_stream(compute)
+    done = torch.cuda.Event()
+    done.record(h2d)
+    for slot in list(slots):
+        _plan.STAGING.release(slot, done)
+    slots.clear()
+
+
 class StreamLoop:
     """The streams, events and host buffers of one file operation's
     segment loop on ``device``, for segments of ``rows`` x at most
@@ -232,11 +246,22 @@ class StreamLoop:
     slot).  The ring then also covers the staging ring and the window, and
     :meth:`host_segment` waits for a release; :meth:`close` ends such a
     wait.
+
+    While the plan layer is on (:func:`..plan.enabled`, ``RS_PLAN``),
+    :meth:`stage` pads each segment to its bucket
+    (:func:`..plan.bucket_cols` under the cap ``seg_cols // sym``) and
+    returns a :class:`..plan.StagedSegment`, so the dispatch goes through
+    a cached plan and is trimmed back.  On CUDA the H2D copy lands in a
+    buffer of :data:`..plan.STAGING` (a ragged tail through a device-side
+    pad), which the plan's graphs read; the buffer goes back to the pool
+    with the event of the D2H copy of the dispatch's output, and its next
+    H2D copy waits for that event.
     """
 
     def __init__(self, device: torch.device, rows: int, seg_cols: int, depth: int, hold: bool = False):
         self.device = device
         self.rows = rows
+        self.seg_cols = seg_cols
         self.hold = hold
         self.cuda = device.type == "cuda"
         self._closed = False
@@ -252,6 +277,11 @@ class StreamLoop:
         slots = max(1, depth) * 3 + 3 if hold else max(1, depth) + 2
         self._bufs = [torch.empty(rows * seg_cols, dtype=torch.uint8, pin_memory=True) for _ in range(slots)]
         self._events: list[torch.cuda.Event | None] = [None] * slots
+        # Staging buffers staged and not yet handed back (a segment staged
+        # ahead of a failed dispatch): the pool gets them back when the loop
+        # is collected, once both streams' work so far is done.
+        self._staged_slots: set = set()
+        weakref.finalize(self, _return_slots, self._staged_slots, self.h2d, self.compute).atexit = False
         self._free: queue.Queue = queue.Queue()
         for slot in range(slots):
             self._free.put(slot)
@@ -283,23 +313,50 @@ class StreamLoop:
 
     def stage(self, segment: tuple[int | None, np.ndarray], sym: int):
         """(slot, (rows, cols) bytes) -> the segment as (rows, cols/sym)
-        symbols where the dispatch reads it."""
+        symbols where the dispatch reads it (bucket-padded in a
+        :class:`..plan.StagedSegment` while the plan layer is on)."""
         global PINNED_STAGES
         slot, host = segment
+        cols = host.shape[1]
+        cap = bucket = None
+        if _plan.enabled():
+            cap = self.seg_cols // sym
+            bucket = _plan.bucket_cols(cols // sym, cap) * sym
         if not self.cuda:
-            t = torch.from_numpy(host)
-            return t.view(torch.uint16) if sym == 2 else t
-        src = self._host_view(slot, host.shape[1])
+            t = torch.from_numpy(host if bucket is None else _plan.pad_host(host, bucket))
+            t = t.view(torch.uint16) if sym == 2 else t
+            return t if bucket is None else _plan.StagedSegment(t, cols // sym, cap)
+        src = self._host_view(slot, cols)
+        dslot = None
         with torch.cuda.stream(self.h2d):
-            dev = torch.empty(src.shape, dtype=torch.uint8, device=self.device)
-            dev.copy_(src, non_blocking=True)
+            if bucket is None:
+                dev = torch.empty(src.shape, dtype=torch.uint8, device=self.device)
+                dev.copy_(src, non_blocking=True)
+            else:
+                dslot = _plan.STAGING.acquire(self.device, self.rows * bucket)
+                self._staged_slots.add(dslot)
+                if dslot.ready is not None:
+                    self.h2d.wait_event(dslot.ready)
+                dev = dslot.tensor.view(self.rows, bucket)
+                if bucket == cols:
+                    dev.copy_(src, non_blocking=True)
+                else:
+                    # A ragged tail: the pinned rows are (rows, cols), the
+                    # bucket wider; pad on the device.
+                    tail = torch.empty(src.shape, dtype=torch.uint8, device=self.device)
+                    tail.copy_(src, non_blocking=True)
+                    dev[:, :cols].copy_(tail)
+                    dev[:, cols:].zero_()
             event = torch.cuda.Event()
             event.record(self.h2d)
         self._events[slot] = event
         if not self.hold:
             self._free.put(slot)
         PINNED_STAGES += 1
-        return (dev.view(torch.uint16) if sym == 2 else dev), event
+        data = dev.view(torch.uint16) if sym == 2 else dev
+        if dslot is not None:
+            data = _plan.StagedSegment(data, cols // sym, cap, slot=dslot)
+        return data, event
 
     def stage_copy(self, arr: np.ndarray, sym: int, rows=None):
         """Copy host bytes ``arr`` (or its ``rows``) into a free slot and
@@ -326,6 +383,9 @@ class StreamLoop:
             return fn(staged)
         data, h2d_done = staged
         self.compute.wait_event(h2d_done)
+        if isinstance(data, _plan.StagedSegment):
+            # A pool buffer: never freed, handed back after the D2H copy.
+            return self._compute(lambda: fn(data), release=data.slot)
         data.record_stream(self.compute)
         return self._compute(lambda: fn(data))
 
@@ -338,7 +398,7 @@ class StreamLoop:
             return fn()
         return self._compute(fn)
 
-    def _compute(self, thunk: Callable[[], torch.Tensor]):
+    def _compute(self, thunk: Callable[[], torch.Tensor], release=None):
         global STREAM_DISPATCHES
         with torch.cuda.stream(self.compute):
             out = thunk()
@@ -353,11 +413,16 @@ class StreamLoop:
             out.record_stream(self.d2h)
             copied = torch.cuda.Event()
             copied.record(self.d2h)
+        if release is not None:
+            # The staging buffer (and the output of the graph that read it)
+            # may be overwritten once this copy is done.
+            self._staged_slots.discard(release)
+            _plan.STAGING.release(release, copied)
         return host, copied
 
     def result(self, handle) -> np.ndarray:
         if not self.cuda:
-            return handle.view(torch.uint8).numpy()
+            return np.ascontiguousarray(handle.view(torch.uint8).numpy())
         host, copied = handle
         copied.synchronize()
         return host.numpy()

@@ -36,10 +36,9 @@ import os
 
 import numpy as np
 
-from ..codec import RSCodec
+from ..codec import RSCodec, entry_device
 from ..parallel.io_executor import DrainExecutor
 from ..parallel.pipeline import StreamLoop
-from ..utils.backend import resolve_device
 from ..utils.fileformat import (
     chunk_file_name,
     chunk_size_for_layout,
@@ -236,7 +235,7 @@ def _apply(file_name, at, payload, *, grow, strategy, device, segment_bytes, tim
     from ..ops.gf import get_field
 
     timer = timer or PhaseTimer(enabled=False)
-    device = resolve_device(device)
+    device = entry_device(device, strategy)
     op = "append" if grow else "update"
     recovered = _journal.recover(file_name)
 

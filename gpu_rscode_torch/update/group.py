@@ -36,10 +36,9 @@ import threading
 
 import numpy as np
 
-from ..codec import RSCodec
+from ..codec import RSCodec, entry_device
 from ..parallel.io_executor import DrainExecutor
 from ..parallel.pipeline import StreamLoop
-from ..utils.backend import resolve_device
 from ..utils.fileformat import (
     chunk_size_for_layout,
     metadata_file_name,
@@ -200,7 +199,7 @@ def apply_update_many(
     ``windows``, ``segments``, ``chunks_touched``, ``total_size``,
     ``generation``)."""
     timer = timer or PhaseTimer(enabled=False)
-    device = resolve_device(device)
+    device = entry_device(device, strategy)
     parsed = _parse_edits(edits)
     window = max(1, group_edits) if group_edits else group_window()
     summary: dict | None = None

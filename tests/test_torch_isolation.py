@@ -23,6 +23,8 @@ def test_port_imports_no_jax():
         "import gpu_rscode_torch.gf_decode, gpu_rscode_torch.utils.retry, gpu_rscode_torch.ops.inverse\n"
         "import gpu_rscode_torch.update, gpu_rscode_torch.update.group\n"
         "import gpu_rscode_torch.ops.xor_gemm, gpu_rscode_torch.ops.ring_gemm, gpu_rscode_torch.ops.xor_opt\n"
+        "import gpu_rscode_torch.plan, gpu_rscode_torch.tune\n"
+        "from gpu_rscode_torch.native import gemm, invert, available\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'gpu_rscode_tpu')))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -48,6 +50,7 @@ def test_kernel_source_ships_as_package_data():
     for name in ("gf_gemm.cu", "gf_pack2.cu", "gf_planes.cu"):
         assert (PORT / "ops" / "csrc" / name).is_file()
     assert (PORT / "native" / "rs_native_io.cpp").is_file()
+    assert (PORT / "native" / "rs_native_gemm.cpp").is_file()
     pyproject = (REPO / "pyproject.toml").read_text()
     assert "gpu_rscode_torch*" in pyproject
     assert "ops/csrc/*.cu" in pyproject

@@ -192,10 +192,13 @@ def test_staging_ring_propagates_stage_error(impl):
 
 
 @pytest.mark.parametrize("sym", [1, 2])
-def test_stream_loop_on_cpu_passes_numpy_through(sym):
+def test_stream_loop_on_cpu_passes_numpy_through(sym, monkeypatch):
     """On the CPU a StreamLoop hands out fresh NumPy buffers, stages them
     without a copy, runs the dispatch at once and returns its output's
-    bytes; it counts no pinned stage and no stream dispatch."""
+    bytes; it counts no pinned stage and no stream dispatch.  With the
+    plan layer off (with it on, the stage pads to the bucket:
+    tests/test_torch_plan.py)."""
+    monkeypatch.setenv("RS_PLAN", "0")
     before = (t_pipe.PINNED_STAGES, t_pipe.STREAM_DISPATCHES)
     loop = t_pipe.StreamLoop(torch.device("cpu"), 4, 256, 2)
     slot, host = loop.host_segment(128)
