@@ -107,11 +107,35 @@ Phases, each fatal on failure:
      prior mode must read back from the store.  Every phase logs the plan
      layer's calls, captures and replays; K1 counts eager launches plus the
      launches inside replays (k1_runs);
+  5f. the object store (gpu_rscode_torch/store/) at its documented
+     defaults, k=4, p=2, w=8, interleaved stripes sealing at 64 MiB,
+     through the api's object wrappers with no device given: 4,096
+     objects of seeded sizes, log-uniform over 4 KiB-1 MiB (about 0.72
+     GiB), PUT in batches of 64, then one batch of 1,000 x 4 KiB; every
+     object read back and held against its host mirror (SHA-256); 256
+     deleted (gone from the listing, their ranges zero in the archive); a
+     forced compaction (every retired archive's files gone, every live
+     object read back); one native chunk of a sealed stripe moved away and
+     every object of that stripe read through the degraded path (each
+     counted in rs_store_range_reads_total{path="degraded"}); a flipped
+     byte in an object's range repaired through its CRC, then refused
+     with RangeReadError once the chunk's CRC line is forged; a reopen
+     through the snapshot ladder and one by full replay
+     (RS_STORE_SNAPSHOT_DISABLE=1) that must give the same index; and
+     every stripe's parity against GaloisField.matmul of its natives.  It
+     runs after phase 5e's last steps (its window widths fill the plan
+     cache, whose counts phase 5e reads as deltas), with metrics on and RS_STORE_SNAPSHOT_KEEP unbounded (so
+     that full replay stays possible); it logs each operation's wall,
+     objects/s, MB/s and K1 launches (K1 must run for PUT, DELETE,
+     COMPACT and the degraded GETs and not for the fast GETs), the index
+     fsyncs, the snapshots, both open times and the GEMM shapes;
   6. timings: file encode/decode GB/s of phase 4, and K1 at the main path's
      segment shapes, at phase 5b's syndrome (r=4, depth 14) and repair
-     (3 targets, k=10) shapes and at phase 5c's E·Δ shapes (the stacked
-     group, one 4 KiB window) next to its bound, the logic-op estimate of
-     its design and its plain version;
+     (3 targets, k=10) shapes, at phase 5c's E·Δ shapes (the stacked
+     group, one 4 KiB window) and at phase 5f's (a 64-object PUT batch's
+     E·Δ, the 1,000 x 4 KiB batch's, a degraded GET's window recovery)
+     next to its bound, the logic-op estimate of its design and its plain
+     version;
   7. K2 (pack2) and K3 (every expand+refold pair, the pinned mode, the copy
      floor) against their plain versions on the card, bit-exact, and the
      dispatch of every expansion name through gf_matmul_cuda; K3's sum
@@ -149,6 +173,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -1008,12 +1033,14 @@ def phase_cli_w16(work: str, seed: int, size: int, strategy: str | None = None) 
     return res
 
 
-def phase_timings(device, group_cols: int) -> list[dict]:
+def phase_timings(device, group_cols: int, store_shapes: dict | None = None) -> list[dict]:
     """K1 at the main path's shapes vs its bound, its logic-op estimate and
     its plain version: encode and decode (rows 0 and 1, which the compute
-    share reads), then the resilience reads' syndrome and repair shapes and
-    the update's E·Δ shapes (phase 5c's stacked group of ``group_cols``
-    columns, one 4 KiB interleaved window)."""
+    share reads), then the resilience reads' syndrome and repair shapes, the
+    update's E·Δ shapes (phase 5c's stacked group of ``group_cols``
+    columns, one 4 KiB interleaved window) and the object store's (phase
+    5f's median columns of a 64-object PUT batch's E·Δ, of the 1,000 x
+    4 KiB batch's and of a degraded GET's window recovery)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     clock_mhz = float(smi_line("clocks.max.sm").split()[0])
     rng = np.random.default_rng(7)
@@ -1035,6 +1062,17 @@ def phase_timings(device, group_cols: int) -> list[dict]:
               # E·Δ of the update: the group's stacked windows, one 4 KiB window.
               ("update group stacked k=10 p=4", 8, group_cols, RSCodec(k, 4, device=device).parity_block),
               ("update one 4 KiB window k=10 p=4", 8, 411, RSCodec(k, 4, device=device).parity_block)]
+    if store_shapes:
+        # The store's defaults: k=4, p=2, w=8; the degraded stripe lost
+        # native chunk 1, so the window recovery inverts rows 0, 2, 3, 4.
+        E = RSCodec(4, 2, device=device).parity_block
+        inv = inverse.invert_matrix(RSCodec(4, 2, device=device).total_matrix[[0, 2, 3, 4]], gf)
+        for label, key, A in (("store PUT batch E·Δ k=4 p=2 (64 objects)", "put_64_update", E),
+                              ("store PUT 1,000 x 4 KiB E·Δ k=4 p=2", "put_1000_update", E),
+                              ("store degraded GET window k=4 (4 rows)", "degraded_window", inv)):
+            m = store_shapes[key]["median_cols"]
+            if m:
+                shapes.append((label, 8, m, A))
     rows = []
     for label, w, m, A in shapes:
         p, depth = A.shape
@@ -1863,6 +1901,337 @@ def phase_updates(work: str, seed: int, size: int, device, segment_bytes: int = 
     return res
 
 
+# -- phase 5f: the object store ------------------------------------------------
+
+STORE_OBJECTS = 4096  # seeded sizes, log-uniform over 4 KiB - 1 MiB
+STORE_BATCH = 64
+STORE_SMALL = 1000  # x 4 KiB: the write-combining batch
+STORE_DELETES = 256
+STORE_STRIPE = 64 * MiB  # the seal threshold's default
+
+
+class _GemmLog:
+    """Records the codec's encode / update / decode GEMMs while active, as
+    (operation tag, method, rows, depth, columns): the store's K1 shapes
+    for phase 6."""
+
+    def __init__(self):
+        self.calls: list[tuple[str, str, int, int, int]] = []
+        self.tag = ""
+
+    @contextlib.contextmanager
+    def active(self):
+        real = {name: getattr(RSCodec, name) for name in ("encode", "update", "decode")}
+
+        def wrap(name):
+            def logged(codec, *args):
+                A = codec.parity_block if name == "encode" else args[0]
+                B = args[-1]
+                cols = B.cols if isinstance(B, plan.StagedSegment) else B.shape[1]
+                self.calls.append((self.tag, name, int(np.shape(A)[0]), int(np.shape(A)[1]), int(cols)))
+                return real[name](codec, *args)
+            return logged
+
+        for name in real:
+            setattr(RSCodec, name, wrap(name))
+        try:
+            yield self
+        finally:
+            for name, fn in real.items():
+                setattr(RSCodec, name, fn)
+
+
+def _store_mirror_check(what: str, keys, mirror: dict, get) -> int:
+    """GET every key and hold it against the host mirror's SHA-256; returns
+    the bytes read."""
+    nbytes = 0
+    for key in keys:
+        data = get(key)
+        if hashlib.sha256(data).digest() != mirror[key]:
+            raise AssertionError(f"{what}: object {key!r} differs from its host mirror")
+        nbytes += len(data)
+    return nbytes
+
+
+def _store_parity_proof(bucket_dir: str, arcs: list[str], k: int, p: int) -> int:
+    """Every stripe's parity chunks against ``GaloisField.matmul`` of its
+    native chunks (the host oracle), in 1 Mi-column slices on every core.
+    Returns the columns proven."""
+    from gpu_rscode_torch.utils.fileformat import metadata_file_name, read_archive_meta
+
+    gf = get_field(8)
+    slices = []
+    for arc in arcs:
+        base = os.path.join(bucket_dir, arc)
+        meta = read_archive_meta(metadata_file_name(base))
+        E = meta.total_mat[k:]
+        mms = [np.memmap(chunk_file_name(base, i), dtype=np.uint8, mode="r") for i in range(k + p)]
+        if any(mm.shape[0] != meta.chunk for mm in mms):
+            raise AssertionError(f"stripe {arc}: a chunk is not {meta.chunk} bytes")
+        slices += [(arc, E, mms, lo, min(lo + MiB, meta.chunk)) for lo in range(0, meta.chunk, MiB)]
+
+    def prove(item):
+        arc, E, mms, lo, hi = item
+        natives = np.stack([mm[lo:hi] for mm in mms[:k]])
+        if not np.array_equal(gf.matmul(E, natives), np.stack([mm[lo:hi] for mm in mms[k:]])):
+            raise AssertionError(f"stripe {arc}: parity columns [{lo}, {hi}) differ from the GF oracle")
+        return hi - lo
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        return sum(pool.map(prove, slices))
+
+
+def phase_store(work: str, seed: int) -> dict:
+    """The object store at its documented defaults (k=4, p=2, w=8,
+    interleaved stripes sealing at 64 MiB), through the api's object
+    wrappers with no device given (CUDA): PUT of STORE_OBJECTS seeded
+    objects in batches of 64 and one batch of 1,000 x 4 KiB, GET of every
+    object against its host mirror, DELETE of 256 (gone from the listing,
+    their ranges zero in the archive), a forced compaction (retired files
+    gone, every live object read back), degraded GETs of every object of a
+    sealed stripe with one native chunk moved away (counted as degraded),
+    an object's flipped byte caught by its CRC (repaired, then with the
+    chunk's CRC line forged: RangeReadError), reopen through the snapshot
+    ladder and by full replay (same index), and every stripe's parity
+    against the GF oracle.  K1 launches are counted per operation."""
+    from gpu_rscode_torch import store
+    from gpu_rscode_torch.obs import metrics
+    from gpu_rscode_torch.store import index as store_index
+    from gpu_rscode_torch.utils.fileformat import metadata_file_name, read_archive_meta, rewrite_checksums
+
+    t0 = time.perf_counter()
+    smi = smi_line()
+    root = os.path.join(work, "store")
+    name = "photos"
+    bdir = os.path.join(root, name)
+    rng = np.random.default_rng(seed)
+    sizes = np.exp(rng.uniform(np.log(4096), np.log(1 << 20), STORE_OBJECTS)).astype(np.int64)
+    blob = rng.bytes(int(sizes.sum()) + STORE_SMALL * 4096)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    objects = [(f"img/{i:05d}", memoryview(blob)[offs[i]:offs[i + 1]]) for i in range(STORE_OBJECTS)]
+    base = int(offs[-1])
+    small = [(f"tiny/{i:04d}", memoryview(blob)[base + 4096 * i:base + 4096 * (i + 1)]) for i in range(STORE_SMALL)]
+    mirror = {key: hashlib.sha256(data).digest() for key, data in objects + small}
+    index_appends = [0]
+    real_append = store_index.append_records
+
+    def counted_append(path, records, *, sync=True):
+        index_appends[0] += bool(records) and sync
+        return real_append(path, records, sync=sync)
+
+    rows: dict[str, dict] = {}
+    gemms = _GemmLog()
+
+    def run(op: str, fn, size, *, k1: bool):
+        """``fn()`` with the counts set to 0 just before it; ``size(out)``
+        gives the objects and bytes it moved."""
+        gemms.tag = op
+        _reset_counts()
+        t = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t
+        launches = k1_runs()
+        if k1 and not launches:
+            raise AssertionError(f"store {op}: K1 was not launched")
+        if not k1 and launches:
+            raise AssertionError(f"store {op}: {launches} K1 launches where no GEMM belongs")
+        n_objects, nbytes = size(out)
+        rows[op] = dict(wall_s=wall, objects=n_objects, objects_per_s=n_objects / wall, bytes=nbytes,
+                        mb_per_s=nbytes / wall / 1e6, k1_launches=launches)
+        log(phase="store_op", op=op, nvidia_smi=smi, **rows[op])
+        return out
+
+    metrics.force_enable()
+    metrics.REGISTRY.reset()
+    store_index.append_records = counted_append
+    try:
+        with _env(RS_STORE_SNAPSHOT_KEEP=str(1 << 30), RS_STORE_SNAPSHOT_DISABLE=None), gemms.active():
+            # PUT: the 64-object batches, then the write-combining batch.
+            def put_all():
+                for i in range(0, STORE_OBJECTS, STORE_BATCH):
+                    api.put_objects(root, name, [(k_, bytes(d)) for k_, d in objects[i:i + STORE_BATCH]])
+
+            run("put_64", put_all, lambda _: (STORE_OBJECTS, base), k1=True)
+            run("put_1000x4KiB", lambda: api.put_objects(root, name, [(k_, bytes(d)) for k_, d in small]),
+                lambda _: (STORE_SMALL, STORE_SMALL * 4096), k1=True)
+            bucket = store.open_bucket(root, name)
+            if (bucket.k, bucket.p, bucket.w, bucket.stripe_bytes) != (4, 2, 8, STORE_STRIPE):
+                raise AssertionError(f"store defaults moved: {bucket.stats()['config']}")
+            stripes = sorted(bucket.stats()["archives"])
+
+            # GET every object (fast path: no GEMM).
+            keys = [k_ for k_, _ in objects + small]
+            got = run("get_fast", lambda: _store_mirror_check("get", keys, mirror,
+                                                              lambda k_: api.get_object(root, name, k_)),
+                      lambda n: (len(keys), n), k1=False)
+
+            # DELETE: tombstone, then the range zeroed through E·Δ.
+            doomed = sorted(rng.choice(STORE_OBJECTS, STORE_DELETES, replace=False).tolist())
+            doomed = [objects[i][0] for i in doomed]
+            entries = {k_: api.stat_object(root, name, k_) for k_ in doomed}
+            run("delete", lambda: [api.delete_object(root, name, k_) for k_ in doomed],
+                lambda out: (len(out), sum(d["bytes"] for d in out)), k1=True)
+            listed = {o["key"] for o in api.list_objects(root, name)}
+            if listed & set(doomed) or len(listed) != len(keys) - STORE_DELETES:
+                raise AssertionError("deleted objects still listed, or live ones missing")
+            for k_, e in entries.items():
+                raw = store.read_range(os.path.join(bdir, e["arc"]), e["at"], e["bytes"])
+                if any(raw):
+                    raise AssertionError(f"deleted {k_!r}: its range is not zero in {e['arc']}")
+            live = sorted(listed)
+
+            # COMPACT: every sealed archive with dead bytes is rewritten.
+            res = run("compact", lambda: api.compact_bucket(root, name, force=True),
+                      lambda out: (out["objects_moved"], out["bytes_moved"]), k1=True)
+            if not res["archives_retired"]:
+                raise AssertionError("the forced compaction retired nothing")
+            for arc in res["archives_retired"]:
+                left = [f for f in os.listdir(bdir) if f == f"{arc}.METADATA" or f.endswith(f"_{arc}")
+                        or f.startswith(arc)]
+                if left:
+                    raise AssertionError(f"retired {arc}: files left {left}")
+            run("get_after_compact", lambda: _store_mirror_check(
+                "get after compaction", live, mirror, lambda k_: api.get_object(root, name, k_)),
+                lambda n: (len(live), n), k1=False)
+
+            # Degraded GET: one native chunk of a sealed stripe moved away.
+            # Each degraded read scans the whole archive's CRCs, so the
+            # sealed stripe with the fewest objects keeps the phase short.
+            st = bucket.stats()["archives"]
+            sealed = [a for a, v in st.items() if v["sealed"]]
+            by_arc = {}
+            for o in bucket.list_objects():
+                by_arc.setdefault(o["arc"], []).append(o["key"])
+            victim = min(sealed, key=lambda a: len(by_arc.get(a, ())))
+            in_victim = by_arc[victim]
+            chunk1 = chunk_file_name(os.path.join(bdir, victim), 1)
+            os.rename(chunk1, chunk1 + ".away")
+            reads = metrics.counter("rs_store_range_reads_total").labels(path="degraded")
+            before = reads.value
+            run("get_degraded", lambda: _store_mirror_check(
+                "degraded get", in_victim, mirror, lambda k_: api.get_object(root, name, k_)),
+                lambda n: (len(in_victim), n), k1=True)
+            if reads.value - before != len(in_victim):
+                raise AssertionError(f"{reads.value - before} degraded reads counted for {len(in_victim)} GETs")
+            os.rename(chunk1 + ".away", chunk1)
+
+            # Bitrot in an object's range: the object CRC catches it; the
+            # degraded pass repairs it, and with the chunk's CRC line forged
+            # (the scan then trusts the rotted chunk) the read refuses.
+            key = by_arc[next(a for a in sealed if a != victim)][0]
+            e = api.stat_object(root, name, key)
+            arcbase = os.path.join(bdir, e["arc"])
+            row_i, col = e["at"] % 4, e["at"] // 4
+            path = chunk_file_name(arcbase, row_i)
+            meta_path = metadata_file_name(arcbase)
+            crcs = dict(read_archive_meta(meta_path).crcs)
+            _flip(path, [col])
+            degraded0 = reads.value
+            if hashlib.sha256(api.get_object(root, name, key)).digest() != mirror[key]:
+                raise AssertionError("bitrot: the degraded pass did not repair the object")
+            with open(path, "rb") as fp:
+                rewrite_checksums(meta_path, {**crcs, row_i: zlib.crc32(fp.read())})
+            # The survivor subset the repair pinned would route round the
+            # rot; from a cold cache the natives come first.
+            api.clear_subset_cache()
+            try:
+                api.get_object(root, name, key)
+                raise AssertionError("bitrot with a forged chunk CRC: the object CRC did not refuse the read")
+            except store.RangeReadError as err:
+                bitrot_error = str(err)
+            _flip(path, [col])
+            rewrite_checksums(meta_path, crcs)
+            if reads.value - degraded0 != 1:
+                raise AssertionError("bitrot: the repaired read was not counted as degraded")
+
+            # Reopen: snapshot ladder, then full replay; the same index.
+            store.drop_cached()
+            t = time.perf_counter()
+            b1 = store.open_bucket(root, name)
+            report_snap = b1.open_report
+            open_snap_s = time.perf_counter() - t
+            state_snap = dict(b1._state.entries)
+            with _env(RS_STORE_SNAPSHOT_DISABLE="1"):
+                store.drop_cached()
+                t = time.perf_counter()
+                b2 = store.open_bucket(root, name)
+                report_full = b2.open_report
+                open_full_s = time.perf_counter() - t
+                state_full = dict(b2._state.entries)
+            store.drop_cached()
+            if report_snap["source"] != "snapshot" or report_full["source"] != "log" or state_snap != state_full:
+                raise AssertionError(f"reopen: ladder {report_snap} vs full replay {report_full}")
+            if set(state_snap) != set(live):
+                raise AssertionError("reopen: the index lost or gained objects")
+
+            # Parity proof of every stripe left against the host oracle.
+            t = time.perf_counter()
+            arcs = sorted(store.open_bucket(root, name).stats()["archives"])
+            proven = _store_parity_proof(bdir, arcs, 4, 2)
+            proof_s = time.perf_counter() - t
+        snap = metrics.REGISTRY.snapshot()
+    finally:
+        store_index.append_records = real_append
+        metrics.force_enable(False)
+        metrics.REGISTRY.reset()
+        store.drop_cached()
+
+    def counter(name_, label=""):
+        return snap.get(name_, {}).get("values", {}).get(label, 0)
+
+    res = dict(phase="store", nvidia_smi=smi, k=4, p=2, w=8, stripe_bytes=STORE_STRIPE, objects=STORE_OBJECTS + STORE_SMALL,
+               put_bytes=base + STORE_SMALL * 4096, stripes_after_put=len(stripes), ops=rows,
+               k1_launches=sum(r["k1_launches"] for r in rows.values()),
+               index_fsyncs=index_appends[0],
+               snapshots=counter("rs_store_snapshots_total"),
+               snapshot_files=len(store.list_snapshots(bdir)), segment_files=len(store.list_segments(bdir)),
+               group_fsyncs={lab: counter("rs_update_group_fsyncs_total", lab)
+                             for lab in ('{stage="chunks"}', '{stage="journal"}', '{stage="metadata"}')},
+               range_reads={lab: counter("rs_store_range_reads_total", lab)
+                            for lab in ('{path="fast"}', '{path="degraded"}', '{path="failed"}')},
+               archives_retired=len(res["archives_retired"]), degraded_stripe=victim,
+               degraded_objects=len(in_victim), bitrot_error=bitrot_error, open_snapshot_s=open_snap_s,
+               open_full_replay_s=open_full_s, open_report_snapshot=report_snap, open_report_full=report_full,
+               parity_proof_stripes=len(arcs), parity_proof_cols=proven, parity_proof_s=proof_s,
+               get_bytes=got, seconds=time.perf_counter() - t0, gemm_shapes=_store_shapes(gemms.calls))
+    log(**res)
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def _store_shapes(calls) -> dict:
+    """The store's K1 shapes from the GEMM log: the 64-object batches' E·Δ
+    (appends to an open stripe), the 1,000 x 4 KiB batch's E·Δ, the
+    degraded GETs' window recoveries and the fresh stripes' encodes, each
+    with its count and its columns (median, least, most)."""
+    out = {}
+    for label, tag, method in (("put_64_update", "put_64", "update"), ("put_1000_update", "put_1000x4KiB", "update"),
+                               ("degraded_window", "get_degraded", "decode"), ("put_64_encode", "put_64", "encode"),
+                               ("compact_update", "compact", "update"), ("compact_encode", "compact", "encode"),
+                               ("delete_update", "delete", "update")):
+        hits = [(r, d, c) for t, m, r, d, c in calls if t == tag and m == method]
+        cols = sorted(c for _, _, c in hits)
+        out[label] = {"count": len(hits), "rows": hits[0][0] if hits else None, "depth": hits[0][1] if hits else None,
+                      "median_cols": cols[len(cols) // 2] if cols else None,
+                      "min_cols": cols[0] if cols else None, "max_cols": cols[-1] if cols else None}
+    return out
+
+
+def log_store_share(store_res: dict, timings: list[dict]) -> None:
+    """K1's share of phase 5f's wall at the three store shapes phase 6
+    timed: launches at each shape times its time there, over the phase's
+    seconds (the stripe encodes, DELETE's and compaction's E·Δ are not
+    timed at their own shapes and are left out)."""
+    ms = {row["shape"]: row["ms"] for row in timings}
+    shapes = store_res["gemm_shapes"]
+    parts = {key: shapes[key]["count"] * ms[label] * 1e-3 for key, label in (
+        ("put_64_update", "store PUT batch E·Δ k=4 p=2 (64 objects)"),
+        ("put_1000_update", "store PUT 1,000 x 4 KiB E·Δ k=4 p=2"),
+        ("degraded_window", "store degraded GET window k=4 (4 rows)")) if label in ms}
+    log(phase="store_compute_share", k1_seconds=parts, phase_seconds=store_res["seconds"],
+        share=sum(parts.values()) / store_res["seconds"])
+
+
 def log_compute_share(main_res: dict, timings: list[dict]) -> None:
     """K1's share of each main-path run's wall: its launches times its
     phase-6 time at the encode and the decode segment, over the wall."""
@@ -1997,6 +2366,11 @@ def main() -> int:
             plan_res["dispatch"] = phase_plan_dispatch(device)
             plan_res["tune"] = phase_tune(device, work)
             plan_res["seconds"] += time.perf_counter() - t_5e
+            # After the plan phases: the store's many window widths fill the
+            # plan cache, and phase 5e reads its counts as deltas.
+            t_5f = time.perf_counter()
+            store_res = phase_store(work, SEED + 8)
+            store_res["seconds"] = time.perf_counter() - t_5f
         finally:
             shutil.rmtree(work, ignore_errors=True)
         log(phase="strategies_summary", main_and_cli_seconds=strategies["seconds"],
@@ -2005,13 +2379,16 @@ def main() -> int:
         log(phase="plan_summary", seconds=plan_res["seconds"], cache=plan.PLAN_CACHE.stats()["staging"],
             plans=plan.PLAN_CACHE.stats()["executables"], tune_winner=plan_res["tune"]["winner"],
             peak_device_gib=torch.cuda.max_memory_allocated(device) / (1 << 30))
-        timings = phase_timings(device, updates["group_stacked_cols"])
+        log(phase="store_summary", seconds=store_res["seconds"], k1_launches=store_res["k1_launches"],
+            shapes=store_res["gemm_shapes"])
+        timings = phase_timings(device, updates["group_stacked_cols"], store_res["gemm_shapes"])
         log_compute_share(main_res, timings)
+        log_store_share(store_res, timings)
         tools = phase_tools()
         new_timings = phase_new_timings(device)
         kernels = kernel_entries(k1_err, grids, timings[0],
                                  main_res["pipelined"]["launches"] + resilience["k1_launches"]
-                                 + updates["k1_launches"], new_timings,
+                                 + updates["k1_launches"] + store_res["k1_launches"], new_timings,
                                  tools["launches"])
     log(phase="wall", seconds=time.perf_counter() - t_start, quick=args.quick)
     print(smi)

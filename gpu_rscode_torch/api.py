@@ -4,7 +4,10 @@ device), of its resilience reads: ``scan_file``, ``auto_decode_file``,
 ``decode_fleet``, ``repair_file``, ``repair_fleet`` and
 ``locate_decode_file``, and of its in-place updates: ``update_file``,
 ``append_file``, ``update_file_many`` and ``recover_archive``
-(:mod:`.update`).
+(:mod:`.update`), and of its object-store wrappers: ``put_object``,
+``put_objects``, ``get_object``, ``delete_object``, ``list_objects``,
+``list_objects_page``, ``stat_object`` and ``compact_bucket``
+(:mod:`.store`).
 
 * The file is striped into k contiguous ranges (``chunk_size =
   ceil(total/k)``), or under the interleaved layout symbol s goes to row
@@ -1764,3 +1767,111 @@ def recover_archive(file_name: str) -> str:
     from .update import recover
 
     return recover(file_name)
+
+
+# -- the object store (store/) ---------------------------------------------------
+#
+# Many small objects share erasure-coded stripe archives instead of paying
+# per-object metadata, chunks and journals (docs/STORE.md): a durable object
+# index maps key -> (archive, byte range, CRC32), committed crash-atomically
+# alongside the archive metadata it references.  PUT rides the group-commit
+# append lane, GET decodes only the object's touched column windows, DELETE
+# tombstones and zeroes through the delta-parity lane, and compaction
+# retires dead-heavy archives all-or-nothing.  ``device``: where the
+# bucket's GEMMs run; None means CUDA (K1) and raises with no GPU present.
+
+
+def put_object(root: str, bucket: str, key: str, data=None, *, src: str | None = None, create: bool = True,
+               k: int | None = None, p: int | None = None, w: int | None = None, stripe_bytes: int | None = None,
+               device=None) -> dict:
+    """Store one object under ``key`` in ``bucket`` (``rs object put``).
+
+    The payload comes as ``data`` bytes or a ``src`` file path.  The bucket
+    is created on first use (``create=False`` refuses instead); the shape
+    knobs apply only at creation, an existing bucket's manifest wins.
+    Returns the location dict (``arc``, ``at``, ``len``, ``crc``, ``gen``).
+    For PUT bursts, :func:`put_objects` commits the whole batch under ONE
+    group-committed stripe append and ONE index fsync."""
+    # The _observed_file_op("object_put") wrapper hooks here once the
+    # observability plane is ported.
+    if (data is None) == (src is None):
+        raise ValueError("pass exactly one of data= or src=")
+    if src is not None:
+        with open(src, "rb") as fp:
+            data = fp.read()
+    return put_objects(root, bucket, [(key, data)], create=create, k=k, p=p, w=w, stripe_bytes=stripe_bytes,
+                       device=device)[0]
+
+
+def put_objects(root: str, bucket: str, items, *, create: bool = True, k: int | None = None, p: int | None = None,
+                w: int | None = None, stripe_bytes: int | None = None, device=None) -> list[dict]:
+    """Batch PUT: an ordered list of ``(key, bytes)`` committed as one group
+    (one journal fsync chain, one metadata rewrite, one index fsync), all
+    or nothing; later duplicates win."""
+    from . import store as _store
+
+    b = _store.open_bucket(root, bucket, create=create, k=k, p=p, w=w, stripe_bytes=stripe_bytes, device=device)
+    return b.put_many(items)
+
+
+def get_object(root: str, bucket: str, key: str, *, device=None) -> bytes:
+    """Read one object's bytes (``rs object get``).  Reconstructs ONLY the
+    object's byte range (touched column windows; a degraded decode when a
+    native chunk is damaged), verified against the object's own CRC32 from
+    the index, never silently wrong."""
+    # The _observed_file_op("object_get") wrapper hooks here once the
+    # observability plane is ported.
+    from . import store as _store
+
+    return _store.open_bucket(root, bucket, device=device).get(key)
+
+
+def delete_object(root: str, bucket: str, key: str, *, device=None) -> dict:
+    """Delete one object (``rs object rm``): durable tombstone first (the
+    commit point), then the dead range is zeroed through the delta-parity
+    patch lane; space returns at the next compaction."""
+    # The _observed_file_op("object_delete") wrapper hooks here once the
+    # observability plane is ported.
+    from . import store as _store
+
+    return _store.open_bucket(root, bucket, device=device).delete(key)
+
+
+def list_objects(root: str, bucket: str, *, prefix: str = "", device=None) -> list[dict]:
+    """Live objects in the bucket (tombstoned keys excluded), sorted by key
+    (``rs object ls``).  ``prefix`` narrows to keys starting with it; for
+    bounded pages over a huge bucket use :func:`list_objects_page`."""
+    from . import store as _store
+
+    return _store.open_bucket(root, bucket, device=device).list_objects(prefix=prefix)
+
+
+def list_objects_page(root: str, bucket: str, *, prefix: str = "", limit: int = 0, cursor: str | None = None,
+                      device=None) -> dict:
+    """One bounded page of live objects (``rs object ls --limit``):
+    ``{"objects", "truncated", "next"}`` where ``next`` is the opaque cursor
+    resuming after the page's last key (None on the final page); ``limit
+    <= 0`` means no bound."""
+    from . import store as _store
+
+    return _store.open_bucket(root, bucket, device=device).list_page(prefix=prefix, limit=limit, cursor=cursor)
+
+
+def stat_object(root: str, bucket: str, key: str, *, device=None) -> dict:
+    """One object's index entry (archive, range, CRC, generation pin), ``rs
+    object stat``."""
+    from . import store as _store
+
+    return _store.open_bucket(root, bucket, device=device).stat(key)
+
+
+def compact_bucket(root: str, bucket: str, *, force: bool = False, device=None) -> dict:
+    """Rewrite live objects out of dead-heavy sealed archives and retire
+    them all-or-nothing (``rs object compact``; ``RS_STORE_COMPACT_DEAD_FRAC``
+    sets the trigger, ``force=True`` compacts any sealed archive with dead
+    bytes)."""
+    # The _observed_file_op("object_compact") wrapper hooks here once the
+    # observability plane is ported.
+    from . import store as _store
+
+    return _store.open_bucket(root, bucket, device=device).compact(force=force)

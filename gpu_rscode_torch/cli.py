@@ -21,7 +21,9 @@ the archive is not decodable).  ``--layout row|interleaved`` picks the
 encode's chunk layout.  The subcommands ``update`` and ``append``
 (:func:`.api.update_file`, :func:`.api.update_file_many` with ``--edits``,
 :func:`.api.append_file`, :func:`.api.recover_archive` with ``--recover``)
-patch an archive in place.
+patch an archive in place.  The subcommand ``object``
+(:mod:`.store.cli`: ``put``, ``get``, ``rm``, ``ls``, ``stat``,
+``compact``, ``openbench``) runs the object store.
 
 ``--device`` defaults to CUDA; without a GPU the command fails unless
 ``--device cpu`` or ``--strategy cpu`` is given.
@@ -100,7 +102,12 @@ Subcommands: update ARCHIVE --at OFF --in DELTA [--recover] [--json]
             (append-mode encoding: grow the archive without touching
             cold segments — unbounded on interleaved-layout archives,
             slack-bounded on row-layout ones; torn appends roll back at
-            the next open)"""
+            the next open)
+            object put|get|rm|ls|stat|compact BUCKET [KEY] [--root D]
+            [--device DEVICE] (object store: many small objects packed
+            into shared erasure-coded stripe archives — a durable object
+            index, windowed range reads with degraded decode, tombstone
+            + zeroing deletes, all-or-nothing compaction)"""
 
 
 def _fail(msg: str) -> int:
@@ -236,6 +243,10 @@ def _parse_edit_lines(path: str) -> list[dict]:
 
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "object":
+        from .store.cli import main as _object_main
+
+        return _object_main(argv[1:])
     if argv and argv[0] in ("update", "append"):
         return _update_main(argv[1:], argv[0])
     try:

@@ -33,10 +33,12 @@ from __future__ import annotations
 
 import bisect
 import os
+import time
 
 import numpy as np
 
 from ..codec import RSCodec, entry_device
+from ..obs import metrics as _metrics
 from ..parallel.io_executor import DrainExecutor
 from ..parallel.pipeline import StreamLoop
 from ..utils.fileformat import (
@@ -235,6 +237,7 @@ def _apply(file_name, at, payload, *, grow, strategy, device, segment_bytes, tim
     from ..ops.gf import get_field
 
     timer = timer or PhaseTimer(enabled=False)
+    t_start = time.perf_counter()
     device = entry_device(device, strategy)
     op = "append" if grow else "update"
     recovered = _journal.recover(file_name)
@@ -329,9 +332,7 @@ def _apply(file_name, at, payload, *, grow, strategy, device, segment_bytes, tim
             if not fp.closed:
                 fp.close()
 
-    # The rs_update_bytes_total, rs_update_segments_touched_total and
-    # rs_update_wall_seconds metrics hook here once the metrics plane is
-    # ported.
+    _observe_commit(op, L, blocks, t_start)
     return {
         **summary_base,
         "segments": blocks,
@@ -339,6 +340,23 @@ def _apply(file_name, at, payload, *, grow, strategy, device, segment_bytes, tim
         "total_size": new_total if grow else total,
         "generation": new_gen,
     }
+
+
+def _observe_commit(op: str, nbytes: int, blocks: int, t_start: float) -> None:
+    """The ``rs_update_*`` series a committed update, append or group
+    moves: payload bytes and wall by op, column blocks patched."""
+    _metrics.counter(
+        "rs_update_bytes_total",
+        "payload bytes applied by delta update/append",
+    ).labels(op=op).inc(nbytes)
+    _metrics.counter(
+        "rs_update_segments_touched_total",
+        "column segment blocks patched by update/append",
+    ).inc(blocks)
+    _metrics.quantile(
+        "rs_update_wall_seconds",
+        "update/append wall seconds (streaming quantiles)",
+    ).labels(op=op).observe(time.perf_counter() - t_start)
 
 
 def _collect_block(b0, b1, delta, native_writes, pd_np, fps, chunk_old, k, p, layout, timer):

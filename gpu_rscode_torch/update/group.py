@@ -33,10 +33,12 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 
 import numpy as np
 
 from ..codec import RSCodec, entry_device
+from ..obs import metrics as _metrics
 from ..parallel.io_executor import DrainExecutor
 from ..parallel.pipeline import StreamLoop
 from ..utils.fileformat import (
@@ -45,7 +47,7 @@ from ..utils.fileformat import (
     read_archive_meta,
     rewrite_metadata_lines,
 )
-from ..utils.retry import int_env as _int_env
+from ..utils.env import int_env as _int_env
 from ..utils.timing import PhaseTimer
 from . import journal as _journal
 from .engine import (
@@ -59,6 +61,7 @@ from .engine import (
     _collect_block,
     _crash_point,
     _load_payload,
+    _observe_commit,
     _open_chunks,
     _parity_coeffs,
     _parity_delta,
@@ -107,6 +110,13 @@ def _tally(edits: int, nbytes: int, journal_fsyncs: int) -> None:
         _STATS["max_group_seen"] = max(_STATS["max_group_seen"], edits)
         _STATS["journal_fsyncs"] += journal_fsyncs
         _STATS["metadata_commits"] += 1
+
+
+def _fsync_counter():
+    return _metrics.counter(
+        "rs_update_group_fsyncs_total",
+        "fsync calls in grouped update commits, by chain stage",
+    )
 
 
 class _Overlay:
@@ -228,6 +238,7 @@ def apply_update_many(
 def _apply_group(file_name, edits, *, base, strategy, device, segment_bytes, timer, stage_hook=None):
     from ..ops.gf import get_field
 
+    t_start = time.perf_counter()
     recovered = _journal.recover(file_name)
     meta_path = metadata_file_name(file_name)
     meta = read_archive_meta(meta_path)
@@ -402,6 +413,7 @@ def _apply_group(file_name, edits, *, base, strategy, device, segment_bytes, tim
             with timer.phase("update fsync (io)"):
                 for fp in fps.values():
                     os.fsync(fp.fileno())
+            _fsync_counter().labels(stage="chunks").inc(len(fps))
             _crash_point("before_commit")
             with timer.phase("write metadata (io)"):
                 new_gen = rewrite_metadata_lines(meta_path, total_size=total if grow else None, crcs=crcs,
@@ -423,8 +435,18 @@ def _apply_group(file_name, edits, *, base, strategy, device, segment_bytes, tim
             if not fp.closed:
                 fp.close()
 
-    # The rs_update_group_* fsync, size and byte metrics hook here once the
-    # metrics plane is ported.
+    _fsync_counter().labels(stage="journal").inc(journal_fsyncs)
+    _fsync_counter().labels(stage="metadata").inc()
+    _metrics.histogram(
+        "rs_update_group_size",
+        "edits coalesced per committed update group",
+        buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
+    ).observe(len(edits))
+    _metrics.counter(
+        "rs_update_group_coalesced_bytes_total",
+        "payload bytes applied through grouped update commits",
+    ).inc(payload_bytes)
+    _observe_commit("group", payload_bytes, blocks, t_start)
     _tally(len(edits), payload_bytes, journal_fsyncs)
     return {
         **summary_base,

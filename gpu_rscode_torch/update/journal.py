@@ -38,6 +38,7 @@ import json
 import os
 import struct
 
+from ..obs import metrics as _metrics
 from ..utils.fileformat import (
     chunk_file_name,
     fsync_dir,
@@ -156,8 +157,10 @@ def recover(file_name: str) -> str:
         rollback(file_name, header, records)
         os.unlink(path)
         verdict = "rolled_back"
-    # The rs_update_recoveries_total{verdict} counter hooks here once the
-    # metrics plane is ported.
+    _metrics.counter(
+        "rs_update_recoveries_total",
+        "pending update/append journals resolved at open",
+    ).labels(verdict=verdict).inc()
     return verdict
 
 

@@ -1,17 +1,10 @@
 """Integer knobs of the resilience reads, read from the environment:
 ``RS_RETRY_RESELECT`` (survivor reselections of a degraded decode, default
 3) and ``RS_RETRY_SUBSET_ATTEMPTS`` (batches of 100 candidate subsets the
-survivor search tries, default 3)."""
+survivor search tries, default 3), parsed by :func:`.env.int_env`."""
 
 from __future__ import annotations
 
-import os
+from .env import int_env
 
-
-def int_env(name: str, default: int) -> int:
-    """``int(os.environ[name])``, or ``default`` when unset or not an
-    integer."""
-    try:
-        return int(os.environ.get(name, default))
-    except ValueError:
-        return default
+__all__ = ["int_env"]

@@ -24,6 +24,12 @@ def test_port_imports_no_jax():
         "import gpu_rscode_torch.update, gpu_rscode_torch.update.group\n"
         "import gpu_rscode_torch.ops.xor_gemm, gpu_rscode_torch.ops.ring_gemm, gpu_rscode_torch.ops.xor_opt\n"
         "import gpu_rscode_torch.plan, gpu_rscode_torch.tune\n"
+        "import gpu_rscode_torch.utils.env, gpu_rscode_torch.obs.percentile, gpu_rscode_torch.obs.metrics\n"
+        "import gpu_rscode_torch.store, gpu_rscode_torch.store.index, gpu_rscode_torch.store.snapshot\n"
+        "import gpu_rscode_torch.store.readpath, gpu_rscode_torch.store.bucket, gpu_rscode_torch.store.cli\n"
+        "import gpu_rscode_torch.store.openbench\n"
+        "from gpu_rscode_torch.api import put_object, put_objects, get_object, delete_object, list_objects\n"
+        "from gpu_rscode_torch.api import list_objects_page, stat_object, compact_bucket\n"
         "from gpu_rscode_torch.native import gemm, invert, available\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'gpu_rscode_tpu')))\n"
         "assert not bad, bad\n"
