@@ -129,6 +129,31 @@ Phases, each fatal on failure:
      objects/s, MB/s and K1 launches (K1 must run for PUT, DELETE,
      COMPACT and the degraded GETs and not for the fast GETs), the index
      fsyncs, the snapshots, both open times and the GEMM shapes;
+  5g. the serving daemon (gpu_rscode_torch/serve/) on the card: one
+     ServeDaemon on 127.0.0.1, port 0, device cuda:0, at its default knobs
+     (2 workers, depth 64, a 5 ms window, 16 a batch), with RS_METRICS=1
+     and RS_RUNLOG in the work directory, talked to over HTTP only: four
+     seeded 256 MiB POST /encode (k=10, n=14, checksum) from tenants alpha
+     and beta at once, their POST /decode with the first 4 natives away
+     (SHA-256), a flipped parity byte found by /scrub?syndrome=1 and GET
+     /health, 64 concurrent 4 KiB /update requests in ONE write group (the
+     window and cap raised to 2 s / 64 for that step) and a 1 MiB /append
+     on a 64 MiB interleaved archive decoded against a host mirror; 1,024
+     seeded objects (log-uniform 4 KiB-1 MiB) at the store's defaults PUT
+     from 16 client threads, every GET against its mirror, a hot set of 64
+     read twice (cache hits), the hot set read with the ledger on and off
+     in turns (on, off, off, on), 128 DELETEs answering 404 after, every
+     object of a sealed stripe read degraded with one native chunk away;
+     the port's run_open_loop twice (the default mix, 15 s at 8 req/s; an
+     object mix, 15 s at 32 req/s), neither with a failure; a second
+     daemon (depth 2, one worker) under 32 concurrent 16 MiB encodes, some
+     answering 429 with the request id, drained, every admitted archive
+     decoded to its source; and one segment of every archive's parity
+     against the GF oracle.  The batch-fallback count must be 0, no
+     request may fail, and K1 must run (read after both daemons closed);
+     each route's wall, MB/s or req/s, p50 and p99 are logged, with the
+     batch sizes, the cache hit rate, the stage medians, the ledger
+     digest's cost and PLAN_CACHE.stats();
   6. timings: file encode/decode GB/s of phase 4, and K1 at the main path's
      segment shapes, at phase 5b's syndrome (r=4, depth 14) and repair
      (3 targets, k=10) shapes, at phase 5c's E·Δ shapes (the stacked
@@ -2199,6 +2224,445 @@ def phase_store(work: str, seed: int) -> dict:
     return res
 
 
+SERVE_FILES = 4  # x SERVE_FILE_BYTES, from tenants alpha and beta
+SERVE_FILE_BYTES = 256 * MiB
+SERVE_UPDATE_BYTES = 64 * MiB
+SERVE_EDITS = 64  # x 4 KiB, concurrent: one write group
+SERVE_OBJECTS = 1024  # seeded sizes, log-uniform over 4 KiB - 1 MiB (2,048 ran over the phase's budget)
+SERVE_CLIENTS = 16
+SERVE_HOT = 64
+SERVE_DELETES = 128
+SERVE_ADMISSION = 32  # x 16 MiB against depth 2, one worker
+SERVE_STRIPE = 64 * MiB  # the store's default stripe
+
+
+def _http(port: int, method: str, path: str, body: bytes = b"", tenant: str = "default", headers=None,
+          digest: bool = False, timeout: float = 600.0):
+    """One request to a daemon on 127.0.0.1: (status, body or its SHA-256,
+    headers, seconds)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body,
+                     headers={"X-RS-Tenant": tenant, "Content-Length": str(len(body)), **(headers or {})})
+        resp = conn.getresponse()
+        if digest:
+            h = hashlib.sha256()
+            while chunk := resp.read(MiB):
+                h.update(chunk)
+            payload = h.hexdigest()
+        else:
+            payload = resp.read()
+        return resp.status, payload, dict(resp.getheaders()), time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _fan_out(fn, items, workers: int) -> tuple[list, float]:
+    """``fn`` over ``items`` on ``workers`` client threads: the results in
+    order and the wall seconds."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        out = list(pool.map(fn, items))
+    return out, time.perf_counter() - t0
+
+
+def _latency(seconds: list[float]) -> dict:
+    return {"n": len(seconds), "p50_ms": 1e3 * float(np.percentile(seconds, 50)),
+            "p99_ms": 1e3 * float(np.percentile(seconds, 99))}
+
+
+def _stage_p50_ms(op: str) -> dict:
+    """Median of each stage duration (ms) over the wide events of ``op`` in
+    the lifecycle ring."""
+    from gpu_rscode_torch.obs import reqtrace
+
+    durations: dict = {}
+    for ev in reqtrace.recent(reqtrace.ring_capacity()):
+        if ev["op"] != op:
+            continue
+        present = [(s, ev["stages"][s]) for s in reqtrace.STAGES if s in ev["stages"]]
+        for (_, a), (stage, b) in zip(present, present[1:]):
+            durations.setdefault(stage, []).append(1e3 * (b - a))
+    return {stage: float(np.median(v)) for stage, v in durations.items()}
+
+
+def _metric(snap: dict, name: str, labels: str = "") -> float:
+    return snap.get(name, {}).get("values", {}).get(labels, 0)
+
+
+def _serve_parity_proof(roots: list[str]) -> int:
+    """For every archive under ``roots``: the first segment (up to 1 Mi
+    columns) of its parity chunks against ``GaloisField.matmul`` of its
+    natives, on every core.  Returns the archives proven."""
+    from gpu_rscode_torch.utils.fileformat import read_archive_meta
+
+    metas = [os.path.join(d, f) for root in roots for d, _, files in os.walk(root)
+             for f in files if f.endswith(".METADATA")]
+
+    def prove(meta_path):
+        base = meta_path[: -len(".METADATA")]
+        meta = read_archive_meta(meta_path)
+        k, p, sym = meta.native_num, meta.parity_num, meta.w // 8
+        gf = get_field(meta.w)
+        cols = min(meta.chunk // sym, MiB)
+        dt = np.uint8 if sym == 1 else np.uint16
+        rows = [np.fromfile(chunk_file_name(base, i), dtype=dt, count=cols) for i in range(k + p)]
+        if not np.array_equal(gf.matmul(meta.total_mat[k:].astype(dt), np.stack(rows[:k])), np.stack(rows[k:])):
+            raise AssertionError(f"{base}: parity differs from the GF oracle in its first {cols} columns")
+        return 1
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        return sum(pool.map(prove, metas))
+
+
+def phase_serve(work: str, seed: int, device) -> dict:
+    """The serving daemon on the card (gpu_rscode_torch/serve/): one
+    ServeDaemon on 127.0.0.1, port 0, device cuda:0, default knobs, talked
+    to over HTTP only.  Files at the reference's shape (k=10, n=14,
+    --checksum): four seeded 256 MiB uploads from two tenants at once,
+    decoded with their first 4 natives away (SHA-256); a parity byte
+    flipped and found by /scrub?syndrome=1 and GET /health; 64 concurrent
+    4 KiB /update requests in one write group and a 1 MiB /append on a
+    64 MiB interleaved archive, decoded against a host mirror; 2,048
+    seeded objects (log-uniform 4 KiB-1 MiB) PUT from 16 client threads at
+    the store's defaults, every GET against its mirror, a hot set read
+    twice for cache hits, 128 DELETEs answering 404 after, every object of
+    a sealed stripe read degraded with one native chunk away; two
+    open-loop runs of the port's loadgen; a second daemon (depth 2, one
+    worker) under 32 concurrent 16 MiB encodes (429s with the request id),
+    drained, every admitted archive decoded to its source; and one
+    segment of every archive's parity against the GF oracle.  The
+    batch-fallback count must be 0, no request may fail but the 429s, and
+    K1 must run (counted after every executor thread joined)."""
+    from gpu_rscode_torch import store
+    from gpu_rscode_torch.obs import metrics
+    from gpu_rscode_torch.serve import loadgen
+    from gpu_rscode_torch.serve.daemon import ServeDaemon
+
+    res: dict = {"routes": {}}
+    root = os.path.join(work, "serve_root")
+    rng = np.random.default_rng(seed)
+    forced = metrics.forced()
+    t_phase = time.perf_counter()
+    _reset_counts()
+    with _env(RS_METRICS="1", RS_RUNLOG=os.path.join(work, "serve_ledger.jsonl"), RS_SERVE_WORKERS=None,
+              RS_SERVE_DEPTH=None, RS_SERVE_BATCH_MS=None, RS_SERVE_MAX_BATCH=None, RS_OBJ_CACHE_BYTES=None):
+        daemon = ServeDaemon(root, port=0, addr="127.0.0.1", device=device).start()
+        port = daemon.port
+        knobs = {"workers": daemon.workers, "depth": daemon.queue.max_depth, "batch_ms": daemon.batcher.batch_ms,
+                 "max_batch": daemon.batcher.max_batch}
+        if knobs != {"workers": 2, "depth": 64, "batch_ms": 5.0, "max_batch": 16}:
+            raise AssertionError(f"serve: the daemon's default knobs are {knobs}")
+        try:
+            res["warm"] = daemon.warm(10, 4, file_bytes=SERVE_FILE_BYTES)
+
+            # -- files at the reference's shape ------------------------------
+            files = [(f"f{i}.bin", ("alpha", "beta")[i % 2], rng.bytes(SERVE_FILE_BYTES)) for i in range(SERVE_FILES)]
+            shas = {name: hashlib.sha256(data).hexdigest() for name, _, data in files}
+
+            def encode(item):
+                name, tenant, data = item
+                return _http(port, "POST", f"/encode?name={name}&k=10&n=14&checksum=1", data, tenant)
+
+            out, wall = _fan_out(encode, files, len(files))
+            if any(st != 200 for st, *_ in out):
+                raise AssertionError(f"serve encode: {[(st, body[:200]) for st, body, *_ in out]}")
+            batch_sizes = metrics.REGISTRY.snapshot()["rs_serve_batch_size"]["values"][""]
+            res["routes"]["encode"] = {"bytes": SERVE_FILES * SERVE_FILE_BYTES, "wall_s": wall,
+                                       "MBps": SERVE_FILES * SERVE_FILE_BYTES / wall / 1e6,
+                                       "batch_sizes": batch_sizes["buckets"], **_latency([o[3] for o in out])}
+            log(phase="serve", route="encode", **res["routes"]["encode"])
+            del out
+
+            aside = os.path.join(work, "serve_aside")
+            os.makedirs(aside, exist_ok=True)
+            for name, tenant, _ in files:
+                for i in range(4):
+                    src = chunk_file_name(os.path.join(root, tenant, name), i)
+                    os.rename(src, os.path.join(aside, os.path.basename(src) + tenant))
+
+            def decode(item):
+                name, tenant, _ = item
+                return _http(port, "POST", f"/decode?name={name}", b"", tenant, digest=True)
+
+            out, wall = _fan_out(decode, files, len(files))
+            for (name, _, _), (st, digest, hdrs, _) in zip(files, out):
+                if st != 200 or digest != shas[name]:
+                    raise AssertionError(f"serve decode {name}: status {st}, sha256 {digest} != {shas[name]}")
+            res["routes"]["decode"] = {"bytes": SERVE_FILES * SERVE_FILE_BYTES, "wall_s": wall,
+                                       "MBps": SERVE_FILES * SERVE_FILE_BYTES / wall / 1e6,
+                                       "batch": [int(o[2].get("X-RS-Batch", 0)) for o in out],
+                                       **_latency([o[3] for o in out])}
+            log(phase="serve", route="decode", **res["routes"]["decode"])
+            for name, tenant, _ in files:  # the natives back, for the parity proof
+                for i in range(4):
+                    dst = chunk_file_name(os.path.join(root, tenant, name), i)
+                    os.rename(os.path.join(aside, os.path.basename(dst) + tenant), dst)
+            del files
+
+            # -- scrub: a flipped parity byte --------------------------------
+            victim = os.path.join(root, "alpha", "f0.bin")
+            flipped = [SERVE_FILE_BYTES // 10 - 7]
+            _flip(chunk_file_name(victim, 12), flipped)
+            st, body, _, secs = _http(port, "POST", "/scrub?name=f0.bin&syndrome=1", b"", "alpha")
+            report = json.loads(body)["report"] if st == 200 else {}
+            if st != 200 or report.get("corrupt") != [12]:
+                raise AssertionError(f"serve scrub: status {st}, report {report}")
+            st, body, _, _ = _http(port, "GET", "/health")
+            fleet = json.loads(body)
+            row = next((a for a in fleet.get("archives", []) if a["archive"] == victim), None)
+            if st != 200 or row is None or row["chunks"] != {"12": "crc_mismatch"}:
+                raise AssertionError(f"serve health: status {st}, row {row}")
+            _flip(chunk_file_name(victim, 12), flipped)  # undone, for the parity proof
+            res["routes"]["scrub"] = {"seconds": secs, "GBps": 14 * SERVE_FILE_BYTES / 10 / secs / 1e9,
+                                      "health_bucket": row["bucket"], "syndrome": report.get("syndrome")}
+            log(phase="serve", route="scrub", **res["routes"]["scrub"])
+
+            # -- updates: one write group of 64 edits, then an append ---------
+            mirror = bytearray(rng.bytes(SERVE_UPDATE_BYTES))
+            st, body, _, secs = _http(port, "POST", "/encode?name=u.bin&k=10&n=14&checksum=1&layout=interleaved",
+                                      bytes(mirror), "alpha")
+            if st != 200:
+                raise AssertionError(f"serve interleaved encode: {st} {body[:200]}")
+            res["routes"]["encode_interleaved"] = {"seconds": secs, "MBps": SERVE_UPDATE_BYTES / secs / 1e6}
+            offsets = sorted(int(x) for x in rng.choice(SERVE_UPDATE_BYTES // 4096, SERVE_EDITS, replace=False) * 4096)
+            edits = [(at, rng.bytes(4096)) for at in offsets]
+            # The default window (5 ms) and cap (16) cannot hold 64 requests
+            # in one harvest: the group needs a window that closes at 64.
+            daemon.batcher.batch_ms, daemon.batcher.max_batch = 2000.0, SERVE_EDITS
+
+            def update(item):
+                at, data = item
+                return _http(port, "POST", f"/update?name=u.bin&at={at}", data, "alpha")
+
+            out, wall = _fan_out(update, edits, SERVE_EDITS)
+            daemon.batcher.batch_ms, daemon.batcher.max_batch = knobs["batch_ms"], knobs["max_batch"]
+            docs = [json.loads(body) for _, body, _, _ in out]
+            groups = {d.get("update", {}).get("group_id") for d in docs}
+            if any(st != 200 for st, *_ in out) or len(groups) != 1 or None in groups:
+                raise AssertionError(f"serve update: statuses {[o[0] for o in out]}, groups {groups}")
+            for at, data in edits:
+                mirror[at:at + len(data)] = data
+            tail = rng.bytes(MiB)
+            st, body, _, secs = _http(port, "POST", "/append?name=u.bin", tail, "alpha")
+            if st != 200:
+                raise AssertionError(f"serve append: {st} {body[:200]}")
+            mirror += tail
+            st, digest, _, dsecs = _http(port, "POST", "/decode?name=u.bin", b"", "alpha", digest=True)
+            if st != 200 or digest != hashlib.sha256(mirror).hexdigest():
+                raise AssertionError(f"serve update decode: status {st}, sha256 differs from the host mirror")
+            res["routes"]["update"] = {"edits": SERVE_EDITS, "wall_s": wall, "req_per_s": SERVE_EDITS / wall,
+                                       "group_id": groups.pop(), "grouped": docs[0]["update"]["grouped"],
+                                       **_latency([o[3] for o in out])}
+            res["routes"]["append"] = {"bytes": MiB, "seconds": secs}
+            log(phase="serve", route="update", **res["routes"]["update"])
+            log(phase="serve", route="append", **res["routes"]["append"], decode_seconds=dsecs)
+            del mirror
+
+            # -- objects at the store's defaults -----------------------------
+            sizes = np.exp(rng.uniform(np.log(4096), np.log(MiB), SERVE_OBJECTS)).astype(np.int64)
+            objs = {f"o{i:05d}": rng.bytes(int(s)) for i, s in enumerate(sizes)}
+            osha = {key: hashlib.sha256(data).hexdigest() for key, data in objs.items()}
+            obytes = int(sizes.sum())
+            keys = list(objs)
+
+            def put(key):
+                return _http(port, "PUT", f"/o/bkt/{key}", objs[key], "gamma")
+
+            out, wall = _fan_out(put, keys, SERVE_CLIENTS)
+            if any(st != 200 for st, *_ in out):
+                raise AssertionError(f"serve PUT: {sorted({o[0] for o in out})}")
+            grouped = [json.loads(o[1])["object"].get("grouped", 1) for o in out]
+            res["routes"]["object_put"] = {"objects": SERVE_OBJECTS, "bytes": obytes, "wall_s": wall,
+                                           "stage_p50_ms": _stage_p50_ms("object_put"),
+                                           "objects_per_s": SERVE_OBJECTS / wall, "MBps": obytes / wall / 1e6,
+                                           "max_grouped": max(grouped), **_latency([o[3] for o in out])}
+            log(phase="serve", route="object_put", **res["routes"]["object_put"])
+            del objs
+            bucket = store.cached_bucket(os.path.join(root, "gamma"), "bkt")
+            cfg = bucket.stats()["config"]
+            if (cfg["k"], cfg["p"], cfg["w"], cfg["stripe_bytes"]) != (4, 2, 8, SERVE_STRIPE):
+                raise AssertionError(f"serve bucket: not at the store's defaults: {cfg}")
+
+            def get(key):
+                return _http(port, "GET", f"/o/bkt/{key}", b"", "gamma", digest=True)
+
+            out, wall = _fan_out(get, keys, SERVE_CLIENTS)
+            bad = [key for key, o in zip(keys, out) if o[0] != 200 or o[1] != osha[key]]
+            if bad:
+                raise AssertionError(f"serve GET: {len(bad)} objects differ from their mirror, first {bad[0]}")
+            res["routes"]["object_get"] = {"objects": SERVE_OBJECTS, "wall_s": wall,
+                                           "objects_per_s": SERVE_OBJECTS / wall, "MBps": obytes / wall / 1e6,
+                                           "stage_p50_ms": _stage_p50_ms("object_get"),
+                                           **_latency([o[3] for o in out])}
+            log(phase="serve", route="object_get", **res["routes"]["object_get"])
+            cache0 = json.loads(_http(port, "GET", "/stats")[1])["objcache"]
+            hot = keys[:SERVE_HOT]
+            out, wall = _fan_out(get, hot + hot, SERVE_CLIENTS)
+            if any(o[0] != 200 or o[1] != osha[key] for key, o in zip(hot + hot, out)):
+                raise AssertionError("serve hot GET: an object differs from its mirror")
+            cache1 = json.loads(_http(port, "GET", "/stats")[1])["objcache"]
+            hits = cache1["hits"] - cache0["hits"]
+            if hits <= 0:
+                raise AssertionError(f"serve hot GET: no cache hits ({cache0} -> {cache1})")
+            res["routes"]["object_get_hot"] = {"gets": 2 * SERVE_HOT, "hits": hits,
+                                               "hit_rate": hits / (2 * SERVE_HOT), "objcache": cache1,
+                                               "verdicts": sorted({o[2].get("X-RS-Cache") for o in out})}
+            log(phase="serve", route="object_get_hot", **res["routes"]["object_get_hot"])
+
+            # What the per-request ledger record costs: the hot set read
+            # (cache hits, no read lane) with RS_RUNLOG on and off, in turns.
+            ledger, rates = os.environ["RS_RUNLOG"], {"on": [], "off": []}
+            for arm in ("on", "off", "off", "on"):
+                if arm == "on":
+                    os.environ["RS_RUNLOG"] = ledger
+                else:
+                    os.environ.pop("RS_RUNLOG", None)
+                out, wall = _fan_out(get, hot * 4, SERVE_CLIENTS)
+                if any(o[0] != 200 or o[1] != osha[key] for key, o in zip(hot * 4, out)):
+                    raise AssertionError(f"serve ledger A/B ({arm}): an object differs from its mirror")
+                rates[arm].append(len(out) / wall)
+            os.environ["RS_RUNLOG"] = ledger
+            res["routes"]["ledger_ab"] = {"gets": 4 * SERVE_HOT, "gets_per_s_ledger_on": rates["on"],
+                                          "gets_per_s_ledger_off": rates["off"]}
+            log(phase="serve", route="ledger_ab", **res["routes"]["ledger_ab"])
+
+            doomed = keys[-SERVE_DELETES:]
+            out, wall = _fan_out(lambda key: _http(port, "DELETE", f"/o/bkt/{key}", b"", "gamma"), doomed,
+                                 SERVE_CLIENTS)
+            gone, _ = _fan_out(get, doomed, SERVE_CLIENTS)
+            if any(o[0] != 200 for o in out) or any(o[0] != 404 for o in gone):
+                raise AssertionError("serve DELETE: a delete failed or a deleted object still answers")
+            res["routes"]["object_delete"] = {"objects": SERVE_DELETES, "wall_s": wall,
+                                              "objects_per_s": SERVE_DELETES / wall, **_latency([o[3] for o in out])}
+            log(phase="serve", route="object_delete", **res["routes"]["object_delete"])
+            live = keys[:-SERVE_DELETES]
+
+            # Degraded GET: one native chunk of a sealed stripe away; the
+            # bucket's cache entries dropped so every GET takes the read lane.
+            st_arcs = bucket.stats()["archives"]
+            by_arc: dict = {}
+            for o in bucket.list_objects():
+                by_arc.setdefault(o["arc"], []).append(o["key"])
+            sealed = [a for a, v in st_arcs.items() if v["sealed"] and by_arc.get(a)]
+            arc = min(sealed, key=lambda a: len(by_arc[a]))
+            chunk1 = chunk_file_name(os.path.join(root, "gamma", "bkt", arc), 1)
+            os.rename(chunk1, chunk1 + ".away")
+            daemon.objcache.invalidate("gamma", "bkt")
+            snap0 = metrics.REGISTRY.snapshot()
+            out, wall = _fan_out(get, by_arc[arc], SERVE_CLIENTS)
+            os.rename(chunk1 + ".away", chunk1)
+            snap1 = metrics.REGISTRY.snapshot()
+            degraded = (_metric(snap1, "rs_store_range_reads_total", '{path="degraded"}')
+                        - _metric(snap0, "rs_store_range_reads_total", '{path="degraded"}'))
+            if any(o[0] != 200 or o[1] != osha[key] for key, o in zip(by_arc[arc], out)):
+                raise AssertionError("serve degraded GET: an object differs from its mirror")
+            if degraded != len(by_arc[arc]) or {o[2].get("X-RS-Read-Path") for o in out} != {"degraded"}:
+                raise AssertionError(f"serve degraded GET: {degraded} degraded reads for {len(by_arc[arc])} GETs")
+            res["routes"]["object_get_degraded"] = {"stripe": arc, "objects": len(by_arc[arc]), "wall_s": wall,
+                                                    "objects_per_s": len(by_arc[arc]) / wall,
+                                                    **_latency([o[3] for o in out])}
+            log(phase="serve", route="object_get_degraded", **res["routes"]["object_get_degraded"])
+            res["objects_live"] = len(live)
+
+            # -- open-loop traffic -------------------------------------------
+            base = f"http://127.0.0.1:{port}"
+            mixes = {
+                "default": dict(duration_s=15.0, rate=8.0, tenants=[("alpha", 3.0), ("beta", 1.0)],
+                                size_bytes=64 * 1024, k=4, p=2, decode_frac=0.3, seed=seed),
+                "objects": dict(duration_s=15.0, rate=32.0, tenants=[("alpha", 3.0), ("beta", 1.0)],
+                                size_bytes=64 * 1024, k=4, p=2, decode_frac=0.3, object_frac=0.6,
+                                object_bytes=4096, object_keys=256, object_zipf=1.1, update_frac=0.1,
+                                edit_burst=8, seed=seed + 1),
+            }
+            res["open_loop"] = {}
+            for mix, kw in mixes.items():
+                rep = loadgen.run_open_loop(base, quiet=True, **kw)
+                summ = rep["summary"]
+                if summ["failed"]:
+                    raise AssertionError(f"serve open loop {mix}: {summ['failed']} failed of {summ['sent']}")
+                cells = {f"{r['tenant']}/{r['op']}": {"ok": r["ok"], "rejected": r["rejected"],
+                                                       "p50_ms": 1e3 * (r["latency_s"].get("0.5") or 0),
+                                                       "p99_ms": 1e3 * (r["latency_s"].get("0.99") or 0)}
+                         for r in rep["tenants"]}
+                res["open_loop"][mix] = {"offered_rps": summ["offered_rps"], "achieved_rps": summ["achieved_rps"],
+                                         "sent": summ["sent"], "ok": summ["ok"], "rejected": summ["rejected"],
+                                         "cells": cells}
+                log(phase="serve", route=f"open_loop_{mix}", **res["open_loop"][mix])
+        finally:
+            daemon.close(drain=True, timeout=300)
+        stats = {"requests_done": daemon.requests_done, "requests_failed": daemon.requests_failed,
+                 "rejected": daemon.queue.rejected}
+
+        # -- admission and drain: depth 2, one worker ------------------------
+        root2 = os.path.join(work, "serve_root_admission")
+        small = daemon2 = None
+        daemon2 = ServeDaemon(root2, port=0, addr="127.0.0.1", device=device, depth=2, workers=1).start()
+        try:
+            small = [rng.bytes(16 * MiB) for _ in range(SERVE_ADMISSION)]
+
+            def admit(i):
+                return _http(daemon2.port, "POST", f"/encode?name=a{i}.bin&k=10&n=14&checksum=1", small[i],
+                             "alpha", {"X-RS-Request-Id": f"adm-{i}"})
+
+            out, wall = _fan_out(admit, range(SERVE_ADMISSION), SERVE_ADMISSION)
+            statuses = [o[0] for o in out]
+            if set(statuses) - {200, 429} or 429 not in statuses:
+                raise AssertionError(f"serve admission: statuses {statuses}")
+            if any(o[2].get("X-RS-Request-Id") != f"adm-{i}" for i, o in enumerate(out)):
+                raise AssertionError("serve admission: a response did not echo its request id")
+            if not daemon2.drain(timeout=300):
+                raise AssertionError("serve admission: the drain did not finish")
+        finally:
+            daemon2.close(drain=True, timeout=300)
+        admitted = [i for i, st in enumerate(statuses) if st == 200]
+        if daemon2.requests_done != len(admitted) or daemon2.requests_failed:
+            raise AssertionError(f"serve admission: {daemon2.requests_done} done, {daemon2.requests_failed} failed "
+                                 f"for {len(admitted)} admitted")
+        for i in admitted:
+            path = os.path.join(root2, "alpha", f"a{i}.bin")
+            out_path = api.auto_decode_file(path, path + ".out", device=device)
+            if sha256_file(out_path) != hashlib.sha256(small[i]).hexdigest():
+                raise AssertionError(f"serve admission: archive a{i}.bin does not decode to its source")
+            os.unlink(out_path)
+        res["admission"] = {"requests": SERVE_ADMISSION, "admitted": len(admitted),
+                            "rejected_429": statuses.count(429), "wall_s": wall}
+        log(phase="serve", route="admission", **res["admission"])
+        del small
+
+        snap = metrics.REGISTRY.snapshot()
+        fallbacks = sum(snap.get("rs_serve_batch_fallbacks_total", {}).get("values", {}).values())
+        # What each wide event's ledger record costs the handler: the
+        # envelope's metrics digest serializes the whole registry.
+        from gpu_rscode_torch.obs import runlog
+
+        t0 = time.perf_counter()
+        for _ in range(20):
+            runlog.metrics_digest()
+        res["ledger_digest_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        res["registry_json_bytes"] = len(json.dumps(snap, sort_keys=True))
+        proven = _serve_parity_proof([root, root2])
+    k1 = k1_runs()  # every executor thread has joined (both daemons closed)
+    if not forced:
+        metrics.force_enable(False)
+    if fallbacks:
+        raise AssertionError(f"serve: {fallbacks} batches fell back to per-request execution")
+    if stats["requests_failed"]:
+        raise AssertionError(f"serve: {stats['requests_failed']} requests failed")
+    if k1 <= 0:
+        raise AssertionError("serve: K1 was not launched")
+    res.update(k1_launches=k1, fallbacks=fallbacks, archives_proven=proven, daemon=stats,
+               seconds=time.perf_counter() - t_phase)
+    log(phase="serve_summary", k1_launches=k1, batch_fallbacks=fallbacks, archives_proven=proven,
+        ledger_digest_ms=res["ledger_digest_ms"], registry_json_bytes=res["registry_json_bytes"],
+        seconds=res["seconds"], plan_cache={key: val for key, val in plan.PLAN_CACHE.stats().items() if key != "plans"},
+        nvidia_smi=smi_line(), **stats)
+    return res
+
+
 def _store_shapes(calls) -> dict:
     """The store's K1 shapes from the GEMM log: the 64-object batches' E·Δ
     (appends to an open stripe), the 1,000 x 4 KiB batch's E·Δ, the
@@ -2371,6 +2835,7 @@ def main() -> int:
             t_5f = time.perf_counter()
             store_res = phase_store(work, SEED + 8)
             store_res["seconds"] = time.perf_counter() - t_5f
+            serve_res = phase_serve(work, SEED + 9, device)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         log(phase="strategies_summary", main_and_cli_seconds=strategies["seconds"],
@@ -2388,7 +2853,8 @@ def main() -> int:
         new_timings = phase_new_timings(device)
         kernels = kernel_entries(k1_err, grids, timings[0],
                                  main_res["pipelined"]["launches"] + resilience["k1_launches"]
-                                 + updates["k1_launches"] + store_res["k1_launches"], new_timings,
+                                 + updates["k1_launches"] + store_res["k1_launches"] + serve_res["k1_launches"],
+                                 new_timings,
                                  tools["launches"])
     log(phase="wall", seconds=time.perf_counter() - t_start, quick=args.quick)
     print(smi)

@@ -41,6 +41,11 @@ device), of its resilience reads: ``scan_file``, ``auto_decode_file``,
   bitrot from the parity-check syndromes (:func:`locate_decode_file`).
   Every GEMM of these paths is a segment loop through :class:`StreamLoop`
   (K1 on the compute stream on CUDA).
+* With ``RS_RUNLOG`` set, the damage-detection sites append the health
+  plane's ``rs_damage`` records (:mod:`.obs.health`), as the JAX package's
+  do: every scan (its full per-chunk verdict), a syndrome attribution, a
+  survivor that fails after the scan, a rebuild, an unrecoverable repair
+  and every update, append or group (a generation bump).
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from . import native
 from . import plan as _plan
 from .codec import RSCodec, entry_device
 from .models.vandermonde import total_matrix
+from .obs import health as _obs_health
 from .ops.gf import get_field
 from .ops.inverse import SingularMatrixError, invert_matrix
 from .parallel.io_executor import DrainExecutor, FleetPipeline
@@ -867,26 +873,31 @@ def _scan_chunks(in_file: str, segment_bytes: int) -> _ChunkScan:
     chunk, crcs = meta.chunk, meta.crcs
     healthy: list[int] = []
     bad: dict[int, str] = {}
+    # The per-chunk verdicts of the health plane's "scan" event: the full
+    # map, an empty one included (a clean scan clears earlier damage).
+    states: dict[int, str] = {}
     for i in range(k + p):
         path = chunk_file_name(in_file, i)
         if not os.path.exists(path):
+            states[i] = "missing"
             continue
         if os.path.getsize(path) < chunk:
-            bad[i] = path  # truncated: damage, not loss
+            bad[i], states[i] = path, "truncated"  # damage, not loss
             continue
         if i in crcs:
             try:
                 mm = _open_chunk(path, chunk, i)
             except ChunkIntegrityError:
-                bad[i] = path  # shrank since the size check
+                bad[i], states[i] = path, "truncated"  # shrank since the size check
                 continue
             except OSError:
-                bad[i] = path  # unreadable: damage to record, the scan goes on
+                bad[i], states[i] = path, "read_error"  # damage to record, the scan goes on
                 continue
             if chunk_crc32(mm, chunk, segment_bytes) != crcs[i]:
-                bad[i] = path
+                bad[i], states[i] = path, "crc_mismatch"
                 continue
         healthy.append(i)
+    _obs_health.record_damage("scan", in_file, states=states, k=k, p=p, w=meta.w, generation=meta.generation)
     return _ChunkScan(in_file, meta.total_size, p, k, total_mat, meta.w, crcs, chunk, healthy, bad,
                       layout=meta.layout, generation=meta.generation)
 
@@ -1054,6 +1065,11 @@ def scan_file(in_file: str, *, segment_bytes: int = DEFAULT_SEGMENT_BYTES, syndr
         # one stopped early, so its located set covers only a prefix.
         if located and verdict == "silent_bitrot":
             scan = scan.excluding({i: chunk_file_name(in_file, i) for i in located})
+        if located or verdict == "unlocatable":
+            # Each located chunk is a verified attribution, a partial
+            # sweep's too (the verdict carries that caveat).
+            _obs_health.record_damage("syndrome", in_file, chunks=sorted(located), k=scan.k, p=scan.p, w=scan.w,
+                                      generation=scan.generation, verdict=verdict)
     try:
         _select_decodable_subset(scan)
         ok = True
@@ -1146,6 +1162,10 @@ def auto_decode_file(in_file: str, output: str | None = None, *, conf_out: str |
         except (ChunkIntegrityError, FileNotFoundError) as e:
             if isinstance(e, ChunkIntegrityError):
                 excluded.update(e.bad_chunks)
+                # Survivors that failed after the scan chose them: damage
+                # the scan's map missed, recorded under its own event.
+                _obs_health.record_damage("decode_failure", in_file, chunks=sorted(e.bad_chunks), k=scan.k, p=scan.p,
+                                          w=scan.w, generation=scan.generation)
             if attempt + 1 >= attempts:
                 # The last rung: one error-locating attempt over a fresh
                 # scan; its own failure re-raises the ladder's error.
@@ -1491,16 +1511,40 @@ def repair_file(
     if scan.chunk == 0:
         # Zero-size archive: every chunk is the empty file.  Still held to
         # the >= k healthy rule, as scan_file's decodable verdict is.
-        _select_decodable_subset(scan)
+        _repair_select_or_fail(scan)
         for t in targets:
             _write_empty_atomic(chunk_file_name(in_file, t))
         if scan.crcs:
             rewrite_checksums(metadata_file_name(in_file), {**scan.crcs, **{t: 0 for t in targets}})  # crc32(b"") == 0
-        return targets
+        return _record_repair(targets, scan)
     with timer.phase("invert matrix"):
-        chosen, inv = _select_decodable_subset(scan)
-    return _repair_streamed(in_file, scan, chosen, inv, strategy=strategy, device=device, segment_bytes=segment_bytes,
-                            pipeline_depth=pipeline_depth, timer=timer)
+        chosen, inv = _repair_select_or_fail(scan)
+    return _record_repair(_repair_streamed(in_file, scan, chosen, inv, strategy=strategy, device=device,
+                                           segment_bytes=segment_bytes, pipeline_depth=pipeline_depth, timer=timer),
+                          scan)
+
+
+def _record_repair(rebuilt: list[int], scan: _ChunkScan) -> list[int]:
+    """The health plane's "repair" event for a non-empty rebuild (it
+    clears the rebuilt chunks from the archive's damage map); identity on
+    ``rebuilt``."""
+    if rebuilt:
+        _obs_health.record_damage("repair", scan.in_file, chunks=rebuilt, k=scan.k, p=scan.p, w=scan.w,
+                                  generation=scan.generation)
+    return rebuilt
+
+
+def _repair_select_or_fail(scan: _ChunkScan):
+    """:func:`_select_decodable_subset` for a single-archive repair, with
+    the health plane's "repair_failed" event recorded before the failure
+    propagates."""
+    try:
+        return _select_decodable_subset(scan)
+    except ValueError as e:
+        _obs_health.record_damage("repair_failed", scan.in_file, k=scan.k, p=scan.p, w=scan.w,
+                                  generation=scan.generation,
+                                  verdict="undecided" if isinstance(e, UndecidedSubsetError) else "unrecoverable")
+        raise
 
 
 def _repair_streamed(in_file: str, scan: _ChunkScan, chosen: list[int], inv, *, strategy: str, device,
@@ -1668,6 +1712,12 @@ def repair_fleet(
                 except ValueError as e:
                     errors[f] = str(e)
     if errors:
+        for f in sorted(errors):
+            # An unscannable archive has no shape to record (the JAX
+            # package's scans[f] raises KeyError there instead).
+            s = scans.get(f)
+            _obs_health.record_damage("repair_failed", f, k=s and s.k, p=s and s.p, w=s and s.w,
+                                      generation=s and s.generation, verdict="unrecoverable")
         raise ValueError("unrecoverable archives (nothing repaired): "
                          + "; ".join(f"{f}: {msg}" for f, msg in sorted(errors.items())))
     results: dict[str, list[int]] = {}
@@ -1681,9 +1731,10 @@ def repair_fleet(
                                          pipeline_depth=pipeline_depth, timer=timer)
             else:
                 chosen, inv = chosen_inv[f]
-                results[f] = _repair_streamed(f, s, chosen, inv, strategy=strategy, device=device,
-                                              segment_bytes=segment_bytes, pipeline_depth=pipeline_depth,
-                                              timer=timer, fleet=pipe)
+                results[f] = _record_repair(_repair_streamed(f, s, chosen, inv, strategy=strategy, device=device,
+                                                             segment_bytes=segment_bytes,
+                                                             pipeline_depth=pipeline_depth, timer=timer, fleet=pipe),
+                                            s)
     return results
 
 
@@ -1712,10 +1763,13 @@ def update_file(file_name: str, at: int, data=None, *, src: str | None = None, s
     generation, ...)."""
     from .update import apply_update
 
-    # The _observed_file_op("update") wrapper and the health plane's
-    # record_damage("update") hook here once those planes are ported.
-    return apply_update(file_name, at, data, src=src, strategy=strategy, device=device,
-                        segment_bytes=segment_bytes, timer=timer)
+    # The _observed_file_op("update") wrapper here once that plane is ported.
+    out = apply_update(file_name, at, data, src=src, strategy=strategy, device=device,
+                      segment_bytes=segment_bytes, timer=timer)
+    # The generation moved past the last verified scrub: the health plane
+    # holds the archive scrub-stale until it is scanned again.
+    _obs_health.record_damage("update", file_name, generation=out.get("generation"))
+    return out
 
 
 def append_file(file_name: str, data=None, *, src: str | None = None, strategy: str = "auto", device=None,
@@ -1728,10 +1782,13 @@ def append_file(file_name: str, data=None, *, src: str | None = None, strategy: 
     the op summary with the new ``total_size``."""
     from .update import apply_append
 
-    # The _observed_file_op("append") wrapper and the health plane's
-    # record_damage("update") hook here once those planes are ported.
-    return apply_append(file_name, data, src=src, strategy=strategy, device=device, segment_bytes=segment_bytes,
-                        timer=timer)
+    # The _observed_file_op("append") wrapper here once that plane is ported.
+    out = apply_append(file_name, data, src=src, strategy=strategy, device=device, segment_bytes=segment_bytes,
+                      timer=timer)
+    # The generation moved past the last verified scrub: the health plane
+    # holds the archive scrub-stale until it is scanned again.
+    _obs_health.record_damage("update", file_name, generation=out.get("generation"))
+    return out
 
 
 def update_file_many(file_name: str, edits, *, strategy: str = "auto", device=None,
@@ -1753,10 +1810,13 @@ def update_file_many(file_name: str, edits, *, strategy: str = "auto", device=No
     GPU present.  Returns the aggregate summary."""
     from .update import apply_update_many
 
-    # The _observed_file_op("update_many") wrapper and the health plane's
-    # record_damage("update") hook here once those planes are ported.
-    return apply_update_many(file_name, edits, strategy=strategy, device=device, segment_bytes=segment_bytes,
-                             timer=timer, group_edits=group_edits, group_tag=group_tag, stage_hook=stage_hook)
+    # The _observed_file_op("update_many") wrapper here once that plane is ported.
+    out = apply_update_many(file_name, edits, strategy=strategy, device=device, segment_bytes=segment_bytes,
+                           timer=timer, group_edits=group_edits, group_tag=group_tag, stage_hook=stage_hook)
+    # The generation moved past the last verified scrub: the health plane
+    # holds the archive scrub-stale until it is scanned again.
+    _obs_health.record_damage("update", file_name, generation=out.get("generation"))
+    return out
 
 
 def recover_archive(file_name: str) -> str:

@@ -23,7 +23,11 @@ encode's chunk layout.  The subcommands ``update`` and ``append``
 :func:`.api.append_file`, :func:`.api.recover_archive` with ``--recover``)
 patch an archive in place.  The subcommand ``object``
 (:mod:`.store.cli`: ``put``, ``get``, ``rm``, ``ls``, ``stat``,
-``compact``, ``openbench``) runs the object store.
+``compact``, ``openbench``) runs the object store.  The subcommands
+``serve`` (:mod:`.serve.daemon`), ``loadgen`` (:mod:`.serve.loadgen`),
+``slo`` (:mod:`.obs.slo`), ``health`` (:mod:`.obs.health`) and
+``serve-metrics`` (:mod:`.obs.serve`) run the serving daemon and its
+observability planes.
 
 ``--device`` defaults to CUDA; without a GPU the command fails unless
 ``--device cpu`` or ``--strategy cpu`` is given.
@@ -107,13 +111,68 @@ Subcommands: update ARCHIVE --at OFF --in DELTA [--recover] [--json]
             [--device DEVICE] (object store: many small objects packed
             into shared erasure-coded stripe archives — a durable object
             index, windowed range reads with degraded decode, tombstone
-            + zeroing deletes, all-or-nothing compaction)"""
+            + zeroing deletes, all-or-nothing compaction)
+            serve [--root D] [--port P] [--device DEVICE] ...
+            (resident multi-tenant daemon: POST /encode /decode /scrub
+            /update /append, PUT/GET/DELETE /o/<bucket>/<key>, admission
+            control, cross-request batching, graceful drain on SIGTERM)
+            loadgen --spawn|--url URL [--device DEVICE] ...
+            (open-loop load generator for rs serve: per-tenant mixes,
+            offered/achieved rates, latency percentiles, a capture file)
+            slo --url URL | --runlog LEDGER [--check] [--json]
+            (per-tenant SLO attainment and burn rates)
+            health [--ledger LEDGER] [--json] [--watch [SECS]]
+            (risk-ranked fleet durability report from the damage ledger)
+            serve-metrics [--port P] [--addr A] [--runlog LEDGER]
+            (foreground /metrics, /healthz and /runs endpoint)"""
 
 
 def _fail(msg: str) -> int:
     print(msg, file=sys.stderr)
     print(_USAGE, file=sys.stderr)
     return 2
+
+
+def _serve_metrics_main(argv: list[str]) -> int:
+    """The ``serve-metrics`` subcommand: a foreground telemetry endpoint
+    (/metrics, /healthz, /runs) for this process (:mod:`.obs.serve`)."""
+    import argparse
+
+    from .obs import metrics as obs_metrics, serve as obs_serve
+
+    ap = argparse.ArgumentParser(
+        prog="rs serve-metrics",
+        description="Serve /metrics (Prometheus text), /healthz and /runs (run-ledger tail) over HTTP.",
+    )
+    ap.add_argument("--port", type=int, default=None, help="bind port (default $RS_METRICS_PORT or 9464)")
+    ap.add_argument("--addr", default=None, help="bind address (default $RS_METRICS_ADDR or 0.0.0.0)")
+    ap.add_argument("--runlog", default=None, help="ledger served at /runs (default: $RS_RUNLOG)")
+    try:
+        args = ap.parse_args(argv)
+    except SystemExit as e:
+        return int(e.code or 0)
+    if args.port is None:
+        try:
+            args.port = int(os.environ.get("RS_METRICS_PORT", "9464"))
+        except ValueError:
+            print(f"rs serve-metrics: RS_METRICS_PORT={os.environ['RS_METRICS_PORT']!r} is not a port",
+                  file=sys.stderr)
+            return 2
+    obs_metrics.force_enable()
+    try:
+        server = obs_serve.make_server(args.port, args.runlog, args.addr)
+    except OSError as e:
+        print(f"rs serve-metrics: cannot bind: {e}", file=sys.stderr)
+        return 1
+    host, port = server.server_address[:2]
+    print(f"serving /metrics /healthz /runs on http://{host}:{port}", file=sys.stderr)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+    return 0
 
 
 def _update_main(argv: list[str], op: str) -> int:
@@ -243,6 +302,24 @@ def _parse_edit_lines(path: str) -> list[dict]:
 
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "serve-metrics":
+        return _serve_metrics_main(argv[1:])
+    if argv and argv[0] == "health":
+        from .obs.health import main as _health_main
+
+        return _health_main(argv[1:])
+    if argv and argv[0] == "serve":
+        from .serve.daemon import main as _serve_daemon_main
+
+        return _serve_daemon_main(argv[1:])
+    if argv and argv[0] == "loadgen":
+        from .serve.loadgen import main as _loadgen_main
+
+        return _loadgen_main(argv[1:])
+    if argv and argv[0] == "slo":
+        from .obs.slo import main as _slo_main
+
+        return _slo_main(argv[1:])
     if argv and argv[0] == "object":
         from .store.cli import main as _object_main
 

@@ -1,4 +1,4 @@
-"""The port's own copy of two parts of the JAX package's ``obs/runlog.py``.
+"""The port's own copy of three parts of the JAX package's ``obs/runlog.py``.
 
 * The identity header of a measurement tool's JSON-lines output
   (:func:`capture_header`, same keys).
@@ -9,15 +9,20 @@
   :mod:`..ops.ring_gemm`) keep their records there.  The records are the
   same JSON lines with the same ``schema``, so a file written by either
   package reads in the other.
+* The record envelope: :func:`record` (kind, run, ts, git sha, host,
+  process index, backend, metrics digest) and :func:`tail` (the ``/runs``
+  payload).  The damage plane (:mod:`.health`) and the request lifecycle
+  plane (:mod:`.reqtrace`) write through it.
 
-The per-operation ``rs_run`` records, the metrics digest and the history
-surface are not ported yet.
+The per-file-operation ``rs_run`` records (``record_file_op``) and the
+history surface (``filter_records``) are not ported yet.
 
 Import cost: the standard library and :mod:`..utils.backend`.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import socket
@@ -46,6 +51,10 @@ def run_id() -> str:
 def path() -> str | None:
     """The ledger path (``RS_RUNLOG``), or None when the ledger is off."""
     return os.environ.get("RS_RUNLOG") or None
+
+
+def enabled() -> bool:
+    return path() is not None
 
 
 def store_path() -> str | None:
@@ -94,6 +103,21 @@ def git_sha() -> str | None:
         pass
     _GIT_SHA = sha
     return sha
+
+
+def backend_name() -> str:
+    """Where this process computes: "cuda" when a CUDA device is present,
+    else "cpu" (the JAX package records its JAX backend here)."""
+    return backend_label()
+
+
+def process_index() -> int:
+    """This process's index in a multi-process job (0 single-process): the
+    ``RANK`` that ``torch.distributed`` launchers set."""
+    try:
+        return int(os.environ.get("RANK", "0"))
+    except ValueError:
+        return 0
 
 
 def capture_header(tool: str) -> dict:
@@ -235,3 +259,41 @@ def read_records(p: str, include_rotated: bool = True) -> list[dict]:
         except OSError:
             continue
     return out
+
+
+def tail(p: str, n: int = 50) -> list[dict]:
+    """The last ``n`` records (the ``/runs`` endpoint's payload)."""
+    return read_records(p)[-n:]
+
+
+def metrics_digest() -> str | None:
+    """Short digest of the metrics registry's snapshot: two records with
+    equal digests saw identical registries.  None with metrics off."""
+    from . import metrics as _metrics
+
+    if not _metrics.enabled():
+        return None
+    snap = json.dumps(_metrics.REGISTRY.snapshot(), sort_keys=True)
+    return hashlib.sha256(snap.encode()).hexdigest()[:12]
+
+
+def record(fields: dict, ledger_path: str | None = None) -> None:
+    """Append a record, filling the shared identity envelope (kind, run,
+    ts, git sha, host, process index, backend, metrics digest)."""
+    rec = {
+        "kind": "rs_run",
+        "schema": SCHEMA_VERSION,
+        "run": run_id(),
+        "ts": time.time(),
+        "git_sha": git_sha(),
+        "host": socket.gethostname(),
+        "proc": process_index(),
+        "backend": backend_name(),
+    }
+    rec.update(fields)
+    try:
+        rec["metrics_digest"] = metrics_digest()
+    except Exception:  # noqa: BLE001 - the ledger never fails the operation it records
+        rec["metrics_digest"] = None
+    append(rec, ledger_path)
+

@@ -26,6 +26,7 @@ bytes, so their algebra is the base expansion's.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -38,9 +39,12 @@ from .gf import get_field
 # launch below adds to LAUNCHES (an eager launch, which runs at once) or
 # CAPTURED (a launch recorded into a CUDA graph, which runs nothing then);
 # the plan layer adds to REPLAYED the K1 kernels each graph replay runs.
+# Every addition holds COUNT_LOCK: the serving daemon dispatches from
+# several threads at once, and += on a module global is not atomic.
 LAUNCHES = 0
 CAPTURED = 0
 REPLAYED = 0
+COUNT_LOCK = threading.Lock()
 
 SOURCES = [_build.CSRC / "gf_gemm.cu"]
 
@@ -211,8 +215,10 @@ def _gf_matmul_k1(A, B: torch.Tensor, w: int, fold_parity: bool) -> torch.Tensor
         with torch.cuda.device(B.device):
             err = lib.rs_gf_popcount(op.data_ptr(), B.data_ptr(), C.data_ptr(), k, p, w, m, words, stream)
         _build.check(lib, err, "gf_gemm (popcount)")
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED += 1
-    else:
-        LAUNCHES += 1
+    capturing = torch.cuda.is_current_stream_capturing()
+    with COUNT_LOCK:
+        if capturing:
+            CAPTURED += 1
+        else:
+            LAUNCHES += 1
     return C

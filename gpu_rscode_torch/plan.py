@@ -333,7 +333,8 @@ class _Graph:
     def replay(self, pipe) -> torch.Tensor:
         self.graph.replay()
         k1, packed, reused, calls = self.counts
-        _cuda_gemm.REPLAYED += k1
+        with _cuda_gemm.COUNT_LOCK:
+            _cuda_gemm.REPLAYED += k1
         _xor_gemm.PACK_REUSE["packed"] += packed
         _xor_gemm.PACK_REUSE["reused"] += reused
         if pipe is not None:
@@ -349,23 +350,26 @@ def _capture(fn, A, B: torch.Tensor, pipe) -> _Graph:
     current = torch.cuda.current_stream(B.device)
     side = _side_stream(B.device)
     side.wait_stream(current)
-    before = _python_counts(pipe)
-    with _CAPTURE_LOCK, torch.cuda.stream(side), _build.collect_operators() as operators:
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            out = fn(A, B)
-        except BaseException:
+    # The counts are read and restored under the capture lock, so a
+    # concurrent capture on another thread cannot fall between them.
+    with _CAPTURE_LOCK:
+        before = _python_counts(pipe)
+        with torch.cuda.stream(side), _build.collect_operators() as operators:
+            graph.capture_begin(capture_error_mode="thread_local")
             try:
-                graph.capture_end()
-            except RuntimeError:
-                pass  # the capture is void already; the error above is the one to raise
-            raise
-        graph.capture_end()
+                out = fn(A, B)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is void already; the error above is the one to raise
+                raise
+            graph.capture_end()
+        after = _python_counts(pipe)
+        _xor_gemm.PACK_REUSE["packed"], _xor_gemm.PACK_REUSE["reused"] = before[1], before[2]
+        if pipe is not None:
+            pipe.calls = before[3]
     current.wait_stream(side)
-    after = _python_counts(pipe)
-    _xor_gemm.PACK_REUSE["packed"], _xor_gemm.PACK_REUSE["reused"] = before[1], before[2]
-    if pipe is not None:
-        pipe.calls = before[3]
     return _Graph(graph, out, operators, tuple(a - b for a, b in zip(after, before)))
 
 

@@ -28,6 +28,10 @@ def test_port_imports_no_jax():
         "import gpu_rscode_torch.store, gpu_rscode_torch.store.index, gpu_rscode_torch.store.snapshot\n"
         "import gpu_rscode_torch.store.readpath, gpu_rscode_torch.store.bucket, gpu_rscode_torch.store.cli\n"
         "import gpu_rscode_torch.store.openbench\n"
+        "import gpu_rscode_torch.obs.tracing, gpu_rscode_torch.obs.reqtrace, gpu_rscode_torch.obs.slo\n"
+        "import gpu_rscode_torch.obs.health, gpu_rscode_torch.obs.serve\n"
+        "import gpu_rscode_torch.serve, gpu_rscode_torch.serve.queue, gpu_rscode_torch.serve.batcher\n"
+        "import gpu_rscode_torch.serve.objcache, gpu_rscode_torch.serve.daemon, gpu_rscode_torch.serve.loadgen\n"
         "from gpu_rscode_torch.api import put_object, put_objects, get_object, delete_object, list_objects\n"
         "from gpu_rscode_torch.api import list_objects_page, stat_object, compact_bucket\n"
         "from gpu_rscode_torch.native import gemm, invert, available\n"
