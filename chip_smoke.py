@@ -154,6 +154,28 @@ Phases, each fatal on failure:
      each route's wall, MB/s or req/s, p50 and p99 are logged, with the
      batch sizes, the cache hit rate, the stage medians, the ledger
      digest's cost and PLAN_CACHE.stats();
+  5h. the fault and maintenance planes (gpu_rscode_torch/resilience/,
+     maint/) on cuda:0: rs chaos in-process for every class at seed
+     20260807 x 12 and --object at 20260804 x 12, each class's schedule
+     and verdict digests equal to the JAX package's (CHAOS_DIGESTS), every
+     iteration passing and K1 running in each; a seeded 1 GiB archive
+     (k=10, n=14, --checksum, 64 MiB segments) with chunk 0 lost and chunk
+     5 rotted, auto-decoded under read:ioerror@p=0.05;read:delay@ms=1,p=0.1
+     (SHA-256; rs_retries_total retried and recovered > 0), a torn encode
+     under write:torn@after=64KiB (the injected fault, no chunk and no
+     .rs_tmp left), the mid-stream swap of a 1 MiB k=3 n=5 archive in
+     4 KiB segments under chunk1:ioerror@from=2,scope=read (bytes exact,
+     one swap; a plain conf decode names chunk 1) and chunk1's scrub read
+     error (state read_error, still decodable); rs maint's dry run (4
+     repairs) and --drain over 4 x 256 MiB archives with one rotted chunk
+     each (every chunk's SHA-256 restored), then a fifth drained under
+     RS_MAINT_CRASH=repair:mid and again (converged); and loadgen's
+     run_maint_ab (4 x 64 MiB, k=10, p=4, 10 s at 8 req/s): the ON arm
+     converges, the governor pauses, the foreground p99 ratio stays within
+     1.25, GET /maint answers enabled, no request fails (each arm's
+     queue wait, service, slowest requests and repair times logged from
+     its ledger).  Each step's
+     wall, GB/s, retries, K1 runs and the plan cache's counts are logged;
   6. timings: file encode/decode GB/s of phase 4, and K1 at the main path's
      segment shapes, at phase 5b's syndrome (r=4, depth 14) and repair
      (3 targets, k=10) shapes, at phase 5c's E·Δ shapes (the stacked
@@ -2663,6 +2685,398 @@ def phase_serve(work: str, seed: int, device) -> dict:
     return res
 
 
+# -- phase 5h: the fault and maintenance planes ------------------------------
+
+# Chaos digests of the JAX package's `rs chaos` (gpu_rscode_tpu, CPU):
+#   python -m gpu_rscode_tpu chaos --seed SEED --iters 12 [CLASS FLAGS]
+# verdict rows hold only ints, strings and bools, so the digests do not
+# depend on the device.  (flags, seed) -> (schedule_digest, verdict_digest).
+CHAOS_DIGESTS = {
+    ((), 20260807): ("b86f6c9ee791480b", "bfe3af78af05dab0"),
+    (("--silent",), 20260807): ("75b940ee34e45dd3", "0ecf6ac98bf48690"),
+    (("--update",), 20260807): ("e76445964bacb726", "b5ceb4fc204221a5"),
+    (("--update", "--group"), 20260807): ("fab92abf50f3fdce", "08ed725aadd79ca3"),
+    (("--object",), 20260807): ("108d038636fdf6bb", "3562cb13c256af60"),
+    (("--health",), 20260807): ("c076fae7fa943e0b", "e9887a0f3e933141"),
+    (("--maint",), 20260807): ("203248547cd29ea6", "dc5cbd2607c3bed9"),
+    (("--object",), 20260804): ("2d57717ff72642a9", "cdf0d7ede52bdc31"),
+}
+CHAOS_ITERS = 12
+FAULT_FILE_BYTES = 1024 * MiB  # the main path's file, k=10, n=14
+SWAP_FILE_BYTES = 1 * MiB  # the mid-stream swap's archive, k=3, n=5, 4 KiB segments
+MAINT_ARCHIVES = 4
+MAINT_FILE_BYTES = 256 * MiB
+MAINT_AB_BYTES = 64 * MiB
+# 10 s: the monkey's 6 s SLO window ages out within the load, so the
+# governor resumes and the repairs run beside the foreground.
+MAINT_AB_SECONDS = 10.0
+MAINT_AB_RATE = 8.0
+
+
+def _metric_delta(before: dict, name: str, labels: str) -> float:
+    from gpu_rscode_torch.obs import metrics
+
+    return _metric(metrics.REGISTRY.snapshot(), name, labels) - _metric(before, name, labels)
+
+
+def _chaos_class(flags: tuple, seed: int, work: str, device) -> dict:
+    """One `rs chaos` class in-process on ``device``; its digests must be the
+    JAX package's and every iteration must pass."""
+    from gpu_rscode_torch.resilience import chaos
+
+    d = tempfile.mkdtemp(dir=work)
+    _reset_counts()
+    before = plan.PLAN_CACHE.stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = chaos.main(["--seed", str(seed), "--iters", str(CHAOS_ITERS), "--device", str(device), "--dir", d,
+                         "--no-shrink", *flags])
+    wall = time.perf_counter() - t0
+    shutil.rmtree(d, ignore_errors=True)
+    lines = buf.getvalue().splitlines()
+    out = json.loads(lines[-1]) if rc == 0 and lines else {}
+    want_schedule, want_verdict = CHAOS_DIGESTS[(flags, seed)]
+    got = (out.get("schedule_digest"), out.get("verdict_digest"))
+    if rc != 0 or out.get("passed") != CHAOS_ITERS or out.get("failed") != 0 or got != (want_schedule, want_verdict):
+        repro = [line for line in lines if line.startswith("REPRODUCE: ")]
+        if repro:
+            # The failing iteration once more, for its traceback.
+            try:
+                chaos.run_iteration(json.loads(repro[0][len("REPRODUCE: "):]), tempfile.mkdtemp(dir=work),
+                                    device=device)
+                log(phase="faults_maint", step="chaos_rerun", passed=True)
+            except chaos.ChaosFailure as e:
+                import traceback
+
+                traceback.print_exception(e.__cause__ or e)
+        raise AssertionError(f"chaos {' '.join(flags) or 'classic'} seed {seed}: rc {rc}, {lines[-3:]}; "
+                             f"want digests {(want_schedule, want_verdict)}")
+    runs = k1_runs()
+    if runs <= 0:
+        raise AssertionError(f"chaos {' '.join(flags) or 'classic'}: K1 never ran")
+    after = plan.PLAN_CACHE.stats()
+    row = {"class": " ".join(flags) or "classic", "seed": seed, "iters": CHAOS_ITERS, "wall_s": wall,
+           "k1_runs": runs, "schedule_digest": got[0], "verdict_digest": got[1],
+           "plan_cache": {key: after[key] - before[key] for key in ("hits", "misses", "evictions")}}
+    log(phase="faults_maint", step="chaos", **row)
+    return row
+
+
+def _litter(directory: str, stem: str) -> list[str]:
+    return sorted(f for f in os.listdir(directory) if f.endswith(".rs_tmp") or (f.startswith("_") and stem in f))
+
+
+def _fault_plane(work: str, seed: int) -> dict:
+    """The fault plane at the main path's setting, then the mid-stream swap
+    and the scrub read error on a small archive."""
+    from gpu_rscode_torch.obs import metrics
+    from gpu_rscode_torch.resilience import faults
+
+    res: dict = {}
+    d = os.path.join(work, "faults")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "faulted.bin")
+    want = write_seeded(path, seed, FAULT_FILE_BYTES)
+    api.encode_file(path, 10, 4, checksums=True)
+    os.unlink(chunk_file_name(path, 0))
+    _flip(chunk_file_name(path, 5), [FAULT_FILE_BYTES // 20])
+    spec = "read:ioerror@p=0.05;read:delay@ms=1,p=0.1"
+    fault_plan = faults.parse_plan(spec, seed=seed)
+    before = metrics.REGISTRY.snapshot()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with faults.activate(fault_plan):
+        out = api.auto_decode_file(path, path + ".dec")
+    wall = time.perf_counter() - t0
+    retried = _metric_delta(before, "rs_retries_total", '{outcome="retried"}')
+    recovered = _metric_delta(before, "rs_retries_total", '{outcome="recovered"}')
+    got = sha256_file(out)
+    if got != want or retried <= 0 or recovered <= 0:
+        raise AssertionError(f"faulted decode: sha256 {got} != {want} or retries {retried}/{recovered}")
+    res["faulted_decode"] = {"wall_s": wall, "GBps": FAULT_FILE_BYTES / wall / 1e9, "k1_runs": k1_runs(),
+                             "retried": retried, "recovered": recovered,
+                             "exhausted": _metric_delta(before, "rs_retries_total", '{outcome="exhausted"}'),
+                             "midstream_swaps": _metric_delta(before, "rs_degraded_decodes_total",
+                                                             '{stage="midstream"}'),
+                             "injected": {f"{k}:{s}": n for (k, s), n in fault_plan.injected.items()}}
+    log(phase="faults_maint", step="faulted_decode", spec=spec, **res["faulted_decode"])
+    os.unlink(out)
+    launches = res["faulted_decode"]["k1_runs"]
+
+    # A torn encode: the first drain over 64 KiB dies, and nothing of the
+    # archive may be left beside the input.
+    torn_dir = os.path.join(d, "torn")
+    os.makedirs(torn_dir)
+    torn = os.path.join(torn_dir, "torn.bin")
+    os.link(path, torn)
+    err = None
+    _reset_counts()
+    t0 = time.perf_counter()
+    with faults.activate(faults.parse_plan("write:torn@after=64KiB", seed=seed)):
+        try:
+            api.encode_file(torn, 10, 4, checksums=True)
+        except faults.InjectedWriteError as e:
+            err = e
+    litter = _litter(torn_dir, "torn.bin")
+    if err is None or "injected torn fault" not in str(err) or litter:
+        raise AssertionError(f"torn encode: error {err!r}, litter {litter}")
+    res["torn_encode"] = {"seconds": time.perf_counter() - t0, "error": str(err), "k1_runs": k1_runs()}
+    log(phase="faults_maint", step="torn_encode", **res["torn_encode"])
+    launches += k1_runs()
+    shutil.rmtree(torn_dir)
+    os.unlink(path)
+    for i in range(14):
+        if os.path.exists(chunk_file_name(path, i)):
+            os.unlink(chunk_file_name(path, i))
+
+    # The mid-stream swap (k=3, n=5, 4 KiB segments, native 0 lost).
+    small = os.path.join(d, "swap.bin")
+    want = write_seeded(small, seed + 1, SWAP_FILE_BYTES)
+    api.encode_file(small, 3, 2, checksums=True, segment_bytes=4096)
+    os.unlink(chunk_file_name(small, 0))
+    before = metrics.REGISTRY.snapshot()
+    _reset_counts()
+    swap_plan = faults.parse_plan("chunk1:ioerror@from=2,scope=read", seed=seed)
+    t0 = time.perf_counter()
+    with faults.activate(swap_plan):
+        out = api.auto_decode_file(small, small + ".dec", segment_bytes=4096)
+    swaps = _metric_delta(before, "rs_degraded_decodes_total", '{stage="midstream"}')
+    if sha256_file(out) != want or swaps != 1:
+        raise AssertionError(f"mid-stream swap: sha256 {sha256_file(out)} != {want} or swaps {swaps} != 1")
+    res["midstream_swap"] = {"seconds": time.perf_counter() - t0, "k1_runs": k1_runs(), "swaps": swaps,
+                             "calls": {f"{s}:{n}": c for (s, n), c in swap_plan._calls.items()}}
+    log(phase="faults_maint", step="midstream_swap", **res["midstream_swap"])
+    launches += k1_runs()
+    conf = os.path.join(d, "swap.conf")
+    with open(conf, "w") as fp:
+        fp.write("".join(os.path.basename(chunk_file_name(small, i)) + "\n" for i in (1, 2, 3)))
+    err = None
+    _reset_counts()
+    with faults.activate(faults.parse_plan("chunk1:ioerror@from=2,scope=read", seed=seed)):
+        try:
+            api.decode_file(small, conf, small + ".dec2", segment_bytes=4096)
+        except api.ChunkIntegrityError as e:
+            err = e
+    if err is None or set(err.bad_chunks) != {1} or os.path.exists(small + ".dec2"):
+        raise AssertionError(f"plain decode under the chunk-1 fault: {err!r}")
+    res["plain_decode_error"] = str(err)
+    launches += k1_runs()
+    log(phase="faults_maint", step="plain_decode_names_chunk1", error=str(err))
+
+    # The scrub read error: chunk 1 unreadable at the scrub boundary.
+    before = metrics.REGISTRY.snapshot()
+    with faults.activate(faults.parse_plan("chunk1:ioerror@scope=scrub", seed=seed)):
+        report = api.scan_file(small, segment_bytes=4096)
+    read_errors = _metric_delta(before, "rs_scrub_chunks_total", '{state="read_error"}')
+    if report["corrupt"] != [1] or report["decodable"] is not True or read_errors != 1:
+        raise AssertionError(f"scrub read error: {report}, read_error states {read_errors}")
+    res["scrub_read_error"] = {"corrupt": report["corrupt"], "missing": report["missing"],
+                               "decodable": report["decodable"]}
+    log(phase="faults_maint", step="scrub_read_error", **res["scrub_read_error"])
+    shutil.rmtree(d)
+    res["k1_launches"] = launches
+    return res
+
+
+def _chunk_digests(path: str) -> dict:
+    """SHA-256 of each of a k=10, n=14 archive's chunks (a repair rewrites
+    .METADATA's CRC lines in its own order, so the metadata is left out)."""
+    digests = archive_digests(path, 14)
+    digests.pop(os.path.basename(path) + ".METADATA")
+    return digests
+
+
+def _maint_cli(argv: list[str]) -> tuple[int, dict]:
+    from gpu_rscode_torch.maint import controller
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = controller.main(argv)
+    return rc, json.loads(buf.getvalue().splitlines()[-1])
+
+
+def _maint_drain(work: str, seed: int, device) -> dict:
+    """`rs maint --drain` on the card over damaged archives, then a drain
+    killed mid-repair and its restart."""
+    d = os.path.join(work, "maint")
+    os.makedirs(d, exist_ok=True)
+    ledger = os.path.join(d, "ledger.jsonl")
+    argv = ["--ledger", ledger, "--device", str(device), "--json", "--owner", "chip_smoke",
+            "--bytes-per-s", str(1 << 40)]
+    res: dict = {}
+    with _env(RS_RUNLOG=ledger, RS_RUNLOG_MAX_BYTES=None, RS_MAINT_CRASH=None, RS_HEALTH_SCRUB_MAX_AGE_S=None):
+        archives = []
+        for a in range(MAINT_ARCHIVES + 1):
+            path = os.path.join(d, f"maint_{a}.bin")
+            write_seeded(path, seed + a, MAINT_FILE_BYTES)
+            api.encode_file(path, 10, 4, checksums=True)
+            os.unlink(path)  # the chunks are the data now
+            archives.append(path)
+        crash_victim = archives.pop()
+        digests = {path: _chunk_digests(path) for path in archives + [crash_victim]}
+        for a, path in enumerate(archives):
+            _flip(chunk_file_name(path, 1 + a), [4096 * (a + 1)])
+            api.scan_file(path)
+        rc, doc = _maint_cli(argv)
+        repairs = [job for job in doc["jobs"] if job["kind"] == "repair"]
+        if rc != 0 or len(repairs) != MAINT_ARCHIVES:
+            raise AssertionError(f"maint dry run: rc {rc}, {doc}")
+        _reset_counts()
+        t0 = time.perf_counter()
+        rc, doc = _maint_cli([*argv, "--drain"])
+        wall = time.perf_counter() - t0
+        restored = all(_chunk_digests(path) == digests[path] for path in archives)
+        if rc != 0 or doc["remaining"] != 0 or not restored:
+            raise AssertionError(f"maint drain: rc {rc}, remaining {doc.get('remaining')}, restored {restored}")
+        res["drain"] = {"wall_s": wall, "GBps": MAINT_ARCHIVES * MAINT_FILE_BYTES / wall / 1e9, "jobs": doc["jobs"],
+                        "passes": doc["passes"], "k1_runs": k1_runs(), "job_walls": [
+                            j["wall_s"] for j in doc["stats"]["last_jobs"]]}
+        log(phase="faults_maint", step="maint_drain", **res["drain"])
+        launches = k1_runs()
+
+        # A drain killed mid-repair (after repair_file, before its rescan),
+        # then the restart: it must converge and the chunks come back.
+        from gpu_rscode_torch.maint import controller
+
+        _flip(chunk_file_name(crash_victim, 7), [12345])
+        api.scan_file(crash_victim)
+        _reset_counts()
+        with _env(RS_MAINT_CRASH="repair:mid"):
+            try:
+                _maint_cli([*argv, "--drain"])
+                crashed = False
+            except controller.MaintCrash:
+                crashed = True
+        rc, doc = _maint_cli([*argv, "--drain"])
+        restored = _chunk_digests(crash_victim) == digests[crash_victim]
+        if not crashed or rc != 0 or doc["remaining"] != 0 or not restored:
+            raise AssertionError(f"maint crash restart: crashed {crashed}, rc {rc}, {doc.get('remaining')}, "
+                                 f"restored {restored}")
+        res["crash_restart"] = {"stage": "repair:mid", "jobs_after_restart": doc["jobs"], "k1_runs": k1_runs()}
+        log(phase="faults_maint", step="maint_crash_restart", **res["crash_restart"])
+        launches += k1_runs()
+    shutil.rmtree(d)
+    res["k1_launches"] = launches
+    return res
+
+
+def _quantiles(values) -> dict:
+    values = sorted(values)
+    if not values:
+        return {"n": 0}
+    return {"n": len(values), "p50": values[len(values) // 2], "p99": values[min(len(values) - 1,
+                                                                                  int(0.99 * len(values)))],
+            "max": values[-1], "sum": round(sum(values), 6)}
+
+
+def _ab_arm_breakdown(ledger: str, report: dict) -> dict:
+    """Where an A/B arm's foreground time went, from the arm's own ledger
+    (the daemon's wide events and the api's rs_run records) and the
+    client's per-request rows: queue wait, service, the client's share
+    (upload and response outside the daemon's admit..ack), batch sizes,
+    the file ops' phase sums, and when the maint jobs ran against the
+    load (seconds after the first foreground admission)."""
+    from gpu_rscode_torch.obs import runlog
+
+    recs = runlog.read_records(ledger)
+    fg = [r for r in recs if r.get("kind") == "rs_request" and r.get("tenant") in ("alpha", "beta")
+          and r.get("op") in ("encode", "decode") and r.get("outcome") == "ok"]
+    t0 = min((r["ts"] - r["wall_s"] for r in fg), default=0.0)
+    out = {"queue_wait_s": _quantiles([r["stages"].get("dequeue", 0.0) for r in fg]),
+           "service_s": _quantiles([r["service_s"] for r in fg]),
+           "server_wall_s": _quantiles([r["wall_s"] for r in fg]),
+           "batches": _quantiles([r.get("batch") or 0 for r in fg]),
+           "last_fg_ack_s": round(max((r["ts"] - t0 for r in fg), default=0.0), 3)}
+    rows = [r for r in report.get("requests", []) if r.get("tenant") in ("alpha", "beta")
+            and r.get("op") in ("encode", "decode") and r.get("status") == 200 and r.get("stages")]
+    out["client_outside_s"] = _quantiles([r["wall_s"] - max(r["stages"].values()) for r in rows])
+    ops: dict = {}
+    for r in recs:
+        if r.get("kind") != "rs_run" or r.get("op") == "chaos_iter":
+            continue
+        cell = ops.setdefault(r["op"], {"n": 0, "wall_s": 0.0, "phases": {}, "ran_at_s": []})
+        cell["n"] += 1
+        cell["wall_s"] = round(cell["wall_s"] + r["wall_s"], 6)
+        for name, v in (r.get("phases") or {}).items():
+            cell["phases"][name] = round(cell["phases"].get(name, 0.0) + v, 6)
+        if r["op"] in ("repair", "scan"):
+            cell["ran_at_s"].append(round(r["ts"] - r["wall_s"] - t0, 3))
+    out["file_ops"] = ops
+    jobs = [(r["ts"] - r["wall_s"], r["ts"]) for r in recs
+            if r.get("kind") == "rs_run" and r.get("op") in ("repair", "scan") and r["ts"] - r["wall_s"] > t0]
+    out["slowest"] = [{"op": r["op"], "tenant": r["tenant"], "admit_s": round(r["ts"] - r["wall_s"] - t0, 3),
+                       "wall_s": r["wall_s"], "queue_wait_s": r["stages"].get("dequeue"), "service_s": r["service_s"],
+                       "batch": r.get("batch"),
+                       "beside_maint": any(a < r["ts"] and b > r["ts"] - r["wall_s"] for a, b in jobs)}
+                      for r in sorted(fg, key=lambda r: -r["wall_s"])[:4]]
+    return out
+
+
+def _maint_ab(work: str, device) -> dict:
+    """The daemon with --maint against the same traffic without it
+    (loadgen.run_maint_ab)."""
+    from gpu_rscode_torch.serve import loadgen
+
+    d = os.path.join(work, "maint_ab")
+    os.makedirs(d)
+    _reset_counts()
+    t0 = time.perf_counter()
+    reports = []
+    open_loop = loadgen.run_open_loop
+
+    def keep_report(*args, **kwargs):
+        reports.append(open_loop(*args, **kwargs))
+        return reports[-1]
+
+    loadgen.run_open_loop = keep_report
+    try:
+        with _env(RS_METRICS=None, RS_SLO=None, RS_MAINT=None, RS_SERVE_BATCH_MS=None):
+            off, on, margin = loadgen.run_maint_ab(archives=MAINT_ARCHIVES, size_bytes=MAINT_AB_BYTES, k=10, p=4,
+                                                   duration_s=MAINT_AB_SECONDS, rate=MAINT_AB_RATE,
+                                                   p99_ratio_max=1.25, workdir=d, quiet=True, device=device)
+    finally:
+        loadgen.run_open_loop = open_loop
+        for arm, report in zip(("maint_off", "maint_on"), reports):
+            log(phase="faults_maint", step="maint_ab_breakdown", arm=arm,
+                **_ab_arm_breakdown(os.path.join(d, arm, "ledger.jsonl"), report))
+    failed = {arm["arm"]: arm["summary"]["failed"] for arm in (off, on)}
+    if not on["maint_enabled"] or off["maint_enabled"] or any(failed.values()):
+        raise AssertionError(f"maint A/B: enabled {on['maint_enabled']}/{off['maint_enabled']}, failed {failed}")
+    res = {"wall_s": time.perf_counter() - t0, "k1_runs": k1_runs(), "p99_ratio": margin["p99_ratio"],
+           "converge_wait_s": on["converge_wait_s"], "pause_events": on["pause_events"],
+           "resume_events": on["resume_events"], "maint_jobs": on["maint_jobs"],
+           "arms": {arm["arm"]: {"fg_p50_s": arm["fg_p50_s"], "fg_p99_s": arm["fg_p99_s"],
+                                 "ok": arm["summary"]["ok"], "failed": arm["summary"]["failed"],
+                                 "rejected": arm["summary"]["rejected"],
+                                 "offered_rps": arm["summary"]["offered_rps"],
+                                 "achieved_rps": arm["summary"]["achieved_rps"]} for arm in (off, on)}}
+    log(phase="faults_maint", step="maint_ab", bytes=MAINT_AB_BYTES, seconds=MAINT_AB_SECONDS, rate=MAINT_AB_RATE,
+        **res)
+    shutil.rmtree(d)
+    res["k1_launches"] = res["k1_runs"]
+    return res
+
+
+def phase_faults_maint(work: str, seed: int, device) -> dict:
+    """Phase 5h: the fault and maintenance planes on the card (see the
+    module doc)."""
+    t_phase = time.perf_counter()
+    res: dict = {"chaos": []}
+    with _env(RS_METRICS="1", RS_FAULTS=None, RS_FAULTS_SEED=None, RS_RUNLOG=None, RS_MAINT=None):
+        for flags, chaos_seed in CHAOS_DIGESTS:
+            res["chaos"].append(_chaos_class(flags, chaos_seed, work, device))
+        res["faults"] = _fault_plane(work, seed)
+        res["maint"] = _maint_drain(work, seed + 100, device)
+        res["maint_ab"] = _maint_ab(work, device)
+    res["k1_launches"] = (sum(row["k1_runs"] for row in res["chaos"]) + res["faults"]["k1_launches"]
+                          + res["maint"]["k1_launches"] + res["maint_ab"]["k1_launches"])
+    res["seconds"] = time.perf_counter() - t_phase
+    log(phase="faults_maint_summary", seconds=res["seconds"], k1_launches=res["k1_launches"],
+        chaos_seconds=sum(row["wall_s"] for row in res["chaos"]), plan_cache=plan.PLAN_CACHE.stats())
+    return res
+
+
 def _store_shapes(calls) -> dict:
     """The store's K1 shapes from the GEMM log: the 64-object batches' E·Δ
     (appends to an open stripe), the 1,000 x 4 KiB batch's E·Δ, the
@@ -2836,6 +3250,7 @@ def main() -> int:
             store_res = phase_store(work, SEED + 8)
             store_res["seconds"] = time.perf_counter() - t_5f
             serve_res = phase_serve(work, SEED + 9, device)
+            faults_res = phase_faults_maint(work, SEED + 10, device)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         log(phase="strategies_summary", main_and_cli_seconds=strategies["seconds"],
@@ -2853,7 +3268,8 @@ def main() -> int:
         new_timings = phase_new_timings(device)
         kernels = kernel_entries(k1_err, grids, timings[0],
                                  main_res["pipelined"]["launches"] + resilience["k1_launches"]
-                                 + updates["k1_launches"] + store_res["k1_launches"] + serve_res["k1_launches"],
+                                 + updates["k1_launches"] + store_res["k1_launches"] + serve_res["k1_launches"]
+                                 + faults_res["k1_launches"],
                                  new_timings,
                                  tools["launches"])
     log(phase="wall", seconds=time.perf_counter() - t_start, quick=args.quick)

@@ -46,13 +46,24 @@ device), of its resilience reads: ``scan_file``, ``auto_decode_file``,
   do: every scan (its full per-chunk verdict), a syndrome attribution, a
   survivor that fails after the scan, a rebuild, an unrecoverable repair
   and every update, append or group (a generation bump).
+* The resilience boundaries (:mod:`.resilience`) sit where the JAX
+  package's do: the fault plane's read hook and the retry policy around
+  every chunk open (:func:`_open_chunk`) and segment gather, the write
+  hook around every drain (:mod:`.parallel.io_executor`).  They wrap IO
+  only: a GEMM on the device is never retried, and a kernel error raises.
+* Every file-level entry point runs under :func:`_observed_file_op`: the
+  retry budget rearmed, a ``trace_path=`` tracing session and span, the
+  run ledger's ``rs_run`` record and ``rs_file_ops_total``.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
+import inspect
 import os
 import threading
+import time
 from collections import OrderedDict
 from contextlib import closing, contextmanager, nullcontext
 from itertools import combinations
@@ -63,11 +74,12 @@ from . import native
 from . import plan as _plan
 from .codec import RSCodec, entry_device
 from .models.vandermonde import total_matrix
-from .obs import health as _obs_health
+from .obs import health as _obs_health, metrics as _obs_metrics, runlog as _obs_runlog, tracing as _obs_tracing
 from .ops.gf import get_field
 from .ops.inverse import SingularMatrixError, invert_matrix
 from .parallel.io_executor import DrainExecutor, FleetPipeline
 from .parallel.pipeline import AsyncWindow, DeviceStagingRing, SegmentPrefetcher, StreamLoop
+from .resilience import faults as _faults, retry as _retry
 from .utils.backend import resolve_device
 from .utils.fileformat import (
     append_checksums,
@@ -85,7 +97,6 @@ from .utils.fileformat import (
     write_conf,
     write_metadata,
 )
-from .utils.retry import int_env
 from .utils.timing import PhaseTimer
 
 # Natives per segment: bounds the host and device working set per dispatch.
@@ -106,6 +117,50 @@ class ChunkIntegrityError(ValueError):
         self.bad_chunks = dict(bad_chunks)
         names = ", ".join(f"{i}:{p}" for i, p in sorted(bad_chunks.items()))
         super().__init__(f"{reason}: {names}; pick different survivors in the conf file")
+
+
+def _observed_file_op(op: str):
+    """Wrap a file-level entry point with the observability surface, as the
+    JAX package does: a keyword-only ``trace_path=`` (like ``RS_TRACE``)
+    opens a reentrant tracing session around a top-level span, the retry
+    budget is rearmed (it bounds ONE operation's retry storm), every call,
+    success or failure, appends an ``rs_run`` record to the run ledger
+    (``RS_RUNLOG``), and a success counts in ``rs_file_ops_total`` and the
+    ``rs_file_op_wall_seconds`` quantiles."""
+
+    def deco(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            trace_path = kwargs.pop("trace_path", None)
+            _retry.reset_budget()
+            t0 = time.perf_counter()
+            # Entry snapshot of a caller's timer: nested fleet ops share
+            # one, and the record carries THIS op's delta.
+            phases0 = _obs_runlog.timer_phases(sig, args, kwargs) if _obs_runlog.enabled() else None
+            error: BaseException | None = None
+            try:
+                # The JAX package's _profile_session(): its place, once the
+                # profiler plane is ported.
+                with _obs_tracing.session(trace_path), _obs_tracing.span(op, lane="op"):
+                    out = fn(*args, **kwargs)
+            except BaseException as e:
+                error = e
+                raise
+            finally:
+                if _obs_runlog.enabled():
+                    _obs_runlog.record_file_op(op, sig, args, kwargs, wall=time.perf_counter() - t0, error=error,
+                                               phases_before=phases0)
+            _obs_metrics.counter("rs_file_ops_total", "file-level operations completed").labels(op=op).inc()
+            _obs_metrics.quantile("rs_file_op_wall_seconds",
+                                  "file-level operation wall seconds (streaming quantiles)").labels(
+                op=op).observe(time.perf_counter() - t0)
+            return out
+
+        return wrapper
+
+    return deco
 
 
 def _segment_cols(chunk_size: int, native_num: int, segment_bytes: int) -> int:
@@ -248,7 +303,7 @@ def _write_native_chunks(src, file_name, tmps, k, chunk, total_size, copy_step, 
                 crcs[i] = crc
 
     for i in range(k):
-        executor.submit(lambda i=i: write_one(i))
+        executor.submit(lambda i=i: write_one(i), nbytes=chunk)
 
 
 def _drain_parity(tag, out, loop: StreamLoop, parity_files, timer: PhaseTimer, crcs, k: int) -> None:
@@ -266,6 +321,7 @@ def _drain_parity(tag, out, loop: StreamLoop, parity_files, timer: PhaseTimer, c
         crcs.update(new_crcs)
 
 
+@_observed_file_op("encode")
 def encode_file(
     file_name: str,
     native_num: int,
@@ -316,10 +372,17 @@ def encode_file(
     loop = StreamLoop(codec.device, k, seg_cols, depth)
 
     def gather(off: int, cols: int):
-        # On the prefetch thread: native preads into the loop's buffer.
+        # On the prefetch thread: native preads into the loop's buffer.  A
+        # resilience read boundary: the fault hook and a transient retry
+        # (the read refills the same buffer, so a rerun is exact).
         with timer.phase("stage segment (io)"):
             slot, dst = loop.host_segment(cols)
-            return slot, native.stripe_read(file_name, chunk, k, off, cols, total_size, fallback_src=src, dst=dst)
+
+            def attempt():
+                _faults.on_read(file_name, scope="read")
+                return native.stripe_read(file_name, chunk, k, off, cols, total_size, fallback_src=src, dst=dst)
+
+            return slot, _retry.default_policy().call(attempt, op="encode_stage")
 
     parity_files: list = []
 
@@ -373,7 +436,7 @@ def _encode_file_interleaved(file_name: str, codec: RSCodec, total_size: int, *,
     contiguous read of the file (bytes ``[off*k, (off + cols)*k)``)
     transposed straight into a pinned slot of the loop
     (:func:`.native.interleave_read`); the slot stays held until the drain
-    has written its natives, then the parity.  The same ``.rs_tmp``
+    has written its natives and the parity.  The same ``.rs_tmp``
     atomicity, CRC lines, write-behind lane and fleet composition."""
     k, p, w = codec.native_num, codec.parity_num, codec.w
     sym = w // 8
@@ -386,10 +449,16 @@ def _encode_file_interleaved(file_name: str, codec: RSCodec, total_size: int, *,
     files: list = []
 
     def gather(off: int, cols: int):
-        # On the prefetch thread: one contiguous read, transposed into the slot.
+        # On the prefetch thread: one contiguous read, transposed into the
+        # slot; the same read boundary as the row gather.
         with timer.phase("stage segment (io)"):
             slot, dst = loop.host_segment(cols)
-            return slot, native.interleave_read(file_name, k, sym, off, cols, total_size, fallback_src=src, dst=dst)
+
+            def attempt():
+                _faults.on_read(file_name, scope="read")
+                return native.interleave_read(file_name, k, sym, off, cols, total_size, fallback_src=src, dst=dst)
+
+            return slot, _retry.default_policy().call(attempt, op="encode_stage")
 
     def drain(tag, payload) -> None:
         off, _cols = tag
@@ -402,11 +471,13 @@ def _encode_file_interleaved(file_name: str, codec: RSCodec, total_size: int, *,
             new_crcs.update({k + j: crc32_of(parity[j], crcs.get(k + j, 0)) for j in range(p)})
         with timer.phase("write natives (io)"):
             native.scatter_write(files[:k], natives, off)
-        loop.release(slot)
         with timer.phase("write parity (io)"):
             native.scatter_write(files[k:], parity, off)
         if new_crcs is not None:
             crcs.update(new_crcs)
+        # Last: the write boundary reruns this whole drain after a
+        # transient failure, and a rerun must read the same natives.
+        loop.release(slot)
 
     def finalize() -> None:
         for fp in files:
@@ -451,6 +522,7 @@ def _encode_file_interleaved(file_name: str, codec: RSCodec, total_size: int, *,
     return commit.written
 
 
+@_observed_file_op("encode_fleet")
 def encode_fleet(
     files,
     native_num: int,
@@ -513,14 +585,31 @@ def _write_empty_atomic(out_path: str) -> str:
     return out_path
 
 
-def _open_chunk(path: str, chunk: int, index: int) -> np.ndarray:
-    """Read-only byte view of a chunk file, checked against the chunk size."""
-    mm = np.zeros(0, dtype=np.uint8) if chunk == 0 else np.memmap(path, dtype=np.uint8, mode="r")
-    if mm.shape[0] < chunk:
-        raise ChunkIntegrityError({index: path}, reason=f"chunk truncated ({mm.shape[0]} of {chunk} bytes)")
-    return mm
+def _open_chunk(path: str, chunk: int, index: int | None = None, scope: str = "read") -> np.ndarray:
+    """Read-only byte view of a chunk file, checked against the chunk size
+    (an empty view for a zero-size archive).
+
+    A resilience boundary: the fault plane's read hook fires here
+    (``scope`` tells decode reads from scrub CRC reads), bitrot specs
+    corrupt the returned view (a copy; the file is untouched), and a
+    transient open failure retries under the default policy.  A chunk that
+    shrank below the chunk size raises :class:`ChunkIntegrityError` naming
+    ``index`` (a ``ValueError`` when the caller gave none)."""
+
+    def attempt() -> np.ndarray:
+        _faults.on_read(path, index=index, scope=scope)
+        mm = np.zeros(0, dtype=np.uint8) if chunk == 0 else np.memmap(path, dtype=np.uint8, mode="r")
+        if mm.shape[0] < chunk:
+            if index is not None:
+                raise ChunkIntegrityError({index: path},
+                                          reason=f"chunk truncated after scan ({mm.shape[0]} of {chunk} bytes)")
+            raise ValueError(f"chunk {path!r} is {mm.shape[0]} bytes, expected {chunk}")
+        return _faults.corrupt(path, index, mm, scope=scope)
+
+    return _retry.default_policy().call(attempt, op="chunk_open")
 
 
+@_observed_file_op("decode")
 def decode_file(
     in_file: str,
     conf_file: str,
@@ -586,7 +675,7 @@ def decode_file(
         for nm, row in zip(names, rows):
             path = resolve(nm)
             try:
-                maps.append(_open_chunk(path, chunk, row))
+                maps.append(_open_chunk(path, chunk, index=row))
             except ChunkIntegrityError as e:
                 bad_open.update(e.bad_chunks)
                 continue
@@ -697,6 +786,7 @@ def decode_file(
         # recovers the same bytes).
         native_pos, rec_row, dec_missing = st["native_pos"], st["rec_row"], st["dec_missing"]
         maps_l, fps_l, loop = st["maps"], st["fps"], st["loop"]
+        paths_l, rows_l = st["paths"], st["rows"]
 
         def drain(tag, out) -> None:
             # On the ordered writer lane: segments land in column order
@@ -718,10 +808,17 @@ def decode_file(
             committed["n"] = max(committed["n"], off // seg_cols + 1)
 
         def gather(off: int, cols: int):
-            # On the prefetch thread: native preads of the k survivors.
+            # On the prefetch thread: native preads of the k survivors.  A
+            # resilience read boundary: one fault-hook crossing per survivor
+            # and a transient retry into the same buffer.
             with timer.phase("stage segment (io)"):
                 slot, dst = loop.host_segment(cols)
-                return slot, native.gather_rows(fps_l, off, cols, fallback_maps=maps_l, dst=dst)
+
+                def attempt():
+                    _faults.on_reads(paths_l, rows_l)
+                    return native.gather_rows(fps_l, off, cols, fallback_maps=maps_l, dst=dst)
+
+                return slot, _retry.default_policy().call(attempt, op="decode_stage")
 
         # The lane's exit is the write barrier (standalone; in a fleet the
         # shared lane's); on an error it joins its workers first.
@@ -740,9 +837,12 @@ def decode_file(
                         out = loop.dispatch(lambda seg: codec.decode(dec_missing, seg), staged)
                     window.push(tag, out)
 
-    def _attribute() -> list[int]:
-        """Survivor rows a mid-stream read failure pins on: a chunk
-        truncated or unlinked under the decode shows in its fstat."""
+    def _attribute(e: BaseException) -> list[int]:
+        """Survivor rows a mid-stream read failure pins on: an injected
+        fault carries its chunk index; a real one is probed with fstat (a
+        chunk truncated or unlinked under the decode shows there)."""
+        if isinstance(e, _faults.InjectedReadError):
+            return [e.index] if e.index in st["rows"] else []
         bad = []
         for r, fp in zip(st["rows"], st["fps"]):
             try:
@@ -768,7 +868,7 @@ def decode_file(
                 r = pool.pop(0)
                 path = chunk_file_name(in_file, r)
                 try:
-                    m = _open_chunk(path, chunk, r)
+                    m = _open_chunk(path, chunk, index=r)
                     if verify_swaps and r in crcs and chunk_crc32(m, chunk, segment_bytes) != crcs[r]:
                         continue  # rotted after the scan; try the next
                 except (ValueError, OSError):
@@ -788,14 +888,14 @@ def decode_file(
 
     key = _fleet.register(cleanup) if _fleet is not None else None
     reselects = 0
-    max_reselects = max(0, int_env("RS_RETRY_RESELECT", 3))
+    max_reselects = max(0, _retry.int_env("RS_RETRY_RESELECT", 3))
     try:
         while True:
             try:
                 _stream(segments[committed["n"] :])
                 break
             except OSError as e:
-                bad = [r for r in _attribute() if r in st["rows"]]
+                bad = [r for r in _attribute(e) if r in st["rows"]]
                 if not bad:
                     raise  # unattributable (e.g. a write-side error)
                 # Name the failing rows' paths now: a failed _reselect
@@ -811,8 +911,15 @@ def decode_file(
                 if not swapped:
                     # The open-time contract: name the failing survivor, so
                     # that auto_decode_file can exclude it and reselect.
-                    raise ChunkIntegrityError(bad_paths, reason="survivor chunk failed mid-stream reads") from e
+                    raise ChunkIntegrityError(bad_paths,
+                                              reason="survivor chunk failed mid-stream reads past retries") from e
                 reselects += 1
+                _obs_tracing.instant("degraded_reselect", lane="retry", bad=",".join(map(str, bad)),
+                                     resume_segment=committed["n"])
+        if reselects:
+            _obs_metrics.counter("rs_degraded_decodes_total",
+                                 "decodes completed after mid-stream survivor reselection").labels(
+                stage="midstream").inc()
         if _fleet is not None:
             _fleet.commit(key, finalize)
         else:
@@ -876,27 +983,30 @@ def _scan_chunks(in_file: str, segment_bytes: int) -> _ChunkScan:
     # The per-chunk verdicts of the health plane's "scan" event: the full
     # map, an empty one included (a clean scan clears earlier damage).
     states: dict[int, str] = {}
+    chunk_states = _obs_metrics.counter("rs_scrub_chunks_total", "chunk verdicts from archive scans")
     for i in range(k + p):
         path = chunk_file_name(in_file, i)
         if not os.path.exists(path):
             states[i] = "missing"
-            continue
-        if os.path.getsize(path) < chunk:
+        elif os.path.getsize(path) < chunk:
             bad[i], states[i] = path, "truncated"  # damage, not loss
-            continue
-        if i in crcs:
+        elif i in crcs:
             try:
-                mm = _open_chunk(path, chunk, i)
+                # The fault plane's scrub boundary.
+                mm = _open_chunk(path, chunk, index=i, scope="scrub")
             except ChunkIntegrityError:
                 bad[i], states[i] = path, "truncated"  # shrank since the size check
-                continue
             except OSError:
-                bad[i], states[i] = path, "read_error"  # damage to record, the scan goes on
-                continue
-            if chunk_crc32(mm, chunk, segment_bytes) != crcs[i]:
-                bad[i], states[i] = path, "crc_mismatch"
-                continue
-        healthy.append(i)
+                # Unreadable after retries: damage to record, the scan goes on.
+                bad[i], states[i] = path, "read_error"
+            else:
+                if chunk_crc32(mm, chunk, segment_bytes) != crcs[i]:
+                    bad[i], states[i] = path, "crc_mismatch"
+        chunk_states.labels(state=states.get(i, "healthy")).inc()
+        if i not in states:
+            healthy.append(i)
+    _obs_metrics.counter("rs_scrub_archives_scanned_total", "archive health scans").labels(
+        outcome="damaged" if bad or len(healthy) < k + p else "clean").inc()
     _obs_health.record_damage("scan", in_file, states=states, k=k, p=p, w=meta.w, generation=meta.generation)
     return _ChunkScan(in_file, meta.total_size, p, k, total_mat, meta.w, crcs, chunk, healthy, bad,
                       layout=meta.layout, generation=meta.generation)
@@ -1021,7 +1131,7 @@ def _select_subset_retrying(scan: _ChunkScan, attempts: int | None = None):
     100 candidates after an :class:`UndecidedSubsetError`, up to
     ``RS_RETRY_SUBSET_ATTEMPTS`` batches (default 3)."""
     cap = 100
-    attempts = max(1, int_env("RS_RETRY_SUBSET_ATTEMPTS", 3)) if attempts is None else max(1, attempts)
+    attempts = max(1, _retry.int_env("RS_RETRY_SUBSET_ATTEMPTS", 3)) if attempts is None else max(1, attempts)
     last: UndecidedSubsetError | None = None
     for batch in range(attempts):
         try:
@@ -1031,6 +1141,7 @@ def _select_subset_retrying(scan: _ChunkScan, attempts: int | None = None):
     raise last
 
 
+@_observed_file_op("scan")
 def scan_file(in_file: str, *, segment_bytes: int = DEFAULT_SEGMENT_BYTES, syndrome: bool = False,
               device=None) -> dict:
     """Read-only health report of an archive (the scrubbing half of repair).
@@ -1099,6 +1210,7 @@ def scan_file(in_file: str, *, segment_bytes: int = DEFAULT_SEGMENT_BYTES, syndr
     return report
 
 
+@_observed_file_op("auto_decode")
 def auto_decode_file(in_file: str, output: str | None = None, *, conf_out: str | None = None,
                      **decode_kwargs) -> str:
     """Decode without a hand-written conf: scan the chunks beside
@@ -1128,7 +1240,7 @@ def auto_decode_file(in_file: str, output: str | None = None, *, conf_out: str |
     decode_kwargs["device"] = entry_device(decode_kwargs.get("device"), decode_kwargs.get("strategy", "auto"))
     segment_bytes = decode_kwargs.get("segment_bytes", DEFAULT_SEGMENT_BYTES)
     conf_path = conf_out or (in_file + ".auto.conf")
-    attempts = max(1, int_env("RS_RETRY_RESELECT", 3) + 1)
+    attempts = max(1, _retry.int_env("RS_RETRY_RESELECT", 3) + 1)
     excluded: dict[int, str] = {}
     locate_mode = _locate_mode()
     locate_kwargs = {key: decode_kwargs[key] for key in ("strategy", "device", "segment_bytes", "pipeline_depth",
@@ -1180,6 +1292,7 @@ def auto_decode_file(in_file: str, output: str | None = None, *, conf_out: str |
     raise AssertionError("unreachable: the last attempt returns or raises")
 
 
+@_observed_file_op("decode_fleet")
 def decode_fleet(
     files,
     outputs: dict[str, str] | None = None,
@@ -1274,10 +1387,12 @@ def _locate_segment_fixes(ctx, codec: RSCodec, loop: StreamLoop, seg: np.ndarray
         return ctx.locate(S.astype(np.int64)), packed
 
 
-def _survivor_reader(paths: list[str], timer: PhaseTimer):
-    """(files, segment producer) for a locate loop over ``paths``: each
-    segment is gathered into a fresh host buffer, which the caller
-    corrects in place."""
+def _survivor_reader(paths: list[str], indices: list[int], timer: PhaseTimer, *, op: str, scope: str = "read"):
+    """(files, segment producer) for a locate loop over ``paths`` (chunk
+    ``indices``): each segment is gathered into a fresh host buffer, which
+    the caller corrects in place.  A resilience read boundary (``scope``
+    ``scrub`` for the syndrome sweep): one fault-hook crossing per chunk and
+    a transient retry under ``op``."""
     fps = [open(path, "rb") for path in paths]
     try:
         maps = [np.memmap(path, dtype=np.uint8, mode="r") for path in paths]
@@ -1287,8 +1402,12 @@ def _survivor_reader(paths: list[str], timer: PhaseTimer):
         raise
 
     def gather(off: int, cols: int) -> np.ndarray:
-        with timer.phase("stage segment (io)"):
+        def attempt() -> np.ndarray:
+            _faults.on_reads(paths, indices, scope=scope)
             return native.gather_rows(fps, off, cols, fallback_maps=maps)
+
+        with timer.phase("stage segment (io)"):
+            return _retry.default_policy().call(attempt, op=op)
 
     return fps, gather
 
@@ -1312,7 +1431,8 @@ def _syndrome_sweep(in_file: str, scan: _ChunkScan, *, strategy: str = "auto", d
     sym = scan.w // 8
     seg_cols = _segment_cols(scan.chunk, scan.k, segment_bytes)
     loop = StreamLoop(codec.device, len(ctx.survivors), seg_cols, 1)
-    fps, gather = _survivor_reader([chunk_file_name(in_file, i) for i in ctx.survivors], timer)
+    fps, gather = _survivor_reader([chunk_file_name(in_file, i) for i in ctx.survivors], ctx.survivors, timer,
+                                   op="syndrome_stage", scope="scrub")
     located: set[int] = set()
     errors = 0
     try:
@@ -1331,6 +1451,7 @@ def _syndrome_sweep(in_file: str, scan: _ChunkScan, *, strategy: str = "auto", d
     return ("silent_bitrot" if located else "clean"), located, errors, True
 
 
+@_observed_file_op("locate_decode")
 def locate_decode_file(
     in_file: str,
     output: str | None = None,
@@ -1403,7 +1524,8 @@ def locate_decode_file(
     tmp_path = out_path + ".rs_tmp"
     check_loop = StreamLoop(codec.device, len(ctx.survivors), seg_cols, 1)
     rec_loop = StreamLoop(codec.device, k, seg_cols, 1) if dec_missing is not None else None
-    fps, gather = _survivor_reader([chunk_file_name(in_file, i) for i in ctx.survivors], timer)
+    fps, gather = _survivor_reader([chunk_file_name(in_file, i) for i in ctx.survivors], ctx.survivors, timer,
+                                   op="locate_stage")
     try:
         out_fp = open(tmp_path, "wb")
     except BaseException:
@@ -1475,6 +1597,7 @@ def locate_decode_file(
 # -- repair ------------------------------------------------------------------------
 
 
+@_observed_file_op("repair")
 def repair_file(
     in_file: str,
     *,
@@ -1586,9 +1709,15 @@ def _repair_streamed(in_file: str, scan: _ChunkScan, chosen: list[int], inv, *, 
 
     def gather(off: int, cols: int):
         # On the prefetch thread: survivor reads overlap the chunk writes.
+        # The decode stage's read boundary: fault hook + transient retry.
         with timer.phase("stage segment (io)"):
             slot, dst = loop.host_segment(cols)
-            return slot, native.gather_rows(surv_fps, off, cols, fallback_maps=surv_maps, dst=dst)
+
+            def attempt():
+                _faults.on_reads(surv_paths, chosen)
+                return native.gather_rows(surv_fps, off, cols, fallback_maps=surv_maps, dst=dst)
+
+            return slot, _retry.default_policy().call(attempt, op="repair_stage")
 
     def finalize() -> None:
         for t in targets:
@@ -1632,6 +1761,7 @@ def _repair_streamed(in_file: str, scan: _ChunkScan, chosen: list[int], inv, *, 
     return targets
 
 
+@_observed_file_op("repair_fleet")
 def repair_fleet(
     files,
     *,
@@ -1747,6 +1877,7 @@ def repair_fleet(
 # rolled back on failure or at the next open (recover_archive).
 
 
+@_observed_file_op("update")
 def update_file(file_name: str, at: int, data=None, *, src: str | None = None, strategy: str = "auto", device=None,
                 segment_bytes: int = DEFAULT_SEGMENT_BYTES, timer: PhaseTimer | None = None) -> dict:
     """Overwrite bytes [at, at+len) of the archived file in place (``rs
@@ -1763,7 +1894,6 @@ def update_file(file_name: str, at: int, data=None, *, src: str | None = None, s
     generation, ...)."""
     from .update import apply_update
 
-    # The _observed_file_op("update") wrapper here once that plane is ported.
     out = apply_update(file_name, at, data, src=src, strategy=strategy, device=device,
                       segment_bytes=segment_bytes, timer=timer)
     # The generation moved past the last verified scrub: the health plane
@@ -1772,6 +1902,7 @@ def update_file(file_name: str, at: int, data=None, *, src: str | None = None, s
     return out
 
 
+@_observed_file_op("append")
 def append_file(file_name: str, data=None, *, src: str | None = None, strategy: str = "auto", device=None,
                 segment_bytes: int = DEFAULT_SEGMENT_BYTES, timer: PhaseTimer | None = None) -> dict:
     """Grow the archived file by the payload bytes (``rs append ARCHIVE
@@ -1782,7 +1913,6 @@ def append_file(file_name: str, data=None, *, src: str | None = None, strategy: 
     the op summary with the new ``total_size``."""
     from .update import apply_append
 
-    # The _observed_file_op("append") wrapper here once that plane is ported.
     out = apply_append(file_name, data, src=src, strategy=strategy, device=device, segment_bytes=segment_bytes,
                       timer=timer)
     # The generation moved past the last verified scrub: the health plane
@@ -1791,6 +1921,7 @@ def append_file(file_name: str, data=None, *, src: str | None = None, strategy: 
     return out
 
 
+@_observed_file_op("update_many")
 def update_file_many(file_name: str, edits, *, strategy: str = "auto", device=None,
                      segment_bytes: int = DEFAULT_SEGMENT_BYTES, timer: PhaseTimer | None = None,
                      group_edits: int | None = None, group_tag: str | None = None, stage_hook=None) -> dict:
@@ -1810,7 +1941,6 @@ def update_file_many(file_name: str, edits, *, strategy: str = "auto", device=No
     GPU present.  Returns the aggregate summary."""
     from .update import apply_update_many
 
-    # The _observed_file_op("update_many") wrapper here once that plane is ported.
     out = apply_update_many(file_name, edits, strategy=strategy, device=device, segment_bytes=segment_bytes,
                            timer=timer, group_edits=group_edits, group_tag=group_tag, stage_hook=stage_hook)
     # The generation moved past the last verified scrub: the health plane
@@ -1841,6 +1971,7 @@ def recover_archive(file_name: str) -> str:
 # bucket's GEMMs run; None means CUDA (K1) and raises with no GPU present.
 
 
+@_observed_file_op("object_put")
 def put_object(root: str, bucket: str, key: str, data=None, *, src: str | None = None, create: bool = True,
                k: int | None = None, p: int | None = None, w: int | None = None, stripe_bytes: int | None = None,
                device=None) -> dict:
@@ -1852,8 +1983,6 @@ def put_object(root: str, bucket: str, key: str, data=None, *, src: str | None =
     Returns the location dict (``arc``, ``at``, ``len``, ``crc``, ``gen``).
     For PUT bursts, :func:`put_objects` commits the whole batch under ONE
     group-committed stripe append and ONE index fsync."""
-    # The _observed_file_op("object_put") wrapper hooks here once the
-    # observability plane is ported.
     if (data is None) == (src is None):
         raise ValueError("pass exactly one of data= or src=")
     if src is not None:
@@ -1874,24 +2003,22 @@ def put_objects(root: str, bucket: str, items, *, create: bool = True, k: int | 
     return b.put_many(items)
 
 
+@_observed_file_op("object_get")
 def get_object(root: str, bucket: str, key: str, *, device=None) -> bytes:
     """Read one object's bytes (``rs object get``).  Reconstructs ONLY the
     object's byte range (touched column windows; a degraded decode when a
     native chunk is damaged), verified against the object's own CRC32 from
     the index, never silently wrong."""
-    # The _observed_file_op("object_get") wrapper hooks here once the
-    # observability plane is ported.
     from . import store as _store
 
     return _store.open_bucket(root, bucket, device=device).get(key)
 
 
+@_observed_file_op("object_delete")
 def delete_object(root: str, bucket: str, key: str, *, device=None) -> dict:
     """Delete one object (``rs object rm``): durable tombstone first (the
     commit point), then the dead range is zeroed through the delta-parity
     patch lane; space returns at the next compaction."""
-    # The _observed_file_op("object_delete") wrapper hooks here once the
-    # observability plane is ported.
     from . import store as _store
 
     return _store.open_bucket(root, bucket, device=device).delete(key)
@@ -1925,13 +2052,12 @@ def stat_object(root: str, bucket: str, key: str, *, device=None) -> dict:
     return _store.open_bucket(root, bucket, device=device).stat(key)
 
 
+@_observed_file_op("object_compact")
 def compact_bucket(root: str, bucket: str, *, force: bool = False, device=None) -> dict:
     """Rewrite live objects out of dead-heavy sealed archives and retire
     them all-or-nothing (``rs object compact``; ``RS_STORE_COMPACT_DEAD_FRAC``
     sets the trigger, ``force=True`` compacts any sealed archive with dead
     bytes)."""
-    # The _observed_file_op("object_compact") wrapper hooks here once the
-    # observability plane is ported.
     from . import store as _store
 
     return _store.open_bucket(root, bucket, device=device).compact(force=force)

@@ -27,7 +27,11 @@ patch an archive in place.  The subcommand ``object``
 ``serve`` (:mod:`.serve.daemon`), ``loadgen`` (:mod:`.serve.loadgen`),
 ``slo`` (:mod:`.obs.slo`), ``health`` (:mod:`.obs.health`) and
 ``serve-metrics`` (:mod:`.obs.serve`) run the serving daemon and its
-observability planes.
+observability planes.  ``--faults SPEC`` activates the deterministic fault
+plane (:mod:`.resilience.faults`) around the operation; the subcommands
+``chaos`` (:mod:`.resilience.chaos`) and ``maint``
+(:mod:`.maint.controller`) run the chaos harness and the
+background-maintenance loop.
 
 ``--device`` defaults to CUDA; without a GPU the command fails unless
 ``--device cpu`` or ``--strategy cpu`` is given.
@@ -39,6 +43,7 @@ import getopt
 import json
 import os
 import sys
+from contextlib import nullcontext
 
 from .utils.timing import PhaseTimer
 
@@ -91,6 +96,9 @@ Extensions: [--generator vandermonde|cauchy]
             no CRCs, reported as state "silent_bitrot")
             [--device DEVICE] (default cuda; cpu runs the plain PyTorch
             path; with no GPU and no --device the command fails)
+            [--faults SPEC] (deterministic fault injection at the IO
+            boundaries, e.g. 'read:ioerror@p=0.02;write:torn@after=1MiB';
+            seeded by RS_FAULTS_SEED.  RS_RETRY_* tune the retry policy)
 Subcommands: update ARCHIVE --at OFF --in DELTA [--recover] [--json]
             (delta-parity partial-stripe update: overwrite a byte range
             of the archived file in place — parity' = parity XOR E*delta,
@@ -124,7 +132,14 @@ Subcommands: update ARCHIVE --at OFF --in DELTA [--recover] [--json]
             health [--ledger LEDGER] [--json] [--watch [SECS]]
             (risk-ranked fleet durability report from the damage ledger)
             serve-metrics [--port P] [--addr A] [--runlog LEDGER]
-            (foreground /metrics, /healthz and /runs endpoint)"""
+            (foreground /metrics, /healthz and /runs endpoint)
+            chaos [--seed S] [--iters N] [--silent|--update [--group]|
+            --object|--health|--maint] [--device DEVICE] ...
+            (seeded chaos harness: encode -> corrupt -> scrub/auto-decode/
+            repair, differential-checked; bit-reproducible per seed)
+            maint [--root D] [--ledger L] [--drain|--watch [SECS]]
+            [--device DEVICE] ... (background maintenance: repair/scrub
+            from the damage ledger, compaction of dead-heavy buckets)"""
 
 
 def _fail(msg: str) -> int:
@@ -326,12 +341,20 @@ def main(argv: list[str] | None = None) -> int:
         return _object_main(argv[1:])
     if argv and argv[0] in ("update", "append"):
         return _update_main(argv[1:], argv[0])
+    if argv and argv[0] == "chaos":
+        from .resilience.chaos import main as _chaos_main
+
+        return _chaos_main(argv[1:])
+    if argv and argv[0] == "maint":
+        from .maint.controller import main as _maint_main
+
+        return _maint_main(argv[1:])
     try:
         opts, extra = getopt.gnu_getopt(
             argv,
             "S:s:P:p:K:k:N:n:E:e:I:i:C:c:O:o:DdHh",
             ["width=", "layout=", "checksum", "no-verify", "generator=", "segment-bytes=", "strategy=", "device=", "auto", "locate",
-             "repair", "scrub", "syndrome", "quiet"],
+             "repair", "scrub", "syndrome", "quiet", "faults="],
         )
     except getopt.GetoptError as e:
         return _fail(f"rs: {e}")
@@ -348,6 +371,7 @@ def main(argv: list[str] | None = None) -> int:
     layout = "row"
     generator, strategy, device = "vandermonde", "auto", None
     auto = locate = repair = scrub = syndrome = quiet = False
+    faults_spec = None
     repair_requested = bool(flags_seen & {"--repair", "--scrub"})
     for flag, val in opts:
         f = flag.lower()
@@ -403,11 +427,23 @@ def main(argv: list[str] | None = None) -> int:
             syndrome = True
         elif f == "--quiet":
             quiet = True
+        elif f == "--faults":
+            faults_spec = val
 
     from .codec import VALID_STRATEGIES
 
     if strategy not in VALID_STRATEGIES:
         return _fail(f"rs: unknown --strategy {strategy!r}; valid strategies are " + "|".join(VALID_STRATEGIES))
+    fault_plan = None
+    if faults_spec is not None:
+        # Validated here, a usage error; activated around the operation
+        # below, as RS_FAULTS=SPEC would be, without touching the env.
+        from .resilience import faults as _faults
+
+        try:
+            fault_plan = _faults.parse_plan(faults_spec, seed=_faults.env_seed())
+        except ValueError as e:
+            return _fail(f"rs: bad --faults spec: {e}")
     if repair and scrub:
         return _fail("rs: --repair and --scrub conflict")
     if repair:
@@ -463,55 +499,59 @@ def main(argv: list[str] | None = None) -> int:
         # reference's gridDim.x cap (encode.cu:348-355).
         kwargs["segment_bytes"] = max(1, tile_hint) * 128 * 1024
     timer = PhaseTimer(enabled=True)
+    fault_ctx = nullcontext() if fault_plan is None else _faults.activate(fault_plan)
     try:
-        if op == "encode":
-            if native_num <= 0 or total_num <= 0 or not in_file:
-                return _fail("rs: encoding requires -k, -n and -e")
-            if total_num <= native_num:
-                return _fail(f"rs: need n > k (got n={total_num}, k={native_num})")
-            files = [in_file, *extra]
-            encode_kwargs = dict(generator=generator, checksums=checksum, w=width, layout=layout, timer=timer, **kwargs)
-            if extra:
-                api.encode_fleet(files, native_num, total_num - native_num, **encode_kwargs)
+        with fault_ctx:
+            if op == "encode":
+                if native_num <= 0 or total_num <= 0 or not in_file:
+                    return _fail("rs: encoding requires -k, -n and -e")
+                if total_num <= native_num:
+                    return _fail(f"rs: need n > k (got n={total_num}, k={native_num})")
+                files = [in_file, *extra]
+                encode_kwargs = dict(generator=generator, checksums=checksum, w=width, layout=layout, timer=timer,
+                                     **kwargs)
+                if extra:
+                    api.encode_fleet(files, native_num, total_num - native_num, **encode_kwargs)
+                else:
+                    api.encode_file(in_file, native_num, total_num - native_num, **encode_kwargs)
+                nbytes = sum(os.path.getsize(f) for f in files)
+            elif op == "scrub":
+                report = api.scan_file(in_file, syndrome=syndrome, device=device,
+                                       **({"segment_bytes": kwargs["segment_bytes"]}
+                                          if "segment_bytes" in kwargs else {}))
+                print(json.dumps(report))
+                # "unknown" (the subset search capped) is not proven healthy.
+                return 0 if report["decodable"] is True else 1
+            elif op == "repair":
+                if extra:
+                    fleet = [in_file, *extra]
+                    results = api.repair_fleet(fleet, timer=timer, **kwargs)
+                    for f in fleet:
+                        print(f"{f}: rebuilt {results[f]}" if results[f] else f"{f}: healthy")
+                    nbytes = sum(os.path.getsize(f) for f in fleet if os.path.exists(f))
+                else:
+                    rebuilt = api.repair_file(in_file, timer=timer, **kwargs)
+                    print(f"rebuilt chunks: {rebuilt}" if rebuilt else "archive healthy")
+                    nbytes = os.path.getsize(in_file) if os.path.exists(in_file) else 0
             else:
-                api.encode_file(in_file, native_num, total_num - native_num, **encode_kwargs)
-            nbytes = sum(os.path.getsize(f) for f in files)
-        elif op == "scrub":
-            report = api.scan_file(in_file, syndrome=syndrome, device=device,
-                                   **({"segment_bytes": kwargs["segment_bytes"]} if "segment_bytes" in kwargs else {}))
-            print(json.dumps(report))
-            # "unknown" (the subset search capped) is not proven healthy.
-            return 0 if report["decodable"] is True else 1
-        elif op == "repair":
-            if extra:
-                fleet = [in_file, *extra]
-                results = api.repair_fleet(fleet, timer=timer, **kwargs)
-                for f in fleet:
-                    print(f"{f}: rebuilt {results[f]}" if results[f] else f"{f}: healthy")
-                nbytes = sum(os.path.getsize(f) for f in fleet if os.path.exists(f))
-            else:
-                rebuilt = api.repair_file(in_file, timer=timer, **kwargs)
-                print(f"rebuilt chunks: {rebuilt}" if rebuilt else "archive healthy")
-                nbytes = os.path.getsize(in_file) if os.path.exists(in_file) else 0
-        else:
-            if not in_file or (not conf_file and not auto and not locate):
-                return _fail("rs: decoding requires -i and -c (or --auto/--locate)")
-            verify = False if no_verify else None
-            if locate:
-                out = api.locate_decode_file(in_file, out_file, timer=timer, **kwargs)
-                nbytes = os.path.getsize(out)
-            elif auto and extra:
-                fleet = [in_file, *extra]
-                results = api.decode_fleet(fleet, verify_checksums=verify, timer=timer, **kwargs)
-                for f in fleet:
-                    print(f"{f}: decoded -> {results[f]}")
-                nbytes = sum(os.path.getsize(results[f]) for f in fleet)
-            elif auto:
-                out = api.auto_decode_file(in_file, out_file, verify_checksums=verify, timer=timer, **kwargs)
-                nbytes = os.path.getsize(out)
-            else:
-                out = api.decode_file(in_file, conf_file, out_file, verify_checksums=verify, timer=timer, **kwargs)
-                nbytes = os.path.getsize(out)
+                if not in_file or (not conf_file and not auto and not locate):
+                    return _fail("rs: decoding requires -i and -c (or --auto/--locate)")
+                verify = False if no_verify else None
+                if locate:
+                    out = api.locate_decode_file(in_file, out_file, timer=timer, **kwargs)
+                    nbytes = os.path.getsize(out)
+                elif auto and extra:
+                    fleet = [in_file, *extra]
+                    results = api.decode_fleet(fleet, verify_checksums=verify, timer=timer, **kwargs)
+                    for f in fleet:
+                        print(f"{f}: decoded -> {results[f]}")
+                    nbytes = sum(os.path.getsize(results[f]) for f in fleet)
+                elif auto:
+                    out = api.auto_decode_file(in_file, out_file, verify_checksums=verify, timer=timer, **kwargs)
+                    nbytes = os.path.getsize(out)
+                else:
+                    out = api.decode_file(in_file, conf_file, out_file, verify_checksums=verify, timer=timer, **kwargs)
+                    nbytes = os.path.getsize(out)
     except (ValueError, RuntimeError, OSError) as e:
         print(f"rs: error: {e}", file=sys.stderr)
         return 1

@@ -11,6 +11,10 @@ streaming quantiles.
   ``snapshot()`` (plain dict, JSON-ready) and ``render_text()``
   (Prometheus text exposition).  Both are equal, byte for byte, to the
   package this one was ported from for the same sequence of operations.
+* **Digest**: :meth:`Registry.snapshot_json` is ``json.dumps(snapshot(),
+  sort_keys=True)``, built from each series' JSON cached against the
+  series' mutation count, so a ledger record's digest re-serialises only
+  the series that changed since the last one.
 * **Off by default**: the accessors (:func:`counter`, :func:`gauge`,
   :func:`histogram`, :func:`quantile`) return a shared no-op :data:`NULL`
   unless metrics are enabled (``RS_METRICS=1``, read per call, or
@@ -23,6 +27,7 @@ Import cost: stdlib only.
 from __future__ import annotations
 
 import bisect
+import json
 import os
 import threading
 
@@ -91,10 +96,35 @@ def _label_str(key: tuple) -> str:
 
 
 class _ChildBase:
-    __slots__ = ("_lock",)
+    # ``gen`` counts mutations (bumped under the lock); ``_json`` caches
+    # (gen, the series' snapshot value as JSON) for Registry.snapshot_json.
+    __slots__ = ("_lock", "gen", "_json")
 
     def __init__(self, lock: threading.Lock):
         self._lock = lock
+        self.gen = 0
+        self._json = (-1, "")
+
+    def _value(self):
+        """The series' snapshot value; called under the lock."""
+        return self.value
+
+    def to_json(self) -> str:
+        with self._lock:
+            gen, cached = self._json
+            if gen == self.gen:
+                return cached
+            gen, value = self.gen, self._value()
+        text = json.dumps(_finish_value(value), sort_keys=True)
+        self._json = (gen, text)
+        return text
+
+
+def _finish_value(value):
+    # A quantile series' computed percentiles ride along in its snapshot.
+    if isinstance(value, dict) and "reservoir" in value:
+        value["quantiles"] = _percentile.state_quantiles(value)
+    return value
 
 
 class _CounterChild(_ChildBase):
@@ -109,6 +139,7 @@ class _CounterChild(_ChildBase):
             raise ValueError(f"counter increment must be >= 0, got {n}")
         with self._lock:
             self.value += n
+            self.gen += 1
 
 
 class _GaugeChild(_ChildBase):
@@ -121,14 +152,17 @@ class _GaugeChild(_ChildBase):
     def set(self, v):
         with self._lock:
             self.value = v
+            self.gen += 1
 
     def inc(self, n=1):
         with self._lock:
             self.value += n
+            self.gen += 1
 
     def dec(self, n=1):
         with self._lock:
             self.value -= n
+            self.gen += 1
 
 
 class _HistogramChild(_ChildBase):
@@ -148,11 +182,18 @@ class _HistogramChild(_ChildBase):
             self.counts[i] += 1
             self.sum += v
             self.count += 1
+            self.gen += 1
+
+    def _value(self):
+        return {"count": self.count, "sum": self.sum, "buckets": self._cumulative(self.counts)}
 
     def cumulative(self) -> dict:
         """``{le: cumulative count}`` including the +Inf bucket."""
         with self._lock:
             counts = list(self.counts)
+        return self._cumulative(counts)
+
+    def _cumulative(self, counts) -> dict:
         out, acc = {}, 0
         for b, c in zip(self.bounds, counts):
             acc += c
@@ -262,6 +303,10 @@ class _QuantileChild(_ChildBase):
     def observe(self, v):
         with self._lock:
             self.est.observe(v)
+            self.gen += 1
+
+    def _value(self):
+        return self.est.state()
 
     def state(self) -> dict:
         with self._lock:
@@ -384,6 +429,19 @@ class Registry:
                     values[_label_str(key)] = child.value
             out[m.name] = {"type": m.kind, "help": m.help, "values": values}
         return out
+
+    def snapshot_json(self) -> str:
+        """``json.dumps(self.snapshot(), sort_keys=True)``, byte for byte,
+        re-serialising only the series mutated since the last call."""
+        with self._lock:
+            metrics = sorted(self._metrics.items())
+        fams = []
+        for name, m in metrics:
+            values = {_label_str(key): child.to_json() for key, child in m.series().items()}
+            body = ", ".join(f"{json.dumps(label)}: {text}" for label, text in sorted(values.items()))
+            fams.append(f'{json.dumps(name)}: {{"help": {json.dumps(m.help)}, "type": {json.dumps(m.kind)}, '
+                        f'"values": {{{body}}}}}')
+        return "{" + ", ".join(fams) + "}"
 
     def render_text(self) -> str:
         """Prometheus text exposition (scrape-format) of the registry:

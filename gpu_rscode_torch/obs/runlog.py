@@ -14,8 +14,12 @@
   payload).  The damage plane (:mod:`.health`) and the request lifecycle
   plane (:mod:`.reqtrace`) write through it.
 
-The per-file-operation ``rs_run`` records (``record_file_op``) and the
-history surface (``filter_records``) are not ported yet.
+* The per-file-operation ``rs_run`` records: :func:`record_file_op` (op,
+  ``{k, n, w, strategy}`` config, input bytes, wall, phases, outcome) with
+  :func:`timer_phases` for a shared timer's entry snapshot, which
+  ``api._observed_file_op`` calls around every file-level entry point.
+
+The history surface (``filter_records``) is not ported yet.
 
 Import cost: the standard library and :mod:`..utils.backend`.
 """
@@ -273,8 +277,86 @@ def metrics_digest() -> str | None:
 
     if not _metrics.enabled():
         return None
-    snap = json.dumps(_metrics.REGISTRY.snapshot(), sort_keys=True)
+    snap = _metrics.REGISTRY.snapshot_json()
     return hashlib.sha256(snap.encode()).hexdigest()[:12]
+
+
+def timer_phases(sig, args: tuple, kwargs: dict) -> dict | None:
+    """Best-effort snapshot of the bound ``timer`` argument's phases, taken
+    at operation entry so the record carries the delta: nested fleet ops
+    share one timer."""
+    try:
+        if sig is None:
+            return None
+        timer = sig.bind_partial(*args, **kwargs).arguments.get("timer")
+        if timer is not None and getattr(timer, "enabled", False):
+            return timer.phase_report()
+    except Exception:  # noqa: BLE001 - the ledger never fails the operation it records
+        pass
+    return None
+
+
+def record_file_op(op: str, sig, args: tuple, kwargs: dict, *, wall: float, error: BaseException | None,
+                   phases_before: dict | None = None) -> None:
+    """Build and append the ledger record of one file-level operation, the
+    JAX package's record key for key.  Config fields are extracted by
+    parameter NAME from the wrapped function's signature; a field that
+    cannot be extracted is omitted, and recording never raises."""
+    try:
+        bound = {}
+        if sig is not None:
+            try:
+                ba = sig.bind_partial(*args, **kwargs)
+                ba.apply_defaults()  # strategy/w defaults are real config
+                bound = ba.arguments
+            except TypeError:
+                pass  # the caller's own TypeError is already propagating
+        files: list[str] = []
+        primary = bound.get("file_name") or bound.get("in_file")
+        if isinstance(primary, str):
+            files = [primary]
+        elif bound.get("files") is not None:
+            files = [f for f in bound["files"] if isinstance(f, str)]
+        config: dict = {}
+        k = bound.get("native_num")
+        if k is not None:
+            config["k"] = int(k)
+            p_num = bound.get("parity_num")
+            if p_num is not None:
+                config["n"] = int(k) + int(p_num)
+        if bound.get("w") is not None:
+            config["w"] = int(bound["w"])
+        if bound.get("strategy") is not None:
+            config["strategy"] = str(bound["strategy"])
+        if bound.get("mesh") is not None:
+            config["mesh"] = True
+        nbytes = 0
+        for f in files:
+            try:
+                nbytes += os.path.getsize(f)
+            except OSError:
+                pass  # decode/repair inputs are chunk sets, not the file
+        phases = None
+        timer = bound.get("timer")
+        if timer is not None and getattr(timer, "enabled", False):
+            phases = timer.phase_report()
+            if phases_before:
+                # THIS op's share of a shared (fleet) timer.
+                phases = {k: round(v - phases_before.get(k, 0.0), 6) for k, v in phases.items()
+                          if v - phases_before.get(k, 0.0) > 0}
+        record({
+            "op": op,
+            "files": len(files),
+            "file": files[0] if files else None,
+            "config": config,
+            "bytes": nbytes,
+            "wall_s": round(wall, 6),
+            "phases": phases,
+            "outcome": "error" if error is not None else "ok",
+            "error": type(error).__name__ if error is not None else None,
+        })
+    except Exception as e:  # noqa: BLE001 - the ledger must never fail the operation
+        warnings.warn(f"runlog record for {op!r} failed: {type(e).__name__}: {e}", stacklevel=2)
 
 
 def record(fields: dict, ledger_path: str | None = None) -> None:

@@ -22,11 +22,17 @@ taken off the dispatch thread.
 * :func:`run_rows`: a small reader pool for the NumPy fallback of the
   native gathers (:mod:`..native`).
 
+Every drain crosses the resilience write boundary (:mod:`..resilience`),
+as the JAX package's do: the fault plane's write hook fires once per
+attempt on the drain's lane (named from the writer thread, ``writer-0``,
+or ``drain-sync`` inline) with the task's ``nbytes``, and a transient
+failure retries the whole drain under the default policy.
+
 Knobs: ``RS_IO_WRITERS`` (writer threads, 0 = inline; default 1),
 ``RS_IO_WRITE_DEPTH`` (queued drains before ``submit`` blocks; default 2 x
 writers), ``RS_IO_READERS`` (fallback read pool; default min(4, cores)).
 
-Stdlib only.
+Import cost: the standard library only.
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ import os
 import queue
 import threading
 from collections.abc import Callable
+
+from ..obs import tracing as _tracing
+from ..resilience import faults as _faults, retry as _retry
 
 
 def writer_count(default: int = 1) -> int:
@@ -70,7 +79,7 @@ def reader_count() -> int:
 class DrainExecutor:
     """Bounded background executor for the pipeline's drain stage.
 
-    ``submit(fn)`` enqueues one drain and returns at once unless ``depth``
+    ``submit(fn, nbytes=...)`` enqueues one drain and returns at once unless ``depth``
     drains are already queued (backpressure).  A worker's exception is
     latched and re-raised at the next ``submit`` or ``flush``; after it the
     workers discard the rest of the queue, so ``flush`` cannot deadlock.
@@ -99,19 +108,40 @@ class DrainExecutor:
         self._started = False
 
     def _run(self) -> None:
+        lane = threading.current_thread().name.replace("rs-io-", "")
         while True:
             item = self._q.get()
             try:
                 if item is self._STOP:
                     return
+                fn, nbytes = item
                 if self._error is None and not self._cancelled:
-                    item()
+                    self._run_task(fn, nbytes, lane)
             except BaseException as e:  # noqa: BLE001 - relayed to submit/flush
                 with self._lock:
                     if self._error is None:
                         self._error = e
             finally:
                 self._q.task_done()
+
+    @staticmethod
+    def _run_task(fn: Callable[[], None], nbytes: int, lane: str) -> None:
+        # The resilience write boundary: the fault hook fires per attempt,
+        # and a transient failure retries the whole drain.  Drains are
+        # idempotent (offset-addressed writes, restart-from-scratch copies,
+        # CRCs advanced only after the write landed); the lane's attempted
+        # bytes (torn faults) count a task once, not per retry.
+        first = True
+
+        def attempt() -> None:
+            nonlocal first
+            nb = nbytes if first else 0
+            first = False
+            _faults.on_write(lane, nb)
+            fn()
+
+        with _tracing.span("write_drain", lane=lane, nbytes=nbytes):
+            _retry.default_policy().call(attempt, op="write_drain")
 
     def _check_error(self) -> None:
         with self._lock:
@@ -123,24 +153,27 @@ class DrainExecutor:
             self._cancelled = True
             raise err
 
-    def submit(self, fn: Callable[[], None]) -> None:
-        """Enqueue one drain; blocks while ``depth`` are queued.  Re-raises
-        a pending worker exception instead of queueing behind it."""
+    def submit(self, fn: Callable[[], None], *, nbytes: int = 0) -> None:
+        """Enqueue one drain of ``nbytes`` attempted bytes; blocks while
+        ``depth`` are queued.  Re-raises a pending worker exception instead
+        of queueing behind it."""
         if self.workers == 0:
-            fn()
+            self._run_task(fn, nbytes, "drain-sync")
             return
         if not self._started:
             raise RuntimeError("DrainExecutor must be entered as a context manager before submit() "
                                "(worker threads not started)")
         self._check_error()
-        self._q.put(fn)
+        self._q.put((fn, nbytes))
 
     def submit_pwrite(self, fileno: int, data: bytes, offset: int) -> None:
         """Queue one offset-addressed ``os.pwrite``: the patch lane of the
         in-place update (:mod:`..update`).  An ``ordered=True`` executor
         commits patches in submit order, the ascending-offset order per
         chunk that the incremental CRCs are accounted in; a short write
-        raises ``OSError``."""
+        raises ``OSError``.  The drain crosses the write boundary like
+        every other; a retry re-pwrites the same bytes at the same
+        offset."""
         nbytes = len(data)
 
         def task() -> None:
@@ -148,7 +181,7 @@ class DrainExecutor:
             if done != nbytes:
                 raise OSError(f"short pwrite ({done} of {nbytes} bytes at {offset})")
 
-        self.submit(task)
+        self.submit(task, nbytes=nbytes)
 
     def flush(self) -> None:
         """Barrier: wait until every submitted drain ran (or was discarded

@@ -40,6 +40,17 @@ PINNED_STAGES = 0
 STREAM_DISPATCHES = 0
 
 
+def _nbytes(result) -> int:
+    """Bytes a dispatched result holds: a tensor's ``nbytes``, or the host
+    tensor's of a CUDA (host, event) handle.  Any other pair (the
+    interleaved encode's (segment, output)) and a pure-copy drain count 0,
+    as a tuple and None do in the JAX package."""
+    if isinstance(result, tuple):
+        host = result[0]
+        return int(host.nbytes) if isinstance(host, torch.Tensor) else 0
+    return int(getattr(result, "nbytes", 0) or 0)
+
+
 class AsyncWindow:
     """Bounded window of in-flight results.
 
@@ -63,7 +74,10 @@ class AsyncWindow:
     def _drain_oldest(self) -> None:
         tag, result = self._pending.pop(0)
         if self.executor is not None:
-            self.executor.submit(lambda: self.consume(tag, result))
+            # The byte count of the result feeds the drain's write boundary
+            # (the fault plane's per-lane accounting), as a JAX device
+            # array's ``nbytes`` does there.
+            self.executor.submit(lambda: self.consume(tag, result), nbytes=_nbytes(result))
         else:
             self.consume(tag, result)
 

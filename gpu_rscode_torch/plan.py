@@ -304,10 +304,16 @@ _CAPTURE_LOCK = threading.Lock()
 
 
 def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    # A stream of its own priority class: PyTorch hands out default-priority
+    # streams round-robin from a pool of 32, so after 32 StreamLoops the
+    # capture stream would also be some loop's H2D, compute or D2H stream,
+    # and another thread's copy or event record on it while this thread
+    # captures joins the capture (the pinned allocator's event queries then
+    # fail with "invalid argument").  No StreamLoop asks for this priority.
     key = str(device)
     stream = _SIDE_STREAMS.get(key)
     if stream is None:
-        stream = _SIDE_STREAMS[key] = torch.cuda.Stream(device)
+        stream = _SIDE_STREAMS[key] = torch.cuda.Stream(device, priority=-1)
     return stream
 
 

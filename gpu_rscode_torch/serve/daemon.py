@@ -38,11 +38,17 @@ One long-lived process in front of the warm plan cache (docs/SERVE.md):
   (``?stats=1`` for the space-accounting report).
 * ``GET /healthz`` ``/metrics`` ``/stats`` — liveness JSON, Prometheus
   exposition of the live registry, queue/batcher introspection.
+* ``GET /maint`` — the background-maintenance plane's state
+  (docs/MAINT.md): ``maint=True`` / ``RS_MAINT`` / ``--maint`` start a
+  :class:`~..maint.controller.MaintController` whose repair, scrub and
+  compaction jobs are admitted through this daemon's DRR queue as the
+  ``maint`` tenant (4x cost), under the foreground per-(tenant, name)
+  lock of their target, on the daemon's own device, and run on a
+  one-thread lane of their own rather than a foreground worker slot
+  (a repair holding a slot shows in the foreground's tail).  ``--faults SPEC``
+  activates the fault plane for the daemon's life.
 * ``GET /perf`` — answers 501: the baseline/drift report's plane
-  (obs/perfbase) is not ported yet.  ``GET /maint`` answers as a daemon
-  with the maintenance plane off; ``maint=True`` / ``RS_MAINT`` /
-  ``--maint`` and ``--faults`` are refused (maint/ and resilience/faults
-  are not ported yet).
+  (obs/perfbase) is not ported yet.
 
 Tenancy: ``X-RS-Tenant`` header (or ``?tenant=``) names the tenant —
 its own namespace directory under the root AND its own fairness queue
@@ -80,6 +86,7 @@ from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from ..maint import controller as _maint
 from ..obs import (
     health as _health,
     metrics as _metrics,
@@ -102,16 +109,7 @@ DEFAULT_REQUEST_TIMEOUT_S = 300.0
 DEFAULT_MAX_BODY = 1 << 30
 DEFAULT_LIST_LIMIT = 1000
 
-_MAINT_REFUSAL = "the maintenance plane (maint/) is not ported yet"
-_FAULTS_REFUSAL = "the fault plane (resilience/faults) is not ported yet"
 _PERF_REFUSAL = "the perf-baseline plane (obs/perfbase) is not ported yet"
-
-
-def _maint_env() -> bool:
-    """``RS_MAINT`` truthiness, as the JAX package's maintenance plane
-    reads it."""
-    val = os.environ.get("RS_MAINT", "").strip().lower()
-    return val not in ("", "0", "false", "no", "off")
 
 
 def list_limit_env() -> int:
@@ -739,10 +737,8 @@ class ServeDaemon:
                  slo_spec: str | None = None,
                  obj_cache_bytes: int | None = None,
                  maint: bool | None = None, device=None):
-        # Refusals and the device come first: a daemon that cannot run
-        # must fail here, before it binds, not at its first request.
-        if (_maint_env() if maint is None else bool(maint)):
-            raise NotImplementedError(_MAINT_REFUSAL)
+        # The device comes first: a daemon that cannot run must fail
+        # here, before it binds, not at its first request.
         self.device = resolve_device(device)
         self.root = os.path.abspath(root)
         os.makedirs(self.root, exist_ok=True)
@@ -764,6 +760,10 @@ class ServeDaemon:
         self._server.rs_daemon = self
         self.port = self._server.server_address[1]
         self._pool: ThreadPoolExecutor | None = None
+        # The maint tenant's own executor lane (one thread): a repair
+        # admitted by the DRR queue runs beside the foreground's workers
+        # instead of taking one of their slots for its whole duration.
+        self._maint_pool: ThreadPoolExecutor | None = None
         self._serve_thread: threading.Thread | None = None
         self._sched_thread: threading.Thread | None = None
         # One slot per worker: the scheduler may not pop work out of the
@@ -788,6 +788,24 @@ class ServeDaemon:
         # the windowed read lane on GET /o/; RS_OBJ_CACHE_BYTES caps it
         # (0 disables — every GET reports cache=bypass).
         self.objcache = _objcache.ObjectCache(obj_cache_bytes)
+        # Background-maintenance plane (docs/MAINT.md): repair/scrub/
+        # compaction jobs admitted through THIS queue as the maint
+        # tenant, paced by the SLO burn-rate governor, on this daemon's
+        # device.  Off unless RS_MAINT is set or the caller passes
+        # maint=True (`rs serve --maint`); off means no controller
+        # object, zero threads.
+        self.maint = None
+        if _maint.enabled() if maint is None else bool(maint):
+            self.maint = _maint.MaintController(
+                store_roots=self._maint_store_roots,
+                # Restart-stable owner: a daemon that died mid-job and
+                # came back on the same root reclaims its own leases.
+                owner=f"{os.uname().nodename}:serve:{self.root}",
+                slo_report=self.slo.export_gauges
+                if self.slo.objectives else None,
+                submit=self._submit_maint_job,
+                device=self.device,
+            )
         self._trace_cm = None  # daemon-lifetime RS_TRACE session
         self._started = time.time()
         self._closed = False
@@ -821,15 +839,63 @@ class ServeDaemon:
                 stack.enter_context(self._name_lock(key))
             yield
 
-    # -- maintenance plane (not ported yet) ----------------------------------
+    # -- maintenance plane (docs/MAINT.md) -----------------------------------
+
+    def _maint_store_roots(self) -> list[str]:
+        """Per-tenant dirs under the data root — where object-store
+        buckets live (`/o/` routes open buckets at root/tenant/name)."""
+        try:
+            return [os.path.join(self.root, t)
+                    for t in sorted(os.listdir(self.root))
+                    if os.path.isdir(os.path.join(self.root, t))]
+        except OSError:
+            return []
+
+    def _maint_lock_key(self, target: str) -> tuple:
+        """The FOREGROUND (tenant, name) lock a maintenance job must
+        hold: a repair of tenant alpha's archive excludes alpha's own
+        writes to it, not just other maint jobs.  Targets outside the
+        data root key on their absolute path."""
+        rel = os.path.relpath(os.path.abspath(target), self.root)
+        parts = rel.split(os.sep)
+        if not rel.startswith("..") and len(parts) >= 2:
+            return (parts[0], parts[1])
+        return ("rs-maint", os.path.abspath(target))
+
+    def _submit_maint_job(self, job, *, name: str, cost: int):
+        """The controller's dispatch hook: wrap the job closure as an
+        op="maint" request, admit it through the DRR queue (tenant =
+        the maint tenant, cost pre-inflated by the controller), block
+        until the executor ran it.  QueueFull/Draining surface as
+        backpressure — the controller's pass stops and retries next
+        interval instead of overwhelming a loaded daemon."""
+        req = Request("maint", self.maint.tenant, name, "", cost=cost)
+        req.job = job
+        req.lock_key = self._maint_lock_key(name)
+        try:
+            self.queue.submit(req)
+        except (QueueFull, Draining) as e:
+            raise _maint.MaintBackpressure(str(e)) from e
+        if not req.done.wait(timeout=600.0):
+            raise TimeoutError(f"maint job on {name!r} did not finish")
+        if req.outcome == "ok":
+            return req.result
+        if isinstance(req.error, BaseException):
+            raise req.error
+        raise RuntimeError(f"maint job outcome {req.outcome!r}")
 
     def maint_report(self) -> dict:
-        """``GET /maint``: the JAX daemon's answer with the plane off."""
-        return {
-            "kind": "rs_maint", "enabled": False,
-            "error": "maintenance plane off (start with --maint or "
-            "RS_MAINT=1)",
-        }
+        """``GET /maint``: controller state + a fresh work-queue
+        snapshot (the queue block replays the damage ledger per call —
+        the same freshness contract as ``GET /health``)."""
+        if self.maint is None:
+            return {
+                "kind": "rs_maint", "enabled": False,
+                "error": "maintenance plane off (start with --maint or "
+                "RS_MAINT=1)",
+            }
+        return {"kind": "rs_maint", "enabled": True,
+                **self.maint.stats(include_queue=True)}
 
     @staticmethod
     def _promote_upload(req: Request) -> None:
@@ -876,6 +942,9 @@ class ServeDaemon:
             self._trace_cm.__enter__()
         self._pool = ThreadPoolExecutor(
             max_workers=self.workers, thread_name_prefix="rs-serve-exec")
+        if self.maint is not None:
+            self._maint_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="rs-serve-maint")
         self._sched_thread = threading.Thread(
             target=self._schedule, name="rs-serve-sched", daemon=True)
         self._sched_thread.start()
@@ -883,6 +952,8 @@ class ServeDaemon:
             target=self._server.serve_forever, name="rs-serve-http",
             daemon=True)
         self._serve_thread.start()
+        if self.maint is not None:
+            self.maint.start()
         return self
 
     def warm(self, k: int, p: int, *, w: int = 8, strategy: str = "auto",
@@ -928,12 +999,18 @@ class ServeDaemon:
         if self._closed:
             return
         self._closed = True
+        if self.maint is not None:
+            # Stop sourcing new maintenance jobs BEFORE the drain; an
+            # in-flight job finishes inside it like any other request.
+            self.maint.stop(wait=False)
         if drain:
             self.drain(timeout)
         else:
             self.queue.drain()
         if self._pool is not None:
             self._pool.shutdown(wait=drain)
+        if self._maint_pool is not None:
+            self._maint_pool.shutdown(wait=drain)
         if self._serve_thread is not None:
             # shutdown() handshakes with a RUNNING serve_forever loop —
             # on a bound-but-never-started daemon it would block forever.
@@ -1043,8 +1120,12 @@ class ServeDaemon:
                 "enabled": _reqtrace.enabled(),
                 "ring": _reqtrace.ring_capacity(),
             },
-            # Background-maintenance plane: not ported yet, always off.
-            "maint": {"enabled": False},
+            # Background-maintenance plane (docs/MAINT.md): controller
+            # state without the queue snapshot (a ledger replay) — that
+            # lives on GET /maint, not in every /stats scrape.
+            "maint": ({"enabled": True, **self.maint.stats()}
+                      if self.maint is not None
+                      else {"enabled": False}),
         }
 
     def _store_block(self) -> dict:
@@ -1109,6 +1190,11 @@ class ServeDaemon:
                 for group in batches:
                     with self._inflight_cond:
                         self._inflight += len(group)
+                    if group[0].op == "maint" and self._maint_pool is not None:
+                        # The controller runs one job at a time, so the
+                        # lane is free whenever the queue yields a job.
+                        self._maint_pool.submit(self._run_group, group, False)
+                        continue
                     self._slots.acquire()  # blocks until a worker frees
                     self._pool.submit(self._run_group, group)
                 continue
@@ -1180,7 +1266,9 @@ class ServeDaemon:
                 self.requests_failed += 1
         req.finish(outcome, result=result, error=error)
 
-    def _run_group(self, group: list[Request]) -> None:
+    def _run_group(self, group: list[Request], slot: bool = True) -> None:
+        """Execute one batch; ``slot``: it holds a foreground worker slot
+        (every batch but a maint job on the maint lane)."""
         try:
             _metrics.histogram(
                 "rs_serve_batch_size",
@@ -1254,7 +1342,8 @@ class ServeDaemon:
                     self.discard_upload(req)
                     self._finish(req, "error", error=e)
         finally:
-            self._slots.release()
+            if slot:
+                self._slots.release()
             with self._inflight_cond:
                 self._inflight -= len(group)
                 self._inflight_cond.notify_all()
@@ -1474,6 +1563,16 @@ class ServeDaemon:
         # hot path pays nothing extra when telemetry is off.
         timer = PhaseTimer(enabled=req.stages is not None)
         try:
+            if req.op == "maint":
+                # Maintenance job closure (docs/MAINT.md): runs under
+                # the FOREGROUND (tenant, name) lock of its target so a
+                # repair excludes that archive's own writes; errors land
+                # in the generic handler like any other op (no-wedge).
+                with self._name_lock(req.lock_key
+                                     or (req.tenant, req.name)):
+                    result = req.job()
+                self._finish(req, "ok", result=result)
+                return
             with self._name_lock((req.tenant, req.name)):
                 if req.op == "encode":
                     self._promote_upload(req)
@@ -1580,15 +1679,17 @@ def main(argv=None) -> int:
                     "K,N[,W] before listening, bucket-sized for BYTES-"
                     "sized files when given (repeatable)")
     ap.add_argument("--faults", metavar="SPEC", default=None,
-                    help="the deterministic fault plane (not ported yet: "
-                    "refused)")
+                    help="activate the deterministic fault plane for the "
+                    "daemon's lifetime (same grammar as RS_FAULTS; "
+                    "docs/RESILIENCE.md)")
     ap.add_argument("--slo", metavar="SPEC", default=None,
                     help="per-tenant SLO objectives (same grammar as "
                     "RS_SLO, e.g. 'default:encode:p99=250ms,avail=99.9'; "
                     "GET /slo reports attainment + burn rates)")
     ap.add_argument("--maint", action="store_true",
-                    help="the background-maintenance plane (not ported "
-                    "yet: refused, as is RS_MAINT=1)")
+                    help="run the background-maintenance plane (repair/"
+                    "scrub/compaction as a throttled tenant; also "
+                    "RS_MAINT=1 — docs/MAINT.md)")
     ap.add_argument("--device", default=None,
                     help="where every GEMM runs (default: the CUDA device; "
                     "without a GPU pass --device cpu)")
@@ -1607,9 +1708,23 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
 
+    fault_ctx = contextlib.nullcontext()
     if args.faults:
-        print(f"rs serve: {_FAULTS_REFUSAL}", file=sys.stderr)
-        return 2
+        from ..resilience import faults as _faults
+
+        try:
+            plan = _faults.parse_plan(args.faults, seed=_faults.env_seed())
+        except ValueError as e:
+            print(f"rs serve: bad --faults spec: {e}", file=sys.stderr)
+            return 2
+        fault_ctx = _faults.activate(plan)
+    with fault_ctx:
+        return _serve_until_signal(args, root)
+
+
+def _serve_until_signal(args, root: str) -> int:
+    """``rs serve`` once its flags are parsed: run the daemon until
+    SIGTERM/SIGINT, then drain."""
     try:
         daemon = ServeDaemon(
             root, port=args.port, addr=args.addr, depth=args.depth,
@@ -1620,8 +1735,8 @@ def main(argv=None) -> int:
     except _slo.SLOSpecError as e:
         print(f"rs serve: bad --slo/RS_SLO spec: {e}", file=sys.stderr)
         return 2
-    except (NotImplementedError, RuntimeError) as e:
-        # The refused planes, and no device to run on.
+    except RuntimeError as e:
+        # No device to run on.
         print(f"rs serve: {e}", file=sys.stderr)
         return 2
     except OSError as e:
@@ -1655,7 +1770,8 @@ def main(argv=None) -> int:
     print(f"rs serve: listening on http://{daemon.addr}:{daemon.port} "
           f"(root {daemon.root}, depth {daemon.queue.max_depth}, "
           f"batch {daemon.batcher.batch_ms}ms x{daemon.batcher.max_batch}, "
-          f"{daemon.workers} workers, {daemon.device}) "
+          f"{daemon.workers} workers, {daemon.device}"
+          f"{', maint on' if daemon.maint is not None else ''}) "
           f"— SIGTERM drains", file=sys.stderr)
     try:
         stop.wait()

@@ -3,9 +3,10 @@
 The port's copy of the JAX package's ``serve/loadgen.py``: the same
 arrival plan for the same seed, the same request mix and the same capture
 rows.  ``device`` (``--device``) is where a spawned daemon and the A/B
-arms run; None means the CUDA device and raises with no GPU present.  The
-maintenance A/B (``--maint-ab``) and fault injection (``--faults``) are
-refused: maint/ and resilience/faults are not ported yet.
+arms run; None means the CUDA device and raises with no GPU present.
+The maintenance A/B (``--maint-ab``, :func:`run_maint_ab`) runs two
+daemons on that device, and ``--faults`` with ``--spawn`` activates the
+fault plane in the spawned daemon's process for the run.
 
 Serving performance needs a generator that does NOT slow down when the
 server does: arrivals follow a seeded Poisson process (exponential
@@ -34,6 +35,7 @@ A/B resident arm); ``--url`` points at an external one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -439,10 +441,6 @@ def run_open_loop(base_url: str, *, duration_s: float, rate: float,
             "requests": rec.requests}
 
 
-_MAINT_REFUSAL = "the maintenance plane (maint/) is not ported yet"
-_FAULTS_REFUSAL = "the fault plane (resilience/faults) is not ported yet"
-
-
 # -- A/B: resident daemon vs CLI-subprocess-per-file --------------------------
 
 def _cli_env() -> dict:
@@ -815,10 +813,237 @@ def run_object_cache_ab(*, objects: int, object_bytes: int, gets: int,
     return [row_on, row_off, row_small, margin]
 
 
-def run_maint_ab(**_kwargs) -> list[dict]:
-    """The maintenance-plane A/B needs ``rs serve --maint``, which is not
-    ported yet: refused."""
-    raise NotImplementedError(_MAINT_REFUSAL)
+def _fg_latency(report: dict, tenants: set, q: str) -> float | None:
+    """Worst quantile ``q`` (a ``latency_s`` key, e.g. ``"0.99"``)
+    across the foreground tenants' encode/decode cells — the latency
+    the maint A/B gates on."""
+    worst = None
+    for row in report["tenants"]:
+        if row["tenant"] not in tenants or row["op"] not in ("encode",
+                                                            "decode"):
+            continue
+        val = (row.get("latency_s") or {}).get(q)
+        if val is not None and (worst is None or val > worst):
+            worst = val
+    return worst
+
+
+def run_maint_ab(*, archives: int, size_bytes: int, k: int, p: int,
+                 w: int = 8, duration_s: float = 10.0, rate: float = 8.0,
+                 p99_ratio_max: float = 1.25, workdir: str,
+                 quiet: bool = False, device=None) -> list[dict]:
+    """The maintenance-plane margin (docs/MAINT.md): identical damaged
+    fleets + identical foreground traffic through two daemons — one
+    with ``rs serve --maint`` on, one off.
+
+    Each arm seeds ``archives`` archives with one bit-rotted chunk each
+    (scanned into a private damage ledger), fires a sacrificial
+    ``monkey`` tenant salvo of guaranteed-expiring decodes — a 1 ms
+    ``X-RS-Deadline-Ms`` against the daemon's 5 ms batch window, so
+    every one admits, expires with 504, and burns the deliberately
+    fragile ``monkey:decode:avail=50`` objective over one short
+    ``RS_SLO_WINDOWS`` window (pre-queue 404s never reach the SLO
+    plane; expired admissions do) — making the burn-rate governor
+    demonstrably PAUSE maintenance mid-run, then drives the alpha/beta
+    open loop.
+    The ON arm must converge — burn decays as the monkey samples age
+    out, the governor resumes, every repair drains, and the rotted
+    chunk bytes are byte-verified restored — while the OFF arm proves
+    the damage does NOT self-heal (every repair still queued) and
+    provides the foreground latency baseline: the ON arm's worst
+    foreground encode/decode p99 must stay within ``p99_ratio_max`` of
+    it, and the governor must have logged at least one pause event.
+    Both arms' daemons, their maint jobs and the seeding run on
+    ``device`` (None: CUDA, raising with no GPU present).
+    """
+    from .daemon import ServeDaemon
+    from .. import api
+    from ..obs import health as _health
+    from ..utils.backend import resolve_device
+    from ..utils.fileformat import chunk_file_name
+
+    device = resolve_device(device)
+
+    fg = {"alpha", "beta"}
+    monkey_n = 12
+
+    def run_arm(arm: str, maint_on: bool) -> dict:
+        arm_dir = os.path.join(workdir, arm)
+        root = os.path.join(arm_dir, "root")
+        ledger = os.path.join(arm_dir, "ledger.jsonl")
+        os.makedirs(os.path.join(root, "alpha"), exist_ok=True)
+        saved = {kk: os.environ.get(kk)
+                 for kk in ("RS_RUNLOG", "RS_RUNLOG_MAX_BYTES",
+                            "RS_SLO_WINDOWS", "RS_MAINT_INTERVAL_S",
+                            "RS_HEALTH_SCRUB_MAX_AGE_S")}
+        daemon = None
+        try:
+            os.environ["RS_RUNLOG"] = ledger
+            os.environ.pop("RS_RUNLOG_MAX_BYTES", None)
+            os.environ.pop("RS_HEALTH_SCRUB_MAX_AGE_S", None)
+            # One SHORT SLO window: the monkey burn must both fire the
+            # pause AND age out mid-run so the resume half of the
+            # hysteresis is exercised too (a long window would hold the
+            # burn for the whole run and starve the ON arm's repairs).
+            os.environ["RS_SLO_WINDOWS"] = "6"
+            os.environ["RS_MAINT_INTERVAL_S"] = "0.2"
+
+            # Seeded damage, identical per arm: encode, clean scan,
+            # rot 16 bytes of chunk 1, damage scan.
+            pristine: dict[str, bytes] = {}
+            victims = []
+            rng = random.Random(20260807)
+            body = rng.randbytes(size_bytes)
+            for a in range(archives):
+                fname = os.path.join(root, "alpha", f"maintab_{a}.bin")
+                with open(fname, "wb") as fp:
+                    fp.write(body)
+                api.encode_file(fname, k, p, checksums=True, w=w,
+                                device=device)
+                api.scan_file(fname, device=device)
+                cf = chunk_file_name(fname, 1)
+                pristine[fname] = open(cf, "rb").read()
+                with open(cf, "r+b") as fp:
+                    fp.seek(64)
+                    fp.write(rng.randbytes(16))
+                api.scan_file(fname, device=device)
+                victims.append(fname)
+
+            # The monkey's own (healthy, unscanned) archive: its decodes
+            # must ADMIT to be observed, then expire on the deadline.
+            os.makedirs(os.path.join(root, "monkey"), exist_ok=True)
+            burn_f = os.path.join(root, "monkey", "burn.bin")
+            with open(burn_f, "wb") as fp:
+                fp.write(rng.randbytes(8192))
+            api.encode_file(burn_f, k, p, checksums=True, w=w,
+                            device=device)
+
+            daemon = ServeDaemon(root, port=0,
+                                 slo_spec="monkey:decode:avail=50",
+                                 maint=maint_on, device=device)
+            daemon.start()
+            daemon.warm(k, p, w=w, file_bytes=size_bytes)
+            base = f"http://127.0.0.1:{daemon.port}"
+
+            # The sacrificial burn: a 1 ms deadline cannot survive the
+            # 5 ms harvest window — every salvo member admits, expires
+            # with 504, and burns avail=50 at 2x budget.
+            for _ in range(monkey_n):
+                mreq = urllib.request.Request(
+                    f"{base}/decode?name=burn.bin", data=b"",
+                    method="POST",
+                    headers={"X-RS-Tenant": "monkey",
+                             "X-RS-Deadline-Ms": "1"})
+                try:
+                    with urllib.request.urlopen(mreq, timeout=30) as rr:
+                        rr.read()
+                except urllib.error.HTTPError as e:
+                    e.read()
+                    e.close()
+
+            report = run_open_loop(
+                base, duration_s=duration_s, rate=rate,
+                tenants=[("alpha", 3.0), ("beta", 1.0)],
+                size_bytes=size_bytes, k=k, p=p, w=w,
+                decode_frac=0.3, seed=20260807, quiet=quiet)
+
+            # ON arm: wait for the queue to drain (the monkey window
+            # must age out first — resume, then repairs).
+            maint_doc: dict = {}
+            converge_s = None
+            if maint_on:
+                t0 = time.monotonic()
+                while time.monotonic() - t0 < 120.0:
+                    maint_doc = _scrape_json(base, "/maint")
+                    q = maint_doc.get("queue") or {}
+                    if (q.get("repair", 0) == 0 and q.get("scrub", 0) == 0
+                            and q.get("compact", 0) == 0
+                            and not maint_doc.get("paused")):
+                        converge_s = round(time.monotonic() - t0, 3)
+                        break
+                    time.sleep(0.25)
+            else:
+                maint_doc = _scrape_json(base, "/maint")
+        finally:
+            if daemon is not None:
+                daemon.close(drain=True, timeout=120)
+            for kk, vv in saved.items():
+                if vv is None:
+                    os.environ.pop(kk, None)
+                else:
+                    os.environ[kk] = vv
+
+        state = _health.load(ledger)
+        repairs_left = len([it for it in _health.work_queue(state)
+                            if it["action"] == "repair"])
+        restored = all(
+            open(chunk_file_name(f, 1), "rb").read() == pristine[f]
+            for f in victims)
+        return {
+            "kind": "maint_ab", "arm": arm, "archives": archives,
+            "size_bytes": size_bytes, "damaged": archives,
+            "repairs_left": repairs_left, "chunks_restored": restored,
+            "converge_wait_s": converge_s,
+            "pause_events": maint_doc.get("pause_events"),
+            "resume_events": maint_doc.get("resume_events"),
+            "maint_enabled": bool(maint_doc.get("enabled")),
+            "maint_jobs": maint_doc.get("jobs"),
+            "fg_p50_s": _fg_latency(report, fg, "0.5"),
+            "fg_p99_s": _fg_latency(report, fg, "0.99"),
+            "summary": report["summary"],
+            "tenants": report["tenants"],
+            "config": {"k": k, "n": k + p, "w": w,
+                       "duration_s": duration_s, "rate": rate,
+                       "monkey_decodes": monkey_n,
+                       "slo": "monkey:decode:avail=50", "windows_s": [6]},
+        }
+
+    row_off = run_arm("maint_off", False)
+    row_on = run_arm("maint_on", True)
+
+    # The contract, checked loudly (a capture that silently records a
+    # broken run would read as a blessing):
+    if row_off["repairs_left"] != archives or row_off["chunks_restored"]:
+        raise RuntimeError(
+            f"off arm self-healed? {row_off['repairs_left']} of "
+            f"{archives} repairs left, restored="
+            f"{row_off['chunks_restored']}")
+    if row_on["repairs_left"] != 0 or not row_on["chunks_restored"]:
+        raise RuntimeError(
+            f"maint arm did not converge: {row_on['repairs_left']} "
+            f"repair(s) left, restored={row_on['chunks_restored']}")
+    if not row_on["pause_events"]:
+        raise RuntimeError(
+            "burn-rate governor never paused — the monkey burn did not "
+            "register")
+    ratio = (row_on["fg_p99_s"] / row_off["fg_p99_s"]
+             if row_on["fg_p99_s"] and row_off["fg_p99_s"] else None)
+    margin = {
+        "kind": "maint_ab_margin", "archives": archives,
+        "size_bytes": size_bytes,
+        "fg_p99_off_s": row_off["fg_p99_s"],
+        "fg_p99_on_s": row_on["fg_p99_s"],
+        "p99_ratio": round(ratio, 3) if ratio is not None else None,
+        "p99_ratio_max": p99_ratio_max,
+        "repairs_converged": True,
+        "repairs_left_off": row_off["repairs_left"],
+        "pause_events": row_on["pause_events"],
+        "resume_events": row_on["resume_events"],
+        "converge_wait_s": row_on["converge_wait_s"],
+    }
+    if ratio is not None and ratio > p99_ratio_max:
+        raise RuntimeError(
+            f"maint arm foreground p99 {row_on['fg_p99_s']}s is "
+            f"{ratio:.2f}x the off arm's {row_off['fg_p99_s']}s "
+            f"(max {p99_ratio_max}x)")
+    if not quiet:
+        print(f"loadgen maint A/B: {archives} repairs converged under "
+              f"load (wait {row_on['converge_wait_s']}s, "
+              f"{row_on['pause_events']} governor pause(s)); foreground "
+              f"p99 {row_off['fg_p99_s']}s (off) vs "
+              f"{row_on['fg_p99_s']}s (on) -> "
+              f"{margin['p99_ratio']}x", file=sys.stderr)
+    return [row_off, row_on, margin]
 
 
 # -- CLI ----------------------------------------------------------------------
@@ -907,8 +1132,13 @@ def main(argv=None) -> int:
                     help="--object-cache-ab cache-on arm capacity in "
                     "bytes (default: RS_OBJ_CACHE_BYTES or 64 MiB)")
     ap.add_argument("--maint-ab", action="store_true",
-                    help="A/B mode of the background-maintenance plane "
-                    "(not ported yet: refused)")
+                    help="A/B mode: identical damaged fleets + identical "
+                    "foreground traffic through a daemon with the "
+                    "background-maintenance plane on vs off — repairs "
+                    "must converge under load with the burn-rate "
+                    "governor demonstrably pausing at least once, and "
+                    "the foreground p99 must stay within "
+                    "--maint-p99-max of the off arm (docs/MAINT.md)")
     ap.add_argument("--maint-archives", type=int, default=4,
                     help="--maint-ab damaged archives per arm (default 4)")
     ap.add_argument("--maint-p99-max", type=float, default=1.25,
@@ -917,7 +1147,8 @@ def main(argv=None) -> int:
     ap.add_argument("--files", type=int, default=100,
                     help="--ab / --object-ab item count (default 100)")
     ap.add_argument("--faults", metavar="SPEC", default=None,
-                    help="the fault plane (not ported yet: refused)")
+                    help="with --spawn: activate the fault plane in the "
+                    "daemon for the run (bounded-error demonstration)")
     ap.add_argument("--device", default=None,
                     help="where the spawned daemon and the A/B arms run "
                     "(default: the CUDA device; without a GPU pass "
@@ -964,20 +1195,30 @@ def main(argv=None) -> int:
             print(f"rs loadgen: bad --slo spec: {e}", file=sys.stderr)
             return 2
 
-    if args.faults:
-        print(f"rs loadgen: {_FAULTS_REFUSAL}", file=sys.stderr)
-        return 2
-    if args.maint_ab:
-        print(f"rs loadgen: {_MAINT_REFUSAL}", file=sys.stderr)
-        return 2
-
     p = args.n - args.k
     rows: list[dict] = []
+    fault_ctx = contextlib.nullcontext()
+    if args.faults:
+        if not (args.spawn or args.ab):
+            print("rs loadgen: --faults needs --spawn (the plane lives "
+                  "in the daemon process)", file=sys.stderr)
+            return 2
+        from ..resilience import faults as _faults
+
+        try:
+            plan = _faults.parse_plan(args.faults,
+                                      seed=_faults.env_seed())
+        except ValueError as e:
+            print(f"rs loadgen: bad --faults spec: {e}", file=sys.stderr)
+            return 2
+        fault_ctx = _faults.activate(plan)
+
     tmp = None
     daemon = None
     slo_report = None
     try:
-        with tempfile.TemporaryDirectory(prefix="rs_loadgen_") as tmp:
+        with fault_ctx, tempfile.TemporaryDirectory(
+                prefix="rs_loadgen_") as tmp:
             if args.ab:
                 rows = run_ab(
                     files=args.files, size_bytes=args.size_kb * 1024,
@@ -992,6 +1233,15 @@ def main(argv=None) -> int:
                     trials=max(1, args.object_trials), workdir=tmp,
                     quiet=args.json, device=args.device)
                 mode = "object_ab"
+            elif args.maint_ab:
+                rows = run_maint_ab(
+                    archives=max(1, args.maint_archives),
+                    size_bytes=args.size_kb * 1024,
+                    k=args.k, p=p, w=args.w,
+                    duration_s=args.duration, rate=args.rate,
+                    p99_ratio_max=args.maint_p99_max, workdir=tmp,
+                    quiet=args.json, device=args.device)
+                mode = "maint_ab"
             elif args.object_cache_ab:
                 rows = run_object_cache_ab(
                     objects=max(1, args.object_keys),
@@ -1032,6 +1282,10 @@ def main(argv=None) -> int:
                     object_zipf=args.object_zipf,
                     object_burst=max(1, args.object_burst),
                     seed=args.seed, quiet=args.json)
+                if args.faults:
+                    # Self-describing capture: a faulted run's error rows
+                    # must not read as a regression.
+                    report["summary"]["config"]["faults"] = args.faults
                 if args.slo:
                     report["summary"]["config"]["slo"] = args.slo
                 rows = [report["summary"], *report["tenants"],
@@ -1064,7 +1318,9 @@ def main(argv=None) -> int:
                         # alone, no /stats scrape of its own.
                         rows.append({"kind": "obj_cache_summary",
                                      **stats.get("objcache", {})})
-                mode = "object" if args.object_frac > 0 else "openloop"
+                mode = ("faulted" if args.faults
+                        else "object" if args.object_frac > 0
+                        else "openloop")
     finally:
         if daemon is not None:
             daemon.close(drain=True, timeout=120)

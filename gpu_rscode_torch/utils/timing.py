@@ -61,6 +61,12 @@ class PhaseTimer:
             if name not in self.best or seconds < self.best[name]:
                 self.best[name] = seconds
 
+    def phase_report(self) -> dict[str, float]:
+        """Accumulated seconds per phase, snapshotted under the lock: the
+        decomposition a run-ledger record carries."""
+        with self._rec_lock:
+            return {name: round(v, 6) for name, v in self.acc.items()}
+
     @property
     def total(self) -> float:
         return time.perf_counter() - self._t0

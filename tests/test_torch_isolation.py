@@ -20,7 +20,7 @@ def test_port_imports_no_jax():
         "import gpu_rscode_torch.ops.cuda_pack2, gpu_rscode_torch.ops.cuda_planes, gpu_rscode_torch.obs.runlog\n"
         "import gpu_rscode_torch.tools.kernel_sweep, gpu_rscode_torch.tools.expand_probe\n"
         "import gpu_rscode_torch.native, gpu_rscode_torch.parallel.pipeline, gpu_rscode_torch.parallel.io_executor\n"
-        "import gpu_rscode_torch.gf_decode, gpu_rscode_torch.utils.retry, gpu_rscode_torch.ops.inverse\n"
+        "import gpu_rscode_torch.gf_decode, gpu_rscode_torch.ops.inverse\n"
         "import gpu_rscode_torch.update, gpu_rscode_torch.update.group\n"
         "import gpu_rscode_torch.ops.xor_gemm, gpu_rscode_torch.ops.ring_gemm, gpu_rscode_torch.ops.xor_opt\n"
         "import gpu_rscode_torch.plan, gpu_rscode_torch.tune\n"
@@ -32,6 +32,8 @@ def test_port_imports_no_jax():
         "import gpu_rscode_torch.obs.health, gpu_rscode_torch.obs.serve\n"
         "import gpu_rscode_torch.serve, gpu_rscode_torch.serve.queue, gpu_rscode_torch.serve.batcher\n"
         "import gpu_rscode_torch.serve.objcache, gpu_rscode_torch.serve.daemon, gpu_rscode_torch.serve.loadgen\n"
+        "import gpu_rscode_torch.resilience, gpu_rscode_torch.resilience.faults, gpu_rscode_torch.resilience.retry\n"
+        "import gpu_rscode_torch.resilience.chaos, gpu_rscode_torch.maint, gpu_rscode_torch.maint.controller\n"
         "from gpu_rscode_torch.api import put_object, put_objects, get_object, delete_object, list_objects\n"
         "from gpu_rscode_torch.api import list_objects_page, stat_object, compact_bucket\n"
         "from gpu_rscode_torch.native import gemm, invert, available\n"

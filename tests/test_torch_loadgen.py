@@ -144,12 +144,27 @@ def test_residency_ab_runs_both_arms_on_the_port(tmp_path):
 
 
 def test_refusals_and_the_device_rule(tmp_path, capsys):
+    """--faults with --spawn and --maint-ab now run (they were refused
+    before the fault and maintenance planes were ported); the device rule
+    stands."""
     args = ["loadgen", "--spawn", "--duration", "1", "--capture", "-"]
-    assert t_cli.main([*args, "--device", "cpu", "--faults", "read:delay@ms=1"]) == 2
-    assert "resilience/faults" in capsys.readouterr().err
-    assert t_cli.main(["loadgen", "--maint-ab", "--device", "cpu", "--capture", "-"]) == 2
-    assert "maint/" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="maint/"):
+    assert t_cli.main([*args, "--device", "cpu", "--faults", "read:delay@ms=1", "--json"]) == 0
+    summary = json.loads(capsys.readouterr().out)["rows"][0]
+    assert summary["config"]["faults"] == "read:delay@ms=1" and summary["failed"] == 0
+    assert t_cli.main(["loadgen", "--url", "http://127.0.0.1:9", "--faults", "read:delay@ms=1",
+                       "--capture", "-"]) == 2
+    assert "--faults needs --spawn" in capsys.readouterr().err
+    assert t_cli.main([*args, "--device", "cpu", "--faults", "read:melt"]) == 2
+    assert "bad --faults spec" in capsys.readouterr().err
+    assert t_cli.main(["loadgen", "--maint-ab", "--device", "cpu", "--maint-archives", "1", "--size-kb", "16",
+                       "--duration", "2", "--rate", "4", "--maint-p99-max", "1000", "--capture", "-",
+                       "--json"]) == 0
+    rows = json.loads(capsys.readouterr().out)["rows"]
+    assert [r["kind"] for r in rows] == ["maint_ab", "maint_ab", "maint_ab_margin"]
+    off, on, margin = rows
+    assert (off["repairs_left"], on["repairs_left"]) == (1, 0) and on["chunks_restored"]
+    assert on["maint_enabled"] and not off["maint_enabled"] and margin["pause_events"] >= 1
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         t_lg.run_maint_ab(archives=1, size_bytes=1024, k=4, p=2, workdir=str(tmp_path))
     assert t_cli.main([*args, "--root", str(tmp_path / "r")]) == 2  # no GPU here, no --device
     assert "no CUDA device" in capsys.readouterr().err

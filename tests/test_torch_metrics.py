@@ -5,6 +5,7 @@ text, the quantile estimators hold equal states, and a store scenario run
 through both packages with ``RS_METRICS=1`` leaves equal ``rs_store_*`` and
 ``rs_update_*`` series (quantiles compared by count).  Tolerance 0."""
 
+import json
 import os
 import random
 
@@ -47,6 +48,32 @@ def test_registry_snapshot_and_text_equal(seed):
     assert t_reg.snapshot() == j_reg.snapshot()
     assert t_reg.render_text() == j_reg.render_text()
     assert t_reg.names() == j_reg.names()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_snapshot_json_is_the_snapshot_dumped_as_series_change(seed):
+    """The ledger digest's cached text stays byte-equal to the JAX
+    package's ``json.dumps(snapshot, sort_keys=True)`` while some series
+    change between reads and others do not."""
+    t_reg, j_reg = t_metrics.Registry(), j_metrics.Registry()
+    assert t_reg.snapshot_json() == json.dumps(j_reg.snapshot(), sort_keys=True) == "{}"
+    rng = random.Random(seed)
+    for step in range(8):
+        draws = [(rng.randrange(4), rng.choice(["put", "get", ""]), rng.random()) for _ in range(1 + 20 * (step % 3))]
+        for reg in (t_reg, j_reg):
+            for op, label, x in draws:
+                labels = {"op": label} if label else {}
+                if op == 0:
+                    reg.counter("rs_test_total", "a counter").labels(**labels).inc(int(x * 4))
+                elif op == 1:
+                    reg.gauge("rs_test_gauge").labels(**labels).set(x)
+                elif op == 2:
+                    reg.histogram("rs_test_seconds", "h", buckets=(0.1, 0.5)).labels(**labels).observe(x)
+                else:
+                    reg.quantile("rs_test_wall_seconds", "q", cap=16).labels(**labels).observe(x)
+        want = json.dumps(j_reg.snapshot(), sort_keys=True)
+        assert t_reg.snapshot_json() == want
+        assert t_reg.snapshot_json() == want  # from the cache
 
 
 def test_registry_refusals_equal():

@@ -32,6 +32,7 @@ from gpu_rscode_torch.serve import batcher as t_batcher
 from gpu_rscode_torch.serve import daemon as t_daemon
 from gpu_rscode_torch.serve import objcache as t_objcache
 from gpu_rscode_torch.serve import queue as t_queue
+from gpu_rscode_torch.update import group as t_group
 from gpu_rscode_torch.utils.fileformat import chunk_file_name
 from gpu_rscode_tpu import store as j_store
 from gpu_rscode_tpu.obs import metrics as j_metrics
@@ -39,6 +40,7 @@ from gpu_rscode_tpu.serve import batcher as j_batcher
 from gpu_rscode_tpu.serve import daemon as j_daemon
 from gpu_rscode_tpu.serve import objcache as j_objcache
 from gpu_rscode_tpu.serve import queue as j_queue
+from gpu_rscode_tpu.update import group as j_group
 
 TIMING = {"queue_wait_ms", "service_ms", "stages_ms", "open_seconds"}
 HEADERS = ("X-RS-Request-Id", "X-RS-Cache", "X-RS-Read-Path", "X-RS-Batch", "Retry-After", "Content-Type")
@@ -234,6 +236,12 @@ class Twins:
         return ts, tb
 
     def same_disk(self):
+        # Each daemon unlinks a decode's output after its last byte went
+        # out, so the client can hold the whole answer first: let both
+        # handlers finish before the trees are compared.
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and any(".out." in name for root in self.roots for name in _tree(root)):
+            time.sleep(0.01)
         a, b = _tree(self.j.root), _tree(self.t.root)
         assert sorted(a) == sorted(b)
         assert [k for k in a if a[k] != b[k]] == []
@@ -248,7 +256,11 @@ class Twins:
 
 
 @pytest.fixture
-def twins(tmp_path):
+def twins(tmp_path, monkeypatch):
+    # The group-commit tallies in /stats are process-wide: both packages
+    # count from zero here, whatever other files ran in this worker first.
+    for mod in (j_group, t_group):
+        monkeypatch.setattr(mod, "_STATS", dict.fromkeys(mod._STATS, 0))
     tw = Twins(tmp_path, batch_ms=0)
     yield tw
     tw.close()
@@ -435,19 +447,22 @@ def test_429_and_503_answer_alike_with_the_id_echoed(tmp_path):
 
 
 def test_maint_and_perf_are_refused(tmp_path, monkeypatch, capsys):
-    with pytest.raises(NotImplementedError, match=r"maintenance plane \(maint/\) is not ported yet"):
-        t_daemon.ServeDaemon(str(tmp_path / "r"), port=0, device="cpu", maint=True)
+    """The maintenance and fault planes now run (maint=True, RS_MAINT=1,
+    --maint, --faults start and answer); GET /perf is still refused with
+    501 (obs/perfbase is not ported)."""
+    d = t_daemon.ServeDaemon(str(tmp_path / "r"), port=0, device="cpu", maint=True)
+    assert d.maint is not None and d.maint.device == d.device and d.maint.tenant == "maint"
+    d.close()
     monkeypatch.setenv("RS_MAINT", "1")
-    with pytest.raises(NotImplementedError, match="maint/"):
-        t_daemon.ServeDaemon(str(tmp_path / "r"), port=0, device="cpu")
-    assert t_cli.main(["serve", "--root", str(tmp_path / "r"), "--port", "0", "--device", "cpu"]) == 2
-    assert "maint/" in capsys.readouterr().err
+    d = t_daemon.ServeDaemon(str(tmp_path / "r"), port=0, device="cpu")
+    assert d.maint is not None
+    d.close()
     monkeypatch.delenv("RS_MAINT")
-    assert t_cli.main(["serve", "--root", str(tmp_path / "r"), "--port", "0", "--device", "cpu", "--maint"]) == 2
-    assert "maint/" in capsys.readouterr().err
+    # The CLI's flags pass validation (a bad spec is a usage error, exit 2);
+    # a malformed --faults still exits 2 before the daemon binds.
     assert t_cli.main(["serve", "--root", str(tmp_path / "r"), "--port", "0", "--device", "cpu",
-                       "--faults", "read:delay@ms=1"]) == 2
-    assert "resilience/faults" in capsys.readouterr().err
+                       "--faults", "read:melt"]) == 2
+    assert "bad --faults spec" in capsys.readouterr().err
     d = t_daemon.ServeDaemon(str(tmp_path / "r"), port=0, device="cpu").start()
     try:
         st, body, _ = _call(d.port, "GET", "/perf")
@@ -456,6 +471,40 @@ def test_maint_and_perf_are_refused(tmp_path, monkeypatch, capsys):
         assert st == 200 and json.loads(body)["enabled"] is False
     finally:
         d.close()
+    d = t_daemon.ServeDaemon(str(tmp_path / "r"), port=0, device="cpu", maint=True).start()
+    try:
+        st, body, _ = _call(d.port, "GET", "/maint")
+        doc = json.loads(body)
+        assert st == 200 and doc["enabled"] is True and doc["running"] is True and "queue" in doc
+        assert _call(d.port, "GET", "/stats")[0] == 200 and d.stats()["maint"]["enabled"] is True
+        st, body, _ = _call(d.port, "GET", "/perf")
+        assert st == 501
+    finally:
+        d.close()
+
+
+def test_serve_cli_runs_with_maint_and_faults(tmp_path):
+    """`rs serve --maint --faults SPEC` in a process of its own: it
+    listens (maint on), answers, and drains on SIGTERM."""
+    import signal
+    import subprocess
+    import sys
+
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "RS_MAINT")}
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen([sys.executable, "-m", "gpu_rscode_torch", "serve", "--root", str(tmp_path / "r"),
+                             "--port", "0", "--device", "cpu", "--maint", "--faults", "read:delay@ms=1"],
+                            env=env, cwd=env["PYTHONPATH"], stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stderr.readline()
+        assert "listening on" in line and "maint on" in line, line
+        port = int(re.search(r":(\d+) ", line).group(1))
+        st, body, _ = _call(port, "GET", "/maint")
+        assert st == 200 and json.loads(body)["enabled"] is True
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        err = proc.communicate(timeout=60)[1]
+    assert proc.returncode == 0 and "drained" in err
 
 
 def test_without_a_device_on_a_gpu_less_box_the_daemon_raises(tmp_path, capsys):
