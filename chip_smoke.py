@@ -176,6 +176,34 @@ Phases, each fatal on failure:
      queue wait, service, slowest requests and repair times logged from
      its ledger).  Each step's
      wall, GB/s, retries, K1 runs and the plan cache's counts are logged;
+  5i. the measurement plane (gpu_rscode_torch/obs/: profiler, perfbase,
+     attrib; the CLI's --metrics-json, --trace, --profile-dir, rs perf,
+     rs analyze, rs stats, rs history) at the main path's setting (a
+     seeded 1 GiB file, k=10, n=14, w=8, 64 MiB segments): (a) encode and
+     decode through the CLI with RS_METRICS=1, --metrics-json and --trace:
+     17 dispatches an op (segments_dispatched{strategy="cuda"}), each one
+     K1 run, rs_codec_bytes_total = k x the chunk size,
+     rs_io_write_bytes_total = the 4 parity chunks' bytes on encode (the
+     natives are straight file copies, which neither package counts as
+     staging IO) and the file's bytes on decode, 17 dispatch spans an op
+     in valid Chrome-trace JSON, the output's SHA-256; (b) the encode with
+     every plane off, with RS_METRICS=1 and with RS_PROF=1 (walls logged,
+     nothing gated), and a profiled decode: one rs_perf event a dispatch,
+     each a K1 graph replay timed as its chain stage or a capture timed as
+     compile, with the median coverage and stage walls logged; (c) one
+     encode and one decode under --profile-dir: one torch.profiler
+     session each, whose key_averages() must list gf_bitslice_kernel as
+     often as K1 ran, with device time (with RS_PLAN=0 as well if the
+     graph replays hide the name; if the trace holds no device event, the
+     cudaGraphLaunch calls must equal the replays), and the device-busy
+     share of each op's wall (kernels and copies, their union on the
+     timeline) logged; (d) rs perf --record then --check (exit 0), and a
+     daemon with RS_RUNLOG answering GET /perf with the cuda cells and
+     /metrics with the rs_perf_baseline_* gauges; (e) rs analyze over
+     cuda, bitplane, xor, ring and native at k=10, p=4, 256 MiB in 64 MiB
+     segments, the roofline probed on the card (each row's GB/s and
+     verdict logged); (f) rs stats --workload and rs history --op encode,
+     each exiting 0.  K1's runs count in the kernels line;
   6. timings: file encode/decode GB/s of phase 4, and K1 at the main path's
      segment shapes, at phase 5b's syndrome (r=4, depth 14) and repair
      (3 targets, k=10) shapes, at phase 5c's E·Δ shapes (the stacked
@@ -3077,6 +3105,337 @@ def phase_faults_maint(work: str, seed: int, device) -> dict:
     return res
 
 
+# -- phase 5i: the measurement plane ------------------------------------------------
+
+MEASURE_FILE_BYTES = 1024 * MiB  # the main path's file, k=10, n=14, 64 MiB segments
+MEASURE_SEGMENT_BYTES = api.DEFAULT_SEGMENT_BYTES
+
+
+def _cli_quiet(argv: list[str]) -> tuple[int, str]:
+    """``rs ARGV`` in this process: (exit code, standard output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def _trace_spans(path: str, name: str) -> list[dict]:
+    with open(path) as fp:
+        doc = json.load(fp)
+    return [e for e in doc["traceEvents"] if e.get("name") == name and e.get("ph") == "X"]
+
+
+def _observed_op(what: str, argv: list[str], work: str, segments: int, size: int, chunk: int) -> dict:
+    """One CLI operation with --metrics-json and --trace: its snapshot and
+    trace checked (17 dispatches of the op through K1, the codec's true
+    bytes, the staging IO's writes, one dispatch span a segment)."""
+    from gpu_rscode_torch.obs import metrics
+
+    op = argv[0]
+    mpath, tpath = os.path.join(work, f"5i_{what}.metrics.json"), os.path.join(work, f"5i_{what}.trace.json")
+    metrics.REGISTRY.reset()
+    k1_before = k1_runs()
+    t0 = time.perf_counter()
+    rc, _ = _cli_quiet([*argv[1:], "--segment-bytes", str(MEASURE_SEGMENT_BYTES), "--metrics-json", mpath,
+                        "--trace", tpath, "--quiet"])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"5i {what}: rs exited {rc}")
+    with open(mpath) as fp:
+        snap = json.load(fp)["metrics"]
+    series = f'{{op="{op}",strategy="cuda",w="8"}}'
+    got = {"segments": _metric(snap, "segments_dispatched", series),
+           "codec_bytes": _metric(snap, "rs_codec_bytes_total", series),
+           "io_write": snap.get("rs_io_write_bytes_total", {}).get("values", {}),
+           "dispatch_spans": sum(e["args"].get("op") == op for e in _trace_spans(tpath, "dispatch")),
+           "k1_runs": k1_runs() - k1_before}
+    want_write = {'{call="scatter_write"}': 4 * chunk} if op == "encode" else {'{call="stream_write"}': size}
+    if (got["segments"], got["codec_bytes"], got["dispatch_spans"], got["k1_runs"]) != (
+            segments, 10 * chunk, segments, segments) or got["io_write"] != want_write:
+        raise AssertionError(f"5i {what}: {got}, want {segments} segments of {10 * chunk} codec bytes, "
+                             f"writes {want_write}")
+    log(phase="measure", step=what, wall_s=wall, gbps=size / wall / 1e9, **got)
+    return {"wall_s": wall, "k1_runs": got["k1_runs"]}
+
+
+def _prof_events(ledger: str) -> list[dict]:
+    from gpu_rscode_torch.obs import runlog
+
+    return [r for r in runlog.read_records(ledger) if r.get("kind") == "rs_perf"]
+
+
+PLANES_ROUNDS = 3  # rounds of the three arms in (b), each round in another order
+
+
+def _planes_cost(path: str, conf: str, out: str, ledger: str, size: int) -> dict:
+    """(b): the 1 GiB encode with every plane off, with RS_METRICS=1, with
+    RS_PROF=1 (one rs_perf event a dispatch into ``ledger``): PLANES_ROUNDS
+    rounds, the arms rotated each round, their walls' medians and spread;
+    a profiled decode too.  The profiled dispatches' chain stages are K1's
+    graph replays."""
+    from gpu_rscode_torch.obs import metrics
+
+    arms = (("off", {}), ("metrics", {"RS_METRICS": "1"}), ("prof", {"RS_PROF": "1", "RS_RUNLOG": ledger}))
+    walls: dict = {arm: [] for arm, _ in arms}
+    replays = captures = eager = 0
+    for r in range(PLANES_ROUNDS):
+        for arm, env in arms[r % len(arms):] + arms[:r % len(arms)]:
+            with _env(RS_METRICS=None, RS_PROF=None, RS_RUNLOG=None), _env(**env):
+                metrics.REGISTRY.reset()
+                before = (cuda_gemm.REPLAYED, cuda_gemm.CAPTURED, cuda_gemm.LAUNCHES)
+                t0 = time.perf_counter()
+                api.encode_file(path, 10, 4, segment_bytes=MEASURE_SEGMENT_BYTES)
+                walls[arm].append(time.perf_counter() - t0)
+                if arm == "prof":
+                    replays += cuda_gemm.REPLAYED - before[0]
+                    captured = cuda_gemm.CAPTURED - before[1]
+                    captures += captured
+                    eager += cuda_gemm.LAUNCHES - before[2] - captured  # a capture's first dispatch runs eagerly
+    with _env(RS_PROF="1", RS_RUNLOG=ledger):
+        api.decode_file(path, conf, out, segment_bytes=MEASURE_SEGMENT_BYTES)
+    events = _prof_events(ledger)
+    enc = [e for e in events if e["op"] == "encode"]
+    dec = [e for e in events if e["op"] == "decode"]
+    chained = [e for e in enc if "chain" in e["stages"]]
+    if not enc or not dec or any(e["strategy"] != "cuda" for e in events):
+        raise AssertionError(f"5i prof: {len(enc)} encode and {len(dec)} decode rs_perf events")
+    # A replay (or an eager dispatch) is one chain stage; a capture's
+    # dispatch is timed whole as compile.
+    if len(chained) != replays + eager or len(enc) - len(chained) != captures:
+        raise AssertionError(f"5i prof: {len(enc)} events, {len(chained)} with a chain stage, "
+                             f"{replays} K1 replays, {eager} eager launches, {captures} captures")
+
+    def med(rows, key):
+        vals = [r["stages"][key] for r in rows if key in r["stages"]]
+        return float(np.median(vals)) if vals else None
+
+    spread = {arm: {"median": float(np.median(v)), "min": min(v), "max": max(v)} for arm, v in walls.items()}
+    log(phase="measure", step="planes_cost", encode_wall_s=walls, encode_wall_spread_s=spread, smi=smi_line(),
+        prof_events={"encode": len(enc), "decode": len(dec)}, k1_replays=replays, captures=captures, eager=eager,
+        median_coverage={"encode": float(np.median([e["coverage"] for e in enc])),
+                         "decode": float(np.median([e["coverage"] for e in dec]))},
+        median_stage_ms={op: {s: 1e3 * med(rows, s) for s in ("chain", "compile") if med(rows, s) is not None}
+                         for op, rows in (("encode", enc), ("decode", dec))},
+        median_wall_ms={"encode": 1e3 * float(np.median([e["wall_s"] for e in enc])),
+                        "decode": 1e3 * float(np.median([e["wall_s"] for e in dec]))},
+        median_staging_ms=1e3 * float(np.median([e.get("staging_s", 0.0) for e in enc])))
+    return {"walls": {arm: row["median"] for arm, row in spread.items()}, "events": len(events)}
+
+
+def _trace_events(trace: str) -> list[dict]:
+    """The complete ("X") events of a Chrome trace that carry a duration."""
+    with open(trace) as fp:
+        return [e for e in json.load(fp)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+
+
+def _busy_union_us(events: list[dict]) -> dict:
+    """The device's busy time in a trace's events: kernels and copies, each
+    summed, their union on the timeline (streams overlap), and the trace's
+    own window (first event to last: the op without the profiler's
+    start-up, which the first session of a process pays)."""
+    window = max(float(e["ts"]) + float(e["dur"]) for e in events) - min(float(e["ts"]) for e in events)
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in device)
+    union, end = 0.0, -math.inf
+    for lo, hi in spans:
+        if hi > end:
+            union += hi - max(lo, end)
+            end = hi
+    return {"device_events": len(device),
+            "kernel_us": sum(float(e["dur"]) for e in device if e["cat"] == "kernel"),
+            "copy_us": sum(float(e["dur"]) for e in device if e["cat"] != "kernel"),
+            "busy_union_us": union, "trace_window_us": window}
+
+
+def _profiled_op(what: str, fn, prof_dir: str, plan_on: bool) -> dict:
+    """(c): ``fn`` under --profile-dir's session, which must write one
+    Chrome trace into ``prof_dir`` (nested ops join the outer session).
+    The trace's kernel events must list K1 (gf_bitslice_kernel) as often
+    as K1 ran, with device time, unless the trace holds no device event at
+    all (then the CPU side is checked: the graph launches equal the
+    replays)."""
+    before = (k1_runs(), cuda_gemm.REPLAYED)
+    with _env(RS_PLAN=None if plan_on else "0"):
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    runs, replays = k1_runs() - before[0], cuda_gemm.REPLAYED - before[1]
+    traces = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+    if len(traces) != 1:
+        raise AssertionError(f"5i {what}: {len(traces)} traces in {prof_dir}, want 1 (nested ops join)")
+    events = _trace_events(os.path.join(prof_dir, traces[0]))
+    k1 = [e for e in events if e.get("cat") == "kernel" and "gf_bitslice_kernel" in e.get("name", "")]
+    k1_calls = len(k1)
+    k1_device_ms = sum(float(e["dur"]) for e in k1) / 1e3
+    graph_launches = sum(e.get("name") == "cudaGraphLaunch" for e in events)
+    busy = _busy_union_us(events)
+    row = {"wall_s": wall, "k1_runs": runs, "k1_replays": replays, "plan": plan_on, "k1_in_trace": k1_calls,
+           "k1_device_ms": k1_device_ms, "cuda_graph_launches": graph_launches, "trace": traces[0],
+           **busy, "device_busy_share": busy["busy_union_us"] / (wall * 1e6),
+           "device_busy_share_of_trace": busy["busy_union_us"] / busy["trace_window_us"]}
+    log(phase="measure", step=what, smi=smi_line(), **row)
+    if busy["device_events"] == 0:
+        # CUPTI gave no device activity: check what the trace does hold.
+        if graph_launches != replays:
+            raise AssertionError(f"5i {what}: no device events, and {graph_launches} cudaGraphLaunch for "
+                                 f"{replays} replays")
+    elif k1_calls and (k1_calls != runs or k1_device_ms <= 0):
+        raise AssertionError(f"5i {what}: the trace lists K1 {k1_calls} times ({k1_device_ms} ms), K1 ran {runs}")
+    return row
+
+
+def _profiles(path: str, conf: str, out: str, work: str) -> dict:
+    """(c): one encode and one decode through the CLI's --profile-dir; if
+    the graph replays hide K1's name from a trace that has device events,
+    once more with RS_PLAN=0 (eager launches)."""
+    rows = {}
+    for plan_on in (True, False):
+        for op in ("encode", "decode"):
+            prof_dir = os.path.join(work, f"5i_prof_{op}_{int(plan_on)}")
+            argv = (["-k", "10", "-n", "14", "-e", path] if op == "encode"
+                    else ["-d", "-i", path, "-c", conf, "-o", out])
+            rows[(op, plan_on)] = _profiled_op(
+                f"profile_{op}" + ("" if plan_on else "_eager"),
+                lambda argv=argv, prof_dir=prof_dir: _cli_quiet([
+                    *argv, "--segment-bytes", str(MEASURE_SEGMENT_BYTES), "--profile-dir", prof_dir, "--quiet"]),
+                prof_dir, plan_on)
+        hidden = [r for (op, on), r in rows.items() if on == plan_on and r["device_events"] and not r["k1_in_trace"]]
+        if not hidden:
+            break
+        if not plan_on:
+            raise AssertionError(f"5i: K1 missing from the eager traces too: {hidden}")
+        log(phase="measure", step="profile", note="graph replays hid K1's name; profiling again with RS_PLAN=0")
+    return {f"{op}{'' if on else '_eager'}": r for (op, on), r in rows.items()}
+
+
+def _xor_pack_timing(path: str) -> dict:
+    """The 1 GiB encode under xor with RS_METRICS=1 and RS_XOR_PACK_TIMING=1
+    from an empty plan cache, so its first dispatches capture graphs: the
+    pack timing synchronises only eager packs (a capture's warm-up), never
+    inside a capture, so rs_xor_pack_seconds counts the dispatches that
+    were not replays; rs_xor_pack_reuse_total counts every dispatch's pack
+    (replays included, captures not); the archive equals the cuda one."""
+    from gpu_rscode_torch.obs import metrics
+
+    want = archive_digests(path, 14)
+    plan.PLAN_CACHE.clear()
+    with _env(RS_METRICS="1", RS_XOR_PACK_TIMING="1", RS_PROF=None, RS_RUNLOG=None):
+        metrics.REGISTRY.reset()
+        calls0, counts0 = _strategy_calls(), _plan_counts()
+        t0 = time.perf_counter()
+        api.encode_file(path, 10, 4, strategy="xor", segment_bytes=MEASURE_SEGMENT_BYTES)
+        wall = time.perf_counter() - t0
+        counts, calls = _plan_delta(counts0), _strategy_calls() - calls0
+        snap = metrics.REGISTRY.snapshot()
+        timed = sum(v["count"] for v in snap.get("rs_xor_pack_seconds", {}).get("values", {}).values())
+        packed = _metric(snap, "rs_xor_pack_reuse_total", '{outcome="packed"}')
+    _check_graphed("5i xor pack timing", counts, calls, warm=False)
+    if not counts["captures"] or timed != calls - counts["replays"] or packed != calls:
+        raise AssertionError(f"5i xor pack timing: {timed} timed packs and {packed} counted for {calls} dispatches, "
+                             f"plan counts {counts}")
+    if archive_digests(path, 14) != want:
+        raise AssertionError("5i xor pack timing: the xor archive differs from the cuda archive")
+    log(phase="measure", step="xor_pack_timing", wall_s=wall, dispatches=calls, timed_packs=timed,
+        packs_counted=packed, plan=counts)
+    return {"wall_s": wall, "timed_packs": timed}
+
+
+def _baselines_and_daemon(ledger: str, work: str, device) -> dict:
+    """(d): rs perf --record then --check on the same evidence (exit 0), a
+    daemon with RS_RUNLOG answering GET /perf with the cuda cells, and its
+    /metrics carrying the rs_perf_baseline_* gauges."""
+    from gpu_rscode_torch.serve.daemon import ServeDaemon
+
+    with _env(RS_RUNLOG=ledger, RS_METRICS="1"):
+        for argv in (["perf", "--record"], ["perf", "--check"]):
+            rc, out = _cli_quiet(argv)
+            if rc != 0:
+                raise AssertionError(f"5i: rs {' '.join(argv)} exited {rc}: {out}")
+        daemon = ServeDaemon(os.path.join(work, "5i_serve"), port=0, addr="127.0.0.1", device=device).start()
+        try:
+            st, body, _, _ = _http(daemon.port, "GET", "/perf")
+            report = json.loads(body)
+            st_m, metrics_text, _, _ = _http(daemon.port, "GET", "/metrics")
+        finally:
+            daemon.close()
+    cells = [row["cell"] for row in report.get("rows", []) if row["strategy"] == "cuda"]
+    if st != 200 or not report.get("baseline") or not cells or report.get("breach"):
+        raise AssertionError(f"5i: GET /perf answered {st}: {report}")
+    if st_m != 200 or b"rs_perf_baseline_gbps" not in metrics_text or b"rs_perf_baseline_ratio" not in metrics_text:
+        raise AssertionError(f"5i: /metrics answered {st_m} without the rs_perf_baseline_* gauges")
+    log(phase="measure", step="perf", backend=report["backend"], cells=cells,
+        rows=[{k: row[k] for k in ("cell", "base_gbps", "cur_gbps", "n", "status")} for row in report["rows"]])
+    return {"cells": cells}
+
+
+def _analyze(device) -> dict:
+    """(e): rs analyze at the main path's shape on the card, the roofline
+    probed there."""
+    t0 = time.perf_counter()
+    with _env(RS_RUNLOG=None):
+        rc, out = _cli_quiet(["analyze", "--json", "--strategies", "cuda,bitplane,xor,ring,native", "--k", "10",
+                              "--p", "4", "--size-kb", "262144", "--segment-kb", "65536"])
+    if rc != 0:
+        raise AssertionError(f"5i: rs analyze exited {rc}")
+    report = json.loads(out.splitlines()[-1])
+    roof = report["roofline"]
+    rows = report["strategies"]
+    if roof.get("device") != torch.cuda.get_device_name(device) or roof["source"] != "probe" or len(rows) != 10:
+        raise AssertionError(f"5i: rs analyze roofline {roof}, {len(rows)} rows")
+    log(phase="measure", step="analyze", seconds=time.perf_counter() - t0, smi=smi_line(),
+        roofline={k: roof[k] for k in ("triad_gbps", "gemm_gflops", "device")},
+        rows=[{k: r[k] for k in ("strategy", "op", "dispatches", "end_to_end_gbps", "achieved_gbps",
+                                 "achieved_gflops", "pct_of_peak_bw", "bound")} for r in rows])
+    return {"rows": len(rows)}
+
+
+def phase_measurement(work: str, seed: int, device, size: int = MEASURE_FILE_BYTES) -> dict:
+    """Phase 5i: the measurement plane on the card (see the module doc)."""
+    from gpu_rscode_torch.obs import metrics, profiler
+
+    t_phase = time.perf_counter()
+    forced = metrics.forced()
+    _reset_counts()
+    path = os.path.join(work, "measure.bin")
+    want = write_seeded(path, seed, size)
+    chunk = -(-size // 10)
+    segments = len(api._segment_spans(chunk, api._segment_cols(chunk, 10, MEASURE_SEGMENT_BYTES)))
+    out = os.path.join(work, "measure.out")
+    ledger = os.path.join(work, "measure_ledger.jsonl")
+    res: dict = {}
+    with _env(RS_METRICS="1", RS_PROF=None, RS_RUNLOG=None, RS_TRACE=None, RS_PROFILE=None, RS_PLAN=None):
+        res["encode"] = _observed_op("encode", ["encode", "-k", "10", "-n", "14", "-e", path], work, segments,
+                                     size, chunk)
+        for i in range(4):
+            os.unlink(chunk_file_name(path, i))
+        conf = make_conf(14, 10, path)
+        res["decode"] = _observed_op("decode", ["decode", "-d", "-i", path, "-c", conf, "-o", out], work,
+                                     segments, size, chunk)
+        if sha256_file(out) != want:
+            raise AssertionError("5i: the decoded file differs from the input")
+        metrics.force_enable(False)  # --metrics-json latched it; the "off" arm needs it off
+        res["planes"] = _planes_cost(path, conf, out, ledger, size)
+        res["profiles"] = _profiles(path, conf, out, work)
+        if sha256_file(out) != want:
+            raise AssertionError("5i: the profiled decode's output differs from the input")
+        res["xor_pack_timing"] = _xor_pack_timing(path)
+        res["perf"] = _baselines_and_daemon(ledger, work, device)
+        res["analyze"] = _analyze(device)
+        with _env(RS_RUNLOG=ledger):
+            for argv in (["stats", "--workload"], ["history", "--op", "encode"]):
+                rc, text = _cli_quiet(argv)
+                if rc != 0:
+                    raise AssertionError(f"5i: rs {' '.join(argv)} exited {rc}")
+                log(phase="measure", step=argv[0], stdout_bytes=len(text))
+    metrics.force_enable(forced)
+    profiler.reset()
+    res["k1_launches"] = k1_runs()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(phase="measure_summary", seconds=res["seconds"], k1_launches=res["k1_launches"],
+        encode_wall_s=res["planes"]["walls"], smi=smi_line())
+    return res
+
+
 def _store_shapes(calls) -> dict:
     """The store's K1 shapes from the GEMM log: the 64-object batches' E·Δ
     (appends to an open stripe), the 1,000 x 4 KiB batch's E·Δ, the
@@ -3251,6 +3610,7 @@ def main() -> int:
             store_res["seconds"] = time.perf_counter() - t_5f
             serve_res = phase_serve(work, SEED + 9, device)
             faults_res = phase_faults_maint(work, SEED + 10, device)
+            measure_res = phase_measurement(work, SEED + 11, device)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         log(phase="strategies_summary", main_and_cli_seconds=strategies["seconds"],
@@ -3269,7 +3629,7 @@ def main() -> int:
         kernels = kernel_entries(k1_err, grids, timings[0],
                                  main_res["pipelined"]["launches"] + resilience["k1_launches"]
                                  + updates["k1_launches"] + store_res["k1_launches"] + serve_res["k1_launches"]
-                                 + faults_res["k1_launches"],
+                                 + faults_res["k1_launches"] + measure_res["k1_launches"],
                                  new_timings,
                                  tools["launches"])
     log(phase="wall", seconds=time.perf_counter() - t_start, quick=args.quick)

@@ -53,7 +53,10 @@ device), of its resilience reads: ``scan_file``, ``auto_decode_file``,
   only: a GEMM on the device is never retried, and a kernel error raises.
 * Every file-level entry point runs under :func:`_observed_file_op`: the
   retry budget rearmed, a ``trace_path=`` tracing session and span, the
-  run ledger's ``rs_run`` record and ``rs_file_ops_total``.
+  run ledger's ``rs_run`` record and ``rs_file_ops_total``, and with
+  ``RS_PROFILE=<dir>`` (or :func:`profile_dir_override`, the CLI's
+  ``--profile-dir``) a ``torch.profiler`` session around the outermost
+  operation.  Every segment dispatch runs under :func:`_dispatch_span`.
 """
 
 from __future__ import annotations
@@ -74,7 +77,13 @@ from . import native
 from . import plan as _plan
 from .codec import RSCodec, entry_device
 from .models.vandermonde import total_matrix
-from .obs import health as _obs_health, metrics as _obs_metrics, runlog as _obs_runlog, tracing as _obs_tracing
+from .obs import (
+    attrib as _obs_attrib,
+    health as _obs_health,
+    metrics as _obs_metrics,
+    runlog as _obs_runlog,
+    tracing as _obs_tracing,
+)
 from .ops.gf import get_field
 from .ops.inverse import SingularMatrixError, invert_matrix
 from .parallel.io_executor import DrainExecutor, FleetPipeline
@@ -119,6 +128,75 @@ class ChunkIntegrityError(ValueError):
         super().__init__(f"{reason}: {names}; pick different survivors in the conf file")
 
 
+# -- deep profiling (RS_PROFILE) ----------------------------------------------
+#
+# RS_PROFILE=<dir> (or the override the CLI's --profile-dir latches) wraps
+# the OUTERMOST observed operation in a torch.profiler session that writes
+# a Chrome trace into the directory; nested entry points (auto_decode ->
+# decode, fleet -> repair) join the active session.
+
+_PROFILE_LOCK = threading.Lock()
+_PROFILE_ACTIVE = False
+_PROFILE_DIR_OVERRIDE: str | None = None
+
+
+def profile_dir_override(profile_dir: str | None) -> None:
+    """Latch a profile directory for this process regardless of
+    ``RS_PROFILE`` (the CLI's ``--profile-dir``).  None clears it."""
+    global _PROFILE_DIR_OVERRIDE
+    _PROFILE_DIR_OVERRIDE = profile_dir
+
+
+def _profile_activities(fn, args: tuple, kwargs: dict) -> list:
+    """CPU, plus CUDA unless the caller asked for the host (``device`` on
+    the CPU, or the host codec ``strategy="cpu"``) or there is no card (the
+    operation itself then raises for a device of None)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    try:
+        bound = inspect.signature(fn).bind_partial(*args, **kwargs).arguments
+    except TypeError:
+        bound = kwargs
+    extra = bound.get("decode_kwargs") or {}
+    device = bound.get("device", extra.get("device"))
+    strategy = bound.get("strategy", extra.get("strategy"))
+    host = strategy == "cpu" or (device is not None and torch.device(device).type == "cpu")
+    if host or not torch.cuda.is_available():
+        return [ProfilerActivity.CPU]
+    return [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+
+@contextmanager
+def _profile_session(op: str, fn, args: tuple, kwargs: dict):
+    """A ``torch.profiler`` session for one outermost file operation,
+    exported as ``<dir>/rs-<op>-<pid>-<n>.pt.trace.json`` (no-op with
+    ``RS_PROFILE`` unset and no override; nested operations record into the
+    outer session)."""
+    global _PROFILE_ACTIVE
+    profile_dir = _PROFILE_DIR_OVERRIDE or os.environ.get("RS_PROFILE")
+    if not profile_dir:
+        yield
+        return
+    with _PROFILE_LOCK:
+        owner = not _PROFILE_ACTIVE
+        _PROFILE_ACTIVE = True
+    if not owner:
+        yield
+        return
+    try:
+        import torch.profiler
+
+        os.makedirs(profile_dir, exist_ok=True)
+        with torch.profiler.profile(activities=_profile_activities(fn, args, kwargs)) as prof:
+            yield
+        n = sum(1 for name in os.listdir(profile_dir) if name.startswith(f"rs-{op}-{os.getpid()}-"))
+        prof.export_chrome_trace(os.path.join(profile_dir, f"rs-{op}-{os.getpid()}-{n}.pt.trace.json"))
+    finally:
+        with _PROFILE_LOCK:
+            _PROFILE_ACTIVE = False
+
+
 def _observed_file_op(op: str):
     """Wrap a file-level entry point with the observability surface, as the
     JAX package does: a keyword-only ``trace_path=`` (like ``RS_TRACE``)
@@ -141,9 +219,8 @@ def _observed_file_op(op: str):
             phases0 = _obs_runlog.timer_phases(sig, args, kwargs) if _obs_runlog.enabled() else None
             error: BaseException | None = None
             try:
-                # The JAX package's _profile_session(): its place, once the
-                # profiler plane is ported.
-                with _obs_tracing.session(trace_path), _obs_tracing.span(op, lane="op"):
+                with _profile_session(op, fn, args, kwargs), _obs_tracing.session(trace_path), \
+                        _obs_tracing.span(op, lane="op"):
                     out = fn(*args, **kwargs)
             except BaseException as e:
                 error = e
@@ -161,6 +238,26 @@ def _observed_file_op(op: str):
         return wrapper
 
     return deco
+
+
+@contextmanager
+def _dispatch_span(op: str, off: int, cols: int):
+    """One segment dispatch: a ``dispatch`` span with its column range,
+    the ``rs_dispatch_wall_seconds`` quantiles (``rs analyze`` reads them)
+    and a device-memory sample at the segment boundary.  Every segment
+    dispatch loop passes through here."""
+    t0 = time.perf_counter()
+    with _obs_tracing.span("dispatch", lane="dispatch", op=op, off=int(off), cols=int(cols)):
+        yield
+    _obs_metrics.quantile("rs_dispatch_wall_seconds", "per-segment dispatch wall seconds (streaming quantiles)").labels(
+        op=op).observe(time.perf_counter() - t0)
+    _obs_attrib.sample_device_memory()
+
+
+def _count_stream_write(nbytes: int) -> None:
+    """Output bytes a decode writes through its stream (``call=stream_write``)."""
+    _obs_metrics.counter("rs_io_write_bytes_total", "bytes written by the staging-I/O layer").labels(
+        call="stream_write").inc(nbytes)
 
 
 def _segment_cols(chunk_size: int, native_num: int, segment_bytes: int) -> int:
@@ -416,7 +513,7 @@ def encode_file(
                 depth, lambda tag, out: _drain_parity(tag, out, loop, parity_files, timer, crcs, k), executor=dex
             ) as window:
                 for tag, staged in _staging(prefetch, loop, sym, depth, timer):
-                    with timer.phase("encode dispatch"):
+                    with timer.phase("encode dispatch"), _dispatch_span("encode", *tag):
                         out = loop.dispatch(codec.encode, staged)
                     window.push(tag, out)
         if _fleet is not None:
@@ -508,7 +605,7 @@ def _encode_file_interleaved(file_name: str, codec: RSCodec, total_size: int, *,
             with SegmentPrefetcher(_segment_spans(chunk, seg_cols), gather, depth=depth) as prefetch, \
                     closing(loop), AsyncWindow(depth, drain, executor=dex) as window:
                 for tag, (segment, staged) in DeviceStagingRing(prefetch, stage, depth=depth):
-                    with timer.phase("encode dispatch"):
+                    with timer.phase("encode dispatch"), _dispatch_span("encode", *tag):
                         out = loop.dispatch(codec.encode, staged)
                     window.push(tag, (segment, out))
         if _fleet is not None:
@@ -779,6 +876,7 @@ def decode_file(
         hi = min(lo + cols, total_size)
         out_fp.seek(lo)
         out_fp.write(row_bytes[: hi - lo])
+        _count_stream_write(hi - lo)
 
     def _stream(segs) -> None:
         # Bind this attempt's survivor state: drains a fleet lane already
@@ -802,6 +900,7 @@ def decode_file(
                 if layout == "interleaved":
                     # The window's k rows are one contiguous file range.
                     native.deinterleave_write(out_fp, rows_out, sym, off, total_size)
+                    _count_stream_write(max(0, min((off + cols) * k, total_size) - off * k))
                 else:
                     for i, row_bytes in enumerate(rows_out):
                         write_row(i, off, cols, row_bytes)
@@ -833,7 +932,7 @@ def decode_file(
                 depth, drain, executor=dex
             ) as window:
                 for tag, staged in _staging(prefetch, loop, sym, depth, timer):
-                    with timer.phase("decode dispatch"):
+                    with timer.phase("decode dispatch"), _dispatch_span("decode", *tag):
                         out = loop.dispatch(lambda seg: codec.decode(dec_missing, seg), staged)
                     window.push(tag, out)
 
@@ -972,44 +1071,45 @@ def _scan_chunks(in_file: str, segment_bytes: int) -> _ChunkScan:
     truncated, an unreadable one a read error, one whose CRC32 differs
     from its ``# crc32`` line a mismatch; all three are damage.  Files the
     metadata has no CRC for are healthy when full-size."""
-    meta_path = metadata_file_name(in_file)
-    meta = read_archive_meta(meta_path)
-    k, p = meta.native_num, meta.parity_num
-    _check_gfwidth(meta.w, meta_path)
-    total_mat = _checked_total_matrix(meta)
-    chunk, crcs = meta.chunk, meta.crcs
-    healthy: list[int] = []
-    bad: dict[int, str] = {}
-    # The per-chunk verdicts of the health plane's "scan" event: the full
-    # map, an empty one included (a clean scan clears earlier damage).
-    states: dict[int, str] = {}
-    chunk_states = _obs_metrics.counter("rs_scrub_chunks_total", "chunk verdicts from archive scans")
-    for i in range(k + p):
-        path = chunk_file_name(in_file, i)
-        if not os.path.exists(path):
-            states[i] = "missing"
-        elif os.path.getsize(path) < chunk:
-            bad[i], states[i] = path, "truncated"  # damage, not loss
-        elif i in crcs:
-            try:
-                # The fault plane's scrub boundary.
-                mm = _open_chunk(path, chunk, index=i, scope="scrub")
-            except ChunkIntegrityError:
-                bad[i], states[i] = path, "truncated"  # shrank since the size check
-            except OSError:
-                # Unreadable after retries: damage to record, the scan goes on.
-                bad[i], states[i] = path, "read_error"
-            else:
-                if chunk_crc32(mm, chunk, segment_bytes) != crcs[i]:
-                    bad[i], states[i] = path, "crc_mismatch"
-        chunk_states.labels(state=states.get(i, "healthy")).inc()
-        if i not in states:
-            healthy.append(i)
-    _obs_metrics.counter("rs_scrub_archives_scanned_total", "archive health scans").labels(
-        outcome="damaged" if bad or len(healthy) < k + p else "clean").inc()
-    _obs_health.record_damage("scan", in_file, states=states, k=k, p=p, w=meta.w, generation=meta.generation)
-    return _ChunkScan(in_file, meta.total_size, p, k, total_mat, meta.w, crcs, chunk, healthy, bad,
-                      layout=meta.layout, generation=meta.generation)
+    with _obs_tracing.span("scan_chunks", lane="scrub", file=in_file):
+        meta_path = metadata_file_name(in_file)
+        meta = read_archive_meta(meta_path)
+        k, p = meta.native_num, meta.parity_num
+        _check_gfwidth(meta.w, meta_path)
+        total_mat = _checked_total_matrix(meta)
+        chunk, crcs = meta.chunk, meta.crcs
+        healthy: list[int] = []
+        bad: dict[int, str] = {}
+        # The per-chunk verdicts of the health plane's "scan" event: the full
+        # map, an empty one included (a clean scan clears earlier damage).
+        states: dict[int, str] = {}
+        chunk_states = _obs_metrics.counter("rs_scrub_chunks_total", "chunk verdicts from archive scans")
+        for i in range(k + p):
+            path = chunk_file_name(in_file, i)
+            if not os.path.exists(path):
+                states[i] = "missing"
+            elif os.path.getsize(path) < chunk:
+                bad[i], states[i] = path, "truncated"  # damage, not loss
+            elif i in crcs:
+                try:
+                    # The fault plane's scrub boundary.
+                    mm = _open_chunk(path, chunk, index=i, scope="scrub")
+                except ChunkIntegrityError:
+                    bad[i], states[i] = path, "truncated"  # shrank since the size check
+                except OSError:
+                    # Unreadable after retries: damage to record, the scan goes on.
+                    bad[i], states[i] = path, "read_error"
+                else:
+                    if chunk_crc32(mm, chunk, segment_bytes) != crcs[i]:
+                        bad[i], states[i] = path, "crc_mismatch"
+            chunk_states.labels(state=states.get(i, "healthy")).inc()
+            if i not in states:
+                healthy.append(i)
+        _obs_metrics.counter("rs_scrub_archives_scanned_total", "archive health scans").labels(
+            outcome="damaged" if bad or len(healthy) < k + p else "clean").inc()
+        _obs_health.record_damage("scan", in_file, states=states, k=k, p=p, w=meta.w, generation=meta.generation)
+        return _ChunkScan(in_file, meta.total_size, p, k, total_mat, meta.w, crcs, chunk, healthy, bad,
+                          layout=meta.layout, generation=meta.generation)
 
 
 # The generation-keyed survivor-subset cache: one chosen subset and its
@@ -1175,6 +1275,8 @@ def scan_file(in_file: str, *, segment_bytes: int = DEFAULT_SEGMENT_BYTES, syndr
         # Demote located chunks only on a complete sweep: an unlocatable
         # one stopped early, so its located set covers only a prefix.
         if located and verdict == "silent_bitrot":
+            _obs_metrics.counter("rs_scrub_chunks_total", "chunk verdicts from archive scans").labels(
+                state="silent_bitrot").inc(len(located))
             scan = scan.excluding({i: chunk_file_name(in_file, i) for i in located})
         if located or verdict == "unlocatable":
             # Each located chunk is a verified attribution, a partial
@@ -1190,6 +1292,8 @@ def scan_file(in_file: str, *, segment_bytes: int = DEFAULT_SEGMENT_BYTES, syndr
         ok = False
     if syn_report is not None and syn_report["verdict"] == "unlocatable":
         ok = "unknown" if ok is True else ok  # erasure-decodable maybe, the bytes unproven
+    _obs_metrics.counter("rs_scrub_verdicts_total", "scan_file decodability verdicts").labels(
+        decodable=str(ok)).inc()
     report = {
         "k": scan.k,
         "p": scan.p,
@@ -1261,16 +1365,16 @@ def auto_decode_file(in_file: str, output: str | None = None, *, conf_out: str |
                 return locate_decode_file(in_file, output, _scan=scan, **locate_kwargs)
             except UnlocatableError:
                 raise  # never fall back to a silently wrong erasure decode
-            except (ValueError, OSError):
-                pass
+            except (ValueError, OSError) as e:
+                _obs_tracing.instant("locate_fallback", lane="retry", error=type(e).__name__)
         chosen, _ = _select_subset_retrying(scan)
         write_conf(conf_path, [os.path.basename(chunk_file_name(in_file, i)) for i in chosen])
         kwargs = dict(decode_kwargs)
         if kwargs.get("verify_checksums") is None:
             kwargs["verify_checksums"] = False
         try:
-            return decode_file(in_file, conf_path, output, _fallback_rows=[i for i in scan.healthy if i not in chosen],
-                               **kwargs)
+            out = decode_file(in_file, conf_path, output, _fallback_rows=[i for i in scan.healthy if i not in chosen],
+                              **kwargs)
         except (ChunkIntegrityError, FileNotFoundError) as e:
             if isinstance(e, ChunkIntegrityError):
                 excluded.update(e.bad_chunks)
@@ -1285,10 +1389,20 @@ def auto_decode_file(in_file: str, output: str | None = None, *, conf_out: str |
                     rescan = _scan_chunks(in_file, segment_bytes)
                     if _locate_context(rescan) is not None:
                         try:
-                            return locate_decode_file(in_file, output, _scan=rescan, **locate_kwargs)
+                            out = locate_decode_file(in_file, output, _scan=rescan, **locate_kwargs)
                         except (ValueError, OSError):
                             raise e from None
+                        _obs_metrics.counter("rs_degraded_decodes_total",
+                                             "decodes completed after survivor reselection").labels(
+                            stage="locate").inc()
+                        return out
                 raise
+            _obs_tracing.instant("degraded_reselect", lane="retry", attempt=attempt + 1, error=type(e).__name__)
+            continue
+        if attempt:
+            _obs_metrics.counter("rs_degraded_decodes_total", "decodes completed after survivor reselection").labels(
+                stage="reselect").inc()
+        return out
     raise AssertionError("unreachable: the last attempt returns or raises")
 
 
@@ -1360,8 +1474,19 @@ def _locate_context(scan: _ChunkScan):
         return None
 
 
-def _locate_segment_fixes(ctx, codec: RSCodec, loop: StreamLoop, seg: np.ndarray, sym: int, timer: PhaseTimer,
-                          want_packed: bool = False):
+def _count_syndrome_verdict(verdict: str) -> None:
+    _obs_metrics.counter("rs_syndrome_checks_total",
+                         "per-segment syndrome-check verdicts (error-locating decode)").labels(verdict=verdict).inc()
+
+
+def _count_located(n: int, w: int) -> None:
+    if n:
+        _obs_metrics.counter("rs_located_errors_total", "symbol errors located and corrected by syndrome decode").labels(
+            w=w).inc(n)
+
+
+def _locate_segment_fixes(ctx, codec: RSCodec, loop: StreamLoop, seg: np.ndarray, sym: int, off: int, cols: int,
+                          timer: PhaseTimer, want_packed: bool = False):
     """One segment's syndrome check: S = check . seg through the GEMM on
     the device, then the host locate.  Returns ``(fixes, packed)``: the
     verified corrections ({column: [(chunk, magnitude)]}) and, with
@@ -1369,8 +1494,12 @@ def _locate_segment_fixes(ctx, codec: RSCodec, loop: StreamLoop, seg: np.ndarray
     :class:`.ops.xor_gemm.PackedOperand`, so the caller's recovery GEMM
     reuses the pack this syndrome GEMM paid for (None otherwise).  The
     planes stay on ``loop``'s device, in its compute stream's order.
-    Raises :class:`.gf_decode.UnlocatableError` past the t bound."""
+    Raises :class:`.gf_decode.UnlocatableError` past the t bound (counted
+    before it propagates)."""
+    from .gf_decode import UnlocatableError
+
     if ctx.r == 0:
+        _count_syndrome_verdict("no_headroom")
         return {}, None
     packed = None
 
@@ -1379,12 +1508,19 @@ def _locate_segment_fixes(ctx, codec: RSCodec, loop: StreamLoop, seg: np.ndarray
         packed = codec.pack_operand(d) if want_packed else None
         return codec.syndrome(ctx.check, packed if packed is not None else d)
 
-    with timer.phase("syndrome dispatch"):
+    with timer.phase("syndrome dispatch"), _dispatch_span("syndrome", off, cols):
         out = loop.dispatch(syndrome, loop.stage_copy(seg, sym))
     with timer.phase("syndrome locate"):
         S = loop.result(out)
         S = S.view(np.uint16) if sym == 2 else S
-        return ctx.locate(S.astype(np.int64)), packed
+        try:
+            fixes = ctx.locate(S.astype(np.int64))
+        except UnlocatableError:
+            _count_syndrome_verdict("unlocatable")
+            raise
+    _count_syndrome_verdict("silent_bitrot" if fixes else "clean")
+    _count_located(sum(len(v) for v in fixes.values()), ctx.w)
+    return fixes, packed
 
 
 def _survivor_reader(paths: list[str], indices: list[int], timer: PhaseTimer, *, op: str, scope: str = "read"):
@@ -1426,6 +1562,7 @@ def _syndrome_sweep(in_file: str, scan: _ChunkScan, *, strategy: str = "auto", d
     timer = timer or PhaseTimer(enabled=False)
     ctx = _locate_context(scan)
     if ctx is None or ctx.r == 0:
+        _count_syndrome_verdict("no_headroom")
         return "no_headroom", set(), 0, True
     codec = RSCodec(scan.k, scan.p, w=scan.w, strategy=strategy, device=device)
     sym = scan.w // 8
@@ -1437,9 +1574,9 @@ def _syndrome_sweep(in_file: str, scan: _ChunkScan, *, strategy: str = "auto", d
     errors = 0
     try:
         with SegmentPrefetcher(_segment_spans(scan.chunk, seg_cols), gather, depth=2) as prefetch:
-            for _tag, seg in prefetch:
+            for (off, cols), seg in prefetch:
                 try:
-                    fixes, _ = _locate_segment_fixes(ctx, codec, loop, seg, sym, timer)
+                    fixes, _ = _locate_segment_fixes(ctx, codec, loop, seg, sym, off, cols, timer)
                 except UnlocatableError:
                     return "unlocatable", located, errors, False
                 for col_fixes in fixes.values():
@@ -1476,6 +1613,7 @@ def locate_decode_file(
     """
     from .gf_decode import correct_segment, is_systematic
 
+    t_start = time.perf_counter()
     timer = timer or PhaseTimer(enabled=False)
     device = entry_device(device, strategy)
     if _scan is not None:
@@ -1540,6 +1678,7 @@ def locate_decode_file(
         hi = min(lo + cols, scan.total_size)
         out_fp.seek(lo)
         out_fp.write(np.ascontiguousarray(row_bytes[: hi - lo]))
+        _count_stream_write(hi - lo)
 
     try:
         # One segment at a time (the prefetch overlaps the reads): the host
@@ -1552,7 +1691,7 @@ def locate_decode_file(
                 # survivor stack; the recovery GEMM reads a subset of the
                 # same rows, so it selects their planes from that pack
                 # instead of staging and packing them again.
-                fixes, packed = _locate_segment_fixes(ctx, codec, check_loop, seg, sym, timer,
+                fixes, packed = _locate_segment_fixes(ctx, codec, check_loop, seg, sym, off, cols, timer,
                                                       want_packed=dec_missing is not None)
                 if fixes:
                     correct_segment(seg.view(np.uint16) if sym == 2 else seg, fixes, row_of)
@@ -1561,7 +1700,7 @@ def locate_decode_file(
                     packed = None
                 rec = None
                 if dec_missing is not None:
-                    with timer.phase("locate dispatch"):
+                    with timer.phase("locate dispatch"), _dispatch_span("decode", off, cols):
                         if packed is not None:
                             # The planes are on check_loop's compute stream.
                             loop, chosen = check_loop, packed.select(chosen_rows)
@@ -1576,6 +1715,7 @@ def locate_decode_file(
                     rows_out = [seg[row_of[i]] if i in row_of else rec[rec_row[i]] for i in range(k)]
                     if scan.layout == "interleaved":
                         native.deinterleave_write(out_fp, rows_out, sym, off, scan.total_size)
+                        _count_stream_write(max(0, min((off + cols) * k, scan.total_size) - off * k))
                     else:
                         for i, row_bytes in enumerate(rows_out):
                             write_row(i, off, cols, row_bytes)
@@ -1591,6 +1731,9 @@ def locate_decode_file(
     finally:
         for fp in fps:
             fp.close()
+    _obs_metrics.quantile("rs_locate_decode_wall_seconds",
+                          "error-locating decode wall seconds (streaming quantiles)").observe(
+        time.perf_counter() - t_start)
     return out_path
 
 
@@ -1630,7 +1773,7 @@ def repair_file(
         scan = _scan_chunks(in_file, segment_bytes)
     targets = scan.unhealthy
     if not targets:
-        return []
+        return _count_repair_outcome([])
     if scan.chunk == 0:
         # Zero-size archive: every chunk is the empty file.  Still held to
         # the >= k healthy rule, as scan_file's decodable verdict is.
@@ -1639,19 +1782,23 @@ def repair_file(
             _write_empty_atomic(chunk_file_name(in_file, t))
         if scan.crcs:
             rewrite_checksums(metadata_file_name(in_file), {**scan.crcs, **{t: 0 for t in targets}})  # crc32(b"") == 0
-        return _record_repair(targets, scan)
+        return _count_repair_outcome(targets, scan)
     with timer.phase("invert matrix"):
         chosen, inv = _repair_select_or_fail(scan)
-    return _record_repair(_repair_streamed(in_file, scan, chosen, inv, strategy=strategy, device=device,
-                                           segment_bytes=segment_bytes, pipeline_depth=pipeline_depth, timer=timer),
-                          scan)
+    return _count_repair_outcome(_repair_streamed(in_file, scan, chosen, inv, strategy=strategy, device=device,
+                                                  segment_bytes=segment_bytes, pipeline_depth=pipeline_depth,
+                                                  timer=timer), scan)
 
 
-def _record_repair(rebuilt: list[int], scan: _ChunkScan) -> list[int]:
-    """The health plane's "repair" event for a non-empty rebuild (it
-    clears the rebuilt chunks from the archive's damage map); identity on
-    ``rebuilt``."""
+def _count_repair_outcome(rebuilt: list[int], scan: _ChunkScan | None = None) -> list[int]:
+    """One archive's repair verdict: ``rs_repair_outcomes_total{outcome}``
+    and ``rs_repair_chunks_rebuilt_total``, and for a non-empty rebuild the
+    health plane's "repair" event (it clears the rebuilt chunks from the
+    archive's damage map).  Identity on ``rebuilt``."""
+    _obs_metrics.counter("rs_repair_outcomes_total", "archive repair outcomes").labels(
+        outcome="rebuilt" if rebuilt else "healthy").inc()
     if rebuilt:
+        _obs_metrics.counter("rs_repair_chunks_rebuilt_total", "chunk files regenerated by repair").inc(len(rebuilt))
         _obs_health.record_damage("repair", scan.in_file, chunks=rebuilt, k=scan.k, p=scan.p, w=scan.w,
                                   generation=scan.generation)
     return rebuilt
@@ -1747,7 +1894,7 @@ def _repair_streamed(in_file: str, scan: _ChunkScan, chosen: list[int], inv, *, 
                 depth, drain, executor=dex
             ) as window:
                 for tag, staged in _staging(prefetch, loop, sym, depth, timer):
-                    with timer.phase("repair dispatch"):
+                    with timer.phase("repair dispatch"), _dispatch_span("repair", *tag):
                         out = loop.dispatch(lambda seg: codec.decode(rebuild_mat, seg), staged)
                     window.push(tag, out)
         if fleet is not None:
@@ -1842,6 +1989,8 @@ def repair_fleet(
                 except ValueError as e:
                     errors[f] = str(e)
     if errors:
+        _obs_metrics.counter("rs_repair_outcomes_total", "archive repair outcomes").labels(
+            outcome="unrecoverable").inc(len(errors))
         for f in sorted(errors):
             # An unscannable archive has no shape to record (the JAX
             # package's scans[f] raises KeyError there instead).
@@ -1855,16 +2004,16 @@ def repair_fleet(
         for f in files:
             s = scans[f]
             if not s.unhealthy:
-                results[f] = []
+                results[f] = _count_repair_outcome([])
             elif s.chunk == 0:
                 results[f] = repair_file(f, strategy=strategy, device=device, segment_bytes=segment_bytes,
                                          pipeline_depth=pipeline_depth, timer=timer)
             else:
                 chosen, inv = chosen_inv[f]
-                results[f] = _record_repair(_repair_streamed(f, s, chosen, inv, strategy=strategy, device=device,
-                                                             segment_bytes=segment_bytes,
-                                                             pipeline_depth=pipeline_depth, timer=timer, fleet=pipe),
-                                            s)
+                results[f] = _count_repair_outcome(_repair_streamed(f, s, chosen, inv, strategy=strategy,
+                                                                    device=device, segment_bytes=segment_bytes,
+                                                                    pipeline_depth=pipeline_depth, timer=timer,
+                                                                    fleet=pipe), s)
     return results
 
 

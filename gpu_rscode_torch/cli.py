@@ -31,7 +31,12 @@ observability planes.  ``--faults SPEC`` activates the deterministic fault
 plane (:mod:`.resilience.faults`) around the operation; the subcommands
 ``chaos`` (:mod:`.resilience.chaos`) and ``maint``
 (:mod:`.maint.controller`) run the chaos harness and the
-background-maintenance loop.
+background-maintenance loop.  The measurement plane: ``--metrics-json
+PATH`` (the unified snapshot after the run, written on a failed run too),
+``--trace PATH`` (a Chrome-trace timeline) and ``--profile-dir DIR`` (a
+``torch.profiler`` trace, as ``RS_PROFILE=DIR``) on every operation,
+``--scrub`` included; the subcommands ``stats``, ``history``, ``perf``
+(:mod:`.obs.perfbase`) and ``analyze`` (:mod:`.obs.attrib`).
 
 ``--device`` defaults to CUDA; without a GPU the command fails unless
 ``--device cpu`` or ``--strategy cpu`` is given.
@@ -99,6 +104,20 @@ Extensions: [--generator vandermonde|cauchy]
             [--faults SPEC] (deterministic fault injection at the IO
             boundaries, e.g. 'read:ioerror@p=0.02;write:torn@after=1MiB';
             seeded by RS_FAULTS_SEED.  RS_RETRY_* tune the retry policy)
+Observability:
+            [--metrics-json PATH] (any operation, --scrub included:
+            collect the RS_METRICS registry during the run — enabled
+            automatically — and dump the unified snapshot, plan cache
+            included, as JSON; written on a failed run too)
+            [--trace PATH] (write a per-segment Chrome-trace/Perfetto
+            timeline; equivalent to RS_TRACE=PATH)
+            [--profile-dir DIR] (a torch.profiler trace of the operation,
+            CPU and CUDA activities on the card; equivalent to
+            RS_PROFILE=DIR)
+            RS_RUNLOG=PATH appends one ledger record per operation;
+            RS_PROF=1 adds one rs_perf stage event per GEMM dispatch
+            (RS_PROF_SAMPLE=1/N samples); RS_METRICS_PORT=P serves
+            /metrics live during the run
 Subcommands: update ARCHIVE --at OFF --in DELTA [--recover] [--json]
             (delta-parity partial-stripe update: overwrite a byte range
             of the archived file in place — parity' = parity XOR E*delta,
@@ -139,7 +158,238 @@ Subcommands: update ARCHIVE --at OFF --in DELTA [--recover] [--json]
             repair, differential-checked; bit-reproducible per seed)
             maint [--root D] [--ledger L] [--drain|--watch [SECS]]
             [--device DEVICE] ... (background maintenance: repair/scrub
-            from the damage ledger, compaction of dead-heavy buckets)"""
+            from the damage ledger, compaction of dead-heavy buckets)
+            stats [--text] [--workload [--device DEVICE]]
+            (dump the unified observability snapshot of this process;
+            --text = Prometheus exposition, --workload = run a synthetic
+            multi-tail encode first)
+            history [--op OP] [--k K] [--n N] [--w W] [--strategy S]
+            [--last N] [--json] [--save-baseline NAME]
+            [--regress NAME [--threshold F] [--window N]]
+            (trend the RS_RUNLOG run ledger; --regress exits 3 when the
+            recent window's mean GB/s drops below the named baseline)
+            perf [--runlog PATH] [--captures DIR] [--record] [--check]
+            [--drift-frac F] [--host H] [--backend B] [--json]
+            (per-(host,backend,strategy,op,shape-bucket) throughput
+            baselines from RS_PROF rs_perf events, op records and
+            captures; --record blesses the current medians, --check
+            exits 4 when the worst cell drifts below RS_PERF_DRIFT_FRAC
+            (default 0.85) of baseline and 2 with no evidence)
+            analyze [--json] [--strategies S,S] [--k K] [--p P]
+            [--size-kb N] [--segment-kb N] [--refresh-roofline]
+            [--device DEVICE] (roofline attribution: per-strategy
+            achieved GB/s, GFLOP/s, arithmetic intensity and a
+            memory/compute/dispatch verdict against the roofline of the
+            device the workload ran on)"""
+
+
+def _stats_main(argv: list[str]) -> int:
+    """The ``rs stats`` subcommand: dump the unified observability
+    snapshot (metrics registry + plan-cache stats + autotune decisions)."""
+    import argparse
+    import json
+
+    from .obs import metrics as obs_metrics
+
+    ap = argparse.ArgumentParser(
+        prog="rs stats",
+        description="Dump the unified observability snapshot "
+        "(RS_METRICS registry + plan cache + autotune decisions).",
+    )
+    ap.add_argument(
+        "--text", action="store_true",
+        help="Prometheus text exposition instead of one-line JSON",
+    )
+    ap.add_argument(
+        "--workload", action="store_true",
+        help="run the synthetic multi-tail encode workload first "
+        "(a fresh process otherwise has little to report)",
+    )
+    ap.add_argument("--device", default=None,
+                    help="where --workload runs (default: the CUDA device)")
+    # No --reset flag: a CLI invocation exits right after dumping, so a
+    # registry clear could never be observed; in-process embedders use
+    # obs.metrics.REGISTRY.reset() directly.
+    try:
+        args = ap.parse_args(argv)
+    except SystemExit as e:
+        # Same int-return contract as every other usage-error path (_fail
+        # returns 2); argparse must not raise through a programmatic
+        # main() caller.
+        return int(e.code or 0)
+    if args.workload:
+        obs_metrics.force_enable()
+        from .tools.plan_stats import run_workload
+
+        run_workload(device=args.device)
+    if args.text:
+        print(obs_metrics.REGISTRY.render_text(), end="")
+    else:
+        print(json.dumps(obs_metrics.unified_snapshot()))
+    return 0
+
+
+def _history_main(argv: list[str]) -> int:
+    """The ``rs history`` subcommand: filter/trend the persistent run
+    ledger (obs/runlog.py) by op + config, with ``--regress`` comparing
+    the recent window against a named baseline (the measurement-driven
+    regression watch — exit 3 past the threshold, so a cron job or CI
+    step can gate on it)."""
+    import argparse
+    import json
+    import statistics
+    import time as _time
+
+    from .obs import runlog as obs_runlog
+
+    ap = argparse.ArgumentParser(
+        prog="rs history",
+        description="Trend the RS_RUNLOG run ledger (and capture_header-"
+        "style bench captures) by op + config; --regress gates on a "
+        "named throughput baseline.",
+    )
+    ap.add_argument("--runlog", default=None,
+                    help="ledger path (default: $RS_RUNLOG)")
+    ap.add_argument("--op", help="filter: op (or bench tool) name")
+    ap.add_argument("--k", type=int, help="filter: native chunk count")
+    ap.add_argument("--n", type=int, help="filter: total chunk count")
+    ap.add_argument("--w", type=int, help="filter: GF symbol width")
+    ap.add_argument("--strategy", help="filter: GEMM strategy")
+    ap.add_argument("--host", help="filter: origin hostname")
+    ap.add_argument("--last", type=int, default=0,
+                    help="list only the last N filtered records")
+    ap.add_argument("--json", action="store_true",
+                    help="emit filtered records as JSONL instead of text")
+    ap.add_argument("--window", type=int, default=20,
+                    help="records in the trend/baseline window (last N)")
+    ap.add_argument("--save-baseline", metavar="NAME",
+                    help="store the current window's throughput under NAME")
+    ap.add_argument("--regress", metavar="NAME",
+                    help="compare the current window against baseline NAME; "
+                    "exit 3 when mean GB/s drops past --threshold")
+    ap.add_argument("--threshold", type=float, default=0.25,
+                    help="--regress tolerance as a fraction (default 0.25 = "
+                    "fail when >25%% below the baseline mean)")
+    ap.add_argument("--baselines", default=None,
+                    help="baseline store (default: <runlog>.baselines.json)")
+    try:
+        args = ap.parse_args(argv)
+    except SystemExit as e:
+        return int(e.code or 0)
+
+    ledger = args.runlog or os.environ.get("RS_RUNLOG")
+    if not ledger:
+        print("rs history: no ledger — pass --runlog or set RS_RUNLOG",
+              file=sys.stderr)
+        return 2
+    if not (os.path.exists(ledger) or os.path.exists(ledger + ".1")):
+        print(f"rs history: ledger not found: {ledger}", file=sys.stderr)
+        return 1
+    recs = obs_runlog.filter_records(
+        obs_runlog.read_records(ledger),
+        op=args.op, k=args.k, n=args.n, w=args.w,
+        strategy=args.strategy, host=args.host,
+    )
+    shown = recs[-args.last:] if args.last else recs
+    window = recs[-args.window:] if args.window else recs
+    gbps = [g for g in map(obs_runlog.throughput_gbps, window)
+            if g is not None]
+    errors = sum(1 for r in recs if r.get("outcome") == "error")
+
+    if args.json:
+        for r in shown:
+            print(json.dumps(r))
+    elif not (args.save_baseline or args.regress):
+        for r in shown:
+            cfg = r.get("config") or {}
+            when = _time.strftime(
+                "%Y-%m-%dT%H:%M:%SZ", _time.gmtime(r.get("ts", 0))
+            )
+            g = obs_runlog.throughput_gbps(r)
+            print(
+                f"{when} {r.get('op') or r.get('tool') or '?':<13}"
+                f" k={cfg.get('k', '-')} n={cfg.get('n', '-')}"
+                f" w={cfg.get('w', '-')} {cfg.get('strategy', '-'):<9}"
+                f" {r.get('bytes') or 0:>12}B {r.get('wall_s') or 0:>9.3f}s"
+                f" {f'{g:.3f}GB/s' if g is not None else '-':>11}"
+                f" {r.get('outcome', '?')}"
+            )
+        from .obs.percentile import quantile_of
+
+        walls = [r.get("wall_s") for r in window
+                 if r.get("outcome", "ok") == "ok"
+                 and isinstance(r.get("wall_s"), (int, float))]
+        print(
+            f"# {len(recs)} records ({errors} errors); window of "
+            f"{len(window)}: "
+            + (
+                f"mean {statistics.fmean(gbps):.3f} GB/s "
+                f"(p50 {quantile_of(gbps, 0.5):.3f}, "
+                f"p99 {quantile_of(gbps, 0.99):.3f}), "
+                f"best {max(gbps):.3f} GB/s over {len(gbps)} measured"
+                if gbps else "no throughput-measurable records"
+            )
+            + (
+                f"; wall p50 {quantile_of(walls, 0.5):.3f}s "
+                f"p99 {quantile_of(walls, 0.99):.3f}s"
+                if walls else ""
+            ),
+            file=sys.stderr,
+        )
+
+    if not (args.save_baseline or args.regress):
+        return 0
+    if not gbps:
+        print("rs history: no successful records with bytes+wall in the "
+              "window — nothing to baseline or compare", file=sys.stderr)
+        return 1
+    mean = statistics.fmean(gbps)
+    store = args.baselines or ledger + ".baselines.json"
+    baselines: dict = {}
+    if os.path.exists(store):
+        try:
+            with open(store) as fp:
+                baselines = json.load(fp)
+        except (OSError, ValueError) as e:
+            print(f"rs history: unreadable baseline store {store}: {e}",
+                  file=sys.stderr)
+            return 1
+    if args.save_baseline:
+        baselines[args.save_baseline] = {
+            "gbps_mean": round(mean, 6),
+            "gbps_best": round(max(gbps), 6),
+            "count": len(gbps),
+            "saved_ts": _time.time(),
+            "filter": {
+                key: val for key, val in (
+                    ("op", args.op), ("k", args.k), ("n", args.n),
+                    ("w", args.w), ("strategy", args.strategy),
+                    ("host", args.host),
+                ) if val is not None
+            },
+        }
+        with open(store, "w") as fp:
+            json.dump(baselines, fp, indent=2)
+            fp.write("\n")
+        print(f"saved baseline {args.save_baseline!r}: mean {mean:.3f} GB/s "
+              f"over {len(gbps)} records -> {store}", file=sys.stderr)
+    if args.regress:
+        base = baselines.get(args.regress)
+        if base is None:
+            print(f"rs history: no baseline {args.regress!r} in {store} "
+                  f"(have: {sorted(baselines) or 'none'})", file=sys.stderr)
+            return 1
+        floor = base["gbps_mean"] * (1.0 - args.threshold)
+        verdict = (
+            f"window mean {mean:.3f} GB/s vs baseline "
+            f"{args.regress!r} {base['gbps_mean']:.3f} GB/s "
+            f"(floor {floor:.3f} at threshold {args.threshold:.0%})"
+        )
+        if mean < floor:
+            print(f"REGRESSION: {verdict}", file=sys.stderr)
+            return 3
+        print(f"ok: {verdict}", file=sys.stderr)
+    return 0
 
 
 def _fail(msg: str) -> int:
@@ -349,12 +599,24 @@ def main(argv: list[str] | None = None) -> int:
         from .maint.controller import main as _maint_main
 
         return _maint_main(argv[1:])
+    if argv and argv[0] == "stats":
+        return _stats_main(argv[1:])
+    if argv and argv[0] == "history":
+        return _history_main(argv[1:])
+    if argv and argv[0] == "perf":
+        from .obs.perfbase import main as _perf_main
+
+        return _perf_main(argv[1:])
+    if argv and argv[0] == "analyze":
+        from .obs.attrib import main as _analyze_main
+
+        return _analyze_main(argv[1:])
     try:
         opts, extra = getopt.gnu_getopt(
             argv,
             "S:s:P:p:K:k:N:n:E:e:I:i:C:c:O:o:DdHh",
             ["width=", "layout=", "checksum", "no-verify", "generator=", "segment-bytes=", "strategy=", "device=", "auto", "locate",
-             "repair", "scrub", "syndrome", "quiet", "faults="],
+             "repair", "scrub", "syndrome", "quiet", "faults=", "metrics-json=", "trace=", "profile-dir="],
         )
     except getopt.GetoptError as e:
         return _fail(f"rs: {e}")
@@ -371,7 +633,7 @@ def main(argv: list[str] | None = None) -> int:
     layout = "row"
     generator, strategy, device = "vandermonde", "auto", None
     auto = locate = repair = scrub = syndrome = quiet = False
-    faults_spec = None
+    faults_spec = metrics_json = trace_path = profile_dir = None
     repair_requested = bool(flags_seen & {"--repair", "--scrub"})
     for flag, val in opts:
         f = flag.lower()
@@ -429,6 +691,12 @@ def main(argv: list[str] | None = None) -> int:
             quiet = True
         elif f == "--faults":
             faults_spec = val
+        elif f == "--metrics-json":
+            metrics_json = val
+        elif f == "--trace":
+            trace_path = val
+        elif f == "--profile-dir":
+            profile_dir = val
 
     from .codec import VALID_STRATEGIES
 
@@ -488,8 +756,19 @@ def main(argv: list[str] | None = None) -> int:
         return _fail("rs: --syndrome only applies to --scrub")
     if extra and op == "decode" and out_file:
         return _fail("rs: batch --auto decode does not take -o (outputs are written in place, one per archive)")
+    if metrics_json:
+        # Fail fast on an unwritable snapshot path, after every usage check
+        # and before the run; a new (empty) file gets a "{}" placeholder, so
+        # no exit leaves a zero-byte file behind.
+        try:
+            with open(metrics_json, "a") as fp:
+                if fp.tell() == 0:
+                    fp.write("{}\n")
+        except OSError as e:
+            return _fail(f"rs: cannot write --metrics-json path: {e}")
 
     from . import api
+    from .obs import metrics as obs_metrics, serve as obs_serve
 
     kwargs = dict(strategy=strategy, device=device, pipeline_depth=max(1, pipeline_depth))
     if segment_bytes:
@@ -498,7 +777,30 @@ def main(argv: list[str] | None = None) -> int:
         # -p caps the per-dispatch column extent, the closest analog of the
         # reference's gridDim.x cap (encode.cu:348-355).
         kwargs["segment_bytes"] = max(1, tile_hint) * 128 * 1024
+    if metrics_json:
+        obs_metrics.force_enable()  # collection must be on during the run
+    if trace_path:
+        kwargs["trace_path"] = trace_path  # == RS_TRACE=PATH for this op
+
+    def dump_metrics() -> None:
+        # On every exit from the run, a failed one too: the snapshot is most
+        # valuable when a long run died near its end.
+        if not metrics_json:
+            return
+        try:
+            with open(metrics_json, "w") as fp:
+                json.dump(obs_metrics.unified_snapshot(), fp)
+                fp.write("\n")
+        except OSError as e:  # writability was probed up front; disk full etc.
+            print(f"rs: metrics snapshot write failed: {e}", file=sys.stderr)
+
+    # RS_METRICS_PORT serves /metrics live for the run's duration.
+    obs_serve.maybe_start_from_env()
     timer = PhaseTimer(enabled=True)
+    if profile_dir:
+        # The session itself lives in api._observed_file_op; the flag
+        # latches the same override as RS_PROFILE for this run only.
+        api.profile_dir_override(profile_dir)
     fault_ctx = nullcontext() if fault_plan is None else _faults.activate(fault_plan)
     try:
         with fault_ctx:
@@ -518,7 +820,8 @@ def main(argv: list[str] | None = None) -> int:
             elif op == "scrub":
                 report = api.scan_file(in_file, syndrome=syndrome, device=device,
                                        **({"segment_bytes": kwargs["segment_bytes"]}
-                                          if "segment_bytes" in kwargs else {}))
+                                          if "segment_bytes" in kwargs else {}),
+                                       **({"trace_path": trace_path} if trace_path else {}))
                 print(json.dumps(report))
                 # "unknown" (the subset search capped) is not proven healthy.
                 return 0 if report["decodable"] is True else 1
@@ -555,6 +858,10 @@ def main(argv: list[str] | None = None) -> int:
     except (ValueError, RuntimeError, OSError) as e:
         print(f"rs: error: {e}", file=sys.stderr)
         return 1
+    finally:
+        if profile_dir:
+            api.profile_dir_override(None)
+        dump_metrics()
 
     if not quiet:
         print(f"== {op} {in_file} ==")

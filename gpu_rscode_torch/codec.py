@@ -29,6 +29,7 @@ from . import plan as _plan
 from .models.vandermonde import generator_matrix
 from .ops.gemm import to_tensor
 from .ops.gf import get_field
+from .obs import metrics as _obs_metrics, profiler as _prof
 from .ops.inverse import invert_matrix
 from .tune import VALID_STRATEGIES, resolve_auto
 from .utils.backend import resolve_device
@@ -117,24 +118,47 @@ class RSCodec:
     def parity_block(self) -> np.ndarray:
         return self.total_matrix[self.native_num :]
 
+    def _count_segment(self, op: str, data) -> None:
+        """Registry accounting for one stripe dispatch, as the JAX package
+        counts it: ``segments_dispatched`` and ``rs_codec_bytes_total`` on
+        the true (pre-pad) columns, and the op named for the profiler."""
+        from .ops.xor_gemm import PackedOperand
+
+        _prof.note_op(op)
+        _obs_metrics.counter("segments_dispatched", "stripe GEMM dispatches by operation and strategy").labels(
+            op=op, strategy=self.strategy, w=self.w).inc()
+        if isinstance(data, PackedOperand):
+            nbytes = data.rows * data.cols_true * data.dtype.itemsize
+        elif isinstance(data, _plan.StagedSegment):
+            nbytes = data.array.shape[0] * data.cols * data.array.element_size()
+        else:
+            nbytes = getattr(data, "nbytes", 0)
+        if nbytes:
+            _obs_metrics.counter("rs_codec_bytes_total", "payload bytes entering stripe GEMM dispatches").labels(
+                op=op, strategy=self.strategy, w=self.w).inc(int(nbytes))
+
     def encode(self, data) -> torch.Tensor:
         """(k, m) natives -> (p, m) parity on the codec's device."""
+        self._count_segment("encode", data)
         return self._matmul(self.parity_block, data)
 
     def decode(self, decode_mat, chunks) -> torch.Tensor:
         """(r, k) recovery rows x (k, m) surviving chunks -> (r, m) natives."""
+        self._count_segment("decode", chunks)
         return self._matmul(decode_mat, chunks)
 
     def update(self, parity_mat, delta) -> torch.Tensor:
         """(p, k) parity coefficient block E x (k, m) native-symbol delta ->
         (p, m) parity delta: RS is linear, so ``parity' = parity ^ E.delta``
         over just the columns an edit touched."""
+        self._count_segment("update", delta)
         return self._matmul(parity_mat, delta)
 
     def syndrome(self, check_mat, chunks) -> torch.Tensor:
         """(r, s) parity-check rows x (s, m) stacked chunk rows -> (r, m)
         syndromes; a zero column is a consistent codeword column.  The depth
         s is the number of chunks present (up to n), not k."""
+        self._count_segment("syndrome", chunks)
         return self._matmul(check_mat, chunks)
 
     def pack_operand(self, data):

@@ -31,10 +31,12 @@ import ctypes
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
 
+from ..obs import metrics as _obs_metrics
 from ..ops import _build
 
 SRC = Path(__file__).resolve().parent / "rs_native_io.cpp"
@@ -59,6 +61,15 @@ _count_lock = threading.Lock()
 
 class NativeUnavailable(RuntimeError):
     """The library could not be built or loaded (no ``g++``)."""
+
+
+def _count_io(direction: str, call: str, nbytes: int, seconds: float) -> None:
+    """``rs_io_*`` accounting of one staging call, as the JAX package
+    counts it: ``direction`` "read" or "write", ``call`` the primitive."""
+    _obs_metrics.counter(f"rs_io_{direction}_bytes_total", f"bytes {direction} by the staging-I/O layer").labels(
+        call=call).inc(nbytes)
+    _obs_metrics.counter(f"rs_io_{direction}_seconds_total", f"wall seconds in staging-I/O {direction} calls").labels(
+        call=call).inc(seconds)
 
 
 def _count(native: bool) -> None:
@@ -234,12 +245,14 @@ def stripe_read(path: str, chunk: int, k: int, off: int, cols: int, total_size: 
     ``fallback_src``: an open memmap of ``path`` for the fallback (saves a
     mapping per segment).  A file shorter than ``total_size`` raises
     ``OSError``."""
+    t0 = time.perf_counter()
     dst = _dst(dst, k, cols)
     lib = _native()
     if lib is not None:
         _count(True)
         if lib.rs_stripe_read(path.encode(), dst, chunk, k, off, cols, total_size) < 0:
             raise OSError(f"rs_stripe_read failed for {path!r} (I/O error or truncated file)")
+        _count_io("read", "stripe_read", dst.nbytes, time.perf_counter() - t0)
         return dst
     _count(False)
     src = fallback_src if fallback_src is not None else np.memmap(path, dtype=np.uint8, mode="r")
@@ -256,6 +269,7 @@ def stripe_read(path: str, chunk: int, k: int, off: int, cols: int, total_size: 
     from ..parallel.io_executor import run_rows
 
     run_rows(k, read_row)
+    _count_io("read", "stripe_read", dst.nbytes, time.perf_counter() - t0)
     return dst
 
 
@@ -264,6 +278,7 @@ def gather_rows(files, off: int, cols: int, fallback_maps=None, dst: np.ndarray 
     twin of :func:`stripe_read`.  ``fallback_maps``: memmaps of the files
     for the fallback.  A file that ends before ``off + cols`` raises
     ``OSError``."""
+    t0 = time.perf_counter()
     k = len(files)
     dst = _dst(dst, k, cols)
     lib = _native()
@@ -272,6 +287,7 @@ def gather_rows(files, off: int, cols: int, fallback_maps=None, dst: np.ndarray 
         fds = (ctypes.c_int * k)(*[f.fileno() for f in files])
         if lib.rs_gather_rows(fds, dst, k, off, cols) != 0:
             raise OSError("rs_gather_rows failed (short read)")
+        _count_io("read", "gather_rows", dst.nbytes, time.perf_counter() - t0)
         return dst
     _count(False)
     maps = fallback_maps if fallback_maps is not None else [np.memmap(f.name, dtype=np.uint8, mode="r") for f in files]
@@ -285,11 +301,13 @@ def gather_rows(files, off: int, cols: int, fallback_maps=None, dst: np.ndarray 
     from ..parallel.io_executor import run_rows
 
     run_rows(k, read_row)
+    _count_io("read", "gather_rows", dst.nbytes, time.perf_counter() - t0)
     return dst
 
 
 def scatter_write(files, arr: np.ndarray, off: int) -> None:
     """Row j of (p, cols) ``arr`` to open binary file j at byte ``off``."""
+    t0 = time.perf_counter()
     arr = np.ascontiguousarray(arr, dtype=np.uint8)
     p, cols = arr.shape
     if len(files) != p:
@@ -300,13 +318,14 @@ def scatter_write(files, arr: np.ndarray, off: int) -> None:
         for fp, row in zip(files, arr):
             fp.seek(off)
             fp.write(row)
-        return
-    _count(True)
-    for fp in files:
-        fp.flush()  # nothing buffered may straddle the pwrite
-    fds = (ctypes.c_int * p)(*[fp.fileno() for fp in files])
-    if lib.rs_scatter_write(fds, arr, p, cols, off) != 0:
-        raise OSError("rs_scatter_write failed (short write)")
+    else:
+        _count(True)
+        for fp in files:
+            fp.flush()  # nothing buffered may straddle the pwrite
+        fds = (ctypes.c_int * p)(*[fp.fileno() for fp in files])
+        if lib.rs_scatter_write(fds, arr, p, cols, off) != 0:
+            raise OSError("rs_scatter_write failed (short write)")
+    _count_io("write", "scatter_write", arr.nbytes, time.perf_counter() - t0)
 
 
 def interleave_read(path: str, k: int, sym: int, off: int, cols: int, total_size: int,

@@ -18,8 +18,9 @@
   ``{k, n, w, strategy}`` config, input bytes, wall, phases, outcome) with
   :func:`timer_phases` for a shared timer's entry snapshot, which
   ``api._observed_file_op`` calls around every file-level entry point.
-
-The history surface (``filter_records``) is not ported yet.
+* The history surface: :func:`filter_records` (``rs history``'s filter,
+  and the event classes the health and request planes replay) and
+  :func:`throughput_gbps` (``rs history`` and ``rs perf``).
 
 Import cost: the standard library and :mod:`..utils.backend`.
 """
@@ -379,3 +380,100 @@ def record(fields: dict, ledger_path: str | None = None) -> None:
         rec["metrics_digest"] = None
     append(rec, ledger_path)
 
+
+# -- history / trend helpers (the `rs history` subcommand's core) ------------
+
+
+def filter_records(
+    records: list[dict],
+    *,
+    op: str | None = None,
+    k: int | None = None,
+    n: int | None = None,
+    w: int | None = None,
+    strategy: str | None = None,
+    host: str | None = None,
+    cls: str | None = None,
+) -> list[dict]:
+    """Select ledger (or bench-capture) records by op + config.
+
+    ``op`` matches a record's ``op``, its ``tool``, or the tool named by
+    the most recent ``capture_header`` above it (bench tools stamp the
+    header once, not every row — so ``rs history --op io_bench`` trends a
+    raw capture file); config filters compare against the record's
+    ``config`` dict and skip records that lack the field only when the
+    filter asks for it.  Capture headers, roofline-calibration records
+    (``rs_roofline``, obs/attrib.py), persistent-store records
+    (``rs_xor_schedule``/``rs_autotune``/``rs_ring_schedule``,
+    ops/xor_gemm.py + tune.py + ring_gemm.py), per-request lifecycle
+    events (``rs_request``, obs/reqtrace.py — their wall includes
+    queue/batch wait, so trending them as op throughput would corrupt
+    regression baselines; ``rs slo --runlog`` is their reader),
+    damage-plane records (``rs_damage``/``rs_health_snapshot``,
+    obs/health.py) and perf-attribution records
+    (``rs_perf``/``rs_perf_baseline``, obs/profiler.py + perfbase.py —
+    a profiled dispatch's wall includes the stage-timing blocking, so
+    trending it would poison ``--regress``; ``rs perf`` is their
+    reader) are dropped — none of them are op measurements, and they
+    must not occupy trend-window slots or print as junk rows.
+
+    ``cls`` inverts the default: it selects ONE event class instead of
+    the op-measurement stream — ``cls="damage"`` returns only the
+    ``rs_damage`` records (the health replay path, which must not scan
+    every file-op record), ``cls="request"`` the ``rs_request`` stream.
+    The host filter still applies; op/config filters are moot for
+    class-selected records (they carry no ``config``) and are ignored.
+    """
+    if cls is not None:
+        want = "rs_" + cls
+        return [
+            r for r in records
+            if r.get("kind") == want
+            and (host is None or r.get("host") == host)
+        ]
+    out = []
+    header_tool = None
+    for r in records:
+        if r.get("kind") == "capture_header":
+            header_tool = r.get("tool")
+            continue
+        if r.get("kind") in ("rs_roofline", "rs_xor_schedule",
+                             "rs_autotune", "rs_ring_schedule",
+                             "rs_request", "rs_damage",
+                             "rs_health_snapshot", "rs_perf",
+                             "rs_perf_baseline"):
+            continue
+        cfg = r.get("config") or {}
+        if op is not None and op not in (
+            r.get("op"), r.get("tool", header_tool)
+        ):
+            continue
+        if k is not None and cfg.get("k") != k:
+            continue
+        if n is not None and cfg.get("n") != n:
+            continue
+        if w is not None and cfg.get("w") != w:
+            continue
+        if strategy is not None and cfg.get("strategy") != strategy:
+            continue
+        if host is not None and r.get("host") != host:
+            continue
+        out.append(r)
+    return out
+
+
+def throughput_gbps(rec: dict) -> float | None:
+    """End-to-end GB/s of one successful record; None when the record
+    failed or lacks both the bytes/wall pair and a precomputed ``gbps``
+    field (bench rows like io_bench's ``io_ab`` report gbps directly)."""
+    if rec.get("outcome", "ok") != "ok":
+        return None
+    nbytes, wall = rec.get("bytes"), rec.get("wall_s")
+    if isinstance(nbytes, (int, float)) and isinstance(
+        wall, (int, float)
+    ) and nbytes > 0 and wall > 0:
+        return nbytes / wall / 1e9
+    g = rec.get("gbps")
+    if isinstance(g, (int, float)) and g > 0:
+        return float(g)
+    return None

@@ -48,7 +48,7 @@ import torch
 
 from . import xor_gemm as _xg
 from . import xor_opt as _xopt
-from ..obs import runlog as _runlog
+from ..obs import metrics as _metrics, profiler as _prof, runlog as _runlog
 from .gf import get_field
 from .xor_gemm import _COL_ALIGN, PackedOperand, matrix_digest, paar_cse
 
@@ -299,6 +299,15 @@ def _store_path() -> str | None:
     return _runlog.store_path()
 
 
+def _count_store(outcome: str, tally: str) -> None:
+    """One store lookup's outcome: the tally of :func:`ring_store_stats`
+    and ``rs_ring_schedule_store_total``."""
+    with _STORE_LOCK:
+        _STORE_STATS[tally] += 1
+    _metrics.counter("rs_ring_schedule_store_total", "persistent ring-schedule store lookups by outcome").labels(
+        outcome=outcome).inc()
+
+
 def _store_index() -> dict[tuple, dict]:
     global _STORE_INDEX
     with _STORE_LOCK:
@@ -365,8 +374,7 @@ def _schedule_from_store(digest: str, cse: bool, A: np.ndarray, w: int) -> RingS
         return None
     rec = _store_index().get((digest, cse))
     if rec is None:
-        with _STORE_LOCK:
-            _STORE_STATS["misses"] += 1
+        _count_store("miss", "misses")
         return None
     try:
         if rec.get("algo_version") != _STORE_ALGO:
@@ -410,10 +418,9 @@ def _schedule_from_store(digest: str, cse: bool, A: np.ndarray, w: int) -> RingS
         with _STORE_LOCK:
             if _STORE_INDEX is not None:
                 _STORE_INDEX.pop((digest, cse), None)
-            _STORE_STATS["corrupt"] += 1
+        _count_store("corrupt", "corrupt")
         return None
-    with _STORE_LOCK:
-        _STORE_STATS["hits"] += 1
+    _count_store("hit", "hits")
     return sched
 
 
@@ -451,7 +458,7 @@ def _schedule_to_store(sched: RingSchedule) -> None:
     with _STORE_LOCK:
         if _STORE_INDEX is not None:
             _STORE_INDEX[key] = rec
-        _STORE_STATS["stored"] += 1
+    _count_store("stored", "stored")
 
 
 def ring_store_stats(load: bool = False) -> dict:
@@ -482,11 +489,14 @@ def build_ring_schedule(A, w: int, cse: bool | None = None) -> RingSchedule:
     with _SCHEDULE_LOCK:
         hit = _SCHEDULE_CACHE.get(key)
     if hit is not None:
+        _prof.attr(schedule="memory")
         return hit
     loaded = _schedule_from_store(digest, bool(cse), A, w)
     if loaded is not None:
+        _prof.attr(schedule="store")
         with _SCHEDULE_LOCK:
             return _SCHEDULE_CACHE.setdefault(key, loaded)
+    _prof.attr(schedule="built")
     with _STORE_LOCK:
         _STORE_STATS["built"] += 1
     t0 = time.perf_counter()
@@ -545,6 +555,8 @@ def build_ring_schedule(A, w: int, cse: bool | None = None) -> RingSchedule:
     s3_pairs, s3_rows = _stage_program(s3_sets, len(s2_planes), bool(cse))
     terms_cse = len(s1_pairs) + len(s2_pairs) + len(s3_pairs) + sum(len(r) for r in s1_rows + s2_rows + s3_rows)
     dt = time.perf_counter() - t0
+    _metrics.quantile("rs_ring_schedule_build_seconds",
+                      "ring-schedule lowering+CSE wall seconds (streaming quantiles)").observe(dt)
     sched = RingSchedule(
         digest=digest, w=w, p=p, rows_out=rows_out, k=k,
         n_inputs=n_inputs,
@@ -640,6 +652,20 @@ class RingPipeline(_xg.XorPipeline):
 
     def _chain(self, planes, outs: torch.Tensor) -> None:
         _ring_chain_stage(planes, self._emit, outs, self.opt.tile_words)
+
+    def _profiled_chain(self, planes, outs: torch.Tensor) -> None:
+        """The three ring stages split and timed one by one, untiled (pure
+        XOR, so the output is the tiled chain's).  A schedule with no ring
+        plane is one ``chain`` stage."""
+        s = self._emit
+        if not s.s2_planes:
+            super()._profiled_chain(planes, outs)
+            return
+        width = outs.shape[1]
+        c = _prof.run_stage("ring_in", _emit_slp, planes, s.s1_pairs, s.s1_rows, width, outs)
+        s2 = _prof.run_stage("shift_acc", _emit_slp, c.unbind(0), s.s2_pairs, s.s2_rows, width, outs)
+        _prof.run_stage("ring_out", lambda: _xg._slp(s2.unbind(0), s.s3_pairs, s.s3_rows,
+                                                    outs.new_empty((len(s.s3_pairs), width)), outs) or outs)
 
     def describe(self) -> dict:
         out = super().describe()

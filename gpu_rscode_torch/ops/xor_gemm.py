@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from . import xor_opt as _xopt
-from ..obs import runlog as _runlog
+from ..obs import metrics as _metrics, profiler as _prof, runlog as _runlog
 from .gemm import to_tensor
 from .gf import get_field
 
@@ -84,8 +84,9 @@ _SUPPORTED_W = (8, 16)
 # stream splits into whole 8-byte SWAR blocks grouped in quads.
 _COL_ALIGN = 32
 
-# Pack executions and packed-operand reuses, by outcome: what the JAX
-# package's ``rs_xor_pack_reuse_total{outcome}`` counts.
+# Pack executions and packed-operand reuses, by outcome: the tally behind
+# ``rs_xor_pack_reuse_total{outcome}`` (a graph replay adds what it would
+# have counted here, and not to the registry).
 PACK_REUSE = {"packed": 0, "reused": 0}
 
 
@@ -247,6 +248,15 @@ def _store_path() -> str | None:
     return _runlog.store_path()
 
 
+def _count_store(outcome: str, tally: str) -> None:
+    """One store lookup's outcome: the tally of :func:`store_stats` and
+    ``rs_schedule_store_total``."""
+    with _STORE_LOCK:
+        _STORE_STATS[tally] += 1
+    _metrics.counter("rs_schedule_store_total", "persistent XOR-schedule store lookups by outcome").labels(
+        outcome=outcome).inc()
+
+
 def _rec_ts(rec: dict) -> float:
     try:
         return float(rec.get("ts") or 0.0)
@@ -305,8 +315,7 @@ def _schedule_from_store(digest: str, cse: bool, A: np.ndarray, w: int) -> XorSc
         return None
     rec = _store_index().get((digest, cse))
     if rec is None:
-        with _STORE_LOCK:
-            _STORE_STATS["misses"] += 1
+        _count_store("miss", "misses")
         return None
     try:
         # The version gate comes first: a digest proves a record intact,
@@ -351,10 +360,9 @@ def _schedule_from_store(digest: str, cse: bool, A: np.ndarray, w: int) -> XorSc
                 # Forget the bad record so the rebuild's append is not
                 # skipped as already present.
                 _STORE_INDEX.pop((digest, cse), None)
-            _STORE_STATS["corrupt"] += 1
+        _count_store("corrupt", "corrupt")
         return None
-    with _STORE_LOCK:
-        _STORE_STATS["hits"] += 1
+    _count_store("hit", "hits")
     return sched
 
 
@@ -393,7 +401,7 @@ def _schedule_to_store(sched: XorSchedule) -> None:
     with _STORE_LOCK:
         if _STORE_INDEX is not None:
             _STORE_INDEX[key] = rec
-        _STORE_STATS["stored"] += 1
+    _count_store("stored", "stored")
 
 
 def store_stats(load: bool = False) -> dict:
@@ -423,11 +431,14 @@ def build_schedule(A, w: int, cse: bool | None = None) -> XorSchedule:
     with _SCHEDULE_LOCK:
         hit = _SCHEDULE_CACHE.get(key)
     if hit is not None:
+        _prof.attr(schedule="memory")
         return hit
     loaded = _schedule_from_store(digest, bool(cse), A, w)
     if loaded is not None:
+        _prof.attr(schedule="store")
         with _SCHEDULE_LOCK:
             return _SCHEDULE_CACHE.setdefault(key, loaded)
+    _prof.attr(schedule="built")
     with _STORE_LOCK:
         _STORE_STATS["built"] += 1
     t0 = time.perf_counter()
@@ -642,6 +653,50 @@ def _chain_stage(planes, schedule: XorSchedule, out: torch.Tensor, tile: int = 0
 
 def _count_pack_reuse(outcome: str) -> None:
     PACK_REUSE[outcome] += 1
+    # A graph capture runs nothing: the plan layer takes its tallies back
+    # and counts each replay (count_replayed_packs).
+    if not _prof._capturing():
+        _pack_reuse_metric(outcome, 1)
+    if outcome == "reused":
+        _prof.attr(pack="reused")
+
+
+def _pack_reuse_metric(outcome: str, n: int) -> None:
+    _metrics.counter("rs_xor_pack_reuse_total", "xor pack-stage executions vs packed-operand reuses").labels(
+        outcome=outcome).inc(n)
+
+
+def count_replayed_packs(packed: int, reused: int) -> None:
+    """What one graph replay adds to the pack tallies and their counter."""
+    PACK_REUSE["packed"] += packed
+    PACK_REUSE["reused"] += reused
+    for outcome, n in (("packed", packed), ("reused", reused)):
+        if n:
+            _pack_reuse_metric(outcome, n)
+
+
+def pack_timing_enabled() -> bool:
+    """Whether pack-stage walls are recorded (``RS_XOR_PACK_TIMING=1`` and
+    metrics on): the timing synchronises on the planes, which costs every
+    xor dispatch its overlap, so it is opted into on top of RS_METRICS."""
+    return _metrics.enabled() and os.environ.get("RS_XOR_PACK_TIMING", "0").lower() in ("1", "true", "on", "yes")
+
+
+def _observed_pack(B: torch.Tensor, w: int):
+    """``_pack(B, w)``'s planes: a profiled dispatch's ``pack`` stage, or
+    with pack timing on its wall into ``rs_xor_pack_seconds``.  Inside a
+    CUDA graph capture nothing is timed (a synchronise is illegal there),
+    so a graph replay records no pack wall: only eager dispatches do."""
+    if _prof.active() is not None:
+        _prof.attr(pack="packed")
+        return _prof.run_stage("pack", _pack, B, w)
+    if not pack_timing_enabled() or _prof._capturing():
+        return _pack(B, w)
+    t0 = time.perf_counter()
+    planes = _prof.sync(_pack(B, w))
+    _metrics.quantile("rs_xor_pack_seconds", "xor pack-stage wall seconds (streaming quantiles)").observe(
+        time.perf_counter() - t0)
+    return planes
 
 
 class PackedOperand:
@@ -696,7 +751,7 @@ def pack_operand(B: torch.Tensor, w: int, *, cols_true: int | None = None, cap: 
     rows, cols = B.shape
     if cols % _COL_ALIGN:
         raise ValueError(f"packed operand cols must be {_COL_ALIGN}-aligned, got {cols}")
-    planes = _pack(B, w).unbind(0)
+    planes = _observed_pack(B, w).unbind(0)
     _count_pack_reuse("packed")
     return PackedOperand(planes, rows, cols, w, _np_dtype(B), cols_true=cols_true, cap=cap)
 
@@ -771,15 +826,23 @@ class XorPipeline:
             raise ValueError(f"operand {B.dtype}{tuple(B.shape)} does not match pipeline "
                              f"({self.k}x{self.cols}, {self.dtype})")
         _count_pack_reuse("packed")
-        return _pack(B, w).unbind(0), B.device
+        return _observed_pack(B, w).unbind(0), B.device
+
+    def _profiled_chain(self, planes, outs: torch.Tensor) -> None:
+        """The chain as the stages of a profiled dispatch."""
+        _prof.run_stage("chain", lambda: self._chain(planes, outs) or outs)
 
     def __call__(self, A, B):
         self.calls += 1
         planes, device = self.planes_of(B)
         s = self.schedule
         outs = torch.empty((s.rows_out * s.w, self.cols // _COL_ALIGN), dtype=torch.int32, device=device)
-        self._chain(planes, outs)
-        return _unpack(outs, s.w, s.rows_out)
+        if _prof.active() is None:
+            self._chain(planes, outs)
+            return _unpack(outs, s.w, s.rows_out)
+        # A profiled dispatch: each stage synchronised and timed.
+        self._profiled_chain(planes, outs)
+        return _prof.run_stage("unpack", _unpack, outs, s.w, s.rows_out)
 
     def describe(self) -> dict:
         s = self.schedule

@@ -36,7 +36,10 @@ Knobs (read when a pipeline is built; the pipeline caches key on
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
+
+from ..obs import profiler as _prof
 
 __all__ = [
     "OptStats", "opt_enabled", "tile_override", "tile_budget_bytes",
@@ -216,10 +219,12 @@ def device_tile(n_planes: int, nw: int, device_type: str):
 def optimize_program(pair_ops, rows, n_inputs: int):
     """Reorder and group one (pair_ops, rows) straight-line XOR program.
     Returns ``(pair_ops, rows, nodes_moved, term_groups)``."""
+    t0 = time.perf_counter()
     pair_ops, rows, moved = reorder_pairs(pair_ops, rows, n_inputs)
     rows, groups = group_row_terms(pair_ops, rows, n_inputs)
-    # Profiler seam (ROADMAP item 5): a profiled dispatch would note the
-    # pass's own wall and its two counters here.
+    # A profiled dispatch building this program attributes the pass's wall
+    # and its two counters in its cache block.
+    _prof.note_opt(time.perf_counter() - t0, opt_moved=moved, opt_groups=groups)
     return pair_ops, rows, moved, groups
 
 

@@ -40,9 +40,10 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from collections.abc import Callable
 
-from ..obs import tracing as _tracing
+from ..obs import metrics as _metrics, tracing as _tracing
 from ..resilience import faults as _faults, retry as _retry
 
 
@@ -123,6 +124,7 @@ class DrainExecutor:
                         self._error = e
             finally:
                 self._q.task_done()
+                self._report_depth()
 
     @staticmethod
     def _run_task(fn: Callable[[], None], nbytes: int, lane: str) -> None:
@@ -131,6 +133,7 @@ class DrainExecutor:
         # idempotent (offset-addressed writes, restart-from-scratch copies,
         # CRCs advanced only after the write landed); the lane's attempted
         # bytes (torn faults) count a task once, not per retry.
+        t0 = time.perf_counter()
         first = True
 
         def attempt() -> None:
@@ -142,6 +145,16 @@ class DrainExecutor:
 
         with _tracing.span("write_drain", lane=lane, nbytes=nbytes):
             _retry.default_policy().call(attempt, op="write_drain")
+        dt = time.perf_counter() - t0
+        _metrics.counter("rs_io_write_seconds_total", "wall seconds spent in drain (D2H wait + write) tasks").labels(
+            lane=lane).inc(dt)
+        _metrics.quantile("rs_io_drain_wall_seconds", "writer-lane drain task wall seconds (streaming quantiles)").labels(
+            lane=lane).observe(dt)
+
+    def _report_depth(self) -> None:
+        n = self._q.qsize()
+        _metrics.gauge("rs_io_writer_queue_depth", "drain tasks queued behind the write-behind workers").set(n)
+        _tracing.counter("io_writer_queue_depth", queued=n)
 
     def _check_error(self) -> None:
         with self._lock:
@@ -165,6 +178,7 @@ class DrainExecutor:
                                "(worker threads not started)")
         self._check_error()
         self._q.put((fn, nbytes))
+        self._report_depth()
 
     def submit_pwrite(self, fileno: int, data: bytes, offset: int) -> None:
         """Queue one offset-addressed ``os.pwrite``: the patch lane of the
@@ -180,6 +194,8 @@ class DrainExecutor:
             done = os.pwrite(fileno, data, offset)
             if done != nbytes:
                 raise OSError(f"short pwrite ({done} of {nbytes} bytes at {offset})")
+            _metrics.counter("rs_io_write_bytes_total", "bytes written by the staging-I/O layer").labels(
+                call="patch_pwrite").inc(nbytes)
 
         self.submit(task, nbytes=nbytes)
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 import weakref
 from collections.abc import Callable, Iterable
 from typing import Any
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import plan as _plan
+from ..obs import metrics as _metrics, tracing as _tracing
 
 # Segments staged from pinned memory through the H2D stream, and dispatches
 # launched on the compute stream, since the counts were last reset.  Only
@@ -38,6 +40,10 @@ from .. import plan as _plan
 # thread.
 PINNED_STAGES = 0
 STREAM_DISPATCHES = 0
+
+# The process-wide high watermark of staged segments ahead of a consumer
+# (DeviceStagingRing._report_occupancy); a list, so tests reset it in place.
+_RING_PEAK = [0]
 
 
 def _nbytes(result) -> int:
@@ -71,6 +77,11 @@ class AsyncWindow:
         self.executor = executor
         self._pending: list[tuple[Any, Any]] = []
 
+    def _report_depth(self) -> None:
+        n = len(self._pending)
+        _metrics.gauge("rs_pipeline_inflight", "async segments in flight (AsyncWindow pending results)").set(n)
+        _tracing.counter("pipeline_inflight", inflight=n)
+
     def _drain_oldest(self) -> None:
         tag, result = self._pending.pop(0)
         if self.executor is not None:
@@ -83,12 +94,15 @@ class AsyncWindow:
 
     def push(self, tag: Any, result: Any) -> None:
         self._pending.append((tag, result))
+        self._report_depth()
         while len(self._pending) > self.depth:
             self._drain_oldest()
+            self._report_depth()
 
     def flush(self) -> None:
         while self._pending:
             self._drain_oldest()
+            self._report_depth()
 
     def __enter__(self):
         return self
@@ -97,7 +111,12 @@ class AsyncWindow:
         if exc_type is None:
             self.flush()
         else:
+            # The gauge goes back to zero, not frozen at a dead window's depth.
+            dropped = len(self._pending)
             self._pending.clear()
+            if dropped:
+                self._report_depth()
+                _tracing.instant("pipeline_aborted", lane="dispatch", dropped=dropped)
         return False
 
 
@@ -118,6 +137,17 @@ class DeviceStagingRing:
         self._staged: list = []
         self._exhausted = False
 
+    def _report_occupancy(self) -> None:
+        n = len(self._staged)
+        _metrics.gauge("rs_staging_ring_occupancy", "segments staged on-device ahead of the consumer").set(n)
+        # The watermark across every ring of the process; it moves only
+        # with metrics on, so a disabled run cannot hide a later gauge.
+        if _metrics.enabled() and n > _RING_PEAK[0]:
+            _RING_PEAK[0] = n
+            _metrics.gauge("rs_staging_ring_occupancy_peak",
+                           "process-wide high watermark of staged segments ahead of the consumer").set(n)
+        _tracing.counter("staging_ring_occupancy", staged=n)
+
     def _fill(self) -> None:
         while not self._exhausted and len(self._staged) < self._depth:
             try:
@@ -136,6 +166,7 @@ class DeviceStagingRing:
             raise StopIteration
         tag, staged = self._staged.pop(0)
         self._fill()  # issue the next H2D before handing this segment out
+        self._report_occupancy()  # one sample a segment handed out
         return tag, staged
 
 
@@ -328,14 +359,28 @@ class StreamLoop:
     def stage(self, segment: tuple[int | None, np.ndarray], sym: int):
         """(slot, (rows, cols) bytes) -> the segment as (rows, cols/sym)
         symbols where the dispatch reads it (bucket-padded in a
-        :class:`..plan.StagedSegment` while the plan layer is on)."""
-        global PINNED_STAGES
-        slot, host = segment
+        :class:`..plan.StagedSegment` while the plan layer is on, under an
+        ``h2d_stage`` span and counted as staged for the plan)."""
+        host = segment[1]
         cols = host.shape[1]
         cap = bucket = None
         if _plan.enabled():
             cap = self.seg_cols // sym
             bucket = _plan.bucket_cols(cols // sym, cap) * sym
+        _metrics.counter("rs_io_h2d_bytes_total", "segment bytes entering the H2D stage of the pipeline").labels(
+            path="passthrough" if bucket is None else "plan").inc(host.nbytes)
+        if bucket is None:
+            return self._copy(segment, sym, None, None)
+        t0 = time.monotonic()
+        with _tracing.span("h2d_stage", lane="stage", cols=cols // sym, bucket=bucket // sym):
+            staged = self._copy(segment, sym, cap, bucket)
+        _plan.note_staged(time.monotonic() - t0, self.rows * bucket)
+        return staged
+
+    def _copy(self, segment: tuple[int | None, np.ndarray], sym: int, cap: int | None, bucket: int | None):
+        global PINNED_STAGES
+        slot, host = segment
+        cols = host.shape[1]
         if not self.cuda:
             t = torch.from_numpy(host if bucket is None else _plan.pad_host(host, bucket))
             t = t.view(torch.uint16) if sym == 2 else t

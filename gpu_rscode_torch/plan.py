@@ -70,6 +70,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .obs import metrics as _metrics, profiler as _prof
 from .ops import _build
 from .ops import cuda_gemm as _cuda_gemm
 from .ops import xor_gemm as _xor_gemm
@@ -211,16 +212,30 @@ def stage_segment(B: np.ndarray, cap: int | None, device) -> StagedSegment:
     the dispatch's output."""
     from .ops.gemm import to_tensor
 
+    t0 = time.monotonic()
     host = to_tensor(pad_host(B, bucket_cols(B.shape[1], cap)))
     device = torch.device(device)
     if device.type != "cuda":
-        return StagedSegment(host.to(device), B.shape[1], cap)
-    slot = STAGING.acquire(device, host.numel() * host.element_size())
-    if slot.ready is not None:
-        torch.cuda.current_stream(device).wait_event(slot.ready)
-    arr = slot.tensor.view(host.dtype).view(host.shape)
-    arr.copy_(host)
-    return StagedSegment(arr, B.shape[1], cap, slot=slot)
+        staged = StagedSegment(host.to(device), B.shape[1], cap)
+    else:
+        slot = STAGING.acquire(device, host.numel() * host.element_size())
+        if slot.ready is not None:
+            torch.cuda.current_stream(device).wait_event(slot.ready)
+        arr = slot.tensor.view(host.dtype).view(host.shape)
+        arr.copy_(host)
+        staged = StagedSegment(arr, B.shape[1], cap, slot=slot)
+    note_staged(time.monotonic() - t0, host.numel() * host.element_size())
+    return staged
+
+
+def note_staged(dt: float, nbytes: int) -> None:
+    """Account one segment staged for a plan (bucket-padded, H2D copy
+    issued): ``rs_segments_staged_total``, and the staging wall as the
+    host saw it for the next profiled dispatch on this thread (the copy is
+    asynchronous; staging exists to overlap)."""
+    _prof.note_staging(dt, nbytes)
+    _metrics.counter("rs_segments_staged_total",
+                     "segments bucket-padded and staged onto the device (H2D issued)").inc()
 
 
 def release(staged: StagedSegment) -> None:
@@ -341,8 +356,7 @@ class _Graph:
         k1, packed, reused, calls = self.counts
         with _cuda_gemm.COUNT_LOCK:
             _cuda_gemm.REPLAYED += k1
-        _xor_gemm.PACK_REUSE["packed"] += packed
-        _xor_gemm.PACK_REUSE["reused"] += reused
+        _xor_gemm.count_replayed_packs(packed, reused)
         if pipe is not None:
             pipe.calls += calls
         return self.out
@@ -388,7 +402,7 @@ class ExecutionPlan:
     strategy's GEMM) and, on the card, its graphs."""
 
     __slots__ = ("key", "strategy", "w", "bucket", "calls", "captures", "replays", "compile_seconds",
-                 "capture_seconds", "xor_stats", "_fn", "_pipe", "_graphs", "_lock")
+                 "capture_seconds", "xor_stats", "last_stages", "_fn", "_pipe", "_graphs", "_lock")
 
     def __init__(self, key, strategy, w, bucket):
         self.key = key
@@ -401,6 +415,7 @@ class ExecutionPlan:
         self.compile_seconds = 0.0  # building the function (schedules, optimizer)
         self.capture_seconds = 0.0  # capturing and instantiating graphs
         self.xor_stats = None  # xor / ring plans: the pipeline's description
+        self.last_stages = None  # the newest profiled dispatch's stage walls
         self._fn = None
         self._pipe = None
         self._graphs: OrderedDict = OrderedDict()
@@ -421,12 +436,27 @@ class ExecutionPlan:
             self.xor_stats = pipe.describe()
         else:
             self._fn = lambda a, b: eager(strategy, a, b, w)
-        self.compile_seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.compile_seconds += dt
+        # The build is part of this dispatch's wall, named `compile`.
+        _prof.add_compile(dt)
+        _metrics.histogram("rs_plan_compile_seconds", "wall seconds spent building a plan's function").labels(
+            strategy=strategy).observe(dt)
 
     def run(self, A, B, graph: str | None = None):
         """``fn(A, B)``; with ``graph`` (the matrix digest, when ``B`` is a
         staged CUDA buffer), the replay of the graph of this buffer and
-        matrix, captured after their first dispatch."""
+        matrix, captured after their first dispatch.
+
+        Under a profile (:mod:`.obs.profiler`) a replay is one device stage,
+        timed as ``chain``; the dispatch that captures is timed whole as
+        ``compile`` with no stage inside it; an eager dispatch of a
+        monolithic strategy is one ``chain`` stage, and the xor / ring
+        pipelines time their own stages."""
+        # The JAX package labels donated dispatches; a plan of the port owns
+        # its buffers and never donates.
+        _metrics.counter("rs_plan_dispatch_total", "GEMM dispatches through cached plans").labels(
+            strategy=self.strategy, donated=False).inc()
         with self._lock:
             if self._fn is None:
                 self._build(A, B)
@@ -437,17 +467,24 @@ class ExecutionPlan:
                 vkey = (B.data_ptr(), tuple(B.shape), B.dtype, graph)
                 g = self._graphs.get(vkey)
                 if g is None:
-                    out = self._fn(A, B)  # this dispatch's result, and the warm-up
                     t0 = time.perf_counter()
-                    self._graphs[vkey] = _capture(self._fn, A, B, self._pipe)
-                    self.capture_seconds += time.perf_counter() - t0
+                    with _prof.suspended() as prof:
+                        out = self._fn(A, B)  # this dispatch's result, and the warm-up
+                        t1 = time.perf_counter()
+                        self._graphs[vkey] = _capture(self._fn, A, B, self._pipe)
+                        if prof is not None:
+                            _prof.sync(out)
+                    self.capture_seconds += time.perf_counter() - t1
+                    _prof.add_compile(time.perf_counter() - t0)
                     self.captures += 1
                     while len(self._graphs) > MAX_GRAPHS_PER_PLAN:
                         self._graphs.popitem(last=False)
                     return out
                 self._graphs.move_to_end(vkey)
                 self.replays += 1
-                return g.replay(self._pipe)
+                return _prof.run_stage("chain", g.replay, self._pipe)
+        if self.strategy not in ("xor", "ring"):
+            return _prof.run_stage("chain", fn, A, B)
         return fn(A, B)
 
     def describe(self) -> dict:
@@ -468,6 +505,9 @@ class ExecutionPlan:
             }
         if self.xor_stats is not None:
             out[self.strategy] = self.xor_stats
+        if self.last_stages is not None:
+            # The newest profiled dispatch's stage walls.
+            out["stages"] = self.last_stages
         return out
 
 
@@ -488,6 +528,12 @@ class PlanCache:
         self.misses = 0
         self.evictions = 0
 
+    def _count_event(self, event: str) -> None:
+        # The plain counts stay authoritative (counted with metrics on or
+        # off); the registry mirrors them into the unified snapshot.
+        _metrics.counter("rs_plan_cache_events_total", "plan cache lookups by outcome").labels(
+            cache=self.name, event=event).inc()
+
     def _bound(self) -> int:
         if self._max_size is not None:
             return self._max_size
@@ -503,13 +549,16 @@ class PlanCache:
             if plan is not None:
                 self.hits += 1
                 self._plans.move_to_end(key)
+                self._count_event("hit")
                 return plan
             self.misses += 1
+            self._count_event("miss")
             plan = ExecutionPlan(key, strategy, w, bucket)
             self._plans[key] = plan
             while len(self._plans) > self._bound():
                 self._plans.popitem(last=False)
                 self.evictions += 1
+                self._count_event("eviction")
             return plan
 
     def drop(self, strategies) -> None:
@@ -609,8 +658,25 @@ def dispatch(A, B, *, w: int, strategy: str, cap: int | None = None, cols: int |
                              "staging, with the same cap")
     elif packed:
         raise ValueError("packed operands require strategy='xor' or 'ring'")
+    prof = None
+    if _prof.enabled():
+        nb = arr.rows * arr.cols_true * arr.dtype.itemsize if packed else arr.nbytes
+        prof = _prof.begin(strategy=strategy, w=w, bucket=int(bucket), bytes_in=int(nb) if nb else None)
+    if prof is not None:
+        misses_before = PLAN_CACHE.misses
     plan = PLAN_CACHE.lookup(key, strategy, w, bucket)
-    if not packed:
-        arr = _pad_to(arr, bucket)
-    out = plan.run(A, arr, graph=digest if graph else None)
-    return out if bucket == m else out[:, :m]
+    if prof is not None:
+        _prof.attr(plan_bucket="miss" if PLAN_CACHE.misses > misses_before else "hit")
+    try:
+        if not packed:
+            arr = _pad_to(arr, bucket)
+        out = plan.run(A, arr, graph=digest if graph else None)
+        out = out if bucket == m else out[:, :m]
+    except BaseException:
+        _prof.discard(prof)
+        raise
+    if prof is not None:
+        event = _prof.finish(prof, out)
+        if event.get("stages"):
+            plan.last_stages = event["stages"]
+    return out

@@ -47,8 +47,9 @@ One long-lived process in front of the warm plan cache (docs/SERVE.md):
   one-thread lane of their own rather than a foreground worker slot
   (a repair holding a slot shows in the foreground's tail).  ``--faults SPEC``
   activates the fault plane for the daemon's life.
-* ``GET /perf`` — answers 501: the baseline/drift report's plane
-  (obs/perfbase) is not ported yet.
+* ``GET /perf`` — per-cell throughput baseline/drift report
+  (obs/perfbase.py) over the run ledger; the scrape also refreshes the
+  ``rs_perf_baseline_*`` gauges.
 
 Tenancy: ``X-RS-Tenant`` header (or ``?tenant=``) names the tenant —
 its own namespace directory under the root AND its own fairness queue
@@ -108,9 +109,6 @@ DEFAULT_PORT = 9470
 DEFAULT_REQUEST_TIMEOUT_S = 300.0
 DEFAULT_MAX_BODY = 1 << 30
 DEFAULT_LIST_LIMIT = 1000
-
-_PERF_REFUSAL = "the perf-baseline plane (obs/perfbase) is not ported yet"
-
 
 def list_limit_env() -> int:
     """Hard cap on one ``GET /o/<bucket>?list`` page
@@ -213,14 +211,16 @@ class _Handler(BaseHTTPRequestHandler):
                 # snapshot replayed from the damage ledger.
                 self._send_json(200, self.daemon.maint_report())
             elif url.path == "/perf":
-                self._send_error_json(501, _PERF_REFUSAL)
+                # The per-cell table `rs perf` renders, replayed from the
+                # run ledger's rs_perf and op evidence.
+                self._send_json(200, self.daemon.perf_report())
             elif url.path == "/metrics":
                 # Rolling SLO windows age out without new traffic, so
                 # the rs_slo_* gauges refresh at scrape time — and so do
                 # scrub ages: the rs_durability_* gauges re-export too.
-                # (The rs_perf_baseline_* refresh waits for obs/perfbase.)
                 self.daemon.slo.export_gauges()
                 self.daemon.export_fleet_health()
+                self.daemon.export_perf_gauges()
                 body = _metrics.REGISTRY.render_text().encode()
                 self.send_response(200)
                 self.send_header(
@@ -1072,6 +1072,32 @@ class ServeDaemon:
                     _health.fleet_report(_health.load()))
             except Exception:
                 pass  # exposition must not fail the scrape
+
+    def perf_report(self) -> dict:
+        """``GET /perf``: the per-cell throughput baseline/drift report
+        (obs/perfbase.py) replayed from the run ledger; the daemon's own
+        profiled dispatches (``RS_PROF``, sampled) feed the cells ``rs perf
+        --check`` gates on."""
+        from ..obs import perfbase as _perfbase
+
+        if not _runlog.enabled():
+            return {"kind": "rs_perf_report", "enabled": False,
+                    "error": "no run ledger (start the daemon with RS_RUNLOG set)"}
+        report = _perfbase.report(_runlog.read_records(_runlog.path()))
+        report["enabled"] = True
+        _perfbase.export_gauges(report)
+        return report
+
+    def export_perf_gauges(self) -> None:
+        """Scrape-time refresh of the ``rs_perf_baseline_*`` gauges: the
+        current medians move as sampled dispatches land."""
+        if _runlog.enabled():
+            from ..obs import perfbase as _perfbase
+
+            try:
+                _perfbase.export_gauges(_perfbase.report(_runlog.read_records(_runlog.path())))
+            except Exception:  # noqa: BLE001 - exposition must not fail the scrape
+                pass
 
     def stats(self) -> dict:
         # Warm-path facts next to the queue counters: which strategy

@@ -119,6 +119,13 @@ def clear_decisions() -> None:
         _LEDGER_INDEX = None  # re-read the store at the next resolution
 
 
+def _count_source(source: str) -> None:
+    from .obs import metrics as _metrics
+
+    _metrics.counter("rs_autotune_source_total", "strategy-auto resolutions by decision source").labels(
+        source=source).inc()
+
+
 def _rec_ts(rec: dict) -> float:
     try:
         return float(rec.get("ts") or 0.0)
@@ -277,6 +284,11 @@ def autotune_decision(k: int, p: int, w: int = 8, generator: str = "vandermonde"
             "gbps": table,
             "ts": time.time(),
         }
+        from .obs import metrics as _metrics
+
+        _metrics.counter("rs_strategy_autotune_total", "strategy-autotune measurements by backend and winner").labels(
+            backend=backend, winner=best_name).inc()
+        _count_source("measured")
         _persist_decision(decision)
         with _LOCK:
             _DECISIONS[key] = decision  # overwrites a store-sourced entry
@@ -299,6 +311,7 @@ def resolve_auto(k: int, p: int, w: int = 8, *, device="cpu", generator: str = "
     with _LOCK:
         hit = _DECISIONS.get(key)
     if hit is not None and (mode() != "measure" or hit.get("source") == "measured"):
+        _count_source(hit.get("source") or "measured")
         return hit["strategy"]
     if mode() == "measure":
         return autotune_decision(k, p, w, generator, device)["strategy"]
@@ -321,5 +334,7 @@ def resolve_auto(k: int, p: int, w: int = 8, *, device="cpu", generator: str = "
         }
         with _LOCK:
             decision = _DECISIONS.setdefault(key, decision)
+        _count_source("ledger")
         return decision["strategy"]
+    _count_source("prior")
     return static_choice(w, device)

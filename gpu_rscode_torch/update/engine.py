@@ -38,7 +38,7 @@ import time
 import numpy as np
 
 from ..codec import RSCodec, entry_device
-from ..obs import metrics as _metrics
+from ..obs import metrics as _metrics, tracing as _tracing
 from ..parallel.io_executor import DrainExecutor
 from ..parallel.pipeline import StreamLoop
 from ..utils.fileformat import (
@@ -223,11 +223,14 @@ def _open_chunks(file_name, all_idx, chunk_old, fps) -> None:
                               "first")
 
 
-def _parity_delta(loop: StreamLoop, codec: RSCodec, E, delta: np.ndarray, sym: int, timer: PhaseTimer) -> np.ndarray:
+def _parity_delta(loop: StreamLoop, codec: RSCodec, E, delta: np.ndarray, sym: int, timer: PhaseTimer,
+                  **span_args) -> np.ndarray:
     """``E·Δ`` for one staged (k, cols) delta: copied into a pinned slot,
     K1 on the compute stream (on CUDA), and the (p, cols) bytes back on the
-    host after the D2H event, before any old parity is read."""
-    with timer.phase("update dispatch"):
+    host after the D2H event, before any old parity is read.  The dispatch
+    is one ``dispatch`` span with ``span_args`` (op, off, cols, and a
+    group's tag)."""
+    with timer.phase("update dispatch"), _tracing.span("dispatch", lane="dispatch", **span_args):
         out = loop.dispatch(lambda d: codec.update(E, d), loop.stage_copy(delta, sym))
     with timer.phase("update compute"):
         return loop.result(out)
@@ -303,7 +306,7 @@ def _apply(file_name, at, payload, *, grow, strategy, device, segment_bytes, tim
                         b1 = min(b0 + step, whi)
                         blocks += _patch_block(
                             b0, b1, rows, fps, spans, chunk_old, k, p, sym, meta.layout, codec, E, loop,
-                            lane, jr, crcs, touched, timer, first=blocks == 0,
+                            lane, jr, crcs, touched, timer, first=blocks == 0, op=op,
                         )
                 with timer.phase("update patch (io)"):
                     lane.flush()
@@ -381,7 +384,7 @@ def _collect_block(b0, b1, delta, native_writes, pd_np, fps, chunk_old, k, p, la
     return native_writes + parity_writes, len(native_writes)
 
 
-def _stage_block(b0, b1, rows, fps, spans, chunk_old, k, p, sym, layout, codec, E, loop, timer):
+def _stage_block(b0, b1, rows, fps, spans, chunk_old, k, p, sym, layout, codec, E, loop, timer, *, op):
     """One column block's write set: assemble its Δ from the edit spans,
     run ``E·Δ`` (:func:`_parity_delta`) and :func:`_collect_block` it."""
     with timer.phase("update stage (io)"):
@@ -389,15 +392,16 @@ def _stage_block(b0, b1, rows, fps, spans, chunk_old, k, p, sym, layout, codec, 
             delta, native_writes = _assemble_interleaved_block(b0, b1, fps, spans, k, sym)
         else:
             delta, native_writes = _assemble_row_block(b0, b1, rows, fps, spans, chunk_old, k)
-    pd_np = _parity_delta(loop, codec, E, delta, sym, timer)
+    pd_np = _parity_delta(loop, codec, E, delta, sym, timer, op=op, off=int(b0), cols=int(b1 - b0))
     return _collect_block(b0, b1, delta, native_writes, pd_np, fps, chunk_old, k, p, layout, timer)
 
 
 def _patch_block(b0, b1, rows, fps, spans, chunk_old, k, p, sym, layout, codec, E, loop, lane, jr, crcs, touched,
-                 timer, *, first) -> int:
+                 timer, *, first, op) -> int:
     """One column block: assemble Δ, run E·Δ, journal, patch natives and
     parity, account CRCs.  Returns 1 (the caller counts blocks)."""
-    writes, n_native = _stage_block(b0, b1, rows, fps, spans, chunk_old, k, p, sym, layout, codec, E, loop, timer)
+    writes, n_native = _stage_block(b0, b1, rows, fps, spans, chunk_old, k, p, sym, layout, codec, E, loop, timer,
+                                    op=op)
     # Undo bytes FIRST, durably: only then may any region change (the
     # write-ahead order recovery depends on).
     with timer.phase("update journal (io)"):

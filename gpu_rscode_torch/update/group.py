@@ -217,7 +217,7 @@ def apply_update_many(
     for g0 in range(0, max(1, len(parsed)), window):
         part = _apply_group(
             file_name, parsed[g0 : g0 + window], base=g0, strategy=strategy, device=device,
-            segment_bytes=segment_bytes, timer=timer, stage_hook=stage_hook,
+            segment_bytes=segment_bytes, timer=timer, stage_hook=stage_hook, group_tag=group_tag,
         )
         groups += 1
         if summary is None:
@@ -235,7 +235,7 @@ def apply_update_many(
     return summary
 
 
-def _apply_group(file_name, edits, *, base, strategy, device, segment_bytes, timer, stage_hook=None):
+def _apply_group(file_name, edits, *, base, strategy, device, segment_bytes, timer, stage_hook=None, group_tag=None):
     from ..ops.gf import get_field
 
     t_start = time.perf_counter()
@@ -347,7 +347,11 @@ def _apply_group(file_name, edits, *, base, strategy, device, segment_bytes, tim
                     if not batch:
                         return
                     stacked = batch[0][2] if len(batch) == 1 else np.hstack([blk[2] for blk in batch])
-                    pd_np = _parity_delta(loop, codec, E, stacked, sym, timer)
+                    span_args = {"op": "group", "off": int(batch[0][0]), "cols": int(stacked.shape[1])}
+                    if group_tag is not None:
+                        # The trace side of the group <-> request join.
+                        span_args["group"] = group_tag
+                    pd_np = _parity_delta(loop, codec, E, stacked, sym, timer, **span_args)
                     col = 0
                     for b0, b1, delta, nat in batch:
                         bw = b1 - b0

@@ -34,6 +34,9 @@ def test_port_imports_no_jax():
         "import gpu_rscode_torch.serve.objcache, gpu_rscode_torch.serve.daemon, gpu_rscode_torch.serve.loadgen\n"
         "import gpu_rscode_torch.resilience, gpu_rscode_torch.resilience.faults, gpu_rscode_torch.resilience.retry\n"
         "import gpu_rscode_torch.resilience.chaos, gpu_rscode_torch.maint, gpu_rscode_torch.maint.controller\n"
+        "import gpu_rscode_torch.obs.profiler, gpu_rscode_torch.obs.perfbase, gpu_rscode_torch.obs.attrib\n"
+        "import gpu_rscode_torch.tools.plan_stats\n"
+        "from gpu_rscode_torch.obs.runlog import filter_records, throughput_gbps\n"
         "from gpu_rscode_torch.api import put_object, put_objects, get_object, delete_object, list_objects\n"
         "from gpu_rscode_torch.api import list_objects_page, stat_object, compact_bucket\n"
         "from gpu_rscode_torch.native import gemm, invert, available\n"

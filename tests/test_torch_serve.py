@@ -447,9 +447,11 @@ def test_429_and_503_answer_alike_with_the_id_echoed(tmp_path):
 
 
 def test_maint_and_perf_are_refused(tmp_path, monkeypatch, capsys):
-    """The maintenance and fault planes now run (maint=True, RS_MAINT=1,
-    --maint, --faults start and answer); GET /perf is still refused with
-    501 (obs/perfbase is not ported)."""
+    """The maintenance and fault planes run (maint=True, RS_MAINT=1,
+    --maint, --faults start and answer), and so does GET /perf since
+    obs/perfbase is ported: 200 with ``enabled: false`` without a run
+    ledger, the JAX daemon's report (and the rs_perf_baseline_* gauges at
+    scrape time) with one."""
     d = t_daemon.ServeDaemon(str(tmp_path / "r"), port=0, device="cpu", maint=True)
     assert d.maint is not None and d.maint.device == d.device and d.maint.tenant == "maint"
     d.close()
@@ -466,7 +468,9 @@ def test_maint_and_perf_are_refused(tmp_path, monkeypatch, capsys):
     d = t_daemon.ServeDaemon(str(tmp_path / "r"), port=0, device="cpu").start()
     try:
         st, body, _ = _call(d.port, "GET", "/perf")
-        assert st == 501 and b"obs/perfbase" in body
+        doc = json.loads(body)
+        assert st == 200 and doc["kind"] == "rs_perf_report" and doc["enabled"] is False
+        assert doc == j_daemon.ServeDaemon.perf_report(d)
         st, body, _ = _call(d.port, "GET", "/maint")
         assert st == 200 and json.loads(body)["enabled"] is False
     finally:
@@ -477,8 +481,24 @@ def test_maint_and_perf_are_refused(tmp_path, monkeypatch, capsys):
         doc = json.loads(body)
         assert st == 200 and doc["enabled"] is True and doc["running"] is True and "queue" in doc
         assert _call(d.port, "GET", "/stats")[0] == 200 and d.stats()["maint"]["enabled"] is True
+    finally:
+        d.close()
+    # With a ledger: an encode through the daemon leaves an rs_run record,
+    # `rs perf --record` blesses it, and GET /perf reports its cell.
+    ledger = tmp_path / "ledger.jsonl"
+    monkeypatch.setenv("RS_RUNLOG", str(ledger))
+    monkeypatch.setenv("RS_METRICS", "1")
+    d = t_daemon.ServeDaemon(str(tmp_path / "r"), port=0, device="cpu").start()
+    try:
+        st, _, _ = _call(d.port, "POST", "/encode?name=perf.bin&k=4&n=6&strategy=bitplane", bytes(range(256)) * 64)
+        assert st == 200
+        assert t_cli.main(["perf", "--record"]) == 0
         st, body, _ = _call(d.port, "GET", "/perf")
-        assert st == 501
+        doc = json.loads(body)
+        assert st == 200 and doc["enabled"] is True and doc["baseline"] is True
+        assert any(row["strategy"] == "bitplane" and row["op"] == "encode" for row in doc["rows"])
+        st, body, _ = _call(d.port, "GET", "/metrics")
+        assert st == 200 and b"rs_perf_baseline_gbps" in body and b"rs_perf_baseline_cells" in body
     finally:
         d.close()
 
