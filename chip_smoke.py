@@ -204,6 +204,32 @@ Phases, each fatal on failure:
      segments, the roofline probed on the card (each row's GB/s and
      verdict logged); (f) rs stats --workload and rs history --op encode,
      each exiting 0.  K1's runs count in the kernels line;
+  5j. the mesh (gpu_rscode_torch/parallel/: mesh, sharded, distributed;
+     obs/aggregate, obs/doctor): (a) BASELINE config 4, the wide stripe
+     (k=128, n=144, w=8) on a seeded 1 GiB file in 64 MiB segments: the
+     single-device cuda encode, then the same encode through the library on
+     a (4, 1) mesh of cuda:0 with stripe_sharded (chunks and .METADATA of
+     equal SHA-256; per segment 4 pre-parity K1 launches and nothing else,
+     rs_mesh_collective_bytes_total = p*w*m = 16*8 x the chunk size, one
+     mesh plan-cache miss and a call a segment), its decode with the first
+     16 chunks lost (SHA-256, 4 pre-parity launches a segment), and the
+     encode on a (1, 4) cols mesh (4 folded launches a segment, the same
+     archive); (b) the main configuration (k=10, n=14) through the CLI with
+     --devices 1: phase 4's seeded file, its archive byte-equal to phase
+     4's, a decode with the first 4 chunks lost; (c) two ranks on the one
+     card (gloo with CUDA tensors), --devices 2 --stripe 2 on a seeded
+     256 MiB file: encode with --metrics-json / --trace parts, a conf
+     decode with 4 chunks lost, an --auto decode and a --repair, each a
+     collective (outputs' SHA-256, the repaired archive equal to one
+     process's run of the same (2, 1) mesh), then rs aggregate: the summed
+     staged bytes equal the single process's, each part's collective bytes
+     and staged segments equal its, one trace lane a rank; a one-rank NCCL
+     group (the backend the rule picks, an int8 sum); (d) rs doctor --json:
+     the torch section names the card, the mesh section one CUDA device
+     and NCCL, no warning; then K1 timed at the two shard shapes (cols:
+     k=128, p=16, a quarter segment, folded; stripe: k=32, p=16, a
+     segment, pre-parity) next to its plain version and bound.  Each
+     operation's wall, GB/s and K1 runs are logged;
   6. timings: file encode/decode GB/s of phase 4, and K1 at the main path's
      segment shapes, at phase 5b's syndrome (r=4, depth 14) and repair
      (3 targets, k=10) shapes, at phase 5c's E·Δ shapes (the stacked
@@ -1407,7 +1433,7 @@ def phase_new_kernels_vs_plain(device) -> dict:
 
 
 def _reset_counts() -> None:
-    cuda_gemm.LAUNCHES = cuda_gemm.CAPTURED = cuda_gemm.REPLAYED = 0
+    cuda_gemm.LAUNCHES = cuda_gemm.CAPTURED = cuda_gemm.REPLAYED = cuda_gemm.PREPARITY = 0
     cuda_pack2.LAUNCHES = 0
     cuda_planes.LAUNCHES = 0
     cuda_planes.SUM_LAUNCHES = 0
@@ -3436,6 +3462,379 @@ def phase_measurement(work: str, seed: int, device, size: int = MEASURE_FILE_BYT
     return res
 
 
+MESH_FILE_BYTES = 1024 * MiB  # BASELINE config 4's wide stripe: k=128, n=144, w=8
+MESH_K, MESH_P, MESH_SHARDS = 128, 16, 4
+MESH_MP_BYTES = 256 * MiB  # the two-process job's file, k=10, n=14
+
+
+def _mesh_op(what: str, fn, nbytes: int) -> dict:
+    """One mesh file operation with the counts reset just before: its wall,
+    GB/s and the K1 runs it made (both forms, and the pre-parity ones)."""
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    wall = time.perf_counter() - t0
+    res = dict(phase="mesh", op=what, wall_s=wall, gbps=nbytes / wall / 1e9, k1_runs=k1_runs(),
+               preparity=cuda_gemm.PREPARITY, captured=cuda_gemm.CAPTURED)
+    log(**res)
+    return res
+
+
+def _mesh_metric(name: str) -> dict:
+    from gpu_rscode_torch.obs import metrics
+
+    return metrics.REGISTRY.snapshot().get(name, {}).get("values", {})
+
+
+def _wide_stripe(work: str, seed: int, device) -> dict:
+    """(a) BASELINE config 4 on a mesh of cuda:0 listed four times."""
+    from gpu_rscode_torch.obs import metrics
+    from gpu_rscode_torch.parallel.mesh import Mesh
+
+    k, p, shards = MESH_K, MESH_P, MESH_SHARDS
+    dirs = {name: os.path.join(work, f"mesh_{name}") for name in ("ref", "stripe", "cols")}
+    for d in dirs.values():
+        os.makedirs(d)
+    path = {name: os.path.join(d, "wide.bin") for name, d in dirs.items()}
+    want = write_seeded(path["ref"], seed, MESH_FILE_BYTES)
+    for name in ("stripe", "cols"):
+        os.link(path["ref"], path[name])
+    chunk = -(-MESH_FILE_BYTES // k)
+    segments = len(api._segment_spans(chunk, api._segment_cols(chunk, k, api.DEFAULT_SEGMENT_BYTES)))
+    res = {"segments": segments}
+    res["ref"] = _mesh_op("encode k=128 n=144 single device (cuda)",
+                          lambda: api.encode_file(path["ref"], k, p, device=device), MESH_FILE_BYTES)
+    ref = archive_digests(path["ref"], k + p)
+    stripe_mesh = Mesh([[device]] * shards)
+    forced = metrics.forced()
+    metrics.force_enable()
+    metrics.REGISTRY.reset()
+    plan.MESH_PLAN_CACHE.clear()
+    res["stripe_encode"] = _mesh_op("encode k=128 n=144 stripe mesh (4, 1) of cuda:0",
+                                    lambda: api.encode_file(path["stripe"], k, p, device=device, mesh=stripe_mesh,
+                                                            stripe_sharded=True), MESH_FILE_BYTES)
+    mesh_stats = plan.MESH_PLAN_CACHE.stats()
+    collective = _mesh_metric("rs_mesh_collective_bytes_total")
+    staged = _mesh_metric("rs_mesh_staged_bytes_total")
+    metrics.force_enable(forced)
+    if archive_digests(path["stripe"], k + p) != ref:
+        raise AssertionError("5j: the stripe-mode archive differs from the single-device one")
+    enc = res["stripe_encode"]
+    if enc["k1_runs"] != shards * segments or enc["preparity"] != shards * segments or enc["captured"]:
+        raise AssertionError(f"5j: stripe encode ran K1 {enc['k1_runs']} times ({enc['preparity']} pre-parity, "
+                             f"{enc['captured']} captured); want {shards} pre-parity launches x {segments} segments")
+    if collective != {'{op="psum_stripe"}': p * 8 * chunk}:
+        raise AssertionError(f"5j: rs_mesh_collective_bytes_total {collective}, want p*w*m = {p * 8 * chunk}")
+    if staged != {'{stripe="True"}': k * chunk} or mesh_stats["calls"] != segments or mesh_stats["misses"] != 1:
+        raise AssertionError(f"5j: staged {staged}, mesh plan cache {mesh_stats['calls']} calls, "
+                             f"{mesh_stats['misses']} misses")
+    log(phase="mesh", step="stripe_counts", segments=segments, collective_bytes=collective, staged_bytes=staged,
+        mesh_plan_calls=mesh_stats["calls"], mesh_plan_hits=mesh_stats["hits"], mesh_plan_misses=mesh_stats["misses"])
+    # Decode with 16 chunks lost: the first 16 natives, all through the
+    # stripe-mode recovery GEMM.
+    for i in range(p):
+        os.unlink(chunk_file_name(path["stripe"], i))
+    conf = make_conf(k + p, k, path["stripe"])
+    out = path["stripe"] + ".out"
+    res["stripe_decode"] = _mesh_op("decode 16 lost stripe mesh (4, 1)",
+                                    lambda: api.decode_file(path["stripe"], conf, out, device=device, mesh=stripe_mesh,
+                                                            stripe_sharded=True), MESH_FILE_BYTES)
+    if sha256_file(out) != want:
+        raise AssertionError("5j: the stripe-mode decode differs from the input")
+    dec = res["stripe_decode"]
+    if dec["k1_runs"] != shards * segments or dec["preparity"] != shards * segments:
+        raise AssertionError(f"5j: stripe decode ran K1 {dec['k1_runs']} times ({dec['preparity']} pre-parity)")
+    os.unlink(out)
+    cols_mesh = Mesh([[device] * shards])
+    res["cols_encode"] = _mesh_op("encode k=128 n=144 cols mesh (1, 4) of cuda:0",
+                                  lambda: api.encode_file(path["cols"], k, p, device=device, mesh=cols_mesh),
+                                  MESH_FILE_BYTES)
+    if archive_digests(path["cols"], k + p) != ref:
+        raise AssertionError("5j: the cols-mode archive differs from the single-device one")
+    enc = res["cols_encode"]
+    if enc["k1_runs"] != shards * segments or enc["preparity"]:
+        raise AssertionError(f"5j: cols encode ran K1 {enc['k1_runs']} times ({enc['preparity']} pre-parity)")
+    res["k1_launches"] = sum(res[key]["k1_runs"] for key in ("ref", "stripe_encode", "stripe_decode", "cols_encode"))
+    res["peak_device_gib"] = torch.cuda.max_memory_allocated(device) / (1 << 30)
+    for d in dirs.values():
+        shutil.rmtree(d)
+    return res
+
+
+def _mesh_shard_timings(device) -> list[dict]:
+    """K1 at the wide stripe's shard shapes on the card: cols mode (k=128,
+    p=16, a quarter of a 64 MiB segment's columns, folded) and stripe mode
+    (k=32, p=16, a whole segment's columns, the pre-parity int32 sums),
+    next to the plain version and the bytes bound (B read once, the output
+    written once: p symbols, or p*w int32 sums, a column)."""
+    rng = np.random.default_rng(17)
+    seg_cols = api._segment_cols(-(-MESH_FILE_BYTES // MESH_K), MESH_K, api.DEFAULT_SEGMENT_BYTES)
+    A = RSCodec(MESH_K, MESH_P, device=device).parity_block
+    rows = []
+    for label, a, m, fold in (("mesh cols shard k=128 p=16 (folded)", A, seg_cols // MESH_SHARDS, True),
+                              ("mesh stripe shard k=32 p=16 (pre-parity)", np.ascontiguousarray(A[:, :32]), seg_cols,
+                               False)):
+        p, depth = a.shape
+        B = random_symbols(rng, (depth, m), 8, device)
+        got = cuda_gemm.gf_matmul_cuda(a, B, 8, fold_parity=fold)
+        want = gf_matmul_bitplane(a, B, 8, fold_parity=fold)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
+        if err:
+            raise AssertionError(f"kernel != plain at the {label} timing shape")
+        ms = time_ms(lambda: cuda_gemm.gf_matmul_cuda(a, B, 8, fold_parity=fold), iters=50, reps=3)
+        plain = time_ms(lambda: gf_matmul_bitplane(a, B, 8, fold_parity=fold), iters=2, warmup=1)
+        out_bytes = p * m if fold else p * 8 * m * 4
+        row = dict(phase="kernel_timing", shape=label, w=8, p=p, k=depth, m=m, ms=ms, plain_ms=plain,
+                   bound_ms=1e3 * (depth * m + out_bytes) / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None,
+                   max_abs_err=err, launches_per_gib_op=MESH_SHARDS * 16, smi=smi_line())
+        if fold:
+            row["est_logic_ops_per_col"] = k1_logic_ops_per_col(p, depth, 8)
+        log(**row)
+        rows.append(row)
+    return rows
+
+
+def _cli_devices_one(work: str, cuda_digests: dict) -> dict:
+    """(b) The main configuration through the CLI with --devices 1: phase
+    4's seeded file again, archive byte-equal to phase 4's, then a decode
+    with the first 4 chunks lost."""
+    d = os.path.join(work, "mesh_cli")
+    os.makedirs(d)
+    path = os.path.join(d, "main.bin")
+    want = write_seeded(path, SEED, MAIN_FILE_BYTES)
+    res = _mesh_op("CLI encode k=10 n=14 --devices 1", lambda: _cli_ok(
+        ["-k", "10", "-n", "14", "-e", path, "--devices", "1", "--quiet"]), MAIN_FILE_BYTES)
+    if archive_digests(path, 14) != cuda_digests:
+        raise AssertionError("5j: the --devices 1 archive differs from phase 4's")
+    for i in range(4):
+        os.unlink(chunk_file_name(path, i))
+    conf = make_conf(14, 10, path)
+    dec = _mesh_op("CLI decode 4 lost --devices 1", lambda: _cli_ok(
+        ["-d", "-i", path, "-c", conf, "-o", path + ".out", "--devices", "1", "--quiet"]), MAIN_FILE_BYTES)
+    if sha256_file(path + ".out") != want:
+        raise AssertionError("5j: the --devices 1 decode differs from the input")
+    if res["k1_runs"] <= 0 or dec["k1_runs"] <= 0 or res["preparity"] or dec["preparity"]:
+        raise AssertionError(f"5j: --devices 1 K1 runs {res['k1_runs']} / {dec['k1_runs']}, folded form only")
+    shutil.rmtree(d)
+    return {"encode": res, "decode": dec, "k1_launches": res["k1_runs"] + dec["k1_runs"]}
+
+
+def _cli_ok(argv: list[str]) -> None:
+    rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"5j: rs {' '.join(argv)} exited {rc}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# The two ranks' program: each step an `rs` argv run in this process (the
+# first joins the job; the others reuse its group), with this rank's K1
+# counts set to 0 just before it and printed just after; or "lose": the
+# lead moves the first 4 chunks of the archive away and writes the conf of
+# the rest, behind a barrier on each side.
+_RANK_STEPS = """
+import json, os, sys
+from gpu_rscode_torch import cli
+from gpu_rscode_torch.ops import cuda_gemm
+from gpu_rscode_torch.parallel import distributed
+from gpu_rscode_torch.tools.make_conf import make_conf
+from gpu_rscode_torch.utils.fileformat import chunk_file_name
+for i, step in enumerate(json.loads(sys.argv[1])):
+    if step[0] == "lose":
+        distributed.barrier("rs_smoke_lose")
+        if distributed.rank() == 0:
+            for j in range(4):
+                os.rename(chunk_file_name(step[1], j), f"lost_{j}")
+            make_conf(14, 10, step[1])
+        distributed.barrier("rs_smoke_lost")
+        continue
+    cuda_gemm.LAUNCHES = cuda_gemm.CAPTURED = cuda_gemm.REPLAYED = cuda_gemm.PREPARITY = 0
+    rc = cli.main(step)
+    counts = dict(step=i, launches=cuda_gemm.LAUNCHES, replayed=cuda_gemm.REPLAYED, captured=cuda_gemm.CAPTURED,
+                  preparity=cuda_gemm.PREPARITY)
+    print("STEP", step[0], step[1], rc, flush=True)
+    print("K1COUNTS " + json.dumps(counts), flush=True)
+    if rc:
+        sys.exit(rc)
+"""
+
+
+def _two_processes(steps: list, cwd: str, device) -> tuple[float, list[dict]]:
+    """``steps`` (see _RANK_STEPS) in two processes of one job on this card
+    (torchrun's variables; gloo, since two ranks share one card); both must
+    exit 0.  Returns the wall and, for each rank, its K1 counts by step
+    index.  Kills both on a failure or a timeout."""
+    port = _free_port()
+    steps = [step if step[0] == "lose" else [*step, "--device", device.type, "--quiet"] for step in steps]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            env = dict(os.environ, WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), PYTHONPATH=REPO)
+            procs.append(subprocess.Popen([sys.executable, "-c", _RANK_STEPS, json.dumps(steps)], env=env, cwd=cwd,
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"5j: rank {rank} of the two-process job exited {p.returncode}:\n{out[-3000:]}")
+    counts = [{c["step"]: c for c in (json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+                                      if line.startswith("K1COUNTS "))} for out in outs]
+    log(phase="mesh", step="two_processes", steps=[step[:2] for step in steps], wall_s=wall, k1_counts=counts)
+    return wall, counts
+
+
+def _two_process_job(work: str, seed: int, device) -> dict:
+    """(c) Two ranks on the one card (gloo with CUDA tensors), --devices 2
+    --stripe 2 on a seeded 256 MiB file at k=10, n=14, each step a
+    collective: an encode with --metrics-json / --trace parts, a conf decode
+    with the first 4 chunks lost, an --auto decode and a --repair; then
+    `rs aggregate` of the parts against one process running the same (2, 1)
+    mesh, whose archive the repaired one must equal."""
+    from gpu_rscode_torch.obs import metrics
+    from gpu_rscode_torch.parallel.mesh import Mesh
+
+    d = os.path.join(work, "mesh_mp")
+    s = os.path.join(work, "mesh_single")
+    os.makedirs(d)
+    os.makedirs(s)
+    path, single = os.path.join(d, "mp.bin"), os.path.join(s, "mp.bin")
+    want = write_seeded(path, seed, MESH_MP_BYTES)
+    os.link(path, single)
+    flags = ["--devices", "2", "--stripe", "2"]
+    ops = {"encode": 0, "conf_decode": 2, "auto_decode": 3, "repair": 4}  # step indices
+    wall, counts = _two_processes([
+        ["-k", "10", "-n", "14", "-e", "mp.bin", "--checksum", *flags, "--metrics-json", "m.json", "--trace", "t.json"],
+        ["lose", "mp.bin"],
+        ["-d", "-i", "mp.bin", "-c", "conf-14-10-mp.bin", "-o", "out.bin", *flags],
+        ["-d", "-i", "mp.bin", "--auto", "-o", "auto.bin", *flags],
+        ["--repair", "-i", "mp.bin", *flags]], d, device)
+    for name in ("out.bin", "auto.bin"):
+        if sha256_file(os.path.join(d, name)) != want:
+            raise AssertionError(f"5j: the two-process {name} differs from the input")
+    # Each rank holds one stripe position of the (2, 1) mesh, so each op runs
+    # K1's pre-parity form once a segment on each rank, and nothing else.
+    chunk = -(-MESH_MP_BYTES // 10)
+    segments = len(api._segment_spans(chunk, api._segment_cols(chunk, 10, api.DEFAULT_SEGMENT_BYTES)))
+    per_rank = [{op: rank_counts[i] for op, i in ops.items()} for rank_counts in counts]
+    for rank, rank_ops in enumerate(per_rank):
+        for op, c in rank_ops.items():
+            if c["launches"] != segments or c["preparity"] != segments or c["replayed"] or c["captured"]:
+                raise AssertionError(f"5j: rank {rank}'s two-process {op} ran K1 {c}; want {segments} pre-parity "
+                                     f"launches (one a segment) and no folded or graph launch")
+    res = {"job_s": wall, "segments": segments, "rank_k1": per_rank,
+           "rank_k1_launches": sum(c["launches"] for rank_ops in per_rank for c in rank_ops.values())}
+    forced = metrics.forced()
+    metrics.force_enable()
+    metrics.REGISTRY.reset()
+    _reset_counts()
+    api.encode_file(single, 10, 4, device=device, mesh=Mesh([[device], [device]]), stripe_sharded=True,
+                    checksums=True)
+    single_snap = metrics.REGISTRY.snapshot()
+    metrics.force_enable(forced)
+    if k1_runs() != 2 * segments or cuda_gemm.PREPARITY != 2 * segments:
+        raise AssertionError(f"5j: the single-process (2, 1) encode ran K1 {k1_runs()} times ({cuda_gemm.PREPARITY} "
+                             f"pre-parity); want 2 x {segments} pre-parity launches")
+    if archive_digests(path, 14) != archive_digests(single, 14):
+        raise AssertionError("5j: the two-process archive (encoded, 4 chunks lost, repaired) differs from the "
+                             "single-process one")
+    rc, _ = _cli_quiet(["aggregate", os.path.join(d, "m.json"), "--snapshot-out", os.path.join(d, "merged.json")])
+    if rc != 0:
+        raise AssertionError(f"5j: rs aggregate exited {rc}")
+    with open(os.path.join(d, "merged.json")) as fp:
+        merged = json.load(fp)["metrics"]
+    parts = []
+    for i in range(2):
+        with open(os.path.join(d, f"m.json.p{i}")) as fp:
+            parts.append(json.load(fp)["metrics"])
+    staged = "rs_mesh_staged_bytes_total"
+    if merged[staged]["values"] != single_snap[staged]["values"]:
+        raise AssertionError(f"5j: merged staged bytes {merged[staged]['values']} != single "
+                             f"{single_snap[staged]['values']}")
+    # Each process reduces p*w*m bytes a segment and stages every segment:
+    # its part's counts equal the single-process run's.
+    for part in parts:
+        counts = [list(snap[name]["values"].values()) for snap in (part, single_snap)
+                  for name in ("rs_mesh_collective_bytes_total", "rs_mesh_segments_staged_total")]
+        if counts[:2] != counts[2:]:
+            raise AssertionError(f"5j: a part's collective bytes and staged segments {counts[:2]} != the single "
+                                 f"process's {counts[2:]}")
+    rc, _ = _cli_quiet(["aggregate", os.path.join(d, "t.json"), "--trace-out", os.path.join(d, "fused.json")])
+    with open(os.path.join(d, "fused.json")) as fp:
+        lanes = {e["pid"] for e in json.load(fp)["traceEvents"] if e.get("ph") == "X"}
+    if rc != 0 or lanes != {1, 2}:
+        raise AssertionError(f"5j: trace aggregate exited {rc} with lanes {lanes}")
+    log(phase="mesh", step="aggregate", staged_bytes=merged[staged]["values"],
+        collective_bytes_per_part=[part["rs_mesh_collective_bytes_total"]["values"] for part in parts])
+    shutil.rmtree(d)
+    shutil.rmtree(s)
+    return res
+
+
+def _nccl_one_rank() -> dict:
+    """A one-rank NCCL group (the NCCL path; NCCL refuses two ranks on one
+    card): the backend the rule picks, and an int8 sum through it."""
+    from gpu_rscode_torch.parallel import distributed
+
+    port = _free_port()
+    distributed.initialize(init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        backend = distributed.backend()
+        t = torch.full((1024,), 100, dtype=torch.int8, device="cuda")
+        torch.distributed.all_reduce(t)
+        ok = backend == "nccl" and int(t[0]) == 100
+    finally:
+        torch.distributed.destroy_process_group()
+    if not ok:
+        raise AssertionError(f"5j: one-rank group took backend {backend}")
+    return {"backend": backend}
+
+
+def _doctor(kind: str) -> dict:
+    """(d) rs doctor --json on the card."""
+    rc, text = _cli_quiet(["doctor", "--json", "--no-probe"])
+    doc = json.loads(text)
+    t, m = doc["torch"], doc["mesh"]
+    problems = [doc["warnings"], t["error"], doc["native"]["error"]]
+    if (rc != 0 or any(problems) or t["device_name"] != kind or not t["nvcc"] or m["local_device_count"] != 1
+            or not m["nccl_available"]):
+        raise AssertionError(f"5j: rs doctor rc {rc}: torch {t}, mesh {m}, problems {problems}")
+    log(phase="mesh", step="doctor", device=t["device_name"], capability=t["capability"], nvcc=t["nvcc"],
+        mesh=m)
+    return {"device": t["device_name"], "capability": t["capability"]}
+
+
+def phase_mesh(work: str, seed: int, device, cuda_digests: dict) -> dict:
+    """Phase 5j: the mesh on the card (see the module doc)."""
+    t_phase = time.perf_counter()
+    res = {"wide": _wide_stripe(work, seed, device)}
+    res["cli"] = _cli_devices_one(work, cuda_digests)
+    res["two_process"] = _two_process_job(work, seed + 1, device)
+    res["nccl"] = _nccl_one_rank()
+    res["doctor"] = _doctor(torch.cuda.get_device_name(0))
+    res["timings"] = _mesh_shard_timings(device)
+    res["k1_launches"] = (res["wide"]["k1_launches"] + res["cli"]["k1_launches"]
+                          + res["two_process"]["rank_k1_launches"])
+    res["seconds"] = time.perf_counter() - t_phase
+    log(phase="mesh_summary", seconds=res["seconds"], k1_launches=res["k1_launches"],
+        wide_walls={key: res["wide"][key]["wall_s"] for key in ("ref", "stripe_encode", "stripe_decode", "cols_encode")},
+        two_process_walls=res["two_process"], peak_device_gib=res["wide"]["peak_device_gib"], smi=smi_line())
+    return res
+
+
 def _store_shapes(calls) -> dict:
     """The store's K1 shapes from the GEMM log: the 64-object batches' E·Δ
     (appends to an open stripe), the 1,000 x 4 KiB batch's E·Δ, the
@@ -3611,6 +4010,7 @@ def main() -> int:
             serve_res = phase_serve(work, SEED + 9, device)
             faults_res = phase_faults_maint(work, SEED + 10, device)
             measure_res = phase_measurement(work, SEED + 11, device)
+            mesh_res = phase_mesh(work, SEED + 12, device, cuda_digests)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         log(phase="strategies_summary", main_and_cli_seconds=strategies["seconds"],
@@ -3629,7 +4029,8 @@ def main() -> int:
         kernels = kernel_entries(k1_err, grids, timings[0],
                                  main_res["pipelined"]["launches"] + resilience["k1_launches"]
                                  + updates["k1_launches"] + store_res["k1_launches"] + serve_res["k1_launches"]
-                                 + faults_res["k1_launches"] + measure_res["k1_launches"],
+                                 + faults_res["k1_launches"] + measure_res["k1_launches"]
+                                 + mesh_res["k1_launches"],
                                  new_timings,
                                  tools["launches"])
     log(phase="wall", seconds=time.perf_counter() - t_start, quick=args.quick)

@@ -7,7 +7,10 @@ device), of its resilience reads: ``scan_file``, ``auto_decode_file``,
 (:mod:`.update`), and of its object-store wrappers: ``put_object``,
 ``put_objects``, ``get_object``, ``delete_object``, ``list_objects``,
 ``list_objects_page``, ``stat_object`` and ``compact_bucket``
-(:mod:`.store`).
+(:mod:`.store`).  ``encode_file``, ``decode_file``, ``auto_decode_file``
+and ``repair_file`` take a ``mesh`` (:mod:`.parallel.mesh`): every GEMM
+sharded over it, and with positions on several processes the operation
+a collective (``_encode_file_multiprocess`` and its twins).
 
 * The file is striped into k contiguous ranges (``chunk_size =
   ceil(total/k)``), or under the interleaved layout symbol s goes to row
@@ -72,6 +75,7 @@ from contextlib import closing, contextmanager, nullcontext
 from itertools import combinations
 
 import numpy as np
+import torch
 
 from . import native
 from . import plan as _plan
@@ -429,6 +433,8 @@ def encode_file(
     device=None,
     segment_bytes: int = DEFAULT_SEGMENT_BYTES,
     pipeline_depth: int = 2,
+    mesh=None,
+    stripe_sharded: bool = False,
     checksums: bool = False,
     w: int = 8,
     layout: str = "row",
@@ -440,7 +446,11 @@ def encode_file(
 
     ``device``: None runs on CUDA (and raises with no GPU present);
     ``"cpu"`` runs the plain PyTorch path.  ``pipeline_depth``: segments in
-    flight (the ``-s`` flag).  ``checksums=True`` appends per-chunk CRC32
+    flight (the ``-s`` flag).  ``mesh``: shard every segment's GEMM over a
+    device mesh (:mod:`.parallel.sharded`; ``stripe_sharded`` shards the k
+    axis too); a mesh whose positions span processes makes this a
+    collective every process calls with the same arguments.
+    ``checksums=True`` appends per-chunk CRC32
     lines to .METADATA.  ``w``: symbol width, 8 or 16.  ``layout``:
     ``"row"`` (the reference's) or ``"interleaved"`` (file symbol s in row
     ``s % k``, column ``s // k``; an append touches only the tail column
@@ -452,21 +462,31 @@ def encode_file(
     sym = w // 8
     k, p = native_num, parity_num
     depth = max(1, pipeline_depth)
-    codec = RSCodec(k, p, w=w, generator=generator, strategy=strategy, device=device)
+    codec = RSCodec(k, p, w=w, generator=generator, strategy=strategy, device=device, mesh=mesh,
+                    stripe_sharded=stripe_sharded)
     total_size = os.path.getsize(file_name)
     if total_size == 0:
         raise ValueError(f"refusing to encode empty file {file_name!r}")
     if layout not in ("row", "interleaved"):
         raise ValueError(f"unknown chunk layout {layout!r} (want row or interleaved)")
     if layout == "interleaved":
+        # Single-host: the mesh paths stage the reference's row layout.
+        if mesh is not None:
+            raise ValueError("interleaved layout encodes single-host; drop --devices")
         return _encode_file_interleaved(file_name, codec, total_size, segment_bytes=segment_bytes, depth=depth,
                                         checksums=checksums, timer=timer, _fleet=_fleet)
     chunk = chunk_size_for(total_size, k, sym)
     seg_cols = _segment_cols(chunk, k, segment_bytes)
+    if len(_mesh_processes(mesh)) > 1:
+        if _fleet is not None:
+            raise ValueError("fleet encode is single-host; multi-process encodes are collectives with their own "
+                             "barriers")
+        return _encode_file_multiprocess(file_name, codec, chunk, total_size, seg_cols, checksums=checksums,
+                                         depth=depth, timer=timer)
     src = np.memmap(file_name, dtype=np.uint8, mode="r")
     commit = _ArchiveCommit(file_name, k + p)
     crcs: dict[int, int] | None = {} if checksums else None
-    loop = StreamLoop(codec.device, k, seg_cols, depth)
+    loop = StreamLoop(codec.device, k, seg_cols, depth, bucketed=mesh is None)
 
     def gather(off: int, cols: int):
         # On the prefetch thread: native preads into the loop's buffer.  A
@@ -716,6 +736,8 @@ def decode_file(
     device=None,
     segment_bytes: int = DEFAULT_SEGMENT_BYTES,
     pipeline_depth: int = 2,
+    mesh=None,
+    stripe_sharded: bool = False,
     verify_checksums: bool | None = None,
     timer: PhaseTimer | None = None,
     _fleet: FleetPipeline | None = None,
@@ -738,9 +760,19 @@ def decode_file(
     cover it, the failure raises :class:`ChunkIntegrityError` naming the
     survivor.  ``_fleet`` (private, from :func:`decode_fleet`): the shared
     write-behind lane; the output is committed behind its own writes.
+    ``mesh`` / ``stripe_sharded``: the recovery GEMM sharded over a device
+    mesh, as :func:`encode_file` takes them (a process-spanning mesh makes
+    the decode a collective).
     """
     timer = timer or PhaseTimer(enabled=False)
-    device = entry_device(device, strategy)
+    if len(_mesh_processes(mesh)) > 1:
+        if _fleet is not None:
+            raise ValueError("fleet decode is single-host; multi-process decodes are collectives with their own "
+                             "barriers")
+        return _decode_file_multiprocess(in_file, conf_file, output, strategy=strategy, segment_bytes=segment_bytes,
+                                         depth=max(1, pipeline_depth), mesh=mesh, stripe_sharded=stripe_sharded,
+                                         verify_checksums=verify_checksums, timer=timer)
+    device = _mesh_entry_device(mesh, device, strategy)
     meta_path = metadata_file_name(in_file)
     with timer.phase("read metadata (io)"):
         meta = read_archive_meta(meta_path)
@@ -755,22 +787,13 @@ def decode_file(
     if len(names) != k:
         raise ValueError(f"conf file lists {len(names)} chunks, need k={k}")
     rows = [parse_chunk_index(nm) for nm in names]
-    conf_dir = os.path.dirname(os.path.abspath(conf_file))
-    in_dir = os.path.dirname(os.path.abspath(in_file))
-
-    def resolve(nm: str) -> str:
-        for cand in (nm, os.path.join(conf_dir, os.path.basename(nm)), os.path.join(in_dir, os.path.basename(nm))):
-            if os.path.exists(cand):
-                return cand
-        raise FileNotFoundError(f"surviving chunk {nm!r} not found")
 
     with timer.phase("open chunks (io)"):
         # Open every survivor before raising, so that one error names every
         # truncated or unreadable chunk.  A name never found still raises
-        # FileNotFoundError from resolve().
+        # FileNotFoundError from _resolve_conf().
         paths, maps, bad_open = [], [], {}
-        for nm, row in zip(names, rows):
-            path = resolve(nm)
+        for path, row in zip(_resolve_conf(names, conf_file, in_file), rows):
             try:
                 maps.append(_open_chunk(path, chunk, index=row))
             except ChunkIntegrityError as e:
@@ -806,7 +829,7 @@ def decode_file(
         return _write_empty_atomic(out_path)
     tmp_path = out_path + ".rs_tmp"
 
-    codec = RSCodec(k, p, w=w, strategy=strategy, device=device)
+    codec = RSCodec(k, p, w=w, strategy=strategy, device=device, mesh=mesh, stripe_sharded=stripe_sharded)
     total_mat = total_mat.astype(codec.gf.dtype)
     # Partial recovery: with a systematic matrix, surviving natives are
     # already the answer; only the missing native rows go through the GEMM
@@ -836,7 +859,7 @@ def decode_file(
         # the memmaps.  A resume gets a fresh loop: the prefetcher that
         # failed took its pinned buffers with it.
         recover = st["dec_missing"] is not None
-        st["loop"] = StreamLoop(codec.device, k, seg_cols, depth) if recover else None
+        st["loop"] = StreamLoop(codec.device, k, seg_cols, depth, bucketed=mesh is None) if recover else None
         st["fps"] = [open(path, "rb") for path in st["paths"]] if recover else []
 
     _derive()
@@ -1028,6 +1051,509 @@ def decode_file(
             cleanup()
         raise
     return out_path
+
+
+# -- the mesh: single-process helpers and the multi-process collectives -----------------
+
+
+def _mesh_processes(mesh) -> list[int]:
+    """Sorted process indices a mesh's positions span ([] for mesh=None)."""
+    if mesh is None:
+        return []
+    return sorted({int(p) for p in mesh.processes.flat})
+
+
+def _is_lead(procs) -> bool:
+    """Whether this process is the collective's lead (the lowest process
+    index of the mesh; True single-process)."""
+    if len(procs) <= 1:
+        return True
+    from .parallel.distributed import rank
+
+    return rank() == procs[0]
+
+
+def _mesh_entry_device(mesh, device, strategy: str):
+    """The device a file operation runs on: :func:`.codec.entry_device`
+    without a mesh, else the mesh's home device (a ``device`` of another
+    type is refused by the codec)."""
+    if mesh is None:
+        return entry_device(device, strategy)
+    return device if device is not None else mesh.home
+
+
+def _stripe_io_roles(mesh, stripe_sharded: bool) -> bool:
+    """Whether THIS process writes a mesh GEMM's output.  In stripe mode the
+    reduced output is replicated along the stripe axis, so only the
+    processes that hold stripe row 0 write (every column block is held
+    there); in cols mode every process writes its own columns.  Shared by
+    the encode, decode and repair collectives so the rule cannot drift
+    between them."""
+    if not stripe_sharded:
+        return True
+    from .parallel.distributed import rank
+
+    return rank() in {int(p) for p in mesh.processes[0]}
+
+
+def _make_padded_stage(fps, maps, chunk: int, mesh, stripe_sharded: bool, k: int, timer: PhaseTimer, sym: int):
+    """Segment stager of the multi-process decode and repair: reads this
+    process's block of the k survivor files (its column span and, in stripe
+    mode, only its survivor rows), zero-filling the pad columns past the
+    chunk's end.  Spans are in symbols; the reads convert to bytes."""
+    from .parallel.sharded import local_block, padded_width
+
+    cols_size = mesh.shape["cols"]
+
+    def stage(off: int, cols: int):
+        off_s, chunk_s = off // sym, chunk // sym
+        r0, r1, lo, hi = local_block(mesh, (k, padded_width(cols // sym, cols_size)), stripe_sharded)
+        readable = max(0, min(off_s + hi, chunk_s) - (off_s + lo))
+        with timer.phase("stage segment (io)"):
+            seg = np.zeros((r1 - r0, (hi - lo) * sym), dtype=np.uint8)
+            if readable:
+                seg[:, : readable * sym] = native.gather_rows(fps[r0:r1], (off_s + lo) * sym, readable * sym,
+                                                              fallback_maps=maps[r0:r1])
+            return seg.view(np.uint16) if sym == 2 else seg
+
+    return stage
+
+
+def _local_output(out, mesh, cols: int, sym: int) -> tuple[int, np.ndarray]:
+    """``(byte_col0, uint8 rows)``: this process's column block of a mesh
+    GEMM's output, trimmed to the segment's real width (the equal-shard pad
+    dropped), as little-endian bytes.  Blocks on the device."""
+    from .ops.gemm import to_numpy
+    from .parallel.sharded import local_block, padded_width
+
+    cols_s = cols // sym
+    _, _, lo, _ = local_block(mesh, (1, padded_width(cols_s, mesh.shape["cols"])), False)
+    data = to_numpy(out)
+    rows = np.ascontiguousarray(data[:, : max(0, min(data.shape[1], cols_s - lo))])
+    return lo * sym, rows.view(np.uint8) if rows.dtype != np.uint8 else rows
+
+
+def _wait_replica(out) -> None:
+    """A stripe-row replica's output: its writer is another process, so
+    only wait for it (the window's backpressure), with no copy to the host."""
+    if out.device.type == "cuda":
+        torch.cuda.current_stream(out.device).synchronize()
+
+
+def _unlink_shared_tmps(paths) -> None:
+    """Best-effort cleanup of shared temp files from a failing collective:
+    every process runs it against the same paths, so losing the unlink race
+    to a peer is success."""
+    for tmp in paths:
+        try:
+            os.unlink(tmp)
+        except FileNotFoundError:
+            pass
+
+
+def _lead_step(lead: bool, what: str, fn) -> None:
+    """Run ``fn`` on the lead, then the all-ok exchange: a lead-side failure
+    raises on every process instead of leaving the peers at the next
+    barrier."""
+    from .parallel import distributed as _dist
+
+    err = None
+    if lead:
+        try:
+            fn()
+        except Exception as e:
+            err = e
+    _dist.all_ok(err, what)
+
+
+def _stream_mesh(segments, stage, A, codec, *, depth: int, op: str, drain, timer: PhaseTimer) -> None:
+    """The segment loop of the multi-process collectives: each process
+    stages its block (``stage``), places it on its mesh positions and runs
+    the sharded GEMM (K1 on the card), and ``drain`` writes its output on an
+    unordered write-behind lane (every write is a pwrite at its own
+    offset).  A failure on any process raises on every process at the
+    all-ok exchange after the loop (a peer inside a stripe reduction waits
+    for it at most the group's timeout)."""
+    from .parallel import distributed as _dist
+    from .parallel.sharded import put_sharded
+
+    err = None
+    try:
+        with SegmentPrefetcher(segments, stage, depth=depth) as prefetch, DrainExecutor(ordered=False) as dex, \
+                AsyncWindow(depth, drain, executor=dex) as window:
+            for (off, cols), local_seg in prefetch:
+                with timer.phase(f"{op} dispatch"), _dispatch_span(op, off, cols):
+                    out = codec._dispatch_mesh(A, put_sharded(local_seg, codec.mesh, codec.stripe_sharded))
+                window.push((off, cols), out)
+    except Exception as e:
+        err = e
+    _dist.all_ok(err, f"the {op} stream")
+
+
+def _encode_file_multiprocess(file_name: str, codec: RSCodec, chunk: int, total_size: int, seg_cols: int, *,
+                              checksums: bool, depth: int, timer: PhaseTimer) -> list[str]:
+    """Multi-process file encode over a process-spanning mesh (a collective:
+    every process calls :func:`encode_file` with the same arguments).
+
+    Every process stages only its block of each segment (the byte ranges
+    its mesh positions own; in stripe mode only its stripe rows, the
+    wide-stripe layout of BASELINE config 4), the sharded GEMM runs with its
+    stripe reduction across processes, and each process pwrites its column
+    block of parity into shared-filesystem temps (in stripe mode only the
+    processes of stripe row 0).  The lead writes the natives and .METADATA
+    and promotes.  Each barrier is a ``torch.distributed`` barrier after an
+    all-ok exchange.  Requirements: a shared filesystem; w=8 or w=16.
+    """
+    from .parallel import distributed as _dist
+    from .parallel.sharded import local_block, padded_width
+
+    mesh, stripe_sharded = codec.mesh, codec.stripe_sharded
+    k, p, sym = codec.native_num, codec.parity_num, codec.w // 8
+    lead = _is_lead(_mesh_processes(mesh))
+    writes_parity = _stripe_io_roles(mesh, stripe_sharded)
+    written = [chunk_file_name(file_name, i) for i in range(k + p)] + [metadata_file_name(file_name)]
+    tmps = {name: name + ".rs_tmp" for name in written}
+    parity_names = [chunk_file_name(file_name, k + j) for j in range(p)]
+    src = np.memmap(file_name, dtype=np.uint8, mode="r")
+    copy_step = max(1, seg_cols * k)
+    crcs: dict[int, int] | None = {} if checksums else None
+    preexisting = {name for name in written if os.path.exists(name)}
+    committed: list[str] = []
+
+    def create() -> None:
+        with DrainExecutor(ordered=True) as dex:
+            _write_native_chunks(src, file_name, tmps, k, chunk, total_size, copy_step, crcs, timer, dex)
+        # Pre-sized parity temps: every process pwrites its ranges.
+        for name in parity_names:
+            with open(tmps[name], "wb") as fp:
+                fp.truncate(chunk)
+
+    def stage(off: int, cols: int):
+        r0, r1, lo, hi = local_block(mesh, (k, padded_width(cols // sym, codec._cols_size)), stripe_sharded)
+        with timer.phase("stage segment (io)"):
+            if not stripe_sharded:
+                seg = native.stripe_read(file_name, chunk, k, off + lo * sym, (hi - lo) * sym, total_size,
+                                         fallback_src=src)
+            else:
+                # Only this process's (stripe rows x column span) block.
+                seg = np.zeros((r1 - r0, (hi - lo) * sym), dtype=np.uint8)
+                for i in range(r0, r1):
+                    b0 = i * chunk + off + lo * sym
+                    n = max(0, min(b0 + (hi - lo) * sym, (i + 1) * chunk, total_size) - b0)
+                    if n:
+                        seg[i - r0, :n] = src[b0 : b0 + n]
+            return seg.view(np.uint16) if sym == 2 else seg
+
+    def promote() -> None:
+        with timer.phase("write metadata (io)"):
+            if crcs is not None:
+                # Parity rows were written by many processes: the lead reads
+                # the finished temps back for the checksum lines.
+                for j, name in enumerate(parity_names):
+                    crcs[k + j] = chunk_crc32(np.memmap(tmps[name], dtype=np.uint8, mode="r"), chunk, copy_step)
+            meta_tmp = tmps[metadata_file_name(file_name)]
+            write_metadata(meta_tmp, total_size, p, k, codec.total_matrix, w=codec.w)
+            if crcs is not None:
+                append_checksums(meta_tmp, crcs)
+        for name in written[:-1]:
+            os.replace(tmps[name], name)
+            committed.append(name)
+        os.replace(meta_tmp, metadata_file_name(file_name))
+
+    try:
+        _lead_step(lead, "writing the natives", create)
+        _dist.barrier("rs_encode_files_created")
+        parity_fps = [open(tmps[name], "r+b") for name in parity_names]
+
+        def drain(tag, parity) -> None:
+            off, cols = tag
+            if not writes_parity:
+                with timer.phase("encode compute"):
+                    _wait_replica(parity)
+                return
+            with timer.phase("encode compute"):
+                col0, rows = _local_output(parity, mesh, cols, sym)
+            with timer.phase("write parity (io)"):
+                for j in range(p):
+                    os.pwrite(parity_fps[j].fileno(), rows[j].tobytes(), off + col0)
+
+        try:
+            _stream_mesh(_segment_spans(chunk, seg_cols), stage, codec.parity_block, codec, depth=depth, op="encode",
+                         drain=drain, timer=timer)
+        finally:
+            for fp in parity_fps:
+                fp.close()
+        _dist.barrier("rs_encode_parity_written")
+        _lead_step(lead, "the archive's promotion", promote)
+    except BaseException:
+        # The shared filesystem's atomicity: every process unlinks the
+        # temps and retracts the chunks this encode promoted.
+        _unlink_shared_tmps(tmps.values())
+        _unlink_shared_tmps(name for name in committed if name not in preexisting)
+        raise
+    _dist.barrier("rs_encode_promoted")
+    return written
+
+
+def _resolve_conf(names: list[str], conf_file: str, in_file: str) -> list[str]:
+    """The survivor paths a conf names: as given, else beside the conf, else
+    beside the archive; a name found nowhere raises FileNotFoundError."""
+    conf_dir = os.path.dirname(os.path.abspath(conf_file))
+    in_dir = os.path.dirname(os.path.abspath(in_file))
+
+    def resolve(nm: str) -> str:
+        for cand in (nm, os.path.join(conf_dir, os.path.basename(nm)), os.path.join(in_dir, os.path.basename(nm))):
+            if os.path.exists(cand):
+                return cand
+        raise FileNotFoundError(f"surviving chunk {nm!r} not found")
+
+    return [resolve(nm) for nm in names]
+
+
+def _decode_file_multiprocess(in_file: str, conf_file: str, output: str | None, *, strategy: str,
+                              segment_bytes: int, depth: int, mesh, stripe_sharded: bool,
+                              verify_checksums: bool | None, timer: PhaseTimer) -> str:
+    """Multi-process file decode over a process-spanning mesh (a collective).
+
+    Mirrors :func:`_encode_file_multiprocess`: every process stages its
+    block of each survivor segment (in stripe mode only its survivor rows),
+    the recovery GEMM runs sharded, and each writer pwrites its column block
+    of the missing natives into a shared temp the lead pre-sizes and
+    promotes.  Surviving natives are copied round-robin across the
+    processes.  The checksum pre-pass runs on the lead only and its verdict
+    is broadcast, so a corrupt survivor raises the same
+    :class:`ChunkIntegrityError` on every process.
+    """
+    from .parallel import distributed as _dist
+
+    procs = _mesh_processes(mesh)
+    lead = _is_lead(procs)
+    meta_path = metadata_file_name(in_file)
+    with timer.phase("read metadata (io)"):
+        meta = read_archive_meta(meta_path)
+    total_size, p, k, w, crcs = meta.total_size, meta.parity_num, meta.native_num, meta.w, meta.crcs
+    _check_gfwidth(w, meta_path)
+    if meta.layout != "row":
+        raise ValueError(f"{in_file!r} uses the {meta.layout!r} chunk layout; multi-process decode handles "
+                         "row-layout archives only — decode single-host")
+    total_mat = _checked_total_matrix(meta)
+    sym = w // 8
+    chunk = chunk_size_for(total_size, k, sym)
+    names = read_conf(conf_file)
+    if len(names) != k:
+        raise ValueError(f"conf file lists {len(names)} chunks, need k={k}")
+    rows = [parse_chunk_index(nm) for nm in names]
+    with timer.phase("open chunks (io)"):
+        paths = _resolve_conf(names, conf_file, in_file)
+        maps = [_open_chunk(path, chunk, index=row) for path, row in zip(paths, rows)]
+    if verify_checksums is not False:
+        if verify_checksums and not crcs:
+            raise ValueError(f"{meta_path!r} has no checksum lines but verify_checksums=True")
+        if crcs:
+            uncovered = [r for r in rows if r not in crcs]
+            if verify_checksums and uncovered:
+                raise ValueError(f"metadata has no CRC for survivor chunk(s) {uncovered} but verify_checksums=True")
+            # Lead-only CRC pass; its verdict broadcast as a (k,) 0/1 mask.
+            with timer.phase("verify checksums"):
+                bad_mask = np.zeros(k, dtype=np.int64)
+                if lead:
+                    for pos, (row, mm) in enumerate(zip(rows, maps)):
+                        if row in crcs and chunk_crc32(mm, chunk, segment_bytes) != crcs[row]:
+                            bad_mask[pos] = 1
+                bad_mask = _dist.broadcast(bad_mask, procs[0])
+            if bad_mask.any():
+                raise ChunkIntegrityError({rows[pos]: paths[pos] for pos in np.flatnonzero(bad_mask)})
+    out_path = output or in_file
+    if total_size == 0:
+        _lead_step(lead, "writing the empty output", lambda: _write_empty_atomic(out_path))
+        _dist.barrier("rs_decode_promoted")
+        return out_path
+
+    codec = RSCodec(k, p, w=w, strategy=strategy, mesh=mesh, stripe_sharded=stripe_sharded)
+    total_mat = total_mat.astype(codec.gf.dtype)
+    with timer.phase("invert matrix"):
+        dec_mat = codec.decode_matrix_from(total_mat, rows)
+    systematic = np.array_equal(total_mat[:k], np.eye(k, dtype=total_mat.dtype))
+    native_pos = {r: idx for idx, r in enumerate(rows) if r < k} if systematic else {}
+    missing = [i for i in range(k) if i not in native_pos]
+    dec_missing = dec_mat[missing] if missing else None
+    tmp_path = out_path + ".rs_tmp"
+    seg_cols = _segment_cols(chunk, k, segment_bytes)
+    writes_output = _stripe_io_roles(mesh, stripe_sharded)
+    copy_step = max(1, segment_bytes)
+
+    def create() -> None:
+        with open(tmp_path, "wb") as fp:
+            fp.truncate(total_size)
+
+    try:
+        _lead_step(lead, "creating the output", create)
+        _dist.barrier("rs_decode_tmp_created")
+        out_fp = open(tmp_path, "r+b")
+        fps = [open(path, "rb") for path in paths] if dec_missing is not None else []
+        try:
+            def pwrite_row(i: int, off: int, row_bytes: np.ndarray) -> None:
+                lo = i * chunk + off
+                if lo < total_size:
+                    hi = min(lo + row_bytes.shape[0], total_size)
+                    os.pwrite(out_fp.fileno(), np.ascontiguousarray(row_bytes[: hi - lo]).tobytes(), lo)
+
+            # Surviving natives: host copies, split round-robin over the
+            # processes (no device involved).
+            with timer.phase("write output (io)"):
+                me = procs.index(_dist.rank())
+                for idx, i in enumerate(sorted(native_pos)):
+                    if idx % len(procs) == me:
+                        mm = maps[native_pos[i]]
+                        for s in range(0, chunk, copy_step):
+                            pwrite_row(i, s, mm[s : min(s + copy_step, chunk)])
+            if dec_missing is not None:
+                def drain(tag, rec) -> None:
+                    off, cols = tag
+                    if not writes_output:
+                        with timer.phase("decode compute"):
+                            _wait_replica(rec)
+                        return
+                    with timer.phase("decode compute"):
+                        col0, data = _local_output(rec, mesh, cols, sym)
+                    with timer.phase("write output (io)"):
+                        for j, i in enumerate(missing):
+                            pwrite_row(i, off + col0, data[j])
+
+                _stream_mesh(_segment_spans(chunk, seg_cols),
+                             _make_padded_stage(fps, maps, chunk, mesh, stripe_sharded, k, timer, sym), dec_missing,
+                             codec, depth=depth, op="decode", drain=drain, timer=timer)
+            else:
+                _dist.all_ok(None, "the decode stream")
+        finally:
+            out_fp.close()
+            for fp in fps:
+                fp.close()
+        _dist.barrier("rs_decode_written")
+        _lead_step(lead, "the output's promotion", lambda: os.replace(tmp_path, out_path))
+    except BaseException:
+        _unlink_shared_tmps([tmp_path])
+        raise
+    _dist.barrier("rs_decode_promoted")
+    return out_path
+
+
+def _repair_file_multiprocess(in_file: str, *, strategy: str, segment_bytes: int, depth: int, mesh,
+                              stripe_sharded: bool, timer: PhaseTimer):
+    """Multi-process archive repair over a process-spanning mesh (a
+    collective).  The lead scans chunk health (the CRC pass reads every
+    chunk once, not once a process) and broadcasts the per-chunk state, so
+    every process derives the same survivors and rebuild matrix; the rebuild
+    then streams as the multi-process encode does, into lead-pre-sized temps
+    the lead promotes.  Returns ``(targets, scan)``."""
+    from .parallel import distributed as _dist
+
+    procs = _mesh_processes(mesh)
+    lead = _is_lead(procs)
+    with timer.phase("scan chunks (io)"):
+        meta_path = metadata_file_name(in_file)
+        meta = read_archive_meta(meta_path)
+        total_size, p, k, w, crcs = meta.total_size, meta.parity_num, meta.native_num, meta.w, meta.crcs
+        _check_gfwidth(w, meta_path)
+        sym = w // 8
+        total_mat = _checked_total_matrix(meta)
+        # 0 missing, 1 healthy, 2 damaged; -1 everywhere: the lead's scan
+        # failed, and every process raises after the broadcast.
+        state = np.zeros(k + p, dtype=np.int64)
+        scan_err = None
+        if lead:
+            try:
+                scan = _scan_chunks(in_file, segment_bytes)
+                state[scan.healthy] = 1
+                state[sorted(scan.bad)] = 2
+            except Exception as e:
+                scan_err = e
+                state[:] = -1
+        state = _dist.broadcast(state, procs[0])
+        if (state < 0).any():
+            if scan_err is not None:
+                raise scan_err
+            raise RuntimeError(f"chunk scan failed on the lead process (process {procs[0]}); see its log for the "
+                               "cause")
+    healthy = [int(i) for i in np.flatnonzero(state == 1)]
+    bad = {int(i): chunk_file_name(in_file, int(i)) for i in np.flatnonzero(state == 2)}
+    chunk = chunk_size_for_layout(total_size, k, sym, meta.layout)
+    scan_view = _ChunkScan(in_file, total_size, p, k, total_mat, w, crcs, chunk, healthy, bad, layout=meta.layout,
+                           generation=meta.generation)
+    targets = scan_view.unhealthy
+    if not targets:
+        return [], scan_view
+    if chunk == 0:
+        _select_decodable_subset(scan_view)  # the >= k healthy rule, on every process
+
+        def empties() -> None:
+            for t in targets:
+                _write_empty_atomic(chunk_file_name(in_file, t))
+            if crcs:
+                rewrite_checksums(meta_path, {**crcs, **{t: 0 for t in targets}})
+
+        _lead_step(lead, "recreating the empty chunks", empties)
+        _dist.barrier("rs_repair_promoted")
+        return targets, scan_view
+    with timer.phase("invert matrix"):
+        chosen, inv = _select_decodable_subset(scan_view)
+        gf = get_field(w)
+        rebuild_mat = gf.matmul(total_mat.astype(gf.dtype)[targets], np.asarray(inv).astype(gf.dtype))
+    codec = RSCodec(k, p, w=w, strategy=strategy, mesh=mesh, stripe_sharded=stripe_sharded)
+    seg_cols = _segment_cols(chunk, k, segment_bytes)
+    writes_output = _stripe_io_roles(mesh, stripe_sharded)
+    tmp_paths = {t: chunk_file_name(in_file, t) + ".rs_tmp" for t in targets}
+
+    def create() -> None:
+        for t in targets:
+            with open(tmp_paths[t], "wb") as fp:
+                fp.truncate(chunk)
+
+    def promote() -> None:
+        new_crcs = {}
+        if crcs:
+            with timer.phase("write metadata (io)"):
+                for t in targets:
+                    new_crcs[t] = chunk_crc32(np.memmap(tmp_paths[t], dtype=np.uint8, mode="r"), chunk, segment_bytes)
+        for t in targets:
+            os.replace(tmp_paths[t], chunk_file_name(in_file, t))
+        if crcs:
+            with timer.phase("write metadata (io)"):
+                rewrite_checksums(meta_path, {**crcs, **new_crcs})
+
+    try:
+        _lead_step(lead, "creating the rebuild temps", create)
+        _dist.barrier("rs_repair_tmps_created")
+        surv_paths = [chunk_file_name(in_file, i) for i in chosen]
+        surv_fps = [open(path, "rb") for path in surv_paths]
+        surv_maps = [np.memmap(path, dtype=np.uint8, mode="r") for path in surv_paths]
+        out_fps = {t: open(tmp_paths[t], "r+b") for t in targets}
+        try:
+            def drain(tag, rebuilt) -> None:
+                off, cols = tag
+                if not writes_output:
+                    with timer.phase("repair compute"):
+                        _wait_replica(rebuilt)
+                    return
+                with timer.phase("repair compute"):
+                    col0, data = _local_output(rebuilt, mesh, cols, sym)
+                with timer.phase("write chunks (io)"):
+                    for j, t in enumerate(targets):
+                        os.pwrite(out_fps[t].fileno(), data[j].tobytes(), off + col0)
+
+            _stream_mesh(_segment_spans(chunk, seg_cols),
+                         _make_padded_stage(surv_fps, surv_maps, chunk, mesh, stripe_sharded, k, timer, sym),
+                         rebuild_mat, codec, depth=depth, op="repair", drain=drain, timer=timer)
+        finally:
+            for fp in [*surv_fps, *out_fps.values()]:
+                fp.close()
+        _dist.barrier("rs_repair_written")
+        _lead_step(lead, "the rebuilt chunks' promotion", promote)
+    except BaseException:
+        _unlink_shared_tmps(tmp_paths.values())
+        raise
+    _dist.barrier("rs_repair_promoted")
+    return targets, scan_view
 
 
 # -- survivor discovery and selection -------------------------------------------
@@ -1337,13 +1863,34 @@ def auto_decode_file(in_file: str, output: str | None = None, *, conf_out: str |
 
     Raises ValueError when fewer than k healthy chunks remain or no subset
     inverts.  ``device`` (in ``decode_kwargs``): None means CUDA and
-    raises with no GPU present.
+    raises with no GPU present.  ``mesh`` (in ``decode_kwargs``) shards the
+    decode; a process-spanning mesh makes this a collective in which the
+    lead scans and writes the conf, with no reselection loop.
     """
     from .gf_decode import UnlocatableError
 
-    decode_kwargs["device"] = entry_device(decode_kwargs.get("device"), decode_kwargs.get("strategy", "auto"))
     segment_bytes = decode_kwargs.get("segment_bytes", DEFAULT_SEGMENT_BYTES)
     conf_path = conf_out or (in_file + ".auto.conf")
+    procs = _mesh_processes(decode_kwargs.get("mesh"))
+    if len(procs) > 1:
+        # A process-spanning mesh makes this a collective: only the lead
+        # scans (one CRC read of the archive) and writes the conf to the
+        # shared filesystem; its verdict, ok or error, reaches every process
+        # before the barrier.  No degraded retry loop: a mid-collective
+        # survivor swap would need its own barrier choreography.
+        from .parallel import distributed as _dist
+
+        def choose() -> None:
+            chosen, _ = _select_subset_retrying(_scan_chunks(in_file, segment_bytes))
+            write_conf(conf_path, [os.path.basename(chunk_file_name(in_file, i)) for i in chosen])
+
+        _lead_step(_is_lead(procs), "archive scan / survivor selection", choose)
+        _dist.barrier("rs_auto_conf_written")
+        if decode_kwargs.get("verify_checksums") is None:
+            decode_kwargs["verify_checksums"] = False
+        return decode_file(in_file, conf_path, output, **decode_kwargs)
+    decode_kwargs["device"] = _mesh_entry_device(decode_kwargs.get("mesh"), decode_kwargs.get("device"),
+                                                 decode_kwargs.get("strategy", "auto"))
     attempts = max(1, _retry.int_env("RS_RETRY_RESELECT", 3) + 1)
     excluded: dict[int, str] = {}
     locate_mode = _locate_mode()
@@ -1761,14 +2308,17 @@ def repair_file(
     all of it landed; the CRC lines are refreshed when .METADATA has them.
     Returns the indices rebuilt ([] for a healthy archive).  Raises
     ValueError when fewer than k healthy chunks remain.  ``device``: None
-    means CUDA and raises with no GPU present.  The ``mesh`` and
-    ``stripe_sharded`` forms are not ported yet and raise
-    NotImplementedError.
+    means CUDA and raises with no GPU present.  With a ``mesh`` the rebuild
+    GEMM is sharded over it as encode's and decode's are
+    (``stripe_sharded`` shards the survivor axis too); a process-spanning
+    mesh makes the repair a collective.
     """
-    if mesh is not None or stripe_sharded:
-        raise NotImplementedError("repair_file over a device mesh (mesh=, stripe_sharded=) is not ported yet")
     timer = timer or PhaseTimer(enabled=False)
-    device = entry_device(device, strategy)
+    if len(_mesh_processes(mesh)) > 1:
+        return _count_repair_outcome(*_repair_file_multiprocess(
+            in_file, strategy=strategy, segment_bytes=segment_bytes, depth=max(1, pipeline_depth), mesh=mesh,
+            stripe_sharded=stripe_sharded, timer=timer))
+    device = _mesh_entry_device(mesh, device, strategy)
     with timer.phase("scan chunks (io)"):
         scan = _scan_chunks(in_file, segment_bytes)
     targets = scan.unhealthy
@@ -1787,7 +2337,7 @@ def repair_file(
         chosen, inv = _repair_select_or_fail(scan)
     return _count_repair_outcome(_repair_streamed(in_file, scan, chosen, inv, strategy=strategy, device=device,
                                                   segment_bytes=segment_bytes, pipeline_depth=pipeline_depth,
-                                                  timer=timer), scan)
+                                                  timer=timer, mesh=mesh, stripe_sharded=stripe_sharded), scan)
 
 
 def _count_repair_outcome(rebuilt: list[int], scan: _ChunkScan | None = None) -> list[int]:
@@ -1819,7 +2369,7 @@ def _repair_select_or_fail(scan: _ChunkScan):
 
 def _repair_streamed(in_file: str, scan: _ChunkScan, chosen: list[int], inv, *, strategy: str, device,
                      segment_bytes: int, pipeline_depth: int, timer: PhaseTimer,
-                     fleet: FleetPipeline | None = None) -> list[int]:
+                     fleet: FleetPipeline | None = None, mesh=None, stripe_sharded: bool = False) -> list[int]:
     """The streamed rebuild of :func:`repair_file`, given a scan and a
     chosen survivor subset with its inverse.  With ``fleet`` the archive's
     promote and CRC commit queue on the fleet's lane behind its writes,
@@ -1829,12 +2379,13 @@ def _repair_streamed(in_file: str, scan: _ChunkScan, chosen: list[int], inv, *, 
         gf = get_field(scan.w)
         mat = scan.total_mat.astype(gf.dtype)
         rebuild_mat = gf.matmul(mat[targets], np.asarray(inv).astype(gf.dtype))  # (targets, k)
-    codec = RSCodec(scan.k, scan.p, w=scan.w, strategy=strategy, device=device)
+    codec = RSCodec(scan.k, scan.p, w=scan.w, strategy=strategy, device=device, mesh=mesh,
+                    stripe_sharded=stripe_sharded)
     sym = scan.w // 8
     chunk = scan.chunk
     seg_cols = _segment_cols(chunk, scan.k, segment_bytes)
     depth = max(1, pipeline_depth)
-    loop = StreamLoop(codec.device, scan.k, seg_cols, depth)
+    loop = StreamLoop(codec.device, scan.k, seg_cols, depth, bucketed=mesh is None)
     surv_paths = [chunk_file_name(in_file, i) for i in chosen]
     surv_fps = [open(path, "rb") for path in surv_paths]
     surv_maps = [np.memmap(path, dtype=np.uint8, mode="r") for path in surv_paths]

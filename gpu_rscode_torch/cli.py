@@ -36,7 +36,13 @@ PATH`` (the unified snapshot after the run, written on a failed run too),
 ``--trace PATH`` (a Chrome-trace timeline) and ``--profile-dir DIR`` (a
 ``torch.profiler`` trace, as ``RS_PROFILE=DIR``) on every operation,
 ``--scrub`` included; the subcommands ``stats``, ``history``, ``perf``
-(:mod:`.obs.perfbase`) and ``analyze`` (:mod:`.obs.attrib`).
+(:mod:`.obs.perfbase`), ``analyze`` (:mod:`.obs.attrib`), ``aggregate``
+(:mod:`.obs.aggregate`) and ``doctor`` (:mod:`.obs.doctor`).  The mesh:
+``--devices N [--stripe S]`` shards every GEMM of an encode, decode,
+``--auto`` decode or ``--repair`` over a (S, N/S) mesh
+(:mod:`.parallel.mesh`; ``cpu`` listed N times with ``--device cpu``);
+under torchrun's ``WORLD_SIZE`` / ``RANK`` the processes join one job and
+each writes its telemetry as ``{path}.p{rank}``.
 
 ``--device`` defaults to CUDA; without a GPU the command fails unless
 ``--device cpu`` or ``--strategy cpu`` is given.
@@ -101,6 +107,13 @@ Extensions: [--generator vandermonde|cauchy]
             no CRCs, reported as state "silent_bitrot")
             [--device DEVICE] (default cuda; cpu runs the plain PyTorch
             path; with no GPU and no --device the command fails)
+            [--devices N] (shard every GEMM over a mesh of N devices:
+            encode, decode, --auto and --repair; under torchrun's
+            WORLD_SIZE/RANK the mesh spans the job's processes and the
+            file operations become collectives; --device cpu lists the
+            CPU N times)
+            [--stripe S] (with --devices: also shard the k axis over S
+            devices, the wide-stripe mode; k must divide by S)
             [--faults SPEC] (deterministic fault injection at the IO
             boundaries, e.g. 'read:ioerror@p=0.02;write:torn@after=1MiB';
             seeded by RS_FAULTS_SEED.  RS_RETRY_* tune the retry policy)
@@ -180,7 +193,13 @@ Subcommands: update ARCHIVE --at OFF --in DELTA [--recover] [--json]
             [--device DEVICE] (roofline attribution: per-strategy
             achieved GB/s, GFLOP/s, arithmetic intensity and a
             memory/compute/dispatch verdict against the roofline of the
-            device the workload ran on)"""
+            device the workload ran on)
+            aggregate PART... [--snapshot-out F] [--trace-out F] [--text]
+            (merge the per-process {path}.p<rank> metrics snapshots and
+            traces of a multi-process run)
+            doctor [--json] [--no-probe] [--root D]
+            (one-shot environment diagnostic: torch/CUDA, kernels,
+            native lib, mesh and collectives, knobs, ledger, endpoints)"""
 
 
 def _stats_main(argv: list[str]) -> int:
@@ -611,12 +630,21 @@ def main(argv: list[str] | None = None) -> int:
         from .obs.attrib import main as _analyze_main
 
         return _analyze_main(argv[1:])
+    if argv and argv[0] == "aggregate":
+        from .obs.aggregate import main as _aggregate_main
+
+        return _aggregate_main(argv[1:])
+    if argv and argv[0] == "doctor":
+        from .obs.doctor import main as _doctor_main
+
+        return _doctor_main(argv[1:])
     try:
         opts, extra = getopt.gnu_getopt(
             argv,
             "S:s:P:p:K:k:N:n:E:e:I:i:C:c:O:o:DdHh",
             ["width=", "layout=", "checksum", "no-verify", "generator=", "segment-bytes=", "strategy=", "device=", "auto", "locate",
-             "repair", "scrub", "syndrome", "quiet", "faults=", "metrics-json=", "trace=", "profile-dir="],
+             "repair", "scrub", "syndrome", "quiet", "faults=", "metrics-json=", "trace=", "profile-dir=", "devices=",
+             "stripe="],
         )
     except getopt.GetoptError as e:
         return _fail(f"rs: {e}")
@@ -634,6 +662,7 @@ def main(argv: list[str] | None = None) -> int:
     generator, strategy, device = "vandermonde", "auto", None
     auto = locate = repair = scrub = syndrome = quiet = False
     faults_spec = metrics_json = trace_path = profile_dir = None
+    n_devices, stripe = 0, 1
     repair_requested = bool(flags_seen & {"--repair", "--scrub"})
     for flag, val in opts:
         f = flag.lower()
@@ -697,6 +726,10 @@ def main(argv: list[str] | None = None) -> int:
             trace_path = val
         elif f == "--profile-dir":
             profile_dir = val
+        elif f == "--devices":
+            n_devices = int(val)
+        elif f == "--stripe":
+            stripe = int(val)
 
     from .codec import VALID_STRATEGIES
 
@@ -718,9 +751,15 @@ def main(argv: list[str] | None = None) -> int:
         if op == "encode" or auto or conf_file or out_file:
             return _fail("rs: --repair takes only -i (plus tuning flags)")
         op = "repair"
+        if extra and n_devices:
+            # Refused before the process group or the mesh is built: the
+            # batched fleet path is single-host.
+            return _fail("rs: fleet --repair does not take --devices")
     if scrub:
         if op == "encode" or auto or conf_file or out_file:
             return _fail("rs: --scrub takes only -i")
+        if n_devices:
+            return _fail("rs: --scrub is host-only (CRC reads, no device compute); --devices does not apply")
         op = "scrub"
     if op is None:
         return _fail("rs: choose encode (-e), decode (-d), or --repair -i <file>")
@@ -739,6 +778,8 @@ def main(argv: list[str] | None = None) -> int:
             return _fail("rs: --layout is encode-only (decode reads it from .METADATA)")
         if layout != "interleaved":
             return _fail(f"rs: --layout must be row or interleaved, got {layout}")
+        if n_devices:
+            return _fail("rs: --layout interleaved is single-host")
     if auto and op != "decode":
         return _fail("rs: --auto is decode-only")
     if auto and conf_file:
@@ -750,12 +791,38 @@ def main(argv: list[str] | None = None) -> int:
             return _fail("rs: -c and --locate conflict (locate reads every present chunk, no conf needed)")
         if auto:
             return _fail("rs: --auto and --locate conflict; --auto already escalates to locate (RS_LOCATE tunes it)")
+        if n_devices:
+            return _fail("rs: --locate is single-host; --devices does not apply")
         if extra:
             return _fail("rs: --locate decodes one archive at a time")
     if syndrome and not scrub:
         return _fail("rs: --syndrome only applies to --scrub")
+    if stripe > 1 and not n_devices:
+        return _fail("rs: --stripe requires --devices")
+    if extra and op in ("encode", "decode") and n_devices:
+        return _fail(f"rs: batch {op} does not take --devices")
     if extra and op == "decode" and out_file:
         return _fail("rs: batch --auto decode does not take -o (outputs are written in place, one per archive)")
+    if n_devices and (metrics_json or trace_path or os.environ.get("RS_TRACE")):
+        # A multi-process job (torchrun's WORLD_SIZE / RANK, each process
+        # running this command with --devices): each process dumps its own
+        # telemetry part, {path}.p{rank}, merged by `rs aggregate`.  Only
+        # --devices joins a job, so a stale WORLD_SIZE in the shell does not
+        # redirect a single-process run's dump.
+        from .obs.aggregate import part_path
+
+        try:
+            nproc, pidx = int(os.environ.get("WORLD_SIZE", "1")), int(os.environ.get("RANK", "0"))
+        except ValueError:
+            nproc, pidx = 1, 0
+        if metrics_json:
+            metrics_json = part_path(metrics_json, pidx, nproc)
+        if trace_path:
+            trace_path = part_path(trace_path, pidx, nproc)
+        elif os.environ.get("RS_TRACE") and nproc > 1:
+            # The env spelling suffixes like the flag: otherwise every
+            # process exports through the same file.
+            trace_path = part_path(os.environ["RS_TRACE"], pidx, nproc)
     if metrics_json:
         # Fail fast on an unwritable snapshot path, after every usage check
         # and before the run; a new (empty) file gets a "{}" placeholder, so
@@ -803,6 +870,16 @@ def main(argv: list[str] | None = None) -> int:
         api.profile_dir_override(profile_dir)
     fault_ctx = nullcontext() if fault_plan is None else _faults.activate(fault_plan)
     try:
+        if n_devices:
+            from .parallel import distributed
+            from .parallel.mesh import make_mesh
+
+            # A no-op in a single process; with torchrun's variables set it
+            # joins the job, and --devices spans its processes (the file
+            # operations become collectives).
+            distributed.initialize(device=device)
+            kwargs["mesh"] = make_mesh(n_devices, stripe=stripe, device=device)
+            kwargs["stripe_sharded"] = stripe > 1
         with fault_ctx:
             if op == "encode":
                 if native_num <= 0 or total_num <= 0 or not in_file:

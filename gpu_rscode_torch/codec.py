@@ -18,6 +18,13 @@ goes through the plan layer (:func:`.plan.dispatch`) while it is on, and
 through the strategy's function (:func:`.plan.eager`) with ``RS_PLAN=0``.
 A kernel, capture or replay failure raises; nothing demotes to another
 strategy.
+
+With a ``mesh`` (:mod:`.parallel.mesh`) every GEMM is sharded over it
+(:func:`.parallel.sharded.sharded_gf_matmul`, counted in
+:data:`.plan.MESH_PLAN_CACHE`): column blocks in cols mode, the k axis too
+with ``stripe_sharded``.  ``auto`` then takes the static prior, and
+``xor``, ``ring`` and ``cpu`` are refused, as the JAX package refuses its
+single-device strategies on a mesh.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from .ops.gemm import to_tensor
 from .ops.gf import get_field
 from .obs import metrics as _obs_metrics, profiler as _prof
 from .ops.inverse import invert_matrix
-from .tune import VALID_STRATEGIES, resolve_auto
+from .tune import VALID_STRATEGIES, resolve_auto, static_choice
 from .utils.backend import resolve_device
 
 
@@ -46,13 +53,31 @@ def entry_device(device, strategy: str) -> torch.device:
     return resolve_device(device)
 
 
+def _mesh_device(mesh, device, strategy: str) -> torch.device:
+    """A mesh codec's device, the mesh's home device: refuses the
+    single-device strategies (their schedules or host library do not shard)
+    and a ``device`` of another type than the mesh's."""
+    if strategy in ("xor", "ring"):
+        raise ValueError(f"strategy={strategy!r} is single-device (its schedule is built per coefficient matrix for "
+                         "one device); use cuda/bitplane/table on a mesh")
+    if strategy == "cpu":
+        raise ValueError("strategy='cpu' is host-only; it cannot run on a device mesh")
+    home = mesh.home
+    if device is not None and torch.device(device).type != home.type:
+        raise ValueError(f"device {str(device)!r} does not match the mesh's devices ({home.type})")
+    return resolve_device(home)
+
+
 class RSCodec:
     """(n, k) Reed-Solomon codec over GF(2^w) on one device.
 
     ``native_num`` = k data chunks, ``parity_num`` = n - k parity chunks.
     ``generator``: "vandermonde" (the reference encoder's matrix) or
     "cauchy" (every k-subset decodable).  ``device``: where the stripes are
-    computed; None means CUDA and raises when no GPU is present.
+    computed; None means CUDA and raises when no GPU is present.  ``mesh``:
+    shard every GEMM over it (the device is then the mesh's home device);
+    ``stripe_sharded`` shards the k axis too (k must divide by the stripe
+    axis).
     """
 
     def __init__(
@@ -63,6 +88,8 @@ class RSCodec:
         generator: str = "vandermonde",
         strategy: str = "auto",
         device=None,
+        mesh=None,
+        stripe_sharded: bool = False,
     ):
         if native_num < 1 or parity_num < 0:
             raise ValueError(f"bad (k={native_num}, p={parity_num})")
@@ -72,7 +99,14 @@ class RSCodec:
             )
         if strategy in ("xor", "ring") and w not in (8, 16):
             raise ValueError(f"strategy={strategy!r} supports GF(2^8) and GF(2^16) only")
-        self.device = entry_device(device, strategy)
+        self.mesh = mesh
+        self.stripe_sharded = bool(stripe_sharded) and mesh is not None
+        if mesh is not None:
+            self.device = _mesh_device(mesh, device, strategy)
+            if strategy == "auto":
+                strategy = static_choice(w, self.device)
+        else:
+            self.device = entry_device(device, strategy)
         if strategy == "auto":
             strategy = resolve_auto(native_num, parity_num, w, device=self.device, generator=generator)
         if strategy == "cpu":
@@ -85,6 +119,12 @@ class RSCodec:
             if not native.available():
                 raise RuntimeError("strategy='cpu' needs the native GEMM library, which did not build here")
             self.device = torch.device("cpu")
+        if mesh is not None:
+            from .parallel.mesh import COLS, STRIPE
+
+            self._cols_size = mesh.shape[COLS]
+            if self.stripe_sharded and native_num % mesh.shape[STRIPE]:
+                raise ValueError(f"k={native_num} not divisible by stripe axis ({mesh.shape[STRIPE]} devices)")
         self.gf = get_field(w)
         self.w = w
         self.native_num = native_num
@@ -173,7 +213,7 @@ class RSCodec:
         back with one ``is None`` check."""
         from .ops import xor_gemm
 
-        if self.strategy not in ("xor", "ring") or not xor_gemm.pack_reuse_enabled():
+        if self.strategy not in ("xor", "ring") or self.mesh is not None or not xor_gemm.pack_reuse_enabled():
             return None
         if isinstance(data, _plan.StagedSegment):
             arr, cols_true, cap = data.array, data.cols, data.cap
@@ -188,6 +228,10 @@ class RSCodec:
     def _matmul(self, A, B) -> torch.Tensor:
         from .ops.xor_gemm import PackedOperand
 
+        if self.mesh is not None:
+            if isinstance(B, PackedOperand):
+                raise ValueError("packed operands require strategy='xor' or 'ring' on a single-device codec")
+            return self._matmul_mesh(A, B)
         if isinstance(B, PackedOperand):
             if self.strategy not in ("xor", "ring"):
                 raise ValueError("packed operands require strategy='xor' or 'ring' on a single-device codec")
@@ -198,6 +242,41 @@ class RSCodec:
         if _plan.enabled() or isinstance(B, _plan.StagedSegment):
             return _plan.dispatch(A, B, w=self.w, strategy=self.strategy)
         return _plan.eager(self.strategy, A, B, self.w)
+
+    def _matmul_mesh(self, A, B) -> torch.Tensor:
+        """The sharded GEMM: the columns padded with zeros to a multiple of
+        the cols axis (:func:`.parallel.sharded.padded_width`; their output
+        is trimmed again), placed on the mesh and dispatched
+        (:meth:`_dispatch_mesh`)."""
+        from .parallel.sharded import padded_width, put_sharded
+
+        B = to_tensor(B, self.device)
+        m = B.shape[1]
+        width = padded_width(m, self._cols_size)
+        if width != m:
+            padded = torch.zeros((B.shape[0], width), dtype=B.dtype, device=B.device)
+            padded[:, :m] = B
+            B = padded
+        out = self._dispatch_mesh(A, put_sharded(B, self.mesh, self.stripe_sharded))
+        return out[:, :m] if width != m else out
+
+    def _dispatch_mesh(self, A, Bd) -> torch.Tensor:
+        """One mesh GEMM of ``A`` by a placed ``Bd`` (a
+        :class:`.parallel.sharded.Sharded`), through :func:`.plan.dispatch_mesh`
+        so that it counts in ``MESH_PLAN_CACHE``: the single-process path
+        above and the multi-process collectives' segment loop both come
+        here."""
+        from .parallel.sharded import sharded_gf_matmul
+
+        def run(a, b):
+            return sharded_gf_matmul(a, b, mesh=self.mesh, w=self.w, strategy=self.strategy,
+                                     stripe_sharded=self.stripe_sharded)
+
+        A = np.asarray(A)
+        if _plan.enabled():
+            return _plan.dispatch_mesh(A, Bd, w=self.w, strategy=self.strategy, mesh=self.mesh,
+                                       stripe_sharded=self.stripe_sharded, fn=run)
+        return run(A, Bd)
 
     def decode_matrix(self, survivor_rows) -> np.ndarray:
         """Inverse of the k x k submatrix of the total matrix selected by

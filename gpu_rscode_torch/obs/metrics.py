@@ -517,10 +517,10 @@ def quantile(name: str, help: str = "", cap=DEFAULT_RESERVOIR):
 
 def unified_snapshot() -> dict:
     """The one observability snapshot: the registry's metrics and the plan
-    cache's counters (:meth:`..plan.PlanCache.stats`).  The plan-cache
-    section is included even with metrics disabled: its counters are
-    plan-layer state, always counted."""
+    caches' counters (:meth:`..plan.PlanCache.stats`, the local and the
+    mesh cache).  The plan-cache sections are included even with metrics
+    disabled: their counters are plan-layer state, always counted."""
     from .. import plan
 
     return {"metrics_enabled": enabled(), "metrics": REGISTRY.snapshot(),
-            "plan_cache": plan.PLAN_CACHE.stats()}
+            "plan_cache": plan.PLAN_CACHE.stats(), "mesh_plan_cache": plan.MESH_PLAN_CACHE.stats()}

@@ -44,6 +44,9 @@ from .gf import get_field
 LAUNCHES = 0
 CAPTURED = 0
 REPLAYED = 0
+# Of the eager launches, those of the pre-parity form (the popcount kernel,
+# the mesh's stripe mode).
+PREPARITY = 0
 COUNT_LOCK = threading.Lock()
 
 SOURCES = [_build.CSRC / "gf_gemm.cu"]
@@ -178,7 +181,7 @@ def _gf_matmul_expand(A, B, w, fold_parity, expand, refold, tile) -> torch.Tenso
 
 
 def _gf_matmul_k1(A, B: torch.Tensor, w: int, fold_parity: bool) -> torch.Tensor:
-    global LAUNCHES, CAPTURED
+    global LAUNCHES, CAPTURED, PREPARITY
     if not isinstance(B, torch.Tensor):
         raise TypeError(f"B must be a tensor, got {type(B).__name__}")
     if B.device.type == "cpu":
@@ -221,4 +224,5 @@ def _gf_matmul_k1(A, B: torch.Tensor, w: int, fold_parity: bool) -> torch.Tensor
             CAPTURED += 1
         else:
             LAUNCHES += 1
+            PREPARITY += not fold_parity
     return C

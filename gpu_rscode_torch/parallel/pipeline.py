@@ -300,14 +300,19 @@ class StreamLoop:
     buffer of :data:`..plan.STAGING` (a ragged tail through a device-side
     pad), which the plan's graphs read; the buffer goes back to the pool
     with the event of the D2H copy of the dispatch's output, and its next
-    H2D copy waits for that event.
+    H2D copy waits for that event.  ``bucketed=False`` (a mesh codec's
+    loop, whose dispatch pads to the mesh instead) stages exact widths
+    whatever the plan layer says, as the JAX package's mesh stages pass
+    through.
     """
 
-    def __init__(self, device: torch.device, rows: int, seg_cols: int, depth: int, hold: bool = False):
+    def __init__(self, device: torch.device, rows: int, seg_cols: int, depth: int, hold: bool = False,
+                 bucketed: bool = True):
         self.device = device
         self.rows = rows
         self.seg_cols = seg_cols
         self.hold = hold
+        self.bucketed = bucketed
         self.cuda = device.type == "cuda"
         self._closed = False
         if not self.cuda:
@@ -364,7 +369,7 @@ class StreamLoop:
         host = segment[1]
         cols = host.shape[1]
         cap = bucket = None
-        if _plan.enabled():
+        if self.bucketed and _plan.enabled():
             cap = self.seg_cols // sym
             bucket = _plan.bucket_cols(cols // sym, cap) * sym
         _metrics.counter("rs_io_h2d_bytes_total", "segment bytes entering the H2D stage of the pipeline").labels(

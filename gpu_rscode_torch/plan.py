@@ -51,8 +51,9 @@ microseconds of host work a call.
   xor / ring pipelines' ``calls`` and ``PACK_REUSE``.
 
 Strategies: ``cuda`` (K1), ``bitplane``, ``table``, ``xor``, ``ring`` and
-``cpu`` (the native host codec, never on the card).  The mesh dispatch
-waits for the port's mesh.
+``cpu`` (the native host codec, never on the card).  A mesh dispatch
+(:func:`dispatch_mesh`) is counted in :data:`MESH_PLAN_CACHE` and runs its
+shards directly.
 
 Env knobs (read per call): ``RS_PLAN=0`` turns the layer off (the codec
 calls each strategy's function directly and the loops stage exact
@@ -601,6 +602,18 @@ class PlanCache:
 
 
 PLAN_CACHE = PlanCache(name="local")
+# Mesh dispatches are counter-only entries (no graph: the shards' launches
+# run as they come), counted by exact width, in a cache of their own so
+# that mesh width churn never evicts local plans holding graphs.
+MESH_PLAN_CACHE = PlanCache(name="mesh")
+
+
+def mesh_fingerprint(mesh) -> tuple:
+    """Hashable identity of a mesh dispatch's target: the mesh's axes,
+    shape, devices, processes and platform, so a rebuilt mesh cannot alias
+    another's entry (a single-device plan keys on ``("local", device
+    type)``)."""
+    return ("local",) if mesh is None else mesh.fingerprint()
 
 
 def _drop_schedule_plans() -> None:
@@ -644,8 +657,8 @@ def dispatch(A, B, *, w: int, strategy: str, cap: int | None = None, cols: int |
     device = arr.device if not isinstance(arr, np.ndarray) else _HOST
     graph = staged and B.slot is not None and strategy in GRAPH_STRATEGIES and not packed
     digest = _xor_gemm.matrix_digest(A, w) if graph or strategy in ("xor", "ring") else None
-    # The target is ("local", device type); the mesh's fingerprint joins it
-    # with the port's mesh.
+    # The target is ("local", device type); a mesh dispatch keys on the
+    # mesh's fingerprint instead (dispatch_mesh).
     key = (strategy, w, A.shape, A.dtype.name, bucket, _np_dtype(arr).name, ("local", device.type))
     if strategy in ("xor", "ring"):
         # The schedule depends on the coefficient values: the key carries
@@ -680,3 +693,17 @@ def dispatch(A, B, *, w: int, strategy: str, cap: int | None = None, cols: int |
         if event.get("stages"):
             plan.last_stages = event["stages"]
     return out
+
+
+def dispatch_mesh(A, B, *, w: int, strategy: str, mesh, stripe_sharded: bool, fn):
+    """Mesh-path plan accounting: ``fn(A, B)`` (a ``sharded_gf_matmul``
+    partial) is called directly, and the dispatch is registered in
+    :data:`MESH_PLAN_CACHE` under the JAX package's key (strategy, w,
+    matrix shape and type, exact width, data type, mesh fingerprint,
+    stripe mode), so its hits and misses count as the JAX package's do."""
+    A = np.asarray(A)
+    key = (strategy, w, A.shape, A.dtype.name, B.shape[1], str(B.dtype), mesh_fingerprint(mesh), bool(stripe_sharded))
+    plan = MESH_PLAN_CACHE.lookup(key, strategy, w, B.shape[1])
+    with plan._lock:
+        plan.calls += 1
+    return fn(A, B)

@@ -36,6 +36,11 @@ def test_port_imports_no_jax():
         "import gpu_rscode_torch.resilience.chaos, gpu_rscode_torch.maint, gpu_rscode_torch.maint.controller\n"
         "import gpu_rscode_torch.obs.profiler, gpu_rscode_torch.obs.perfbase, gpu_rscode_torch.obs.attrib\n"
         "import gpu_rscode_torch.tools.plan_stats\n"
+        "import gpu_rscode_torch.parallel._compat, gpu_rscode_torch.parallel.mesh\n"
+        "import gpu_rscode_torch.parallel.distributed, gpu_rscode_torch.parallel.sharded\n"
+        "import gpu_rscode_torch.obs.aggregate, gpu_rscode_torch.obs.doctor\n"
+        "from gpu_rscode_torch.obs.doctor import collect\n"
+        "collect(probe_endpoint=False)\n"
         "from gpu_rscode_torch.obs.runlog import filter_records, throughput_gbps\n"
         "from gpu_rscode_torch.api import put_object, put_objects, get_object, delete_object, list_objects\n"
         "from gpu_rscode_torch.api import list_objects_page, stat_object, compact_bucket\n"

@@ -20,10 +20,12 @@ from gpu_rscode_torch import api as t_api
 from gpu_rscode_torch import cli as t_cli
 from gpu_rscode_torch import plan as t_plan
 from gpu_rscode_torch.obs import metrics as t_metrics
+from gpu_rscode_torch.parallel import pipeline as t_pipeline
 from gpu_rscode_torch.tools.make_conf import make_conf
 from gpu_rscode_tpu import cli as j_cli
 from gpu_rscode_tpu import plan as j_plan
 from gpu_rscode_tpu.obs import metrics as j_metrics
+from gpu_rscode_tpu.parallel import pipeline as j_pipeline
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -35,16 +37,22 @@ EVENT_COUNTERS = ("segments_dispatched", "rs_codec_bytes_total", "rs_io_write_by
                   "rs_repair_chunks_rebuilt_total", "rs_file_ops_total", "rs_segments_staged_total",
                   "rs_plan_dispatch_total", "rs_plan_cache_events_total", "rs_autotune_source_total")
 
-# Top-level snapshot keys only the JAX package has: its mesh plan cache
-# (the port's mesh is still to come) and its Pallas refold-autotune
-# decisions (the port's kernels have no refold autotune yet).
-JAX_ONLY_SNAPSHOT_KEYS = {"mesh_plan_cache", "autotune_decisions"}
+# Top-level snapshot keys only the JAX package has: its Pallas
+# refold-autotune decisions (the port's kernels have no refold autotune
+# yet).
+JAX_ONLY_SNAPSHOT_KEYS = {"autotune_decisions"}
 
 
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
     for var in ("RS_METRICS", "RS_RUNLOG", "RS_TRACE", "RS_PROF", "RS_PROFILE"):
         monkeypatch.delenv(var, raising=False)
+    # Both packages start from the same process-wide staging-ring high
+    # watermark: the gauge rs_staging_ring_occupancy_peak registers only
+    # when a ring climbs above it, and a test file run earlier in this
+    # process may have raised one package's mark and not the other's.
+    monkeypatch.setattr(t_pipeline, "_RING_PEAK", [0])
+    monkeypatch.setattr(j_pipeline, "_RING_PEAK", [0])
     yield
     for m in (t_metrics, j_metrics):
         m.force_enable(False)
@@ -302,10 +310,6 @@ NOT_IN_PORT = {
     # XLA buffer donation: a plan of the port owns its static buffers.
     "rs_donation_host_copy_bytes_total": "XLA buffer donation",
     "rs_donation_restages_total": "XLA buffer donation",
-    # The mesh (ROADMAP §1 item 8) is still to be ported.
-    "rs_mesh_collective_bytes_total": "the mesh, not ported yet",
-    "rs_mesh_segments_staged_total": "the mesh, not ported yet",
-    "rs_mesh_staged_bytes_total": "the mesh, not ported yet",
 }
 
 

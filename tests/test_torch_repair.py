@@ -138,12 +138,23 @@ def test_repair_zero_size_archive_like_jax(tmp_path):
             pkg.repair_file(f, **kw)
 
 
-def test_repair_file_mesh_is_not_ported(tmp_path):
+def test_repair_file_over_a_mesh_rebuilds_the_saved_chunks(tmp_path):
+    """repair_file over a mesh (cols mode, and the stripe mode on k): the
+    rebuilt chunks equal the saved ones, as the single-device repair's do;
+    stripe_sharded without a mesh is the single-device repair."""
+    from gpu_rscode_torch.parallel.mesh import make_mesh
+
     path, _ = _archive(tmp_path, 3_000, seed=1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_api.repair_file(path, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_api.repair_file(path, stripe_sharded=True, **CPU)
+    saved = {i: _read(chunk_file_name(path, i)) for i in range(6)}
+    for stripe, lost in ((1, [0, 5]), (2, [1, 4]), (1, [])):
+        for i in lost:
+            os.unlink(chunk_file_name(path, i))
+        mesh = make_mesh(4, stripe=stripe, device="cpu")
+        assert t_api.repair_file(path, mesh=mesh, stripe_sharded=stripe > 1, strategy="cuda", **CPU) == lost
+        assert {i: _read(chunk_file_name(path, i)) for i in range(6)} == saved
+    os.unlink(chunk_file_name(path, 2))
+    assert t_api.repair_file(path, stripe_sharded=True, **CPU) == [2]
+    assert {i: _read(chunk_file_name(path, i)) for i in range(6)} == saved
 
 
 class _BatchSpy:
