@@ -45,7 +45,9 @@ Phases, each fatal on failure:
      segment, must swap it once and resume; repair_fleet over three
      128 MiB archives, each with another lost pair, must invert the group
      in one batched call on the card with every inverse verified and no
-     host re-solve, and rebuild every chunk byte for byte, then
+     host re-solve where a group of 3 reaches the card's routing threshold
+     for k=10, else through the host search alone, one archive each, and
+     rebuild every chunk byte for byte, then
      decode_fleet must give their SHA-256s; and the archive re-encoded
      without checksums, 64 bytes of one chunk flipped, must be named
      silent_bitrot by scan_file(syndrome=True) and restored by
@@ -248,13 +250,32 @@ Phases, each fatal on failure:
   8. the kernel-formulation tools as entry points on the card at their
      default sizes (kernel_sweep 64 MB, expand_probe 320 MB): every result
      a number, and K2, K3's GEMM and K3's copy floor each launched;
+  5k. the seven tools of gpu_rscode_torch/tools/ that joined the first two,
+     at reduced sizes (the phase's budget is 120 s), each through the same
+     check as phase 8 (the capture header first, every number in every row
+     finite and positive; each tool holds every timed output against the
+     GF oracle before it prints a rate): inverse_bench at k 10 and 128 x
+     batch 3 and 256, mesh_bench on 64 MB, mesh_overhead at 1 and 8 MB,
+     strategy_bench on a 64 MB stripe, k_sweep on 64 MB, w16_bench on
+     64 MB, stream_bench on a 256 MB file; then repair_fleet over three
+     small damaged archives at k=10, n=14 and three at k=128, n=144, each
+     of which must call the batched inverter once if a group of 3 reaches
+     the card's measured threshold for its k
+     (api._device_invert_min_batch_cuda, data/inverse_routing_h100.jsonl)
+     and not at all otherwise (phase 5b's fleet of 3 follows the same
+     rule), every rebuilt chunk equal to its original.  The counts are reset just before; K1's runs join the
+     kernels line;
   9. K2, each K3 pair, the compute-only ceiling and the copy floor timed at
      the main path's encode segment next to the bound, the plain version
      and, for the copy floor, B[:p].clone(); K2 and K3's sum kernel beside
      the instruction estimate of their designs.
 
-The last lines are nvidia-smi's name and power limit, the kernels JSON and
-the result JSON.  --quick runs phases 1-3, 7 and phase 5d's grid and prints
+Phases run in the order 1-5, 5b-5j, 6, 8, 5k, 9.  The last lines are
+nvidia-smi's name and power limit, the kernels JSON and the result JSON.
+A phase that fails prints one line {"phase": "failed", "at": the phases
+running, "last_logged": the last phase and step logged, "error": the
+exception's class and message} and the exception propagates (exit 1).
+--quick runs phases 1-3, 7 and phase 5d's grid and prints
 the same three lines, with the times it did not take as null.
 """
 
@@ -291,7 +312,8 @@ from gpu_rscode_torch.ops.gemm import _widen, gf_matmul_bitplane, to_tensor
 from gpu_rscode_torch.ops import inverse
 from gpu_rscode_torch.ops.gf import get_field
 from gpu_rscode_torch.parallel import pipeline
-from gpu_rscode_torch.tools import expand_probe, kernel_sweep
+from gpu_rscode_torch.tools import (expand_probe, inverse_bench, k_sweep, kernel_sweep, mesh_bench, mesh_overhead,
+                                    strategy_bench, stream_bench, w16_bench)
 from gpu_rscode_torch.tools.make_conf import make_conf
 from gpu_rscode_torch.utils.fileformat import chunk_file_name
 from gpu_rscode_torch.utils.timing import PhaseTimer
@@ -310,8 +332,32 @@ LOGIC_OPS_PER_SM_CLOCK = 64
 LIBS = {"gf_gemm": cuda_gemm.SOURCES, "gf_pack2": cuda_pack2.SOURCES, "gf_planes": cuda_planes.SOURCES}
 
 
+# The phases running, outermost first, and the last phase / step logged: a
+# failing run's last lines name where it failed (main).
+AT: list[str] = []
+LAST_LOGGED: dict = {}
+
+
 def log(**fields) -> None:
+    LAST_LOGGED.update(phase=fields.get("phase"), step=fields.get("step"))
     print(json.dumps(fields), flush=True)
+
+
+def _named(label: str):
+    """Push ``label`` on :data:`AT` while the phase runs; an exception
+    leaves it there."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            AT.append(label)
+            out = fn(*args, **kwargs)
+            AT.pop()
+            return out
+
+        return run
+
+    return wrap
 
 
 def smi_line(fields: str = "name,power.limit") -> str:
@@ -424,6 +470,7 @@ def random_symbols(rng, shape, w, device):
     return to_tensor(rng.integers(0, 1 << w, size=shape).astype(dt), device)
 
 
+@_named("3 K1 grid")
 def phase_kernel_grid(device) -> int:
     """K1 vs its plain version on the card, both forms; returns the max abs
     error."""
@@ -583,6 +630,7 @@ def run_main_path(path: str, want_sha: str, mode: str, depth: int, writers: str 
     return res, digests
 
 
+@_named("4 main path")
 def phase_main_path(work: str, seed: int, size: int) -> tuple[dict, dict, str, str]:
     """The 1 GiB main path serial, then pipelined; returns both results, the
     cuda archive's digests, and the input file (left for phase 5d) with its
@@ -643,6 +691,7 @@ def _check_graphed(what: str, counts: dict, dispatches: int, warm: bool) -> None
         raise AssertionError(f"{what}: a warm run captured again: {counts}")
 
 
+@_named("5e plan layer")
 def phase_plan_main(path: str, want_sha: str, cuda_digests: dict) -> dict:
     """Phase 5e on the 1 GiB main path: ``RS_PLAN=0`` (eager, exact widths)
     serial and pipelined, each archive byte-identical to phase 4's (plan
@@ -728,6 +777,7 @@ def _ragged_op(what: str, fn, strategy: str, warm: bool) -> dict:
     return dict(wall_s=wall, plan=counts, dispatches=io_counts["stream_dispatches"])
 
 
+@_named("5e ragged")
 def phase_plan_ragged(work: str, seed: int) -> dict:
     """Phase 5e's ragged file (64 MiB + 12,345 bytes: one full segment and a
     1,337-column tail in the 2,048 bucket) under cuda, xor and ring: encoded
@@ -766,6 +816,7 @@ def phase_plan_ragged(work: str, seed: int) -> dict:
     return res
 
 
+@_named("5e dispatch")
 def phase_plan_dispatch(device) -> list[dict]:
     """Phase 5e's dispatch table: cuda, xor and ring at the encode (k=10,
     p=4) and decode (p=k=10) segments, eager (``plan.eager``, what
@@ -843,6 +894,7 @@ def phase_plan_dispatch(device) -> list[dict]:
     return rows
 
 
+@_named("5e tune")
 def phase_tune(device, work: str) -> dict:
     """Phase 5e's autotuner: RS_STRATEGY_AUTOTUNE=measure at k=10, p=4,
     w=8 on the card times every candidate through the plan layer (the
@@ -934,6 +986,7 @@ def run_strategy(name: str, strategy: str, fn, nbytes: int, smi: str, timer: Pha
     return result, row
 
 
+@_named("5d xor/ring")
 def phase_strategies_main(path: str, want_sha: str, cuda_digests: dict) -> dict:
     """Phase 5d on the main path: ``path`` (phase 4's 1 GiB input) encoded
     pipelined under xor, then ring, each archive byte-identical to phase 4's
@@ -1047,6 +1100,7 @@ def _update_under_xor(path: str, at: int, edit: bytes, device) -> dict:
     return dict(row, summary=summary, equals_cuda=True)
 
 
+@_named("5 fleets and CLI")
 def phase_fleet_and_cli(work: str, seed: int, size: int) -> dict:
     """encode_fleet over three seeded files, each decoded with its first 4
     chunks lost, then a ``-s 3 -p 64`` CLI round trip of the first."""
@@ -1091,6 +1145,7 @@ def phase_fleet_and_cli(work: str, seed: int, size: int) -> dict:
     return res
 
 
+@_named("5 w=16 CLI")
 def phase_cli_w16(work: str, seed: int, size: int, strategy: str | None = None) -> dict:
     """A w=16 round trip with --checksum through the CLI on the card; with
     ``strategy`` (phase 5d) under --strategy, where K1 must not move and no
@@ -1134,6 +1189,7 @@ def phase_cli_w16(work: str, seed: int, size: int, strategy: str | None = None) 
     return res
 
 
+@_named("6 K1 timings")
 def phase_timings(device, group_cols: int, store_shapes: dict | None = None) -> list[dict]:
     """K1 at the main path's shapes vs its bound, its logic-op estimate and
     its plain version: encode and decode (rows 0 and 1, which the compute
@@ -1196,6 +1252,7 @@ def phase_timings(device, group_cols: int, store_shapes: dict | None = None) -> 
     return rows
 
 
+@_named("5d grid")
 def phase_strategies_grid(device) -> dict:
     """Phase 5d's grid: gf_matmul_xor and gf_matmul_ring against K1 on the
     card, bit-exact, over K1's grid shapes with k <= 16 and p <= 8 (ragged
@@ -1240,6 +1297,7 @@ class _DeviceOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+@_named("5d timings")
 def phase_strategies_timings(device, work: str) -> list[dict]:
     """Phase 5d's timings at the encode (k=10, p=4) and decode (p=k=10)
     segments: each strategy's whole dispatch, its pack, chain and unpack
@@ -1339,6 +1397,7 @@ class Grid:
             raise AssertionError(f"{self.name} != plain at {what}: max err {err}")
 
 
+@_named("7 K2/K3 grids")
 def phase_new_kernels_vs_plain(device) -> dict:
     """K2 and K3 against their plain versions on the card; returns the
     grids by kernel."""
@@ -1453,6 +1512,18 @@ def _counts() -> dict:
             "K3-planes-sum": cuda_planes.SUM_LAUNCHES, "K3-copy-floor": cuda_planes.COPY_LAUNCHES}
 
 
+def _numbers(row: dict) -> list[float]:
+    """Every number in a tool's row, nested dictionaries included (labels
+    and flags are not numbers)."""
+    out = []
+    for v in row.values():
+        if isinstance(v, dict):
+            out += _numbers(v)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            out.append(float(v))
+    return out
+
+
 def _run_tool(tool, argv: list[str]) -> list[dict]:
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -1464,13 +1535,14 @@ def _run_tool(tool, argv: list[str]) -> list[dict]:
     if rc != 0 or not lines or lines[0].get("kind") != "capture_header":
         raise AssertionError(f"{name} exited {rc} or printed no capture header first")
     rows = [row for row in lines[1:] if "results" not in row]
-    values = [v for row in rows for v in row.values()]
-    if not rows or not all(isinstance(v, float) and math.isfinite(v) and v > 0 for v in values):
+    values = [v for row in rows for v in _numbers(row)]
+    if not rows or not values or not all(math.isfinite(v) and v > 0 for v in values):
         raise AssertionError(f"{name}: a result is not a positive number: {rows}")
     log(phase="tool", tool=name, argv=argv, seconds=seconds, header=lines[0], results={k: v for r in rows for k, v in r.items()})
     return rows
 
 
+@_named("8 tools")
 def phase_tools() -> dict:
     """The slice's entry points at their default sizes; returns the sweep's
     results and the launches the two runs made."""
@@ -1486,6 +1558,82 @@ def phase_tools() -> dict:
             "probe": {k: v for r in probe for k, v in r.items()}, "launches": launches}
 
 
+TOOLS_5K = (  # reduced sizes: the phase's budget is 120 s
+    (inverse_bench, ["--k", "10", "128", "--batch", "3", "256", "--trials", "1"]),
+    (mesh_bench, ["--mb", "64", "--trials", "1"]),
+    (mesh_overhead, ["--mb", "1", "8"]),
+    (strategy_bench, ["--size", "64"]),
+    (k_sweep, ["--mb", "64", "--trials", "1"]),
+    (w16_bench, ["--mb", "64", "--trials", "1"]),
+    (stream_bench, ["--mb", "256"]),
+)
+
+
+def _fleet_routing(work: str, seed: int, k: int, p: int) -> dict:
+    """repair_fleet over three small damaged archives at (k, k + p): the
+    batched inverter runs once if a group of 3 reaches the card's threshold
+    for k (api._device_invert_min_batch_cuda), else not at all and the
+    host search inverts each archive; every rebuilt chunk equals its
+    original."""
+    n = k + p
+    files = [os.path.join(work, f"route{k}_{i}.bin") for i in range(3)]
+    for i, f in enumerate(files):
+        write_seeded(f, seed + i, MiB + 4097 * i)
+    api.encode_fleet(files, k, p, checksums=True)
+    saved = {f: archive_digests(f, n) for f in files}
+    lost = {files[0]: [0, k + 1], files[1]: [3, 4], files[2]: [k - 1, n - 1]}
+    for f, pair in lost.items():
+        for i in pair:
+            os.unlink(chunk_file_name(f, i))
+    calls, real = [], inverse.invert_matrix_torch_batch
+
+    def spy(Ms, w=8, **kw):
+        calls.append(list(np.shape(Ms)))
+        return real(Ms, w, **kw)
+
+    api.clear_subset_cache()
+    inverse.invert_matrix_torch_batch = spy
+    try:
+        got = api.repair_fleet(files)
+    finally:
+        inverse.invert_matrix_torch_batch = real
+    threshold = api._device_invert_min_batch_cuda(k)
+    want = [[3, k, k]] if threshold is not None and 3 >= threshold else []
+    if got != lost or calls != want:
+        raise AssertionError(f"repair_fleet routing: rebuilt {got}, batched calls {calls}, expected {want} "
+                             f"(threshold at k={k}: {threshold})")
+    for f in files:
+        if archive_digests(f, n) != saved[f]:
+            raise AssertionError(f"repair_fleet routing: {f}'s archive differs from the one encoded")
+    res = {"k": k, "threshold": threshold, "batched_calls": len(calls), "routed": "device" if calls else "host"}
+    log(phase="tools_5k", step="repair_fleet_routing", **res)
+    return res
+
+
+@_named("5k tools")
+def phase_tools_5k(work: str, seed: int, device) -> dict:
+    """Phase 5k: the seven measurement tools of the JAX package's that came
+    last, at reduced sizes, then repair_fleet's routing on the card.  The
+    counts are reset just before; K1's runs join the kernels line."""
+    t0 = time.perf_counter()
+    _reset_counts()
+    results = {}
+    for tool, argv in TOOLS_5K:
+        if tool is stream_bench:
+            argv = argv + ["--dir", work]
+        results[tool.__name__.rsplit(".", 1)[-1]] = _run_tool(tool, argv)
+    # k=10: the main configuration; k=128: the wide stripe, whose threshold
+    # is lower on the card's grid.
+    routing = [_fleet_routing(work, seed, 10, 4), _fleet_routing(work, seed + 3, 128, 16)]
+    launches = _counts()
+    if launches["K1"] <= 0:
+        raise AssertionError(f"K1 was not launched by the tools: {launches}")
+    res = {"tools": results, "routing": routing, "k1_launches": launches["K1"], "seconds": time.perf_counter() - t0}
+    log(phase="tools_5k_summary", seconds=res["seconds"], launches=launches, routing=routing)
+    return res
+
+
+@_named("9 K2/K3 timings")
 def phase_new_timings(device) -> dict:
     """K2, each K3 pair, the pinned ceiling and the copy floor at the main
     path's encode segment shape."""
@@ -1528,6 +1676,7 @@ def phase_new_timings(device) -> dict:
     return rows
 
 
+@_named("5 short segments")
 def phase_short_segments(work: str, seed: int, size: int) -> dict:
     """Many short segments (128 KiB, -p 1) at depth 3 with two writers, so
     each pinned buffer, stream and event is reused about 30 times: the
@@ -1709,9 +1858,16 @@ def _fleet_reads(work: str, seed: int, size: int, ops: Ops, device) -> dict:
         inverse.invert_matrix_torch_batch, api._select_decodable_subset = real_batch, real_select
     if got != lost:
         raise AssertionError(f"repair_fleet rebuilt {got}, expected {lost}")
-    if (len(batches) != 1 or batches[0]["shape"] != [3, k, k] or batches[0]["pivot"] is not False
-            or batches[0]["device"] != str(device) or not all(batches[0]["ok"]) or host_solves):
-        raise AssertionError(f"repair_fleet: batched inversions {batches}, host re-solves {host_solves}")
+    # The card's routing (api._device_invert_min_batch_cuda): a group of 3
+    # below the threshold for k=10 takes the host search, one archive each.
+    threshold = api._device_invert_min_batch_cuda(k)
+    if threshold is not None and 3 >= threshold:
+        if (len(batches) != 1 or batches[0]["shape"] != [3, k, k] or batches[0]["pivot"] is not False
+                or batches[0]["device"] != str(device) or not all(batches[0]["ok"]) or host_solves):
+            raise AssertionError(f"repair_fleet: batched inversions {batches}, host re-solves {host_solves}")
+    elif batches or sorted(host_solves) != sorted(files):
+        raise AssertionError(f"repair_fleet below the card's threshold ({threshold}): batched inversions {batches}, "
+                             f"host searches {host_solves}")
     for f in files:
         if archive_digests(f, n) != saved[f]:
             raise AssertionError(f"repair_fleet: {f}'s archive differs from the one encoded")
@@ -1737,10 +1893,12 @@ def _fleet_reads(work: str, seed: int, size: int, ops: Ops, device) -> dict:
     for f, sha in zip(files, shas):
         if sha256_file(outs[f]) != sha:
             raise AssertionError(f"decode_fleet: the decoded SHA-256 of {f} differs from the input")
-    return dict(batched_inversions=batches, host_resolves=len(host_solves), invert_batch_device_ms=device_ms,
+    return dict(batched_inversions=batches, host_resolves=len(host_solves), routing_threshold_k10=threshold,
+                invert_batch_device_ms=device_ms,
                 invert_host_loop_ms=host_ms, fleet_bytes=len(files) * size, sha256_match=True)
 
 
+@_named("5b resilience")
 def phase_resilience(work: str, seed: int, size: int, device) -> dict:
     """Scan, auto-decode, repair, the mid-stream swap, the fleets and the
     error-locating reads at k=10, n=14 on ``size`` bytes; returns the
@@ -1855,6 +2013,7 @@ def _prove(path: str, layout: str, work: str, device, segment_bytes: int, ops: O
                 mirror_sha256=mirror_sha)
 
 
+@_named("5c updates")
 def phase_updates(work: str, seed: int, size: int, device, segment_bytes: int = api.DEFAULT_SEGMENT_BYTES) -> dict:
     """The interleaved layout and the in-place updates at k=10, n=14, w=8
     with checksums on ``size`` seeded bytes: the interleaved encode, its
@@ -2082,6 +2241,7 @@ def _store_parity_proof(bucket_dir: str, arcs: list[str], k: int, p: int) -> int
         return sum(pool.map(prove, slices))
 
 
+@_named("5f store")
 def phase_store(work: str, seed: int) -> dict:
     """The object store at its documented defaults (k=4, p=2, w=8,
     interleaved stripes sealing at 64 MiB), through the api's object
@@ -2394,6 +2554,7 @@ def _serve_parity_proof(roots: list[str]) -> int:
         return sum(pool.map(prove, metas))
 
 
+@_named("5g serve")
 def phase_serve(work: str, seed: int, device) -> dict:
     """The serving daemon on the card (gpu_rscode_torch/serve/): one
     ServeDaemon on 127.0.0.1, port 0, device cuda:0, default knobs, talked
@@ -3112,6 +3273,7 @@ def _maint_ab(work: str, device) -> dict:
     return res
 
 
+@_named("5h faults and maint")
 def phase_faults_maint(work: str, seed: int, device) -> dict:
     """Phase 5h: the fault and maintenance planes on the card (see the
     module doc)."""
@@ -3415,6 +3577,7 @@ def _analyze(device) -> dict:
     return {"rows": len(rows)}
 
 
+@_named("5i measurement plane")
 def phase_measurement(work: str, seed: int, device, size: int = MEASURE_FILE_BYTES) -> dict:
     """Phase 5i: the measurement plane on the card (see the module doc)."""
     from gpu_rscode_torch.obs import metrics, profiler
@@ -3817,6 +3980,7 @@ def _doctor(kind: str) -> dict:
     return {"device": t["device_name"], "capability": t["capability"]}
 
 
+@_named("5j mesh")
 def phase_mesh(work: str, seed: int, device, cuda_digests: dict) -> dict:
     """Phase 5j: the mesh on the card (see the module doc)."""
     t_phase = time.perf_counter()
@@ -3926,6 +4090,7 @@ def ptxas_kernels(ptxas: str) -> list[dict]:
     return out
 
 
+@_named("2 build")
 def phase_build() -> None:
     """The three kernel libraries (one nvcc each) and the native IO and GEMM
     libraries (g++), all at once."""
@@ -3957,6 +4122,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and kernel-vs-plain grids only")
     args = ap.parse_args()
+    try:
+        return run(args)
+    except BaseException as e:
+        log(phase="failed", at=" > ".join(AT) or None, last_logged=dict(LAST_LOGGED),
+            error=f"{type(e).__name__}: {e}")
+        raise
+
+
+def run(args) -> int:
     t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
@@ -4025,12 +4199,17 @@ def main() -> int:
         log_compute_share(main_res, timings)
         log_store_share(store_res, timings)
         tools = phase_tools()
+        work = tempfile.mkdtemp(dir=work_root)
+        try:
+            tools_5k = phase_tools_5k(work, SEED + 13, device)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
         new_timings = phase_new_timings(device)
         kernels = kernel_entries(k1_err, grids, timings[0],
                                  main_res["pipelined"]["launches"] + resilience["k1_launches"]
                                  + updates["k1_launches"] + store_res["k1_launches"] + serve_res["k1_launches"]
                                  + faults_res["k1_launches"] + measure_res["k1_launches"]
-                                 + mesh_res["k1_launches"],
+                                 + mesh_res["k1_launches"] + tools_5k["k1_launches"],
                                  new_timings,
                                  tools["launches"])
     log(phase="wall", seconds=time.perf_counter() - t_start, quick=args.quick)

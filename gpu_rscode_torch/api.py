@@ -67,6 +67,7 @@ from __future__ import annotations
 import functools
 import hashlib
 import inspect
+import json
 import os
 import threading
 import time
@@ -2459,6 +2460,59 @@ def _repair_streamed(in_file: str, scan: _ChunkScan, chosen: list[int], inv, *, 
     return targets
 
 
+# repair_fleet's survivor inversions go to the batched inverter on a CUDA
+# device only from a measured group size: the card's k x batch grid of
+# tools/inverse_bench.py (data/inverse_routing_h100.jsonl, with the card
+# and power limit it was taken on).  Below it the host subset search
+# inverts one archive at a time.  The CPU keeps the batched inverter
+# ungated, as the JAX package does off a TPU.
+INVERSE_ROUTING = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "inverse_routing_h100.jsonl")
+
+
+@functools.cache
+def _inverse_routing_grid() -> dict[int, dict[int, float]]:
+    """k -> {batch: the no-pivot call's speedup over the host loop} of the
+    committed grid (repair_fleet dispatches the no-pivot call)."""
+    grid: dict[int, dict[int, float]] = {}
+    with open(INVERSE_ROUTING) as fp:
+        for line in fp:
+            row = json.loads(line) if line.startswith("{") else {}
+            if str(row.get("metric", "")).startswith("batched_inverse"):
+                grid.setdefault(row["k"], {})[row["batch"]] = row["nopivot_speedup_vs_host_loop"]
+    return grid
+
+
+def _device_invert_min_batch_cuda(k: int) -> int | None:
+    """Group-size threshold for the batched inverter on a CUDA device.
+
+    At a measured depth: the smallest measured batch from which the device
+    call beat the host loop at every larger measured batch, or None where
+    it lost at the largest.  An unmeasured depth takes the stricter of its
+    measured neighbours' thresholds (None is the strictest): a depth
+    between two measured ones can win no sooner than either."""
+    grid = _inverse_routing_grid()
+
+    def threshold(depth: int) -> int | None:
+        out = None
+        for batch, speedup in sorted(grid[depth].items(), reverse=True):
+            if speedup < 1.0:
+                break
+            out = batch
+        return out
+
+    if k in grid:
+        return threshold(k)
+    near = [threshold(d) for d in (max((d for d in grid if d < k), default=None),
+                                   min((d for d in grid if d > k), default=None)) if d is not None]
+    return None if None in near else max(near)
+
+
+def _on_card(device: torch.device) -> bool:
+    """Whether repair_fleet's inversions are routed by the card's grid (a
+    test substitutes it to route a CPU run as the card's)."""
+    return device.type == "cuda"
+
+
 @_observed_file_op("repair_fleet")
 def repair_fleet(
     files,
@@ -2477,9 +2531,11 @@ def repair_fleet(
     archives are grouped by (k, w); the subset cache is consulted first,
     and each group's first-choice survivor submatrices (in
     :func:`.ops.inverse.mds_nopivot_order`) are inverted in one batched
-    call on the device without pivoting.  Each inverse is verified on the
-    host with one GF product against the identity; a failure is re-solved
-    by the host subset search.  The rebuilds then interleave through one
+    call on the device without pivoting.  On a CUDA device a group smaller
+    than :func:`_device_invert_min_batch_cuda` (the card's measured
+    threshold) takes the host subset search instead.  Each inverse is
+    verified on the host with one GF product against the identity; a
+    failure is re-solved by the host subset search.  The rebuilds then interleave through one
     shared write-behind lane.  Returns ``{file: [rebuilt indices]}``.
     ``device``: None means CUDA and raises with no GPU present.
     """
@@ -2522,6 +2578,15 @@ def repair_fleet(
     with timer.phase("invert matrices (batched)"):
         for (k, w), group in groups.items():
             gf = get_field(w)
+            if _on_card(device) and len(group) < (_device_invert_min_batch_cuda(k) or float("inf")):
+                # Measured routing (see _device_invert_min_batch_cuda; None:
+                # the host loop won at every batch).
+                for f in group:
+                    try:
+                        chosen_inv[f] = _select_decodable_subset(scans[f])
+                    except ValueError as e:
+                        errors[f] = str(e)
+                continue
             ordered = {f: inverse.mds_nopivot_order(scans[f].healthy[:k], k) for f in group}
             subs = [scans[f].total_mat[ordered[f]].astype(gf.dtype) for f in group]
             invs, oks = inverse.invert_matrix_torch_batch(np.stack(subs), w, pivot=False, device=device)

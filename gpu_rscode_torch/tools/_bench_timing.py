@@ -9,6 +9,8 @@ whose per-phase minimum is the best of the trials.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from ..utils.timing import PhaseTimer
@@ -27,6 +29,20 @@ def _loop_seconds(fn, iters: int, device: torch.device, timer: PhaseTimer, name:
         with timer.phase(name):
             for _ in range(iters):
                 fn()
+
+
+def best_host_seconds(fn, trials: int, device: torch.device | None = None) -> float:
+    """Best host-clock seconds of one call of ``fn`` over ``trials`` calls,
+    each ended by a synchronise of ``device`` when it is a CUDA device:
+    what a caller waits for, launch and copies included."""
+    best = float("inf")
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        fn()
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 def time_device_fn(fn, trials: int = 2, target_s: float = 1.5) -> float:

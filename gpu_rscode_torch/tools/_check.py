@@ -11,6 +11,10 @@ import numpy as np
 import torch
 
 RANDOM_COLS = 65536
+# The columns one block of K1 covers (ops/csrc/gf_gemm.cu): 4,096 for the
+# bit-sliced kernel (launch_bitslice), 256 x 4, 2 or 1 for the popcount
+# kernel by operator width (launch_popcount).
+K1_BLOCKS = (4096, 1024, 512, 256)
 
 
 def sample_columns(m: int, blocks, seed: int = 0) -> np.ndarray:

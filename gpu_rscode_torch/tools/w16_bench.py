@@ -1,0 +1,76 @@
+"""The wide-symbol (GF(2^16)) GEMM on the card: the counterpart of the JAX
+package's ``tools/w16_bench.py``.
+
+The reference's GF(16) "extend" branch is its fastest kernel
+(design.tex:490); this measures the port's w=16 path at k=10, p=4 on
+``--mb`` MB of seeded uint16 symbols: ``cuda`` (K1's bit-sliced kernel at
+w=16; the JAX tool's ``pallas`` row) over all of it, and ``bitplane`` (the
+plain bit-plane GEMM) over a 2 Mi-symbol slice, as the JAX tool bounds its
+16x plane expansion.  Each output is checked against the GF oracle
+(``GaloisField.matmul``) on columns spread over every K1 block before it
+is timed (CUDA events); a mismatch ends the tool.  One
+``{"<name>": GB/s}`` line each after the capture header, then the JAX
+tool's summary (``metric``, ``unit``, ``mb``, ``results``).  Dropped from
+the JAX tool: its ``autotune`` key (the Pallas refold autotune is not
+ported) and its catch-all around each case.  The named bit-plane
+expansions at w=16 are not ported (they raise).
+
+Usage: python -m gpu_rscode_torch.tools.w16_bench [--mb 320] [--trials 3]
+       [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from ..models.vandermonde import vandermonde_matrix
+from ..obs.runlog import capture_header
+from ..ops.cuda_gemm import gf_matmul_cuda
+from ..ops.gemm import gf_matmul_bitplane
+from ..ops.gf import get_field
+from ..utils.backend import resolve_device
+from ._bench_timing import time_device_fn
+from ._check import K1_BLOCKS, check_columns, sample_columns
+
+K, P, W = 10, 4, 16
+SEG_SYM = 2 * 1024 * 1024  # the bit-plane slice (bounds its 16x expansion)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--mb", type=int, default=320, help="total data MB")
+    ap.add_argument("--trials", type=int, default=3)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+
+    print(json.dumps(capture_header("w16_bench")), flush=True)
+    m_sym = args.mb * 1024 * 1024 // (K * 2)
+    m_sym = max(512, (m_sym // 512) * 512)
+    seg = min(SEG_SYM, m_sym)
+    gf = get_field(W)
+    A = vandermonde_matrix(P, K, gf)
+    rng = np.random.default_rng(0)
+    B_host = rng.integers(0, 1 << 16, size=(K, m_sym), dtype=np.uint16)
+    B = torch.from_numpy(B_host).to(device)
+    Bseg = B[:, :seg].contiguous()  # sliced once, outside the timing
+
+    out: dict[str, float] = {}
+    cases = (("cuda", lambda: gf_matmul_cuda(A, B, W), m_sym),
+             ("bitplane", lambda: gf_matmul_bitplane(A, Bseg, W), seg))
+    for name, fn, m in cases:
+        cols = sample_columns(m, [b for b in K1_BLOCKS if b < m])
+        check_columns(name, fn(), P, m, cols, gf.matmul(A, B_host[:, cols]))
+        out[name] = K * m * 2 / time_device_fn(fn, trials=args.trials) / 1e9
+        print(json.dumps({name: out[name]}), flush=True)
+    print(json.dumps({"metric": f"w16_gemm_bandwidth_k{K}_p{P}", "unit": "GB/s", "mb": args.mb, "results": out}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

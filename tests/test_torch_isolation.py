@@ -36,6 +36,9 @@ def test_port_imports_no_jax():
         "import gpu_rscode_torch.resilience.chaos, gpu_rscode_torch.maint, gpu_rscode_torch.maint.controller\n"
         "import gpu_rscode_torch.obs.profiler, gpu_rscode_torch.obs.perfbase, gpu_rscode_torch.obs.attrib\n"
         "import gpu_rscode_torch.tools.plan_stats\n"
+        "import gpu_rscode_torch.tools.inverse_bench, gpu_rscode_torch.tools.mesh_bench\n"
+        "import gpu_rscode_torch.tools.mesh_overhead, gpu_rscode_torch.tools.strategy_bench\n"
+        "import gpu_rscode_torch.tools.k_sweep, gpu_rscode_torch.tools.w16_bench, gpu_rscode_torch.tools.stream_bench\n"
         "import gpu_rscode_torch.parallel._compat, gpu_rscode_torch.parallel.mesh\n"
         "import gpu_rscode_torch.parallel.distributed, gpu_rscode_torch.parallel.sharded\n"
         "import gpu_rscode_torch.obs.aggregate, gpu_rscode_torch.obs.doctor\n"
@@ -75,3 +78,5 @@ def test_kernel_source_ships_as_package_data():
     assert "gpu_rscode_torch*" in pyproject
     assert "ops/csrc/*.cu" in pyproject
     assert "native/*.cpp" in pyproject
+    assert (PORT / "data" / "inverse_routing_h100.jsonl").is_file()
+    assert "data/*.jsonl" in pyproject
