@@ -7,7 +7,8 @@
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi); CUDA must be present;
   2. build the three CUDA kernel libraries from the checkout's sources, one
-     nvcc each, all at once (timed);
+     nvcc each, all at once (timed), with each kernel instance's registers
+     and spills (the w=16 and pre-parity gf_planes instances listed apart);
   3. K1 against its plain PyTorch version on the card, bit-exact, over a
      grid of shapes at w=8 and w=16 in both forms (the folded bit-sliced
      kernel and the pre-parity popcount kernel): ragged and misaligned
@@ -246,7 +247,14 @@ Phases, each fatal on failure:
      1-33, p = 1-10 and its largest sums; K2 also at
      its depth-slice edges, at the largest accumulator a slice can reach,
      at tiles that are not a multiple of its 128-column step, and with
-     operators too large for shared memory;
+     operators too large for shared memory; K3 at w=16 (shift, shift_raw,
+     sign x sum, dot) at k 1-33, p 1-10, m 37-100,003, tiles 256 and 8192,
+     pinned, and at its largest sums (every symbol 0xFFFF, the densest
+     element); the largest k whose operator fits in shared memory at p=16
+     for each w=16 and pre-parity instance, and the ValueError one past it
+     (no launch); the pre-parity form (refold none) of every instance at
+     w=8 and 16, exact int32; the public dispatch of every JAX name at
+     w=16 (refold none, sum, dot, autotune) and with fold_parity=False;
   8. the kernel-formulation tools as entry points on the card at their
      default sizes (kernel_sweep 64 MB, expand_probe 320 MB): every result
      a number, and K2, K3's GEMM and K3's copy floor each launched;
@@ -278,12 +286,27 @@ Phases, each fatal on failure:
      GF oracle, SHA-256, re-encode twins, the warm start's zero builds)
      before it prints a rate.  The counts are reset just before; K1 must
      run, and its runs join the kernels line;
+  5m. the RS_PALLAS_* knobs on the main path, the counts reset before each
+     step and K1 required not to run: under RS_PALLAS_EXPAND=shift_raw
+     RS_PALLAS_REFOLD=autotune a seeded 1 GiB k=10 n=14 encode (archive
+     byte-identical to phase 4's K1 archive) and its decode with the first
+     4 chunks lost (SHA-256), every dispatch a K3 run and some inside graph
+     replays, the calibrated choices, rs_pallas_autotune_total and the
+     plans' refolds logged; under RS_PALLAS_EXPAND=shift_raw the same file
+     encoded on a (2, 1) stripe mesh of the card (K3's pre-parity form;
+     the archive equal to phase 4's); under RS_PALLAS_EXPAND=pack2 its
+     encode through K2 captured into the plans' graphs (equal to phase
+     4's); and a 256 MiB w=16 CLI round trip under RS_PALLAS_REFOLD=
+     autotune (K3's w=16 instances, inside replays too).  The environment
+     is restored and the plan and autotune caches cleared after it;
   9. K2, each K3 pair, the compute-only ceiling and the copy floor timed at
      the main path's encode segment next to the bound, the plain version
-     and, for the copy floor, B[:p].clone(); K2 and K3's sum kernel beside
-     the instruction estimate of their designs.
+     and, for the copy floor, B[:p].clone(); K3's w=16 pairs at the w=16
+     encode segment (m = 3,355,392) and its pre-parity form at the w=8
+     segment (bound: B read and the int32 sums written once); K2 and K3's
+     sum kernel beside the instruction estimate of their designs.
 
-Phases run in the order 1-5, 5b-5j, 6, 8, 5k, 5l, 9.  The last lines are
+Phases run in the order 1-5, 5b-5j, 5m, 6, 8, 5k, 5l, 9.  The last lines are
 nvidia-smi's name and power limit, the kernels JSON and the result JSON.
 A phase that fails prints one line {"phase": "failed", "at": the phases
 running, "last_logged": the last phase and step logged, "error": the
@@ -299,6 +322,7 @@ import contextlib
 import functools
 import hashlib
 import io
+import itertools
 import json
 import math
 import os
@@ -1386,7 +1410,7 @@ class Grid:
         torch.cuda.synchronize()
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{self.name} at {what}: {got.dtype}{tuple(got.shape)} != {want.dtype}{tuple(want.shape)}")
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max().item()) if got.numel() else 0
+        err = int((_widen(got) - _widen(want)).abs().max().item()) if got.numel() else 0
         self.worst = max(self.worst, err)
         self.cases += 1
         if err:
@@ -1481,18 +1505,124 @@ def phase_new_kernels_vs_plain(device) -> dict:
         for refold in ((None,) if kernel == "pack2" else (None, "sum", "dot")):
             grid = k2 if kernel == "pack2" else planes_sum if cuda_planes.is_sum_pair(kernel, refold) else planes
             grid.check(cuda_gemm.gf_matmul_cuda(A, B, 8, expand=name, refold=refold), want, f"expand={name} refold={refold}")
-    grids = (k2, planes, planes_sum, copy)
+    wide, pre = _new_instances_vs_plain(device, gen, rng, dense)
+    grids = (k2, planes, planes_sum, copy, wide, pre)
     for grid in grids:
         log(phase="kernel_vs_plain", kernel=grid.name, cases=grid.cases, max_abs_err=grid.worst, tolerance=0)
     return {grid.name: grid for grid in grids}
 
 
+def _rand_u16(gen, shape, device) -> torch.Tensor:
+    return torch.randint(-(1 << 15), 1 << 15, shape, dtype=torch.int32, device=device, generator=gen).to(
+        torch.int16).view(torch.uint16)
+
+
+def _new_instances_vs_plain(device, gen, rng, dense8: int) -> tuple[Grid, Grid]:
+    """Phase 7's w=16 and pre-parity cases: every w=16 pair at k 1-33, p
+    1-10 and m 37-100,003 (tiles 256 and 8192) and pinned; their largest
+    sums (every symbol 0xFFFF, every coefficient the densest element); the
+    largest k that fits in shared memory at p=16 and the refusal one past
+    it (no launch); the pre-parity form of every instance, exact int32; and
+    the public dispatch of every JAX name at w=16 and pre-parity."""
+    wide, pre = Grid("K3-planes-w16"), Grid("K3-planes-preparity")
+    dense16 = int(get_field(16).bitmats.sum(axis=2).max(axis=1).argmax())
+    for expand in cuda_planes.WIDE_EXPANDS:
+        for refold in ("sum", "dot"):
+            for k in (1, 3, 4, 10, 33):
+                for m in (37, 4097, 100003):
+                    B = _rand_u16(gen, (k, m), device)
+                    for p in (1, 4, 10):
+                        A = rng.integers(0, 1 << 16, size=(p, k))
+                        want = cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, w=16)
+                        for tile in (256, 8192):
+                            wide.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, tile, w=16), want,
+                                       f"w=16 {expand}+{refold} p={p} k={k} m={m} tile={tile}")
+            A, B = rng.integers(0, 1 << 16, size=(4, 10)), _rand_u16(gen, (10, 3 * 8192 + 37), device)
+            wide.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, 8192, pinned=True, w=16),
+                       cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, 8192, pinned=True, w=16),
+                       f"w=16 {expand}+{refold} pinned")
+    # The largest sums at w=16, folded and pre-parity.
+    for expand in cuda_planes.WIDE_EXPANDS:
+        for k in (4, 33):
+            B = torch.full((k, 4096), -1, dtype=torch.int16, device=device).view(torch.uint16)
+            A = np.full((10, k), dense16)
+            for refold in ("sum", "dot", "none"):
+                grid = pre if refold == "none" else wide
+                grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, w=16),
+                           cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, w=16),
+                           f"w=16 {expand}+{refold} largest sum: element {dense16} k={k} symbols 0xFFFF")
+    # The largest k whose operator fits at p=16, and the refusal past it.
+    limits = {}
+    for w, expand, refold in cuda_planes.INSTANCES:
+        if cuda_planes.is_sum_pair(expand, refold, w) or (w == 8 and refold != "none"):
+            continue
+        k = 1
+        while cuda_planes.smem_bytes(k + 1, 16, expand, refold, w)[0] <= cuda_planes.smem_bytes(k, 16, expand, refold,
+                                                                                                  w)[1]:
+            k += 1
+        limits[f"w={w} {expand}+{refold}"] = k
+        A = rng.integers(0, 1 << w, size=(16, k))
+        B = (_rand_u8 if w == 8 else _rand_u16)(gen, (k, 4097), device)
+        grid = pre if refold == "none" else wide
+        grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, w=w),
+                   cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, w=w),
+                   f"w={w} {expand}+{refold} p=16 largest k={k}")
+        A = rng.integers(0, 1 << w, size=(16, k + 1))
+        B = (_rand_u8 if w == 8 else _rand_u16)(gen, (k + 1, 4097), device)
+        before = dict(cuda_planes.LAUNCHES)
+        try:
+            cuda_planes.gf_matmul_planes(A, B, expand, refold, w=w)
+        except ValueError as e:
+            if "the card allows" not in str(e) or cuda_planes.LAUNCHES != before:
+                raise AssertionError(f"w={w} {expand}+{refold} k={k + 1}: refusal {e!r}, launches {cuda_planes.LAUNCHES}")
+        else:
+            raise AssertionError(f"w={w} {expand}+{refold} p=16 k={k + 1}: past shared memory, not refused")
+    log(phase="kernel_vs_plain", kernel="K3 shared-memory limits", p=16, largest_k=limits)
+    # The pre-parity form of every instance, exact int32.
+    for w, expand, refold in cuda_planes.INSTANCES:
+        if refold != "none":
+            continue
+        for k in (1, 4, 10, 33):
+            for m in (37, 4097, 100003):
+                B = (_rand_u8 if w == 8 else _rand_u16)(gen, (k, m), device)
+                for p in (1, 4, 10):
+                    A = rng.integers(0, 1 << w, size=(p, k))
+                    want = cuda_planes.gf_matmul_planes_plain(A, B, expand, "none", w=w)
+                    for tile in (256, 8192):
+                        pre.check(cuda_planes.gf_matmul_planes(A, B, expand, "none", tile, w=w), want,
+                                  f"w={w} {expand}+none p={p} k={k} m={m} tile={tile}")
+    B = torch.full((33, 4096), 0xFF, dtype=torch.uint8, device=device)
+    for expand in cuda_planes.EXPANDS:
+        A = np.full((10, 33), dense8)
+        pre.check(cuda_planes.gf_matmul_planes(A, B, expand, "none"),
+                  cuda_planes.gf_matmul_planes_plain(A, B, expand, "none"),
+                  f"w=8 {expand}+none largest sum: element {dense8} k=33 bytes 0xFF")
+    # The public dispatch of every JAX name at w=16 (refold None, sum, dot,
+    # autotune) and pre-parity (its sums against the kernel expansion's
+    # plain version, its parity against K1's).
+    for w in (8, 16):
+        A = rng.integers(0, 1 << w, size=(4, 10))
+        B = (_rand_u8 if w == 8 else _rand_u16)(gen, (10, 4097), device)
+        folded, sums = gf_matmul_bitplane(A, B, w), gf_matmul_bitplane(A, B, w, fold_parity=False)
+        for name, kernel in cuda_gemm.EXPANSIONS.items():
+            if name not in cuda_gemm.JAX_NAMES or kernel == "pack2" or (w == 16 and name in cuda_gemm.BYTE_ONLY):
+                continue
+            if w == 16:
+                for refold in (None, "sum", "dot", "autotune"):
+                    got = cuda_gemm.gf_matmul_cuda(A, B, 16, expand=name, refold=refold)
+                    wide.check(got, folded, f"dispatch w=16 expand={name} refold={refold}")
+            got = cuda_gemm.gf_matmul_cuda(A, B, w, expand=name, fold_parity=False)
+            pre.check(got, cuda_planes.gf_matmul_planes_plain(A, B, kernel, "none", w=w),
+                      f"dispatch w={w} expand={name} fold_parity=False")
+            pre.check(got & 1, sums & 1, f"dispatch w={w} expand={name} fold_parity=False, parity against K1's")
+    cuda_gemm.clear_autotune_cache()
+    return wide, pre
+
+
 def _reset_counts() -> None:
     cuda_gemm.LAUNCHES = cuda_gemm.CAPTURED = cuda_gemm.REPLAYED = cuda_gemm.PREPARITY = 0
-    cuda_pack2.LAUNCHES = 0
-    cuda_planes.LAUNCHES = 0
-    cuda_planes.SUM_LAUNCHES = 0
-    cuda_planes.COPY_LAUNCHES = 0
+    cuda_pack2.LAUNCHES = cuda_pack2.CAPTURED = cuda_pack2.REPLAYED = 0
+    cuda_planes.reset_counts()
 
 
 def k1_runs() -> int:
@@ -1503,9 +1633,17 @@ def k1_runs() -> int:
     return cuda_gemm.LAUNCHES + cuda_gemm.REPLAYED
 
 
+# Kernel (the kernels line's and the grids' names) -> cuda_planes' count.
+K3_KINDS = {"K3-planes": "planes", "K3-planes-sum": "sum", "K3-copy-floor": "copy", "K3-planes-w16": "w16",
+            "K3-planes-preparity": "preparity"}
+
+
 def _counts() -> dict:
-    return {"K1": k1_runs(), "K2": cuda_pack2.LAUNCHES, "K3-planes": cuda_planes.LAUNCHES,
-            "K3-planes-sum": cuda_planes.SUM_LAUNCHES, "K3-copy-floor": cuda_planes.COPY_LAUNCHES}
+    """Kernels that ran since the counts were reset, eager and inside graph
+    replays, by kernel."""
+    out = {"K1": k1_runs(), "K2": cuda_pack2.LAUNCHES + cuda_pack2.REPLAYED}
+    out.update({name: cuda_planes.runs(kind) for name, kind in K3_KINDS.items()})
+    return out
 
 
 def _numbers(row: dict) -> list[float]:
@@ -1675,37 +1813,61 @@ def phase_tools_5l(work: str) -> dict:
 
 
 @_named("9 K2/K3 timings")
+def preparity_bound_ms(p: int, k: int, m: int, w: int) -> float:
+    """Least time for the pre-parity form: B read once and the (p*w, m)
+    int32 sums written once at the device-memory rate."""
+    return 1e3 * (k * (w // 8) + 4 * p * w) * m / HBM_BYTES_PER_S
+
+
 def phase_new_timings(device) -> dict:
     """K2, each K3 pair, the pinned ceiling and the copy floor at the main
-    path's encode segment shape."""
+    path's encode segment shape; K3's w=16 pairs at the w=16 encode segment
+    (the same 64 MiB: m = 3,355,392 symbols) and its pre-parity form at the
+    w=8 segment."""
     k, p, m = 10, 4, SEGMENT_COLS
+    m16 = SEGMENT_COLS // 2
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     clock_mhz = float(smi_line("clocks.max.sm").split()[0])
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 9)
     A = RSCodec(k, p, device=device).parity_block
     B = _rand_u8(gen, (k, m), device)
-    cases = [("K2", "pack2", lambda: cuda_pack2.gf_matmul_pack2(A, B), lambda: cuda_pack2.gf_matmul_pack2_plain(A, B), None)]
+    A16 = RSCodec(k, p, w=16, device=device).parity_block
+    B16 = _rand_u16(gen, (k, m16), device)
+    seg = (m, 8, bound_ms(p, k, m, 8))
+    cases = [("K2", "pack2", lambda: cuda_pack2.gf_matmul_pack2(A, B), lambda: cuda_pack2.gf_matmul_pack2_plain(A, B), None,
+              seg)]
     for expand, refold in cuda_planes.PAIRS:
         cases.append(("K3-planes-sum" if cuda_planes.is_sum_pair(expand, refold) else "K3-planes", f"{expand}+{refold}",
                       functools.partial(cuda_planes.gf_matmul_planes, A, B, expand, refold),
-                      functools.partial(cuda_planes.gf_matmul_planes_plain, A, B, expand, refold), None))
+                      functools.partial(cuda_planes.gf_matmul_planes_plain, A, B, expand, refold), None, seg))
     cases.append(("K3-planes", "shift_raw+dot pinned (compute-only ceiling)",
                   functools.partial(cuda_planes.gf_matmul_planes, A, B, "shift_raw", "dot", pinned=True),
-                  functools.partial(cuda_planes.gf_matmul_planes_plain, A, B, "shift_raw", "dot", pinned=True), None))
+                  functools.partial(cuda_planes.gf_matmul_planes_plain, A, B, "shift_raw", "dot", pinned=True), None, seg))
     cases.append(("K3-copy-floor", "copy_floor", lambda: cuda_planes.copy_floor(B, p), lambda: cuda_planes.copy_floor_plain(B, p),
-                  lambda: B[:p].clone()))
+                  lambda: B[:p].clone(), seg))
+    for expand in cuda_planes.WIDE_EXPANDS:
+        for refold in ("sum", "dot"):
+            cases.append(("K3-planes-w16", f"w16 {expand}+{refold}",
+                          functools.partial(cuda_planes.gf_matmul_planes, A16, B16, expand, refold, w=16),
+                          functools.partial(cuda_planes.gf_matmul_planes_plain, A16, B16, expand, refold, w=16), None,
+                          (m16, 16, bound_ms(p, k, m16, 16))))
+    for expand in cuda_planes.EXPANDS:
+        cases.append(("K3-planes-preparity", f"{expand}+none",
+                      functools.partial(cuda_planes.gf_matmul_planes, A, B, expand, "none"),
+                      functools.partial(cuda_planes.gf_matmul_planes_plain, A, B, expand, "none"), None,
+                      (m, 8, preparity_bound_ms(p, k, m, 8))))
     rows = {}
-    for kernel, label, fn, plain, library in cases:
-        err = int((fn().to(torch.int32) - plain().to(torch.int32)).abs().max().item())
+    for kernel, label, fn, plain, library, (cols, w, bound) in cases:
+        err = int((_widen(fn()) - _widen(plain())).abs().max().item())
         if err:
             raise AssertionError(f"{kernel} {label} != plain at the timing shape")
         ms = time_ms(fn, iters=100, reps=3)
-        row = dict(phase="kernel_timing", kernel=kernel, shape=f"encode k={k} p={p} m={m} ({label})", ms=ms,
-                   plain_ms=time_ms(plain, iters=3, warmup=1), bound_ms=bound_ms(p, k, m, 8), bound_by="bytes",
+        row = dict(phase="kernel_timing", kernel=kernel, shape=f"encode k={k} p={p} m={cols} w={w} ({label})", ms=ms,
+                   plain_ms=time_ms(plain, iters=3, warmup=1), bound_ms=bound, bound_by="bytes",
                    library_ms=time_ms(library, iters=20) if library else None, max_abs_err=err,
-                   data_gbps=k * m / (ms * 1e-3) / 1e9, traffic_gbps=(k + p) * m / (ms * 1e-3) / 1e9,
-                   tile=cuda_pack2.DEFAULT_TILE if kernel == "K2" else cuda_planes.DEFAULT_TILE)
+                   data_gbps=k * cols * (w // 8) / (ms * 1e-3) / 1e9, traffic_gbps=(k + p) * cols * (w // 8) / (ms * 1e-3) / 1e9,
+                   tile=cuda_pack2.DEFAULT_TILE if kernel == "K2" else cuda_planes.DEFAULT_TILE, nvidia_smi=smi_line())
         ops = k2_ops_per_col(p, k) if kernel == "K2" else None
         if kernel == "K3-planes-sum":
             ops = k3_ops_per_col(p, k, label.split("+")[0])
@@ -3226,6 +3388,20 @@ def _quantiles(values) -> dict:
             "max": values[-1], "sum": round(sum(values), 6)}
 
 
+def _stage_gaps(recs: list) -> dict:
+    """Quantiles of the time from each daemon stage of a request to the
+    next (admit, dequeue, batch_formed, dispatch, device_done,
+    drain_done, ack), keyed by the later stage."""
+    out = {}
+    for prev, stage in itertools.pairwise(("admit", "dequeue", "batch_formed", "dispatch", "device_done",
+                                           "drain_done", "ack")):
+        gaps = [round(r["stages"][stage] - r["stages"][prev], 6) for r in recs
+                if stage in r["stages"] and prev in r["stages"]]
+        if gaps:
+            out[stage] = {k: v for k, v in _quantiles(gaps).items() if k in ("p50", "p99", "sum")}
+    return out
+
+
 def _ab_arm_breakdown(ledger: str, report: dict) -> dict:
     """Where an A/B arm's foreground time went, from the arm's own ledger
     (the daemon's wide events and the api's rs_run records) and the
@@ -3243,6 +3419,7 @@ def _ab_arm_breakdown(ledger: str, report: dict) -> dict:
            "service_s": _quantiles([r["service_s"] for r in fg]),
            "server_wall_s": _quantiles([r["wall_s"] for r in fg]),
            "batches": _quantiles([r.get("batch") or 0 for r in fg]),
+           "stage_gaps_s": _stage_gaps(fg),
            "last_fg_ack_s": round(max((r["ts"] - t0 for r in fg), default=0.0), 3)}
     rows = [r for r in report.get("requests", []) if r.get("tenant") in ("alpha", "beta")
             and r.get("op") in ("encode", "decode") and r.get("status") == 200 and r.get("stages")]
@@ -3278,11 +3455,15 @@ def _maint_ab(work: str, device) -> dict:
     os.makedirs(d)
     _reset_counts()
     t0 = time.perf_counter()
-    reports = []
+    reports, windows = [], []
     open_loop = loadgen.run_open_loop
 
     def keep_report(*args, **kwargs):
+        # This process's CPU seconds over the open loop's wall (client and
+        # daemon share it).
+        cpu, wall = time.process_time(), time.perf_counter()
         reports.append(open_loop(*args, **kwargs))
+        windows.append({"cpu_s": round(time.process_time() - cpu, 3), "wall_s": round(time.perf_counter() - wall, 3)})
         return reports[-1]
 
     loadgen.run_open_loop = keep_report
@@ -3293,8 +3474,8 @@ def _maint_ab(work: str, device) -> dict:
                                                    p99_ratio_max=1.25, workdir=d, quiet=True, device=device)
     finally:
         loadgen.run_open_loop = open_loop
-        for arm, report in zip(("maint_off", "maint_on"), reports):
-            log(phase="faults_maint", step="maint_ab_breakdown", arm=arm,
+        for arm, report, process in zip(("maint_off", "maint_on"), reports, windows):
+            log(phase="faults_maint", step="maint_ab_breakdown", arm=arm, process=process,
                 **_ab_arm_breakdown(os.path.join(d, arm, "ledger.jsonl"), report))
     failed = {arm["arm"]: arm["summary"]["failed"] for arm in (off, on)}
     if not on["maint_enabled"] or off["maint_enabled"] or any(failed.values()):
@@ -3303,6 +3484,7 @@ def _maint_ab(work: str, device) -> dict:
            "converge_wait_s": on["converge_wait_s"], "pause_events": on["pause_events"],
            "resume_events": on["resume_events"], "maint_jobs": on["maint_jobs"],
            "arms": {arm["arm"]: {"fg_p50_s": arm["fg_p50_s"], "fg_p99_s": arm["fg_p99_s"],
+                                 "settle_s": arm["settle_s"],
                                  "ok": arm["summary"]["ok"], "failed": arm["summary"]["failed"],
                                  "rejected": arm["summary"]["rejected"],
                                  "offered_rps": arm["summary"]["offered_rps"],
@@ -4041,6 +4223,179 @@ def phase_mesh(work: str, seed: int, device, cuda_digests: dict) -> dict:
     return res
 
 
+# -- phase 5m: the RS_PALLAS_* knobs on the main path ---------------------------
+
+KNOBS_W16_BYTES = 256 * MiB
+
+
+def _knob_step(what: str, fn, nbytes: int) -> dict:
+    """Run one step of phase 5m with the counts reset: its wall, GB/s, the
+    kernels that ran (K1 must not), the plan counts and the stream
+    dispatches."""
+    _reset_counts()
+    _reset_io_counts()
+    plan0 = _plan_counts()
+    t0 = time.perf_counter()
+    fn()
+    wall = time.perf_counter() - t0
+    runs = _counts()
+    res = dict(op=what, wall_s=wall, gbps=nbytes / wall / 1e9, runs=runs, plan=_plan_delta(plan0),
+               k3_replayed=dict(cuda_planes.REPLAYED), k2_replayed=cuda_pack2.REPLAYED,
+               stream_dispatches=pipeline.STREAM_DISPATCHES)
+    if runs["K1"]:
+        raise AssertionError(f"5m {what}: K1 ran {runs['K1']} times under the RS_PALLAS_* knobs")
+    return res
+
+
+def _knob_archive(path: str, what: str, cuda_digests: dict, res: dict) -> None:
+    if archive_digests(path, 14) != cuda_digests:
+        raise AssertionError(f"5m {what}: the archive differs from phase 4's K1 archive")
+    res["archive_equals_k1"] = True
+
+
+def _clean_archive(path: str, n: int = 14) -> None:
+    """Remove an archive of ``path``, its conf and its decoded output."""
+    d, base = os.path.split(path)
+    names = [chunk_file_name(path, i) for i in range(n)] + [path + ".METADATA", path + ".out",
+                                                            os.path.join(d, f"conf-{n}-{n - 4}-{base}")]
+    for name in names:
+        if os.path.exists(name):
+            os.unlink(name)
+
+
+def _cli_w16_cuda(d: str, seed: int, size: int) -> None:
+    """A w=16 round trip with --checksum through the CLI under --strategy
+    cuda: encode, the first 4 chunks lost, decode, the bytes compared."""
+    path = os.path.join(d, "wide.bin")
+    data = np.random.default_rng(seed).bytes(size)
+    with open(path, "wb") as fp:
+        fp.write(data)
+    flags = ["--device", "cuda", "--strategy", "cuda", "--quiet"]
+    if cli.main(["-k", "10", "-n", "14", "-e", path, "--width", "16", "--checksum", *flags]) != 0:
+        raise AssertionError("5m: the w=16 CLI encode failed")
+    for i in range(4):
+        os.unlink(chunk_file_name(path, i))
+    if cli.main(["-d", "-i", path, "-c", make_conf(14, 10, path), "-o", path + ".out", *flags]) != 0:
+        raise AssertionError("5m: the w=16 CLI decode failed")
+    with open(path + ".out", "rb") as fp:
+        if fp.read() != data:
+            raise AssertionError("5m: the w=16 CLI round trip changed the bytes")
+
+
+@_named("5m pallas knobs")
+def phase_knobs(work: str, device, cuda_digests: dict) -> dict:
+    """Phase 5m: the RS_PALLAS_* knobs on the main path (see the module
+    doc).  The environment is restored and the plan and autotune caches
+    cleared after it, so that later phases run K1 as before."""
+    from gpu_rscode_torch.obs import metrics
+
+    t_phase = time.perf_counter()
+    k, n = 10, 14
+    d = os.path.join(work, "knobs")
+    os.makedirs(d)
+    path = os.path.join(d, "main.bin")
+    want = write_seeded(path, SEED, MAIN_FILE_BYTES)
+    saved = {var: os.environ.pop(var, None) for var in cuda_gemm.KNOBS}
+    forced = metrics.forced()
+    res = {}
+    try:
+        plan.PLAN_CACHE.clear()
+        metrics.force_enable()
+        metrics.REGISTRY.reset()
+        # (a) encode and decode under shift_raw + autotune (K3 at w=8, graphs).
+        os.environ.update(RS_PALLAS_EXPAND="shift_raw", RS_PALLAS_REFOLD="autotune")
+        enc = _knob_step("encode k=10 n=14 shift_raw+autotune",
+                         lambda: api.encode_file(path, k, n - k, strategy="cuda", device=device), MAIN_FILE_BYTES)
+        _knob_archive(path, "shift_raw+autotune encode", cuda_digests, enc)
+        for i in range(n - k):
+            os.unlink(chunk_file_name(path, i))
+        conf = make_conf(n, k, path)
+        dec = _knob_step("decode 4 lost shift_raw+autotune",
+                         lambda: api.decode_file(path, conf, path + ".out", strategy="cuda", device=device), MAIN_FILE_BYTES)
+        if sha256_file(path + ".out") != want:
+            raise AssertionError("5m: the shift_raw+autotune decode differs from the input")
+        plans = [p for p in plan.PLAN_CACHE.stats()["plans"] if p["strategy"] == "cuda"]
+        decisions = cuda_gemm.autotune_decisions()
+        snap = metrics.REGISTRY.snapshot()
+        for step in (enc, dec):
+            k3 = step["runs"]["K3-planes"] + step["runs"]["K3-planes-sum"]
+            replayed = step["k3_replayed"]["planes"] + step["k3_replayed"]["sum"]
+            if k3 < step["stream_dispatches"] or replayed <= 0 or step["plan"]["replays"] <= 0:
+                raise AssertionError(f"5m {step['op']}: K3 runs {k3}, inside replays {replayed}, "
+                                     f"{step['stream_dispatches']} dispatches, plan {step['plan']}")
+        pinned = [p for p in plans if p["captures"] or p["calls"] > 1]
+        if not decisions or not pinned or any(p["refold"] not in ("sum", "dot") for p in pinned):
+            raise AssertionError(f"5m: autotune decisions {decisions}, plans' refolds {[p['refold'] for p in plans]}")
+        res["w8"] = dict(encode=enc, decode=dec, decisions={repr(key): v for key, v in decisions.items()},
+                         plans_refold=sorted({p["refold"] for p in plans}),
+                         autotune_total=snap.get("rs_pallas_autotune_total", {}).get("values"),
+                         refold_total=snap.get("rs_pallas_refold_total", {}).get("values"))
+        log(phase="knobs", step="w8 shift_raw+autotune", sha256_match=True, **res["w8"])
+        _clean_archive(path)
+
+        # (b) the stripe mesh under shift_raw: K3's pre-parity form.  A plan
+        # pins its formulation when it is built: each step starts from an
+        # empty plan cache.
+        os.environ.pop("RS_PALLAS_REFOLD")
+        plan.PLAN_CACHE.clear()
+        from gpu_rscode_torch.parallel.mesh import Mesh
+
+        stripe_mesh = Mesh([[device]] * 2)
+        stripe = _knob_step("stripe encode (2, 1) mesh shift_raw",
+                            lambda: api.encode_file(path, k, n - k, strategy="cuda", device=device, mesh=stripe_mesh,
+                                                    stripe_sharded=True), MAIN_FILE_BYTES)
+        _knob_archive(path, "stripe encode", cuda_digests, stripe)
+        if stripe["runs"]["K3-planes-preparity"] <= 0:
+            raise AssertionError(f"5m stripe encode: K3's pre-parity form did not run: {stripe['runs']}")
+        res["stripe"] = stripe
+        log(phase="knobs", step="stripe shift_raw pre-parity", **stripe)
+        _clean_archive(path)
+
+        # (c) pack2: K2 captured into the plans' graphs.
+        os.environ["RS_PALLAS_EXPAND"] = "pack2"
+        plan.PLAN_CACHE.clear()
+        pack2 = _knob_step("encode k=10 n=14 pack2",
+                           lambda: api.encode_file(path, k, n - k, strategy="cuda", device=device), MAIN_FILE_BYTES)
+        _knob_archive(path, "pack2 encode", cuda_digests, pack2)
+        if pack2["runs"]["K2"] < pack2["stream_dispatches"] or pack2["k2_replayed"] <= 0:
+            raise AssertionError(f"5m pack2 encode: K2 runs {pack2['runs']['K2']}, inside replays "
+                                 f"{pack2['k2_replayed']}, {pack2['stream_dispatches']} dispatches")
+        res["pack2"] = pack2
+        log(phase="knobs", step="pack2", **pack2)
+        shutil.rmtree(d)
+        os.environ.pop("RS_PALLAS_EXPAND")
+
+        # (d) a w=16 CLI round trip under autotune alone.
+        os.environ["RS_PALLAS_REFOLD"] = "autotune"
+        plan.PLAN_CACHE.clear()
+        os.makedirs(d)
+        w16 = _knob_step("CLI w=16 round trip autotune", lambda: _cli_w16_cuda(d, SEED + 15, KNOBS_W16_BYTES),
+                         2 * KNOBS_W16_BYTES)
+        if w16["runs"]["K3-planes-w16"] <= 0 or w16["k3_replayed"]["w16"] <= 0:
+            raise AssertionError(f"5m w=16: K3's w=16 instances ran {w16['runs']['K3-planes-w16']} times, "
+                                 f"{w16['k3_replayed']['w16']} inside replays")
+        w16["decisions"] = sorted(set(cuda_gemm.autotune_decisions().values()))
+        w16["plans_refold"] = sorted({str(p["refold"]) for p in plan.PLAN_CACHE.stats()["plans"] if p["w"] == 16})
+        res["w16"] = w16
+        log(phase="knobs", step="w16 autotune", **w16)
+    finally:
+        for var, val in saved.items():
+            os.environ.pop(var, None)
+            if val is not None:
+                os.environ[var] = val
+        plan.PLAN_CACHE.clear()
+        metrics.force_enable(forced)
+        metrics.REGISTRY.reset()
+        if os.path.isdir(d):
+            shutil.rmtree(d)
+    steps = (res["w8"]["encode"], res["w8"]["decode"], res["stripe"], res["pack2"], res["w16"])
+    res["launches"] = {name: sum(step["runs"][name] for step in steps) for name in ("K2", *K3_KINDS)}
+    res["walls"] = {step["op"]: step["wall_s"] for step in steps}
+    res["seconds"] = time.perf_counter() - t_phase
+    log(phase="knobs_summary", seconds=res["seconds"], launches=res["launches"], walls=res["walls"], smi=smi_line())
+    return res
+
+
 def _store_shapes(calls) -> dict:
     """The store's K1 shapes from the GEMM log: the 64-object batches' E·Δ
     (appends to an open stripe), the 1,000 x 4 KiB batch's E·Δ, the
@@ -4110,6 +4465,12 @@ def kernel_entries(k1_err, grids, k1_timing=None, main_launches=None, new_timing
         entry("K3 copy_floor (the copy floor, K1's traffic)", "gpu_rscode_torch/ops/csrc/gf_planes.cu",
               "gpu_rscode_tpu/tools/kernel_sweep.py:73", tl.get("K3-copy-floor"), grids["K3-copy-floor"].worst,
               t.get("copy_floor")),
+        entry("K3 gf_planes at w=16 (shift, shift_raw, sign x sum, dot; F' dot refold; timed: shift_raw+sum)",
+              "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307", tl.get("K3-planes-w16"),
+              grids["K3-planes-w16"].worst, t.get("w16 shift_raw+sum")),
+        entry("K3 gf_planes pre-parity (refold none, int32 sums, w=8 and 16; timed: shift_raw+none at w=8)",
+              "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307",
+              tl.get("K3-planes-preparity"), grids["K3-planes-preparity"].worst, t.get("shift_raw+none")),
     ]
 
 
@@ -4117,7 +4478,7 @@ def ptxas_kernels(ptxas: str) -> list[dict]:
     """Registers and spilled bytes of each kernel instance in ``-Xptxas=-v``
     output, named ``gf_bitslice_kernel<w,rt>`` / ``gf_popcount_kernel<w,nw,cpt>`` /
     ``gf_pack2_kernel<1>`` (1: operator in shared memory, 0: read from device
-    memory) / ``gf_planes_kernel<expand,refold>`` / ``gf_planes_sum_kernel<expand>``."""
+    memory) / ``gf_planes_kernel<w,expand,refold>`` / ``gf_planes_sum_kernel<expand>``."""
     out = []
     for block in ptxas.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
@@ -4150,7 +4511,15 @@ def phase_build() -> None:
         spills = sorted({int(b) for b in re.findall(r"(\d+) bytes spill stores", ptxas)})
         log(phase="build", library=name, nvcc_seconds=_build.BUILD_SECONDS.get(name), kernels=len(regs),
             max_registers=max(regs, default=None), spill_store_bytes=spills)
-        log(phase="build", library=name, per_kernel=ptxas_kernels(ptxas))
+        per_kernel = ptxas_kernels(ptxas)
+        log(phase="build", library=name, per_kernel=per_kernel)
+        if name == "gf_planes":
+            # gf_planes_kernel<w, expand, refold>: the w=16 instances and the
+            # pre-parity form (refold 2), with their spills.
+            new = [row for row in per_kernel
+                   if re.search(r"gf_planes_kernel<(16,\d+,\d+|\d+,\d+,2)>$", row["kernel"])]
+            log(phase="build", library=name, new_instances=new,
+                spilling=[row["kernel"] for row in new if row["spill_store_bytes"]])
     for name, lib_path in (("rs_native_io", native.library_path), ("rs_native_gemm", native.gemm_library_path)):
         log(phase="build", library=name, gxx_seconds=_build.BUILD_SECONDS.get(name),
             path=os.path.relpath(lib_path(), REPO))
@@ -4227,6 +4596,7 @@ def run(args) -> int:
             faults_res = phase_faults_maint(work, SEED + 10, device)
             measure_res = phase_measurement(work, SEED + 11, device)
             mesh_res = phase_mesh(work, SEED + 12, device, cuda_digests)
+            knobs_res = phase_knobs(work, device, cuda_digests)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         log(phase="strategies_summary", main_and_cli_seconds=strategies["seconds"],
@@ -4252,6 +4622,8 @@ def run(args) -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
         new_timings = phase_new_timings(device)
+        path_launches = {name: tools["launches"].get(name, 0) + knobs_res["launches"].get(name, 0)
+                         for name in ("K2", *K3_KINDS)}
         kernels = kernel_entries(k1_err, grids, timings[0],
                                  main_res["pipelined"]["launches"] + resilience["k1_launches"]
                                  + updates["k1_launches"] + store_res["k1_launches"] + serve_res["k1_launches"]
@@ -4259,7 +4631,7 @@ def run(args) -> int:
                                  + mesh_res["k1_launches"] + tools_5k["k1_launches"]
                                  + tools_5l["k1_launches"],
                                  new_timings,
-                                 tools["launches"])
+                                 path_launches)
     log(phase="wall", seconds=time.perf_counter() - t_start, quick=args.quick)
     print(smi)
     print(json.dumps({"kernels": kernels}))

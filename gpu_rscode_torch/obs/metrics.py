@@ -516,11 +516,16 @@ def quantile(name: str, help: str = "", cap=DEFAULT_RESERVOIR):
 
 
 def unified_snapshot() -> dict:
-    """The one observability snapshot: the registry's metrics and the plan
+    """The one observability snapshot: the registry's metrics, the plan
     caches' counters (:meth:`..plan.PlanCache.stats`, the local and the
-    mesh cache).  The plan-cache sections are included even with metrics
-    disabled: their counters are plan-layer state, always counted."""
+    mesh cache) and the refold="autotune" decisions
+    (:func:`..ops.cuda_gemm.autotune_decisions`, keyed by the repr of the
+    dispatch class).  The plan-cache sections are included even with
+    metrics disabled: their counters are plan-layer state, always
+    counted."""
     from .. import plan
+    from ..ops.cuda_gemm import autotune_decisions
 
     return {"metrics_enabled": enabled(), "metrics": REGISTRY.snapshot(),
-            "plan_cache": plan.PLAN_CACHE.stats(), "mesh_plan_cache": plan.MESH_PLAN_CACHE.stats()}
+            "plan_cache": plan.PLAN_CACHE.stats(), "mesh_plan_cache": plan.MESH_PLAN_CACHE.stats(),
+            "autotune_decisions": {repr(k): v for k, v in sorted(autotune_decisions().items(), key=repr)}}

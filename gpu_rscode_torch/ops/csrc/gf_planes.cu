@@ -1,19 +1,22 @@
-// Bit-plane GF(2^8) GEMMs on the int8 tensor cores, and the copy floor,
-// for Hopper (sm_90a).
+// Bit-plane GF(2^8) and GF(2^16) GEMMs on the int8 tensor cores, and the
+// copy floor, for Hopper (sm_90a).
 //
 // Replaces the JAX package's TPU kernel tools/kernel_sweep.py::make_fn
 // (its pallas_call `run`, with the bodies _body_base, _body_cmp,
 // _body_sign, _body_signc, _body_signf, _body_nibble, _body_raw_dot and
 // _body_dma, and the pinned-input mode), and with it the expansion and
 // refold variants of ops/pallas_gemm.py::_kernel_body (_expand_shift,
-// _expand_shift_raw, _expand_sign, _expand_nibble; refold "sum" and "dot").
+// _expand_shift_raw, _expand_sign, _expand_nibble; refold "sum" and "dot";
+// fold=False, the pre-parity accumulators), at w=8 and, for the three
+// lane-width expansions, at w=16.
 //
-// gf_planes_kernel<EXPAND, REFOLD>: C = A . B over GF(2^8).
-//   Bound on the card: device-memory bytes, (k + p) * m.  The product is
-//   p*8 x k*8 (k*32 for nibble) int8 multiply-adds per column, about 1 % of
-//   the int8 tensor-core rate at the main path's shape; what is left is the
-//   in-register expansion of each loaded byte into planes, the refold, and
-//   the loads themselves.  Design:
+// gf_planes_kernel<W, EXPAND, REFOLD>: C = A . B over GF(2^W).
+//   Bound on the card: device-memory bytes, (k + p) * m * W / 8 (the
+//   pre-parity form writes p*W int32 rows instead: (k*W/8 + 4*p*W) * m).
+//   The product is p*W x k*W (k*32 for nibble) int8 multiply-adds per
+//   column, about 1 % of the int8 tensor-core rate at the main path's
+//   shape; what is left is the in-register expansion of each loaded symbol
+//   into planes, the refold, and the loads themselves.  Design:
 //   * The operator, zero-padded to (16*MT rows, 32*KC depth), is the A
 //     operand of mma.sync.m16n8k32.s8.  The wrapper packs it on the host in
 //     fragment order (uint4 per lane per (m-tile, depth chunk)); each block
@@ -41,14 +44,35 @@
 //     a warp's own region) from the C fragment layout into the B fragment
 //     layout, then a second mma (u8: F holds 2^s up to 128) multiplies them
 //     by the (p, p*8) bit-weight operator F.
+//   * Refold none (the pre-parity form, JAX's fold=False): each lane
+//     writes its C fragment's int32 accumulators, rows g and g + 8 of the
+//     m-tile at its 8 consecutive columns, as two 16-byte words a row;
+//     rows past p*W (the padded half m-tile at odd p, W=8) are not
+//     written.  The operator is the unscaled bit operator, so the sums are
+//     JAX's with acc_dtype=int8 value for value.
+//   * W=16.  Depth row i*16 + s is bit s of symbol i, so a 32-deep chunk c
+//     is two symbols: b0 of lane (g, t) is bits 4t..4t+3 of symbol 2c and
+//     b1 the same bits of symbol 2c + 1.  A lane reads its 4 columns of
+//     rows 2c and 2c + 1 as one 8-byte word each.  shift_raw's plane is
+//     the low byte of b >> s (JAX's int8 wrap; parity unchanged), sign's
+//     {0, -1}.  One m-tile is one symbol (rows g and g + 8 are bits g and
+//     g + 8): the sum refold ORs the parities over g as at W=8 and lane
+//     g = 0 stores 8 consecutive 16-bit outputs as one 16-byte word.  The
+//     dot refold's F would hold 2^s up to 2^15, past the u8 mma; so F' has
+//     two rows a symbol, in tiles of 8 symbols: row 16f + g weighs bits
+//     0-7 of symbol 8f + g by 2^s and row 16f + 8 + g bits 8-15 by
+//     2^(s-8).  Both sums stay below 256, and one lane holds both halves
+//     of a symbol (rows g and g + 8 of its fragment): out = lo | hi << 8.
+//     This keeps the dot refold on the exact u8 path of W=8 instead of an
+//     f16 mma with f32 accumulation and a float-to-int conversion.
 //   * pinned: every block reads the columns of block 0 and writes its own
 //     block, the compute-only ceiling (the input is served from L2).
 //   * tile is the number of columns a block covers (a multiple of 32); the
 //     ragged edge is masked per lane.
 //
-// gf_planes_sum_kernel<EXPAND>: the same product for the four byte
+// gf_planes_sum_kernel<EXPAND>: the same product at w=8 for the four byte
 //   expansions (shift, shift_raw, cmp, sign) with the sum refold;
-//   gf_planes_kernel runs the other pairs.  Bound as above; what costs
+//   gf_planes_kernel runs every other instance.  Bound as above; what costs
 //   instruction slots is building the planes and refolding, so the design
 //   cuts both per column:
 //   * The operator scaled by 2^s.  The host packs output plane s's operator
@@ -112,20 +136,20 @@ constexpr int kSumStepCols = 8 * kSumGroups;   // columns a warp step
 constexpr int kSumStages = 3;                  // step buffers a warp, at most
 
 enum Expand { kShift = 0, kShiftRaw = 1, kCmp = 2, kSign = 3, kNibble = 4 };
-enum Refold { kSum = 0, kDot = 1 };
+enum Refold { kSum = 0, kDot = 1, kNone = 2 };
 
 struct Dims {
-  int mt;  // 16-row m-tiles of the operator (p*8 rows)
+  int mt;  // 16-row m-tiles of the operator (p*w rows)
   int kc;  // 32-deep chunks of the operator's depth
-  int mf;  // 16-row m-tiles of F (p rows)
+  int mf;  // 16-row m-tiles of F (16 symbols a tile at w=8, 8 at w=16)
   int kf;  // 32-deep chunks of F (16*mt columns)
 };
 
-__host__ __device__ inline Dims dims(int k, int p, int expand) {
+__host__ __device__ inline Dims dims(int k, int p, int w, int expand) {
   Dims d;
-  d.mt = (p * 8 + 15) / 16;
-  d.kc = expand == kNibble ? k : (k * 8 + 31) / 32;
-  d.mf = (p + 15) / 16;
+  d.mt = (p * w + 15) / 16;
+  d.kc = expand == kNibble ? k : (k * w + 31) / 32;
+  d.mf = w == 8 ? (p + 15) / 16 : (p + 7) / 8;
   d.kf = (d.mt * 16 + 31) / 32;
   return d;
 }
@@ -155,10 +179,14 @@ __device__ __forceinline__ void mma_u8(int (&d)[4], const uint4& a,
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
-// Four int8 planes (bits s0..s0+3 of byte b), plane s0 in the low byte.
-template <int EXPAND>
+// Four int8 planes (bits s0..s0+3 of symbol b), plane s0 in the low byte.
+template <int W, int EXPAND>
 __device__ __forceinline__ uint32_t expand4(uint32_t b, int s0) {
   if (EXPAND == kShiftRaw) {
+    if (W == 16) {  // the low byte of each b >> s: JAX's int8 wrap
+      return ((b >> s0) & 0xFFu) | (((b >> (s0 + 1)) & 0xFFu) << 8) |
+             (((b >> (s0 + 2)) & 0xFFu) << 16) | ((b >> (s0 + 3)) << 24);
+    }
     return (b >> s0) | ((b >> (s0 + 1)) << 8) | ((b >> (s0 + 2)) << 16) |
            ((b >> (s0 + 3)) << 24);
   }
@@ -190,6 +218,30 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* __restrict__ B,
   return w;
 }
 
+// The 16-bit symbols of 4 columns (col0 .. col0+3) of one row, zero past
+// the edge.  `vec`: rows start 8-byte aligned (one 8-byte load).
+__device__ __forceinline__ void load4_16(const uint16_t* __restrict__ B,
+                                         int row, int k, long long m,
+                                         long long col0, bool vec,
+                                         uint32_t (&s)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j] = 0u;
+  if (row >= k) return;
+  const uint16_t* src = B + (size_t)row * m + col0;
+  if (vec && col0 + 3 < m) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    s[0] = v.x & 0xFFFFu;
+    s[1] = v.x >> 16;
+    s[2] = v.y & 0xFFFFu;
+    s[3] = v.y >> 16;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (col0 + j < m) s[j] = src[j];
+  }
+}
+
 // Store 8 consecutive output bytes of one symbol row.
 __device__ __forceinline__ void store8(uint8_t* __restrict__ C, int sym,
                                        long long m, long long col0,
@@ -205,14 +257,49 @@ __device__ __forceinline__ void store8(uint8_t* __restrict__ C, int sym,
   }
 }
 
-template <int EXPAND, int REFOLD>
+// Store 8 consecutive 16-bit outputs v[0..7] of one symbol row.  `vec`:
+// rows start 16-byte aligned.
+__device__ __forceinline__ void store8_16(uint16_t* __restrict__ C, int sym,
+                                          long long m, long long col0,
+                                          const uint32_t (&v)[8], bool vec) {
+  uint16_t* dst = C + (size_t)sym * m + col0;
+  if (vec && col0 + 7 < m) {
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(v[0] | (v[1] << 16), v[2] | (v[3] << 16),
+                   v[4] | (v[5] << 16), v[6] | (v[7] << 16));
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (col0 + j < m) dst[j] = (uint16_t)v[j];
+  }
+}
+
+// Store 8 consecutive int32 accumulators v[0..7] of one operator row.
+// `vec`: rows start 16-byte aligned.
+__device__ __forceinline__ void store8_32(int* __restrict__ C, int row,
+                                          long long m, long long col0,
+                                          const int (&v)[8], bool vec) {
+  int* dst = C + (size_t)row * m + col0;
+  if (vec && col0 + 7 < m) {
+    reinterpret_cast<int4*>(dst)[0] = make_int4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<int4*>(dst)[1] = make_int4(v[4], v[5], v[6], v[7]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (col0 + j < m) dst[j] = v[j];
+  }
+}
+
+template <int W, int EXPAND, int REFOLD>
 __global__ void __launch_bounds__(kThreads)
     gf_planes_kernel(const uint4* __restrict__ opA,
                      const uint4* __restrict__ opF,
-                     const uint8_t* __restrict__ B, uint8_t* __restrict__ C,
+                     const void* __restrict__ Bv, void* __restrict__ Cv,
                      int k, int p, long long m, int tile, int pinned) {
   extern __shared__ uint4 smem[];
-  const Dims d = dims(k, p, EXPAND);
+  const Dims d = dims(k, p, W, EXPAND);
   const int na = d.mt * d.kc * 32;
   const int nf = REFOLD == kDot ? d.mf * d.kf * 32 : 0;
   uint4* a_s = smem;
@@ -220,6 +307,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < na; i += kThreads) a_s[i] = opA[i];
   for (int i = threadIdx.x; i < nf; i += kThreads) f_s[i] = opF[i];
   __syncthreads();
+
+  const uint8_t* B = static_cast<const uint8_t*>(Bv);
+  const uint16_t* B16 = static_cast<const uint16_t*>(Bv);
+  uint8_t* C = static_cast<uint8_t*>(Cv);
+  uint16_t* C16 = static_cast<uint16_t*>(Cv);
+  int* C32 = static_cast<int*>(Cv);
+  const bool vec_in = ((uintptr_t)Bv & 7) == 0 && (m & 3) == 0;
+  const bool vec_out = ((uintptr_t)Cv & 15) == 0 &&
+                       (m & (REFOLD == kNone ? 3 : 7)) == 0;
+  const int rows_out = p * W;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -255,14 +352,24 @@ __global__ void __launch_bounds__(kThreads)
             bf[j][0] = (hi >> 2) == (uint32_t)t ? 1u << (8 * (hi & 3)) : 0u;
             bf[j][1] = (lo >> 2) == (uint32_t)t ? 1u << (8 * (lo & 3)) : 0u;
           }
+        } else if (W == 16) {
+          // Chunk c: bits 4t..4t+3 of symbols 2c (b0) and 2c + 1 (b1).
+          uint32_t s0[4], s1[4];
+          load4_16(B16, 2 * c, k, m, rcol, vec_in, s0);
+          load4_16(B16, 2 * c + 1, k, m, rcol, vec_in, s1);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            bf[j][0] = expand4<W, EXPAND>(s0[j], 4 * t);
+            bf[j][1] = expand4<W, EXPAND>(s1[j], 4 * t);
+          }
         } else {
           const int s0 = (t & 1) * 4;
           const uint32_t w0 = load4(B, c * 4 + (t >> 1), k, m, rcol);
           const uint32_t w1 = load4(B, c * 4 + 2 + (t >> 1), k, m, rcol);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            bf[j][0] = expand4<EXPAND>((w0 >> (8 * j)) & 0xFFu, s0);
-            bf[j][1] = expand4<EXPAND>((w1 >> (8 * j)) & 0xFFu, s0);
+            bf[j][0] = expand4<W, EXPAND>((w0 >> (8 * j)) & 0xFFu, s0);
+            bf[j][1] = expand4<W, EXPAND>((w1 >> (8 * j)) & 0xFFu, s0);
           }
         }
 #pragma unroll
@@ -279,10 +386,26 @@ __global__ void __launch_bounds__(kThreads)
       for (int u = 0; u < 2; ++u) {
         const int mt = mg + u;
         if (mt >= d.mt) continue;
-        if (REFOLD == kSum) {
-          // Rows 0-7 of the m-tile are symbol 2*mt, rows 8-15 symbol
-          // 2*mt + 1; lane g holds bit g of both.
+        if (REFOLD == kNone) {
+          // Row mt*16 + g (regs 0, 1) and + 8 (regs 2, 3); regs 0 and 2 at
+          // column 8t + j, regs 1 and 3 at 8t + 4 + j.
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = mt * 16 + g + 8 * h;
+            int v[8];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              v[j] = acc[u][j][2 * h];
+              v[4 + j] = acc[u][j][2 * h + 1];
+            }
+            if (row < rows_out) store8_32(C32, row, m, base + 8 * t, v, vec_out);
+          }
+        } else if (REFOLD == kSum) {
+          // W=8: rows 0-7 of the m-tile are symbol 2*mt, rows 8-15 symbol
+          // 2*mt + 1; W=16: rows 0-15 are bits 0-15 of symbol mt.  Lane g
+          // holds bit g (and g + 8).
           uint32_t lo = 0, hi = 0;
+          uint32_t v16[8];
           const int sel = g == 0 ? 0 : 16;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -294,11 +417,22 @@ __global__ void __launch_bounds__(kThreads)
             v |= __shfl_xor_sync(0xffffffffu, v, 4);
             v |= __shfl_xor_sync(0xffffffffu, v, 8);
             v |= __shfl_xor_sync(0xffffffffu, v, 16);
-            lo |= ((v >> sel) & 0xFFu) << (8 * j);
-            hi |= ((v >> (sel + 8)) & 0xFFu) << (8 * j);
+            if (W == 16) {
+              // Bytes: bits 0-7 at 8t + j, at 8t + 4 + j, bits 8-15 at
+              // 8t + j, at 8t + 4 + j.
+              v16[j] = (v & 0xFFu) | ((v >> 8) & 0xFF00u);
+              v16[4 + j] = ((v >> 8) & 0xFFu) | ((v >> 16) & 0xFF00u);
+            } else {
+              lo |= ((v >> sel) & 0xFFu) << (8 * j);
+              hi |= ((v >> (sel + 8)) & 0xFFu) << (8 * j);
+            }
           }
-          const int sym = 2 * mt + g;
-          if (g < 2 && sym < p) store8(C, sym, m, base + 8 * t, lo, hi);
+          if (W == 16) {
+            if (g == 0) store8_16(C16, mt, m, base + 8 * t, v16, vec_out);
+          } else {
+            const int sym = 2 * mt + g;
+            if (g < 2 && sym < p) store8(C, sym, m, base + 8 * t, lo, hi);
+          }
         } else {
           // Parity bits, column-major per warp: bits_s[col * rows + row],
           // col = 4n + j for n-index n of column group j.
@@ -332,17 +466,30 @@ __global__ void __launch_bounds__(kThreads)
                    *reinterpret_cast<const uint32_t*>(col + 16));
           }
         }
-        uint32_t lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
+        if (W == 16) {
+          // Rows g and g + 8 of F' tile f: bits 0-7 and 8-15 of symbol
+          // 8f + g.
+          uint32_t v16[8];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          lo0 |= ((uint32_t)out[j][0] & 0xFFu) << (8 * j);
-          hi0 |= ((uint32_t)out[j][1] & 0xFFu) << (8 * j);
-          lo1 |= ((uint32_t)out[j][2] & 0xFFu) << (8 * j);
-          hi1 |= ((uint32_t)out[j][3] & 0xFFu) << (8 * j);
+          for (int j = 0; j < 4; ++j) {
+            v16[j] = ((uint32_t)out[j][0] & 0xFFu) | (((uint32_t)out[j][2] & 0xFFu) << 8);
+            v16[4 + j] = ((uint32_t)out[j][1] & 0xFFu) | (((uint32_t)out[j][3] & 0xFFu) << 8);
+          }
+          const int sym = f * 8 + g;
+          if (sym < p) store8_16(C16, sym, m, base + 8 * t, v16, vec_out);
+        } else {
+          uint32_t lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            lo0 |= ((uint32_t)out[j][0] & 0xFFu) << (8 * j);
+            hi0 |= ((uint32_t)out[j][1] & 0xFFu) << (8 * j);
+            lo1 |= ((uint32_t)out[j][2] & 0xFFu) << (8 * j);
+            hi1 |= ((uint32_t)out[j][3] & 0xFFu) << (8 * j);
+          }
+          const int sym = f * 16 + g;
+          if (sym < p) store8(C, sym, m, base + 8 * t, lo0, hi0);
+          if (sym + 8 < p) store8(C, sym + 8, m, base + 8 * t, lo1, hi1);
         }
-        const int sym = f * 16 + g;
-        if (sym < p) store8(C, sym, m, base + 8 * t, lo0, hi0);
-        if (sym + 8 < p) store8(C, sym + 8, m, base + 8 * t, lo1, hi1);
       }
       __syncwarp();
     }
@@ -597,24 +744,23 @@ int launch_planes_sum(const void* opA, const void* B, void* C, int k, int p,
   return (int)cudaGetLastError();
 }
 
-template <int EXPAND, int REFOLD>
+template <int W, int EXPAND, int REFOLD>
 int launch_planes(const void* opA, const void* opF, const void* B, void* C,
                   int k, int p, long long m, int tile, int pinned,
                   cudaStream_t stream) {
-  const size_t smem = planes_smem(dims(k, p, EXPAND), REFOLD);
+  const size_t smem = planes_smem(dims(k, p, W, EXPAND), REFOLD);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        gf_planes_kernel<EXPAND, REFOLD>,
+        gf_planes_kernel<W, EXPAND, REFOLD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const long long blocks = (m + tile - 1) / tile;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  gf_planes_kernel<EXPAND, REFOLD><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const uint4*>(opA), static_cast<const uint4*>(opF),
-      static_cast<const uint8_t*>(B), static_cast<uint8_t*>(C), k, p, m,
-      tile, pinned);
+  gf_planes_kernel<W, EXPAND, REFOLD><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const uint4*>(opA), static_cast<const uint4*>(opF), B, C, k,
+      p, m, tile, pinned);
   return (int)cudaGetLastError();
 }
 
@@ -664,11 +810,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The (expand, refold) pairs gf_planes_kernel runs: every dot refold and
-// nibble's sum.  The byte expansions' sum refold is gf_planes_sum_kernel.
-#define RS_PLANES_PAIRS(X)                                   \
-  X(kShift, kDot) X(kShiftRaw, kDot) X(kCmp, kDot) X(kSign, kDot) \
-  X(kNibble, kSum) X(kNibble, kDot)
+// The (w, expand, refold) instances gf_planes_kernel runs: at w=8 every
+// dot refold, nibble's sum and every pre-parity form (refold none); at
+// w=16 the three lane-width expansions with every refold.  The byte
+// expansions' sum refold at w=8 is gf_planes_sum_kernel.
+#define RS_PLANES_INSTANCES(X)                                             \
+  X(8, kShift, kDot) X(8, kShiftRaw, kDot) X(8, kCmp, kDot) X(8, kSign, kDot) \
+  X(8, kNibble, kSum) X(8, kNibble, kDot)                                  \
+  X(8, kShift, kNone) X(8, kShiftRaw, kNone) X(8, kCmp, kNone)             \
+  X(8, kSign, kNone) X(8, kNibble, kNone)                                  \
+  X(16, kShift, kSum) X(16, kShiftRaw, kSum) X(16, kSign, kSum)            \
+  X(16, kShift, kDot) X(16, kShiftRaw, kDot) X(16, kSign, kDot)            \
+  X(16, kShift, kNone) X(16, kShiftRaw, kNone) X(16, kSign, kNone)
 #define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign)
 
 }  // namespace
@@ -679,36 +832,39 @@ const char* rs_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory the GEMM needs at (k, p), in bytes, and its limit.
-// For the byte expansions' sum refold: the least, with one step buffer a
-// warp (the launch takes up to kSumStages that fit).
-long long rs_gf_planes_smem(int k, int p, int expand, int refold) {
-  if (refold == kSum && expand != kNibble) return (long long)sum_smem(k, p, 1);
-  return (long long)planes_smem(dims(k, p, expand), refold);
+// Dynamic shared memory the GEMM needs at (k, p, w), in bytes, and its
+// limit.  For the byte expansions' sum refold at w=8: the least, with one
+// step buffer a warp (the launch takes up to kSumStages that fit).
+long long rs_gf_planes_smem(int k, int p, int w, int expand, int refold) {
+  if (w == 8 && refold == kSum && expand != kNibble) return (long long)sum_smem(k, p, 1);
+  return (long long)planes_smem(dims(k, p, w, expand), refold);
 }
 int rs_gf_planes_smem_limit() { return kMaxSmem; }
 
-// C = A . B over GF(2^8) with the (expand, refold) formulation.
+// C = A . B over GF(2^w) with the (expand, refold) formulation.
 //   opA: operator fragments, opF: F fragments (refold dot; else unused).
-//   B: (k, m) uint8, C: (p, m) uint8, row-major.  tile: columns per block,
-//   a positive multiple of kSumStepCols.  pinned != 0: every block reads
-//   block 0.  The byte expansions' sum refold runs gf_planes_sum_kernel
-//   (opA packed for it), every other pair gf_planes_kernel.
+//   B: (k, m) uint8 (w=8) or uint16 (w=16), row-major.  C: (p, m) of B's
+//   type, or for refold none the (p*w, m) int32 accumulators.  tile:
+//   columns per block, a positive multiple of kSumStepCols.  pinned != 0:
+//   every block reads block 0.  The byte expansions' sum refold at w=8
+//   runs gf_planes_sum_kernel (opA packed for it), every other instance
+//   gf_planes_kernel.  An instance not in the source returns
+//   cudaErrorInvalidValue.
 int rs_gf_planes(const void* opA, const void* opF, const void* B, void* C,
-                 int k, int p, long long m, int tile, int expand, int refold,
-                 int pinned, void* stream) {
+                 int k, int p, long long m, int tile, int w, int expand,
+                 int refold, int pinned, void* stream) {
   if (k <= 0 || p <= 0 || m < 0 || tile <= 0 || tile % kSumStepCols) {
     return (int)cudaErrorInvalidValue;
   }
   if (m == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RS_CALL(E, R)                                                   \
-  if (expand == E && refold == R)                                       \
-    return launch_planes<E, R>(opA, opF, B, C, k, p, m, tile, pinned, s);
-  RS_PLANES_PAIRS(RS_CALL)
+#define RS_CALL(WW, E, R)                                                  \
+  if (w == WW && expand == E && refold == R)                               \
+    return launch_planes<WW, E, R>(opA, opF, B, C, k, p, m, tile, pinned, s);
+  RS_PLANES_INSTANCES(RS_CALL)
 #undef RS_CALL
 #define RS_CALL_SUM(E)                                                  \
-  if (expand == E && refold == kSum)                                    \
+  if (w == 8 && expand == E && refold == kSum)                          \
     return launch_planes_sum<E>(opA, B, C, k, p, m, tile, pinned, s);
   RS_SUM_EXPANDS(RS_CALL_SUM)
 #undef RS_CALL_SUM

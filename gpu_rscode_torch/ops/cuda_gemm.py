@@ -18,20 +18,39 @@ matrix.
 ``expand`` names one of the JAX package's expansion formulations; it sends
 the product to the kernel that computes it on the card (:data:`EXPANSIONS`):
 ``"pack2"`` to K2 (:mod:`.cuda_pack2`), every other name to K3's GEMM
-(:mod:`.cuda_planes`).  The lane-width variants were ways around the TPU
-compiler's refusals; on the card one 32-bit register already holds four
-bytes, so their algebra is the base expansion's.
+(:mod:`.cuda_planes`), folded or pre-parity, at w=8 and (``shift``,
+``shift_raw``, ``sign``) w=16.  The lane-width variants were ways around
+the TPU compiler's refusals; on the card one 32-bit register already holds
+four bytes, so their algebra is the base expansion's.
+
+The JAX package's environment knobs choose the formulation of every
+dispatch that names none: ``RS_PALLAS_EXPAND``, ``RS_PALLAS_REFOLD``
+(``sum``, ``dot`` or ``autotune``) and ``RS_PALLAS_TILE``, resolved, with
+their warnings on an unknown or inapplicable value, as
+``gf_matmul_pallas`` resolves them.  With no knob set and no ``expand``,
+``refold`` or ``tile`` given, a dispatch runs K1.  ``refold="autotune"``
+times the sum and the dot refold once per dispatch class on the actual
+operands (:func:`_time_refold`) and keeps the faster (dot only when it
+takes under :data:`_AUTOTUNE_MARGIN` of sum's time) in a lock-guarded
+cache (:func:`autotune_decisions`, :func:`clear_autotune_cache`); a plan
+times its own candidates (:func:`calibrate_aot_refold`) and the mesh takes
+:func:`static_refold`.  Unlike the JAX package's calibration, nothing
+catches a candidate's failure: on CUDA a variant that fails raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
+import time
+import warnings
 
 import numpy as np
 import torch
 
 from . import _build
+from ..obs import metrics as _obs_metrics
 from .gemm import coefficients, gf_matmul_bitplane
 from .gf import get_field
 
@@ -118,7 +137,7 @@ def _device_operator(kind: str, A: np.ndarray, w: int, layout: tuple, pack, devi
 
 
 # JAX expansion name -> the card's kernel: "pack2" is K2, the rest K3's
-# GEMM with the named expansion.
+# GEMM with the named expansion.  "cmp" and "signc" are the sweep's names.
 EXPANSIONS = {
     "shift": "shift", "packed32": "shift", "shift_u8": "shift",
     "shift_raw": "shift_raw",
@@ -129,11 +148,134 @@ EXPANSIONS = {
 }
 # Byte-granular formulations: GF(2^8) only.
 BYTE_ONLY = frozenset(EXPANSIONS) - {"shift", "shift_raw", "sign"}
+# The names gf_matmul_pallas takes, which RS_PALLAS_EXPAND may name.
+JAX_NAMES = frozenset(EXPANSIONS) - {"cmp", "signc"}
+DEFAULT_EXPAND = "shift_raw"
+KNOBS = ("RS_PALLAS_EXPAND", "RS_PALLAS_REFOLD", "RS_PALLAS_TILE")
+
+
+def knobs_set() -> bool:
+    """Whether any of the RS_PALLAS_* knobs is set (non-empty)."""
+    return any(os.environ.get(var) for var in KNOBS)
 
 
 def _default_refold(w: int) -> str:
     """"dot" at w=8, "sum" elsewhere, as the JAX package defaults."""
     return "dot" if w == 8 else "sum"
+
+
+def _env_fallback(reason: str, to, label: str | None = None):
+    """The JAX package's warn-and-fall-back for an unknown or inapplicable
+    RS_PALLAS_* value: one warning naming the default taken."""
+    warnings.warn(f"{reason}; using {label or repr(to)}", stacklevel=3)
+    return to
+
+
+# refold="autotune" decisions by dispatch class (the JAX package's key
+# without acc_dtype, with the device in place of interpret), written once a
+# key under the lock.  Readers use autotune_decisions().
+_AUTOTUNE_CACHE: dict = {}
+_AUTOTUNE_LOCK = threading.Lock()
+# dot ships only when it takes under this share of sum's time: ties and
+# noise go to the stable sum, as in the JAX package.
+_AUTOTUNE_MARGIN = 0.9
+
+
+def autotune_decisions() -> dict:
+    """A copy of the refold="autotune" decisions: dispatch class -> "sum"
+    or "dot"."""
+    with _AUTOTUNE_LOCK:
+        return dict(_AUTOTUNE_CACHE)
+
+
+def clear_autotune_cache() -> None:
+    """Drop every refold="autotune" decision (the plan cache's clear does
+    this too)."""
+    with _AUTOTUNE_LOCK:
+        _AUTOTUNE_CACHE.clear()
+
+
+def _sync(out) -> None:
+    if isinstance(out, torch.Tensor) and out.is_cuda:
+        torch.cuda.synchronize(out.device)
+
+
+def _time_refold(run) -> float:
+    """Best-of-2 wall seconds of ``run()`` after one warm-up call, each
+    call synchronised with the card.  Module-level so that tests can
+    replace it; nothing catches what the warm-up raises."""
+    _sync(run())
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _sync(run())
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _choose(times: dict, mode: str, w: int) -> str:
+    choice = "dot" if times["dot"] < _AUTOTUNE_MARGIN * times["sum"] else "sum"
+    _obs_metrics.counter("rs_pallas_autotune_total", "refold autotune calibrations by winning candidate").labels(
+        choice=choice, mode=mode, w=w).inc()
+    return choice
+
+
+def _dtype_name(x) -> str:
+    if isinstance(x, torch.Tensor):
+        return str(x.dtype).removeprefix("torch.")
+    return np.asarray(x).dtype.name
+
+
+def _autotune_refold(A, B: torch.Tensor, w: int, tile: int, expand: str) -> str:
+    """refold="autotune" resolved to "sum" or "dot": both K3 variants timed
+    once on the actual operands, the decision cached by dispatch class."""
+    from . import cuda_planes
+
+    key = (tuple(np.shape(A)), _dtype_name(A), tuple(B.shape), _dtype_name(B), w, tile, expand, str(B.device))
+    with _AUTOTUNE_LOCK:
+        hit = _AUTOTUNE_CACHE.get(key)
+    if hit is not None:
+        return hit
+    kexp = EXPANSIONS[expand]
+    times = {cand: _time_refold(lambda cand=cand: cuda_planes.gf_matmul_planes(A, B, kexp, cand, tile, w=w))
+             for cand in ("sum", "dot")}
+    choice = _choose(times, "eager", w)
+    with _AUTOTUNE_LOCK:
+        return _AUTOTUNE_CACHE.setdefault(key, choice)
+
+
+def static_refold(w: int) -> str | None:
+    """RS_PALLAS_REFOLD resolved with no calibration and no warning for
+    "autotune" (the per-width default), as the JAX package's mesh path
+    resolves it.  None where no refold applies: no knob is set (the
+    dispatch runs K1) or RS_PALLAS_EXPAND is pack2 at w=8.  An unknown
+    value warns and takes the default."""
+    if not knobs_set() or (os.environ.get("RS_PALLAS_EXPAND") == "pack2" and w == 8):
+        return None
+    env = os.environ.get("RS_PALLAS_REFOLD")
+    if env in ("sum", "dot"):
+        return env
+    if env and env != "autotune":
+        return _env_fallback(f"RS_PALLAS_REFOLD={env!r} is unknown", _default_refold(w))
+    return _default_refold(w)
+
+
+def plan_refold_resolution(w: int) -> str | None:
+    """The refold a plan pins: :func:`static_refold`, or "autotune" when
+    RS_PALLAS_REFOLD asks for it and a refold applies (the plan then times
+    its own candidates, :func:`calibrate_aot_refold`)."""
+    s = static_refold(w)
+    if s is not None and os.environ.get("RS_PALLAS_REFOLD") == "autotune":
+        return "autotune"
+    return s
+
+
+def calibrate_aot_refold(w: int, run_variant) -> str:
+    """A plan's refold="autotune": ``run_variant(refold)`` (the plan's own
+    dispatch with that refold, on its operands) timed for "sum" and "dot".
+    The eager decision cache is neither read nor written."""
+    times = {cand: _time_refold(lambda cand=cand: run_variant(cand)) for cand in ("sum", "dot")}
+    return _choose(times, "aot", w)
 
 
 def gf_matmul_cuda(A, B: torch.Tensor, w: int = 8, fold_parity: bool = True, expand: str | None = None,
@@ -145,23 +287,54 @@ def gf_matmul_cuda(A, B: torch.Tensor, w: int = 8, fold_parity: bool = True, exp
     Returns (p, m) symbols of B's dtype or, with ``fold_parity=False``, the
     (p*w, m) int32 bit-plane accumulators (pre-parity form).
 
-    ``expand=None`` runs K1 (the bit-sliced kernel, or with
-    ``fold_parity=False`` the popcount kernel), which takes no ``refold`` or
-    ``tile``.  A named
-    expansion (a key of :data:`EXPANSIONS`) runs K2 or K3 at w=8 with
-    folded output; ``refold`` ("sum" or "dot") defaults to "dot" at w=8,
-    ``tile`` is the columns a CUDA block covers.
+    With no ``expand``, ``refold`` or ``tile`` and no RS_PALLAS_* knob set
+    this runs K1 (the bit-sliced kernel, or with ``fold_parity=False`` the
+    popcount kernel).  Otherwise the formulation resolves as
+    ``gf_matmul_pallas`` resolves it: ``expand`` from the argument, then
+    RS_PALLAS_EXPAND, then "shift_raw"; a name of :data:`EXPANSIONS` runs
+    K2 (pack2, w=8, folded) or K3 at w=8 or 16.  ``refold`` ("sum", "dot"
+    or "autotune"; then RS_PALLAS_REFOLD) defaults to "dot" at w=8 and
+    "sum" at w=16; the pre-parity form has no refold.  ``tile`` (then
+    RS_PALLAS_TILE) is the columns a CUDA block covers.
     """
-    if expand is not None:
-        return _gf_matmul_expand(A, B, w, fold_parity, expand, refold, tile)
-    if refold is not None or tile is not None:
-        raise ValueError("refold and tile apply to an explicit expand; expand=None runs K1, which takes neither")
-    return _gf_matmul_k1(A, B, w, fold_parity)
+    if expand is None and refold is None and tile is None and not knobs_set():
+        return _gf_matmul_k1(A, B, w, fold_parity)
+    return _gf_matmul_expand(A, B, w, fold_parity, expand, refold, tile)
+
+
+def _env_tile():
+    env = os.environ.get("RS_PALLAS_TILE")
+    if not env:
+        return None
+    try:
+        tile = int(env)
+        if tile <= 0:
+            raise ValueError(env)
+    except ValueError:
+        return _env_fallback(f"RS_PALLAS_TILE={env!r} is not a positive integer", None, label="the measured default")
+    if tile % 128:
+        aligned = -(-tile // 128) * 128
+        warnings.warn(f"RS_PALLAS_TILE={tile} is not a multiple of the 128-lane width; rounding up to {aligned}",
+                      stacklevel=3)
+        tile = aligned
+    return tile
 
 
 def _gf_matmul_expand(A, B, w, fold_parity, expand, refold, tile) -> torch.Tensor:
     from . import cuda_pack2, cuda_planes
 
+    from_env = False
+    if expand is None:
+        env = os.environ.get("RS_PALLAS_EXPAND")
+        from_env = bool(env)
+        if from_env:
+            expand = env
+            applies = expand in JAX_NAMES and (expand not in BYTE_ONLY or w == 8) and (expand != "sign" or w in (8, 16))
+            if not applies:
+                expand = _env_fallback(f"RS_PALLAS_EXPAND={expand!r} is unknown or does not apply at w={w}",
+                                       DEFAULT_EXPAND)
+        else:
+            expand = DEFAULT_EXPAND
     if expand not in EXPANSIONS:
         raise ValueError(f"unknown expand {expand!r}")
     if expand == "sign" and w not in (8, 16):
@@ -170,14 +343,39 @@ def _gf_matmul_expand(A, B, w, fold_parity, expand, refold, tile) -> torch.Tenso
         )
     if expand in BYTE_ONLY and w != 8:
         raise ValueError(f"expand={expand!r} is a GF(2^8) (byte-granular) strategy, got w={w}")
+    if w not in (8, 16):
+        raise ValueError(f"expand={expand!r} at w={w}: the card's named-expansion kernels run at w=8 and w=16")
+    if expand == "pack2" and not fold_parity:
+        why = "pack2 cannot emit pre-parity accumulators"
+        if from_env:
+            expand = _env_fallback(f"RS_PALLAS_EXPAND=pack2 does not apply here ({why})", DEFAULT_EXPAND)
+        else:
+            raise ValueError(why)
+    if tile is None:
+        tile = _env_tile()
     if expand == "pack2":
         return cuda_pack2.gf_matmul_pack2(A, B, w, fold_parity, refold, tile)
-    if w != 8:
-        raise ValueError(f"expand={expand!r} at w={w}: the K3 planes formulations are ported at w=8 only")
-    if not fold_parity:
-        raise ValueError("the K3 formulations emit folded symbols; pre-parity accumulators come from expand=None (K1)")
-    refold = _default_refold(w) if refold is None else refold
-    return cuda_planes.gf_matmul_planes(A, B, EXPANSIONS[expand], refold, tile)
+    if refold is None:
+        default = _default_refold(w)
+        refold = os.environ.get("RS_PALLAS_REFOLD") or default
+        if refold not in ("sum", "dot", "autotune"):
+            refold = _env_fallback(f"RS_PALLAS_REFOLD={refold!r} is unknown", default)
+    if refold not in ("sum", "dot", "autotune"):
+        raise ValueError(f"unknown refold {refold!r}")
+    if refold == "autotune":
+        if not fold_parity:
+            # The pre-parity form has no refold stage to tune.
+            refold = _default_refold(w)
+        elif isinstance(B, torch.Tensor) and B.is_cuda and torch.cuda.is_current_stream_capturing():
+            # A capture runs nothing: there is nothing to time.
+            refold = _env_fallback("refold='autotune' cannot calibrate under a CUDA graph capture; call the "
+                                   "dispatch eagerly to calibrate", _default_refold(w))
+        else:
+            cuda_planes._check_data(B, "gf_matmul_cuda", w)
+            refold = _autotune_refold(A, B, w, cuda_planes.DEFAULT_TILE if tile is None else tile, expand)
+    _obs_metrics.counter("rs_pallas_refold_total", "resolved refold choices at kernel dispatch").labels(
+        refold=refold, expand=expand, w=w).inc()
+    return cuda_planes.gf_matmul_planes(A, B, EXPANSIONS[expand], refold if fold_parity else "none", tile, w=w)
 
 
 def _gf_matmul_k1(A, B: torch.Tensor, w: int, fold_parity: bool) -> torch.Tensor:

@@ -19,6 +19,7 @@ launch error.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -26,9 +27,14 @@ import torch
 from . import _build
 from .gemm import PLAIN_BLOCK_COLS, _dot_bits, coefficients, expand_bitmatrix
 
-# Kernel launches since the count was last reset.  Only the launch below
-# adds to it.
+# Kernel launches since the counts were last reset.  Only the launch below
+# adds to LAUNCHES (an eager launch) or CAPTURED (a launch recorded into a
+# CUDA graph, which runs nothing then); the plan layer adds to REPLAYED the
+# launches its graph replays ran.  Every addition holds COUNT_LOCK.
 LAUNCHES = 0
+CAPTURED = 0
+REPLAYED = 0
+COUNT_LOCK = threading.Lock()
 
 K_SLICE = 31  # data symbols per carry-free depth slice: 31 * 8 = 248 < 256
 TILE_STEP = 128  # the kernel's column granularity: one warp step
@@ -141,7 +147,7 @@ def gf_matmul_pack2(A, B: torch.Tensor, w: int = 8, fold_parity: bool = True, re
     most ``m`` rounded up the same way; default 2048).
     Returns (p, m) uint8.
     """
-    global LAUNCHES
+    global LAUNCHES, CAPTURED
     check_call(w, fold_parity, refold)
     if not isinstance(B, torch.Tensor):
         raise TypeError(f"B must be a tensor, got {type(B).__name__}")
@@ -172,5 +178,10 @@ def gf_matmul_pack2(A, B: torch.Tensor, w: int = 8, fold_parity: bool = True, re
         err = lib.rs_gf_pack2(op.data_ptr(), B.data_ptr(), C.data_ptr(), k, p, m2, tile,
                               torch.cuda.current_stream(B.device).cuda_stream)
     _build.check(lib, err, "gf_pack2")
-    LAUNCHES += 1
+    capturing = torch.cuda.is_current_stream_capturing()
+    with COUNT_LOCK:
+        if capturing:
+            CAPTURED += 1
+        else:
+            LAUNCHES += 1
     return C[:, :m].contiguous() if pad else C

@@ -1,18 +1,21 @@
-"""K3, the bit-plane GF(2^8) GEMMs on the int8 tensor cores and the copy
+"""K3, the bit-plane GF(2^w) GEMMs on the int8 tensor cores and the copy
 floor, as hand-written CUDA kernels: the counterpart of the JAX package's
 ``tools/kernel_sweep.py`` (``make_fn`` and its bodies) and of the expansion
 and refold variants of ``ops/pallas_gemm.py`` (``_kernel_body``).
 
-``gf_matmul_planes(A, B, expand, refold, tile, pinned)`` computes
-``C = A . B`` over GF(2^8): each data byte is expanded into int8 planes
-(``expand``), multiplied by the (p*8, k*8) bit operator, or by the
+``gf_matmul_planes(A, B, expand, refold, tile, pinned, w)`` computes
+``C = A . B`` over GF(2^w): each data symbol is expanded into int8 planes
+(``expand``), multiplied by the (p*w, k*w) bit operator, or by the
 (p*8, k*32) one-hot-nibble operator for ``"nibble"``, and the parity of
-each accumulator is refolded into output bytes by a shift-sum (``"sum"``) or
-by a second product with the (p, p*8) bit-weight operator F (``"dot"``).
-The byte expansions' sum refold (:data:`SUM_EXPANDS` with ``"sum"``) runs
-``gf_planes_sum_kernel``, with the operator scaled by 2^s and packed for
-four-symbol plane words (:func:`sum_operator`); every other pair runs
-``gf_planes_kernel``.
+each accumulator is refolded into output symbols by a shift-sum
+(``"sum"``) or by a second product with the bit-weight operator F
+(``"dot"``); ``"none"`` returns the (p*w, m) int32 accumulators instead
+(the pre-parity form, the JAX package's ``fold_parity=False``).  Every
+expansion runs at w=8; ``shift``, ``shift_raw`` and ``sign`` also at w=16
+(:data:`WIDE_EXPANDS`).  The byte expansions' sum refold at w=8
+(:data:`SUM_EXPANDS` with ``"sum"``) runs ``gf_planes_sum_kernel``, with
+the operator scaled by 2^s and packed for four-symbol plane words
+(:func:`sum_operator`); every other instance runs ``gf_planes_kernel``.
 With ``pinned=True`` every block of ``tile`` columns computes on the first
 block's columns: the compute-only ceiling, whose result is the first
 block's output repeated.
@@ -29,23 +32,36 @@ for a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
 from . import _build
-from .gemm import PLAIN_BLOCK_COLS, _dot_bits, coefficients, expand_bitmatrix, expand_nibblematrix
+from .gemm import (PLAIN_BLOCK_COLS, _dot_bits, _narrow, _widen, coefficients, expand_bitmatrix,
+                   expand_nibblematrix)
 
-# Launches since the counts were last reset; only the launches below add.
-LAUNCHES = 0  # gf_planes_kernel
-SUM_LAUNCHES = 0  # gf_planes_sum_kernel
-COPY_LAUNCHES = 0  # the copy floor
+# Launches since the counts were last reset, by kernel kind (KINDS, see
+# kind()): eager launches in LAUNCHES, launches recorded into a CUDA graph
+# (which run nothing then) in CAPTURED, and those the plan layer's graph
+# replays ran in REPLAYED (added by the plan layer).  Every addition holds
+# COUNT_LOCK.
+KINDS = ("planes", "sum", "w16", "preparity", "copy")
+LAUNCHES = dict.fromkeys(KINDS, 0)
+CAPTURED = dict.fromkeys(KINDS, 0)
+REPLAYED = dict.fromkeys(KINDS, 0)
+COUNT_LOCK = threading.Lock()
 
 EXPANDS = {"shift": 0, "shift_raw": 1, "cmp": 2, "sign": 3, "nibble": 4}
-REFOLDS = {"sum": 0, "dot": 1}
-# The kernel source instantiates every (expand, refold) pair.
-PAIRS = tuple((e, r) for e in EXPANDS for r in REFOLDS)
-# With refold "sum" these run gf_planes_sum_kernel.
+REFOLDS = {"sum": 0, "dot": 1, "none": 2}
+# The expansions the kernel source instantiates at w=16 (every refold).
+WIDE_EXPANDS = ("shift", "shift_raw", "sign")
+# The folded (expand, refold) pairs at w=8.
+PAIRS = tuple((e, r) for e in EXPANDS for r in ("sum", "dot"))
+# Every (w, expand, refold) instance the kernel source holds.
+INSTANCES = tuple((8, e, r) for e in EXPANDS for r in REFOLDS) + tuple(
+    (16, e, r) for e in WIDE_EXPANDS for r in REFOLDS)
+# With refold "sum" at w=8 these run gf_planes_sum_kernel.
 SUM_EXPANDS = ("shift", "shift_raw", "cmp", "sign")
 DEFAULT_TILE = 8192
 TILE_STEP = 64  # columns of gf_planes_sum_kernel's warp step; tiles are multiples
@@ -56,9 +72,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("gf_planes", SOURCES)
     if not hasattr(lib, "_rs_bound"):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.rs_gf_planes.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, i32, i32, i32, vp]
+        lib.rs_gf_planes.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, i32, i32, i32, i32, vp]
         lib.rs_gf_planes.restype = i32
-        lib.rs_gf_planes_smem.argtypes = [i32, i32, i32, i32]
+        lib.rs_gf_planes_smem.argtypes = [i32, i32, i32, i32, i32]
         lib.rs_gf_planes_smem.restype = i64
         lib.rs_gf_planes_smem_limit.argtypes = []
         lib.rs_gf_planes_smem_limit.restype = i32
@@ -77,16 +93,49 @@ def tile_cols(tile: int | None, m: int) -> int:
     return min(-(-tile // TILE_STEP) * TILE_STEP, max(TILE_STEP, -(-m // TILE_STEP) * TILE_STEP))
 
 
-def is_sum_pair(expand: str, refold: str) -> bool:
-    """Whether (expand, refold) runs gf_planes_sum_kernel."""
-    return refold == "sum" and expand in SUM_EXPANDS
+def is_sum_pair(expand: str, refold: str, w: int = 8) -> bool:
+    """Whether (expand, refold) at w runs gf_planes_sum_kernel."""
+    return w == 8 and refold == "sum" and expand in SUM_EXPANDS
 
 
-def _check_pair(expand: str, refold: str) -> None:
+def kind(w: int, expand: str, refold: str) -> str:
+    """The count an instance's launch adds to: "sum" (gf_planes_sum_kernel),
+    "preparity" (gf_planes_kernel, refold none), "w16" (gf_planes_kernel at
+    w=16, folded) or "planes" (gf_planes_kernel at w=8, folded)."""
+    if is_sum_pair(expand, refold, w):
+        return "sum"
+    if refold == "none":
+        return "preparity"
+    return "w16" if w == 16 else "planes"
+
+
+def reset_counts() -> None:
+    with COUNT_LOCK:
+        for counts in (LAUNCHES, CAPTURED, REPLAYED):
+            counts.update(dict.fromkeys(KINDS, 0))
+
+
+def runs(name: str) -> int:
+    """Kernels of kind ``name`` that ran since the counts were reset: eager
+    launches and launches inside graph replays."""
+    return LAUNCHES[name] + REPLAYED[name]
+
+
+def _count(name: str) -> None:
+    capturing = torch.cuda.is_current_stream_capturing()
+    with COUNT_LOCK:
+        (CAPTURED if capturing else LAUNCHES)[name] += 1
+
+
+def _check_pair(expand: str, refold: str, w: int = 8) -> None:
     if expand not in EXPANDS:
         raise ValueError(f"unknown expand {expand!r}; choose from {', '.join(EXPANDS)}")
     if refold not in REFOLDS:
         raise ValueError(f"unknown refold {refold!r}; choose from {', '.join(REFOLDS)}")
+    if w not in (8, 16):
+        raise ValueError(f"K3 runs at w=8 and w=16, got w={w}")
+    if w == 16 and expand not in WIDE_EXPANDS:
+        raise ValueError(f"expand={expand!r} is a GF(2^8) (byte-granular) strategy, got w={w}")
 
 
 # --- plain versions --------------------------------------------------------
@@ -96,13 +145,13 @@ def _wrap8(x: torch.Tensor) -> torch.Tensor:
     return ((x + 128) & 255) - 128
 
 
-def expand_planes(B: torch.Tensor, expand: str) -> torch.Tensor:
-    """(k, m) uint8 -> int8-valued int32 planes: (k*8, m), row i*8 + s for
+def expand_planes(B: torch.Tensor, expand: str, w: int = 8) -> torch.Tensor:
+    """(k, m) symbols -> int8-valued int32 planes: (k*w, m), row i*w + s for
     bit s of symbol i, or (k*32, m) for ``"nibble"`` (high-nibble one-hot
-    over low-nibble one-hot per symbol)."""
+    over low-nibble one-hot per byte)."""
     k, m = B.shape
-    b = B.to(torch.int32)[:, None, :]
-    s = torch.arange(8, dtype=torch.int32, device=B.device)[None, :, None]
+    b = _widen(B)[:, None, :]
+    s = torch.arange(w, dtype=torch.int32, device=B.device)[None, :, None]
     if expand == "shift":
         planes = (b >> s) & 1
     elif expand == "shift_raw":
@@ -110,61 +159,82 @@ def expand_planes(B: torch.Tensor, expand: str) -> torch.Tensor:
     elif expand == "cmp":
         planes = ((b & (1 << s)) != 0).to(torch.int32)
     elif expand == "sign":
-        bts = _wrap8(b)  # the byte seen as int8
-        planes = _wrap8(bts << (7 - s)) >> 7  # {0, -1}
+        planes = -((b >> s) & 1)  # {0, -1}
     elif expand == "nibble":
         v = torch.arange(16, dtype=torch.int32, device=B.device)[None, :, None]
         planes = torch.cat([(b >> 4) == v, (b & 0xF) == v], dim=1).to(torch.int32)
         return planes.reshape(k * 32, m)
     else:
         raise ValueError(f"unknown expand {expand!r}")
-    return planes.reshape(k * 8, m)
+    return planes.reshape(k * w, m)
 
 
-def fold_operator(p: int) -> np.ndarray:
-    """The (p, p*8) bit-weight operator F: F[i, i*8 + s] = 2^s."""
-    return np.kron(np.eye(p, dtype=np.int64), (1 << np.arange(8, dtype=np.int64))[None, :])
+def fold_operator(p: int, w: int = 8) -> np.ndarray:
+    """The (p, p*w) bit-weight operator F: F[i, i*w + s] = 2^s."""
+    return np.kron(np.eye(p, dtype=np.int64), (1 << np.arange(w, dtype=np.int64))[None, :])
 
 
-def _operator_bits(A: np.ndarray, expand: str, device=None) -> torch.Tensor:
+def fold_operator_split(p: int) -> np.ndarray:
+    """The w=16 kernel's F': (16 * ceil(p/8), p*16), in tiles of 8 symbols.
+    Row 16f + g holds 2^s at column i*16 + s for s < 8 and row 16f + 8 + g
+    2^(s-8) for s >= 8, where i = 8f + g: the low and high bytes of symbol
+    i, each a sum below 256."""
+    F = np.zeros((16 * -(-p // 8), p * 16), dtype=np.int64)
+    for i in range(p):
+        f, g = divmod(i, 8)
+        F[16 * f + g, i * 16:i * 16 + 8] = 1 << np.arange(8)
+        F[16 * f + 8 + g, i * 16 + 8:i * 16 + 16] = 1 << np.arange(8)
+    return F
+
+
+def _operator_bits(A: np.ndarray, expand: str, w: int = 8, device=None) -> torch.Tensor:
     if expand == "nibble":
         return expand_nibblematrix(A, 8, device)
-    return expand_bitmatrix(A, 8, device)
+    return expand_bitmatrix(A, w, device)
 
 
-def _planes_block(a_op: torch.Tensor, F, B: torch.Tensor, expand: str, refold: str) -> torch.Tensor:
-    p = a_op.shape[0] // 8
-    planes = expand_planes(B, expand).to(torch.int8)
+def _planes_block(a_op: torch.Tensor, F, B: torch.Tensor, expand: str, refold: str, w: int) -> torch.Tensor:
+    p = a_op.shape[0] // w
+    planes = expand_planes(B, expand, w).to(torch.int8)
     acc = _dot_bits(a_op, planes)
+    if refold == "none":
+        return acc
     bits = acc & 1
     if refold == "dot":
         out = _dot_bits(F, bits)
     else:
-        s = torch.arange(8, dtype=torch.int32, device=B.device)[None, :, None]
-        out = (bits.reshape(p, 8, -1) << s).sum(dim=1, dtype=torch.int32)
-    return out.to(torch.uint8)
+        s = torch.arange(w, dtype=torch.int32, device=B.device)[None, :, None]
+        out = (bits.reshape(p, w, -1) << s).sum(dim=1, dtype=torch.int32)
+    return _narrow(out, w)
+
+
+def _out(p: int, m: int, refold: str, w: int, device) -> torch.Tensor:
+    """The result tensor: (p, m) symbols, or (p*w, m) int32 for refold none."""
+    if refold == "none":
+        return torch.empty((p * w, m), dtype=torch.int32, device=device)
+    return torch.empty((p, m), dtype=torch.uint8 if w == 8 else torch.uint16, device=device)
 
 
 def gf_matmul_planes_plain(A, B: torch.Tensor, expand: str, refold: str, tile: int | None = None,
-                           pinned: bool = False) -> torch.Tensor:
+                           pinned: bool = False, w: int = 8) -> torch.Tensor:
     """Plain PyTorch version of K3's GEMM: the same expansion, product and
     refold, in column blocks.  int32 matmul on the CPU; float32 with TF32
     off on CUDA (|sums| <= 128 * depth, far below 2^24)."""
-    _check_pair(expand, refold)
+    _check_pair(expand, refold, w)
     k, m = B.shape
-    A = coefficients(A, k, 8)
+    A = coefficients(A, k, w)
     if pinned:
         t = min(tile_cols(tile, m), m)
-        first = gf_matmul_planes_plain(A, B[:, :t], expand, refold)
-        reps = -(-m // t) if t else 0
-        return first.repeat(1, reps)[:, :m].contiguous()
+        first = _widen(gf_matmul_planes_plain(A, B[:, :t], expand, refold, w=w))
+        picked = first[:, torch.arange(m, device=B.device) % max(t, 1)]
+        return picked if refold == "none" else _narrow(picked, w)
     p = A.shape[0]
-    a_op = _operator_bits(A, expand, B.device)
-    F = torch.as_tensor(fold_operator(p), device=B.device) if refold == "dot" else None
-    out = torch.empty((p, m), dtype=torch.uint8, device=B.device)
+    a_op = _operator_bits(A, expand, w, B.device)
+    F = torch.as_tensor(fold_operator(p, w), device=B.device) if refold == "dot" else None
+    out = _out(p, m, refold, w, B.device)
     for lo in range(0, m, PLAIN_BLOCK_COLS):
         hi = min(m, lo + PLAIN_BLOCK_COLS)
-        out[:, lo:hi] = _planes_block(a_op, F, B[:, lo:hi], expand, refold)
+        out[:, lo:hi] = _planes_block(a_op, F, B[:, lo:hi], expand, refold, w)
     return out
 
 
@@ -212,88 +282,95 @@ def sum_operator(A: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(padded.reshape(16 * mt, kc, 4, 2, 4).transpose(0, 1, 3, 4, 2)).reshape(16 * mt, 32 * kc)
 
 
-def _dims(k: int, p: int, expand: str) -> tuple[int, int, int, int]:
-    mt = -(-p * 8 // 16)
-    kc = k if expand == "nibble" else -(-k * 8 // 32)
-    return mt, kc, -(-p // 16), -(-mt * 16 // 32)
+def _dims(k: int, p: int, expand: str, w: int = 8) -> tuple[int, int, int, int]:
+    """(mt, kc, mf, kf): the operator's 16-row m-tiles and 32-deep chunks,
+    and F's (16 symbols a tile at w=8; F' holds 8 a tile at w=16)."""
+    mt = -(-p * w // 16)
+    kc = k if expand == "nibble" else -(-k * w // 32)
+    return mt, kc, -(-p // 16) if w == 8 else -(-p // 8), -(-mt * 16 // 32)
 
 
-def _operators(A: np.ndarray, expand: str, refold: str, device: torch.device):
+def _operators(A: np.ndarray, expand: str, refold: str, w: int, device: torch.device):
     def make():
         p, k = A.shape
-        mt, kc, mf, kf = _dims(k, p, expand)
-        if is_sum_pair(expand, refold):
+        mt, kc, mf, kf = _dims(k, p, expand, w)
+        if is_sum_pair(expand, refold, w):
             op = sum_operator(A)
             opA = pack_fragments(op, *op.shape)
         else:
-            opA = pack_fragments(_operator_bits(A, expand).numpy(), 16 * mt, 32 * kc)
+            opA = pack_fragments(_operator_bits(A, expand, w).numpy(), 16 * mt, 32 * kc)
         opA = torch.from_numpy(opA.view(np.int32)).to(device)
         opF = None
         if refold == "dot":
-            opF = pack_fragments(fold_operator(p), 16 * mf, 32 * kf)
-            opF = torch.from_numpy(opF.view(np.int32)).to(device)
+            F = fold_operator(p) if w == 8 else fold_operator_split(p)
+            opF = torch.from_numpy(pack_fragments(F, 16 * mf, 32 * kf).view(np.int32)).to(device)
         return opA, opF
 
-    return _build.cached_operator(("gf_planes", A.shape, A.tobytes(), expand, refold, str(device)), make)
+    return _build.cached_operator(("gf_planes", A.shape, A.tobytes(), w, expand, refold, str(device)), make)
 
 
-def _check_data(B: torch.Tensor, what: str) -> None:
+def _check_data(B: torch.Tensor, what: str, w: int = 8) -> None:
     if not isinstance(B, torch.Tensor):
         raise TypeError(f"B must be a tensor, got {type(B).__name__}")
     if B.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cuda or cpu tensors, got {B.device}")
-    if B.dtype != torch.uint8 or B.dim() != 2:
-        raise ValueError(f"B must be a 2-D uint8 tensor, got {B.dtype} {tuple(B.shape)}")
+    want = torch.uint8 if w == 8 else torch.uint16
+    if B.dtype != want or B.dim() != 2:
+        raise ValueError(f"B must be a 2-D {want} tensor at w={w}, got {B.dtype} {tuple(B.shape)}")
     if B.device.type == "cuda" and not B.is_contiguous():
         raise ValueError("B must be contiguous")
 
 
-def gf_matmul_planes(A, B: torch.Tensor, expand: str, refold: str, tile: int | None = None,
-                     pinned: bool = False) -> torch.Tensor:
-    """``C = A . B`` over GF(2^8) through K3's GEMM with the ``expand`` /
-    ``refold`` formulation (a key of :data:`EXPANDS` and of :data:`REFOLDS`).
+def smem_bytes(k: int, p: int, expand: str, refold: str, w: int = 8) -> tuple[int, int]:
+    """(needed, limit): the dynamic shared memory K3 takes at (k, p) for the
+    instance, and the most a block may have, from the kernel library."""
+    lib = _lib()
+    return lib.rs_gf_planes_smem(k, p, w, EXPANDS[expand], REFOLDS[refold]), lib.rs_gf_planes_smem_limit()
 
-    ``A``: (p, k) coefficients; ``B``: (k, m) uint8 tensor.  ``tile``:
-    columns per CUDA block (rounded up to a multiple of :data:`TILE_STEP`;
-    default 8192).  Returns (p, m) uint8.
+
+def gf_matmul_planes(A, B: torch.Tensor, expand: str, refold: str, tile: int | None = None,
+                     pinned: bool = False, w: int = 8) -> torch.Tensor:
+    """``C = A . B`` over GF(2^w) through K3's GEMM with the ``expand`` /
+    ``refold`` formulation (a key of :data:`EXPANDS` and of :data:`REFOLDS`;
+    at w=16 one of :data:`WIDE_EXPANDS`).
+
+    ``A``: (p, k) coefficients; ``B``: (k, m) uint8 (w=8) or uint16 (w=16)
+    tensor.  ``tile``: columns per CUDA block (rounded up to a multiple of
+    :data:`TILE_STEP`; default 8192).  Returns (p, m) symbols of B's type,
+    or for ``refold="none"`` the (p*w, m) int32 accumulators.  An operator
+    past the card's shared memory raises ``ValueError`` before any launch.
     """
-    global LAUNCHES, SUM_LAUNCHES
-    _check_pair(expand, refold)
-    _check_data(B, "gf_matmul_planes")
+    _check_pair(expand, refold, w)
+    _check_data(B, "gf_matmul_planes", w)
     k, m = B.shape
     t = tile_cols(tile, m)
     if B.device.type == "cpu":
-        return gf_matmul_planes_plain(A, B, expand, refold, t, pinned)
-    A = coefficients(A, k, 8)
+        return gf_matmul_planes_plain(A, B, expand, refold, t, pinned, w)
+    A = coefficients(A, k, w)
     p = A.shape[0]
-    C = torch.empty((p, m), dtype=torch.uint8, device=B.device)
+    C = _out(p, m, refold, w, B.device)
     if p == 0 or m == 0:
         return C
     if k == 0:
         return C.zero_()
+    smem, limit = smem_bytes(k, p, expand, refold, w)
+    if smem > limit:
+        raise ValueError(f"K3 needs {smem} bytes of shared memory at k={k} p={p} w={w} ({expand}+{refold}); "
+                         f"the card allows {limit}")
     lib = _lib()
-    e, r = EXPANDS[expand], REFOLDS[refold]
-    smem = lib.rs_gf_planes_smem(k, p, e, r)
-    if smem > lib.rs_gf_planes_smem_limit():
-        raise ValueError(f"K3 needs {smem} bytes of shared memory at k={k} p={p} ({expand}+{refold}); "
-                         f"the card allows {lib.rs_gf_planes_smem_limit()}")
-    opA, opF = _operators(A, expand, refold, B.device)
+    opA, opF = _operators(A, expand, refold, w, B.device)
     with torch.cuda.device(B.device):
         err = lib.rs_gf_planes(opA.data_ptr(), opF.data_ptr() if opF is not None else None, B.data_ptr(),
-                               C.data_ptr(), k, p, m, t, e, r, int(pinned),
+                               C.data_ptr(), k, p, m, t, w, EXPANDS[expand], REFOLDS[refold], int(pinned),
                                torch.cuda.current_stream(B.device).cuda_stream)
     _build.check(lib, err, "gf_planes")
-    if is_sum_pair(expand, refold):
-        SUM_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+    _count(kind(w, expand, refold))
     return C
 
 
 def copy_floor(B: torch.Tensor, p: int, tile: int | None = None) -> torch.Tensor:
     """``B[:p]`` through K3's copy floor: every (k, tile) block of B is
     brought into shared memory and rows 0..p-1 are written out."""
-    global COPY_LAUNCHES
     _check_data(B, "copy_floor")
     k, m = B.shape
     if not 0 < p <= k:
@@ -309,5 +386,5 @@ def copy_floor(B: torch.Tensor, p: int, tile: int | None = None) -> torch.Tensor
         err = lib.rs_copy_floor(B.data_ptr(), C.data_ptr(), k, p, m, t,
                                 torch.cuda.current_stream(B.device).cuda_stream)
     _build.check(lib, err, "copy_floor")
-    COPY_LAUNCHES += 1
+    _count("copy")
     return C

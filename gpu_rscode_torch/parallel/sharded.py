@@ -6,16 +6,21 @@ device over disjoint byte ranges, encode.cu:240-292,357-408), on a
 ``(stripe, cols)`` :class:`.mesh.Mesh`:
 
 * **cols mode**: each shard runs the codec's strategy on its column slice
-  on its own device (``cuda``: K1's folded form, ``gf_bitslice_kernel``;
-  ``bitplane`` / ``table``: the plain versions).  No communication.
+  on its own device (``cuda``: K1's folded form, ``gf_bitslice_kernel``,
+  or under the RS_PALLAS_* knobs K2 / K3 with the refold
+  :func:`..ops.cuda_gemm.static_refold` gives, which never calibrates or
+  warns for ``autotune``; ``bitplane`` / ``table``: the plain versions).
+  No communication.
 * **stripe mode** (the wide stripe, BASELINE config 4, k=128): the
   contraction axis k is sharded.  A GF XOR across devices is not a sum,
   but its bit-plane form is: each shard computes the integer pre-parity
   sums of its k-slice (``cuda``: K1's ``gf_popcount_kernel``,
-  ``gf_matmul_cuda(..., fold_parity=False)``; ``bitplane``: the plain
-  version), narrowed to int8 on its device (the mod-256 wrap is even, so
-  each sum keeps its parity), summed over the stripe shards this process
-  holds, then ``all_reduce(SUM)`` across processes, and folded with
+  ``gf_matmul_cuda(..., fold_parity=False)``, or under RS_PALLAS_EXPAND
+  K3's pre-parity form; ``bitplane``: the plain version), narrowed to
+  int8 on its device (the mod-256 wrap is even, so each sum keeps its
+  parity; K3's signed sums wrap the same way), summed over the stripe
+  shards this process holds, then ``all_reduce(SUM)`` across processes,
+  and folded with
   :func:`..ops.gemm.from_bitplanes` (XOR = sum mod 2, taken after the
   reduction).  The logical reduce volume is ``p * w * m`` int8 bytes a
   segment (``rs_mesh_collective_bytes_total{op="psum_stripe"}``).
@@ -174,9 +179,9 @@ def sharded_gf_matmul(A, B, *, mesh, w: int = 8, strategy: str = "bitplane", str
 
 def _folded(A, b: torch.Tensor, w: int, strategy: str) -> torch.Tensor:
     if strategy == "cuda":
-        from ..ops.cuda_gemm import gf_matmul_cuda
+        from ..ops.cuda_gemm import gf_matmul_cuda, static_refold
 
-        return gf_matmul_cuda(A, b, w)
+        return gf_matmul_cuda(A, b, w, refold=static_refold(w))
     if strategy == "bitplane":
         return _gemm.gf_matmul_bitplane(A, b, w)
     if strategy == "table":

@@ -47,8 +47,17 @@ microseconds of host work a call.
 * **Counts under replay**: a replay runs no Python, so the plan adds what
   the captured call would have counted: K1 launches to
   ``cuda_gemm.REPLAYED`` (captured launches count in
-  ``cuda_gemm.CAPTURED``, eager ones in ``cuda_gemm.LAUNCHES``), and the
-  xor / ring pipelines' ``calls`` and ``PACK_REUSE``.
+  ``cuda_gemm.CAPTURED``, eager ones in ``cuda_gemm.LAUNCHES``), K2's and
+  K3's the same way to ``cuda_pack2.REPLAYED`` and
+  ``cuda_planes.REPLAYED`` (under the RS_PALLAS_* knobs a ``cuda`` plan
+  runs them), and the xor / ring pipelines' ``calls`` and ``PACK_REUSE``.
+* **The RS_PALLAS_* knobs**: a ``cuda`` plan's first dispatch resolves the
+  knobs as an eager dispatch does (``RS_PALLAS_REFOLD=autotune`` then
+  calibrates into ``cuda_gemm``'s decision cache); at its second dispatch,
+  or before its first capture, the plan pins its own refold
+  (``cuda_gemm.plan_refold_resolution``), under ``autotune`` by timing
+  both candidates on its own operands (``calibrate_aot_refold``), and
+  keeps it in its stats (``refold``; None where K1 or K2 runs).
 
 Strategies: ``cuda`` (K1), ``bitplane``, ``table``, ``xor``, ``ring`` and
 ``cpu`` (the native host codec, never on the card).  A mesh dispatch
@@ -74,6 +83,8 @@ import torch
 from .obs import metrics as _metrics, profiler as _prof
 from .ops import _build
 from .ops import cuda_gemm as _cuda_gemm
+from .ops import cuda_pack2 as _cuda_pack2
+from .ops import cuda_planes as _cuda_planes
 from .ops import xor_gemm as _xor_gemm
 
 # Graphs a plan keeps (one per staging buffer and coefficient matrix it
@@ -333,11 +344,13 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return stream
 
 
-def _python_counts(pipe) -> tuple:
-    """The Python-side counts one dispatch adds to: K1 launches made under
-    capture, the xor pack counts, and the pipeline's calls."""
-    return (_cuda_gemm.CAPTURED, _xor_gemm.PACK_REUSE["packed"], _xor_gemm.PACK_REUSE["reused"],
-            pipe.calls if pipe is not None else 0)
+def _python_counts(pipe) -> dict:
+    """The Python-side counts one dispatch adds to: K1, K2 and K3 launches
+    made under capture, the xor pack counts, and the pipeline's calls."""
+    counts = {"k1": _cuda_gemm.CAPTURED, "k2": _cuda_pack2.CAPTURED, "packed": _xor_gemm.PACK_REUSE["packed"],
+              "reused": _xor_gemm.PACK_REUSE["reused"], "calls": pipe.calls if pipe is not None else 0}
+    counts.update({f"k3:{name}": n for name, n in _cuda_planes.CAPTURED.items()})
+    return counts
 
 
 class _Graph:
@@ -354,12 +367,17 @@ class _Graph:
 
     def replay(self, pipe) -> torch.Tensor:
         self.graph.replay()
-        k1, packed, reused, calls = self.counts
+        c = self.counts  # what _python_counts names; a missing name adds 0
         with _cuda_gemm.COUNT_LOCK:
-            _cuda_gemm.REPLAYED += k1
-        _xor_gemm.count_replayed_packs(packed, reused)
+            _cuda_gemm.REPLAYED += c.get("k1", 0)
+        with _cuda_pack2.COUNT_LOCK:
+            _cuda_pack2.REPLAYED += c.get("k2", 0)
+        with _cuda_planes.COUNT_LOCK:
+            for name in _cuda_planes.KINDS:
+                _cuda_planes.REPLAYED[name] += c.get(f"k3:{name}", 0)
+        _xor_gemm.count_replayed_packs(c.get("packed", 0), c.get("reused", 0))
         if pipe is not None:
-            pipe.calls += calls
+            pipe.calls += c.get("calls", 0)
         return self.out
 
 
@@ -387,11 +405,11 @@ def _capture(fn, A, B: torch.Tensor, pipe) -> _Graph:
                 raise
             graph.capture_end()
         after = _python_counts(pipe)
-        _xor_gemm.PACK_REUSE["packed"], _xor_gemm.PACK_REUSE["reused"] = before[1], before[2]
+        _xor_gemm.PACK_REUSE["packed"], _xor_gemm.PACK_REUSE["reused"] = before["packed"], before["reused"]
         if pipe is not None:
-            pipe.calls = before[3]
+            pipe.calls = before["calls"]
     current.wait_stream(side)
-    return _Graph(graph, out, operators, tuple(a - b for a, b in zip(after, before)))
+    return _Graph(graph, out, operators, {name: after[name] - before[name] for name in after})
 
 
 # -- plans -------------------------------------------------------------------
@@ -402,14 +420,15 @@ class ExecutionPlan:
     combination, its built function (the xor / ring pipeline, or the
     strategy's GEMM) and, on the card, its graphs."""
 
-    __slots__ = ("key", "strategy", "w", "bucket", "calls", "captures", "replays", "compile_seconds",
-                 "capture_seconds", "xor_stats", "last_stages", "_fn", "_pipe", "_graphs", "_lock")
+    __slots__ = ("key", "strategy", "w", "bucket", "refold", "calls", "captures", "replays", "compile_seconds",
+                 "capture_seconds", "xor_stats", "last_stages", "_fn", "_pipe", "_pinned", "_graphs", "_lock")
 
     def __init__(self, key, strategy, w, bucket):
         self.key = key
         self.strategy = strategy
         self.w = w
         self.bucket = bucket
+        self.refold = None  # cuda plans under the RS_PALLAS_* knobs: the refold pinned
         self.calls = 0
         self.captures = 0
         self.replays = 0
@@ -419,6 +438,7 @@ class ExecutionPlan:
         self.last_stages = None  # the newest profiled dispatch's stage walls
         self._fn = None
         self._pipe = None
+        self._pinned = False  # whether a cuda plan pinned its refold
         self._graphs: OrderedDict = OrderedDict()
         self._lock = threading.Lock()  # serializes this plan's builds and captures
 
@@ -444,6 +464,23 @@ class ExecutionPlan:
         _metrics.histogram("rs_plan_compile_seconds", "wall seconds spent building a plan's function").labels(
             strategy=strategy).observe(dt)
 
+    def _pin(self, A, B) -> None:
+        """Pin a ``cuda`` plan's refold once, from the RS_PALLAS_* knobs
+        (:func:`.ops.cuda_gemm.plan_refold_resolution`); under ``autotune``
+        both candidates are timed on this plan's own dispatch.  Nothing
+        changes where no refold applies (K1, or K2 under pack2)."""
+        if self.strategy != "cuda" or self._pinned:
+            return
+        self._pinned = True
+        w = self.w
+        refold = _cuda_gemm.plan_refold_resolution(w)
+        if refold == "autotune":
+            refold = _cuda_gemm.calibrate_aot_refold(
+                w, lambda cand: _cuda_gemm.gf_matmul_cuda(A, B.contiguous(), w, refold=cand))
+        self.refold = refold
+        if refold is not None:
+            self._fn = lambda a, b: _cuda_gemm.gf_matmul_cuda(a, b.contiguous(), w, refold=refold)
+
     def run(self, A, B, graph: str | None = None):
         """``fn(A, B)``; with ``graph`` (the matrix digest, when ``B`` is a
         staged CUDA buffer), the replay of the graph of this buffer and
@@ -463,6 +500,8 @@ class ExecutionPlan:
                 self._build(A, B)
             self.calls += 1
             if not graph:
+                if self.calls > 1:
+                    self._pin(A, B)
                 fn = self._fn
             else:
                 vkey = (B.data_ptr(), tuple(B.shape), B.dtype, graph)
@@ -471,6 +510,7 @@ class ExecutionPlan:
                     t0 = time.perf_counter()
                     with _prof.suspended() as prof:
                         out = self._fn(A, B)  # this dispatch's result, and the warm-up
+                        self._pin(A, B)
                         t1 = time.perf_counter()
                         self._graphs[vkey] = _capture(self._fn, A, B, self._pipe)
                         if prof is not None:
@@ -497,6 +537,7 @@ class ExecutionPlan:
                 "a_shape": list(self.key[2]),
                 "b_dtype": self.key[5],
                 "target": self.key[6][1],
+                "refold": self.refold,
                 "graphs": len(self._graphs),
                 "calls": self.calls,
                 "captures": self.captures,
@@ -570,9 +611,10 @@ class PlanCache:
 
     def clear(self) -> None:
         """Drop every plan and its graphs, the xor / ring pipelines and
-        schedules, the staging pool and the api's survivor-subset cache
-        (whose pinned inverses' schedules lived in the caches dropped here;
-        the store's records survive and are re-validated when read)."""
+        schedules, the staging pool, the refold="autotune" decisions and
+        the api's survivor-subset cache (whose pinned inverses' schedules
+        lived in the caches dropped here; the store's records survive and
+        are re-validated when read)."""
         with self._lock:
             self._plans.clear()
             self.hits = self.misses = self.evictions = 0
@@ -580,6 +622,7 @@ class PlanCache:
         from .ops.xor_gemm import clear_pipeline_cache
 
         clear_pipeline_cache()
+        _cuda_gemm.clear_autotune_cache()
         STAGING.clear()
         clear_subset_cache()
 

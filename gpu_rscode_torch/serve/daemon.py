@@ -45,7 +45,11 @@ One long-lived process in front of the warm plan cache (docs/SERVE.md):
   ``maint`` tenant (4x cost), under the foreground per-(tenant, name)
   lock of their target, on the daemon's own device, and run on a
   one-thread lane of their own rather than a foreground worker slot
-  (a repair holding a slot shows in the foreground's tail).  ``--faults SPEC``
+  (a repair holding a slot shows in the foreground's tail).  The lane
+  starts a job once the foreground has been idle (no batch queued or
+  running) for ``MAINT_LULL_S``, or once the job has waited
+  ``MAINT_YIELD_S``, so a repair does not land inside a burst.
+  ``--faults SPEC``
   activates the fault plane for the daemon's life.
 * ``GET /perf`` — per-cell throughput baseline/drift report
   (obs/perfbase.py) over the run ledger; the scrape also refreshes the
@@ -109,6 +113,8 @@ DEFAULT_PORT = 9470
 DEFAULT_REQUEST_TIMEOUT_S = 300.0
 DEFAULT_MAX_BODY = 1 << 30
 DEFAULT_LIST_LIMIT = 1000
+MAINT_LULL_S = 0.5  # foreground idle this long before a maint job starts
+MAINT_YIELD_S = 5.0  # ... or once it has waited this long
 
 def list_limit_env() -> int:
     """Hard cap on one ``GET /o/<bucket>?list`` page
@@ -772,6 +778,7 @@ class ServeDaemon:
         # admission control (the 429 depth bound) never fires.
         self._slots = threading.Semaphore(self.workers)
         self._inflight = 0
+        self._fg_running = 0  # batches holding a worker slot
         self._inflight_cond = threading.Condition()
         # Per-(tenant, name) mutexes: all executor work on one archive
         # name serializes (concurrent same-name encodes would interleave
@@ -1219,9 +1226,11 @@ class ServeDaemon:
                     if group[0].op == "maint" and self._maint_pool is not None:
                         # The controller runs one job at a time, so the
                         # lane is free whenever the queue yields a job.
-                        self._maint_pool.submit(self._run_group, group, False)
+                        self._maint_pool.submit(self._run_maint_group, group)
                         continue
                     self._slots.acquire()  # blocks until a worker frees
+                    with self._inflight_cond:
+                        self._fg_running += 1
                     self._pool.submit(self._run_group, group)
                 continue
             if self.queue.draining and not self.queue.depth():
@@ -1291,6 +1300,24 @@ class ServeDaemon:
             else:
                 self.requests_failed += 1
         req.finish(outcome, result=result, error=error)
+
+    def _run_maint_group(self, group: list[Request]) -> None:
+        """A maint job on the maint lane, after a foreground lull: it
+        starts once no foreground batch has been queued or running for
+        ``MAINT_LULL_S``, or after ``MAINT_YIELD_S``, so that a steady
+        load cannot starve repairs."""
+        now = time.monotonic()
+        deadline, idle_since = now + MAINT_YIELD_S, now
+        while not self._closed and now < deadline:
+            if self._fg_running or self.queue.depth():
+                idle_since = None
+            elif idle_since is None:
+                idle_since = now
+            elif now - idle_since >= MAINT_LULL_S:
+                break
+            time.sleep(0.01)
+            now = time.monotonic()
+        self._run_group(group, False)
 
     def _run_group(self, group: list[Request], slot: bool = True) -> None:
         """Execute one batch; ``slot``: it holds a foreground worker slot
@@ -1369,6 +1396,8 @@ class ServeDaemon:
                     self._finish(req, "error", error=e)
         finally:
             if slot:
+                with self._inflight_cond:
+                    self._fg_running -= 1
                 self._slots.release()
             with self._inflight_cond:
                 self._inflight -= len(group)

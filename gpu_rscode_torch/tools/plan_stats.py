@@ -8,8 +8,7 @@ plans and, under ``RS_METRICS=1``, the metrics registry.  The last stdout
 line is one JSON object; ``--no-workload`` dumps what the process has
 without encoding.  ``rs stats --workload`` runs the same
 :func:`run_workload`.  ``mesh_registered`` counts the mesh plan cache's
-entries; the JAX package's ``autotune_decisions`` key (its Pallas refold
-decisions) has no counterpart in the port yet.
+entries and ``autotune_decisions`` the refold="autotune" decisions.
 
 Usage: python -m gpu_rscode_torch.tools.plan_stats \
            [--k 4] [--p 2] [--seg-kb 4] [--tails 520 652 776 1000] [--w 8] [--device cpu]
@@ -92,6 +91,7 @@ def main(argv=None) -> int:
         "encode_executables": len(encode_execs),
         "ladder_bound": _ladder_bound(seg_cols),
         "mesh_registered": snap["mesh_plan_cache"]["executables"],
+        "autotune_decisions": len(snap["autotune_decisions"]),
         "metrics_enabled": snap["metrics_enabled"],
     }
     print(json.dumps(out), flush=True)

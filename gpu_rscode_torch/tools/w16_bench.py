@@ -10,10 +10,11 @@ plain bit-plane GEMM) over a 2 Mi-symbol slice, as the JAX tool bounds its
 (``GaloisField.matmul``) on columns spread over every K1 block before it
 is timed (CUDA events); a mismatch ends the tool.  One
 ``{"<name>": GB/s}`` line each after the capture header, then the JAX
-tool's summary (``metric``, ``unit``, ``mb``, ``results``).  Dropped from
-the JAX tool: its ``autotune`` key (the Pallas refold autotune is not
-ported) and its catch-all around each case.  The named bit-plane
-expansions at w=16 are not ported (they raise).
+tool's summary (``metric``, ``unit``, ``mb``, ``results``), with the JAX
+tool's ``autotune`` key (the refolds that RS_PALLAS_REFOLD=autotune chose)
+when a calibration ran.  Under the RS_PALLAS_* knobs the ``cuda`` row runs
+the named expansion they choose (K3 at w=16) instead of K1.  Dropped from
+the JAX tool: its catch-all around each case.
 
 Usage: python -m gpu_rscode_torch.tools.w16_bench [--mb 320] [--trials 3]
        [--device cuda]
@@ -29,7 +30,7 @@ import torch
 
 from ..models.vandermonde import vandermonde_matrix
 from ..obs.runlog import capture_header
-from ..ops.cuda_gemm import gf_matmul_cuda
+from ..ops.cuda_gemm import autotune_decisions, gf_matmul_cuda
 from ..ops.gemm import gf_matmul_bitplane
 from ..ops.gf import get_field
 from ..utils.backend import resolve_device
@@ -67,8 +68,11 @@ def main(argv=None) -> int:
         check_columns(name, fn(), P, m, cols, gf.matmul(A, B_host[:, cols]))
         out[name] = K * m * 2 / time_device_fn(fn, trials=args.trials) / 1e9
         print(json.dumps({name: out[name]}), flush=True)
-    print(json.dumps({"metric": f"w16_gemm_bandwidth_k{K}_p{P}", "unit": "GB/s", "mb": args.mb, "results": out}),
-          flush=True)
+    summary = {"metric": f"w16_gemm_bandwidth_k{K}_p{P}", "unit": "GB/s", "mb": args.mb, "results": out}
+    decisions = autotune_decisions()
+    if decisions:
+        summary["autotune"] = sorted(set(decisions.values()))
+    print(json.dumps(summary), flush=True)
     return 0
 
 

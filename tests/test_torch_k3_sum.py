@@ -238,8 +238,10 @@ def test_source_constants():
     assert "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32" in SOURCE
     assert "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32" in SOURCE
     assert "#define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign)" in SOURCE
-    pairs = re.search(r"#define RS_PLANES_PAIRS\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
-    assert "kSum" not in pairs.replace("X(kNibble, kSum)", "")
+    instances = re.search(r"#define RS_PLANES_INSTANCES\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
+    w8 = re.findall(r"X\(8, (k\w+), (k\w+)\)", instances)
+    assert w8 and not [e for e, r in w8 if r == "kSum" and e != "kNibble"]
+    assert ("kNibble", "kSum") in w8
     assert set(cuda_planes.SUM_EXPANDS) == {"shift", "shift_raw", "cmp", "sign"}
     assert all(cuda_planes.is_sum_pair(e, "sum") for e in cuda_planes.SUM_EXPANDS)
     assert not cuda_planes.is_sum_pair("nibble", "sum") and not cuda_planes.is_sum_pair("shift", "dot")

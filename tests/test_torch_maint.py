@@ -342,3 +342,28 @@ def test_a_maint_job_runs_on_its_own_lane_beside_the_foreground(tmp_path):
         maint.join(60)
         d.close()
     assert ran_on[0].startswith("rs-serve-maint") and ran_on[1] == {"held": True}
+
+
+@pytest.mark.parametrize("busy_s, yield_s, want", [(0.3, 5.0, "lull"), (2.0, 0.6, "bound")])
+def test_a_maint_job_waits_for_the_foreground_lull(tmp_path, monkeypatch, busy_s, yield_s, want):
+    """The maint lane starts a job once no foreground batch has been running
+    or queued for MAINT_LULL_S, or once it has waited MAINT_YIELD_S."""
+    import threading
+
+    monkeypatch.setattr(t_daemon, "MAINT_YIELD_S", yield_s)
+    d = t_daemon.ServeDaemon(str(tmp_path / "root"), port=0, maint=True, workers=1, **CPU).start()
+    started = []
+    try:
+        with d._inflight_cond:
+            d._fg_running += 1  # a foreground batch holds the worker slot
+        t0 = time.monotonic()
+        lull = threading.Timer(busy_s, lambda: setattr(d, "_fg_running", d._fg_running - 1))
+        lull.start()
+        out = d._submit_maint_job(lambda: started.append(time.monotonic() - t0) or {"ran": True},
+                                  name=str(tmp_path / "root" / "alpha" / "a.bin"), cost=1)
+        lull.join()
+    finally:
+        d.close()
+    assert out == {"ran": True}
+    due = busy_s + t_daemon.MAINT_LULL_S if want == "lull" else yield_s
+    assert due - 0.05 <= started[0] < due + 2.0, (want, started)

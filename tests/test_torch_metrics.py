@@ -149,7 +149,7 @@ def test_force_enable_latch_and_unified_snapshot(monkeypatch):
         t_metrics.force_enable(False)
         t_metrics.REGISTRY.reset()
     assert not t_metrics.enabled()
-    assert set(snap) == {"metrics_enabled", "metrics", "plan_cache", "mesh_plan_cache"}
+    assert set(snap) == {"metrics_enabled", "metrics", "plan_cache", "mesh_plan_cache", "autotune_decisions"}
     assert snap["metrics"]["rs_probe_total"]["values"] == {"": 2}
     assert {"hits", "misses", "evictions"} <= set(snap["plan_cache"])
     assert {"hits", "misses", "evictions"} <= set(snap["mesh_plan_cache"])

@@ -37,10 +37,9 @@ EVENT_COUNTERS = ("segments_dispatched", "rs_codec_bytes_total", "rs_io_write_by
                   "rs_repair_chunks_rebuilt_total", "rs_file_ops_total", "rs_segments_staged_total",
                   "rs_plan_dispatch_total", "rs_plan_cache_events_total", "rs_autotune_source_total")
 
-# Top-level snapshot keys only the JAX package has: its Pallas
-# refold-autotune decisions (the port's kernels have no refold autotune
-# yet).
-JAX_ONLY_SNAPSHOT_KEYS = {"autotune_decisions"}
+# Top-level snapshot keys only the JAX package has: none (the refold
+# autotune decisions are in both).
+JAX_ONLY_SNAPSHOT_KEYS = set()
 
 
 @pytest.fixture(autouse=True)
@@ -301,12 +300,10 @@ _REGISTERED = re.compile(r'\b(?:counter|gauge|histogram|quantile)\(\s*[fr]?"([a-
 # Names the JAX package registers that the port does not, each with its
 # reason.  Later slices shrink this list.
 NOT_IN_PORT = {
-    # The TPU compiler's counters: Pallas kernel calls, refold autotune
-    # and demotion; the port's kernels are CUDA and never demote.
-    "rs_pallas_autotune_total": "Pallas refold autotune (no card-side refold autotune yet)",
+    # The TPU compiler's counters: Pallas kernel calls and demotion; the
+    # port's kernels are CUDA and never demote.
     "rs_pallas_demotions_total": "Pallas demotion guard (the port never demotes)",
     "rs_pallas_gemm_calls_total": "Pallas kernel calls (the port counts K1 launches itself)",
-    "rs_pallas_refold_total": "Pallas refold choices",
     # XLA buffer donation: a plan of the port owns its static buffers.
     "rs_donation_host_copy_bytes_total": "XLA buffer donation",
     "rs_donation_restages_total": "XLA buffer donation",

@@ -117,7 +117,8 @@ def test_dispatch_of_jax_names_matches_pallas(expand, refold):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_dispatch_names_and_refusals():
+def test_dispatch_names_and_refusals(monkeypatch):
+    monkeypatch.setattr(cuda_gemm, "_AUTOTUNE_CACHE", {})  # the autotune case's decision stays here
     assert set(cuda_gemm.EXPANSIONS) == set(JAX_NAMES) | {"pack2", "cmp", "signc"}
     assert set(cuda_gemm.EXPANSIONS.values()) == set(cuda_planes.EXPANDS) | {"pack2"}
     A, B = _operands(4, 10, 64, 62)
@@ -125,28 +126,41 @@ def test_dispatch_names_and_refusals():
     for name in ("cmp", "signc"):  # the sweep's names, not gf_matmul_pallas's
         got = cuda_gemm.gf_matmul_cuda(A, Bt, expand=name)
         np.testing.assert_array_equal(got.numpy(), get_field(8).matmul(A, B))
-    with pytest.raises(ValueError, match="unknown expand"):
-        cuda_gemm.gf_matmul_cuda(A, Bt, expand="bogus")
-    with pytest.raises(ValueError, match="unknown refold"):
-        cuda_gemm.gf_matmul_cuda(A, Bt, expand="shift", refold="autotune")
-    with pytest.raises(ValueError, match="byte-granular"):
-        cuda_gemm.gf_matmul_cuda(A, Bt.to(torch.int32).to(torch.uint16), 16, expand="nibble")
-    with pytest.raises(ValueError, match="w=8 only"):
-        cuda_gemm.gf_matmul_cuda(A, Bt.to(torch.int32).to(torch.uint16), 16, expand="shift_raw")
-    with pytest.raises(ValueError, match="pre-parity"):
-        cuda_gemm.gf_matmul_cuda(A, Bt, expand="shift", fold_parity=False)
-    with pytest.raises(ValueError, match="expand=None runs K1"):
-        cuda_gemm.gf_matmul_cuda(A, Bt, refold="dot")
+    for bad in ({"expand": "bogus"}, {"expand": "shift", "refold": "bogus"}, {"expand": "nibble", "w": 16},
+                {"expand": "pack2", "fold_parity": False}):
+        # Refused by both packages, with the JAX package's words.
+        kw = dict(bad)
+        w = kw.pop("w", 8)
+        Aw, Bw = (A, B) if w == 8 else (A.astype(np.uint16), B.astype(np.uint16))
+        with pytest.raises(ValueError) as j_err:
+            gf_matmul_pallas(Aw, Bw, w=w, **kw)
+        with pytest.raises(ValueError) as t_err:
+            cuda_gemm.gf_matmul_cuda(Aw, t_gemm.to_tensor(Bw), w, **kw)
+        assert str(t_err.value) == str(j_err.value)
+    # What the port refused before and the JAX package runs: refold
+    # "autotune", shift_raw at w=16, the pre-parity form of a named
+    # expansion, and a refold with expand=None (the default expansion).
+    A16, B16 = A.astype(np.uint16) * 257, B.astype(np.uint16) * 251
+    cases = (({"expand": "shift", "refold": "autotune"}, {}, 8, A, B),
+             ({"expand": "shift_raw"}, {"acc_dtype": jnp.int8}, 16, A16, B16),
+             ({"expand": "shift", "fold_parity": False}, {"acc_dtype": jnp.int8}, 8, A, B),
+             ({"refold": "dot"}, {}, 8, A, B))
+    for kw, jax_kw, w, Aw, Bw in cases:
+        want = np.asarray(gf_matmul_pallas(Aw, Bw, w=w, **kw, **jax_kw))
+        got = cuda_gemm.gf_matmul_cuda(Aw, t_gemm.to_tensor(Bw), w, **kw)
+        np.testing.assert_array_equal(t_gemm.to_numpy(got), want, err_msg=str(kw))
 
 
 def test_wrappers_cpu_contract():
     A, B = _operands(4, 10, 100, 63)
     Bt = torch.from_numpy(B)
-    before = (cuda_planes.LAUNCHES, cuda_planes.SUM_LAUNCHES, cuda_planes.COPY_LAUNCHES)
+    before = {name: dict(counts) for name, counts in (("eager", cuda_planes.LAUNCHES),
+                                                      ("captured", cuda_planes.CAPTURED))}
     cuda_planes.gf_matmul_planes(A, Bt, "shift", "sum")
     cuda_planes.gf_matmul_planes(A, Bt, "shift", "dot")
+    cuda_planes.gf_matmul_planes(A, Bt, "shift", "none")
     cuda_planes.copy_floor(Bt, 4)
-    assert (cuda_planes.LAUNCHES, cuda_planes.SUM_LAUNCHES, cuda_planes.COPY_LAUNCHES) == before
+    assert {"eager": cuda_planes.LAUNCHES, "captured": cuda_planes.CAPTURED} == before
     with pytest.raises(TypeError, match="tensor"):
         cuda_planes.gf_matmul_planes(A, B, "shift", "sum")
     with pytest.raises(ValueError, match="0 < p <= k"):

@@ -275,7 +275,7 @@ def test_pack_reuse_counter_counts_replays_not_captures(monkeypatch):
         def replay(self):
             pass
 
-    graph = t_plan._Graph(_Replayable(), None, (), (0, 1, 0, 0))
+    graph = t_plan._Graph(_Replayable(), None, (), {"packed": 1})
     graph.replay(None)
     graph.replay(None)
     assert reuse_counter() == {'{outcome="packed"}': 3}

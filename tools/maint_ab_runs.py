@@ -4,6 +4,7 @@ its distribution.
 
     python3 tools/maint_ab_runs.py --runs 8                 # this checkout
     python3 tools/maint_ab_runs.py --runs 8 --tree build/ab/parent --tree .
+    python3 tools/maint_ab_runs.py --runs 3 --serve-workers 2 --serve-workers 4
 
 Each run is a fresh interpreter in a tree's root: it builds the kernels
 (cached on disk after a tree's first run), calls that tree's
@@ -11,7 +12,9 @@ Each run is a fresh interpreter in a tree's root: it builds the kernels
 (``"kind": "maint_ab_run"``): the gate's ratio, whether the gate held, and
 for each arm the foreground p50 and p99, offered and achieved req/s, and
 the (tenant, op) cell that sets the arm's p99 with the number of samples
-behind it.  With several trees the runs alternate (A B, B A, ...).  The
+behind it.  With several trees, or several ``--serve-workers`` counts
+(each run's ``RS_SERVE_WORKERS``, the daemons' executor threads), the
+runs alternate over every pair of them (A B, B A, ...).  The
 last lines are one summary per tree and nvidia-smi's name and power limit.
 Each worker's whole output goes to ``chiprun_out/maint_ab_runs/``.  A run
 writes a few GiB (its archives, spools and encodes); the card machine ends
@@ -71,7 +74,7 @@ def worker(tree: str) -> int:
     os.makedirs(os.path.join(tree, "build"), exist_ok=True)
     work = tempfile.mkdtemp(dir=os.path.join(tree, "build"))
     row = {"kind": "maint_ab_run", "tree": tree, "seconds": chip_smoke.MAINT_AB_SECONDS,
-           "rate": chip_smoke.MAINT_AB_RATE}
+           "rate": chip_smoke.MAINT_AB_RATE, "serve_workers": os.environ.get("RS_SERVE_WORKERS")}
     try:
         res = chip_smoke._maint_ab(work, torch.device("cuda", 0))
         row.update(gate="held", p99_ratio=res["p99_ratio"], converge_wait_s=res["converge_wait_s"])
@@ -91,18 +94,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--runs", type=int, default=8, help="runs of each tree")
     ap.add_argument("--tree", action="append", default=None, help="a checkout's root (default: this one)")
+    ap.add_argument("--serve-workers", type=int, action="append", default=None,
+                    help="RS_SERVE_WORKERS for a run (repeat to alternate; default: the environment's)")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         return worker(args.worker)
     trees = args.tree or [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
+    arms = [(tree, n) for tree in trees for n in (args.serve_workers or [None])]
     os.makedirs(OUT_DIR, exist_ok=True)
-    rows: dict = {tree: [] for tree in trees}
+    rows: dict = {arm: [] for arm in arms}
     for i in range(args.runs):
-        for tree in trees if i % 2 == 0 else trees[::-1]:
+        for tree, n in arms if i % 2 == 0 else arms[::-1]:
+            env = dict(os.environ, **({"RS_SERVE_WORKERS": str(n)} if n else {}))
             proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree],
-                                  capture_output=True, text=True, timeout=900)
-            name = f"{os.path.basename(os.path.abspath(tree)) or 'tree'}-{i}"
+                                  capture_output=True, text=True, timeout=900, env=env)
+            name = f"{os.path.basename(os.path.abspath(tree)) or 'tree'}{f'-w{n}' if n else ''}-{i}"
             with open(os.path.join(OUT_DIR, f"{name}.log"), "w") as fp:
                 fp.write(proc.stdout + proc.stderr)
             got = [json.loads(line) for line in proc.stdout.splitlines()
@@ -112,11 +119,11 @@ def main(argv=None) -> int:
                                   "stderr_tail": proc.stderr[-2000:]}), flush=True)
                 return 1
             got[0]["run"] = i
-            rows[tree].append(got[0])
+            rows[(tree, n)].append(got[0])
             print(json.dumps(got[0]), flush=True)
-    for tree, runs in rows.items():
+    for (tree, n), runs in rows.items():
         ratios = sorted(r.get("ratio") for r in runs if r.get("ratio") is not None)
-        print(json.dumps({"kind": "maint_ab_summary", "tree": tree, "runs": len(runs),
+        print(json.dumps({"kind": "maint_ab_summary", "tree": tree, "serve_workers": n, "runs": len(runs),
                           "failed": sum(r["gate"] == "failed" for r in runs), "ratios": ratios,
                           "samples_behind_worst_p99": sorted({r["arms"][a]["p99_cell"]["samples"]
                                                               for r in runs for a in r["arms"]})}), flush=True)
