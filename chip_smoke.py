@@ -10,8 +10,9 @@ Phases, each fatal on failure:
      nvcc each, all at once (timed), with each kernel instance's registers
      and spills (the w=16 and pre-parity gf_planes instances listed apart);
   3. K1 against its plain PyTorch version on the card, bit-exact, over a
-     grid of shapes at w=8 and w=16 in both forms (the folded bit-sliced
-     kernel and the pre-parity popcount kernel): ragged and misaligned
+     grid of shapes at w=4 (bytes with the high nibble set), w=8 and w=16
+     in both forms (the folded bit-sliced kernel and the pre-parity
+     popcount kernel): ragged and misaligned
      widths (m = 1, 31, 33, 1639, ...; rows that start off 16-byte
      alignment), shapes that need several output tiles and depth chunks,
      p = k decode shapes up to 128, and the update's E·Δ widths (2, 3,
@@ -112,10 +113,10 @@ Phases, each fatal on failure:
      launches inside replays (k1_runs);
   5f. the object store (gpu_rscode_torch/store/) at its documented
      defaults, k=4, p=2, w=8, interleaved stripes sealing at 64 MiB,
-     through the api's object wrappers with no device given: 4,096
-     objects of seeded sizes, log-uniform over 4 KiB-1 MiB (about 0.72
+     through the api's object wrappers with no device given: 2,048
+     objects of seeded sizes, log-uniform over 4 KiB-1 MiB (about 0.36
      GiB), PUT in batches of 64, then one batch of 1,000 x 4 KiB; every
-     object read back and held against its host mirror (SHA-256); 256
+     object read back and held against its host mirror (SHA-256); 128
      deleted (gone from the listing, their ranges zero in the archive); a
      forced compaction (every retired archive's files gone, every live
      object read back); one native chunk of a sealed stripe moved away and
@@ -253,8 +254,14 @@ Phases, each fatal on failure:
      element); the largest k whose operator fits in shared memory at p=16
      for each w=16 and pre-parity instance, and the ValueError one past it
      (no launch); the pre-parity form (refold none) of every instance at
-     w=8 and 16, exact int32; the public dispatch of every JAX name at
+     w=4, 8 and 16, exact int32; the public dispatch of every JAX name at
      w=16 (refold none, sum, dot, autotune) and with fold_parity=False;
+     K3's six W=4 instances (shift, shift_raw x sum, dot, none) at k 1-33,
+     p 1-17, m 37-100,003, pinned, at their largest sums and through the
+     public dispatch (bytes with the high nibble set); and the byte
+     expansions' dot refold (gf_planes_dot_kernel) on the dot pairs' grid,
+     at depths 1-33, p 1-16, its largest sums, and the largest k that fits
+     at p=16 with the refusal one past it;
   8. the kernel-formulation tools as entry points on the card at their
      default sizes (kernel_sweep 64 MB, expand_probe 320 MB): every result
      a number, and K2, K3's GEMM and K3's copy floor each launched;
@@ -296,15 +303,26 @@ Phases, each fatal on failure:
      encoded on a (2, 1) stripe mesh of the card (K3's pre-parity form;
      the archive equal to phase 4's); under RS_PALLAS_EXPAND=pack2 its
      encode through K2 captured into the plans' graphs (equal to phase
-     4's); and a 256 MiB w=16 CLI round trip under RS_PALLAS_REFOLD=
-     autotune (K3's w=16 instances, inside replays too).  The environment
-     is restored and the plan and autotune caches cleared after it;
+     4's); a 256 MiB w=16 CLI round trip under RS_PALLAS_REFOLD=
+     autotune (K3's w=16 instances, inside replays too); RSCodec(10, 4,
+     w=4) on the card (encode, decode with the first 4 natives lost, an
+     update) on staged 64 MiB segments, three times each, under no knob
+     (K1) and under RS_PALLAS_EXPAND=shift_raw (K3 at W=4, sum), each
+     against K1's plain version and inside graph replays; and a seeded
+     256 MiB w=8 file encoded under no knob (K1) and then under
+     RS_PALLAS_EXPAND=shift_raw alone (the dot refold: gf_planes_dot_kernel,
+     inside replays), the two archives byte-identical, then decoded with
+     the first 4 chunks lost (SHA-256).  The environment is restored and
+     the plan and autotune caches cleared after it;
   9. K2, each K3 pair, the compute-only ceiling and the copy floor timed at
      the main path's encode segment next to the bound, the plain version
-     and, for the copy floor, B[:p].clone(); K3's w=16 pairs at the w=16
-     encode segment (m = 3,355,392) and its pre-parity form at the w=8
-     segment (bound: B read and the int32 sums written once); K2 and K3's
-     sum kernel beside the instruction estimate of their designs.
+     and, for the copy floor, B[:p].clone() (which moves 2·p·m bytes, not
+     the floor's (k + p)·m); K3's w=16 pairs at the w=16 encode segment
+     (m = 3,355,392) and its pre-parity form at the w=8 segment (bound: B
+     read and the int32 sums written once); K1 in both forms and K3's six
+     W=4 instances at w=4 on the same bytes (one symbol a byte); K2 and
+     K3's sum and dot kernels beside the instruction estimate of their
+     designs.
 
 Phases run in the order 1-5, 5b-5j, 5m, 6, 8, 5k, 5l, 9.  The last lines are
 nvidia-smi's name and power limit, the kernels JSON and the result JSON.
@@ -407,12 +425,17 @@ def smi_line(fields: str = "name,power.limit") -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sym_bytes(w: int) -> int:
+    """Bytes a GF(2^w) symbol takes in memory: one at w=4 and 8."""
+    return 2 if w == 16 else 1
+
+
 def bound_ms(p: int, k: int, m: int, w: int) -> float:
     """Least time for C = A.B over GF(2^w) at (p, k, m): B read once and C
     written once at the device-memory rate.  The GF(2) product itself needs
     no multiply; what K1's design issues per column on the logic pipe is
     estimated beside it (k1_logic_ops_per_col)."""
-    return 1e3 * (k + p) * m * (w // 8) / HBM_BYTES_PER_S
+    return 1e3 * (k + p) * m * sym_bytes(w) / HBM_BYTES_PER_S
 
 
 def k1_logic_ops_per_col(p: int, k: int, w: int) -> float:
@@ -420,9 +443,11 @@ def k1_logic_ops_per_col(p: int, k: int, w: int) -> float:
     one LOP3 for each (output plane, input plane) pair of every tile, plus
     five logic or shift ops per masked swap of the transposes (log2(w)
     stages of w/2 swaps) on each input row of each tile and on each output
-    row, over the thread's 32 columns."""
+    row, over the thread's 32 columns.  At w=4 the transposes are w=8's
+    (one symbol a byte)."""
     rt, tiles, _ = cuda_gemm.bitslice_plan(p, k, w)
-    swaps = 5 * int(math.log2(w)) * (w // 2)
+    sw = max(w, 8)
+    swaps = 5 * int(math.log2(sw)) * (sw // 2)
     return (tiles * rt * w * k * w + (tiles * k + p) * swaps) / 32
 
 
@@ -475,6 +500,27 @@ def k3_ops_per_col(p: int, k: int, expand: str) -> float:
     return warp_instr * 32 / step
 
 
+def k3_dot_ops_per_col(p: int, k: int, expand: str) -> float:
+    """An estimate from the design of gf_planes_dot_kernel, not a
+    measurement: thread instructions per column besides the mma, for the
+    byte expansions' dot refold.  The step's copies as k3_ops_per_col
+    counts them.  Per pass over 4 n-tiles (32 operator rows) it zeroes 64
+    accumulators (32) and controls its loop (10); per depth chunk and pass
+    it reads 4 rows (4 LDS.64), transposes them (16 PRMT), makes 16 plane
+    registers and reads 2 B-fragment uint4.  Per pass it moves the 64
+    accumulators into the second product's 16 A registers (3 PRMT and a
+    mask each, 64).  Per 8-symbol output tile it zeroes 16 sums (8),
+    controls its loop (10) and stores 2 symbols with 6 PRMT, an address
+    and a test and one 8-byte store each (22).  Each instruction runs on 32
+    threads, over 64 columns."""
+    step = 64
+    mt, kc = cuda_planes.sum_operator(np.zeros((p, 1), dtype=np.uint8)).shape[0] // 16, -(-k // 4)
+    passes, tiles = mt // 2, -(-mt // 4)
+    warp_instr = (6 * -(-k // 8) + 20 + tiles * (8 + 10 + 22) + passes * (32 + 10 + 64)
+                  + passes * kc * (4 + 16 + 16 * K3_PLANE_OPS[expand]) + kc * mt)
+    return warp_instr * 32 / step
+
+
 def time_ms(fn, iters: int, reps: int = 1, warmup: int = 2) -> float:
     """Best milliseconds per call over ``reps`` loops of ``iters`` calls,
     timed with CUDA events."""
@@ -504,9 +550,10 @@ def sha256_file(path: str) -> str:
 
 
 def random_symbols(rng, shape, w, device):
-
-    dt = np.uint8 if w == 8 else np.uint16
-    return to_tensor(rng.integers(0, 1 << w, size=shape).astype(dt), device)
+    """Seeded symbols; at w=4 whole bytes, so that the kernels must ignore
+    the high nibble."""
+    dt = np.uint16 if w == 16 else np.uint8
+    return to_tensor(rng.integers(0, 1 << max(w, 8), size=shape).astype(dt), device)
 
 
 @_named("3 K1 grid")
@@ -524,12 +571,13 @@ def phase_kernel_grid(device) -> int:
     # windows (409-411 columns) alone and stacked, a stacked group.
     shapes += [(4, 10, m) for m in (2, 3, 409, 410, 411, 822, 411_007)]
     # Several output tiles and depth chunks of the bit-sliced kernel.
-    wide = {8: [(128, 128, 4097), (64, 200, 3000), (16, 50, 1100), (16, 50, 70001)],
+    wide = {4: [(16, 128, 4097), (17, 100, 3000), (64, 64, 1100), (128, 128, 2049), (16, 50, 70001)],
+            8: [(128, 128, 4097), (64, 200, 3000), (16, 50, 1100), (16, 50, 70001)],
             16: [(64, 64, 4097), (128, 128, 2049), (5, 7, 300), (9, 12, 130), (4, 33, 70001)]}
     worst = 0
     cases = 0
     rng = np.random.default_rng(SEED)
-    for w in (8, 16):
+    for w in (4, 8, 16):
         # (p, k, m, elements B's first row sits past a 16-byte boundary)
         grid = [(p, k, m, 0) for p, k, m in shapes + wide[w]] + [(4, 10, 65536, 1), (4, 10, 65536, 3)]
         for p, k, m, skew in grid:
@@ -1417,6 +1465,14 @@ class Grid:
             raise AssertionError(f"{self.name} != plain at {what}: max err {err}")
 
 
+def k3_grid_name(expand: str, refold: str | None, w: int = 8) -> str:
+    """The kernels line's name of the K3 kernel that runs (expand, refold)
+    at w (refold None: the dispatch's default)."""
+    refold = refold or cuda_gemm._default_refold(w)
+    kind = cuda_planes.kind(w, expand, refold)
+    return next(name for name, k in K3_KINDS.items() if k == kind)
+
+
 @_named("7 K2/K3 grids")
 def phase_new_kernels_vs_plain(device) -> dict:
     """K2 and K3 against their plain versions on the card; returns the
@@ -1425,7 +1481,9 @@ def phase_new_kernels_vs_plain(device) -> dict:
     gen.manual_seed(SEED)
     rng = np.random.default_rng(SEED + 7)
     k2, planes, copy = Grid("K2"), Grid("K3-planes"), Grid("K3-copy-floor")
-    planes_sum = Grid("K3-planes-sum")
+    planes_sum, planes_dot = Grid("K3-planes-sum"), Grid("K3-planes-dot")
+    wide, pre, narrow = Grid("K3-planes-w16"), Grid("K3-planes-preparity"), Grid("K3-planes-w4")
+    by_name = {grid.name: grid for grid in (planes, planes_sum, planes_dot, wide, pre, narrow)}
     # k = 29-32 and 61-63: the edges of the kernel's 30-symbol depth slices
     # and of the plain version's 31-symbol ones.
     for m in (511, 512, 4097, SEGMENT_COLS):
@@ -1455,7 +1513,7 @@ def phase_new_kernels_vs_plain(device) -> dict:
             k2.check(cuda_pack2.gf_matmul_pack2(A, B), cuda_pack2.gf_matmul_pack2_plain(A, B),
                      f"largest sum: element {dense} p={p} k={k} bytes 0xFF")
     for expand, refold in cuda_planes.PAIRS:
-        grid = planes_sum if cuda_planes.is_sum_pair(expand, refold) else planes
+        grid = by_name[k3_grid_name(expand, refold)]
         for k in (4, 10, 32):
             for m in (4097, 100003):
                 B = _rand_u8(gen, (k, m), device)
@@ -1473,25 +1531,27 @@ def phase_new_kernels_vs_plain(device) -> dict:
             grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, tile, pinned=True),
                        cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, tile, pinned=True),
                        f"{expand}+{refold} pinned tile={tile}")
-    # The sum kernel at depths off its 4-symbol chunks, p off its m-tile
-    # pairs, m below one warp step and 16-byte rows at the segment's width,
-    # and its largest sums: every byte 0xFF, every coefficient the densest
+    # The sum and dot kernels at depths off their 4-symbol chunks, p off
+    # their m-tile pairs (and the dot kernel's 8-symbol output tiles), m
+    # below one warp step and 16-byte rows at the segment's width, and
+    # their largest sums: every byte 0xFF, every coefficient the densest
     # element.
     for expand in cuda_planes.SUM_EXPANDS:
-        for k in (1, 3, 5, 33):
-            for m in (37, 4097, 65536):
-                B = _rand_u8(gen, (k, m), device)
-                for p in (1, 2, 4, 10):
-                    A = rng.integers(0, 256, size=(p, k))
-                    planes_sum.check(cuda_planes.gf_matmul_planes(A, B, expand, "sum"),
-                                     cuda_planes.gf_matmul_planes_plain(A, B, expand, "sum"),
-                                     f"{expand}+sum p={p} k={k} m={m}")
-        for k in (4, 33):
-            B = torch.full((k, 4096), 0xFF, dtype=torch.uint8, device=device)
-            A = np.full((10, k), dense)
-            planes_sum.check(cuda_planes.gf_matmul_planes(A, B, expand, "sum"),
-                             cuda_planes.gf_matmul_planes_plain(A, B, expand, "sum"),
-                             f"{expand}+sum largest sum: element {dense} k={k} bytes 0xFF")
+        for refold, grid, ps in (("sum", planes_sum, (1, 2, 4, 10)), ("dot", planes_dot, (1, 2, 4, 9, 16))):
+            for k in (1, 3, 5, 33):
+                for m in (37, 4097, 65536):
+                    B = _rand_u8(gen, (k, m), device)
+                    for p in ps:
+                        A = rng.integers(0, 256, size=(p, k))
+                        grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold),
+                                   cuda_planes.gf_matmul_planes_plain(A, B, expand, refold),
+                                   f"{expand}+{refold} p={p} k={k} m={m}")
+            for k in (4, 33):
+                B = torch.full((k, 4096), 0xFF, dtype=torch.uint8, device=device)
+                A = np.full((10, k), dense)
+                grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold),
+                           cuda_planes.gf_matmul_planes_plain(A, B, expand, refold),
+                           f"{expand}+{refold} largest sum: element {dense} k={k} bytes 0xFF")
     for k in (4, 10, 32):
         for m in (4097, 65536, SEGMENT_COLS):  # ragged (byte path) and 16-byte rows
             B = _rand_u8(gen, (k, m), device)
@@ -1503,10 +1563,11 @@ def phase_new_kernels_vs_plain(device) -> dict:
     want = gf_matmul_bitplane(A, B, 8)
     for name, kernel in cuda_gemm.EXPANSIONS.items():
         for refold in ((None,) if kernel == "pack2" else (None, "sum", "dot")):
-            grid = k2 if kernel == "pack2" else planes_sum if cuda_planes.is_sum_pair(kernel, refold) else planes
+            grid = k2 if kernel == "pack2" else by_name[k3_grid_name(kernel, refold)]
             grid.check(cuda_gemm.gf_matmul_cuda(A, B, 8, expand=name, refold=refold), want, f"expand={name} refold={refold}")
-    wide, pre = _new_instances_vs_plain(device, gen, rng, dense)
-    grids = (k2, planes, planes_sum, copy, wide, pre)
+    _new_instances_vs_plain(device, gen, rng, dense, by_name)
+    _w4_instances_vs_plain(device, gen, rng, narrow, pre)
+    grids = (k2, planes, planes_sum, planes_dot, copy, wide, pre, narrow)
     for grid in grids:
         log(phase="kernel_vs_plain", kernel=grid.name, cases=grid.cases, max_abs_err=grid.worst, tolerance=0)
     return {grid.name: grid for grid in grids}
@@ -1517,14 +1578,16 @@ def _rand_u16(gen, shape, device) -> torch.Tensor:
         torch.int16).view(torch.uint16)
 
 
-def _new_instances_vs_plain(device, gen, rng, dense8: int) -> tuple[Grid, Grid]:
+def _new_instances_vs_plain(device, gen, rng, dense8: int, grids: dict) -> None:
     """Phase 7's w=16 and pre-parity cases: every w=16 pair at k 1-33, p
     1-10 and m 37-100,003 (tiles 256 and 8192) and pinned; their largest
     sums (every symbol 0xFFFF, every coefficient the densest element); the
     largest k that fits in shared memory at p=16 and the refusal one past
-    it (no launch); the pre-parity form of every instance, exact int32; and
-    the public dispatch of every JAX name at w=16 and pre-parity."""
-    wide, pre = Grid("K3-planes-w16"), Grid("K3-planes-preparity")
+    it (no launch), for every instance but the sum kernel's and nibble's
+    at w=8; the pre-parity form of every instance, exact int32; and the
+    public dispatch of every JAX name at w=16 and pre-parity.  ``grids``:
+    phase 7's K3 grids by name."""
+    wide, pre = grids["K3-planes-w16"], grids["K3-planes-preparity"]
     dense16 = int(get_field(16).bitmats.sum(axis=2).max(axis=1).argmax())
     for expand in cuda_planes.WIDE_EXPANDS:
         for refold in ("sum", "dot"):
@@ -1554,7 +1617,8 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int) -> tuple[Grid, Grid]:
     # The largest k whose operator fits at p=16, and the refusal past it.
     limits = {}
     for w, expand, refold in cuda_planes.INSTANCES:
-        if cuda_planes.is_sum_pair(expand, refold, w) or (w == 8 and refold != "none"):
+        if cuda_planes.is_sum_pair(expand, refold, w) or (w == 8 and refold != "none"
+                                                          and not cuda_planes.is_dot_pair(expand, refold, w)):
             continue
         k = 1
         while cuda_planes.smem_bytes(k + 1, 16, expand, refold, w)[0] <= cuda_planes.smem_bytes(k, 16, expand, refold,
@@ -1562,13 +1626,13 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int) -> tuple[Grid, Grid]:
             k += 1
         limits[f"w={w} {expand}+{refold}"] = k
         A = rng.integers(0, 1 << w, size=(16, k))
-        B = (_rand_u8 if w == 8 else _rand_u16)(gen, (k, 4097), device)
-        grid = pre if refold == "none" else wide
+        B = (_rand_u16 if w == 16 else _rand_u8)(gen, (k, 4097), device)
+        grid = pre if refold == "none" else grids[k3_grid_name(expand, refold, w)]
         grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, w=w),
                    cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, w=w),
                    f"w={w} {expand}+{refold} p=16 largest k={k}")
         A = rng.integers(0, 1 << w, size=(16, k + 1))
-        B = (_rand_u8 if w == 8 else _rand_u16)(gen, (k + 1, 4097), device)
+        B = (_rand_u16 if w == 16 else _rand_u8)(gen, (k + 1, 4097), device)
         before = dict(cuda_planes.LAUNCHES)
         try:
             cuda_planes.gf_matmul_planes(A, B, expand, refold, w=w)
@@ -1584,7 +1648,7 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int) -> tuple[Grid, Grid]:
             continue
         for k in (1, 4, 10, 33):
             for m in (37, 4097, 100003):
-                B = (_rand_u8 if w == 8 else _rand_u16)(gen, (k, m), device)
+                B = (_rand_u16 if w == 16 else _rand_u8)(gen, (k, m), device)
                 for p in (1, 4, 10):
                     A = rng.integers(0, 1 << w, size=(p, k))
                     want = cuda_planes.gf_matmul_planes_plain(A, B, expand, "none", w=w)
@@ -1602,7 +1666,7 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int) -> tuple[Grid, Grid]:
     # plain version, its parity against K1's).
     for w in (8, 16):
         A = rng.integers(0, 1 << w, size=(4, 10))
-        B = (_rand_u8 if w == 8 else _rand_u16)(gen, (10, 4097), device)
+        B = (_rand_u16 if w == 16 else _rand_u8)(gen, (10, 4097), device)
         folded, sums = gf_matmul_bitplane(A, B, w), gf_matmul_bitplane(A, B, w, fold_parity=False)
         for name, kernel in cuda_gemm.EXPANSIONS.items():
             if name not in cuda_gemm.JAX_NAMES or kernel == "pack2" or (w == 16 and name in cuda_gemm.BYTE_ONLY):
@@ -1616,7 +1680,52 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int) -> tuple[Grid, Grid]:
                       f"dispatch w={w} expand={name} fold_parity=False")
             pre.check(got & 1, sums & 1, f"dispatch w={w} expand={name} fold_parity=False, parity against K1's")
     cuda_gemm.clear_autotune_cache()
-    return wide, pre
+
+
+def _w4_instances_vs_plain(device, gen, rng, narrow: Grid, pre: Grid) -> None:
+    """Phase 7's W=4 cases (bytes with the high nibble set): K3's folded
+    W=4 instances at k 1-33, p 1-17 (past one F tile), m 37-100,003, tiles
+    256 and 8192, pinned, and at their largest sums (every byte 0xFF, the
+    densest element), with the pre-parity form beside each; and the public
+    dispatch of shift and shift_raw at w=4 (refold None, sum, dot,
+    autotune; fold_parity=False) against K1's plain version."""
+    dense4 = int(get_field(4).bitmats.sum(axis=2).max(axis=1).argmax())
+    for expand in cuda_planes.NARROW_EXPANDS:
+        for k in (1, 3, 8, 9, 33):
+            for m in (37, 4097, 100003):
+                B = _rand_u8(gen, (k, m), device)
+                for p in (1, 3, 4, 10, 17):
+                    A = rng.integers(0, 16, size=(p, k))
+                    for refold in ("sum", "dot", "none"):
+                        grid = pre if refold == "none" else narrow
+                        want = cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, w=4)
+                        for tile in (256, 8192):
+                            grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, tile, w=4), want,
+                                       f"w=4 {expand}+{refold} p={p} k={k} m={m} tile={tile}")
+        A, B = rng.integers(0, 16, size=(4, 10)), _rand_u8(gen, (10, 3 * 8192 + 37), device)
+        for refold in ("sum", "dot"):
+            narrow.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, 8192, pinned=True, w=4),
+                         cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, 8192, pinned=True, w=4),
+                         f"w=4 {expand}+{refold} pinned")
+        for k in (4, 33):
+            B = torch.full((k, 4096), 0xFF, dtype=torch.uint8, device=device)
+            A = np.full((10, k), dense4)
+            for refold in ("sum", "dot", "none"):
+                grid = pre if refold == "none" else narrow
+                grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, w=4),
+                           cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, w=4),
+                           f"w=4 {expand}+{refold} largest sum: element {dense4} k={k} bytes 0xFF")
+    A, B = rng.integers(0, 16, size=(4, 10)), _rand_u8(gen, (10, 4097), device)
+    folded, sums = gf_matmul_bitplane(A, B, 4), gf_matmul_bitplane(A, B, 4, fold_parity=False)
+    for name in cuda_planes.NARROW_EXPANDS:
+        for refold in (None, "sum", "dot", "autotune"):
+            narrow.check(cuda_gemm.gf_matmul_cuda(A, B, 4, expand=name, refold=refold), folded,
+                         f"dispatch w=4 expand={name} refold={refold}")
+        got = cuda_gemm.gf_matmul_cuda(A, B, 4, expand=name, fold_parity=False)
+        pre.check(got, cuda_planes.gf_matmul_planes_plain(A, B, name, "none", w=4),
+                  f"dispatch w=4 expand={name} fold_parity=False")
+        pre.check(got & 1, sums & 1, f"dispatch w=4 expand={name} fold_parity=False, parity against K1's")
+    cuda_gemm.clear_autotune_cache()
 
 
 def _reset_counts() -> None:
@@ -1634,8 +1743,8 @@ def k1_runs() -> int:
 
 
 # Kernel (the kernels line's and the grids' names) -> cuda_planes' count.
-K3_KINDS = {"K3-planes": "planes", "K3-planes-sum": "sum", "K3-copy-floor": "copy", "K3-planes-w16": "w16",
-            "K3-planes-preparity": "preparity"}
+K3_KINDS = {"K3-planes": "planes", "K3-planes-sum": "sum", "K3-planes-dot": "dot", "K3-copy-floor": "copy",
+            "K3-planes-w4": "w4", "K3-planes-w16": "w16", "K3-planes-preparity": "preparity"}
 
 
 def _counts() -> dict:
@@ -1689,7 +1798,7 @@ def phase_tools() -> dict:
     sweep = _run_tool(kernel_sweep, ["--trials", "1"])
     probe = _run_tool(expand_probe, ["--trials", "1"])
     launches = _counts()
-    for name in ("K2", "K3-planes", "K3-planes-sum", "K3-copy-floor"):
+    for name in ("K2", "K3-planes", "K3-planes-sum", "K3-planes-dot", "K3-copy-floor"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the tools: {launches}")
     log(phase="tools_launches", **launches)
@@ -1816,14 +1925,15 @@ def phase_tools_5l(work: str) -> dict:
 def preparity_bound_ms(p: int, k: int, m: int, w: int) -> float:
     """Least time for the pre-parity form: B read once and the (p*w, m)
     int32 sums written once at the device-memory rate."""
-    return 1e3 * (k * (w // 8) + 4 * p * w) * m / HBM_BYTES_PER_S
+    return 1e3 * (k * sym_bytes(w) + 4 * p * w) * m / HBM_BYTES_PER_S
 
 
 def phase_new_timings(device) -> dict:
     """K2, each K3 pair, the pinned ceiling and the copy floor at the main
     path's encode segment shape; K3's w=16 pairs at the w=16 encode segment
     (the same 64 MiB: m = 3,355,392 symbols) and its pre-parity form at the
-    w=8 segment."""
+    w=8 segment; K1 (both forms) and K3's W=4 instances at w=4 on the w=8
+    segment's bytes."""
     k, p, m = 10, 4, SEGMENT_COLS
     m16 = SEGMENT_COLS // 2
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -1834,14 +1944,15 @@ def phase_new_timings(device) -> dict:
     B = _rand_u8(gen, (k, m), device)
     A16 = RSCodec(k, p, w=16, device=device).parity_block
     B16 = _rand_u16(gen, (k, m16), device)
+    A4 = RSCodec(k, p, w=4, device=device).parity_block
     seg = (m, 8, bound_ms(p, k, m, 8))
     cases = [("K2", "pack2", lambda: cuda_pack2.gf_matmul_pack2(A, B), lambda: cuda_pack2.gf_matmul_pack2_plain(A, B), None,
               seg)]
     for expand, refold in cuda_planes.PAIRS:
-        cases.append(("K3-planes-sum" if cuda_planes.is_sum_pair(expand, refold) else "K3-planes", f"{expand}+{refold}",
+        cases.append((k3_grid_name(expand, refold), f"{expand}+{refold}",
                       functools.partial(cuda_planes.gf_matmul_planes, A, B, expand, refold),
                       functools.partial(cuda_planes.gf_matmul_planes_plain, A, B, expand, refold), None, seg))
-    cases.append(("K3-planes", "shift_raw+dot pinned (compute-only ceiling)",
+    cases.append(("K3-planes-dot", "shift_raw+dot pinned (compute-only ceiling)",
                   functools.partial(cuda_planes.gf_matmul_planes, A, B, "shift_raw", "dot", pinned=True),
                   functools.partial(cuda_planes.gf_matmul_planes_plain, A, B, "shift_raw", "dot", pinned=True), None, seg))
     cases.append(("K3-copy-floor", "copy_floor", lambda: cuda_planes.copy_floor(B, p), lambda: cuda_planes.copy_floor_plain(B, p),
@@ -1857,6 +1968,18 @@ def phase_new_timings(device) -> dict:
                       functools.partial(cuda_planes.gf_matmul_planes, A, B, expand, "none"),
                       functools.partial(cuda_planes.gf_matmul_planes_plain, A, B, expand, "none"), None,
                       (m, 8, preparity_bound_ms(p, k, m, 8))))
+    # w=4 on the same bytes: one symbol a byte, the high nibble ignored.
+    for fold, label, bound in ((True, "K1 w4", bound_ms(p, k, m, 4)),
+                               (False, "K1 w4 pre-parity", preparity_bound_ms(p, k, m, 4))):
+        cases.append(("K1", label, functools.partial(cuda_gemm.gf_matmul_cuda, A4, B, 4, fold_parity=fold),
+                      functools.partial(gf_matmul_bitplane, A4, B, 4, fold_parity=fold), None, (m, 4, bound)))
+    for expand in cuda_planes.NARROW_EXPANDS:
+        for refold in ("sum", "dot", "none"):
+            bound = preparity_bound_ms(p, k, m, 4) if refold == "none" else bound_ms(p, k, m, 4)
+            cases.append((k3_grid_name(expand, refold, 4), f"w4 {expand}+{refold}",
+                          functools.partial(cuda_planes.gf_matmul_planes, A4, B, expand, refold, w=4),
+                          functools.partial(cuda_planes.gf_matmul_planes_plain, A4, B, expand, refold, w=4), None,
+                          (m, 4, bound)))
     rows = {}
     for kernel, label, fn, plain, library, (cols, w, bound) in cases:
         err = int((_widen(fn()) - _widen(plain())).abs().max().item())
@@ -1866,11 +1989,16 @@ def phase_new_timings(device) -> dict:
         row = dict(phase="kernel_timing", kernel=kernel, shape=f"encode k={k} p={p} m={cols} w={w} ({label})", ms=ms,
                    plain_ms=time_ms(plain, iters=3, warmup=1), bound_ms=bound, bound_by="bytes",
                    library_ms=time_ms(library, iters=20) if library else None, max_abs_err=err,
-                   data_gbps=k * cols * (w // 8) / (ms * 1e-3) / 1e9, traffic_gbps=(k + p) * cols * (w // 8) / (ms * 1e-3) / 1e9,
+                   data_gbps=k * cols * sym_bytes(w) / (ms * 1e-3) / 1e9,
+                   traffic_gbps=(k + p) * cols * sym_bytes(w) / (ms * 1e-3) / 1e9,
                    tile=cuda_pack2.DEFAULT_TILE if kernel == "K2" else cuda_planes.DEFAULT_TILE, nvidia_smi=smi_line())
         ops = k2_ops_per_col(p, k) if kernel == "K2" else None
         if kernel == "K3-planes-sum":
             ops = k3_ops_per_col(p, k, label.split("+")[0])
+        if kernel == "K3-planes-dot" and "pinned" not in label:
+            ops = k3_dot_ops_per_col(p, k, label.split("+")[0])
+        if label == "K1 w4":
+            ops = k1_logic_ops_per_col(p, k, 4)
         if ops is not None:
             row.update(est_ops_per_col=ops, sms=sms, max_sm_clock_mhz=clock_mhz,
                        est_ops_ms=1e3 * ops * m / (sms * LOGIC_OPS_PER_SM_CLOCK * clock_mhz * 1e6))
@@ -2366,10 +2494,10 @@ def phase_updates(work: str, seed: int, size: int, device, segment_bytes: int = 
 
 # -- phase 5f: the object store ------------------------------------------------
 
-STORE_OBJECTS = 4096  # seeded sizes, log-uniform over 4 KiB - 1 MiB
+STORE_OBJECTS = 2048  # seeded sizes, log-uniform over 4 KiB - 1 MiB
 STORE_BATCH = 64
 STORE_SMALL = 1000  # x 4 KiB: the write-combining batch
-STORE_DELETES = 256
+STORE_DELETES = 128
 STORE_STRIPE = 64 * MiB  # the seal threshold's default
 
 
@@ -3408,7 +3536,8 @@ def _ab_arm_breakdown(ledger: str, report: dict) -> dict:
     client's per-request rows: queue wait, service, the client's share
     (upload and response outside the daemon's admit..ack), batch sizes,
     the file ops' phase sums, and when the maint jobs ran against the
-    load (seconds after the first foreground admission)."""
+    load (seconds after the first foreground admission) with the number
+    of foreground requests that overlapped one."""
     from gpu_rscode_torch.obs import runlog
 
     recs = runlog.read_records(ledger)
@@ -3443,6 +3572,7 @@ def _ab_arm_breakdown(ledger: str, report: dict) -> dict:
                        "batch": r.get("batch"),
                        "beside_maint": any(a < r["ts"] and b > r["ts"] - r["wall_s"] for a, b in jobs)}
                       for r in sorted(fg, key=lambda r: -r["wall_s"])[:4]]
+    out["fg_beside_maint"] = sum(any(a < r["ts"] and b > r["ts"] - r["wall_s"] for a, b in jobs) for r in fg)
     return out
 
 
@@ -4226,6 +4356,7 @@ def phase_mesh(work: str, seed: int, device, cuda_digests: dict) -> dict:
 # -- phase 5m: the RS_PALLAS_* knobs on the main path ---------------------------
 
 KNOBS_W16_BYTES = 256 * MiB
+KNOBS_DOT_BYTES = 256 * MiB
 
 
 def _knob_step(what: str, fn, nbytes: int) -> dict:
@@ -4244,6 +4375,58 @@ def _knob_step(what: str, fn, nbytes: int) -> dict:
                stream_dispatches=pipeline.STREAM_DISPATCHES)
     if runs["K1"]:
         raise AssertionError(f"5m {what}: K1 ran {runs['K1']} times under the RS_PALLAS_* knobs")
+    return res
+
+
+def _codec_w4_step(what: str, device, seed: int, kernel: str) -> dict:
+    """RSCodec(10, 4, w=4) on the card, strategy auto: a seeded 64 MiB
+    stripe (symbols < 16, one a byte) staged as the segment loops stage it
+    and encoded three times, decoded three times with the first 4 natives
+    lost, and one update; every result against K1's plain version (or the
+    data).  ``kernel`` (K1 or K3-planes-w4) must run every dispatch, some
+    inside graph replays, and no other GEMM kernel may run."""
+    _reset_counts()
+    plan0 = _plan_counts()
+    t0 = time.perf_counter()
+    codec = RSCodec(10, 4, w=4, device=device)
+    cols = SEGMENT_COLS
+    data = np.random.default_rng(seed).integers(0, 16, size=(10, cols), dtype=np.uint8)
+    want = gf_matmul_bitplane(codec.parity_block, to_tensor(data, device), 4)
+
+    def dispatch(fn, host):
+        staged = plan.stage_segment(host, cols, device)
+        out = fn(staged)[:, :cols].cpu()
+        plan.release(staged)
+        return out.numpy()
+
+    dispatches = 0
+    for _ in range(3):
+        parity = dispatch(codec.encode, data)
+        dispatches += 1
+        if not np.array_equal(parity, want.cpu().numpy()):
+            raise AssertionError(f"5m {what}: the parity differs from K1's plain version")
+    rows = list(range(4, 14))
+    dec = codec.decode_matrix(rows)
+    chunks = np.concatenate([data, parity])[rows]
+    for _ in range(3):
+        dispatches += 1
+        if not np.array_equal(dispatch(lambda st: codec.decode(dec, st), chunks), data):
+            raise AssertionError(f"5m {what}: the decode with the first 4 natives lost differs from the data")
+    delta = data ^ np.roll(data, 1, axis=1)
+    dispatches += 1
+    if not np.array_equal(dispatch(lambda st: codec.update(codec.parity_block, st), delta),
+                          gf_matmul_bitplane(codec.parity_block, to_tensor(delta, device), 4).cpu().numpy()):
+        raise AssertionError(f"5m {what}: the update differs from K1's plain version")
+    wall = time.perf_counter() - t0
+    runs = _counts()
+    replayed = cuda_gemm.REPLAYED if kernel == "K1" else cuda_planes.REPLAYED["w4"]
+    others = {name: n for name, n in runs.items() if name != kernel and n}
+    if codec.strategy != "cuda" or runs[kernel] < dispatches or replayed <= 0 or others:
+        raise AssertionError(f"5m {what}: strategy {codec.strategy}, runs {runs}, {replayed} inside replays, "
+                             f"{dispatches} dispatches")
+    res = dict(op=what, wall_s=wall, dispatches=dispatches, runs=runs, replayed=replayed, plan=_plan_delta(plan0),
+               strategy=codec.strategy, cols=cols)
+    log(phase="knobs", step=what, **res)
     return res
 
 
@@ -4318,8 +4501,8 @@ def phase_knobs(work: str, device, cuda_digests: dict) -> dict:
         decisions = cuda_gemm.autotune_decisions()
         snap = metrics.REGISTRY.snapshot()
         for step in (enc, dec):
-            k3 = step["runs"]["K3-planes"] + step["runs"]["K3-planes-sum"]
-            replayed = step["k3_replayed"]["planes"] + step["k3_replayed"]["sum"]
+            k3 = step["runs"]["K3-planes-dot"] + step["runs"]["K3-planes-sum"]
+            replayed = step["k3_replayed"]["dot"] + step["k3_replayed"]["sum"]
             if k3 < step["stream_dispatches"] or replayed <= 0 or step["plan"]["replays"] <= 0:
                 raise AssertionError(f"5m {step['op']}: K3 runs {k3}, inside replays {replayed}, "
                                      f"{step['stream_dispatches']} dispatches, plan {step['plan']}")
@@ -4378,6 +4561,47 @@ def phase_knobs(work: str, device, cuda_digests: dict) -> dict:
         w16["plans_refold"] = sorted({str(p["refold"]) for p in plan.PLAN_CACHE.stats()["plans"] if p["w"] == 16})
         res["w16"] = w16
         log(phase="knobs", step="w16 autotune", **w16)
+        os.environ.pop("RS_PALLAS_REFOLD")
+
+        # (e) RSCodec at w=4 on staged segments: K1, then K3 at W=4.
+        plan.PLAN_CACHE.clear()
+        res["w4_k1"] = _codec_w4_step("RSCodec w=4 round trip (K1)", device, SEED + 16, "K1")
+        os.environ["RS_PALLAS_EXPAND"] = "shift_raw"
+        plan.PLAN_CACHE.clear()
+        res["w4_k3"] = _codec_w4_step("RSCodec w=4 round trip shift_raw (K3 W=4 sum)", device, SEED + 16,
+                                      "K3-planes-w4")
+
+        # (f) 256 MiB at w=8 under shift_raw alone: the dot refold's kernel,
+        # against K1's archive of the same file.
+        os.environ.pop("RS_PALLAS_EXPAND")
+        plan.PLAN_CACHE.clear()
+        path = os.path.join(d, "dot.bin")
+        want = write_seeded(path, SEED + 17, KNOBS_DOT_BYTES)
+        api.encode_file(path, k, n - k, strategy="cuda", device=device)
+        k1_digests = archive_digests(path, n)
+        _clean_archive(path)
+        os.environ["RS_PALLAS_EXPAND"] = "shift_raw"
+        plan.PLAN_CACHE.clear()
+        dot_enc = _knob_step("encode 256 MiB k=10 n=14 shift_raw (dot)",
+                             lambda: api.encode_file(path, k, n - k, strategy="cuda", device=device), KNOBS_DOT_BYTES)
+        if archive_digests(path, n) != k1_digests:
+            raise AssertionError("5m: the shift_raw+dot archive differs from K1's archive of the same file")
+        dot_enc["archive_equals_k1"] = True
+        for i in range(n - k):
+            os.unlink(chunk_file_name(path, i))
+        conf = make_conf(n, k, path)
+        dot_dec = _knob_step("decode 256 MiB 4 lost shift_raw (dot)",
+                             lambda: api.decode_file(path, conf, path + ".out", strategy="cuda", device=device),
+                             KNOBS_DOT_BYTES)
+        if sha256_file(path + ".out") != want:
+            raise AssertionError("5m: the shift_raw+dot decode differs from the input")
+        for step in (dot_enc, dot_dec):
+            if step["runs"]["K3-planes-dot"] < step["stream_dispatches"] or step["k3_replayed"]["dot"] <= 0:
+                raise AssertionError(f"5m {step['op']}: the dot kernel ran {step['runs']['K3-planes-dot']} times, "
+                                     f"{step['k3_replayed']['dot']} inside replays, {step['stream_dispatches']} "
+                                     "dispatches")
+        res["dot"] = dict(encode=dot_enc, decode=dot_dec)
+        log(phase="knobs", step="w8 shift_raw dot", sha256_match=True, **res["dot"])
     finally:
         for var, val in saved.items():
             os.environ.pop(var, None)
@@ -4388,8 +4612,9 @@ def phase_knobs(work: str, device, cuda_digests: dict) -> dict:
         metrics.REGISTRY.reset()
         if os.path.isdir(d):
             shutil.rmtree(d)
-    steps = (res["w8"]["encode"], res["w8"]["decode"], res["stripe"], res["pack2"], res["w16"])
-    res["launches"] = {name: sum(step["runs"][name] for step in steps) for name in ("K2", *K3_KINDS)}
+    steps = (res["w8"]["encode"], res["w8"]["decode"], res["stripe"], res["pack2"], res["w16"], res["w4_k1"],
+             res["w4_k3"], res["dot"]["encode"], res["dot"]["decode"])
+    res["launches"] = {name: sum(step["runs"][name] for step in steps) for name in ("K1", "K2", *K3_KINDS)}
     res["walls"] = {step["op"]: step["wall_s"] for step in steps}
     res["seconds"] = time.perf_counter() - t_phase
     log(phase="knobs_summary", seconds=res["seconds"], launches=res["launches"], walls=res["walls"], smi=smi_line())
@@ -4452,23 +4677,31 @@ def kernel_entries(k1_err, grids, k1_timing=None, main_launches=None, new_timing
     t = new_timings or {}
     tl = tool_launches or {}
     return [
-        entry("K1 gf_gemm (bit-sliced GF(2^w) GEMM; pre-parity: popcount)", "gpu_rscode_torch/ops/csrc/gf_gemm.cu",
-              "gpu_rscode_tpu/ops/pallas_gemm.py:307", main_launches, k1_err, k1_timing),
+        entry("K1 gf_gemm (bit-sliced GF(2^w) GEMM, w=4, 8, 16; pre-parity: popcount)",
+              "gpu_rscode_torch/ops/csrc/gf_gemm.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307", main_launches, k1_err,
+              k1_timing),
         entry("K2 gf_pack2 (packed two-column GF(2^8) GEMM)", "gpu_rscode_torch/ops/csrc/gf_pack2.cu",
               "gpu_rscode_tpu/ops/pallas_gemm.py:256", tl.get("K2"), grids["K2"].worst, t.get("pack2")),
-        entry("K3 gf_planes (bit-plane GEMM on int8 mma; timed: shift_raw+dot)", "gpu_rscode_torch/ops/csrc/gf_planes.cu",
-              "gpu_rscode_tpu/tools/kernel_sweep.py:175", tl.get("K3-planes"), grids["K3-planes"].worst,
-              t.get("shift_raw+dot")),
+        entry("K3 gf_planes (bit-plane GEMM on int8 mma at w=8: nibble; timed: nibble+dot)",
+              "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/tools/kernel_sweep.py:175",
+              tl.get("K3-planes"), grids["K3-planes"].worst, t.get("nibble+dot")),
         entry("K3 gf_planes_sum (bit-plane GEMM, byte expansions' sum refold, scaled u8 mma; timed: shift+sum)",
               "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/tools/kernel_sweep.py:39",
               tl.get("K3-planes-sum"), grids["K3-planes-sum"].worst, t.get("shift+sum")),
+        entry("K3 gf_planes_dot (bit-plane GEMM, byte expansions' dot refold: planes x scaled operator, then the "
+              "masked bits x 0/1 F, both u8 mma; timed: shift_raw+dot)",
+              "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/tools/kernel_sweep.py:122",
+              tl.get("K3-planes-dot"), grids["K3-planes-dot"].worst, t.get("shift_raw+dot")),
         entry("K3 copy_floor (the copy floor, K1's traffic)", "gpu_rscode_torch/ops/csrc/gf_planes.cu",
               "gpu_rscode_tpu/tools/kernel_sweep.py:73", tl.get("K3-copy-floor"), grids["K3-copy-floor"].worst,
               t.get("copy_floor")),
         entry("K3 gf_planes at w=16 (shift, shift_raw, sign x sum, dot; F' dot refold; timed: shift_raw+sum)",
               "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307", tl.get("K3-planes-w16"),
               grids["K3-planes-w16"].worst, t.get("w16 shift_raw+sum")),
-        entry("K3 gf_planes pre-parity (refold none, int32 sums, w=8 and 16; timed: shift_raw+none at w=8)",
+        entry("K3 gf_planes at w=4 (shift, shift_raw x sum, dot; timed: shift_raw+sum)",
+              "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307", tl.get("K3-planes-w4"),
+              grids["K3-planes-w4"].worst, t.get("w4 shift_raw+sum")),
+        entry("K3 gf_planes pre-parity (refold none, int32 sums, w=4, 8 and 16; timed: shift_raw+none at w=8)",
               "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307",
               tl.get("K3-planes-preparity"), grids["K3-planes-preparity"].worst, t.get("shift_raw+none")),
     ]
@@ -4514,10 +4747,12 @@ def phase_build() -> None:
         per_kernel = ptxas_kernels(ptxas)
         log(phase="build", library=name, per_kernel=per_kernel)
         if name == "gf_planes":
-            # gf_planes_kernel<w, expand, refold>: the w=16 instances and the
-            # pre-parity form (refold 2), with their spills.
+            # gf_planes_kernel<w, expand, refold>: the w=16 and w=4 instances
+            # and the pre-parity form (refold 2); gf_planes_dot_kernel and
+            # gf_planes_sum_kernel; with their spills.
             new = [row for row in per_kernel
-                   if re.search(r"gf_planes_kernel<(16,\d+,\d+|\d+,\d+,2)>$", row["kernel"])]
+                   if re.search(r"gf_planes_kernel<(16,\d+,\d+|4,\d+,\d+|\d+,\d+,2)>$|gf_planes_(dot|sum)_kernel",
+                                row["kernel"])]
             log(phase="build", library=name, new_instances=new,
                 spilling=[row["kernel"] for row in new if row["spill_store_bytes"]])
     for name, lib_path in (("rs_native_io", native.library_path), ("rs_native_gemm", native.gemm_library_path)):
@@ -4629,7 +4864,7 @@ def run(args) -> int:
                                  + updates["k1_launches"] + store_res["k1_launches"] + serve_res["k1_launches"]
                                  + faults_res["k1_launches"] + measure_res["k1_launches"]
                                  + mesh_res["k1_launches"] + tools_5k["k1_launches"]
-                                 + tools_5l["k1_launches"],
+                                 + tools_5l["k1_launches"] + knobs_res["launches"]["K1"],
                                  new_timings,
                                  path_launches)
     log(phase="wall", seconds=time.perf_counter() - t_start, quick=args.quick)

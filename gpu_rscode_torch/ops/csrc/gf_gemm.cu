@@ -1,4 +1,4 @@
-// K1 for Hopper (sm_90a): C = A . B over GF(2^w), w = 8 or 16.
+// K1 for Hopper (sm_90a): C = A . B over GF(2^w), w = 4, 8 or 16.
 //
 // Replaces the JAX package's TPU kernel ops/pallas_gemm.py::_kernel_body
 // (launched by _pallas_matmul).  Same function, same I/O contract: B is
@@ -54,11 +54,17 @@
 //   * Ragged groups.  Bytes past the row's end load as zero; the chunk
 //     that holds the row's end is stored byte by byte up to it, and nothing
 //     past m is written.
+//   * w=4.  A GF(2^4) symbol is stored one to a byte, in the low nibble
+//     (the JAX package's uint8 layout); bits 4-7 are ignored.  The kernel
+//     loads, transposes and stores bytes as at w=8 (SW = 8 storage bits)
+//     and folds only planes 0-3 into rt*4 output planes; the output planes
+//     4-7 are zero, so the high nibble of every output byte is zero.
 //
 // gf_popcount_kernel: the pre-parity form, (p*w, m) int32 (stripe-sharded
 // sums, which a XOR network cannot give).  Operator rows are packed into
 // 32-bit words, zero-padded to a power-of-two word bucket NW; each thread
-// packs its column's k symbols into NW words and writes
+// packs its column's k symbols into NW words (w bits each, so at w=4 the
+// high nibble of a byte is dropped) and writes
 // sum_j popc(op[row][j] & col[j]) per output bit.
 //
 // Plain C interface (bound with ctypes): every entry returns a
@@ -162,19 +168,20 @@ __device__ __forceinline__ void store_row(uint8_t* __restrict__ row, long long o
 }
 
 // masks: (tiles, k, W, RT*W) uint32, all-ones or zero; B: (k, m) and
-// C: (p, m) symbols of W bits, row-major.
+// C: (p, m) symbols of W bits, row-major, one per SW-bit word.
 template <int W, int RT>
 __global__ void __launch_bounds__(kThreads)
     gf_bitslice_kernel(const uint4* __restrict__ masks, const uint8_t* __restrict__ B,
                        uint8_t* __restrict__ C, int k, int p, long long m, int tiles, int depth) {
+  constexpr int SW = W < 8 ? 8 : W;  // storage bits of a symbol: a byte at w <= 8
   constexpr int NP = RT * W;  // output planes of the tile
   constexpr int NQ = NP / 4;  // LDS.128 per input plane
   extern __shared__ uint4 mask_s[];  // (depth, W, NQ)
 
   const int tile = blockIdx.x % tiles;
   const long long blk = blockIdx.x / tiles;
-  const long long len = m * (W / 8);  // row bytes
-  const long long warp_span = 512LL * (W / 4);
+  const long long len = m * (SW / 8);  // row bytes
+  const long long warp_span = 512LL * (SW / 4);
   const long long off = (blk * (kThreads / 32) + threadIdx.x / 32) * warp_span + 16 * (threadIdx.x % 32);
   const uint4* tile_masks = masks + (size_t)tile * k * W * NQ;
 
@@ -189,12 +196,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int q = threadIdx.x; q < rows * W * NQ; q += kThreads) mask_s[q] = src[q];
     __syncthreads();
 
-    uint32_t x[W];
-    load_row<W>(B + (size_t)i0 * len, off, len, x);
+    uint32_t x[SW];
+    load_row<SW>(B + (size_t)i0 * len, off, len, x);
     for (int r = 0; r < rows; ++r) {
-      uint32_t next[W];
-      if (r + 1 < rows) load_row<W>(B + (size_t)(i0 + r + 1) * len, off, len, next);
-      transpose_planes<W>(x);
+      uint32_t next[SW];
+      if (r + 1 < rows) load_row<SW>(B + (size_t)(i0 + r + 1) * len, off, len, next);
+      transpose_planes<SW>(x);
       const uint4* mk = mask_s + (size_t)r * W * NQ;
 #pragma unroll
       for (int s = 0; s < W; ++s) {
@@ -209,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       if (r + 1 < rows) {
 #pragma unroll
-        for (int j = 0; j < W; ++j) x[j] = next[j];
+        for (int j = 0; j < SW; ++j) x[j] = next[j];
       }
     }
   }
@@ -218,11 +225,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < RT; ++r) {
     const int row = tile * RT + r;
     if (row >= p) break;
-    uint32_t y[W];
+    uint32_t y[SW];
 #pragma unroll
-    for (int t = 0; t < W; ++t) y[t] = out[r * W + t];
-    transpose_planes<W>(y);
-    store_row<W>(C + (size_t)row * len, off, len, y);
+    for (int t = 0; t < SW; ++t) y[t] = t < W ? out[r * W + t] : 0u;
+    transpose_planes<SW>(y);
+    store_row<SW>(C + (size_t)row * len, off, len, y);
   }
 }
 
@@ -246,6 +253,9 @@ int launch_bitslice(const void* masks, const void* B, void* C, int k, int p, lon
 }
 
 // Tile rows: rt * w <= 64 output planes.
+#define RS_RT4(X)                                                            \
+  X(4, 1) X(4, 2) X(4, 3) X(4, 4) X(4, 5) X(4, 6) X(4, 7) X(4, 8) X(4, 9)   \
+  X(4, 10) X(4, 11) X(4, 12) X(4, 13) X(4, 14) X(4, 15) X(4, 16)
 #define RS_RT8(X) X(8, 1) X(8, 2) X(8, 3) X(8, 4) X(8, 5) X(8, 6) X(8, 7) X(8, 8)
 #define RS_RT16(X) X(16, 1) X(16, 2) X(16, 3) X(16, 4)
 
@@ -254,6 +264,10 @@ int launch_bitslice(const void* masks, const void* B, void* C, int k, int p, lon
 
 template <int W>
 struct Sym;
+template <>
+struct Sym<4> {
+  using T = uint8_t;  // one symbol a byte, in the low nibble
+};
 template <>
 struct Sym<8> {
   using T = uint8_t;
@@ -298,7 +312,7 @@ __global__ void __launch_bounds__(kPopThreads)
       for (int q = 0; q < SPW; ++q) {
         const int i = j * SPW + q;
         if (i < k && c < m) {
-          word |= (uint32_t)B[(size_t)i * m + c] << (q * W);
+          word |= ((uint32_t)B[(size_t)i * m + c] & ((1u << W) - 1u)) << (q * W);
         }
       }
       cb[u][j] = word;
@@ -375,7 +389,7 @@ const char* rs_cuda_error_string(int err) {
 
 // C = A . B over GF(2^w), folded: (p, m) symbols.
 //   masks: (tiles, k, w, rt*w) uint32 from pack_masks, rt*w <= 64.
-//   B:     (k, m) uint8 (w=8) or uint16 (w=16), row-major.
+//   B:     (k, m) uint8 (w=4, 8) or uint16 (w=16), row-major.
 //   C:     (p, m) symbols of B's type.
 //   depth: input rows whose masks are staged in shared memory at once.
 int rs_gf_bitslice(const void* masks, const void* B, void* C, int k, int p, int w, long long m,
@@ -390,6 +404,7 @@ int rs_gf_bitslice(const void* masks, const void* B, void* C, int k, int p, int 
   if (w == W && rt == RT) {                                                         \
     return launch_bitslice<W, RT>(masks, B, C, k, p, m, tiles, depth, s);           \
   }
+  RS_RT4(RS_CASE)
   RS_RT8(RS_CASE)
   RS_RT16(RS_CASE)
 #undef RS_CASE
@@ -400,7 +415,7 @@ int rs_gf_bitslice(const void* masks, const void* B, void* C, int k, int p, int 
 // of w bits: the smallest bucket holding ceil(k*w/32) words, or -1 when the
 // depth is unsupported.
 int rs_gf_popcount_words(int k, int w) {
-  if (k <= 0 || (w != 8 && w != 16)) return -1;
+  if (k <= 0 || (w != 4 && w != 8 && w != 16)) return -1;
   const int need = (k * w + 31) / 32;
   const int buckets[] = {
 #define RS_LIST(N) N,
@@ -416,7 +431,7 @@ int rs_gf_popcount_words(int k, int w) {
 // The pre-parity accumulators: (p*w, m) int32.
 //   op: (p*w, nw) uint32 operator rows, zero-padded to nw words
 //       (nw == rs_gf_popcount_words(k, w)).
-//   B:  (k, m) uint8 (w=8) or uint16 (w=16), row-major.
+//   B:  (k, m) uint8 (w=4, 8) or uint16 (w=16), row-major.
 int rs_gf_popcount(const void* op, const void* B, void* C, int k, int p, int w, long long m,
                    int nw, void* stream) {
   if (rs_gf_popcount_words(k, w) != nw || p <= 0 || m < 0) {
@@ -424,6 +439,7 @@ int rs_gf_popcount(const void* op, const void* B, void* C, int k, int p, int w, 
   }
   if (m == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w == 4) return dispatch_nw<4>(nw, op, B, C, k, p, m, s);
   return w == 8 ? dispatch_nw<8>(nw, op, B, C, k, p, m, s)
                 : dispatch_nw<16>(nw, op, B, C, k, p, m, s);
 }

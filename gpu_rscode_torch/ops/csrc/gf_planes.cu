@@ -1,5 +1,5 @@
-// Bit-plane GF(2^8) and GF(2^16) GEMMs on the int8 tensor cores, and the
-// copy floor, for Hopper (sm_90a).
+// Bit-plane GF(2^4), GF(2^8) and GF(2^16) GEMMs on the int8 tensor cores,
+// and the copy floor, for Hopper (sm_90a).
 //
 // Replaces the JAX package's TPU kernel tools/kernel_sweep.py::make_fn
 // (its pallas_call `run`, with the bodies _body_base, _body_cmp,
@@ -7,8 +7,8 @@
 // _body_dma, and the pinned-input mode), and with it the expansion and
 // refold variants of ops/pallas_gemm.py::_kernel_body (_expand_shift,
 // _expand_shift_raw, _expand_sign, _expand_nibble; refold "sum" and "dot";
-// fold=False, the pre-parity accumulators), at w=8 and, for the three
-// lane-width expansions, at w=16.
+// fold=False, the pre-parity accumulators), at w=8, for the three
+// lane-width expansions at w=16, and for shift and shift_raw at w=4.
 //
 // gf_planes_kernel<W, EXPAND, REFOLD>: C = A . B over GF(2^W).
 //   Bound on the card: device-memory bytes, (k + p) * m * W / 8 (the
@@ -65,6 +65,17 @@
 //     of a symbol (rows g and g + 8 of its fragment): out = lo | hi << 8.
 //     This keeps the dot refold on the exact u8 path of W=8 instead of an
 //     f16 mma with f32 accumulation and a float-to-int conversion.
+//   * W=4 (shift, shift_raw).  A symbol is one byte, in the low nibble
+//     (bits 4-7 are ignored: shift masks them off, shift_raw's plane
+//     int8(b >> s) carries them only at 2^1 and up).  Depth row i*4 + s is
+//     bit s of symbol i, so a 32-deep chunk c is 8 symbols: b0 of lane
+//     (g, t) is bits 0-3 of symbol 8c + t and b1 of symbol 8c + 4 + t.
+//     A 16-row m-tile is 4 symbols (rows 4j + s): a C fragment's row g is
+//     bit g & 3 of symbol 4mt + g / 4 and row g + 8 of symbol 4mt + 2 +
+//     g / 4, so after the sum refold's xor-shuffles byte 0 of the word
+//     holds symbols 4mt (bits 0-3) and 4mt + 1 (bits 4-7) and byte 2
+//     symbols 4mt + 2 and 4mt + 3; lane g < 4 stores symbol 4mt + g.  The
+//     dot refold runs as at W=8 with F = fold_operator(p, 4) (2^s up to 8).
 //   * pinned: every block reads the columns of block 0 and writes its own
 //     block, the compute-only ceiling (the input is served from L2).
 //   * tile is the number of columns a block covers (a multiple of 32); the
@@ -109,6 +120,47 @@
 //   * tile (columns a block covers) is a multiple of the 64-column step;
 //     pinned reads block 0's columns as in gf_planes_kernel.
 //
+// gf_planes_dot_kernel<EXPAND>: the same four byte expansions at w=8 with
+//   the dot refold (shift_raw+dot is the JAX package's production pair).
+//   It shares the sum kernel's operator (scaled by 2^s, four-symbol plane
+//   words), its cp.async ring of 64-column steps, its transposes and plane
+//   words; the first product is the same work with the operands' roles
+//   swapped, so that the second product needs no data movement between
+//   lanes:
+//   * First product, transposed: D (16 columns x 8 accumulator rows) +=
+//     planes (16 x 32, the A operand) . operator (32 x 8, the B operand).
+//     A's row g is column 8g + mb of m-block mb (mb = 0..3), row g + 8 is
+//     column 8g + 4 + mb: exactly the words r[mb] and r[4 + mb] a lane
+//     transposes, so a0..a3 are the sum kernel's plane words of those two
+//     columns, planes t and 4 + t.  The host packs the operator as B
+//     fragments, two 8-row n-tiles a uint4 (one LDS.128 per 8 mma).  A pass
+//     covers 4 n-tiles (32 rows: 4 symbols; the operator is padded as the
+//     sum kernel's, to whole pairs of 16-row tiles), 4 m-blocks x 4 n-tiles
+//     = 64 accumulators, with no branch.
+//   * The move to the second operand.  In mma.m16n8k32 the C fragment of
+//     lane (g, t) holds rows g and g + 8 at columns 2t, 2t + 1, and the A
+//     fragment of the same lane rows g and g + 8 at depths 4t..4t+3 and
+//     16 + 4t..: the same lane owns the same rows (data columns).  So the
+//     accumulators (symbol nt of the pass, bits 2t and 2t + 1) of n-tiles
+//     nt = 0, 1 become depths 4t..4t+3 and those of n-tiles 2, 3 depths
+//     16 + 4t.., each byte masked to its output bit (acc & 2^s, at most
+//     128): 3 PRMT and one AND a register, 16 a m-block, and no shuffle,
+//     movmatrix or shared memory (tests/test_torch_k3_dot.py checks that
+//     the move stays inside the lane).  With the operator as the A operand,
+//     as in the sum kernel, the bits would have to reach a B operand: per
+//     8 columns and pass 4 movmatrix with 6 PRMT and 4 AND, or 2
+//     shared-memory stores, 2 loads and a warp barrier, counted from the
+//     fragment layouts.
+//   * Second product: out (16 columns x 8 symbols) += bits (16 x 32) . F
+//     (32 x 8, 0/1: depth d of pass Q of an 8-symbol tile to symbol
+//     4Q + the n-tile of d), u8 x u8, one mma a m-block and pass.  Each sum
+//     is one output byte, sum_s (acc & 2^s) < 256.  F's two B fragments are
+//     packed on the host and held in 4 registers.
+//   * Stores.  The second product's lane (g, t) holds symbols 8f + 2t and
+//     8f + 2t + 1 of columns 8g + mb and 8g + 4 + mb, mb = 0..3: 8
+//     consecutive bytes of two symbols, made with 6 PRMT each and stored as
+//     one 8-byte word each (byte by byte at the ragged edge).
+//
 // copy_floor_kernel: C = B[:p], moving exactly K1's traffic.  Each block
 // brings its whole (k, tile) block of B into shared memory, in chunks that
 // fit, with cp.async (16 bytes a thread), then writes rows 0..p-1 out.
@@ -149,7 +201,7 @@ __host__ __device__ inline Dims dims(int k, int p, int w, int expand) {
   Dims d;
   d.mt = (p * w + 15) / 16;
   d.kc = expand == kNibble ? k : (k * w + 31) / 32;
-  d.mf = w == 8 ? (p + 15) / 16 : (p + 7) / 8;
+  d.mf = w == 16 ? (p + 7) / 8 : (p + 15) / 16;
   d.kf = (d.mt * 16 + 31) / 32;
   return d;
 }
@@ -352,6 +404,15 @@ __global__ void __launch_bounds__(kThreads)
             bf[j][0] = (hi >> 2) == (uint32_t)t ? 1u << (8 * (hi & 3)) : 0u;
             bf[j][1] = (lo >> 2) == (uint32_t)t ? 1u << (8 * (lo & 3)) : 0u;
           }
+        } else if (W == 4) {
+          // Chunk c: bits 0-3 of symbols 8c + t (b0) and 8c + 4 + t (b1).
+          const uint32_t w0 = load4(B, 8 * c + t, k, m, rcol);
+          const uint32_t w1 = load4(B, 8 * c + 4 + t, k, m, rcol);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            bf[j][0] = expand4<8, EXPAND>((w0 >> (8 * j)) & 0xFFu, 0);
+            bf[j][1] = expand4<8, EXPAND>((w1 >> (8 * j)) & 0xFFu, 0);
+          }
         } else if (W == 16) {
           // Chunk c: bits 4t..4t+3 of symbols 2c (b0) and 2c + 1 (b1).
           uint32_t s0[4], s1[4];
@@ -402,11 +463,13 @@ __global__ void __launch_bounds__(kThreads)
           }
         } else if (REFOLD == kSum) {
           // W=8: rows 0-7 of the m-tile are symbol 2*mt, rows 8-15 symbol
-          // 2*mt + 1; W=16: rows 0-15 are bits 0-15 of symbol mt.  Lane g
-          // holds bit g (and g + 8).
+          // 2*mt + 1; W=16: rows 0-15 are bits 0-15 of symbol mt; W=4:
+          // rows 4j..4j+3 are symbol 4*mt + j.  Lane g holds bit g (and
+          // g + 8).
           uint32_t lo = 0, hi = 0;
           uint32_t v16[8];
-          const int sel = g == 0 ? 0 : 16;
+          const int sel = W == 4 ? (g >> 1) * 16 + (g & 1) * 4 : (g == 0 ? 0 : 16);
+          const uint32_t sym_mask = W == 4 ? 0xFu : 0xFFu;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             uint32_t v = ((uint32_t)acc[u][j][0] & 1u) |
@@ -423,15 +486,16 @@ __global__ void __launch_bounds__(kThreads)
               v16[j] = (v & 0xFFu) | ((v >> 8) & 0xFF00u);
               v16[4 + j] = ((v >> 8) & 0xFFu) | ((v >> 16) & 0xFF00u);
             } else {
-              lo |= ((v >> sel) & 0xFFu) << (8 * j);
-              hi |= ((v >> (sel + 8)) & 0xFFu) << (8 * j);
+              lo |= ((v >> sel) & sym_mask) << (8 * j);
+              hi |= ((v >> (sel + 8)) & sym_mask) << (8 * j);
             }
           }
           if (W == 16) {
             if (g == 0) store8_16(C16, mt, m, base + 8 * t, v16, vec_out);
           } else {
-            const int sym = 2 * mt + g;
-            if (g < 2 && sym < p) store8(C, sym, m, base + 8 * t, lo, hi);
+            const int per = W == 4 ? 4 : 2;  // symbols an m-tile
+            const int sym = per * mt + g;
+            if (g < per && sym < p) store8(C, sym, m, base + 8 * t, lo, hi);
           }
         } else {
           // Parity bits, column-major per warp: bits_s[col * rows + row],
@@ -576,6 +640,67 @@ __host__ __device__ inline int sum_mtiles(int p) {
   return ((p * 8 + 15) / 16 + 1) & ~1;
 }
 
+// One warp's ring of step buffers (gf_planes_sum_kernel and
+// gf_planes_dot_kernel): step n of the warp covers the block's columns
+// first + n * stride ..+63 and is copied into buffer n % stages, up to
+// stages - 1 steps ahead of the compute.
+struct StepRing {
+  uint8_t* bufs;
+  int buf_bytes, stages, nsteps, first, stride, k, lane;
+  const uint8_t* B;
+  const uint8_t* lane_src;
+  long long m, rd0, rows8;
+  bool vec_in;
+  int f_step, f_buf, c_buf;
+
+  __device__ StepRing(uint8_t* smem_bufs, const uint8_t* B_, int k_, long long m_,
+                      long long blk0, int span, int pinned, int stages_, int warp,
+                      int lane_)
+      : bufs(smem_bufs), buf_bytes(4 * ((k_ + 3) / 4) * kSumStepCols), stages(stages_),
+        first(warp * kSumStepCols), stride(kSumWarps * kSumStepCols), k(k_), lane(lane_),
+        B(B_), m(m_), rd0(pinned ? 0 : blk0), rows8(8 * m_),
+        vec_in(((uintptr_t)B_ & 15) == 0 && (m_ & 15) == 0), f_step(0), f_buf(0),
+        c_buf(0) {
+    bufs += warp * stages * buf_bytes;
+    nsteps = first < span ? (span - first + stride - 1) / stride : 0;
+    lane_src = B + (size_t)(lane >> 2) * m + rd0 + 16 * (lane & 3);
+  }
+
+  // Start copying the next step (an empty commit group past the last).
+  __device__ __forceinline__ void fetch_next() {
+    if (f_step < nsteps) {
+      const int col = first + f_step * stride;
+      uint8_t* buf = bufs + f_buf * buf_bytes;
+      if (vec_in) {
+        sum_fetch(buf, lane_src + col, rows8, m - (rd0 + col) - 16 * (lane & 3), k, lane);
+      } else {
+        sum_fetch_bytes(buf, B, k, m, rd0 + col, lane);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    ++f_step;
+    f_buf = f_buf + 1 == stages ? 0 : f_buf + 1;
+  }
+
+  // Wait for the next step's copies (the oldest group still pending but
+  // the stages - 1 behind it), make them visible to the warp and return
+  // its buffer.  The caller ends the step with __syncwarp() before the
+  // next fetch_next() refills that buffer.
+  __device__ __forceinline__ const uint8_t* wait() {
+    if (stages == 3) {
+      asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+    } else if (stages == 2) {
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncwarp();
+    const uint8_t* buf = bufs + c_buf * buf_bytes;
+    c_buf = c_buf + 1 == stages ? 0 : c_buf + 1;
+    return buf;
+  }
+};
+
 template <int EXPAND>
 __global__ void __launch_bounds__(kSumThreads)
     gf_planes_sum_kernel(const uint4* __restrict__ opA,
@@ -593,38 +718,14 @@ __global__ void __launch_bounds__(kSumThreads)
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int buf_bytes = 4 * kc * kSumStepCols;
-  uint8_t* bufs = reinterpret_cast<uint8_t*>(smem + na) + warp * stages * buf_bytes;
-  const bool vec_in = ((uintptr_t)B & 15) == 0 && (m & 15) == 0;
   const bool vec_out = ((uintptr_t)C & 7) == 0 && (m & 7) == 0;
 
   // Column offsets within the block are 32-bit; the block's first write
   // and read columns are the only 64-bit ones.
   const long long blk0 = (long long)blockIdx.x * tile;
   const int span = (int)(min(m, blk0 + tile) - blk0);
-  const long long rd0 = pinned ? 0 : blk0;
-  const int first = warp * kSumStepCols;
-  const int stride = kSumWarps * kSumStepCols;
-  const int nsteps = first < span ? (span - first + stride - 1) / stride : 0;
-  const long long rows8 = 8 * m;
-  const uint8_t* lane_src = B + (size_t)(lane >> 2) * m + rd0 + 16 * (lane & 3);
-
-  int f_step = 0, f_buf = 0;
-  auto fetch_next = [&]() {
-    if (f_step < nsteps) {
-      const int col = first + f_step * stride;
-      uint8_t* buf = bufs + f_buf * buf_bytes;
-      if (vec_in) {
-        sum_fetch(buf, lane_src + col, rows8, m - (rd0 + col) - 16 * (lane & 3), k, lane);
-      } else {
-        sum_fetch_bytes(buf, B, k, m, rd0 + col, lane);
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    ++f_step;
-    f_buf = f_buf + 1 == stages ? 0 : f_buf + 1;
-  };
-  for (int n = 0; n < stages - 1; ++n) fetch_next();
+  StepRing ring(reinterpret_cast<uint8_t*>(smem + na), B, k, m, blk0, span, pinned, stages, warp, lane);
+  for (int n = 0; n < stages - 1; ++n) ring.fetch_next();
 
   const int sh0 = t, sh1 = t + 4;
   const uint32_t bit0 = 0x01010101u << sh0, bit1 = 0x01010101u << sh1;
@@ -634,19 +735,10 @@ __global__ void __launch_bounds__(kSumThreads)
   // 16t + 8(g & 1) .. + 7.
   const int c_off = 16 * t + 8 * (g & 1);
   uint8_t* c_lane = C + c_off;
-  int cbuf = 0;
-  for (int n = 0; n < nsteps; ++n) {
-    fetch_next();
-    if (stages == 3) {
-      asm volatile("cp.async.wait_group 2;\n" ::: "memory");
-    } else if (stages == 2) {
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    }
-    __syncwarp();
-    const uint8_t* rows = bufs + cbuf * buf_bytes + 8 * g;
-    const long long col0 = blk0 + first + n * stride;
+  for (int n = 0; n < ring.nsteps; ++n) {
+    ring.fetch_next();
+    const uint8_t* rows = ring.wait() + 8 * g;
+    const long long col0 = blk0 + ring.first + n * ring.stride;
     const bool full = vec_out && col0 + kSumStepCols <= m;
     for (int mg = 0; mg < mtn; mg += 2) {
       int acc[2][kSumGroups][4];
@@ -711,7 +803,138 @@ __global__ void __launch_bounds__(kSumThreads)
       }
     }
     __syncwarp();
-    cbuf = cbuf + 1 == stages ? 0 : cbuf + 1;
+  }
+}
+
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// The low bytes of a, b, c and d as bytes 0-3 of one word: 3 PRMT.
+__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b,
+                                              uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x4000), 0x7610);
+}
+
+// opB: the scaled operator as B fragments, (16 * mtn rows / 16, kc, 32
+// lanes) uint4, two 8-row n-tiles each (x, y: rows g; z, w: rows 8 + g);
+// opF: F's B fragments for the two passes of an 8-symbol tile, (2, 32)
+// uint2.  Everything else as gf_planes_sum_kernel.
+template <int EXPAND>
+__global__ void __launch_bounds__(kSumThreads)
+    gf_planes_dot_kernel(const uint4* __restrict__ opB,
+                         const uint2* __restrict__ opF,
+                         const uint8_t* __restrict__ B,
+                         uint8_t* __restrict__ C, int k, int p, long long m,
+                         int tile, int pinned, int stages) {
+  extern __shared__ uint4 smem[];
+  const int npass = sum_mtiles(p) / 2;  // 32 operator rows (4 symbols) a pass
+  const int kc = (k + 3) / 4;
+  const int nb = 2 * npass * kc * 32;
+  for (int i = threadIdx.x; i < nb; i += kSumThreads) smem[i] = opB[i];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const uint2 f0 = opF[lane], f1 = opF[32 + lane];
+  const bool vec_out = ((uintptr_t)C & 7) == 0 && (m & 7) == 0;
+
+  const long long blk0 = (long long)blockIdx.x * tile;
+  const int span = (int)(min(m, blk0 + tile) - blk0);
+  StepRing ring(reinterpret_cast<uint8_t*>(smem + nb), B, k, m, blk0, span, pinned, stages, warp, lane);
+  for (int n = 0; n < stages - 1; ++n) ring.fetch_next();
+
+  const int sh0 = t, sh1 = t + 4;
+  const uint32_t bit0 = 0x01010101u << sh0, bit1 = 0x01010101u << sh1;
+  // Byte e of a second-product A register is output bit 2t + (e & 1).
+  const uint32_t keep = 0x02010201u << (2 * t);
+  uint8_t* c_lane = C + 8 * g;
+  for (int n = 0; n < ring.nsteps; ++n) {
+    ring.fetch_next();
+    const uint8_t* rows = ring.wait() + 8 * g;
+    const long long col0 = blk0 + ring.first + n * ring.stride;
+    const bool full = vec_out && col0 + kSumStepCols <= m;
+    for (int f = 0; 2 * f < npass; ++f) {
+      int out[4][4];
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) out[mb][r] = 0;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int pass = 2 * f + q;
+        if (pass >= npass) break;
+        int acc[4][4][4];
+#pragma unroll
+        for (int mb = 0; mb < 4; ++mb)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[mb][nt][r] = 0;
+        for (int c = 0; c < kc; ++c) {
+          const uint8_t* rc = rows + 4 * c * kSumStepCols;
+          uint2 x[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const uint2*>(rc + i * kSumStepCols);
+          uint32_t r[8];
+          transpose4(x[0].x, x[1].x, x[2].x, x[3].x, r);
+          transpose4(x[0].y, x[1].y, x[2].y, x[3].y, r + 4);
+          const uint4 b01 = smem[((2 * pass) * kc + c) * 32 + lane];
+          const uint4 b23 = smem[((2 * pass + 1) * kc + c) * 32 + lane];
+#pragma unroll
+          for (int mb = 0; mb < 4; ++mb) {
+            // Each plane register is made once, just before its 4 mma.
+            const uint4 a = make_uint4(plane_word<EXPAND>(r[mb], sh0, bit0), plane_word<EXPAND>(r[4 + mb], sh0, bit0),
+                                       plane_word<EXPAND>(r[mb], sh1, bit1), plane_word<EXPAND>(r[4 + mb], sh1, bit1));
+            if (EXPAND == kSign) {
+              mma_s8u8(acc[mb][0], a, b01.x, b01.y);
+              mma_s8u8(acc[mb][1], a, b01.z, b01.w);
+              mma_s8u8(acc[mb][2], a, b23.x, b23.y);
+              mma_s8u8(acc[mb][3], a, b23.z, b23.w);
+            } else {
+              mma_u8(acc[mb][0], a, b01.x, b01.y);
+              mma_u8(acc[mb][1], a, b01.z, b01.w);
+              mma_u8(acc[mb][2], a, b23.x, b23.y);
+              mma_u8(acc[mb][3], a, b23.z, b23.w);
+            }
+          }
+        }
+        // acc[mb][nt]: regs 0, 1 column 8g + mb, regs 2, 3 column
+        // 8g + 4 + mb; bits 2t (regs 0, 2) and 2t + 1 of symbol 4 pass + nt.
+        const uint2 fq = q == 0 ? f0 : f1;
+#pragma unroll
+        for (int mb = 0; mb < 4; ++mb) {
+          const int(&a)[4][4] = acc[mb];
+          const uint4 e = make_uint4(low_bytes(a[0][0], a[0][1], a[1][0], a[1][1]) & keep,
+                                     low_bytes(a[0][2], a[0][3], a[1][2], a[1][3]) & keep,
+                                     low_bytes(a[2][0], a[2][1], a[3][0], a[3][1]) & keep,
+                                     low_bytes(a[2][2], a[2][3], a[3][2], a[3][3]) & keep);
+          mma_u8(out[mb], e, fq.x, fq.y);
+        }
+      }
+      // out[mb]: symbols 8f + 2t (regs 0, 2) and 8f + 2t + 1 (regs 1, 3)
+      // at columns 8g + mb (regs 0, 1) and 8g + 4 + mb (regs 2, 3).
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int sym = 8 * f + 2 * t + h;
+        if (sym >= p) continue;
+        const uint32_t lo = low_bytes(out[0][h], out[1][h], out[2][h], out[3][h]);
+        const uint32_t hi = low_bytes(out[0][2 + h], out[1][2 + h], out[2][2 + h], out[3][2 + h]);
+        uint8_t* dst = c_lane + (size_t)sym * m + col0;
+        if (full) {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
+        } else {
+          sum_store_edge(dst, m - (col0 + 8 * g), lo, hi);
+        }
+      }
+    }
+    __syncwarp();
   }
 }
 
@@ -741,6 +964,29 @@ int launch_planes_sum(const void* opA, const void* B, void* C, int k, int p,
   gf_planes_sum_kernel<EXPAND><<<(unsigned)blocks, kSumThreads, smem, stream>>>(
       static_cast<const uint4*>(opA), static_cast<const uint8_t*>(B),
       static_cast<uint8_t*>(C), k, p, m, tile, pinned, stages);
+  return (int)cudaGetLastError();
+}
+
+template <int EXPAND>
+int launch_planes_dot(const void* opB, const void* opF, const void* B, void* C,
+                      int k, int p, long long m, int tile, int pinned,
+                      cudaStream_t stream) {
+  int stages = kSumStages;
+  while (stages > 1 && sum_smem(k, p, stages) > (size_t)kMaxSmem) --stages;
+  const size_t smem = sum_smem(k, p, stages);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gf_planes_dot_kernel<EXPAND>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = (m + tile - 1) / tile;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  gf_planes_dot_kernel<EXPAND><<<(unsigned)blocks, kSumThreads, smem, stream>>>(
+      static_cast<const uint4*>(opB), static_cast<const uint2*>(opF),
+      static_cast<const uint8_t*>(B), static_cast<uint8_t*>(C), k, p, m, tile,
+      pinned, stages);
   return (int)cudaGetLastError();
 }
 
@@ -810,18 +1056,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The (w, expand, refold) instances gf_planes_kernel runs: at w=8 every
-// dot refold, nibble's sum and every pre-parity form (refold none); at
-// w=16 the three lane-width expansions with every refold.  The byte
-// expansions' sum refold at w=8 is gf_planes_sum_kernel.
+// The (w, expand, refold) instances gf_planes_kernel runs: at w=8
+// nibble's sum and dot and every pre-parity form (refold none); at w=16
+// the three lane-width expansions with every refold; at w=4 shift and
+// shift_raw with every refold.  The byte expansions' sum and dot refolds
+// at w=8 are gf_planes_sum_kernel and gf_planes_dot_kernel.
 #define RS_PLANES_INSTANCES(X)                                             \
-  X(8, kShift, kDot) X(8, kShiftRaw, kDot) X(8, kCmp, kDot) X(8, kSign, kDot) \
   X(8, kNibble, kSum) X(8, kNibble, kDot)                                  \
   X(8, kShift, kNone) X(8, kShiftRaw, kNone) X(8, kCmp, kNone)             \
   X(8, kSign, kNone) X(8, kNibble, kNone)                                  \
   X(16, kShift, kSum) X(16, kShiftRaw, kSum) X(16, kSign, kSum)            \
   X(16, kShift, kDot) X(16, kShiftRaw, kDot) X(16, kSign, kDot)            \
-  X(16, kShift, kNone) X(16, kShiftRaw, kNone) X(16, kSign, kNone)
+  X(16, kShift, kNone) X(16, kShiftRaw, kNone) X(16, kSign, kNone)         \
+  X(4, kShift, kSum) X(4, kShiftRaw, kSum) X(4, kShift, kDot)              \
+  X(4, kShiftRaw, kDot) X(4, kShift, kNone) X(4, kShiftRaw, kNone)
 #define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign)
 
 }  // namespace
@@ -833,23 +1081,23 @@ const char* rs_cuda_error_string(int err) {
 }
 
 // Dynamic shared memory the GEMM needs at (k, p, w), in bytes, and its
-// limit.  For the byte expansions' sum refold at w=8: the least, with one
-// step buffer a warp (the launch takes up to kSumStages that fit).
+// limit.  For the byte expansions' sum and dot refolds at w=8: the least,
+// with one step buffer a warp (the launch takes up to kSumStages that fit).
 long long rs_gf_planes_smem(int k, int p, int w, int expand, int refold) {
-  if (w == 8 && refold == kSum && expand != kNibble) return (long long)sum_smem(k, p, 1);
+  if (w == 8 && refold != kNone && expand != kNibble) return (long long)sum_smem(k, p, 1);
   return (long long)planes_smem(dims(k, p, w, expand), refold);
 }
 int rs_gf_planes_smem_limit() { return kMaxSmem; }
 
 // C = A . B over GF(2^w) with the (expand, refold) formulation.
 //   opA: operator fragments, opF: F fragments (refold dot; else unused).
-//   B: (k, m) uint8 (w=8) or uint16 (w=16), row-major.  C: (p, m) of B's
-//   type, or for refold none the (p*w, m) int32 accumulators.  tile:
+//   B: (k, m) uint8 (w=4, 8) or uint16 (w=16), row-major.  C: (p, m) of
+//   B's type, or for refold none the (p*w, m) int32 accumulators.  tile:
 //   columns per block, a positive multiple of kSumStepCols.  pinned != 0:
-//   every block reads block 0.  The byte expansions' sum refold at w=8
-//   runs gf_planes_sum_kernel (opA packed for it), every other instance
-//   gf_planes_kernel.  An instance not in the source returns
-//   cudaErrorInvalidValue.
+//   every block reads block 0.  The byte expansions' sum and dot refolds
+//   at w=8 run gf_planes_sum_kernel and gf_planes_dot_kernel (opA and opF
+//   packed for them), every other instance gf_planes_kernel.  An instance
+//   not in the source returns cudaErrorInvalidValue.
 int rs_gf_planes(const void* opA, const void* opF, const void* B, void* C,
                  int k, int p, long long m, int tile, int w, int expand,
                  int refold, int pinned, void* stream) {
@@ -868,6 +1116,11 @@ int rs_gf_planes(const void* opA, const void* opF, const void* B, void* C,
     return launch_planes_sum<E>(opA, B, C, k, p, m, tile, pinned, s);
   RS_SUM_EXPANDS(RS_CALL_SUM)
 #undef RS_CALL_SUM
+#define RS_CALL_DOT(E)                                                  \
+  if (w == 8 && expand == E && refold == kDot)                          \
+    return launch_planes_dot<E>(opA, opF, B, C, k, p, m, tile, pinned, s);
+  RS_SUM_EXPANDS(RS_CALL_DOT)
+#undef RS_CALL_DOT
   return (int)cudaErrorInvalidValue;
 }
 

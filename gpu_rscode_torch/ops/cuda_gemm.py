@@ -18,8 +18,11 @@ matrix.
 ``expand`` names one of the JAX package's expansion formulations; it sends
 the product to the kernel that computes it on the card (:data:`EXPANSIONS`):
 ``"pack2"`` to K2 (:mod:`.cuda_pack2`), every other name to K3's GEMM
-(:mod:`.cuda_planes`), folded or pre-parity, at w=8 and (``shift``,
-``shift_raw``, ``sign``) w=16.  The lane-width variants were ways around
+(:mod:`.cuda_planes`), folded or pre-parity, at w=8, (``shift``,
+``shift_raw``, ``sign``) w=16 and (``shift``, ``shift_raw``) w=4.  Both
+kernels of K1 and K3's GEMM take GF(2^4) symbols one to a byte, in the
+low nibble, and ignore bits 4-7, as the JAX package does.  The lane-width
+variants were ways around
 the TPU compiler's refusals; on the card one 32-bit register already holds
 four bytes, so their algebra is the base expansion's.
 
@@ -283,7 +286,8 @@ def gf_matmul_cuda(A, B: torch.Tensor, w: int = 8, fold_parity: bool = True, exp
     """``C = A . B`` over GF(2^w) through the CUDA kernels.
 
     ``A``: (p, k) coefficient matrix (NumPy or tensor, entries < 2^w).
-    ``B``: (k, m) contiguous tensor of uint8 (w=8) or uint16 (w=16).
+    ``B``: (k, m) contiguous tensor of uint8 (w=4 or 8; at w=4 one symbol
+    a byte, bits 4-7 ignored) or uint16 (w=16).
     Returns (p, m) symbols of B's dtype or, with ``fold_parity=False``, the
     (p*w, m) int32 bit-plane accumulators (pre-parity form).
 
@@ -292,9 +296,9 @@ def gf_matmul_cuda(A, B: torch.Tensor, w: int = 8, fold_parity: bool = True, exp
     popcount kernel).  Otherwise the formulation resolves as
     ``gf_matmul_pallas`` resolves it: ``expand`` from the argument, then
     RS_PALLAS_EXPAND, then "shift_raw"; a name of :data:`EXPANSIONS` runs
-    K2 (pack2, w=8, folded) or K3 at w=8 or 16.  ``refold`` ("sum", "dot"
-    or "autotune"; then RS_PALLAS_REFOLD) defaults to "dot" at w=8 and
-    "sum" at w=16; the pre-parity form has no refold.  ``tile`` (then
+    K2 (pack2, w=8, folded) or K3 at w=4, 8 or 16.  ``refold`` ("sum",
+    "dot" or "autotune"; then RS_PALLAS_REFOLD) defaults to "dot" at w=8
+    and "sum" at w=4 and 16; the pre-parity form has no refold.  ``tile`` (then
     RS_PALLAS_TILE) is the columns a CUDA block covers.
     """
     if expand is None and refold is None and tile is None and not knobs_set():
@@ -343,8 +347,6 @@ def _gf_matmul_expand(A, B, w, fold_parity, expand, refold, tile) -> torch.Tenso
         )
     if expand in BYTE_ONLY and w != 8:
         raise ValueError(f"expand={expand!r} is a GF(2^8) (byte-granular) strategy, got w={w}")
-    if w not in (8, 16):
-        raise ValueError(f"expand={expand!r} at w={w}: the card's named-expansion kernels run at w=8 and w=16")
     if expand == "pack2" and not fold_parity:
         why = "pack2 cannot emit pre-parity accumulators"
         if from_env:
@@ -386,9 +388,9 @@ def _gf_matmul_k1(A, B: torch.Tensor, w: int, fold_parity: bool) -> torch.Tensor
         return gf_matmul_bitplane(A, B, w, fold_parity)
     if B.device.type != "cuda":
         raise ValueError(f"gf_matmul_cuda runs on cuda or cpu tensors, got {B.device}")
-    if w not in (8, 16):
-        raise ValueError(f"the CUDA kernels support w=8 and w=16, got w={w}")
-    want = torch.uint8 if w == 8 else torch.uint16
+    if w not in (4, 8, 16):
+        raise ValueError(f"the CUDA kernels support w=4, 8 and 16, got w={w}")
+    want = torch.uint8 if w <= 8 else torch.uint16
     if B.dtype != want:
         raise TypeError(f"B must be {want} at w={w}, got {B.dtype}")
     if B.dim() != 2 or not B.is_contiguous():

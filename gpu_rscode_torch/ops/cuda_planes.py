@@ -12,10 +12,14 @@ each accumulator is refolded into output symbols by a shift-sum
 (``"dot"``); ``"none"`` returns the (p*w, m) int32 accumulators instead
 (the pre-parity form, the JAX package's ``fold_parity=False``).  Every
 expansion runs at w=8; ``shift``, ``shift_raw`` and ``sign`` also at w=16
-(:data:`WIDE_EXPANDS`).  The byte expansions' sum refold at w=8
-(:data:`SUM_EXPANDS` with ``"sum"``) runs ``gf_planes_sum_kernel``, with
-the operator scaled by 2^s and packed for four-symbol plane words
-(:func:`sum_operator`); every other instance runs ``gf_planes_kernel``.
+(:data:`WIDE_EXPANDS`), ``shift`` and ``shift_raw`` at w=4
+(:data:`NARROW_EXPANDS`; one symbol a uint8, bits 4-7 ignored).  The byte
+expansions' sum and dot refolds at w=8 (:data:`SUM_EXPANDS`) run
+``gf_planes_sum_kernel`` and ``gf_planes_dot_kernel``, with the operator
+scaled by 2^s and packed for four-symbol plane words
+(:func:`sum_operator`; as B fragments for the dot kernel, whose F is
+:func:`dot_fold_operator`); every other instance runs
+``gf_planes_kernel``.
 With ``pinned=True`` every block of ``tile`` columns computes on the first
 block's columns: the compute-only ceiling, whose result is the first
 block's output repeated.
@@ -46,7 +50,7 @@ from .gemm import (PLAIN_BLOCK_COLS, _dot_bits, _narrow, _widen, coefficients, e
 # (which run nothing then) in CAPTURED, and those the plan layer's graph
 # replays ran in REPLAYED (added by the plan layer).  Every addition holds
 # COUNT_LOCK.
-KINDS = ("planes", "sum", "w16", "preparity", "copy")
+KINDS = ("planes", "sum", "dot", "w4", "w16", "preparity", "copy")
 LAUNCHES = dict.fromkeys(KINDS, 0)
 CAPTURED = dict.fromkeys(KINDS, 0)
 REPLAYED = dict.fromkeys(KINDS, 0)
@@ -54,14 +58,18 @@ COUNT_LOCK = threading.Lock()
 
 EXPANDS = {"shift": 0, "shift_raw": 1, "cmp": 2, "sign": 3, "nibble": 4}
 REFOLDS = {"sum": 0, "dot": 1, "none": 2}
-# The expansions the kernel source instantiates at w=16 (every refold).
+# The expansions the kernel source instantiates at w=16 and at w=4 (every
+# refold).
 WIDE_EXPANDS = ("shift", "shift_raw", "sign")
+NARROW_EXPANDS = ("shift", "shift_raw")
 # The folded (expand, refold) pairs at w=8.
 PAIRS = tuple((e, r) for e in EXPANDS for r in ("sum", "dot"))
 # Every (w, expand, refold) instance the kernel source holds.
-INSTANCES = tuple((8, e, r) for e in EXPANDS for r in REFOLDS) + tuple(
-    (16, e, r) for e in WIDE_EXPANDS for r in REFOLDS)
-# With refold "sum" at w=8 these run gf_planes_sum_kernel.
+INSTANCES = (tuple((8, e, r) for e in EXPANDS for r in REFOLDS)
+             + tuple((16, e, r) for e in WIDE_EXPANDS for r in REFOLDS)
+             + tuple((4, e, r) for e in NARROW_EXPANDS for r in REFOLDS))
+# With refold "sum" at w=8 these run gf_planes_sum_kernel, with "dot"
+# gf_planes_dot_kernel.
 SUM_EXPANDS = ("shift", "shift_raw", "cmp", "sign")
 DEFAULT_TILE = 8192
 TILE_STEP = 64  # columns of gf_planes_sum_kernel's warp step; tiles are multiples
@@ -98,15 +106,23 @@ def is_sum_pair(expand: str, refold: str, w: int = 8) -> bool:
     return w == 8 and refold == "sum" and expand in SUM_EXPANDS
 
 
+def is_dot_pair(expand: str, refold: str, w: int = 8) -> bool:
+    """Whether (expand, refold) at w runs gf_planes_dot_kernel."""
+    return w == 8 and refold == "dot" and expand in SUM_EXPANDS
+
+
 def kind(w: int, expand: str, refold: str) -> str:
     """The count an instance's launch adds to: "sum" (gf_planes_sum_kernel),
-    "preparity" (gf_planes_kernel, refold none), "w16" (gf_planes_kernel at
-    w=16, folded) or "planes" (gf_planes_kernel at w=8, folded)."""
+    "dot" (gf_planes_dot_kernel), "preparity" (gf_planes_kernel, refold
+    none), "w16" and "w4" (gf_planes_kernel at w=16 and w=4, folded) or
+    "planes" (gf_planes_kernel at w=8, folded: nibble)."""
     if is_sum_pair(expand, refold, w):
         return "sum"
+    if is_dot_pair(expand, refold, w):
+        return "dot"
     if refold == "none":
         return "preparity"
-    return "w16" if w == 16 else "planes"
+    return {16: "w16", 4: "w4"}.get(w, "planes")
 
 
 def reset_counts() -> None:
@@ -132,9 +148,12 @@ def _check_pair(expand: str, refold: str, w: int = 8) -> None:
         raise ValueError(f"unknown expand {expand!r}; choose from {', '.join(EXPANDS)}")
     if refold not in REFOLDS:
         raise ValueError(f"unknown refold {refold!r}; choose from {', '.join(REFOLDS)}")
-    if w not in (8, 16):
-        raise ValueError(f"K3 runs at w=8 and w=16, got w={w}")
-    if w == 16 and expand not in WIDE_EXPANDS:
+    if w not in (4, 8, 16):
+        raise ValueError(f"K3 runs at w=4, 8 and 16, got w={w}")
+    if expand == "sign" and w == 4:
+        raise ValueError(f"expand='sign' needs a lane-width field (w=8 or 16), got w={w}; "
+                         "use expand='shift' for other widths")
+    if w != 8 and expand not in WIDE_EXPANDS:
         raise ValueError(f"expand={expand!r} is a GF(2^8) (byte-granular) strategy, got w={w}")
 
 
@@ -212,7 +231,7 @@ def _out(p: int, m: int, refold: str, w: int, device) -> torch.Tensor:
     """The result tensor: (p, m) symbols, or (p*w, m) int32 for refold none."""
     if refold == "none":
         return torch.empty((p * w, m), dtype=torch.int32, device=device)
-    return torch.empty((p, m), dtype=torch.uint8 if w == 8 else torch.uint16, device=device)
+    return torch.empty((p, m), dtype=torch.uint8 if w <= 8 else torch.uint16, device=device)
 
 
 def gf_matmul_planes_plain(A, B: torch.Tensor, expand: str, refold: str, tile: int | None = None,
@@ -282,28 +301,55 @@ def sum_operator(A: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(padded.reshape(16 * mt, kc, 4, 2, 4).transpose(0, 1, 3, 4, 2)).reshape(16 * mt, 32 * kc)
 
 
+def pack_b_fragments(op: np.ndarray) -> np.ndarray:
+    """(16 * nt2, 32 * kc) 8-bit operator -> (nt2, kc, 32, 4) uint32 B
+    fragments of mma.m16n8k32 (gf_planes_dot_kernel, whose operator is the
+    B operand): two 8-row n-tiles a uint4.  Lane ``g*4 + t`` of (nt2, kc)
+    holds the 4 bytes at depth t*4.. (regs 0, 2) and 16 + t*4.. (regs 1, 3)
+    of rows g (regs 0, 1) and g + 8 (regs 2, 3), the lowest depth in the
+    low byte: :func:`pack_fragments`' registers 1 and 2 swapped."""
+    return np.ascontiguousarray(pack_fragments(op, *op.shape)[..., [0, 2, 1, 3]])
+
+
+def dot_fold_operator() -> np.ndarray:
+    """gf_planes_dot_kernel's F, 0/1: (2, 32, 2) uint32 B fragments, one a
+    pass of an 8-symbol output tile.  The second product's depth 16h + 4t + e
+    of pass q is bit 2t + (e & 1) of n-tile 2h + e // 2, that is of the
+    tile's symbol 4q + 2h + e // 2, and F takes it to that column."""
+    F = np.zeros((2, 2, 4, 4, 8), dtype=np.uint8)  # (q, h, t, e, symbol)
+    for q, h, e in np.ndindex(2, 2, 4):
+        F[q, h, :, e, 4 * q + 2 * h + e // 2] = 1
+    # lane g*4 + t, register h, byte e: depth 16h + 4t + e of column g
+    frag = np.ascontiguousarray(F.transpose(0, 4, 2, 1, 3))  # (q, g, t, h, e)
+    return frag.reshape(2, 32, 2, 4).view("<u4")[..., 0]
+
+
 def _dims(k: int, p: int, expand: str, w: int = 8) -> tuple[int, int, int, int]:
     """(mt, kc, mf, kf): the operator's 16-row m-tiles and 32-deep chunks,
     and F's (16 symbols a tile at w=8; F' holds 8 a tile at w=16)."""
     mt = -(-p * w // 16)
     kc = k if expand == "nibble" else -(-k * w // 32)
-    return mt, kc, -(-p // 16) if w == 8 else -(-p // 8), -(-mt * 16 // 32)
+    return mt, kc, -(-p // 8) if w == 16 else -(-p // 16), -(-mt * 16 // 32)
 
 
 def _operators(A: np.ndarray, expand: str, refold: str, w: int, device: torch.device):
     def make():
         p, k = A.shape
         mt, kc, mf, kf = _dims(k, p, expand, w)
+        opF = None
         if is_sum_pair(expand, refold, w):
             op = sum_operator(A)
             opA = pack_fragments(op, *op.shape)
+        elif is_dot_pair(expand, refold, w):
+            opA, opF = pack_b_fragments(sum_operator(A)), dot_fold_operator()
         else:
             opA = pack_fragments(_operator_bits(A, expand, w).numpy(), 16 * mt, 32 * kc)
+            if refold == "dot":
+                F = fold_operator_split(p) if w == 16 else fold_operator(p, w)
+                opF = pack_fragments(F, 16 * mf, 32 * kf)
         opA = torch.from_numpy(opA.view(np.int32)).to(device)
-        opF = None
-        if refold == "dot":
-            F = fold_operator(p) if w == 8 else fold_operator_split(p)
-            opF = torch.from_numpy(pack_fragments(F, 16 * mf, 32 * kf).view(np.int32)).to(device)
+        if opF is not None:
+            opF = torch.from_numpy(np.ascontiguousarray(opF).view(np.int32)).to(device)
         return opA, opF
 
     return _build.cached_operator(("gf_planes", A.shape, A.tobytes(), w, expand, refold, str(device)), make)
@@ -314,7 +360,7 @@ def _check_data(B: torch.Tensor, what: str, w: int = 8) -> None:
         raise TypeError(f"B must be a tensor, got {type(B).__name__}")
     if B.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cuda or cpu tensors, got {B.device}")
-    want = torch.uint8 if w == 8 else torch.uint16
+    want = torch.uint8 if w <= 8 else torch.uint16
     if B.dtype != want or B.dim() != 2:
         raise ValueError(f"B must be a 2-D {want} tensor at w={w}, got {B.dtype} {tuple(B.shape)}")
     if B.device.type == "cuda" and not B.is_contiguous():
@@ -332,10 +378,10 @@ def gf_matmul_planes(A, B: torch.Tensor, expand: str, refold: str, tile: int | N
                      pinned: bool = False, w: int = 8) -> torch.Tensor:
     """``C = A . B`` over GF(2^w) through K3's GEMM with the ``expand`` /
     ``refold`` formulation (a key of :data:`EXPANDS` and of :data:`REFOLDS`;
-    at w=16 one of :data:`WIDE_EXPANDS`).
+    at w=16 one of :data:`WIDE_EXPANDS`, at w=4 of :data:`NARROW_EXPANDS`).
 
-    ``A``: (p, k) coefficients; ``B``: (k, m) uint8 (w=8) or uint16 (w=16)
-    tensor.  ``tile``: columns per CUDA block (rounded up to a multiple of
+    ``A``: (p, k) coefficients; ``B``: (k, m) uint8 (w=4 or 8) or uint16
+    (w=16) tensor.  ``tile``: columns per CUDA block (rounded up to a multiple of
     :data:`TILE_STEP`; default 8192).  Returns (p, m) symbols of B's type,
     or for ``refold="none"`` the (p*w, m) int32 accumulators.  An operator
     past the card's shared memory raises ``ValueError`` before any launch.

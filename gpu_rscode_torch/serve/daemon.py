@@ -46,8 +46,9 @@ One long-lived process in front of the warm plan cache (docs/SERVE.md):
   lock of their target, on the daemon's own device, and run on a
   one-thread lane of their own rather than a foreground worker slot
   (a repair holding a slot shows in the foreground's tail).  The lane
-  starts a job once the foreground has been idle (no batch queued or
-  running) for ``MAINT_LULL_S``, or once the job has waited
+  starts a job once the foreground has been idle (no request between
+  the first byte of its upload and the end of its response, no batch
+  queued or running) for ``MAINT_LULL_S``, or once the job has waited
   ``MAINT_YIELD_S``, so a repair does not land inside a burst.
   ``--faults SPEC``
   activates the fault plane for the daemon's life.
@@ -114,7 +115,7 @@ DEFAULT_REQUEST_TIMEOUT_S = 300.0
 DEFAULT_MAX_BODY = 1 << 30
 DEFAULT_LIST_LIMIT = 1000
 MAINT_LULL_S = 0.5  # foreground idle this long before a maint job starts
-MAINT_YIELD_S = 5.0  # ... or once it has waited this long
+MAINT_YIELD_S = 30.0  # ... or once it has waited this long (a load that never pauses)
 
 def list_limit_env() -> int:
     """Hard cap on one ``GET /o/<bucket>?list`` page
@@ -272,20 +273,21 @@ class _Handler(BaseHTTPRequestHandler):
             ):
                 self._send_error_json(404, f"no such path {url.path}")
                 return
-            try:
-                req = self._admit(url.path[1:], query)
-            except ValueError as e:  # bad name/tenant/params/body
-                self._send_error_json(400, str(e))
-                return
-            if req is None:
-                return  # error response already sent
-            status = None
-            try:
-                status = self._respond(req)
-            finally:
-                # Ack boundary: response bytes written (or the client
-                # went away — status None); fold the lifecycle event.
-                self.daemon.finish_request(req, status)
+            with self.daemon.foreground_request():
+                try:
+                    req = self._admit(url.path[1:], query)
+                except ValueError as e:  # bad name/tenant/params/body
+                    self._send_error_json(400, str(e))
+                    return
+                if req is None:
+                    return  # error response already sent
+                status = None
+                try:
+                    status = self._respond(req)
+                finally:
+                    # Ack boundary: response bytes written (or the client
+                    # went away — status None); fold the lifecycle event.
+                    self.daemon.finish_request(req, status)
         except BrokenPipeError:
             pass
         except Exception as e:  # defense: a handler bug must answer 500
@@ -321,18 +323,19 @@ class _Handler(BaseHTTPRequestHandler):
         self._rs_req_id = _reqtrace.accept_request_id(
             self.headers.get("X-RS-Request-Id"))
         try:
-            try:
-                req = self._admit_object(method, url, query)
-            except ValueError as e:
-                self._send_error_json(400, str(e))
-                return
-            if req is None:
-                return  # answered inline (list/stat) or error sent
-            status = None
-            try:
-                status = self._respond(req)
-            finally:
-                self.daemon.finish_request(req, status)
+            with self.daemon.foreground_request():
+                try:
+                    req = self._admit_object(method, url, query)
+                except ValueError as e:
+                    self._send_error_json(400, str(e))
+                    return
+                if req is None:
+                    return  # answered inline (list/stat) or error sent
+                status = None
+                try:
+                    status = self._respond(req)
+                finally:
+                    self.daemon.finish_request(req, status)
         except BrokenPipeError:
             pass
         except Exception as e:  # defense: a handler bug must answer 500
@@ -779,6 +782,7 @@ class ServeDaemon:
         self._slots = threading.Semaphore(self.workers)
         self._inflight = 0
         self._fg_running = 0  # batches holding a worker slot
+        self._fg_open = 0  # foreground requests, upload to response end
         self._inflight_cond = threading.Condition()
         # Per-(tenant, name) mutexes: all executor work on one archive
         # name serializes (concurrent same-name encodes would interleave
@@ -1301,15 +1305,29 @@ class ServeDaemon:
                 self.requests_failed += 1
         req.finish(outcome, result=result, error=error)
 
+    @contextlib.contextmanager
+    def foreground_request(self):
+        """Count one foreground HTTP request as open from before its
+        upload is read until its response is written: what the maint
+        lane's lull waits on besides the queue and the workers."""
+        with self._inflight_cond:
+            self._fg_open += 1
+        try:
+            yield
+        finally:
+            with self._inflight_cond:
+                self._fg_open -= 1
+
     def _run_maint_group(self, group: list[Request]) -> None:
         """A maint job on the maint lane, after a foreground lull: it
-        starts once no foreground batch has been queued or running for
-        ``MAINT_LULL_S``, or after ``MAINT_YIELD_S``, so that a steady
-        load cannot starve repairs."""
+        starts once no foreground request has been open (uploading,
+        queued, running or answering) and no batch queued or running for
+        ``MAINT_LULL_S``, or after ``MAINT_YIELD_S``, so that a load
+        that never pauses cannot starve repairs."""
         now = time.monotonic()
         deadline, idle_since = now + MAINT_YIELD_S, now
         while not self._closed and now < deadline:
-            if self._fg_running or self.queue.depth():
+            if self._fg_running or self._fg_open or self.queue.depth():
                 idle_since = None
             elif idle_since is None:
                 idle_since = now

@@ -367,3 +367,41 @@ def test_a_maint_job_waits_for_the_foreground_lull(tmp_path, monkeypatch, busy_s
     assert out == {"ran": True}
     due = busy_s + t_daemon.MAINT_LULL_S if want == "lull" else yield_s
     assert due - 0.05 <= started[0] < due + 2.0, (want, started)
+
+
+def test_an_open_upload_holds_the_maint_lane(tmp_path):
+    """A foreground request counts from the first byte of its upload to the
+    end of its response: a maint job queued while a client trickles an
+    encode's body starts only MAINT_LULL_S after that response, though no
+    batch was queued or running while the body arrived."""
+    import http.client
+    import threading
+
+    d = t_daemon.ServeDaemon(str(tmp_path / "root"), port=0, maint=True, workers=1, **CPU).start()
+    body = np.random.default_rng(7).integers(0, 256, 8192, dtype=np.uint8).tobytes()
+    started, answered = [], []
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", d.port, timeout=60)
+        conn.putrequest("POST", "/encode?name=slow.bin&k=3&n=5")
+        conn.putheader("X-RS-Tenant", "alpha")
+        conn.putheader("Content-Length", str(len(body)))
+        conn.endheaders()
+        conn.send(body[:4096])
+        while not d._fg_open:
+            time.sleep(0.01)
+        t0 = time.monotonic()
+        job = threading.Thread(target=lambda: d._submit_maint_job(
+            lambda: started.append(time.monotonic() - t0), name=str(tmp_path / "root" / "alpha" / "a.bin"), cost=1))
+        job.start()
+        time.sleep(1.0)
+        assert not started  # the upload is still open
+        conn.send(body[4096:])
+        resp = conn.getresponse()
+        resp.read()
+        answered.append(time.monotonic() - t0)
+        conn.close()
+        job.join(60)
+    finally:
+        d.close()
+    assert resp.status == 200 and d._fg_open == 0
+    assert answered[0] + t_daemon.MAINT_LULL_S - 0.05 <= started[0] < answered[0] + t_daemon.MAINT_LULL_S + 2.0

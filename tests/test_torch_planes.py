@@ -10,8 +10,9 @@ every JAX expansion name through ``gf_matmul_cuda`` are held against the
 JAX package.  The CUDA kernel runs only on the card (chip_smoke.py); here
 its fragment layout, in-register expansion and both refolds are checked by
 a NumPy model of ``csrc/gf_planes.cu`` at the level of mma fragments; the
-byte expansions' sum refold, which runs ``gf_planes_sum_kernel``, by the
-register model of ``test_torch_k3_sum.py``."""
+byte expansions' sum and dot refolds, which run ``gf_planes_sum_kernel``
+and ``gf_planes_dot_kernel``, by the register models of
+``test_torch_k3_sum.py`` and ``test_torch_k3_dot.py``."""
 
 import functools
 
@@ -30,6 +31,7 @@ from gpu_rscode_tpu.ops.gemm import expand_bitmatrix_jnp, expand_nibblematrix_jn
 from gpu_rscode_tpu.ops.gf import get_field
 from gpu_rscode_tpu.ops.pallas_gemm import gf_matmul_pallas
 from gpu_rscode_tpu.tools import kernel_sweep as j_sweep
+from test_torch_k3_dot import model as dot_kernel_model
 from test_torch_k3_sum import model as sum_kernel_model
 
 K, P = j_sweep.K, j_sweep.P
@@ -213,6 +215,8 @@ def _expand4(b, s0, expand):
 def _emulate_kernel(A, B, expand, refold, tile, pinned=False):
     if cuda_planes.is_sum_pair(expand, refold):
         return sum_kernel_model(A, B, expand, tile, pinned)
+    if cuda_planes.is_dot_pair(expand, refold):
+        return dot_kernel_model(A, B, expand, tile, pinned)
     k, m = B.shape
     p = A.shape[0]
     mt, kc, mf, kf = cuda_planes._dims(k, p, expand)

@@ -96,18 +96,20 @@ def test_w16_plain_instances_match_oracle(p, k, m):
 
 def test_instances_and_refusals():
     assert set(cuda_planes.INSTANCES) == {(8, e, r) for e in cuda_planes.EXPANDS for r in cuda_planes.REFOLDS} | {
-        (16, e, r) for e in ("shift", "shift_raw", "sign") for r in ("sum", "dot", "none")}
+        (16, e, r) for e in ("shift", "shift_raw", "sign") for r in ("sum", "dot", "none")} | {
+        (4, e, r) for e in ("shift", "shift_raw") for r in ("sum", "dot", "none")}
     assert [cuda_planes.kind(*i) for i in ((8, "shift", "sum"), (8, "nibble", "sum"), (16, "shift", "sum"),
-                                           (16, "sign", "none"), (8, "cmp", "none"))] == [
-        "sum", "planes", "w16", "preparity", "preparity"]
+                                           (16, "sign", "none"), (8, "cmp", "none"), (8, "shift_raw", "dot"),
+                                           (8, "nibble", "dot"), (4, "shift", "dot"), (4, "shift_raw", "none"))] == [
+        "sum", "planes", "w16", "preparity", "preparity", "dot", "planes", "w4", "preparity"]
     A, B = _operands(2, 3, 64, 16, 85)
     for expand in ("cmp", "nibble"):
         with pytest.raises(ValueError, match="byte-granular"):
             cuda_planes.gf_matmul_planes(A, to_tensor(B), expand, "sum", w=16)
     with pytest.raises(ValueError, match="uint16"):
         cuda_planes.gf_matmul_planes(A, torch.zeros((3, 64), dtype=torch.uint8), "shift", "sum", w=16)
-    with pytest.raises(ValueError, match="w=8 and w=16"):
-        cuda_gemm.gf_matmul_cuda(A % 16, torch.zeros((3, 64), dtype=torch.uint8), 4, expand="shift")
+    with pytest.raises(ValueError, match="w=4, 8 and 16"):
+        cuda_planes.gf_matmul_planes(A % 16, torch.zeros((3, 64), dtype=torch.uint8), "shift", "sum", w=2)
 
 
 def test_fold_operator_split():
