@@ -244,7 +244,7 @@ Phases, each fatal on failure:
   7. K2 (pack2) and K3 (every expand+refold pair, the pinned mode, the copy
      floor) against their plain versions on the card, bit-exact, and the
      dispatch of every expansion name through gf_matmul_cuda; K3's sum
-     kernel for the byte expansions (gf_planes_sum_kernel) also at depths
+     kernel (gf_planes_sum_kernel, every w=8 expansion) also at depths
      1-33, p = 1-10 and its largest sums; K2 also at
      its depth-slice edges, at the largest accumulator a slice can reach,
      at tiles that are not a multiple of its 128-column step, and with
@@ -258,10 +258,13 @@ Phases, each fatal on failure:
      w=16 (refold none, sum, dot, autotune) and with fold_parity=False;
      K3's six W=4 instances (shift, shift_raw x sum, dot, none) at k 1-33,
      p 1-17, m 37-100,003, pinned, at their largest sums and through the
-     public dispatch (bytes with the high nibble set); and the byte
-     expansions' dot refold (gf_planes_dot_kernel) on the dot pairs' grid,
-     at depths 1-33, p 1-16, its largest sums, and the largest k that fits
-     at p=16 with the refusal one past it;
+     public dispatch (bytes with the high nibble set); the dot refold of
+     every w=8 expansion (gf_planes_dot_kernel) on the dot pairs' grid, at
+     depths 1-33, p 1-16, its largest sums, and the largest k that fits at
+     p=16 with the refusal one past it; and nibble on the sum and dot
+     kernels (PRMT-table planes) on both grids, at k 52, 53 and 128 (its
+     operator in shared memory, then read through L1) at p 1-16, and at
+     the largest k at p=16 (908) with the refusal one past it;
   8. the kernel-formulation tools as entry points on the card at their
      default sizes (kernel_sweep 64 MB, expand_probe 320 MB): every result
      a number, and K2, K3's GEMM and K3's copy floor each launched;
@@ -312,9 +315,13 @@ Phases, each fatal on failure:
      256 MiB w=8 file encoded under no knob (K1) and then under
      RS_PALLAS_EXPAND=shift_raw alone (the dot refold: gf_planes_dot_kernel,
      inside replays), the two archives byte-identical, then decoded with
-     the first 4 chunks lost (SHA-256).  The environment is restored and
-     the plan and autotune caches cleared after it;
-  9. K2, each K3 pair, the compute-only ceiling and the copy floor timed at
+     the first 4 chunks lost (SHA-256); then the same file under
+     RS_PALLAS_EXPAND=nibble, encoded through nibble+dot (archive equal to
+     K1's) and decoded under RS_PALLAS_REFOLD=sum through nibble+sum, both
+     inside replays.  The environment is restored and the plan and
+     autotune caches cleared after it;
+  9. K2, each K3 pair, the compute-only ceilings (shift_raw+dot and
+     nibble+sum pinned) and the copy floor timed at
      the main path's encode segment next to the bound, the plain version
      and, for the copy floor, B[:p].clone() (which moves 2·p·m bytes, not
      the floor's (k + p)·m); K3's w=16 pairs at the w=16 encode segment
@@ -322,7 +329,8 @@ Phases, each fatal on failure:
      read and the int32 sums written once); K1 in both forms and K3's six
      W=4 instances at w=4 on the same bytes (one symbol a byte); K2 and
      K3's sum and dot kernels beside the instruction estimate of their
-     designs.
+     designs, and K3's w=8 pairs beside the tensor-core bound of their
+     product (nibble's k*32 planes: past the bytes bound).
 
 Phases run in the order 1-5, 5b-5j, 5m, 6, 8, 5k, 5l, 9.  The last lines are
 nvidia-smi's name and power limit, the kernels JSON and the result JSON.
@@ -377,6 +385,7 @@ from gpu_rscode_torch.utils.timing import PhaseTimer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core rate (reached by wgmma only)
 MiB = 1 << 20
 SEED = 20261016
 # The reference's published setting is a 1.1 GB file at k=10, n=14.
@@ -474,50 +483,70 @@ def k2_ops_per_col(p: int, k: int) -> float:
 
 # Thread instructions that make one plane register from a four-symbol word
 # (gf_planes_sum_kernel's plane_word; __vcmpne4 counted as the 4 integer
-# instructions it is emulated with).
-K3_PLANE_OPS = {"shift": 2, "shift_raw": 1, "cmp": 6, "sign": 5}
+# instructions it is emulated with; nibble: one PRMT of a table).
+K3_PLANE_OPS = {"shift": 2, "shift_raw": 1, "cmp": 6, "sign": 5, "nibble": 1}
+
+
+def _k3_depth(k: int, expand: str) -> tuple[int, int]:
+    """A pass's warp instructions over the depth, besides the mma and the
+    operator's fragment reads, and its operator chunks.  Per four rows it
+    reads them (4 LDS.64) and transposes them (16 PRMT); the byte
+    expansions then make one chunk's 16 plane registers, nibble shifts the
+    8 words' high halves (8) and makes 16 a chunk in 2-4 chunks (one a
+    symbol, k rounded up to pairs)."""
+    blocks = -(-k // 4)
+    if expand == "nibble":
+        chunks = 2 * -(-k // 2)
+        return blocks * (4 + 16 + 8) + chunks * 16 * K3_PLANE_OPS[expand], chunks
+    return blocks * (4 + 16 + 16 * K3_PLANE_OPS[expand]), blocks
 
 
 def k3_ops_per_col(p: int, k: int, expand: str) -> float:
     """An estimate from the design of gf_planes_sum_kernel, not a
     measurement: thread instructions per column besides the mma, for the
-    byte expansions' sum refold.  A warp step covers 64 columns as 8 mma
-    column groups.  Per step it copies its k rows into shared memory (a
-    predicated 16-byte cp.async per 8 rows a lane, about 6 instructions
-    each, and about 20 for the commit, wait and loop).  Per pass over a pair
-    of m-tiles it zeroes 64 accumulators (32) and controls its loop (10);
-    per depth chunk and pass it reads 4 rows (4 LDS.64), transposes them
-    (16 PRMT), makes 16 plane registers and reads one A fragment per m-tile.
-    Per m-tile it refolds 8 groups at 10 instructions each (3 PRMT, a mask,
-    3 shuffles, 3 OR) and stores with 6 PRMT, its address and one 8-byte
+    sum refold.  A warp step covers 64 columns as 8 mma column groups.  Per
+    step it copies its k rows into shared memory (a predicated 16-byte
+    cp.async per 8 rows a lane, about 6 instructions each, and about 20 for
+    the commit, wait and loop).  Per pass over a pair of m-tiles it zeroes
+    64 accumulators (32) and controls its loop (10), runs the depth
+    (_k3_depth) and reads one A fragment per chunk and m-tile.  Per m-tile
+    it refolds 8 groups at 10 instructions each (3 PRMT, a mask, 3
+    shuffles, 3 OR) and stores with 6 PRMT, its address and one 8-byte
     store (10).  Each instruction runs on 32 threads, over 64 columns."""
     groups, step = 8, 64
-    mt, kc = -(-p * 8 // 16), -(-k // 4)
+    mt = -(-p * 8 // 16)
     passes = -(-mt // 2)
-    warp_instr = (6 * -(-k // 8) + 20 + passes * (32 + 10)
-                  + passes * kc * (4 + 16 + 2 * groups * K3_PLANE_OPS[expand]) + kc * mt
+    depth, chunks = _k3_depth(k, expand)
+    warp_instr = (6 * -(-k // 8) + 20 + passes * (32 + 10) + passes * depth + chunks * mt
                   + mt * (10 * groups + 10))
     return warp_instr * 32 / step
+
+
+def k3_ops_bound_ms(p: int, k: int, m: int, expand: str) -> float:
+    """Least time for the tensor-core work of a w=8 expansion's product at
+    the card's dense int8 rate: 2 * (p*8) * depth operations a column, the
+    depth k*8 bit planes or k*32 one-hot nibble planes."""
+    return 1e3 * 2 * p * 8 * k * (32 if expand == "nibble" else 8) * m / INT8_OPS_PER_S
 
 
 def k3_dot_ops_per_col(p: int, k: int, expand: str) -> float:
     """An estimate from the design of gf_planes_dot_kernel, not a
     measurement: thread instructions per column besides the mma, for the
-    byte expansions' dot refold.  The step's copies as k3_ops_per_col
-    counts them.  Per pass over 4 n-tiles (32 operator rows) it zeroes 64
-    accumulators (32) and controls its loop (10); per depth chunk and pass
-    it reads 4 rows (4 LDS.64), transposes them (16 PRMT), makes 16 plane
-    registers and reads 2 B-fragment uint4.  Per pass it moves the 64
+    dot refold.  The step's copies as k3_ops_per_col counts them.  Per pass
+    over 4 n-tiles (32 operator rows) it zeroes 64 accumulators (32) and
+    controls its loop (10), runs the depth (_k3_depth) and reads 2
+    B-fragment uint4 a chunk.  Per pass it moves the 64
     accumulators into the second product's 16 A registers (3 PRMT and a
     mask each, 64).  Per 8-symbol output tile it zeroes 16 sums (8),
     controls its loop (10) and stores 2 symbols with 6 PRMT, an address
     and a test and one 8-byte store each (22).  Each instruction runs on 32
     threads, over 64 columns."""
     step = 64
-    mt, kc = cuda_planes.sum_operator(np.zeros((p, 1), dtype=np.uint8)).shape[0] // 16, -(-k // 4)
+    mt = cuda_planes.sum_operator(np.zeros((p, 1), dtype=np.uint8)).shape[0] // 16
     passes, tiles = mt // 2, -(-mt // 4)
+    depth, chunks = _k3_depth(k, expand)
     warp_instr = (6 * -(-k // 8) + 20 + tiles * (8 + 10 + 22) + passes * (32 + 10 + 64)
-                  + passes * kc * (4 + 16 + 16 * K3_PLANE_OPS[expand]) + kc * mt)
+                  + passes * depth + chunks * mt)
     return warp_instr * 32 / step
 
 
@@ -1480,10 +1509,10 @@ def phase_new_kernels_vs_plain(device) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     rng = np.random.default_rng(SEED + 7)
-    k2, planes, copy = Grid("K2"), Grid("K3-planes"), Grid("K3-copy-floor")
+    k2, copy = Grid("K2"), Grid("K3-copy-floor")
     planes_sum, planes_dot = Grid("K3-planes-sum"), Grid("K3-planes-dot")
     wide, pre, narrow = Grid("K3-planes-w16"), Grid("K3-planes-preparity"), Grid("K3-planes-w4")
-    by_name = {grid.name: grid for grid in (planes, planes_sum, planes_dot, wide, pre, narrow)}
+    by_name = {grid.name: grid for grid in (planes_sum, planes_dot, wide, pre, narrow)}
     # k = 29-32 and 61-63: the edges of the kernel's 30-symbol depth slices
     # and of the plain version's 31-symbol ones.
     for m in (511, 512, 4097, SEGMENT_COLS):
@@ -1531,11 +1560,11 @@ def phase_new_kernels_vs_plain(device) -> dict:
             grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, tile, pinned=True),
                        cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, tile, pinned=True),
                        f"{expand}+{refold} pinned tile={tile}")
-    # The sum and dot kernels at depths off their 4-symbol chunks, p off
-    # their m-tile pairs (and the dot kernel's 8-symbol output tiles), m
-    # below one warp step and 16-byte rows at the segment's width, and
-    # their largest sums: every byte 0xFF, every coefficient the densest
-    # element.
+    # The sum and dot kernels at depths off their 4-symbol chunks (nibble:
+    # a last block of 1-3 symbols), p off their m-tile pairs (and the dot
+    # kernel's 8-symbol output tiles), m below one warp step and 16-byte
+    # rows at the segment's width, and their largest sums: every byte 0xFF,
+    # every coefficient the densest element.
     for expand in cuda_planes.SUM_EXPANDS:
         for refold, grid, ps in (("sum", planes_sum, (1, 2, 4, 10)), ("dot", planes_dot, (1, 2, 4, 9, 16))):
             for k in (1, 3, 5, 33):
@@ -1552,6 +1581,15 @@ def phase_new_kernels_vs_plain(device) -> dict:
                 grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold),
                            cuda_planes.gf_matmul_planes_plain(A, B, expand, refold),
                            f"{expand}+{refold} largest sum: element {dense} k={k} bytes 0xFF")
+    # nibble's operator in shared memory at p=16 up to k=52, read through L1
+    # past it (53, 128 at p 10 and 16).
+    for k in (52, 53, 128):
+        B = _rand_u8(gen, (k, 4097), device)
+        for p in (1, 4, 10, 16):
+            A = rng.integers(0, 256, size=(p, k))
+            for refold, grid in (("sum", planes_sum), ("dot", planes_dot)):
+                grid.check(cuda_planes.gf_matmul_planes(A, B, "nibble", refold),
+                           cuda_planes.gf_matmul_planes_plain(A, B, "nibble", refold), f"nibble+{refold} p={p} k={k}")
     for k in (4, 10, 32):
         for m in (4097, 65536, SEGMENT_COLS):  # ragged (byte path) and 16-byte rows
             B = _rand_u8(gen, (k, m), device)
@@ -1567,7 +1605,7 @@ def phase_new_kernels_vs_plain(device) -> dict:
             grid.check(cuda_gemm.gf_matmul_cuda(A, B, 8, expand=name, refold=refold), want, f"expand={name} refold={refold}")
     _new_instances_vs_plain(device, gen, rng, dense, by_name)
     _w4_instances_vs_plain(device, gen, rng, narrow, pre)
-    grids = (k2, planes, planes_sum, planes_dot, copy, wide, pre, narrow)
+    grids = (k2, planes_sum, planes_dot, copy, wide, pre, narrow)
     for grid in grids:
         log(phase="kernel_vs_plain", kernel=grid.name, cases=grid.cases, max_abs_err=grid.worst, tolerance=0)
     return {grid.name: grid for grid in grids}
@@ -1583,8 +1621,9 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int, grids: dict) -> None:
     1-10 and m 37-100,003 (tiles 256 and 8192) and pinned; their largest
     sums (every symbol 0xFFFF, every coefficient the densest element); the
     largest k that fits in shared memory at p=16 and the refusal one past
-    it (no launch), for every instance but the sum kernel's and nibble's
-    at w=8; the pre-parity form of every instance, exact int32; and the
+    it (no launch), for every instance but the byte expansions' sum
+    kernel (its edge is the dot kernel's); the pre-parity form of every
+    instance, exact int32; and the
     public dispatch of every JAX name at w=16 and pre-parity.  ``grids``:
     phase 7's K3 grids by name."""
     wide, pre = grids["K3-planes-w16"], grids["K3-planes-preparity"]
@@ -1617,8 +1656,7 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int, grids: dict) -> None:
     # The largest k whose operator fits at p=16, and the refusal past it.
     limits = {}
     for w, expand, refold in cuda_planes.INSTANCES:
-        if cuda_planes.is_sum_pair(expand, refold, w) or (w == 8 and refold != "none"
-                                                          and not cuda_planes.is_dot_pair(expand, refold, w)):
+        if cuda_planes.is_sum_pair(expand, refold, w) and expand != "nibble":
             continue
         k = 1
         while cuda_planes.smem_bytes(k + 1, 16, expand, refold, w)[0] <= cuda_planes.smem_bytes(k, 16, expand, refold,
@@ -1743,7 +1781,7 @@ def k1_runs() -> int:
 
 
 # Kernel (the kernels line's and the grids' names) -> cuda_planes' count.
-K3_KINDS = {"K3-planes": "planes", "K3-planes-sum": "sum", "K3-planes-dot": "dot", "K3-copy-floor": "copy",
+K3_KINDS = {"K3-planes-sum": "sum", "K3-planes-dot": "dot", "K3-copy-floor": "copy",
             "K3-planes-w4": "w4", "K3-planes-w16": "w16", "K3-planes-preparity": "preparity"}
 
 
@@ -1798,7 +1836,7 @@ def phase_tools() -> dict:
     sweep = _run_tool(kernel_sweep, ["--trials", "1"])
     probe = _run_tool(expand_probe, ["--trials", "1"])
     launches = _counts()
-    for name in ("K2", "K3-planes", "K3-planes-sum", "K3-planes-dot", "K3-copy-floor"):
+    for name in ("K2", "K3-planes-sum", "K3-planes-dot", "K3-copy-floor"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the tools: {launches}")
     log(phase="tools_launches", **launches)
@@ -1952,9 +1990,11 @@ def phase_new_timings(device) -> dict:
         cases.append((k3_grid_name(expand, refold), f"{expand}+{refold}",
                       functools.partial(cuda_planes.gf_matmul_planes, A, B, expand, refold),
                       functools.partial(cuda_planes.gf_matmul_planes_plain, A, B, expand, refold), None, seg))
-    cases.append(("K3-planes-dot", "shift_raw+dot pinned (compute-only ceiling)",
-                  functools.partial(cuda_planes.gf_matmul_planes, A, B, "shift_raw", "dot", pinned=True),
-                  functools.partial(cuda_planes.gf_matmul_planes_plain, A, B, "shift_raw", "dot", pinned=True), None, seg))
+    for kernel, expand, refold in (("K3-planes-dot", "shift_raw", "dot"), ("K3-planes-sum", "nibble", "sum")):
+        cases.append((kernel, f"{expand}+{refold} pinned (compute-only ceiling)",
+                      functools.partial(cuda_planes.gf_matmul_planes, A, B, expand, refold, pinned=True),
+                      functools.partial(cuda_planes.gf_matmul_planes_plain, A, B, expand, refold, pinned=True), None,
+                      seg))
     cases.append(("K3-copy-floor", "copy_floor", lambda: cuda_planes.copy_floor(B, p), lambda: cuda_planes.copy_floor_plain(B, p),
                   lambda: B[:p].clone(), seg))
     for expand in cuda_planes.WIDE_EXPANDS:
@@ -1993,10 +2033,13 @@ def phase_new_timings(device) -> dict:
                    traffic_gbps=(k + p) * cols * sym_bytes(w) / (ms * 1e-3) / 1e9,
                    tile=cuda_pack2.DEFAULT_TILE if kernel == "K2" else cuda_planes.DEFAULT_TILE, nvidia_smi=smi_line())
         ops = k2_ops_per_col(p, k) if kernel == "K2" else None
-        if kernel == "K3-planes-sum":
-            ops = k3_ops_per_col(p, k, label.split("+")[0])
-        if kernel == "K3-planes-dot" and "pinned" not in label:
-            ops = k3_dot_ops_per_col(p, k, label.split("+")[0])
+        if kernel in ("K3-planes-sum", "K3-planes-dot"):
+            expand = label.split("+")[0]
+            ops = (k3_ops_per_col if kernel == "K3-planes-sum" else k3_dot_ops_per_col)(p, k, expand)
+            # The floor of this formulation's tensor work, beside the bytes
+            # bound: nibble's k*32 planes outlast its bytes, yet K1 computes
+            # the same product in less, so bound_ms stays the bytes.
+            row.update(ops_bound_ms=k3_ops_bound_ms(p, k, cols, expand))
         if label == "K1 w4":
             ops = k1_logic_ops_per_col(p, k, 4)
         if ops is not None:
@@ -4602,6 +4645,35 @@ def phase_knobs(work: str, device, cuda_digests: dict) -> dict:
                                      "dispatches")
         res["dot"] = dict(encode=dot_enc, decode=dot_dec)
         log(phase="knobs", step="w8 shift_raw dot", sha256_match=True, **res["dot"])
+
+        # (g) the same file under RS_PALLAS_EXPAND=nibble: the encode through
+        # nibble+dot (w=8's default refold), the decode under
+        # RS_PALLAS_REFOLD=sum through nibble+sum.
+        _clean_archive(path)
+        os.environ["RS_PALLAS_EXPAND"] = "nibble"
+        plan.PLAN_CACHE.clear()
+        nib_enc = _knob_step("encode 256 MiB k=10 n=14 nibble (dot)",
+                             lambda: api.encode_file(path, k, n - k, strategy="cuda", device=device), KNOBS_DOT_BYTES)
+        if archive_digests(path, n) != k1_digests:
+            raise AssertionError("5m: the nibble+dot archive differs from K1's archive of the same file")
+        nib_enc["archive_equals_k1"] = True
+        for i in range(n - k):
+            os.unlink(chunk_file_name(path, i))
+        conf = make_conf(n, k, path)
+        os.environ["RS_PALLAS_REFOLD"] = "sum"
+        plan.PLAN_CACHE.clear()
+        nib_dec = _knob_step("decode 256 MiB 4 lost nibble+sum",
+                             lambda: api.decode_file(path, conf, path + ".out", strategy="cuda", device=device),
+                             KNOBS_DOT_BYTES)
+        if sha256_file(path + ".out") != want:
+            raise AssertionError("5m: the nibble+sum decode differs from the input")
+        for step, name, kind in ((nib_enc, "K3-planes-dot", "dot"), (nib_dec, "K3-planes-sum", "sum")):
+            if step["runs"][name] < step["stream_dispatches"] or step["k3_replayed"][kind] <= 0:
+                raise AssertionError(f"5m {step['op']}: {name} ran {step['runs'][name]} times, "
+                                     f"{step['k3_replayed'][kind]} inside replays, {step['stream_dispatches']} "
+                                     "dispatches")
+        res["nibble"] = dict(encode=nib_enc, decode=nib_dec)
+        log(phase="knobs", step="w8 nibble dot / sum", sha256_match=True, **res["nibble"])
     finally:
         for var, val in saved.items():
             os.environ.pop(var, None)
@@ -4613,7 +4685,8 @@ def phase_knobs(work: str, device, cuda_digests: dict) -> dict:
         if os.path.isdir(d):
             shutil.rmtree(d)
     steps = (res["w8"]["encode"], res["w8"]["decode"], res["stripe"], res["pack2"], res["w16"], res["w4_k1"],
-             res["w4_k3"], res["dot"]["encode"], res["dot"]["decode"])
+             res["w4_k3"], res["dot"]["encode"], res["dot"]["decode"], res["nibble"]["encode"],
+             res["nibble"]["decode"])
     res["launches"] = {name: sum(step["runs"][name] for step in steps) for name in ("K1", "K2", *K3_KINDS)}
     res["walls"] = {step["op"]: step["wall_s"] for step in steps}
     res["seconds"] = time.perf_counter() - t_phase
@@ -4682,26 +4755,25 @@ def kernel_entries(k1_err, grids, k1_timing=None, main_launches=None, new_timing
               k1_timing),
         entry("K2 gf_pack2 (packed two-column GF(2^8) GEMM)", "gpu_rscode_torch/ops/csrc/gf_pack2.cu",
               "gpu_rscode_tpu/ops/pallas_gemm.py:256", tl.get("K2"), grids["K2"].worst, t.get("pack2")),
-        entry("K3 gf_planes (bit-plane GEMM on int8 mma at w=8: nibble; timed: nibble+dot)",
-              "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/tools/kernel_sweep.py:175",
-              tl.get("K3-planes"), grids["K3-planes"].worst, t.get("nibble+dot")),
-        entry("K3 gf_planes_sum (bit-plane GEMM, byte expansions' sum refold, scaled u8 mma; timed: shift+sum)",
+        entry("K3 gf_planes_sum (bit-plane GEMM, sum refold of every w=8 expansion, scaled u8 mma, nibble's "
+              "planes from PRMT tables; timed: shift+sum)",
               "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/tools/kernel_sweep.py:39",
               tl.get("K3-planes-sum"), grids["K3-planes-sum"].worst, t.get("shift+sum")),
-        entry("K3 gf_planes_dot (bit-plane GEMM, byte expansions' dot refold: planes x scaled operator, then the "
-              "masked bits x 0/1 F, both u8 mma; timed: shift_raw+dot)",
+        entry("K3 gf_planes_dot (bit-plane GEMM, dot refold of every w=8 expansion: planes x scaled operator, then "
+              "the masked bits x 0/1 F, both u8 mma; timed: shift_raw+dot)",
               "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/tools/kernel_sweep.py:122",
               tl.get("K3-planes-dot"), grids["K3-planes-dot"].worst, t.get("shift_raw+dot")),
         entry("K3 copy_floor (the copy floor, K1's traffic)", "gpu_rscode_torch/ops/csrc/gf_planes.cu",
               "gpu_rscode_tpu/tools/kernel_sweep.py:73", tl.get("K3-copy-floor"), grids["K3-copy-floor"].worst,
               t.get("copy_floor")),
-        entry("K3 gf_planes at w=16 (shift, shift_raw, sign x sum, dot; F' dot refold; timed: shift_raw+sum)",
+        entry("K3 gf_planes_kernel at w=16 (shift, shift_raw, sign x sum, dot; F' dot refold; timed: shift_raw+sum)",
               "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307", tl.get("K3-planes-w16"),
               grids["K3-planes-w16"].worst, t.get("w16 shift_raw+sum")),
-        entry("K3 gf_planes at w=4 (shift, shift_raw x sum, dot; timed: shift_raw+sum)",
+        entry("K3 gf_planes_kernel at w=4 (shift, shift_raw x sum, dot; timed: shift_raw+sum)",
               "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307", tl.get("K3-planes-w4"),
               grids["K3-planes-w4"].worst, t.get("w4 shift_raw+sum")),
-        entry("K3 gf_planes pre-parity (refold none, int32 sums, w=4, 8 and 16; timed: shift_raw+none at w=8)",
+        entry("K3 gf_planes_kernel pre-parity (refold none, int32 sums, w=4, 8 and 16, nibble+none among them; "
+              "timed: shift_raw+none at w=8)",
               "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307",
               tl.get("K3-planes-preparity"), grids["K3-planes-preparity"].worst, t.get("shift_raw+none")),
     ]

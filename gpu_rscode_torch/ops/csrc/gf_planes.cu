@@ -81,9 +81,11 @@
 //   * tile is the number of columns a block covers (a multiple of 32); the
 //     ragged edge is masked per lane.
 //
-// gf_planes_sum_kernel<EXPAND>: the same product at w=8 for the four byte
-//   expansions (shift, shift_raw, cmp, sign) with the sum refold;
-//   gf_planes_kernel runs every other instance.  Bound as above; what costs
+// gf_planes_sum_kernel<EXPAND, OP_SMEM>: the same product at w=8 for the
+//   four byte expansions (shift, shift_raw, cmp, sign) and nibble (below)
+//   with the sum refold; gf_planes_kernel runs every other instance.
+//   OP_SMEM: the operator staged in shared memory (false: nibble past its
+//   shared-memory edge).  Bound as above; what costs
 //   instruction slots is building the planes and refolding, so the design
 //   cuts both per column:
 //   * The operator scaled by 2^s.  The host packs output plane s's operator
@@ -120,8 +122,8 @@
 //   * tile (columns a block covers) is a multiple of the 64-column step;
 //     pinned reads block 0's columns as in gf_planes_kernel.
 //
-// gf_planes_dot_kernel<EXPAND>: the same four byte expansions at w=8 with
-//   the dot refold (shift_raw+dot is the JAX package's production pair).
+// gf_planes_dot_kernel<EXPAND, OP_SMEM>: the same five expansions at w=8
+//   with the dot refold (shift_raw+dot is the JAX package's production pair).
 //   It shares the sum kernel's operator (scaled by 2^s, four-symbol plane
 //   words), its cp.async ring of 64-column steps, its transposes and plane
 //   words; the first product is the same work with the operands' roles
@@ -160,6 +162,45 @@
 //     8f + 2t + 1 of columns 8g + mb and 8g + 4 + mb, mb = 0..3: 8
 //     consecutive bytes of two symbols, made with 6 PRMT each and stored as
 //     one 8-byte word each (byte by byte at the ragged edge).
+//
+// The nibble expansion in both kernels (EXPAND kNibble): the same product
+//   against the (p*8, k*32) one-hot-nibble operator.  Its depth is 4x the
+//   bit planes' (320 against 80 at k=10), so the tensor cores bound it
+//   first: 2 * 32 * 320 int8 operations a column, 0.069 ms at the main
+//   path's shape at the card's dense int8 rate.  Design:
+//   * Plane words from PRMT tables.  In the transposed word r (byte q:
+//     symbol 4c + q of one column) the low 16 bits are the nibbles lo0,
+//     hi0, lo1, hi1 of symbols 4c and 4c + 1.  PTX prmt.b32 takes those 4
+//     nibbles as its selector: byte n of the result is byte (nibble n & 7)
+//     of the 8-byte table {x, y}, and where the nibble's bit 3 is set, that
+//     byte's bit 7 replicated.  The table of plane v has one nonzero byte,
+//     at v & 7: 0x01 for v < 8, so the result is 1 for nibble v and 0 for
+//     every other; 0x80 for v >= 8, so it is 0xFF (odd) for nibble v, 0x80
+//     (even) for nibble v - 8 and 0 else.  Under the operator scaled by
+//     2^s (u8 x u8) an even plane byte adds only above bit s: bit s of the
+//     accumulator is still output bit s.  One PRMT makes plane v of both
+//     nibbles of two symbols; the same on r >> 16 of the other two.
+//   * Depth order.  A four-symbol block of rows is 4 chunks; chunk
+//     c = 4b + 2h' + e covers symbols 4b + 2h', 4b + 2h' + 1 (h' = 0: the
+//     low half of r, 1: r >> 16) and plane v = 8e + 4h + t at depth
+//     16h + 4t + q (q: lo, hi of the first symbol, lo, hi of the second).
+//     So lane t's tables are 1 << 8t (e = 0) and 0x80 << 8t (e = 1), in x
+//     for h = 0 and in y for h = 1: 8 PRMT and one shift make a column's 8
+//     plane registers of a block (the byte expansions make 2 with 1-6
+//     instructions each).  The host packs the scaled operator in that order
+//     (cuda_planes.nibble_operator) with k rounded up to pairs, so a last
+//     block of 1 or 2 symbols runs 2 chunks, not 4.
+//   * Shared memory.  The operator takes 512 bytes a (16-row m-tile,
+//     chunk), one chunk a symbol: 4x the byte expansions'.  Staged in
+//     shared memory it ran about 10 % faster at the main path's shape (k=10,
+//     p=4) than read through L1 (PERF.md, section 6), so the kernels stage
+//     it where it and one step buffer a warp fit (p=16: k <= 52; the ring's
+//     stage count, 1-3, moved nothing there), and past that the instance
+//     <kNibble, false> reads its fragments from device memory through L1
+//     (__ldg), shared memory holding the ring alone: k <= 908 at any p.
+//   * One chunk loop (nibble_chunks) walks the blocks and chunks for both
+//     kernels and hands each chunk's table and selectors (NibbleChunk) to
+//     the kernel's mma, which makes each plane word just before its use.
 //
 // copy_floor_kernel: C = B[:p], moving exactly K1's traffic.  Each block
 // brings its whole (k, tile) block of B into shared memory, in chunks that
@@ -583,6 +624,70 @@ __device__ __forceinline__ void transpose4(uint32_t x0, uint32_t x1,
   r[3] = __byte_perm(c, d, 0x7632);
 }
 
+// The transposed words of one warp step's 4 rows at `rc` (row q at
+// rc + q * kSumStepCols, this lane's 8 bytes): r[j] is column 8g + j, byte
+// q from row q.  4 LDS.64 and 8 PRMT.
+__device__ __forceinline__ void step_words(const uint8_t* rc, uint32_t (&r)[kSumGroups]) {
+  uint2 x[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) x[q] = *reinterpret_cast<const uint2*>(rc + q * kSumStepCols);
+  transpose4(x[0].x, x[1].x, x[2].x, x[3].x, r);
+  transpose4(x[0].y, x[1].y, x[2].y, x[3].y, r + 4);
+}
+
+// PTX prmt.b32 in its default mode: byte n of the result is byte
+// sel[4n+2:4n] of {y, x} (x: bytes 0-3), or, where sel bit 4n+3 is set,
+// bit 7 of that byte replicated over the byte (sel[31:16] is not read).
+// __byte_perm is documented with 3-bit selectors only, so the nibble
+// tables ask for the instruction itself.
+__device__ __forceinline__ uint32_t prmt(uint32_t x, uint32_t y, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(x), "r"(y), "r"(sel));
+  return d;
+}
+
+// Fragment i of the operator: from shared memory, or through L1 from
+// device memory.
+template <bool OP_SMEM>
+__device__ __forceinline__ uint4 op_frag(const uint4* op_s, const uint4* __restrict__ op_g, int i) {
+  return OP_SMEM ? op_s[i] : __ldg(op_g + i);
+}
+
+// One nibble chunk of a warp step: lane t's table for it and the selector
+// word of each column group j (r[j] or r[j] >> 16).  lo(j) (table in x)
+// is plane 8e + t of the group's column 8g + j, hi(j) (table in y) plane
+// 8e + 4 + t.
+struct NibbleChunk {
+  uint32_t tab;
+  uint32_t sel[kSumGroups];
+  __device__ __forceinline__ uint32_t lo(int j) const { return prmt(tab, 0u, sel[j]); }
+  __device__ __forceinline__ uint32_t hi(int j) const { return prmt(0u, tab, sel[j]); }
+};
+
+// The nibble's chunk loop over one warp step's rows: per four-symbol block
+// the transposed words r, then its chunks c = 4b + 2h' + e (2 for a last
+// block of 1 or 2 symbols, else 4), with table e (e1, e8) on r (h' = 0) or
+// r >> 16 (h' = 1).  mma(c, chunk) issues the chunk's products.
+template <typename Mma>
+__device__ __forceinline__ void nibble_chunks(const uint8_t* rows, int k, uint32_t e1, uint32_t e8, Mma&& mma) {
+  for (int b = 0; 4 * b < k; ++b) {
+    uint32_t r[kSumGroups];
+    step_words(rows + 4 * b * kSumStepCols, r);
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      if (h2 == 1 && 4 * b + 2 >= k) break;  // a last block of 1 or 2 symbols
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        NibbleChunk chunk;
+        chunk.tab = e ? e8 : e1;
+#pragma unroll
+        for (int j = 0; j < kSumGroups; ++j) chunk.sel[j] = h2 ? r[j] >> 16 : r[j];
+        mma(4 * b + 2 * h2 + e, chunk);
+      }
+    }
+  }
+}
+
 // Plane s of the 4 symbols in word r, one per byte.  `bit` is
 // 0x01010101 << s.
 template <int EXPAND>
@@ -638,6 +743,13 @@ __device__ __noinline__ void sum_store_edge(uint8_t* dst, long long left,
 // m-tiles of gf_planes_sum_kernel's operator: rounded up to pairs.
 __host__ __device__ inline int sum_mtiles(int p) {
   return ((p * 8 + 15) / 16 + 1) & ~1;
+}
+
+// 32-deep operator chunks of gf_planes_sum_kernel and gf_planes_dot_kernel:
+// one per 4 symbols for the byte expansions, one per symbol for nibble,
+// with k rounded up to pairs.
+__host__ __device__ inline int sum_chunks(int k, int expand) {
+  return expand == kNibble ? (k + 1) / 2 * 2 : (k + 3) / 4;
 }
 
 // One warp's ring of step buffers (gf_planes_sum_kernel and
@@ -701,7 +813,7 @@ struct StepRing {
   }
 };
 
-template <int EXPAND>
+template <int EXPAND, bool OP_SMEM>
 __global__ void __launch_bounds__(kSumThreads)
     gf_planes_sum_kernel(const uint4* __restrict__ opA,
                          const uint8_t* __restrict__ B,
@@ -709,8 +821,9 @@ __global__ void __launch_bounds__(kSumThreads)
                          int tile, int pinned, int stages) {
   extern __shared__ uint4 smem[];
   const int mtn = sum_mtiles(p);
-  const int kc = (k + 3) / 4;
-  const int na = mtn * kc * 32;
+  const int kc = sum_chunks(k, EXPAND);
+  static_assert(OP_SMEM || EXPAND == kNibble, "only nibble reads its operator through L1");
+  const int na = OP_SMEM ? mtn * kc * 32 : 0;
   for (int i = threadIdx.x; i < na; i += kSumThreads) smem[i] = opA[i];
   __syncthreads();
 
@@ -729,6 +842,8 @@ __global__ void __launch_bounds__(kSumThreads)
 
   const int sh0 = t, sh1 = t + 4;
   const uint32_t bit0 = 0x01010101u << sh0, bit1 = 0x01010101u << sh1;
+  // nibble: lane t's PRMT tables, planes t, 4 + t (e1) and 8 + t, 12 + t (e8).
+  const uint32_t e1 = 1u << (8 * t), e8 = 0x80u << (8 * t);
   const uint32_t keep = 0x01010101u << g;
   const uint32_t pick = (uint32_t)(g & 3) | ((uint32_t)((g & 3) + 4) << 4);
   // This lane's output bytes of a step: symbol 2mt + g / 2, columns
@@ -748,30 +863,38 @@ __global__ void __launch_bounds__(kSumThreads)
         for (int j = 0; j < kSumGroups; ++j)
 #pragma unroll
           for (int r = 0; r < 4; ++r) acc[u][j][r] = 0;
-      for (int c = 0; c < kc; ++c) {
-        const uint8_t* rc = rows + 4 * c * kSumStepCols;
-        uint2 x[4];
+      if (EXPAND == kNibble) {
+        nibble_chunks(rows, k, e1, e8, [&](int c, const NibbleChunk& chunk) {
+          const uint4 a0 = op_frag<OP_SMEM>(smem, opA, (mg * kc + c) * 32 + lane);
+          const uint4 a1 = op_frag<OP_SMEM>(smem, opA, ((mg + 1) * kc + c) * 32 + lane);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) x[q] = *reinterpret_cast<const uint2*>(rc + q * kSumStepCols);
-        uint32_t r[kSumGroups];
-        transpose4(x[0].x, x[1].x, x[2].x, x[3].x, r);
-        transpose4(x[0].y, x[1].y, x[2].y, x[3].y, r + 4);
-        uint32_t b0[kSumGroups], b1[kSumGroups];
+          for (int j = 0; j < kSumGroups; ++j) {
+            const uint32_t b0 = chunk.lo(j), b1 = chunk.hi(j);
+            mma_u8(acc[0][j], a0, b0, b1);
+            mma_u8(acc[1][j], a1, b0, b1);
+          }
+        });
+      } else {
+        for (int c = 0; c < kc; ++c) {
+          uint32_t r[kSumGroups];
+          step_words(rows + 4 * c * kSumStepCols, r);
+          uint32_t b0[kSumGroups], b1[kSumGroups];
 #pragma unroll
-        for (int j = 0; j < kSumGroups; ++j) {
-          b0[j] = plane_word<EXPAND>(r[j], sh0, bit0);
-          b1[j] = plane_word<EXPAND>(r[j], sh1, bit1);
-        }
-        const uint4 a0 = smem[(mg * kc + c) * 32 + lane];
-        const uint4 a1 = smem[((mg + 1) * kc + c) * 32 + lane];
+          for (int j = 0; j < kSumGroups; ++j) {
+            b0[j] = plane_word<EXPAND>(r[j], sh0, bit0);
+            b1[j] = plane_word<EXPAND>(r[j], sh1, bit1);
+          }
+          const uint4 a0 = smem[(mg * kc + c) * 32 + lane];
+          const uint4 a1 = smem[((mg + 1) * kc + c) * 32 + lane];
 #pragma unroll
-        for (int j = 0; j < kSumGroups; ++j) {
-          if (EXPAND == kSign) {
-            mma_u8s8(acc[0][j], a0, b0[j], b1[j]);
-            mma_u8s8(acc[1][j], a1, b0[j], b1[j]);
-          } else {
-            mma_u8(acc[0][j], a0, b0[j], b1[j]);
-            mma_u8(acc[1][j], a1, b0[j], b1[j]);
+          for (int j = 0; j < kSumGroups; ++j) {
+            if (EXPAND == kSign) {
+              mma_u8s8(acc[0][j], a0, b0[j], b1[j]);
+              mma_u8s8(acc[1][j], a1, b0[j], b1[j]);
+            } else {
+              mma_u8(acc[0][j], a0, b0[j], b1[j]);
+              mma_u8(acc[1][j], a1, b0[j], b1[j]);
+            }
           }
         }
       }
@@ -824,7 +947,7 @@ __device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b,
 // lanes) uint4, two 8-row n-tiles each (x, y: rows g; z, w: rows 8 + g);
 // opF: F's B fragments for the two passes of an 8-symbol tile, (2, 32)
 // uint2.  Everything else as gf_planes_sum_kernel.
-template <int EXPAND>
+template <int EXPAND, bool OP_SMEM>
 __global__ void __launch_bounds__(kSumThreads)
     gf_planes_dot_kernel(const uint4* __restrict__ opB,
                          const uint2* __restrict__ opF,
@@ -833,8 +956,9 @@ __global__ void __launch_bounds__(kSumThreads)
                          int tile, int pinned, int stages) {
   extern __shared__ uint4 smem[];
   const int npass = sum_mtiles(p) / 2;  // 32 operator rows (4 symbols) a pass
-  const int kc = (k + 3) / 4;
-  const int nb = 2 * npass * kc * 32;
+  const int kc = sum_chunks(k, EXPAND);
+  static_assert(OP_SMEM || EXPAND == kNibble, "only nibble reads its operator through L1");
+  const int nb = OP_SMEM ? 2 * npass * kc * 32 : 0;
   for (int i = threadIdx.x; i < nb; i += kSumThreads) smem[i] = opB[i];
   __syncthreads();
 
@@ -852,6 +976,7 @@ __global__ void __launch_bounds__(kSumThreads)
 
   const int sh0 = t, sh1 = t + 4;
   const uint32_t bit0 = 0x01010101u << sh0, bit1 = 0x01010101u << sh1;
+  const uint32_t e1 = 1u << (8 * t), e8 = 0x80u << (8 * t);  // nibble's tables
   // Byte e of a second-product A register is output bit 2t + (e & 1).
   const uint32_t keep = 0x02010201u << (2 * t);
   uint8_t* c_lane = C + 8 * g;
@@ -877,31 +1002,42 @@ __global__ void __launch_bounds__(kSumThreads)
           for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
             for (int r = 0; r < 4; ++r) acc[mb][nt][r] = 0;
-        for (int c = 0; c < kc; ++c) {
-          const uint8_t* rc = rows + 4 * c * kSumStepCols;
-          uint2 x[4];
+        if (EXPAND == kNibble) {
+          nibble_chunks(rows, k, e1, e8, [&](int c, const NibbleChunk& chunk) {
+            const uint4 b01 = op_frag<OP_SMEM>(smem, opB, ((2 * pass) * kc + c) * 32 + lane);
+            const uint4 b23 = op_frag<OP_SMEM>(smem, opB, ((2 * pass + 1) * kc + c) * 32 + lane);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const uint2*>(rc + i * kSumStepCols);
-          uint32_t r[8];
-          transpose4(x[0].x, x[1].x, x[2].x, x[3].x, r);
-          transpose4(x[0].y, x[1].y, x[2].y, x[3].y, r + 4);
-          const uint4 b01 = smem[((2 * pass) * kc + c) * 32 + lane];
-          const uint4 b23 = smem[((2 * pass + 1) * kc + c) * 32 + lane];
-#pragma unroll
-          for (int mb = 0; mb < 4; ++mb) {
-            // Each plane register is made once, just before its 4 mma.
-            const uint4 a = make_uint4(plane_word<EXPAND>(r[mb], sh0, bit0), plane_word<EXPAND>(r[4 + mb], sh0, bit0),
-                                       plane_word<EXPAND>(r[mb], sh1, bit1), plane_word<EXPAND>(r[4 + mb], sh1, bit1));
-            if (EXPAND == kSign) {
-              mma_s8u8(acc[mb][0], a, b01.x, b01.y);
-              mma_s8u8(acc[mb][1], a, b01.z, b01.w);
-              mma_s8u8(acc[mb][2], a, b23.x, b23.y);
-              mma_s8u8(acc[mb][3], a, b23.z, b23.w);
-            } else {
+            for (int mb = 0; mb < 4; ++mb) {
+              // Each plane register is made just before its 4 mma.
+              const uint4 a = make_uint4(chunk.lo(mb), chunk.lo(4 + mb), chunk.hi(mb), chunk.hi(4 + mb));
               mma_u8(acc[mb][0], a, b01.x, b01.y);
               mma_u8(acc[mb][1], a, b01.z, b01.w);
               mma_u8(acc[mb][2], a, b23.x, b23.y);
               mma_u8(acc[mb][3], a, b23.z, b23.w);
+            }
+          });
+        } else {
+          for (int c = 0; c < kc; ++c) {
+            uint32_t r[kSumGroups];
+            step_words(rows + 4 * c * kSumStepCols, r);
+            const uint4 b01 = smem[((2 * pass) * kc + c) * 32 + lane];
+            const uint4 b23 = smem[((2 * pass + 1) * kc + c) * 32 + lane];
+#pragma unroll
+            for (int mb = 0; mb < 4; ++mb) {
+              // Each plane register is made once, just before its 4 mma.
+              const uint4 a = make_uint4(plane_word<EXPAND>(r[mb], sh0, bit0), plane_word<EXPAND>(r[4 + mb], sh0, bit0),
+                                         plane_word<EXPAND>(r[mb], sh1, bit1), plane_word<EXPAND>(r[4 + mb], sh1, bit1));
+              if (EXPAND == kSign) {
+                mma_s8u8(acc[mb][0], a, b01.x, b01.y);
+                mma_s8u8(acc[mb][1], a, b01.z, b01.w);
+                mma_s8u8(acc[mb][2], a, b23.x, b23.y);
+                mma_s8u8(acc[mb][3], a, b23.z, b23.w);
+              } else {
+                mma_u8(acc[mb][0], a, b01.x, b01.y);
+                mma_u8(acc[mb][1], a, b01.z, b01.w);
+                mma_u8(acc[mb][2], a, b23.x, b23.y);
+                mma_u8(acc[mb][3], a, b23.z, b23.w);
+              }
             }
           }
         }
@@ -938,56 +1074,73 @@ __global__ void __launch_bounds__(kSumThreads)
   }
 }
 
-// Dynamic shared memory of gf_planes_sum_kernel with `stages` step buffers
-// a warp.
-inline size_t sum_smem(int k, int p, int stages) {
-  const int kc = (k + 3) / 4;
-  return (size_t)sum_mtiles(p) * kc * 32 * sizeof(uint4) +
-         (size_t)kSumWarps * stages * 4 * kc * kSumStepCols;
+// Dynamic shared memory of gf_planes_sum_kernel and gf_planes_dot_kernel
+// with `stages` step buffers a warp, the operator in it or not.
+inline size_t sum_smem(int k, int p, int expand, int stages, bool op_smem) {
+  return (op_smem ? (size_t)sum_mtiles(p) * sum_chunks(k, expand) * 32 * sizeof(uint4) : 0) +
+         (size_t)kSumWarps * stages * 4 * ((k + 3) / 4) * kSumStepCols;
 }
 
-template <int EXPAND>
-int launch_planes_sum(const void* opA, const void* B, void* C, int k, int p,
-                      long long m, int tile, int pinned, cudaStream_t stream) {
-  int stages = kSumStages;
-  while (stages > 1 && sum_smem(k, p, stages) > (size_t)kMaxSmem) --stages;
-  const size_t smem = sum_smem(k, p, stages);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+// The most step buffers a warp (kSumStages down to 1) that fit beside the
+// operator in shared memory; for nibble, where none does, the most that
+// fit alone (*op_smem false: the operator read through L1).  0: none fits.
+inline int sum_stages(int k, int p, int expand, bool* op_smem) {
+  for (int in_smem = 1; in_smem >= (expand == kNibble ? 0 : 1); --in_smem) {
+    for (int stages = kSumStages; stages >= 1; --stages) {
+      if (sum_smem(k, p, expand, stages, in_smem) <= (size_t)kMaxSmem) {
+        *op_smem = in_smem;
+        return stages;
+      }
+    }
+  }
+  return 0;
+}
+
+template <int EXPAND, int REFOLD, bool OP_SMEM>
+int launch_folded(const void* opA, const void* opF, const void* B, void* C,
+                  int k, int p, long long m, int tile, int pinned, int stages,
+                  size_t smem, unsigned blocks, cudaStream_t stream) {
+  const void* fn = REFOLD == kSum ? (const void*)gf_planes_sum_kernel<EXPAND, OP_SMEM>
+                                  : (const void*)gf_planes_dot_kernel<EXPAND, OP_SMEM>;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gf_planes_sum_kernel<EXPAND>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const long long blocks = (m + tile - 1) / tile;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  gf_planes_sum_kernel<EXPAND><<<(unsigned)blocks, kSumThreads, smem, stream>>>(
-      static_cast<const uint4*>(opA), static_cast<const uint8_t*>(B),
-      static_cast<uint8_t*>(C), k, p, m, tile, pinned, stages);
+  if constexpr (REFOLD == kSum) {
+    gf_planes_sum_kernel<EXPAND, OP_SMEM><<<blocks, kSumThreads, smem, stream>>>(
+        static_cast<const uint4*>(opA), static_cast<const uint8_t*>(B),
+        static_cast<uint8_t*>(C), k, p, m, tile, pinned, stages);
+  } else {
+    gf_planes_dot_kernel<EXPAND, OP_SMEM><<<blocks, kSumThreads, smem, stream>>>(
+        static_cast<const uint4*>(opA), static_cast<const uint2*>(opF),
+        static_cast<const uint8_t*>(B), static_cast<uint8_t*>(C), k, p, m, tile,
+        pinned, stages);
+  }
   return (int)cudaGetLastError();
 }
 
-template <int EXPAND>
-int launch_planes_dot(const void* opB, const void* opF, const void* B, void* C,
-                      int k, int p, long long m, int tile, int pinned,
-                      cudaStream_t stream) {
-  int stages = kSumStages;
-  while (stages > 1 && sum_smem(k, p, stages) > (size_t)kMaxSmem) --stages;
-  const size_t smem = sum_smem(k, p, stages);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gf_planes_dot_kernel<EXPAND>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+// Launch gf_planes_sum_kernel (REFOLD kSum) or gf_planes_dot_kernel (kDot;
+// opF: F) on the operator packed for it.  Only nibble has the instance
+// that reads its operator through L1.
+template <int EXPAND, int REFOLD>
+int launch_planes_folded(const void* opA, const void* opF, const void* B, void* C,
+                         int k, int p, long long m, int tile, int pinned,
+                         cudaStream_t stream) {
+  bool op_smem = true;
+  const int stages = sum_stages(k, p, EXPAND, &op_smem);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = sum_smem(k, p, EXPAND, stages, op_smem);
   const long long blocks = (m + tile - 1) / tile;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  gf_planes_dot_kernel<EXPAND><<<(unsigned)blocks, kSumThreads, smem, stream>>>(
-      static_cast<const uint4*>(opB), static_cast<const uint2*>(opF),
-      static_cast<const uint8_t*>(B), static_cast<uint8_t*>(C), k, p, m, tile,
-      pinned, stages);
-  return (int)cudaGetLastError();
+  if (op_smem) {
+    return launch_folded<EXPAND, REFOLD, true>(opA, opF, B, C, k, p, m, tile, pinned, stages, smem,
+                                               (unsigned)blocks, stream);
+  }
+  if constexpr (EXPAND == kNibble) {
+    return launch_folded<EXPAND, REFOLD, false>(opA, opF, B, C, k, p, m, tile, pinned, stages, smem,
+                                                (unsigned)blocks, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int W, int EXPAND, int REFOLD>
@@ -1056,13 +1209,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The (w, expand, refold) instances gf_planes_kernel runs: at w=8
-// nibble's sum and dot and every pre-parity form (refold none); at w=16
-// the three lane-width expansions with every refold; at w=4 shift and
-// shift_raw with every refold.  The byte expansions' sum and dot refolds
-// at w=8 are gf_planes_sum_kernel and gf_planes_dot_kernel.
+// The (w, expand, refold) instances gf_planes_kernel runs: at w=8 every
+// pre-parity form (refold none); at w=16 the three lane-width expansions
+// with every refold; at w=4 shift and shift_raw with every refold.  The
+// sum and dot refolds at w=8 are gf_planes_sum_kernel and
+// gf_planes_dot_kernel.
 #define RS_PLANES_INSTANCES(X)                                             \
-  X(8, kNibble, kSum) X(8, kNibble, kDot)                                  \
   X(8, kShift, kNone) X(8, kShiftRaw, kNone) X(8, kCmp, kNone)             \
   X(8, kSign, kNone) X(8, kNibble, kNone)                                  \
   X(16, kShift, kSum) X(16, kShiftRaw, kSum) X(16, kSign, kSum)            \
@@ -1070,7 +1222,7 @@ __global__ void __launch_bounds__(kThreads)
   X(16, kShift, kNone) X(16, kShiftRaw, kNone) X(16, kSign, kNone)         \
   X(4, kShift, kSum) X(4, kShiftRaw, kSum) X(4, kShift, kDot)              \
   X(4, kShiftRaw, kDot) X(4, kShift, kNone) X(4, kShiftRaw, kNone)
-#define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign)
+#define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign) X(kNibble)
 
 }  // namespace
 
@@ -1081,10 +1233,11 @@ const char* rs_cuda_error_string(int err) {
 }
 
 // Dynamic shared memory the GEMM needs at (k, p, w), in bytes, and its
-// limit.  For the byte expansions' sum and dot refolds at w=8: the least,
-// with one step buffer a warp (the launch takes up to kSumStages that fit).
+// limit.  For the sum and dot refolds at w=8: the least, with one step
+// buffer a warp (the launch takes up to kSumStages that fit), beside the
+// operator, or for nibble without it.
 long long rs_gf_planes_smem(int k, int p, int w, int expand, int refold) {
-  if (w == 8 && refold != kNone && expand != kNibble) return (long long)sum_smem(k, p, 1);
+  if (w == 8 && refold != kNone) return (long long)sum_smem(k, p, expand, 1, expand != kNibble);
   return (long long)planes_smem(dims(k, p, w, expand), refold);
 }
 int rs_gf_planes_smem_limit() { return kMaxSmem; }
@@ -1094,9 +1247,9 @@ int rs_gf_planes_smem_limit() { return kMaxSmem; }
 //   B: (k, m) uint8 (w=4, 8) or uint16 (w=16), row-major.  C: (p, m) of
 //   B's type, or for refold none the (p*w, m) int32 accumulators.  tile:
 //   columns per block, a positive multiple of kSumStepCols.  pinned != 0:
-//   every block reads block 0.  The byte expansions' sum and dot refolds
-//   at w=8 run gf_planes_sum_kernel and gf_planes_dot_kernel (opA and opF
-//   packed for them), every other instance gf_planes_kernel.  An instance
+//   every block reads block 0.  The sum and dot refolds at w=8 run
+//   gf_planes_sum_kernel and gf_planes_dot_kernel (opA and opF packed for
+//   them), every other instance gf_planes_kernel.  An instance
 //   not in the source returns cudaErrorInvalidValue.
 int rs_gf_planes(const void* opA, const void* opF, const void* B, void* C,
                  int k, int p, long long m, int tile, int w, int expand,
@@ -1113,12 +1266,12 @@ int rs_gf_planes(const void* opA, const void* opF, const void* B, void* C,
 #undef RS_CALL
 #define RS_CALL_SUM(E)                                                  \
   if (w == 8 && expand == E && refold == kSum)                          \
-    return launch_planes_sum<E>(opA, B, C, k, p, m, tile, pinned, s);
+    return launch_planes_folded<E, kSum>(opA, opF, B, C, k, p, m, tile, pinned, s);
   RS_SUM_EXPANDS(RS_CALL_SUM)
 #undef RS_CALL_SUM
 #define RS_CALL_DOT(E)                                                  \
   if (w == 8 && expand == E && refold == kDot)                          \
-    return launch_planes_dot<E>(opA, opF, B, C, k, p, m, tile, pinned, s);
+    return launch_planes_folded<E, kDot>(opA, opF, B, C, k, p, m, tile, pinned, s);
   RS_SUM_EXPANDS(RS_CALL_DOT)
 #undef RS_CALL_DOT
   return (int)cudaErrorInvalidValue;

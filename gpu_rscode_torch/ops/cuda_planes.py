@@ -13,13 +13,14 @@ each accumulator is refolded into output symbols by a shift-sum
 (the pre-parity form, the JAX package's ``fold_parity=False``).  Every
 expansion runs at w=8; ``shift``, ``shift_raw`` and ``sign`` also at w=16
 (:data:`WIDE_EXPANDS`), ``shift`` and ``shift_raw`` at w=4
-(:data:`NARROW_EXPANDS`; one symbol a uint8, bits 4-7 ignored).  The byte
-expansions' sum and dot refolds at w=8 (:data:`SUM_EXPANDS`) run
+(:data:`NARROW_EXPANDS`; one symbol a uint8, bits 4-7 ignored).  The sum
+and dot refolds at w=8 (:data:`SUM_EXPANDS`: every expansion) run
 ``gf_planes_sum_kernel`` and ``gf_planes_dot_kernel``, with the operator
 scaled by 2^s and packed for four-symbol plane words
-(:func:`sum_operator`; as B fragments for the dot kernel, whose F is
-:func:`dot_fold_operator`); every other instance runs
-``gf_planes_kernel``.
+(:func:`sum_operator`; :func:`nibble_operator` for the nibble's PRMT
+tables; as B fragments for the dot kernel, whose F is
+:func:`dot_fold_operator`); every other instance (w=16, w=4, the
+pre-parity form) runs ``gf_planes_kernel``.
 With ``pinned=True`` every block of ``tile`` columns computes on the first
 block's columns: the compute-only ceiling, whose result is the first
 block's output repeated.
@@ -50,7 +51,7 @@ from .gemm import (PLAIN_BLOCK_COLS, _dot_bits, _narrow, _widen, coefficients, e
 # (which run nothing then) in CAPTURED, and those the plan layer's graph
 # replays ran in REPLAYED (added by the plan layer).  Every addition holds
 # COUNT_LOCK.
-KINDS = ("planes", "sum", "dot", "w4", "w16", "preparity", "copy")
+KINDS = ("sum", "dot", "w4", "w16", "preparity", "copy")
 LAUNCHES = dict.fromkeys(KINDS, 0)
 CAPTURED = dict.fromkeys(KINDS, 0)
 REPLAYED = dict.fromkeys(KINDS, 0)
@@ -70,7 +71,7 @@ INSTANCES = (tuple((8, e, r) for e in EXPANDS for r in REFOLDS)
              + tuple((4, e, r) for e in NARROW_EXPANDS for r in REFOLDS))
 # With refold "sum" at w=8 these run gf_planes_sum_kernel, with "dot"
 # gf_planes_dot_kernel.
-SUM_EXPANDS = ("shift", "shift_raw", "cmp", "sign")
+SUM_EXPANDS = ("shift", "shift_raw", "cmp", "sign", "nibble")
 DEFAULT_TILE = 8192
 TILE_STEP = 64  # columns of gf_planes_sum_kernel's warp step; tiles are multiples
 SOURCES = [_build.CSRC / "gf_planes.cu"]
@@ -114,15 +115,14 @@ def is_dot_pair(expand: str, refold: str, w: int = 8) -> bool:
 def kind(w: int, expand: str, refold: str) -> str:
     """The count an instance's launch adds to: "sum" (gf_planes_sum_kernel),
     "dot" (gf_planes_dot_kernel), "preparity" (gf_planes_kernel, refold
-    none), "w16" and "w4" (gf_planes_kernel at w=16 and w=4, folded) or
-    "planes" (gf_planes_kernel at w=8, folded: nibble)."""
+    none), "w16" and "w4" (gf_planes_kernel at w=16 and w=4, folded)."""
     if is_sum_pair(expand, refold, w):
         return "sum"
     if is_dot_pair(expand, refold, w):
         return "dot"
     if refold == "none":
         return "preparity"
-    return {16: "w16", 4: "w4"}.get(w, "planes")
+    return {16: "w16", 4: "w4"}[w]
 
 
 def reset_counts() -> None:
@@ -301,6 +301,24 @@ def sum_operator(A: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(padded.reshape(16 * mt, kc, 4, 2, 4).transpose(0, 1, 3, 4, 2)).reshape(16 * mt, 32 * kc)
 
 
+def nibble_operator(A: np.ndarray) -> np.ndarray:
+    """The sum and dot kernels' nibble operator: the (p*8, k*32)
+    one-hot-nibble operator with row i*8 + s times 2^s, zero-padded to
+    (16 * mt, 32 * nc) uint8 (mt even, nc: k rounded up to pairs), its
+    columns in the PRMT tables' order: depth 32c + 16h + 4t + q of chunk
+    c = 2j + e is one-hot plane v = 8e + 4h + t of symbol 2j + q // 2's low
+    (q even) or high (q odd) nibble."""
+    p, k = A.shape
+    mt, nc = 2 * -(-p // 4), 2 * -(-k // 2)
+    op = expand_nibblematrix(A, 8).numpy().astype(np.int64) << np.tile(np.arange(8), p)[:, None]
+    j, e, h, t, q = np.meshgrid(*(np.arange(n) for n in (nc // 2, 2, 2, 4, 4)), indexing="ij")
+    sym, v = (2 * j + q // 2).ravel(), (8 * e + 4 * h + t).ravel()
+    col = sym * 32 + np.where(q.ravel() % 2, v, 16 + v)  # high nibble's one-hot first, as the operator has it
+    padded = np.zeros((16 * mt, 32 * nc), dtype=np.uint8)
+    padded[:p * 8, sym < k] = op[:, col[sym < k]]
+    return padded
+
+
 def pack_b_fragments(op: np.ndarray) -> np.ndarray:
     """(16 * nt2, 32 * kc) 8-bit operator -> (nt2, kc, 32, 4) uint32 B
     fragments of mma.m16n8k32 (gf_planes_dot_kernel, whose operator is the
@@ -337,11 +355,12 @@ def _operators(A: np.ndarray, expand: str, refold: str, w: int, device: torch.de
         p, k = A.shape
         mt, kc, mf, kf = _dims(k, p, expand, w)
         opF = None
-        if is_sum_pair(expand, refold, w):
-            op = sum_operator(A)
-            opA = pack_fragments(op, *op.shape)
-        elif is_dot_pair(expand, refold, w):
-            opA, opF = pack_b_fragments(sum_operator(A)), dot_fold_operator()
+        if is_sum_pair(expand, refold, w) or is_dot_pair(expand, refold, w):
+            op = nibble_operator(A) if expand == "nibble" else sum_operator(A)
+            if refold == "sum":
+                opA = pack_fragments(op, *op.shape)
+            else:
+                opA, opF = pack_b_fragments(op), dot_fold_operator()
         else:
             opA = pack_fragments(_operator_bits(A, expand, w).numpy(), 16 * mt, 32 * kc)
             if refold == "dot":

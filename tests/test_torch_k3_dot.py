@@ -29,8 +29,8 @@ from gpu_rscode_torch.ops import cuda_planes
 from gpu_rscode_tpu.ops.gf import get_field
 from gpu_rscode_tpu.ops.pallas_gemm import gf_matmul_pallas
 from gpu_rscode_tpu.tools import kernel_sweep as j_sweep
-from test_torch_k3_sum import (G, GROUPS, INT32, LANES, SOURCE, STEP, T, _densest_element, _jax_sweep_body,
-                               _operands, byte_perm, plane_word, transpose4, warp_steps)
+from test_torch_k3_sum import (G, INT32, LANES, SOURCE, STEP, T, _densest_element, _jax_sweep_body, _operands,
+                               byte_perm, chunk_planes, operator, step_buffers, warp_steps)
 
 EXPANDS = ("shift", "shift_raw", "cmp", "sign")
 # (JAX sweep body, expansion) pairs whose refold is "dot".
@@ -98,25 +98,21 @@ def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pi
     m = B.shape[1]
     tile = cuda_planes.tile_cols(tile, m)
     assert tile % STEP == 0
-    opB = cuda_planes.pack_b_fragments(cuda_planes.sum_operator(A))  # (2 * npass, kc, 32, 4)
+    opB = cuda_planes.pack_b_fragments(operator(A, expand))  # (2 * npass, kc, 32, 4)
     npass, kc = opB.shape[0] // 2, opB.shape[1]
-    assert opB.shape[0] % 2 == 0 and kc == -(-k // 4)
+    assert opB.shape[0] % 2 == 0
     opF = cuda_planes.dot_fold_operator()  # (2, 32, 2)
     f_tiles = [b_tile(opF[q, :, 0], opF[q, :, 1]) for q in range(2)]
     steps = warp_steps(m, tile, pinned)
     assert [w for w, _ in steps] == list(range(0, m, STEP))  # every step once, blocks ragged or not
     S = len(steps)
-    rng = np.random.default_rng(k * 7919 + m)
-    buf = rng.integers(0, 256, size=(S, 4 * kc, STEP), dtype=np.uint8)
-    for i, (_, rcol) in enumerate(steps):
-        n = max(0, min(STEP, m - rcol))
-        buf[i, :k, :n] = B[:, rcol:rcol + n]
-    words = buf.reshape(S, 4 * kc, 8, 2, 4).copy().view("<u4")[..., 0]  # (S, rows, g, half)
-    out = rng.integers(0, 256, size=(p, m), dtype=np.uint8)  # torch.empty
+    words, out = step_buffers(B, steps, p)
     writes = np.zeros((p, m), dtype=np.int64)
     keep = np.uint32(0x02010201) << (2 * T).astype(np.uint32)
     col0 = np.array([w for w, _ in steps])
     signed = expand == "sign"
+    chunks = list(chunk_planes(words, k, expand))  # the same registers in every pass
+    assert sorted(c for c, _, _ in chunks) == list(range(kc))  # every operator chunk once
     for f in range(-(-npass // 2)):
         o = np.zeros((4, S, 16, 8), dtype=np.int64)
         for q in range(2):
@@ -124,18 +120,15 @@ def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pi
             if ps >= npass:
                 break
             acc = np.zeros((4, 4, S, 16, 8), dtype=np.int64)  # (m-block, n-tile, S, column, row)
-            for c in range(kc):
-                x = [words[:, 4 * c + i][:, G] for i in range(4)]  # LDS.64 of rows 4c + i: (S, 32, half)
-                r = transpose4(*(xi[..., 0] for xi in x)) + transpose4(*(xi[..., 1] for xi in x))
-                pw0 = [plane_word(r[j], T, expand) for j in range(GROUPS)]
-                pw1 = [plane_word(r[j], T + 4, expand) for j in range(GROUPS)]
+            for c, pw0, pw1 in chunks:
                 b01, b23 = opB[2 * ps, c], opB[2 * ps + 1, c]  # two LDS.128 per 16 mma
                 ops = [b_tile(b01[:, 0], b01[:, 1]), b_tile(b01[:, 2], b01[:, 3]),
                        b_tile(b23[:, 0], b23[:, 1]), b_tile(b23[:, 2], b23[:, 3])]
-                for mb in range(4):
-                    a = a_tile(pw0[mb], pw0[4 + mb], pw1[mb], pw1[4 + mb], signed)
-                    for nt in range(4):
-                        acc[mb, nt] += np.matmul(a, ops[nt])
+                # m-block mb: rows g and g + 8 are columns 8g + mb and 8g + 4 + mb.
+                regs = (pw0[:4], pw0[4:], pw1[:4], pw1[4:])
+                a = a_tile(*(x.reshape(-1, LANES) for x in regs), signed).reshape(4, S, 16, 32)
+                for nt in range(4):
+                    acc[:, nt] += np.matmul(a, ops[nt])
                 if trace is not None:
                     trace.append(acc.copy())
             assert np.abs(acc).max(initial=0) < INT32
@@ -162,17 +155,18 @@ def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pi
 
 
 def test_source_constants():
-    """The layout the model reads from the source, the routing of the four
-    byte expansions' dot refold to the new kernel, and the W=8 byte dot
-    pairs gone from gf_planes_kernel's instances."""
+    """The layout the model reads from the source, the routing of every
+    expansion's dot refold at w=8 to the new kernel, and the W=8 dot pairs
+    gone from gf_planes_kernel's instances."""
     assert "#define RS_CALL_DOT(E)" in SOURCE and "RS_SUM_EXPANDS(RS_CALL_DOT)" in SOURCE
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32" in SOURCE
     assert "const uint32_t keep = 0x02010201u << (2 * t);" in SOURCE
     instances = re.search(r"#define RS_PLANES_INSTANCES\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
     w8 = re.findall(r"X\(8, (k\w+), (k\w+)\)", instances)
-    assert ("kNibble", "kDot") in w8 and not [e for e, r in w8 if r == "kDot" and e != "kNibble"]
-    assert all(cuda_planes.is_dot_pair(e, "dot") and cuda_planes.kind(8, e, "dot") == "dot" for e in EXPANDS)
-    assert not cuda_planes.is_dot_pair("nibble", "dot") and not cuda_planes.is_dot_pair("shift", "dot", 16)
+    assert w8 and not [e for e, r in w8 if r == "kDot"]
+    assert all(cuda_planes.is_dot_pair(e, "dot") and cuda_planes.kind(8, e, "dot") == "dot"
+               for e in EXPANDS + ("nibble",))
+    assert not cuda_planes.is_dot_pair("nibble", "none") and not cuda_planes.is_dot_pair("shift", "dot", 16)
     assert not cuda_planes.is_dot_pair("shift", "dot", 4) and cuda_planes.kind(4, "shift", "dot") == "w4"
 
 

@@ -95,6 +95,68 @@ def plane_word(r, s, expand):
     return (r >> s) & np.uint32(0x01010101)
 
 
+def prmt(x, y, sel):
+    """PTX ``prmt.b32`` in its default mode on uint32 arrays: byte n is
+    byte ``sel[4n+2:4n]`` of {y, x}, or, where ``sel`` bit 4n+3 is set, bit
+    7 of that byte replicated (the nibble tables' sign rule); ``sel[31:16]``
+    is not read."""
+    both = (np.asarray(y, dtype=np.uint64) << np.uint64(32)) | np.asarray(x, dtype=np.uint64)
+    sel = np.asarray(sel, dtype=np.uint64)
+    out = np.zeros(np.broadcast(both, sel).shape, dtype=np.uint64)
+    for n in range(4):
+        nib = (sel >> np.uint64(4 * n)) & np.uint64(0xF)
+        byte = (both >> (np.uint64(8) * (nib & np.uint64(7)))) & np.uint64(0xFF)
+        byte = np.where(nib & np.uint64(8), np.where(byte & np.uint64(0x80), np.uint64(0xFF), np.uint64(0)), byte)
+        out |= byte << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+# nibble: lane t's two PRMT tables (the kernel's e1, e8).
+E1, E8 = np.uint32(1) << (8 * T).astype(np.uint32), np.uint32(0x80) << (8 * T).astype(np.uint32)
+
+
+def chunk_planes(words: np.ndarray, k: int, expand: str):
+    """The kernels' depth-chunk loop over one step's words (S, rows, g,
+    half): yields (chunk c, pw0, pw1), pw0 and pw1 the plane registers
+    (GROUPS, S, 32) at depths 4t.. and 16 + 4t.. of each column group.
+    Byte expansions: chunk c is rows 4c..4c+3, planes t and 4 + t.
+    nibble: rows 4b..4b+3 are chunks 4b + 2h' + e (h' = 1 only if row
+    4b + 2 < k), planes 8e + t and 8e + 4 + t of the low (h' = 0) or high
+    16 bits of each transposed word, made by PRMT from lane t's tables."""
+    for b in range(-(-k // 4)):
+        x = [words[:, 4 * b + q][:, G] for q in range(4)]  # LDS.64 of row 4b + q: (S, 32, half)
+        r = np.stack(transpose4(*(xq[..., 0] for xq in x)) + transpose4(*(xq[..., 1] for xq in x)))
+        if expand != "nibble":
+            yield b, plane_word(r, T, expand), plane_word(r, T + 4, expand)
+            continue
+        for h2 in range(2):
+            if h2 and 4 * b + 2 >= k:
+                break
+            sel = r >> np.uint32(16) if h2 else r
+            for e in range(2):
+                tab = E8 if e else E1
+                yield 4 * b + 2 * h2 + e, prmt(tab, 0, sel), prmt(0, tab, sel)
+
+
+def operator(A: np.ndarray, expand: str) -> np.ndarray:
+    """The sum and dot kernels' host-packed operator for ``expand``."""
+    return cuda_planes.nibble_operator(A) if expand == "nibble" else cuda_planes.sum_operator(A)
+
+
+def step_buffers(B: np.ndarray, steps: list, p: int):
+    """Each warp step's ring buffer as words (S, rows, g, half): rows < k
+    at the read columns below m, the rest whatever the shared memory held;
+    and the output as torch.empty leaves it."""
+    k, m = B.shape
+    rng = np.random.default_rng(k * 7919 + m)
+    buf = rng.integers(0, 256, size=(len(steps), 4 * -(-k // 4), STEP), dtype=np.uint8)
+    for i, (_, rcol) in enumerate(steps):
+        n = max(0, min(STEP, m - rcol))
+        buf[i, :k, :n] = B[:, rcol:rcol + n]
+    words = buf.reshape(len(steps), buf.shape[1], 8, 2, 4).copy().view("<u4")[..., 0]
+    return words, rng.integers(0, 256, size=(p, m), dtype=np.uint8)
+
+
 def unpack_a_tiles(frags: np.ndarray) -> np.ndarray:
     """(mt, kc, 32, 4) uint32 A fragments -> (mt, kc, 16, 32) int64 tiles, in
     the m16n8k32 8-bit A layout: lane g*4 + t holds rows g (regs 0, 2) and
@@ -137,37 +199,26 @@ def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pi
     m = B.shape[1]
     tile = cuda_planes.tile_cols(tile, m)
     assert tile % STEP == 0
-    op = cuda_planes.sum_operator(A)
-    mtn, kc = op.shape[0] // 16, -(-k // 4)
+    op = operator(A, expand)
+    mtn, kc = op.shape[0] // 16, op.shape[1] // 32
     assert mtn % 2 == 0  # m-tiles in pairs: a pass has no branch
     a = unpack_a_tiles(cuda_planes.pack_fragments(op, 16 * mtn, 32 * kc))
     steps = warp_steps(m, tile, pinned)
     assert [w for w, _ in steps] == list(range(0, m, STEP))  # every step once, blocks ragged or not
     S = len(steps)
-    rng = np.random.default_rng(k * 7919 + m)
-    # Each step's buffer: rows < k at the read columns below m; the rest is
-    # whatever the shared memory held.
-    buf = rng.integers(0, 256, size=(S, 4 * kc, STEP), dtype=np.uint8)
-    for i, (_, rcol) in enumerate(steps):
-        n = max(0, min(STEP, m - rcol))
-        buf[i, :k, :n] = B[:, rcol:rcol + n]
-    words = buf.reshape(S, 4 * kc, 8, 2, 4).copy().view("<u4")[..., 0]  # (S, rows, g, half)
-    out = rng.integers(0, 256, size=(p, m), dtype=np.uint8)  # torch.empty
+    words, out = step_buffers(B, steps, p)
     writes = np.zeros((p, m), dtype=np.int64)
     keep = np.uint32(0x01010101) << G.astype(np.uint32)
     pick = (G & 3) | (((G & 3) + 4) << 4)
     col0 = np.array([w for w, _ in steps])
+    chunks = list(chunk_planes(words, k, expand))  # the same registers in every pass
+    assert sorted(c for c, _, _ in chunks) == list(range(kc))  # every operator chunk once
     for mg in range(0, mtn, 2):
         acc = np.zeros((2, GROUPS, S, 16, 8), dtype=np.int64)
-        for c in range(kc):
-            # LDS.64 of rows 4c..4c+3 at bytes 8g..8g+7: x[q] = (lo, hi).
-            x = [words[:, 4 * c + q][:, G] for q in range(4)]  # (S, 32, half)
-            r = transpose4(*(xq[..., 0] for xq in x)) + transpose4(*(xq[..., 1] for xq in x))
-            b0 = [plane_word(r[j], T, expand) for j in range(GROUPS)]
-            b1 = [plane_word(r[j], T + 4, expand) for j in range(GROUPS)]
+        for c, b0, b1 in chunks:
+            bt = b_tile(b0.reshape(-1, LANES), b1.reshape(-1, LANES), expand == "sign").reshape(GROUPS, S, 32, 8)
             for u in range(2):
-                for j in range(GROUPS):
-                    acc[u, j] += np.matmul(a[mg + u, c], b_tile(b0[j], b1[j], expand == "sign"))
+                acc[u] += np.matmul(a[mg + u, c], bt)
                 if trace is not None:
                     trace.append(acc[u].copy())
         assert np.abs(acc).max(initial=0) < INT32
@@ -230,21 +281,20 @@ def _densest_element() -> tuple[int, int]:
 
 def test_source_constants():
     """The layout the model reads from the source, the wrapper's tile
-    granularity, the mma of each expansion, and the pairs the new kernel
-    takes over from gf_planes_kernel."""
+    granularity, the mma of each expansion, and the pairs the kernel takes
+    over from gf_planes_kernel: every expansion's sum refold at w=8."""
     assert (WARPS, GROUPS, STAGES) == (4, 8, 3)
     assert "constexpr int kSumStepCols = 8 * kSumGroups;" in SOURCE
     assert cuda_planes.TILE_STEP == STEP
     assert "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32" in SOURCE
     assert "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32" in SOURCE
-    assert "#define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign)" in SOURCE
+    assert "#define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign) X(kNibble)" in SOURCE
     instances = re.search(r"#define RS_PLANES_INSTANCES\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
     w8 = re.findall(r"X\(8, (k\w+), (k\w+)\)", instances)
-    assert w8 and not [e for e, r in w8 if r == "kSum" and e != "kNibble"]
-    assert ("kNibble", "kSum") in w8
-    assert set(cuda_planes.SUM_EXPANDS) == {"shift", "shift_raw", "cmp", "sign"}
+    assert w8 and {r for _, r in w8} == {"kNone"}
+    assert set(cuda_planes.SUM_EXPANDS) == set(cuda_planes.EXPANDS)
     assert all(cuda_planes.is_sum_pair(e, "sum") for e in cuda_planes.SUM_EXPANDS)
-    assert not cuda_planes.is_sum_pair("nibble", "sum") and not cuda_planes.is_sum_pair("shift", "dot")
+    assert not cuda_planes.is_sum_pair("nibble", "none") and not cuda_planes.is_sum_pair("shift", "dot")
 
 
 @pytest.mark.parametrize("p,k", [(1, 1), (4, 10), (3, 33), (10, 32)])

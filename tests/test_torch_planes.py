@@ -8,11 +8,10 @@ pinned index map and for ``dma``; every body runs in interpret mode on the
 CPU.  The nibble operator, the field's nibble matrices and the dispatch of
 every JAX expansion name through ``gf_matmul_cuda`` are held against the
 JAX package.  The CUDA kernel runs only on the card (chip_smoke.py); here
-its fragment layout, in-register expansion and both refolds are checked by
-a NumPy model of ``csrc/gf_planes.cu`` at the level of mma fragments; the
-byte expansions' sum and dot refolds, which run ``gf_planes_sum_kernel``
-and ``gf_planes_dot_kernel``, by the register models of
-``test_torch_k3_sum.py`` and ``test_torch_k3_dot.py``."""
+its fragment packing is checked here, and every folded pair at w=8, which
+runs ``gf_planes_sum_kernel`` or ``gf_planes_dot_kernel``, by the register
+models of ``test_torch_k3_sum.py`` and ``test_torch_k3_dot.py`` (nibble's
+PRMT tables: ``test_torch_k3_nibble.py``)."""
 
 import functools
 
@@ -213,90 +212,19 @@ def _expand4(b, s0, expand):
 
 
 def _emulate_kernel(A, B, expand, refold, tile, pinned=False):
+    """Every folded pair at w=8 runs the sum or the dot kernel: their
+    register models."""
     if cuda_planes.is_sum_pair(expand, refold):
         return sum_kernel_model(A, B, expand, tile, pinned)
-    if cuda_planes.is_dot_pair(expand, refold):
-        return dot_kernel_model(A, B, expand, tile, pinned)
-    k, m = B.shape
-    p = A.shape[0]
-    mt, kc, mf, kf = cuda_planes._dims(k, p, expand)
-    opA = cuda_planes.pack_fragments(cuda_planes._operator_bits(A, expand).numpy(), 16 * mt, 32 * kc)
-    opF = cuda_planes.pack_fragments(cuda_planes.fold_operator(p), 16 * mf, 32 * kf)
-    Am = [[_a_matrix(opA[i, c]) for c in range(kc)] for i in range(mt)]
-    Fm = [[_a_matrix(opF[i, c]) for c in range(kf)] for i in range(mf)]
-    C = np.full((p, m), -1, dtype=np.int64)
-
-    def load4(row, col0):
-        return sum(int(B[row, col0 + j]) << (8 * j) for j in range(4) if row < k and col0 + j < m)
-
-    def store8(sym, col0, lo, hi):
-        for j in range(8):
-            if col0 + j < m:
-                C[sym, col0 + j] = ((lo if j < 4 else hi) >> (8 * (j & 3))) & 0xFF
-
-    for blk0 in range(0, m, tile):
-        for base in range(blk0, min(m, blk0 + tile), 32):
-            rbase = base - (blk0 if pinned else 0)
-            bits = np.zeros((32, 32 * kf), dtype=np.int64)  # [column 4n + j, row]
-            for i in range(mt):
-                acc = {j: np.zeros((16, 8), dtype=np.int64) for j in range(4)}
-                for c in range(kc):
-                    regs = {j: [] for j in range(4)}
-                    for lane in range(32):
-                        g, t = lane >> 2, lane & 3
-                        if expand == "nibble":
-                            wd = load4(c, rbase + 4 * g)
-                        else:
-                            w0 = load4(c * 4 + (t >> 1), rbase + 4 * g)
-                            w1 = load4(c * 4 + 2 + (t >> 1), rbase + 4 * g)
-                        for j in range(4):
-                            if expand == "nibble":
-                                b = (wd >> (8 * j)) & 0xFF
-                                hi, lo = b >> 4, b & 0xF
-                                regs[j].append(((1 << (8 * (hi & 3))) if hi >> 2 == t else 0,
-                                                (1 << (8 * (lo & 3))) if lo >> 2 == t else 0))
-                            else:
-                                s0 = (t & 1) * 4
-                                regs[j].append((_expand4((w0 >> (8 * j)) & 0xFF, s0, expand),
-                                                _expand4((w1 >> (8 * j)) & 0xFF, s0, expand)))
-                    for j in range(4):
-                        acc[j] += Am[i][c] @ _b_matrix(regs[j], signed=True)
-                for j in range(4):
-                    if refold == "sum":
-                        for t in range(4):
-                            v = 0
-                            for g in range(8):  # the three xor-shuffles OR over g
-                                d = acc[j][:, 2 * t:2 * t + 2]
-                                v |= ((d[g, 0] & 1) | (d[g, 1] & 1) << 8 | (d[g + 8, 0] & 1) << 16
-                                      | (d[g + 8, 1] & 1) << 24) << g
-                            for g, sel in ((0, 0), (1, 16)):
-                                if 2 * i + g < p:
-                                    col = base + 8 * t + j
-                                    for off, shift in ((0, sel), (4, sel + 8)):
-                                        if col + off < m:
-                                            C[2 * i + g, col + off] = (v >> shift) & 0xFF
-                    else:
-                        for n in range(8):
-                            bits[4 * n + j, 16 * i:16 * i + 16] = acc[j][:, n] & 1
-            if refold == "dot":
-                for f in range(mf):
-                    for j in range(4):
-                        out = sum(Fm[f][c] @ bits[[4 * g + j for g in range(8)], 32 * c:32 * c + 32].T
-                                  for c in range(kf))
-                        for t in range(4):
-                            for g in range(16):
-                                sym = 16 * f + g
-                                for n, off in ((2 * t, 0), (2 * t + 1, 4)):
-                                    if sym < p and base + 8 * t + off + j < m:
-                                        C[sym, base + 8 * t + off + j] = out[g, n] & 0xFF
-    return C
+    assert cuda_planes.is_dot_pair(expand, refold)
+    return dot_kernel_model(A, B, expand, tile, pinned)
 
 
 @pytest.mark.parametrize("expand,refold", cuda_planes.PAIRS)
 def test_kernel_model_matches_oracle(expand, refold):
-    """Fragment packing, per-lane expansion, the column permutation 4n + j,
-    the shuffle refold and the dot refold through shared memory, modelled
-    lane by lane: a ragged edge and p past one m-tile of F rows."""
+    """Every folded pair at w=8 through its kernel's register model (the
+    sum or the dot kernel), lane by lane: a ragged edge, p off the m-tile
+    pairs."""
     A, B = _operands(3, 5, 70, 70)
     np.testing.assert_array_equal(_emulate_kernel(A, B, expand, refold, 64), get_field(8).matmul(A, B))
 

@@ -101,7 +101,7 @@ def test_instances_and_refusals():
     assert [cuda_planes.kind(*i) for i in ((8, "shift", "sum"), (8, "nibble", "sum"), (16, "shift", "sum"),
                                            (16, "sign", "none"), (8, "cmp", "none"), (8, "shift_raw", "dot"),
                                            (8, "nibble", "dot"), (4, "shift", "dot"), (4, "shift_raw", "none"))] == [
-        "sum", "planes", "w16", "preparity", "preparity", "dot", "planes", "w4", "preparity"]
+        "sum", "sum", "w16", "preparity", "preparity", "dot", "dot", "w4", "preparity"]
     A, B = _operands(2, 3, 64, 16, 85)
     for expand in ("cmp", "nibble"):
         with pytest.raises(ValueError, match="byte-granular"):
