@@ -8,7 +8,7 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi); CUDA must be present;
   2. build the three CUDA kernel libraries from the checkout's sources, one
      nvcc each, all at once (timed), with each kernel instance's registers
-     and spills (the w=16 and pre-parity gf_planes instances listed apart);
+     and spills (the gf_planes instances listed apart);
   3. K1 against its plain PyTorch version on the card, bit-exact, over a
      grid of shapes at w=4 (bytes with the high nibble set), w=8 and w=16
      in both forms (the folded bit-sliced kernel and the pre-parity
@@ -249,12 +249,15 @@ Phases, each fatal on failure:
      its depth-slice edges, at the largest accumulator a slice can reach,
      at tiles that are not a multiple of its 128-column step, and with
      operators too large for shared memory; K3 at w=16 (shift, shift_raw,
-     sign x sum, dot) at k 1-33, p 1-10, m 37-100,003, tiles 256 and 8192,
-     pinned, and at its largest sums (every symbol 0xFFFF, the densest
-     element); the largest k whose operator fits in shared memory at p=16
-     for each w=16 and pre-parity instance, and the ValueError one past it
-     (no launch); the pre-parity form (refold none) of every instance at
-     w=4, 8 and 16, exact int32; the public dispatch of every JAX name at
+     sign x sum, dot: the sum and dot kernels) at k 1-33, p 1-10, m
+     37-100,003, tiles 256 and 8192, pinned, and at its largest sums (every
+     symbol 0xFFFF, the densest element); per instance at p=16 the largest
+     k its staged route takes and the next (the route through L1, or the
+     ValueError with no launch), the largest k each instance the sum, dot
+     and none kernels took over from gf_planes_kernel had, and w=16 at k =
+     16,400 (sums past 2^31); the pre-parity form (refold none) of every
+     instance at w=4, 8 (gf_planes_none_kernel) and 16, exact int32, with
+     the stripe mesh's k=32, p=16; the public dispatch of every JAX name at
      w=16 (refold none, sum, dot, autotune) and with fold_parity=False;
      K3's six W=4 instances (shift, shift_raw x sum, dot, none) at k 1-33,
      p 1-17, m 37-100,003, pinned, at their largest sums and through the
@@ -303,11 +306,12 @@ Phases, each fatal on failure:
      4 chunks lost (SHA-256), every dispatch a K3 run and some inside graph
      replays, the calibrated choices, rs_pallas_autotune_total and the
      plans' refolds logged; under RS_PALLAS_EXPAND=shift_raw the same file
-     encoded on a (2, 1) stripe mesh of the card (K3's pre-parity form;
-     the archive equal to phase 4's); under RS_PALLAS_EXPAND=pack2 its
+     encoded on a (2, 1) stripe mesh of the card (K3's pre-parity form,
+     gf_planes_none_kernel alone; the archive equal to phase 4's); under RS_PALLAS_EXPAND=pack2 its
      encode through K2 captured into the plans' graphs (equal to phase
      4's); a 256 MiB w=16 CLI round trip under RS_PALLAS_REFOLD=
-     autotune (K3's w=16 instances, inside replays too); RSCodec(10, 4,
+     autotune (the sum and dot kernels at w=16, inside replays too, and no
+     gf_planes_kernel); RSCodec(10, 4,
      w=4) on the card (encode, decode with the first 4 natives lost, an
      update) on staged 64 MiB segments, three times each, under no knob
      (K1) and under RS_PALLAS_EXPAND=shift_raw (K3 at W=4, sum), each
@@ -328,9 +332,11 @@ Phases, each fatal on failure:
      (m = 3,355,392) and its pre-parity form at the w=8 segment (bound: B
      read and the int32 sums written once); K1 in both forms and K3's six
      W=4 instances at w=4 on the same bytes (one symbol a byte); K2 and
-     K3's sum and dot kernels beside the instruction estimate of their
-     designs, and K3's w=8 pairs beside the tensor-core bound of their
-     product (nibble's k*32 planes: past the bytes bound).
+     K3's sum, dot and none kernels (w=16 too) beside the instruction
+     estimate of their designs and the tensor-core bound of their product
+     (nibble's k*32 planes: past the bytes bound), each row with the tile
+     it ran at.  tools/k3_timings_ab.py runs this phase in a parent tree
+     and this one in turns.
 
 Phases run in the order 1-5, 5b-5j, 5m, 6, 8, 5k, 5l, 9.  The last lines are
 nvidia-smi's name and power limit, the kernels JSON and the result JSON.
@@ -483,53 +489,69 @@ def k2_ops_per_col(p: int, k: int) -> float:
 
 # Thread instructions that make one plane register from a four-symbol word
 # (gf_planes_sum_kernel's plane_word; __vcmpne4 counted as the 4 integer
-# instructions it is emulated with; nibble: one PRMT of a table).
+# instructions it is emulated with; nibble: one PRMT of a table).  The
+# pre-parity form's exact planes: shift_raw masks the next byte's bits
+# off, nibble ANDs half its chunks' planes to 0/1.
 K3_PLANE_OPS = {"shift": 2, "shift_raw": 1, "cmp": 6, "sign": 5, "nibble": 1}
+K3_EXACT_PLANE_OPS = {**K3_PLANE_OPS, "shift_raw": 2, "nibble": 1.5}
 
 
-def _k3_depth(k: int, expand: str) -> tuple[int, int]:
+def _k3_depth(k: int, expand: str, w: int = 8, exact: bool = False) -> tuple[int, int]:
     """A pass's warp instructions over the depth, besides the mma and the
-    operator's fragment reads, and its operator chunks.  Per four rows it
-    reads them (4 LDS.64) and transposes them (16 PRMT); the byte
+    operator's fragment reads, and its operator chunks.  At w=8, per four
+    rows it reads them (4 LDS.64) and transposes them (16 PRMT); the byte
     expansions then make one chunk's 16 plane registers, nibble shifts the
     8 words' high halves (8) and makes 16 a chunk in 2-4 chunks (one a
-    symbol, k rounded up to pairs)."""
+    symbol, k rounded up to pairs).  At w=16 a chunk is two rows (2
+    LDS.128 and 8 PRMT that split the bytes) and 16 plane registers.
+    ``exact``: the pre-parity form's plane values."""
+    ops = (K3_EXACT_PLANE_OPS if exact else K3_PLANE_OPS)[expand]
+    if w == 16:
+        chunks = -(-k // 2)
+        return chunks * (2 + 8 + 16 * ops), chunks
     blocks = -(-k // 4)
     if expand == "nibble":
         chunks = 2 * -(-k // 2)
-        return blocks * (4 + 16 + 8) + chunks * 16 * K3_PLANE_OPS[expand], chunks
-    return blocks * (4 + 16 + 16 * K3_PLANE_OPS[expand]), blocks
+        return blocks * (4 + 16 + 8) + chunks * 16 * ops, chunks
+    return blocks * (4 + 16 + 16 * ops), blocks
 
 
-def k3_ops_per_col(p: int, k: int, expand: str) -> float:
+def _k3_copies(k: int, w: int) -> int:
+    """A warp step's copies of its k rows into shared memory: a predicated
+    16-byte cp.async per 32 / (4 w / 8) rows a lane, about 6 instructions
+    each, and about 20 for the commit, wait and loop."""
+    return 6 * -(-k // (32 // (4 * w // 8))) + 20
+
+
+def k3_ops_per_col(p: int, k: int, expand: str, w: int = 8) -> float:
     """An estimate from the design of gf_planes_sum_kernel, not a
     measurement: thread instructions per column besides the mma, for the
     sum refold.  A warp step covers 64 columns as 8 mma column groups.  Per
-    step it copies its k rows into shared memory (a predicated 16-byte
-    cp.async per 8 rows a lane, about 6 instructions each, and about 20 for
-    the commit, wait and loop).  Per pass over a pair of m-tiles it zeroes
-    64 accumulators (32) and controls its loop (10), runs the depth
-    (_k3_depth) and reads one A fragment per chunk and m-tile.  Per m-tile
-    it refolds 8 groups at 10 instructions each (3 PRMT, a mask, 3
-    shuffles, 3 OR) and stores with 6 PRMT, its address and one 8-byte
-    store (10).  Each instruction runs on 32 threads, over 64 columns."""
+    step it copies its k rows (_k3_copies).  Per pass over a pair of
+    m-tiles it zeroes 64 accumulators (32) and controls its loop (10), runs
+    the depth (_k3_depth) and reads one A fragment per chunk and m-tile.
+    Per m-tile it refolds 8 groups at 10 instructions each (3 PRMT, a mask,
+    3 shuffles, 3 OR) and stores: w=8, 6 PRMT, its address and one 8-byte
+    store (10); w=16 (an m-tile a symbol), 4 PRMT, its address and one
+    16-byte store (8).  Each instruction runs on 32 threads, over 64
+    columns."""
     groups, step = 8, 64
-    mt = -(-p * 8 // 16)
+    mt = -(-p * 8 // 16) if w == 8 else p
     passes = -(-mt // 2)
-    depth, chunks = _k3_depth(k, expand)
-    warp_instr = (6 * -(-k // 8) + 20 + passes * (32 + 10) + passes * depth + chunks * mt
-                  + mt * (10 * groups + 10))
+    depth, chunks = _k3_depth(k, expand, w)
+    warp_instr = (_k3_copies(k, w) + passes * (32 + 10) + passes * depth + chunks * mt
+                  + mt * (10 * groups + (10 if w == 8 else 8)))
     return warp_instr * 32 / step
 
 
-def k3_ops_bound_ms(p: int, k: int, m: int, expand: str) -> float:
-    """Least time for the tensor-core work of a w=8 expansion's product at
-    the card's dense int8 rate: 2 * (p*8) * depth operations a column, the
-    depth k*8 bit planes or k*32 one-hot nibble planes."""
-    return 1e3 * 2 * p * 8 * k * (32 if expand == "nibble" else 8) * m / INT8_OPS_PER_S
+def k3_ops_bound_ms(p: int, k: int, m: int, expand: str, w: int = 8) -> float:
+    """Least time for the tensor-core work of an expansion's product at the
+    card's dense int8 rate: 2 * (p*w) * depth operations a column, the
+    depth k*w bit planes or k*32 one-hot nibble planes."""
+    return 1e3 * 2 * p * w * k * (32 if expand == "nibble" else w) * m / INT8_OPS_PER_S
 
 
-def k3_dot_ops_per_col(p: int, k: int, expand: str) -> float:
+def k3_dot_ops_per_col(p: int, k: int, expand: str, w: int = 8) -> float:
     """An estimate from the design of gf_planes_dot_kernel, not a
     measurement: thread instructions per column besides the mma, for the
     dot refold.  The step's copies as k3_ops_per_col counts them.  Per pass
@@ -537,17 +559,34 @@ def k3_dot_ops_per_col(p: int, k: int, expand: str) -> float:
     controls its loop (10), runs the depth (_k3_depth) and reads 2
     B-fragment uint4 a chunk.  Per pass it moves the 64
     accumulators into the second product's 16 A registers (3 PRMT and a
-    mask each, 64).  Per 8-symbol output tile it zeroes 16 sums (8),
-    controls its loop (10) and stores 2 symbols with 6 PRMT, an address
-    and a test and one 8-byte store each (22).  Each instruction runs on 32
-    threads, over 64 columns."""
+    mask each, 64).  Per 8-byte-symbol output tile it zeroes 16 sums (8),
+    controls its loop (10) and stores: w=8, 2 symbols with 6 PRMT, an
+    address and a test and one 8-byte store each (22); w=16, one symbol
+    with 12 PRMT, an address, a test and one 16-byte store (15).  Each
+    instruction runs on 32 threads, over 64 columns."""
     step = 64
-    mt = cuda_planes.sum_operator(np.zeros((p, 1), dtype=np.uint8)).shape[0] // 16
+    mt = cuda_planes.sum_operator(np.zeros((p, 1), dtype=np.uint8 if w == 8 else np.uint16), w).shape[0] // 16
     passes, tiles = mt // 2, -(-mt // 4)
-    depth, chunks = _k3_depth(k, expand)
-    warp_instr = (6 * -(-k // 8) + 20 + tiles * (8 + 10 + 22) + passes * (32 + 10 + 64)
+    depth, chunks = _k3_depth(k, expand, w)
+    warp_instr = (_k3_copies(k, w) + tiles * (8 + 10 + (22 if w == 8 else 15)) + passes * (32 + 10 + 64)
                   + passes * depth + chunks * mt)
     return warp_instr * 32 / step
+
+
+def k3_none_ops_per_col(p: int, k: int, expand: str) -> float:
+    """An estimate from the design of gf_planes_none_kernel, not a
+    measurement: thread instructions per column besides the mma, for the
+    pre-parity form at w=8.  The sum kernel's copies, passes and depth with
+    the exact planes (_k3_depth); per pass, instead of the refold, 16
+    STS.128 into the staging rows, two warp barriers, and 16 LDS.128 and
+    16 STG.128 with their loop and addresses (about 16).  Each instruction
+    runs on 32 threads, over 64 columns."""
+    mt = -(-p * 8 // 16)
+    passes = -(-mt // 2)
+    depth, chunks = _k3_depth(k, expand, 8, exact=True)
+    warp_instr = (_k3_copies(k, 8) + passes * (32 + 10) + passes * depth + chunks * 2 * passes
+                  + passes * (16 + 2 + 16 + 16 + 16))
+    return warp_instr * 32 / 64
 
 
 def time_ms(fn, iters: int, reps: int = 1, warmup: int = 2) -> float:
@@ -1512,7 +1551,8 @@ def phase_new_kernels_vs_plain(device) -> dict:
     k2, copy = Grid("K2"), Grid("K3-copy-floor")
     planes_sum, planes_dot = Grid("K3-planes-sum"), Grid("K3-planes-dot")
     wide, pre, narrow = Grid("K3-planes-w16"), Grid("K3-planes-preparity"), Grid("K3-planes-w4")
-    by_name = {grid.name: grid for grid in (planes_sum, planes_dot, wide, pre, narrow)}
+    pre_w = Grid("K3-planes-preparity-w4-w16")
+    by_name = {grid.name: grid for grid in (planes_sum, planes_dot, wide, pre, narrow, pre_w)}
     # k = 29-32 and 61-63: the edges of the kernel's 30-symbol depth slices
     # and of the plain version's 31-symbol ones.
     for m in (511, 512, 4097, SEGMENT_COLS):
@@ -1604,8 +1644,8 @@ def phase_new_kernels_vs_plain(device) -> dict:
             grid = k2 if kernel == "pack2" else by_name[k3_grid_name(kernel, refold)]
             grid.check(cuda_gemm.gf_matmul_cuda(A, B, 8, expand=name, refold=refold), want, f"expand={name} refold={refold}")
     _new_instances_vs_plain(device, gen, rng, dense, by_name)
-    _w4_instances_vs_plain(device, gen, rng, narrow, pre)
-    grids = (k2, planes_sum, planes_dot, copy, wide, pre, narrow)
+    _w4_instances_vs_plain(device, gen, rng, narrow, pre_w)
+    grids = (k2, planes_sum, planes_dot, copy, wide, pre, narrow, pre_w)
     for grid in grids:
         log(phase="kernel_vs_plain", kernel=grid.name, cases=grid.cases, max_abs_err=grid.worst, tolerance=0)
     return {grid.name: grid for grid in grids}
@@ -1616,22 +1656,49 @@ def _rand_u16(gen, shape, device) -> torch.Tensor:
         torch.int16).view(torch.uint16)
 
 
+def _rand_w(gen, shape, device, w: int) -> torch.Tensor:
+    return (_rand_u16 if w == 16 else _rand_u8)(gen, shape, device)
+
+
+def _limit_case(grids: dict, rng, gen, device, w: int, expand: str, refold: str, p: int, k: int, m: int,
+                what: str) -> str:
+    """One launch at (k, p) against the plain version; returns its route."""
+    A = rng.integers(0, 1 << w, size=(p, k))
+    B = _rand_w(gen, (k, m), device, w)
+    grid = grids[k3_grid_name(expand, refold, w)]
+    grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, w=w),
+               cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, w=w),
+               f"w={w} {expand}+{refold} p={p} k={k} m={m} ({what})")
+    return cuda_planes.route(k, p, expand, refold, w)
+
+
+# The largest k the generic gf_planes_kernel took, at p=16 and p=1, for the
+# instances the sum, dot and none kernels took over from it (w=16 sum /
+# dot, w=8 none, nibble apart): every one must still run.
+_EARLIER_EDGES = {(16, "sum"): {16: 56, 1: 908}, (16, "dot"): {16: 38, 1: 874},
+                 (8, "none"): {16: 224, 1: 1816}, (8, "nibble+none"): {16: 56, 1: 454}}
+
+
 def _new_instances_vs_plain(device, gen, rng, dense8: int, grids: dict) -> None:
     """Phase 7's w=16 and pre-parity cases: every w=16 pair at k 1-33, p
-    1-10 and m 37-100,003 (tiles 256 and 8192) and pinned; their largest
-    sums (every symbol 0xFFFF, every coefficient the densest element); the
-    largest k that fits in shared memory at p=16 and the refusal one past
-    it (no launch), for every instance but the byte expansions' sum
-    kernel (its edge is the dot kernel's); the pre-parity form of every
-    instance, exact int32; and the
-    public dispatch of every JAX name at w=16 and pre-parity.  ``grids``:
-    phase 7's K3 grids by name."""
-    wide, pre = grids["K3-planes-w16"], grids["K3-planes-preparity"]
+    1-10 and m 37-100,003 (tiles 256 and 8192; odd m take the byte-wise
+    copies and stores, 4160 the 16-byte ones) and pinned; their
+    largest sums (every symbol 0xFFFF, every coefficient the densest
+    element); per instance at p=16 the largest k whose staged route fits
+    and the first past it (the direct route, or the refusal with no
+    launch where the instance has none); the edges the generic
+    gf_planes_kernel had for the instances the sum, dot and none kernels
+    took over, and
+    w=16 at k=16,400 (sums past 2^31, which the mma adds modulo 2^32); the
+    pre-parity form of every instance, exact int32, with the stripe mesh's
+    k-slice (k=32, p=16); and the public dispatch of every JAX name at
+    w=16 and pre-parity.  ``grids``: phase 7's K3 grids by name."""
+    wide = grids["K3-planes-w16"]
     dense16 = int(get_field(16).bitmats.sum(axis=2).max(axis=1).argmax())
     for expand in cuda_planes.WIDE_EXPANDS:
         for refold in ("sum", "dot"):
             for k in (1, 3, 4, 10, 33):
-                for m in (37, 4097, 100003):
+                for m in (37, 4160, 100003):
                     B = _rand_u16(gen, (k, m), device)
                     for p in (1, 4, 10):
                         A = rng.integers(0, 1 << 16, size=(p, k))
@@ -1639,38 +1706,45 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int, grids: dict) -> None:
                         for tile in (256, 8192):
                             wide.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, tile, w=16), want,
                                        f"w=16 {expand}+{refold} p={p} k={k} m={m} tile={tile}")
-            A, B = rng.integers(0, 1 << 16, size=(4, 10)), _rand_u16(gen, (10, 3 * 8192 + 37), device)
-            wide.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, 8192, pinned=True, w=16),
-                       cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, 8192, pinned=True, w=16),
-                       f"w=16 {expand}+{refold} pinned")
+            for m in (3 * 8192 + 37, 3 * 8192 + 64):
+                A, B = rng.integers(0, 1 << 16, size=(4, 10)), _rand_u16(gen, (10, m), device)
+                wide.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, 8192, pinned=True, w=16),
+                           cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, 8192, pinned=True, w=16),
+                           f"w=16 {expand}+{refold} pinned m={m}")
     # The largest sums at w=16, folded and pre-parity.
     for expand in cuda_planes.WIDE_EXPANDS:
         for k in (4, 33):
             B = torch.full((k, 4096), -1, dtype=torch.int16, device=device).view(torch.uint16)
             A = np.full((10, k), dense16)
             for refold in ("sum", "dot", "none"):
-                grid = pre if refold == "none" else wide
+                grid = grids[k3_grid_name(expand, refold, 16)]
                 grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, w=16),
                            cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, w=16),
                            f"w=16 {expand}+{refold} largest sum: element {dense16} k={k} symbols 0xFFFF")
-    # The largest k whose operator fits at p=16, and the refusal past it.
+    # At p=16 the largest k the staged route takes and the next: the direct
+    # route, or (no direct route) the refusal, with no launch.
     limits = {}
     for w, expand, refold in cuda_planes.INSTANCES:
-        if cuda_planes.is_sum_pair(expand, refold, w) and expand != "nibble":
-            continue
+        if cuda_planes.is_sum_pair(expand, refold, w) and w == 8 and expand != "nibble":
+            continue  # the byte expansions' sum kernel: its edge is the dot kernel's
         k = 1
-        while cuda_planes.smem_bytes(k + 1, 16, expand, refold, w)[0] <= cuda_planes.smem_bytes(k, 16, expand, refold,
-                                                                                                  w)[1]:
+        while cuda_planes.route(k + 1, 16, expand, refold, w) is not None and (
+                cuda_planes.route(k + 1, 16, expand, refold, w) == cuda_planes.route(1, 16, expand, refold, w)):
             k += 1
-        limits[f"w={w} {expand}+{refold}"] = k
-        A = rng.integers(0, 1 << w, size=(16, k))
-        B = (_rand_u16 if w == 16 else _rand_u8)(gen, (k, 4097), device)
-        grid = pre if refold == "none" else grids[k3_grid_name(expand, refold, w)]
-        grid.check(cuda_planes.gf_matmul_planes(A, B, expand, refold, w=w),
-                   cuda_planes.gf_matmul_planes_plain(A, B, expand, refold, w=w),
-                   f"w={w} {expand}+{refold} p=16 largest k={k}")
+        staged = _limit_case(grids, rng, gen, device, w, expand, refold, 16, k, 4097, "largest staged k")
+        past = cuda_planes.route(k + 1, 16, expand, refold, w)
+        limits[f"w={w} {expand}+{refold}"] = {"k": k, "route": staged, "next": past}
+        if past is not None:
+            _limit_case(grids, rng, gen, device, w, expand, refold, 16, k + 1, 4097, f"route {past}")
+            if past != "direct":  # nibble's folded forms: operator through L1 up to the ring's edge
+                while cuda_planes.route(k + 1, 16, expand, refold, w) is not None:
+                    k += 1
+                _limit_case(grids, rng, gen, device, w, expand, refold, 16, k, 257, f"largest k, route {past}")
+                limits[f"w={w} {expand}+{refold}"]["l1_k"] = k
+            else:
+                continue
         A = rng.integers(0, 1 << w, size=(16, k + 1))
-        B = (_rand_u16 if w == 16 else _rand_u8)(gen, (k + 1, 4097), device)
+        B = _rand_w(gen, (k + 1, 4097), device, w)
         before = dict(cuda_planes.LAUNCHES)
         try:
             cuda_planes.gf_matmul_planes(A, B, expand, refold, w=w)
@@ -1680,31 +1754,63 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int, grids: dict) -> None:
         else:
             raise AssertionError(f"w={w} {expand}+{refold} p=16 k={k + 1}: past shared memory, not refused")
     log(phase="kernel_vs_plain", kernel="K3 shared-memory limits", p=16, largest_k=limits)
+    # The generic kernel's edges of the instances the sum, dot and none kernels took over
+    # (and one past at p=16), and w=16 past the exact-sum depth.
+    routes = {}
+    for (w, what), edges in _EARLIER_EDGES.items():
+        pairs = ([(e, "none") for e in cuda_planes.SUM_EXPANDS if e != "nibble"] if what == "none" else
+                 [("nibble", "none")] if what == "nibble+none" else [(e, what) for e in cuda_planes.WIDE_EXPANDS])
+        for expand, refold in pairs:
+            for p, k in edges.items():
+                for kk in ((k, k + 1) if p == 16 else (k,)):
+                    routes[f"w={w} {expand}+{refold} p={p} k={kk}"] = _limit_case(
+                        grids, rng, gen, device, w, expand, refold, p, kk, 257 if p == 1 else 4097, "the generic kernel's edge")
+    # Every symbol 0xFFFF and every coefficient the densest element at k =
+    # 16,400: the scaled first-product sums pass 2^31 (the plain version's
+    # planes are -1: its sums stay exact in float32).
+    k = 16400
+    A = np.full((1, k), dense16)
+    B = torch.full((k, 64), -1, dtype=torch.int16, device=device).view(torch.uint16)
+    top = int((cuda_planes.sum_operator(A[:, :4], 16).astype(np.int64).sum(axis=1) * 255).max()) * k // 4
+    for refold in ("sum", "dot"):
+        wide.check(cuda_planes.gf_matmul_planes(A, B, "shift_raw", refold, w=16),
+                   cuda_planes.gf_matmul_planes_plain(A, B, "shift_raw", refold, w=16),
+                   f"w=16 shift_raw+{refold} p=1 k={k} symbols 0xFFFF, largest sum about {top}")
+        routes[f"w=16 shift_raw+{refold} p=1 k={k}"] = cuda_planes.route(k, 1, "shift_raw", refold, 16)
+    log(phase="kernel_vs_plain", kernel="K3 earlier edges", routes=routes, deep_sum_estimate=top)
     # The pre-parity form of every instance, exact int32.
     for w, expand, refold in cuda_planes.INSTANCES:
         if refold != "none":
             continue
+        grid = grids[k3_grid_name(expand, "none", w)]
         for k in (1, 4, 10, 33):
-            for m in (37, 4097, 100003):
-                B = (_rand_u16 if w == 16 else _rand_u8)(gen, (k, m), device)
+            for m in (37, 4160, 100003):
+                B = _rand_w(gen, (k, m), device, w)
                 for p in (1, 4, 10):
                     A = rng.integers(0, 1 << w, size=(p, k))
                     want = cuda_planes.gf_matmul_planes_plain(A, B, expand, "none", w=w)
                     for tile in (256, 8192):
-                        pre.check(cuda_planes.gf_matmul_planes(A, B, expand, "none", tile, w=w), want,
-                                  f"w={w} {expand}+none p={p} k={k} m={m} tile={tile}")
+                        grid.check(cuda_planes.gf_matmul_planes(A, B, expand, "none", tile, w=w), want,
+                                   f"w={w} {expand}+none p={p} k={k} m={m} tile={tile}")
+        # The stripe mesh's k-slice of BASELINE config 4, and pinned.
+        A, B = rng.integers(0, 1 << w, size=(16, 32)), _rand_w(gen, (32, 65536), device, w)
+        grid.check(cuda_planes.gf_matmul_planes(A, B, expand, "none", w=w),
+                   cuda_planes.gf_matmul_planes_plain(A, B, expand, "none", w=w), f"w={w} {expand}+none p=16 k=32")
+        grid.check(cuda_planes.gf_matmul_planes(A, B, expand, "none", 8192, pinned=True, w=w),
+                   cuda_planes.gf_matmul_planes_plain(A, B, expand, "none", 8192, pinned=True, w=w),
+                   f"w={w} {expand}+none p=16 k=32 pinned")
     B = torch.full((33, 4096), 0xFF, dtype=torch.uint8, device=device)
     for expand in cuda_planes.EXPANDS:
         A = np.full((10, 33), dense8)
-        pre.check(cuda_planes.gf_matmul_planes(A, B, expand, "none"),
-                  cuda_planes.gf_matmul_planes_plain(A, B, expand, "none"),
-                  f"w=8 {expand}+none largest sum: element {dense8} k=33 bytes 0xFF")
+        grids["K3-planes-preparity"].check(cuda_planes.gf_matmul_planes(A, B, expand, "none"),
+                                           cuda_planes.gf_matmul_planes_plain(A, B, expand, "none"),
+                                           f"w=8 {expand}+none largest sum: element {dense8} k=33 bytes 0xFF")
     # The public dispatch of every JAX name at w=16 (refold None, sum, dot,
     # autotune) and pre-parity (its sums against the kernel expansion's
     # plain version, its parity against K1's).
     for w in (8, 16):
         A = rng.integers(0, 1 << w, size=(4, 10))
-        B = (_rand_u16 if w == 16 else _rand_u8)(gen, (10, 4097), device)
+        B = _rand_w(gen, (10, 4097), device, w)
         folded, sums = gf_matmul_bitplane(A, B, w), gf_matmul_bitplane(A, B, w, fold_parity=False)
         for name, kernel in cuda_gemm.EXPANSIONS.items():
             if name not in cuda_gemm.JAX_NAMES or kernel == "pack2" or (w == 16 and name in cuda_gemm.BYTE_ONLY):
@@ -1713,6 +1819,7 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int, grids: dict) -> None:
                 for refold in (None, "sum", "dot", "autotune"):
                     got = cuda_gemm.gf_matmul_cuda(A, B, 16, expand=name, refold=refold)
                     wide.check(got, folded, f"dispatch w=16 expand={name} refold={refold}")
+            pre = grids[k3_grid_name(kernel, "none", w)]
             got = cuda_gemm.gf_matmul_cuda(A, B, w, expand=name, fold_parity=False)
             pre.check(got, cuda_planes.gf_matmul_planes_plain(A, B, kernel, "none", w=w),
                       f"dispatch w={w} expand={name} fold_parity=False")
@@ -1782,7 +1889,8 @@ def k1_runs() -> int:
 
 # Kernel (the kernels line's and the grids' names) -> cuda_planes' count.
 K3_KINDS = {"K3-planes-sum": "sum", "K3-planes-dot": "dot", "K3-copy-floor": "copy",
-            "K3-planes-w4": "w4", "K3-planes-w16": "w16", "K3-planes-preparity": "preparity"}
+            "K3-planes-w4": "w4", "K3-planes-w16": "w16", "K3-planes-preparity": "preparity",
+            "K3-planes-preparity-w4-w16": "preparity_w4_w16"}
 
 
 def _counts() -> dict:
@@ -1959,19 +2067,23 @@ def phase_tools_5l(work: str) -> dict:
     return res
 
 
-@_named("9 K2/K3 timings")
 def preparity_bound_ms(p: int, k: int, m: int, w: int) -> float:
     """Least time for the pre-parity form: B read once and the (p*w, m)
     int32 sums written once at the device-memory rate."""
     return 1e3 * (k * sym_bytes(w) + 4 * p * w) * m / HBM_BYTES_PER_S
 
 
+@_named("9 K2/K3 timings")
 def phase_new_timings(device) -> dict:
     """K2, each K3 pair, the pinned ceiling and the copy floor at the main
-    path's encode segment shape; K3's w=16 pairs at the w=16 encode segment
-    (the same 64 MiB: m = 3,355,392 symbols) and its pre-parity form at the
-    w=8 segment; K1 (both forms) and K3's W=4 instances at w=4 on the w=8
-    segment's bytes."""
+    path's encode segment shape; K3's w=16 pairs (the sum and dot kernels
+    at w=16) at the w=16 encode segment (the same 64 MiB: m = 3,355,392
+    symbols) and its pre-parity form (the none kernel) at the w=8 segment;
+    K1 (both forms) and K3's W=4 instances at w=4 on the w=8 segment's
+    bytes.  Each K3 row of the sum, dot and none kernels carries its
+    design's instruction estimate (est_ops_per_col, est_ops_ms) and its
+    tensor floor (ops_bound_ms).  tools/k3_timings_ab.py runs this phase in
+    two trees in turns (a parent and a change, on one card)."""
     k, p, m = 10, 4, SEGMENT_COLS
     m16 = SEGMENT_COLS // 2
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -2031,20 +2143,26 @@ def phase_new_timings(device) -> dict:
                    library_ms=time_ms(library, iters=20) if library else None, max_abs_err=err,
                    data_gbps=k * cols * sym_bytes(w) / (ms * 1e-3) / 1e9,
                    traffic_gbps=(k + p) * cols * sym_bytes(w) / (ms * 1e-3) / 1e9,
-                   tile=cuda_pack2.DEFAULT_TILE if kernel == "K2" else cuda_planes.DEFAULT_TILE, nvidia_smi=smi_line())
+                   nvidia_smi=smi_line())
         ops = k2_ops_per_col(p, k) if kernel == "K2" else None
-        if kernel in ("K3-planes-sum", "K3-planes-dot"):
-            expand = label.split("+")[0]
-            ops = (k3_ops_per_col if kernel == "K3-planes-sum" else k3_dot_ops_per_col)(p, k, expand)
+        expand, refold = (label.split(" ")[label.startswith(("w16 ", "w4 "))].split("+") + [None])[:2]
+        row.update(tile=cuda_pack2.DEFAULT_TILE if kernel == "K2" else None if kernel == "K1" else
+                   cuda_planes.tile_cols(None, cols) if refold is None else
+                   cuda_planes.block_cols(None, cols, expand, refold, w))
+        if kernel in ("K3-planes-sum", "K3-planes-dot", "K3-planes-w16", "K3-planes-preparity"):
+            if kernel == "K3-planes-preparity":
+                ops = k3_none_ops_per_col(p, k, expand)
+            else:
+                ops = (k3_ops_per_col if refold == "sum" else k3_dot_ops_per_col)(p, k, expand, w)
             # The floor of this formulation's tensor work, beside the bytes
             # bound: nibble's k*32 planes outlast its bytes, yet K1 computes
             # the same product in less, so bound_ms stays the bytes.
-            row.update(ops_bound_ms=k3_ops_bound_ms(p, k, cols, expand))
+            row.update(ops_bound_ms=k3_ops_bound_ms(p, k, cols, expand, w))
         if label == "K1 w4":
             ops = k1_logic_ops_per_col(p, k, 4)
         if ops is not None:
             row.update(est_ops_per_col=ops, sms=sms, max_sm_clock_mhz=clock_mhz,
-                       est_ops_ms=1e3 * ops * m / (sms * LOGIC_OPS_PER_SM_CLOCK * clock_mhz * 1e6))
+                       est_ops_ms=1e3 * ops * cols / (sms * LOGIC_OPS_PER_SM_CLOCK * clock_mhz * 1e6))
         log(**row)
         rows[label] = row
     return rows
@@ -4571,8 +4689,8 @@ def phase_knobs(work: str, device, cuda_digests: dict) -> dict:
                             lambda: api.encode_file(path, k, n - k, strategy="cuda", device=device, mesh=stripe_mesh,
                                                     stripe_sharded=True), MAIN_FILE_BYTES)
         _knob_archive(path, "stripe encode", cuda_digests, stripe)
-        if stripe["runs"]["K3-planes-preparity"] <= 0:
-            raise AssertionError(f"5m stripe encode: K3's pre-parity form did not run: {stripe['runs']}")
+        if stripe["runs"]["K3-planes-preparity"] <= 0 or stripe["runs"]["K3-planes-preparity-w4-w16"]:
+            raise AssertionError(f"5m stripe encode: gf_planes_none_kernel did not run alone: {stripe['runs']}")
         res["stripe"] = stripe
         log(phase="knobs", step="stripe shift_raw pre-parity", **stripe)
         _clean_archive(path)
@@ -4597,9 +4715,10 @@ def phase_knobs(work: str, device, cuda_digests: dict) -> dict:
         os.makedirs(d)
         w16 = _knob_step("CLI w=16 round trip autotune", lambda: _cli_w16_cuda(d, SEED + 15, KNOBS_W16_BYTES),
                          2 * KNOBS_W16_BYTES)
-        if w16["runs"]["K3-planes-w16"] <= 0 or w16["k3_replayed"]["w16"] <= 0:
-            raise AssertionError(f"5m w=16: K3's w=16 instances ran {w16['runs']['K3-planes-w16']} times, "
-                                 f"{w16['k3_replayed']['w16']} inside replays")
+        if (w16["runs"]["K3-planes-w16"] <= 0 or w16["k3_replayed"]["w16"] <= 0
+                or w16["runs"]["K3-planes-preparity-w4-w16"] or w16["runs"]["K3-planes-w4"]):
+            raise AssertionError(f"5m w=16: the sum and dot kernels at w=16 ran {w16['runs']['K3-planes-w16']} times, "
+                                 f"{w16['k3_replayed']['w16']} inside replays; gf_planes_kernel {w16['runs']}")
         w16["decisions"] = sorted(set(cuda_gemm.autotune_decisions().values()))
         w16["plans_refold"] = sorted({str(p["refold"]) for p in plan.PLAN_CACHE.stats()["plans"] if p["w"] == 16})
         res["w16"] = w16
@@ -4766,16 +4885,19 @@ def kernel_entries(k1_err, grids, k1_timing=None, main_launches=None, new_timing
         entry("K3 copy_floor (the copy floor, K1's traffic)", "gpu_rscode_torch/ops/csrc/gf_planes.cu",
               "gpu_rscode_tpu/tools/kernel_sweep.py:73", tl.get("K3-copy-floor"), grids["K3-copy-floor"].worst,
               t.get("copy_floor")),
-        entry("K3 gf_planes_kernel at w=16 (shift, shift_raw, sign x sum, dot; F' dot refold; timed: shift_raw+sum)",
+        entry("K3 gf_planes_sum_kernel and gf_planes_dot_kernel at w=16 (shift, shift_raw, sign x sum, dot: a symbol "
+              "as two byte-symbols, w=8's plane words and refolds; timed: shift_raw+sum)",
               "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307", tl.get("K3-planes-w16"),
               grids["K3-planes-w16"].worst, t.get("w16 shift_raw+sum")),
-        entry("K3 gf_planes_kernel at w=4 (shift, shift_raw x sum, dot; timed: shift_raw+sum)",
-              "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307", tl.get("K3-planes-w4"),
-              grids["K3-planes-w4"].worst, t.get("w4 shift_raw+sum")),
-        entry("K3 gf_planes_kernel pre-parity (refold none, int32 sums, w=4, 8 and 16, nibble+none among them; "
-              "timed: shift_raw+none at w=8)",
+        entry("K3 gf_planes_none_kernel (the pre-parity form at w=8, every expansion: exact planes, int32 sums "
+              "staged through shared memory; timed: shift_raw+none)",
               "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307",
               tl.get("K3-planes-preparity"), grids["K3-planes-preparity"].worst, t.get("shift_raw+none")),
+        entry("K3 gf_planes_kernel (w=4: shift, shift_raw x sum, dot, none; w=16's pre-parity form; "
+              "timed: w4 shift_raw+sum)",
+              "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307",
+              None if tool_launches is None else tl.get("K3-planes-w4", 0) + tl.get("K3-planes-preparity-w4-w16", 0),
+              max(grids["K3-planes-w4"].worst, grids["K3-planes-preparity-w4-w16"].worst), t.get("w4 shift_raw+sum")),
     ]
 
 
@@ -4783,7 +4905,8 @@ def ptxas_kernels(ptxas: str) -> list[dict]:
     """Registers and spilled bytes of each kernel instance in ``-Xptxas=-v``
     output, named ``gf_bitslice_kernel<w,rt>`` / ``gf_popcount_kernel<w,nw,cpt>`` /
     ``gf_pack2_kernel<1>`` (1: operator in shared memory, 0: read from device
-    memory) / ``gf_planes_kernel<w,expand,refold>`` / ``gf_planes_sum_kernel<expand>``."""
+    memory) / ``gf_planes_kernel<w,expand,refold>`` / ``gf_planes_sum_kernel<w,expand,src>`` (and
+    the dot kernel's) / ``gf_planes_none_kernel<expand,src>``."""
     out = []
     for block in ptxas.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
@@ -4819,12 +4942,10 @@ def phase_build() -> None:
         per_kernel = ptxas_kernels(ptxas)
         log(phase="build", library=name, per_kernel=per_kernel)
         if name == "gf_planes":
-            # gf_planes_kernel<w, expand, refold>: the w=16 and w=4 instances
-            # and the pre-parity form (refold 2); gf_planes_dot_kernel and
-            # gf_planes_sum_kernel; with their spills.
-            new = [row for row in per_kernel
-                   if re.search(r"gf_planes_kernel<(16,\d+,\d+|4,\d+,\d+|\d+,\d+,2)>$|gf_planes_(dot|sum)_kernel",
-                                row["kernel"])]
+            # gf_planes_kernel<w, expand, refold> (w=4, w=16's pre-parity
+            # form); gf_planes_sum_kernel, gf_planes_dot_kernel<w, expand,
+            # src> and gf_planes_none_kernel<expand, src>; with their spills.
+            new = [row for row in per_kernel if re.search(r"gf_planes_(dot|sum|none)?_?kernel", row["kernel"])]
             log(phase="build", library=name, new_instances=new,
                 spilling=[row["kernel"] for row in new if row["spill_store_bytes"]])
     for name, lib_path in (("rs_native_io", native.library_path), ("rs_native_gemm", native.gemm_library_path)):

@@ -10,92 +10,34 @@
 // fold=False, the pre-parity accumulators), at w=8, for the three
 // lane-width expansions at w=16, and for shift and shift_raw at w=4.
 //
-// gf_planes_kernel<W, EXPAND, REFOLD>: C = A . B over GF(2^W).
-//   Bound on the card: device-memory bytes, (k + p) * m * W / 8 (the
-//   pre-parity form writes p*W int32 rows instead: (k*W/8 + 4*p*W) * m).
-//   The product is p*W x k*W (k*32 for nibble) int8 multiply-adds per
-//   column, about 1 % of the int8 tensor-core rate at the main path's
-//   shape; what is left is the in-register expansion of each loaded symbol
-//   into planes, the refold, and the loads themselves.  Design:
-//   * The operator, zero-padded to (16*MT rows, 32*KC depth), is the A
-//     operand of mma.sync.m16n8k32.s8.  The wrapper packs it on the host in
-//     fragment order (uint4 per lane per (m-tile, depth chunk)); each block
-//     stages it in shared memory once and every lane reads its uint4.
-//   * The expanded planes are the B operand, built in registers.  In the
-//     .col B fragment a lane (g = lane/4, t = lane%4) holds depth rows
-//     t*4..t*4+3 and 16+t*4..16+t*4+3 of column g.  At w=8 depth row
-//     i*8 + s is bit s of data symbol i, so those are 4 bit planes of one
-//     byte; for nibble (depth i*32 + v) they are 4 one-hot compares of one
-//     nibble.  The lane expands the byte it loaded: no shared memory.
-//   * A warp takes 32 columns per step as 4 mma column groups; n-index n of
-//     group j is column 4n + j.  So lane (g, t) loads one 32-bit word (the
-//     4 columns 4g..4g+3) per data row it needs, and 8 lanes read 32
-//     consecutive bytes of a row.
-//   * Expansions: shift (b >> s) & 1; shift_raw (b >> s) wrapped to int8
-//     (parity of the accumulator unchanged: the dropped higher bits add
-//     even terms); cmp (b & 2^s) != 0 with a SIMD byte compare; sign
-//     {0, -1} (-1 is odd, so parity is unchanged); nibble one-hot.
-//   * Refold sum: output bit s of symbol i is the parity of accumulator row
-//     i*8 + s, which a C fragment spreads over lanes g = s.  Each lane
-//     shifts its 4 parities to bit g of 4 bytes and three xor-shuffles OR
-//     them over g; lanes g = 0 and 1 then hold 8 consecutive output bytes
-//     of symbols 2*mt and 2*mt + 1 and store them as one 8-byte word.
-//   * Refold dot: the parity bits go through shared memory (column-major,
-//     a warp's own region) from the C fragment layout into the B fragment
-//     layout, then a second mma (u8: F holds 2^s up to 128) multiplies them
-//     by the (p, p*8) bit-weight operator F.
-//   * Refold none (the pre-parity form, JAX's fold=False): each lane
-//     writes its C fragment's int32 accumulators, rows g and g + 8 of the
-//     m-tile at its 8 consecutive columns, as two 16-byte words a row;
-//     rows past p*W (the padded half m-tile at odd p, W=8) are not
-//     written.  The operator is the unscaled bit operator, so the sums are
-//     JAX's with acc_dtype=int8 value for value.
-//   * W=16.  Depth row i*16 + s is bit s of symbol i, so a 32-deep chunk c
-//     is two symbols: b0 of lane (g, t) is bits 4t..4t+3 of symbol 2c and
-//     b1 the same bits of symbol 2c + 1.  A lane reads its 4 columns of
-//     rows 2c and 2c + 1 as one 8-byte word each.  shift_raw's plane is
-//     the low byte of b >> s (JAX's int8 wrap; parity unchanged), sign's
-//     {0, -1}.  One m-tile is one symbol (rows g and g + 8 are bits g and
-//     g + 8): the sum refold ORs the parities over g as at W=8 and lane
-//     g = 0 stores 8 consecutive 16-bit outputs as one 16-byte word.  The
-//     dot refold's F would hold 2^s up to 2^15, past the u8 mma; so F' has
-//     two rows a symbol, in tiles of 8 symbols: row 16f + g weighs bits
-//     0-7 of symbol 8f + g by 2^s and row 16f + 8 + g bits 8-15 by
-//     2^(s-8).  Both sums stay below 256, and one lane holds both halves
-//     of a symbol (rows g and g + 8 of its fragment): out = lo | hi << 8.
-//     This keeps the dot refold on the exact u8 path of W=8 instead of an
-//     f16 mma with f32 accumulation and a float-to-int conversion.
-//   * W=4 (shift, shift_raw).  A symbol is one byte, in the low nibble
-//     (bits 4-7 are ignored: shift masks them off, shift_raw's plane
-//     int8(b >> s) carries them only at 2^1 and up).  Depth row i*4 + s is
-//     bit s of symbol i, so a 32-deep chunk c is 8 symbols: b0 of lane
-//     (g, t) is bits 0-3 of symbol 8c + t and b1 of symbol 8c + 4 + t.
-//     A 16-row m-tile is 4 symbols (rows 4j + s): a C fragment's row g is
-//     bit g & 3 of symbol 4mt + g / 4 and row g + 8 of symbol 4mt + 2 +
-//     g / 4, so after the sum refold's xor-shuffles byte 0 of the word
-//     holds symbols 4mt (bits 0-3) and 4mt + 1 (bits 4-7) and byte 2
-//     symbols 4mt + 2 and 4mt + 3; lane g < 4 stores symbol 4mt + g.  The
-//     dot refold runs as at W=8 with F = fold_operator(p, 4) (2^s up to 8).
-//   * pinned: every block reads the columns of block 0 and writes its own
-//     block, the compute-only ceiling (the input is served from L2).
-//   * tile is the number of columns a block covers (a multiple of 32); the
-//     ragged edge is masked per lane.
+// Which kernel runs which (w, expand, refold):
+//   w=8,  every expansion, sum        gf_planes_sum_kernel<8, E, SRC>
+//   w=8,  every expansion, dot        gf_planes_dot_kernel<8, E, SRC>
+//   w=16, shift / shift_raw / sign,
+//         sum and dot                 gf_planes_sum_kernel<16, E, SRC>,
+//                                     gf_planes_dot_kernel<16, E, SRC>
+//   w=8,  every expansion, none       gf_planes_none_kernel<E, SRC>
+//   w=4 (every refold), w=16 none     gf_planes_kernel<W, E, R>
+// SRC is where a launch reads its operator and data from (route()): both
+// through shared memory (kStaged), the operator through L1 beside the ring
+// (kOpL1: nibble's sum and dot past its shared-memory edge), or both
+// through L1 from device memory (kDirect: w=16 folded and the pre-parity
+// form past theirs).  Every (k, p) that fits no route is refused.
 //
-// gf_planes_sum_kernel<EXPAND, OP_SMEM>: the same product at w=8 for the
-//   four byte expansions (shift, shift_raw, cmp, sign) and nibble (below)
-//   with the sum refold; gf_planes_kernel runs every other instance.
-//   OP_SMEM: the operator staged in shared memory (false: nibble past its
-//   shared-memory edge).  Bound as above; what costs
-//   instruction slots is building the planes and refolding, so the design
-//   cuts both per column:
+// gf_planes_sum_kernel<W, EXPAND, SRC>: C = A . B with the sum refold.
+//   Bound on the card: device-memory bytes, (k + p) * m * W / 8.  The
+//   product is p*W x k*W (k*32 for nibble) int8 multiply-adds per column,
+//   about 1 % of the int8 tensor-core rate at the main path's shape; what
+//   costs instruction slots is building the planes and refolding, so the
+//   design cuts both per column:
 //   * The operator scaled by 2^s.  The host packs output plane s's operator
 //     row times 2^s (0 or 2^s <= 128: u8), so bit s of the int32
 //     accumulator is already output bit s (every term is a multiple of
 //     2^s).  mma.sync.m16n8k32 is u8 x u8, or u8 x s8 for sign's {0, -1}
 //     planes.  Plane values other than 0/1 (shift_raw's high bits, sign's
-//     -1) add only at or above bit s + 1, or keep bit s's parity.  The
-//     largest sum, 128 * 255 * 32 * kc, is below 2^31 for every k whose
-//     operator fits in shared memory.
+//     -1) add only at or above bit s + 1, or keep bit s's parity.  The mma
+//     adds without .satfinite, modulo 2^32, so bit s stays exact at any
+//     depth (the sums stay below 2^31 wherever the operator is staged).
 //   * Four-symbol plane words.  Inside a 32-deep chunk c, depth
 //     h*16 + t*4 + q is plane 4h + t of symbol 4c + q (the host packs A to
 //     that order), so B register b0 of lane (g, t) is plane t of symbols
@@ -108,27 +50,41 @@
 //     LDS.128 of A serves 8 mma.  m-tiles run in pairs (64 accumulators);
 //     the host pads the operator to an even number of m-tiles, so a pass
 //     has no branch and builds each plane register once for both.
-//   * Loads.  Each step's k rows (64 bytes each) are copied by cp.async
-//     into a per-warp shared-memory ring, up to kSumStages - 1 steps ahead
-//     of the compute; every pass over a pair of m-tiles reads them there.
-//     Rows at or past k are not copied: their operator columns are zero.
-//     Rows that do not start 16-byte aligned are copied byte by byte.
+//   * Loads.  Each step's k rows are copied by cp.async into a per-warp
+//     shared-memory ring, up to kSumStages - 1 steps ahead of the compute;
+//     every pass over a pair of m-tiles reads them there.  Rows at or past
+//     k are not copied: their operator columns are zero.  Rows that do not
+//     start 16-byte aligned are copied byte by byte.  kDirect instead
+//     reads each lane's 8 columns of a row from device memory (zero past k
+//     and past m): its later passes hit L1.
 //   * Refold.  A C fragment holds bit g of symbols 2mt (rows g) and
 //     2mt + 1 (rows g + 8) at n = 2t, 2t + 1.  Three PRMT gather the low
 //     bytes of the 4 accumulators into one word, one mask keeps bit g of
 //     each byte, and three xor-shuffles, each with an OR, collect bits 0-7.
 //     Lanes g < 4 then hold byte g of 8 group words: 8 consecutive output
 //     bytes of one symbol, made with 6 PRMT and stored as one 8-byte word.
+//   * W=16: a 16-bit symbol is two byte-symbols, its low byte (bits 0-7)
+//     and its high byte (8-15), and the (16p, 16k) GF(2) operator is the
+//     same matrix read as the (2p*8, 2k*8) operator over them.  The host
+//     scales its rows as at W=8 (bits 8-15 by 2^(s-8)), so the folded
+//     forms need only bit (s mod 8) of each accumulator and the W=8 plane
+//     words serve unchanged.  A step's row is 128 bytes (lo, hi of each
+//     column); chunk c is symbols 2c and 2c + 1, and a lane reads its 16
+//     bytes of both rows (one LDS.128 each) and splits the low and high
+//     bytes with 8 PRMT into the same words (byte q: lo(2c), hi(2c),
+//     lo(2c + 1), hi(2c + 1)).  An m-tile is one 16-bit symbol: after the
+//     refold, lanes g < 2 interleave the low and high bytes of 8 columns
+//     with 4 PRMT and store them as one 16-byte word.
 //   * tile (columns a block covers) is a multiple of the 64-column step;
-//     pinned reads block 0's columns as in gf_planes_kernel.
+//     pinned: every block reads the columns of block 0 and writes its own
+//     block, the compute-only ceiling (the input is served from L2).
 //
-// gf_planes_dot_kernel<EXPAND, OP_SMEM>: the same five expansions at w=8
-//   with the dot refold (shift_raw+dot is the JAX package's production pair).
+// gf_planes_dot_kernel<W, EXPAND, SRC>: the same expansions with the dot
+//   refold (shift_raw+dot is the JAX package's production pair at w=8).
 //   It shares the sum kernel's operator (scaled by 2^s, four-symbol plane
-//   words), its cp.async ring of 64-column steps, its transposes and plane
-//   words; the first product is the same work with the operands' roles
-//   swapped, so that the second product needs no data movement between
-//   lanes:
+//   words), its ring of 64-column steps, its transposes and plane words;
+//   the first product is the same work with the operands' roles swapped,
+//   so that the second product needs no data movement between lanes:
 //   * First product, transposed: D (16 columns x 8 accumulator rows) +=
 //     planes (16 x 32, the A operand) . operator (32 x 8, the B operand).
 //     A's row g is column 8g + mb of m-block mb (mb = 0..3), row g + 8 is
@@ -148,11 +104,7 @@
 //     16 + 4t.., each byte masked to its output bit (acc & 2^s, at most
 //     128): 3 PRMT and one AND a register, 16 a m-block, and no shuffle,
 //     movmatrix or shared memory (tests/test_torch_k3_dot.py checks that
-//     the move stays inside the lane).  With the operator as the A operand,
-//     as in the sum kernel, the bits would have to reach a B operand: per
-//     8 columns and pass 4 movmatrix with 6 PRMT and 4 AND, or 2
-//     shared-memory stores, 2 loads and a warp barrier, counted from the
-//     fragment layouts.
+//     the move stays inside the lane).
 //   * Second product: out (16 columns x 8 symbols) += bits (16 x 32) . F
 //     (32 x 8, 0/1: depth d of pass Q of an 8-symbol tile to symbol
 //     4Q + the n-tile of d), u8 x u8, one mma a m-block and pass.  Each sum
@@ -161,13 +113,33 @@
 //   * Stores.  The second product's lane (g, t) holds symbols 8f + 2t and
 //     8f + 2t + 1 of columns 8g + mb and 8g + 4 + mb, mb = 0..3: 8
 //     consecutive bytes of two symbols, made with 6 PRMT each and stored as
-//     one 8-byte word each (byte by byte at the ragged edge).
+//     one 8-byte word each (byte by byte at the ragged edge).  At W=16
+//     those two byte-symbols are the low and high bytes of symbol 4f + t:
+//     12 PRMT make its 8 columns, stored as one 16-byte word.
 //
-// The nibble expansion in both kernels (EXPAND kNibble): the same product
-//   against the (p*8, k*32) one-hot-nibble operator.  Its depth is 4x the
-//   bit planes' (320 against 80 at k=10), so the tensor cores bound it
-//   first: 2 * 32 * 320 int8 operations a column, 0.069 ms at the main
-//   path's shape at the card's dense int8 rate.  Design:
+// gf_planes_none_kernel<EXPAND, SRC>: the pre-parity form at w=8 (JAX's
+//   fold=False), the (p*8, m) int32 sums, equal value for value to JAX's
+//   with acc_dtype=int8.  Bound: (k + 4 * p * 8) * m bytes, the sums'
+//   stores most of it.  The sum kernel's first product (its ring,
+//   transposes, four-symbol plane words and m-tile pairs) with:
+//   * The unscaled 0/1 operator in the same depth order, and JAX's plane
+//     values exactly: shift and cmp 0/1, sign {0, -1}, shift_raw
+//     int8(b >> s) (the next byte's bits that r >> s carries masked off, a
+//     signed operand), nibble 0/1 (the PRMT sign rule's 0xFF and 0x80 for
+//     v >= 8 ANDed to 1 and 0).  u8 x s8 for sign and shift_raw.
+//   * An epilogue through shared memory.  Lane (g, t) holds rows g and
+//     g + 8 of each m-tile at columns 16t..16t+15: 4 STS.128 a row into a
+//     warp's staging rows (32 rows of 64 int32, 288 bytes apart, 16-byte
+//     chunks swizzled by c ^ (c >> 3) so that neither side conflicts),
+//     then each STG.128 writes two whole 256-byte row segments (lane L:
+//     row 2i + L / 16, chunk L % 16), streaming (st.global.cs).  The stores
+//     overlap the next pass's products.
+//
+// The nibble expansion (EXPAND kNibble, w=8 only): the same product against
+//   the (p*8, k*32) one-hot-nibble operator.  Its depth is 4x the bit
+//   planes' (320 against 80 at k=10), so the tensor cores bound it first:
+//   2 * 32 * 320 int8 operations a column, 0.069 ms at the main path's
+//   shape at the card's dense int8 rate.  Design:
 //   * Plane words from PRMT tables.  In the transposed word r (byte q:
 //     symbol 4c + q of one column) the low 16 bits are the nibbles lo0,
 //     hi0, lo1, hi1 of symbols 4c and 4c + 1.  PTX prmt.b32 takes those 4
@@ -186,21 +158,57 @@
 //     16h + 4t + q (q: lo, hi of the first symbol, lo, hi of the second).
 //     So lane t's tables are 1 << 8t (e = 0) and 0x80 << 8t (e = 1), in x
 //     for h = 0 and in y for h = 1: 8 PRMT and one shift make a column's 8
-//     plane registers of a block (the byte expansions make 2 with 1-6
-//     instructions each).  The host packs the scaled operator in that order
-//     (cuda_planes.nibble_operator) with k rounded up to pairs, so a last
-//     block of 1 or 2 symbols runs 2 chunks, not 4.
+//     plane registers of a block.  The host packs the operator in that
+//     order (cuda_planes.nibble_operator) with k rounded up to pairs, so a
+//     last block of 1 or 2 symbols runs 2 chunks, not 4.
 //   * Shared memory.  The operator takes 512 bytes a (16-row m-tile,
 //     chunk), one chunk a symbol: 4x the byte expansions'.  Staged in
 //     shared memory it ran about 10 % faster at the main path's shape (k=10,
-//     p=4) than read through L1 (PERF.md, section 6), so the kernels stage
-//     it where it and one step buffer a warp fit (p=16: k <= 52; the ring's
-//     stage count, 1-3, moved nothing there), and past that the instance
-//     <kNibble, false> reads its fragments from device memory through L1
-//     (__ldg), shared memory holding the ring alone: k <= 908 at any p.
-//   * One chunk loop (nibble_chunks) walks the blocks and chunks for both
-//     kernels and hands each chunk's table and selectors (NibbleChunk) to
+//     p=4) than read through L1 (PERF.md, section 6), so the folded kernels
+//     stage it where it and one step buffer a warp fit (p=16: k <= 52), and
+//     past that read its fragments through L1 (kOpL1), shared memory
+//     holding the ring alone: k <= 908 at any p.
+//   * One chunk loop (nibble_chunks) walks the blocks and chunks for every
+//     kernel and hands each chunk's table and selectors (NibbleChunk) to
 //     the kernel's mma, which makes each plane word just before its use.
+//
+// gf_planes_kernel<W, EXPAND, REFOLD>: the first, generic design, kept for
+//   w=4 (every refold) and the pre-parity form at w=16.
+//   * The operator, zero-padded to (16*MT rows, 32*KC depth), is the A
+//     operand of mma.sync.m16n8k32.s8.  The wrapper packs it on the host in
+//     fragment order (uint4 per lane per (m-tile, depth chunk)); each block
+//     stages it in shared memory once and every lane reads its uint4.
+//   * The expanded planes are the B operand, built in registers.  In the
+//     .col B fragment a lane (g = lane/4, t = lane%4) holds depth rows
+//     t*4..t*4+3 and 16+t*4..16+t*4+3 of column g.
+//   * A warp takes 32 columns per step as 4 mma column groups; n-index n of
+//     group j is column 4n + j.  So lane (g, t) loads the 4 columns
+//     4g..4g+3 of each data row it needs.
+//   * W=16 (refold none).  Depth row i*16 + s is bit s of symbol i, so a
+//     32-deep chunk c is two symbols: b0 of lane (g, t) is bits 4t..4t+3 of
+//     symbol 2c and b1 the same bits of symbol 2c + 1, read as one 8-byte
+//     word each.  shift_raw's plane is the low byte of b >> s (JAX's int8
+//     wrap), sign's {0, -1}.  Each lane writes its C fragment's int32
+//     accumulators, rows g and g + 8 of the m-tile at its 8 consecutive
+//     columns, as two 16-byte words a row.  The operator is the unscaled
+//     bit operator, so the sums are JAX's with acc_dtype=int8.
+//   * W=4 (shift, shift_raw).  A symbol is one byte, in the low nibble
+//     (bits 4-7 are ignored: shift masks them off, shift_raw's plane
+//     int8(b >> s) carries them only at 2^1 and up).  Depth row i*4 + s is
+//     bit s of symbol i, so a 32-deep chunk c is 8 symbols: b0 of lane
+//     (g, t) is bits 0-3 of symbol 8c + t and b1 of symbol 8c + 4 + t.
+//     A 16-row m-tile is 4 symbols (rows 4j + s): a C fragment's row g is
+//     bit g & 3 of symbol 4mt + g / 4 and row g + 8 of symbol 4mt + 2 +
+//     g / 4.  Refold sum: each lane shifts its 4 parities to bit g of 4
+//     bytes and three xor-shuffles OR them over g, so byte 0 of the word
+//     holds symbols 4mt (bits 0-3) and 4mt + 1 (bits 4-7) and byte 2
+//     symbols 4mt + 2 and 4mt + 3; lane g < 4 stores symbol 4mt + g.
+//     Refold dot: the parity bits go through shared memory (column-major,
+//     a warp's own region) from the C fragment layout into the B fragment
+//     layout, then a second mma (u8) multiplies them by the (p, p*4)
+//     bit-weight operator F = fold_operator(p, 4) (2^s up to 8).
+//   * tile is the number of columns a block covers (a multiple of 32); the
+//     ragged edge is masked per lane.
 //
 // copy_floor_kernel: C = B[:p], moving exactly K1's traffic.  Each block
 // brings its whole (k, tile) block of B into shared memory, in chunks that
@@ -221,28 +229,36 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSmem = 227 * 1024;
 constexpr int kCopyBudget = 64 * 1024;
-// gf_planes_sum_kernel
+// gf_planes_sum_kernel, gf_planes_dot_kernel, gf_planes_none_kernel
 constexpr int kSumWarps = 4;
 constexpr int kSumThreads = kSumWarps * 32;
 constexpr int kSumGroups = 8;                  // mma column groups a warp step
 constexpr int kSumStepCols = 8 * kSumGroups;   // columns a warp step
 constexpr int kSumStages = 3;                  // step buffers a warp, at most
+// gf_planes_none_kernel's staging: a warp's 32 rows (two m-tiles) of 64
+// int32 sums, a row 72 int32 (288 bytes) apart.
+constexpr int kNoneRows = 32;
+constexpr int kNoneStride = 72;
 
 enum Expand { kShift = 0, kShiftRaw = 1, kCmp = 2, kSign = 3, kNibble = 4 };
 enum Refold { kSum = 0, kDot = 1, kNone = 2 };
+// Where a launch of the sum, dot and none kernels reads its operator and
+// data: both staged in shared memory; the operator through L1 beside the
+// ring; both through L1 from device memory.
+enum Src { kStaged = 0, kOpL1 = 1, kDirect = 2 };
 
 struct Dims {
   int mt;  // 16-row m-tiles of the operator (p*w rows)
   int kc;  // 32-deep chunks of the operator's depth
-  int mf;  // 16-row m-tiles of F (16 symbols a tile at w=8, 8 at w=16)
+  int mf;  // 16-row m-tiles of F (16 symbols a tile)
   int kf;  // 32-deep chunks of F (16*mt columns)
 };
 
-__host__ __device__ inline Dims dims(int k, int p, int w, int expand) {
+__host__ __device__ inline Dims dims(int k, int p, int w) {
   Dims d;
   d.mt = (p * w + 15) / 16;
-  d.kc = expand == kNibble ? k : (k * w + 31) / 32;
-  d.mf = w == 16 ? (p + 7) / 8 : (p + 15) / 16;
+  d.kc = (k * w + 31) / 32;
+  d.mf = (p + 15) / 16;
   d.kf = (d.mt * 16 + 31) / 32;
   return d;
 }
@@ -282,10 +298,6 @@ __device__ __forceinline__ uint32_t expand4(uint32_t b, int s0) {
     }
     return (b >> s0) | ((b >> (s0 + 1)) << 8) | ((b >> (s0 + 2)) << 16) |
            ((b >> (s0 + 3)) << 24);
-  }
-  if (EXPAND == kCmp) {
-    const uint32_t masks = 0x08040201u << s0;  // byte q: 2^(s0 + q)
-    return __vcmpne4((b * 0x01010101u) & masks, 0u) & 0x01010101u;
   }
   // Spread the 4 bits to 4 bytes: the shifted copies at 0, 7, 14, 21 do
   // not overlap, so the product has no carries.
@@ -350,24 +362,6 @@ __device__ __forceinline__ void store8(uint8_t* __restrict__ C, int sym,
   }
 }
 
-// Store 8 consecutive 16-bit outputs v[0..7] of one symbol row.  `vec`:
-// rows start 16-byte aligned.
-__device__ __forceinline__ void store8_16(uint16_t* __restrict__ C, int sym,
-                                          long long m, long long col0,
-                                          const uint32_t (&v)[8], bool vec) {
-  uint16_t* dst = C + (size_t)sym * m + col0;
-  if (vec && col0 + 7 < m) {
-    *reinterpret_cast<uint4*>(dst) =
-        make_uint4(v[0] | (v[1] << 16), v[2] | (v[3] << 16),
-                   v[4] | (v[5] << 16), v[6] | (v[7] << 16));
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (col0 + j < m) dst[j] = (uint16_t)v[j];
-  }
-}
-
 // Store 8 consecutive int32 accumulators v[0..7] of one operator row.
 // `vec`: rows start 16-byte aligned.
 __device__ __forceinline__ void store8_32(int* __restrict__ C, int row,
@@ -391,8 +385,9 @@ __global__ void __launch_bounds__(kThreads)
                      const uint4* __restrict__ opF,
                      const void* __restrict__ Bv, void* __restrict__ Cv,
                      int k, int p, long long m, int tile, int pinned) {
+  static_assert(W == 4 || (W == 16 && REFOLD == kNone), "w=4, and w=16's pre-parity form");
   extern __shared__ uint4 smem[];
-  const Dims d = dims(k, p, W, EXPAND);
+  const Dims d = dims(k, p, W);
   const int na = d.mt * d.kc * 32;
   const int nf = REFOLD == kDot ? d.mf * d.kf * 32 : 0;
   uint4* a_s = smem;
@@ -404,11 +399,9 @@ __global__ void __launch_bounds__(kThreads)
   const uint8_t* B = static_cast<const uint8_t*>(Bv);
   const uint16_t* B16 = static_cast<const uint16_t*>(Bv);
   uint8_t* C = static_cast<uint8_t*>(Cv);
-  uint16_t* C16 = static_cast<uint16_t*>(Cv);
   int* C32 = static_cast<int*>(Cv);
   const bool vec_in = ((uintptr_t)Bv & 7) == 0 && (m & 3) == 0;
-  const bool vec_out = ((uintptr_t)Cv & 15) == 0 &&
-                       (m & (REFOLD == kNone ? 3 : 7)) == 0;
+  const bool vec_out = ((uintptr_t)Cv & 15) == 0 && (m & 3) == 0;
   const int rows_out = p * W;
 
   const int warp = threadIdx.x >> 5;
@@ -436,16 +429,7 @@ __global__ void __launch_bounds__(kThreads)
 
       for (int c = 0; c < d.kc; ++c) {
         uint32_t bf[4][2];
-        if (EXPAND == kNibble) {
-          const uint32_t wd = load4(B, c, k, m, rcol);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint32_t b = (wd >> (8 * j)) & 0xFFu;
-            const uint32_t hi = b >> 4, lo = b & 0xFu;
-            bf[j][0] = (hi >> 2) == (uint32_t)t ? 1u << (8 * (hi & 3)) : 0u;
-            bf[j][1] = (lo >> 2) == (uint32_t)t ? 1u << (8 * (lo & 3)) : 0u;
-          }
-        } else if (W == 4) {
+        if (W == 4) {
           // Chunk c: bits 0-3 of symbols 8c + t (b0) and 8c + 4 + t (b1).
           const uint32_t w0 = load4(B, 8 * c + t, k, m, rcol);
           const uint32_t w1 = load4(B, 8 * c + 4 + t, k, m, rcol);
@@ -454,7 +438,7 @@ __global__ void __launch_bounds__(kThreads)
             bf[j][0] = expand4<8, EXPAND>((w0 >> (8 * j)) & 0xFFu, 0);
             bf[j][1] = expand4<8, EXPAND>((w1 >> (8 * j)) & 0xFFu, 0);
           }
-        } else if (W == 16) {
+        } else {
           // Chunk c: bits 4t..4t+3 of symbols 2c (b0) and 2c + 1 (b1).
           uint32_t s0[4], s1[4];
           load4_16(B16, 2 * c, k, m, rcol, vec_in, s0);
@@ -463,15 +447,6 @@ __global__ void __launch_bounds__(kThreads)
           for (int j = 0; j < 4; ++j) {
             bf[j][0] = expand4<W, EXPAND>(s0[j], 4 * t);
             bf[j][1] = expand4<W, EXPAND>(s1[j], 4 * t);
-          }
-        } else {
-          const int s0 = (t & 1) * 4;
-          const uint32_t w0 = load4(B, c * 4 + (t >> 1), k, m, rcol);
-          const uint32_t w1 = load4(B, c * 4 + 2 + (t >> 1), k, m, rcol);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            bf[j][0] = expand4<W, EXPAND>((w0 >> (8 * j)) & 0xFFu, s0);
-            bf[j][1] = expand4<W, EXPAND>((w1 >> (8 * j)) & 0xFFu, s0);
           }
         }
 #pragma unroll
@@ -503,14 +478,10 @@ __global__ void __launch_bounds__(kThreads)
             if (row < rows_out) store8_32(C32, row, m, base + 8 * t, v, vec_out);
           }
         } else if (REFOLD == kSum) {
-          // W=8: rows 0-7 of the m-tile are symbol 2*mt, rows 8-15 symbol
-          // 2*mt + 1; W=16: rows 0-15 are bits 0-15 of symbol mt; W=4:
-          // rows 4j..4j+3 are symbol 4*mt + j.  Lane g holds bit g (and
+          // Rows 4j..4j+3 are symbol 4*mt + j; lane g holds bit g (and
           // g + 8).
           uint32_t lo = 0, hi = 0;
-          uint32_t v16[8];
-          const int sel = W == 4 ? (g >> 1) * 16 + (g & 1) * 4 : (g == 0 ? 0 : 16);
-          const uint32_t sym_mask = W == 4 ? 0xFu : 0xFFu;
+          const int sel = (g >> 1) * 16 + (g & 1) * 4;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             uint32_t v = ((uint32_t)acc[u][j][0] & 1u) |
@@ -521,23 +492,11 @@ __global__ void __launch_bounds__(kThreads)
             v |= __shfl_xor_sync(0xffffffffu, v, 4);
             v |= __shfl_xor_sync(0xffffffffu, v, 8);
             v |= __shfl_xor_sync(0xffffffffu, v, 16);
-            if (W == 16) {
-              // Bytes: bits 0-7 at 8t + j, at 8t + 4 + j, bits 8-15 at
-              // 8t + j, at 8t + 4 + j.
-              v16[j] = (v & 0xFFu) | ((v >> 8) & 0xFF00u);
-              v16[4 + j] = ((v >> 8) & 0xFFu) | ((v >> 16) & 0xFF00u);
-            } else {
-              lo |= ((v >> sel) & sym_mask) << (8 * j);
-              hi |= ((v >> (sel + 8)) & sym_mask) << (8 * j);
-            }
+            lo |= ((v >> sel) & 0xFu) << (8 * j);
+            hi |= ((v >> (sel + 8)) & 0xFu) << (8 * j);
           }
-          if (W == 16) {
-            if (g == 0) store8_16(C16, mt, m, base + 8 * t, v16, vec_out);
-          } else {
-            const int per = W == 4 ? 4 : 2;  // symbols an m-tile
-            const int sym = per * mt + g;
-            if (g < per && sym < p) store8(C, sym, m, base + 8 * t, lo, hi);
-          }
+          const int sym = 4 * mt + g;
+          if (g < 4 && sym < p) store8(C, sym, m, base + 8 * t, lo, hi);
         } else {
           // Parity bits, column-major per warp: bits_s[col * rows + row],
           // col = 4n + j for n-index n of column group j.
@@ -571,30 +530,17 @@ __global__ void __launch_bounds__(kThreads)
                    *reinterpret_cast<const uint32_t*>(col + 16));
           }
         }
-        if (W == 16) {
-          // Rows g and g + 8 of F' tile f: bits 0-7 and 8-15 of symbol
-          // 8f + g.
-          uint32_t v16[8];
+        uint32_t lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            v16[j] = ((uint32_t)out[j][0] & 0xFFu) | (((uint32_t)out[j][2] & 0xFFu) << 8);
-            v16[4 + j] = ((uint32_t)out[j][1] & 0xFFu) | (((uint32_t)out[j][3] & 0xFFu) << 8);
-          }
-          const int sym = f * 8 + g;
-          if (sym < p) store8_16(C16, sym, m, base + 8 * t, v16, vec_out);
-        } else {
-          uint32_t lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            lo0 |= ((uint32_t)out[j][0] & 0xFFu) << (8 * j);
-            hi0 |= ((uint32_t)out[j][1] & 0xFFu) << (8 * j);
-            lo1 |= ((uint32_t)out[j][2] & 0xFFu) << (8 * j);
-            hi1 |= ((uint32_t)out[j][3] & 0xFFu) << (8 * j);
-          }
-          const int sym = f * 16 + g;
-          if (sym < p) store8(C, sym, m, base + 8 * t, lo0, hi0);
-          if (sym + 8 < p) store8(C, sym + 8, m, base + 8 * t, lo1, hi1);
+        for (int j = 0; j < 4; ++j) {
+          lo0 |= ((uint32_t)out[j][0] & 0xFFu) << (8 * j);
+          hi0 |= ((uint32_t)out[j][1] & 0xFFu) << (8 * j);
+          lo1 |= ((uint32_t)out[j][2] & 0xFFu) << (8 * j);
+          hi1 |= ((uint32_t)out[j][3] & 0xFFu) << (8 * j);
         }
+        const int sym = f * 16 + g;
+        if (sym < p) store8(C, sym, m, base + 8 * t, lo0, hi0);
+        if (sym + 8 < p) store8(C, sym + 8, m, base + 8 * t, lo1, hi1);
       }
       __syncwarp();
     }
@@ -604,6 +550,14 @@ __global__ void __launch_bounds__(kThreads)
 __device__ __forceinline__ void mma_u8s8(int (&d)[4], const uint4& a,
                                          uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
@@ -624,15 +578,87 @@ __device__ __forceinline__ void transpose4(uint32_t x0, uint32_t x1,
   r[3] = __byte_perm(c, d, 0x7632);
 }
 
-// The transposed words of one warp step's 4 rows at `rc` (row q at
-// rc + q * kSumStepCols, this lane's 8 bytes): r[j] is column 8g + j, byte
-// q from row q.  4 LDS.64 and 8 PRMT.
-__device__ __forceinline__ void step_words(const uint8_t* rc, uint32_t (&r)[kSumGroups]) {
-  uint2 x[4];
+// Byte-symbols of n W-bit symbols: the sum, dot and none kernels take a
+// 16-bit symbol as two bytes, low then high.
+__host__ __device__ inline int byte_syms(int n, int w) { return w == 16 ? 2 * n : n; }
+
+// Rows of a step buffer: whole chunks of symbol rows (4 at w=8, 2 at w=16).
+__host__ __device__ inline int ring_rows(int k, int w) {
+  return w == 16 ? (k + 1) / 2 * 2 : (k + 3) / 4 * 4;
+}
+
+// The bytes past the row's end are zero: the ragged edge, or rows that do
+// not start aligned.  `len` (8 or 16) bytes of the row from byte `off`.
+__device__ __noinline__ uint4 row_edge(const uint8_t* row, long long nbytes,
+                                       long long off, int len) {
+  unsigned long long lo = 0, hi = 0;
+  for (int b = 0; b < len && off + b < nbytes; ++b) {
+    const unsigned long long v = row[off + b];
+    if (b < 8) {
+      lo |= v << (8 * b);
+    } else {
+      hi |= v << (8 * (b - 8));
+    }
+  }
+  return make_uint4((uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi, (uint32_t)(hi >> 32));
+}
+
+// One lane's view of a warp step's rows: its bytes of the step buffer in
+// shared memory (s: row 0), or for kDirect its 8 columns straight from
+// device memory (row r of B from column col; zero past k and past m).
+template <int W, int SRC>
+struct StepRows {
+  const uint8_t* s;
+  const uint8_t* B;
+  long long m, col;
+  int k;
+  bool vec;  // kDirect: rows start aligned for one 8-byte (W=8) or 16-byte (W=16) load
+};
+
+// Row r's 8 bytes at W=8 (8 columns).
+template <int SRC>
+__device__ __forceinline__ uint2 row8(const StepRows<8, SRC>& rows, int r) {
+  if (SRC != kDirect) return *reinterpret_cast<const uint2*>(rows.s + r * kSumStepCols);
+  if (r >= rows.k) return make_uint2(0u, 0u);
+  const uint8_t* row = rows.B + (size_t)r * rows.m;
+  if (rows.vec && rows.col + 8 <= rows.m) return __ldg(reinterpret_cast<const uint2*>(row + rows.col));
+  const uint4 v = row_edge(row, rows.m, rows.col, 8);
+  return make_uint2(v.x, v.y);
+}
+
+// Row r's 16 bytes at W=16 (8 columns: lo, hi of each).
+template <int SRC>
+__device__ __forceinline__ uint4 row16(const StepRows<16, SRC>& rows, int r) {
+  if (SRC != kDirect) return *reinterpret_cast<const uint4*>(rows.s + r * 2 * kSumStepCols);
+  if (r >= rows.k) return make_uint4(0u, 0u, 0u, 0u);
+  const uint8_t* row = rows.B + (size_t)r * rows.m * 2;
+  if (rows.vec && rows.col + 8 <= rows.m) return __ldg(reinterpret_cast<const uint4*>(row + 2 * rows.col));
+  return row_edge(row, 2 * rows.m, 2 * rows.col, 16);
+}
+
+// The transposed words of chunk c of one warp step: r[j] is column 8g + j,
+// byte q byte-symbol 4c + q.  W=8: rows 4c..4c+3, 4 LDS.64 and 8 PRMT (two
+// transposes).  W=16: rows 2c and 2c + 1, 2 LDS.128 and 8 PRMT that split
+// each column's low and high bytes: lo(2c), hi(2c), lo(2c + 1), hi(2c + 1).
+template <int W, int SRC>
+__device__ __forceinline__ void step_words(const StepRows<W, SRC>& rows, int c, uint32_t (&r)[kSumGroups]) {
+  if constexpr (W == 16) {
+    const uint4 x = row16(rows, 2 * c), y = row16(rows, 2 * c + 1);
+    r[0] = __byte_perm(x.x, y.x, 0x5410);
+    r[1] = __byte_perm(x.x, y.x, 0x7632);
+    r[2] = __byte_perm(x.y, y.y, 0x5410);
+    r[3] = __byte_perm(x.y, y.y, 0x7632);
+    r[4] = __byte_perm(x.z, y.z, 0x5410);
+    r[5] = __byte_perm(x.z, y.z, 0x7632);
+    r[6] = __byte_perm(x.w, y.w, 0x5410);
+    r[7] = __byte_perm(x.w, y.w, 0x7632);
+  } else {
+    uint2 x[4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) x[q] = *reinterpret_cast<const uint2*>(rc + q * kSumStepCols);
-  transpose4(x[0].x, x[1].x, x[2].x, x[3].x, r);
-  transpose4(x[0].y, x[1].y, x[2].y, x[3].y, r + 4);
+    for (int q = 0; q < 4; ++q) x[q] = row8(rows, 4 * c + q);
+    transpose4(x[0].x, x[1].x, x[2].x, x[3].x, r);
+    transpose4(x[0].y, x[1].y, x[2].y, x[3].y, r + 4);
+  }
 }
 
 // PTX prmt.b32 in its default mode: byte n of the result is byte
@@ -668,11 +694,12 @@ struct NibbleChunk {
 // the transposed words r, then its chunks c = 4b + 2h' + e (2 for a last
 // block of 1 or 2 symbols, else 4), with table e (e1, e8) on r (h' = 0) or
 // r >> 16 (h' = 1).  mma(c, chunk) issues the chunk's products.
-template <typename Mma>
-__device__ __forceinline__ void nibble_chunks(const uint8_t* rows, int k, uint32_t e1, uint32_t e8, Mma&& mma) {
+template <int SRC, typename Mma>
+__device__ __forceinline__ void nibble_chunks(const StepRows<8, SRC>& rows, int k, uint32_t e1, uint32_t e8,
+                                              Mma&& mma) {
   for (int b = 0; 4 * b < k; ++b) {
     uint32_t r[kSumGroups];
-    step_words(rows + 4 * b * kSumStepCols, r);
+    step_words(rows, b, r);
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       if (h2 == 1 && 4 * b + 2 >= k) break;  // a last block of 1 or 2 symbols
@@ -689,45 +716,51 @@ __device__ __forceinline__ void nibble_chunks(const uint8_t* rows, int k, uint32
 }
 
 // Plane s of the 4 symbols in word r, one per byte.  `bit` is
-// 0x01010101 << s.
-template <int EXPAND>
+// 0x01010101 << s.  EXACT (the pre-parity form): JAX's values, shift_raw's
+// int8(b >> s) without the next byte's bits.
+template <int EXPAND, bool EXACT>
 __device__ __forceinline__ uint32_t plane_word(uint32_t r, int s,
                                                uint32_t bit) {
-  if (EXPAND == kShiftRaw) return r >> s;  // bits from the next byte land at 2^1 and up
+  if (EXPAND == kShiftRaw) {  // folded: bits from the next byte land at 2^1 and up
+    return EXACT ? (r >> s) & ((0xFFu >> s) * 0x01010101u) : r >> s;
+  }
   if (EXPAND == kCmp) return __vcmpne4(r & bit, 0u) & 0x01010101u;
   if (EXPAND == kSign) return __vcmpne4(r & bit, 0u);  // 0 or 0xFF (-1)
   return (r >> s) & 0x01010101u;
 }
 
-// Start copying the rows < k of one warp step (kSumStepCols columns from
-// read column `rcol`) into `buf` (row r at r * kSumStepCols).  Lane L copies
-// 16-byte piece L of rows 8i + L / 4; `src` points at its piece of row L / 4
-// and `rows8` is the stride of 8 rows.  In a ragged last step cp.async
-// fills the bytes past m with zeros.
+// Start copying the rows < k of one warp step (kSumStepCols columns, P
+// 16-byte pieces a row) into `buf`.  Lane L copies piece L % P of rows
+// L / P + (32 / P) i, so that its piece i lands at 16 L + 512 i; `src`
+// points at its piece of row L / P and `rows_stride` is the stride of
+// 32 / P rows.  In a ragged last step cp.async fills the bytes past the
+// row's end with zeros.
+template <int P>
 __device__ __forceinline__ void sum_fetch(uint8_t* buf, const uint8_t* src,
-                                          long long rows8, long long left,
+                                          long long rows_stride, long long left,
                                           int k, int lane) {
   const int bytes = left >= 16 ? 16 : (left > 0 ? (int)left : 0);
   const unsigned dst = (unsigned)__cvta_generic_to_shared(buf) + lane * 16;
-  for (int row = lane >> 2, i = 0; row < k; row += 8, ++i) {
+  for (int row = lane / P, i = 0; row < k; row += 32 / P, ++i) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %3, 0;\n"
         " @p cp.async.cg.shared.global [%0], [%1], 16, %2;\n}\n" ::"r"(
             dst + 512 * i),
         "l"(src), "r"(bytes), "r"(bytes));
-    src += rows8;
+    src += rows_stride;
   }
 }
 
 // The same for rows that do not start 16-byte aligned: byte by byte, zero
-// past m.
+// past the row's `row_bytes`; the step's bytes `off`.. of each row, `step`
+// a row.
 __device__ __noinline__ void sum_fetch_bytes(uint8_t* buf,
                                              const uint8_t* __restrict__ B,
-                                             int k, long long m,
-                                             long long rcol, int lane) {
-  for (int idx = lane; idx < k * kSumStepCols; idx += 32) {
-    const int row = idx / kSumStepCols, b = idx % kSumStepCols;
-    buf[idx] = rcol + b < m ? B[(size_t)row * m + rcol + b] : 0;
+                                             int k, long long row_bytes,
+                                             long long off, int step, int lane) {
+  for (int idx = lane; idx < k * step; idx += 32) {
+    const int row = idx / step, b = idx % step;
+    buf[idx] = off + b < row_bytes ? B[(size_t)row * row_bytes + off + b] : 0;
   }
 }
 
@@ -740,42 +773,56 @@ __device__ __noinline__ void sum_store_edge(uint8_t* dst, long long left,
   }
 }
 
-// m-tiles of gf_planes_sum_kernel's operator: rounded up to pairs.
+// The same for 8 16-bit outputs (the words hold 2 each).
+__device__ __noinline__ void sum_store_edge16(uint16_t* dst, long long left,
+                                              uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  for (int j = 0; j < 8 && j < left; ++j) dst[j] = (uint16_t)(w[j >> 1] >> (16 * (j & 1)));
+}
+
+// m-tiles of the sum, dot and none kernels' operator (p byte-symbols):
+// rounded up to pairs.
 __host__ __device__ inline int sum_mtiles(int p) {
   return ((p * 8 + 15) / 16 + 1) & ~1;
 }
 
-// 32-deep operator chunks of gf_planes_sum_kernel and gf_planes_dot_kernel:
-// one per 4 symbols for the byte expansions, one per symbol for nibble,
-// with k rounded up to pairs.
+// 32-deep operator chunks of the sum, dot and none kernels (k
+// byte-symbols): one per 4 symbols for the byte expansions, one per symbol
+// for nibble, with k rounded up to pairs.
 __host__ __device__ inline int sum_chunks(int k, int expand) {
   return expand == kNibble ? (k + 1) / 2 * 2 : (k + 3) / 4;
 }
 
-// One warp's ring of step buffers (gf_planes_sum_kernel and
-// gf_planes_dot_kernel): step n of the warp covers the block's columns
-// first + n * stride ..+63 and is copied into buffer n % stages, up to
-// stages - 1 steps ahead of the compute.
+// One warp's ring of step buffers (the sum, dot and none kernels): step n
+// of the warp covers the block's columns first + n * stride ..+63 and is
+// copied into buffer n % stages, up to stages - 1 steps ahead of the
+// compute.  Under kDirect nothing is copied: rows() points the step at
+// device memory.
+template <int W>
 struct StepRing {
+  static constexpr int kRowBytes = kSumStepCols * W / 8;  // a step's bytes of one row
+  static constexpr int kPieces = kRowBytes / 16;          // 16-byte pieces of them
   uint8_t* bufs;
   int buf_bytes, stages, nsteps, first, stride, k, lane;
   const uint8_t* B;
   const uint8_t* lane_src;
-  long long m, rd0, rows8;
-  bool vec_in;
+  long long m, row_bytes, rd0, rows_stride;
+  bool vec_in, vec_direct;
   int f_step, f_buf, c_buf;
 
   __device__ StepRing(uint8_t* smem_bufs, const uint8_t* B_, int k_, long long m_,
                       long long blk0, int span, int pinned, int stages_, int warp,
                       int lane_)
-      : bufs(smem_bufs), buf_bytes(4 * ((k_ + 3) / 4) * kSumStepCols), stages(stages_),
+      : bufs(smem_bufs), buf_bytes(ring_rows(k_, W) * kRowBytes), stages(stages_),
         first(warp * kSumStepCols), stride(kSumWarps * kSumStepCols), k(k_), lane(lane_),
-        B(B_), m(m_), rd0(pinned ? 0 : blk0), rows8(8 * m_),
-        vec_in(((uintptr_t)B_ & 15) == 0 && (m_ & 15) == 0), f_step(0), f_buf(0),
+        B(B_), m(m_), row_bytes(m_ * (W / 8)), rd0(pinned ? 0 : blk0),
+        rows_stride((32 / kPieces) * m_ * (W / 8)),
+        vec_in(((uintptr_t)B_ & 15) == 0 && ((m_ * (W / 8)) & 15) == 0),
+        vec_direct(((uintptr_t)B_ & (W - 1)) == 0 && (m_ & 7) == 0), f_step(0), f_buf(0),
         c_buf(0) {
     bufs += warp * stages * buf_bytes;
     nsteps = first < span ? (span - first + stride - 1) / stride : 0;
-    lane_src = B + (size_t)(lane >> 2) * m + rd0 + 16 * (lane & 3);
+    lane_src = B + (size_t)(lane / kPieces) * row_bytes + rd0 * (W / 8) + 16 * (lane % kPieces);
   }
 
   // Start copying the next step (an empty commit group past the last).
@@ -784,9 +831,10 @@ struct StepRing {
       const int col = first + f_step * stride;
       uint8_t* buf = bufs + f_buf * buf_bytes;
       if (vec_in) {
-        sum_fetch(buf, lane_src + col, rows8, m - (rd0 + col) - 16 * (lane & 3), k, lane);
+        sum_fetch<kPieces>(buf, lane_src + (long long)col * (W / 8), rows_stride,
+                           row_bytes - (rd0 + col) * (W / 8) - 16 * (lane % kPieces), k, lane);
       } else {
-        sum_fetch_bytes(buf, B, k, m, rd0 + col, lane);
+        sum_fetch_bytes(buf, B, k, row_bytes, (rd0 + col) * (W / 8), kRowBytes, lane);
       }
     }
     asm volatile("cp.async.commit_group;\n" ::);
@@ -811,96 +859,145 @@ struct StepRing {
     c_buf = c_buf + 1 == stages ? 0 : c_buf + 1;
     return buf;
   }
+
+  // Start the first stages - 1 steps' copies.
+  template <int SRC>
+  __device__ __forceinline__ void start() {
+    if (SRC != kDirect) {
+      for (int n = 0; n < stages - 1; ++n) fetch_next();
+    }
+  }
+
+  // Step n's rows as lane (g, t) reads them, its copies waited for.
+  template <int SRC>
+  __device__ __forceinline__ StepRows<W, SRC> rows(int n, int g) {
+    StepRows<W, SRC> out;
+    if (SRC != kDirect) {
+      fetch_next();
+      out.s = wait() + g * 8 * (W / 8);
+    } else {
+      out.B = B;
+      out.m = m;
+      out.col = rd0 + first + (long long)n * stride + 8 * g;
+      out.k = k;
+      out.vec = vec_direct;
+    }
+    return out;
+  }
 };
 
-template <int EXPAND, bool OP_SMEM>
+// The first product of the sum and none kernels over one warp step: m-tiles
+// mg and mg + 1 of the operator times every chunk of the step's planes
+// (kc chunks, k byte-symbols), into acc.  EXACT (the none kernel): JAX's
+// plane values against the unscaled operator.
+template <int W, int EXPAND, int SRC, bool EXACT>
+__device__ __forceinline__ void sum_pass(int (&acc)[2][kSumGroups][4], const StepRows<W, SRC>& rows,
+                                         const uint4* op_s, const uint4* __restrict__ opA, int mg, int kc,
+                                         int k, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int j = 0; j < kSumGroups; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[u][j][r] = 0;
+  if constexpr (EXPAND == kNibble) {
+    // Lane t's PRMT tables, planes t, 4 + t (e1) and 8 + t, 12 + t (e8).
+    const uint32_t e1 = 1u << (8 * t), e8 = 0x80u << (8 * t);
+    nibble_chunks(rows, k, e1, e8, [&](int c, const NibbleChunk& chunk) {
+      const uint4 a0 = op_frag<SRC == kStaged>(op_s, opA, (mg * kc + c) * 32 + lane);
+      const uint4 a1 = op_frag<SRC == kStaged>(op_s, opA, ((mg + 1) * kc + c) * 32 + lane);
+      // EXACT: e8's 0xFF and 0x80 (chunks c = 4b + 2h' + 1) to 1 and 0.
+      const uint32_t keep = EXACT && (c & 1) ? 0x01010101u : 0xFFFFFFFFu;
+#pragma unroll
+      for (int j = 0; j < kSumGroups; ++j) {
+        const uint32_t b0 = chunk.lo(j) & keep, b1 = chunk.hi(j) & keep;
+        mma_u8(acc[0][j], a0, b0, b1);
+        mma_u8(acc[1][j], a1, b0, b1);
+      }
+    });
+  } else {
+    const int sh0 = t, sh1 = t + 4;
+    const uint32_t bit0 = 0x01010101u << sh0, bit1 = 0x01010101u << sh1;
+    constexpr bool kSigned = EXPAND == kSign || (EXACT && EXPAND == kShiftRaw);
+    for (int c = 0; c < kc; ++c) {
+      uint32_t r[kSumGroups];
+      step_words(rows, c, r);
+      uint32_t b0[kSumGroups], b1[kSumGroups];
+#pragma unroll
+      for (int j = 0; j < kSumGroups; ++j) {
+        b0[j] = plane_word<EXPAND, EXACT>(r[j], sh0, bit0);
+        b1[j] = plane_word<EXPAND, EXACT>(r[j], sh1, bit1);
+      }
+      const uint4 a0 = op_frag<SRC == kStaged>(op_s, opA, (mg * kc + c) * 32 + lane);
+      const uint4 a1 = op_frag<SRC == kStaged>(op_s, opA, ((mg + 1) * kc + c) * 32 + lane);
+#pragma unroll
+      for (int j = 0; j < kSumGroups; ++j) {
+        if (kSigned) {
+          mma_u8s8(acc[0][j], a0, b0[j], b1[j]);
+          mma_u8s8(acc[1][j], a1, b0[j], b1[j]);
+        } else {
+          mma_u8(acc[0][j], a0, b0[j], b1[j]);
+          mma_u8(acc[1][j], a1, b0[j], b1[j]);
+        }
+      }
+    }
+  }
+}
+
+// Stage the operator's fragments in shared memory (kStaged).
+template <int SRC>
+__device__ __forceinline__ int stage_operator(uint4* smem, const uint4* __restrict__ op, int n) {
+  const int na = SRC == kStaged ? n : 0;
+  for (int i = threadIdx.x; i < na; i += kSumThreads) smem[i] = op[i];
+  __syncthreads();
+  return na;
+}
+
+// C: (p, m) uint8 at W=8, uint16 at W=16; k and p count W-bit symbols.
+template <int W, int EXPAND, int SRC>
 __global__ void __launch_bounds__(kSumThreads)
     gf_planes_sum_kernel(const uint4* __restrict__ opA,
                          const uint8_t* __restrict__ B,
-                         uint8_t* __restrict__ C, int k, int p, long long m,
+                         void* __restrict__ Cv, int k, int p, long long m,
                          int tile, int pinned, int stages) {
+  static_assert(W == 8 || (W == 16 && EXPAND != kNibble && EXPAND != kCmp), "w=16: shift, shift_raw, sign");
+  static_assert(SRC != kOpL1 || EXPAND == kNibble, "only nibble reads its operator through L1 beside the ring");
+  static_assert(SRC != kDirect || W == 16, "w=8's folded forms stage their rows");
   extern __shared__ uint4 smem[];
-  const int mtn = sum_mtiles(p);
-  const int kc = sum_chunks(k, EXPAND);
-  static_assert(OP_SMEM || EXPAND == kNibble, "only nibble reads its operator through L1");
-  const int na = OP_SMEM ? mtn * kc * 32 : 0;
-  for (int i = threadIdx.x; i < na; i += kSumThreads) smem[i] = opA[i];
-  __syncthreads();
+  const int mtn = sum_mtiles(byte_syms(p, W));
+  const int kc = sum_chunks(byte_syms(k, W), EXPAND);
+  const int na = stage_operator<SRC>(smem, opA, mtn * kc * 32);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const bool vec_out = ((uintptr_t)C & 7) == 0 && (m & 7) == 0;
+  const bool vec_out = ((uintptr_t)Cv & (W == 16 ? 15 : 7)) == 0 && (m & 7) == 0;
 
   // Column offsets within the block are 32-bit; the block's first write
   // and read columns are the only 64-bit ones.
   const long long blk0 = (long long)blockIdx.x * tile;
   const int span = (int)(min(m, blk0 + tile) - blk0);
-  StepRing ring(reinterpret_cast<uint8_t*>(smem + na), B, k, m, blk0, span, pinned, stages, warp, lane);
-  for (int n = 0; n < stages - 1; ++n) ring.fetch_next();
+  StepRing<W> ring(reinterpret_cast<uint8_t*>(smem + na), B, k, m, blk0, span, pinned, stages, warp, lane);
+  ring.template start<SRC>();
 
-  const int sh0 = t, sh1 = t + 4;
-  const uint32_t bit0 = 0x01010101u << sh0, bit1 = 0x01010101u << sh1;
-  // nibble: lane t's PRMT tables, planes t, 4 + t (e1) and 8 + t, 12 + t (e8).
-  const uint32_t e1 = 1u << (8 * t), e8 = 0x80u << (8 * t);
   const uint32_t keep = 0x01010101u << g;
+  // W=8: this lane's output bytes of a step, symbol 2mt + g / 2, columns
+  // 16t + 8(g & 1) .. + 7.  W=16: lanes g < 2, symbol mt, columns
+  // 16t + 8g .. + 7 (low bytes of w[j] at byte g, high at 2 + g).
   const uint32_t pick = (uint32_t)(g & 3) | ((uint32_t)((g & 3) + 4) << 4);
-  // This lane's output bytes of a step: symbol 2mt + g / 2, columns
-  // 16t + 8(g & 1) .. + 7.
-  const int c_off = 16 * t + 8 * (g & 1);
-  uint8_t* c_lane = C + c_off;
+  const uint32_t pick16 = 0x6420u + 0x1111u * (uint32_t)(g & 1);
+  const int c_off = W == 16 ? 16 * t + 8 * g : 16 * t + 8 * (g & 1);
   for (int n = 0; n < ring.nsteps; ++n) {
-    ring.fetch_next();
-    const uint8_t* rows = ring.wait() + 8 * g;
+    const StepRows<W, SRC> rows = ring.template rows<SRC>(n, g);
     const long long col0 = blk0 + ring.first + n * ring.stride;
     const bool full = vec_out && col0 + kSumStepCols <= m;
     for (int mg = 0; mg < mtn; mg += 2) {
       int acc[2][kSumGroups][4];
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int j = 0; j < kSumGroups; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[u][j][r] = 0;
-      if (EXPAND == kNibble) {
-        nibble_chunks(rows, k, e1, e8, [&](int c, const NibbleChunk& chunk) {
-          const uint4 a0 = op_frag<OP_SMEM>(smem, opA, (mg * kc + c) * 32 + lane);
-          const uint4 a1 = op_frag<OP_SMEM>(smem, opA, ((mg + 1) * kc + c) * 32 + lane);
-#pragma unroll
-          for (int j = 0; j < kSumGroups; ++j) {
-            const uint32_t b0 = chunk.lo(j), b1 = chunk.hi(j);
-            mma_u8(acc[0][j], a0, b0, b1);
-            mma_u8(acc[1][j], a1, b0, b1);
-          }
-        });
-      } else {
-        for (int c = 0; c < kc; ++c) {
-          uint32_t r[kSumGroups];
-          step_words(rows + 4 * c * kSumStepCols, r);
-          uint32_t b0[kSumGroups], b1[kSumGroups];
-#pragma unroll
-          for (int j = 0; j < kSumGroups; ++j) {
-            b0[j] = plane_word<EXPAND>(r[j], sh0, bit0);
-            b1[j] = plane_word<EXPAND>(r[j], sh1, bit1);
-          }
-          const uint4 a0 = smem[(mg * kc + c) * 32 + lane];
-          const uint4 a1 = smem[((mg + 1) * kc + c) * 32 + lane];
-#pragma unroll
-          for (int j = 0; j < kSumGroups; ++j) {
-            if (EXPAND == kSign) {
-              mma_u8s8(acc[0][j], a0, b0[j], b1[j]);
-              mma_u8s8(acc[1][j], a1, b0[j], b1[j]);
-            } else {
-              mma_u8(acc[0][j], a0, b0[j], b1[j]);
-              mma_u8(acc[1][j], a1, b0[j], b1[j]);
-            }
-          }
-        }
-      }
+      sum_pass<W, EXPAND, SRC, false>(acc, rows, smem, opA, mg, kc, k, lane);
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int sym = 2 * (mg + u) + (g >> 1);
         uint32_t w[kSumGroups];
 #pragma unroll
         for (int j = 0; j < kSumGroups; ++j) {
@@ -912,29 +1009,36 @@ __global__ void __launch_bounds__(kSumThreads)
           v |= __shfl_xor_sync(0xffffffffu, v, 16);
           w[j] = v;
         }
-        // Byte b of w[j]: symbol 2mt + b / 2 at column 16t + 8(b & 1) + j.
-        if (g < 4 && sym < p) {
-          const uint32_t lo = __byte_perm(__byte_perm(w[0], w[1], pick), __byte_perm(w[2], w[3], pick), 0x5410);
-          const uint32_t hi = __byte_perm(__byte_perm(w[4], w[5], pick), __byte_perm(w[6], w[7], pick), 0x5410);
-          uint8_t* dst = c_lane + (size_t)sym * m + col0;
-          if (full) {
-            *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
-          } else {
-            sum_store_edge(dst, m - (col0 + c_off), lo, hi);
+        // Byte b of w[j]: byte-symbol 2mt + b / 2 at column 16t + 8(b & 1) + j.
+        if constexpr (W == 16) {
+          const int sym = mg + u;  // byte-symbols 2mt, 2mt + 1: its low and high bytes
+          if (g < 2 && sym < p) {
+            const uint4 v = make_uint4(__byte_perm(w[0], w[1], pick16), __byte_perm(w[2], w[3], pick16),
+                                       __byte_perm(w[4], w[5], pick16), __byte_perm(w[6], w[7], pick16));
+            uint16_t* dst = static_cast<uint16_t*>(Cv) + (size_t)sym * m + col0 + c_off;
+            if (full) {
+              *reinterpret_cast<uint4*>(dst) = v;
+            } else {
+              sum_store_edge16(dst, m - (col0 + c_off), v);
+            }
+          }
+        } else {
+          const int sym = 2 * (mg + u) + (g >> 1);
+          if (g < 4 && sym < p) {
+            const uint32_t lo = __byte_perm(__byte_perm(w[0], w[1], pick), __byte_perm(w[2], w[3], pick), 0x5410);
+            const uint32_t hi = __byte_perm(__byte_perm(w[4], w[5], pick), __byte_perm(w[6], w[7], pick), 0x5410);
+            uint8_t* dst = static_cast<uint8_t*>(Cv) + (size_t)sym * m + col0 + c_off;
+            if (full) {
+              *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
+            } else {
+              sum_store_edge(dst, m - (col0 + c_off), lo, hi);
+            }
           }
         }
       }
     }
     __syncwarp();
   }
-}
-
-__device__ __forceinline__ void mma_s8u8(int (&d)[4], const uint4& a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
 // The low bytes of a, b, c and d as bytes 0-3 of one word: 3 PRMT.
@@ -947,42 +1051,40 @@ __device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b,
 // lanes) uint4, two 8-row n-tiles each (x, y: rows g; z, w: rows 8 + g);
 // opF: F's B fragments for the two passes of an 8-symbol tile, (2, 32)
 // uint2.  Everything else as gf_planes_sum_kernel.
-template <int EXPAND, bool OP_SMEM>
+template <int W, int EXPAND, int SRC>
 __global__ void __launch_bounds__(kSumThreads)
     gf_planes_dot_kernel(const uint4* __restrict__ opB,
                          const uint2* __restrict__ opF,
                          const uint8_t* __restrict__ B,
-                         uint8_t* __restrict__ C, int k, int p, long long m,
+                         void* __restrict__ Cv, int k, int p, long long m,
                          int tile, int pinned, int stages) {
+  static_assert(W == 8 || (W == 16 && EXPAND != kNibble && EXPAND != kCmp), "w=16: shift, shift_raw, sign");
+  static_assert(SRC != kOpL1 || EXPAND == kNibble, "only nibble reads its operator through L1 beside the ring");
+  static_assert(SRC != kDirect || W == 16, "w=8's folded forms stage their rows");
   extern __shared__ uint4 smem[];
-  const int npass = sum_mtiles(p) / 2;  // 32 operator rows (4 symbols) a pass
-  const int kc = sum_chunks(k, EXPAND);
-  static_assert(OP_SMEM || EXPAND == kNibble, "only nibble reads its operator through L1");
-  const int nb = OP_SMEM ? 2 * npass * kc * 32 : 0;
-  for (int i = threadIdx.x; i < nb; i += kSumThreads) smem[i] = opB[i];
-  __syncthreads();
+  const int npass = sum_mtiles(byte_syms(p, W)) / 2;  // 32 operator rows (4 byte-symbols) a pass
+  const int kc = sum_chunks(byte_syms(k, W), EXPAND);
+  const int nb = stage_operator<SRC>(smem, opB, 2 * npass * kc * 32);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
   const uint2 f0 = opF[lane], f1 = opF[32 + lane];
-  const bool vec_out = ((uintptr_t)C & 7) == 0 && (m & 7) == 0;
+  const bool vec_out = ((uintptr_t)Cv & (W == 16 ? 15 : 7)) == 0 && (m & 7) == 0;
 
   const long long blk0 = (long long)blockIdx.x * tile;
   const int span = (int)(min(m, blk0 + tile) - blk0);
-  StepRing ring(reinterpret_cast<uint8_t*>(smem + nb), B, k, m, blk0, span, pinned, stages, warp, lane);
-  for (int n = 0; n < stages - 1; ++n) ring.fetch_next();
+  StepRing<W> ring(reinterpret_cast<uint8_t*>(smem + nb), B, k, m, blk0, span, pinned, stages, warp, lane);
+  ring.template start<SRC>();
 
   const int sh0 = t, sh1 = t + 4;
   const uint32_t bit0 = 0x01010101u << sh0, bit1 = 0x01010101u << sh1;
   const uint32_t e1 = 1u << (8 * t), e8 = 0x80u << (8 * t);  // nibble's tables
   // Byte e of a second-product A register is output bit 2t + (e & 1).
   const uint32_t keep = 0x02010201u << (2 * t);
-  uint8_t* c_lane = C + 8 * g;
   for (int n = 0; n < ring.nsteps; ++n) {
-    ring.fetch_next();
-    const uint8_t* rows = ring.wait() + 8 * g;
+    const StepRows<W, SRC> rows = ring.template rows<SRC>(n, g);
     const long long col0 = blk0 + ring.first + n * ring.stride;
     const bool full = vec_out && col0 + kSumStepCols <= m;
     for (int f = 0; 2 * f < npass; ++f) {
@@ -1002,10 +1104,10 @@ __global__ void __launch_bounds__(kSumThreads)
           for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
             for (int r = 0; r < 4; ++r) acc[mb][nt][r] = 0;
-        if (EXPAND == kNibble) {
+        if constexpr (EXPAND == kNibble) {
           nibble_chunks(rows, k, e1, e8, [&](int c, const NibbleChunk& chunk) {
-            const uint4 b01 = op_frag<OP_SMEM>(smem, opB, ((2 * pass) * kc + c) * 32 + lane);
-            const uint4 b23 = op_frag<OP_SMEM>(smem, opB, ((2 * pass + 1) * kc + c) * 32 + lane);
+            const uint4 b01 = op_frag<SRC == kStaged>(smem, opB, ((2 * pass) * kc + c) * 32 + lane);
+            const uint4 b23 = op_frag<SRC == kStaged>(smem, opB, ((2 * pass + 1) * kc + c) * 32 + lane);
 #pragma unroll
             for (int mb = 0; mb < 4; ++mb) {
               // Each plane register is made just before its 4 mma.
@@ -1019,14 +1121,15 @@ __global__ void __launch_bounds__(kSumThreads)
         } else {
           for (int c = 0; c < kc; ++c) {
             uint32_t r[kSumGroups];
-            step_words(rows + 4 * c * kSumStepCols, r);
-            const uint4 b01 = smem[((2 * pass) * kc + c) * 32 + lane];
-            const uint4 b23 = smem[((2 * pass + 1) * kc + c) * 32 + lane];
+            step_words(rows, c, r);
+            const uint4 b01 = op_frag<SRC == kStaged>(smem, opB, ((2 * pass) * kc + c) * 32 + lane);
+            const uint4 b23 = op_frag<SRC == kStaged>(smem, opB, ((2 * pass + 1) * kc + c) * 32 + lane);
 #pragma unroll
             for (int mb = 0; mb < 4; ++mb) {
               // Each plane register is made once, just before its 4 mma.
-              const uint4 a = make_uint4(plane_word<EXPAND>(r[mb], sh0, bit0), plane_word<EXPAND>(r[4 + mb], sh0, bit0),
-                                         plane_word<EXPAND>(r[mb], sh1, bit1), plane_word<EXPAND>(r[4 + mb], sh1, bit1));
+              const uint4 a = make_uint4(
+                  plane_word<EXPAND, false>(r[mb], sh0, bit0), plane_word<EXPAND, false>(r[4 + mb], sh0, bit0),
+                  plane_word<EXPAND, false>(r[mb], sh1, bit1), plane_word<EXPAND, false>(r[4 + mb], sh1, bit1));
               if (EXPAND == kSign) {
                 mma_s8u8(acc[mb][0], a, b01.x, b01.y);
                 mma_s8u8(acc[mb][1], a, b01.z, b01.w);
@@ -1042,7 +1145,8 @@ __global__ void __launch_bounds__(kSumThreads)
           }
         }
         // acc[mb][nt]: regs 0, 1 column 8g + mb, regs 2, 3 column
-        // 8g + 4 + mb; bits 2t (regs 0, 2) and 2t + 1 of symbol 4 pass + nt.
+        // 8g + 4 + mb; bits 2t (regs 0, 2) and 2t + 1 of byte-symbol
+        // 4 pass + nt.
         const uint2 fq = q == 0 ? f0 : f1;
 #pragma unroll
         for (int mb = 0; mb < 4; ++mb) {
@@ -1054,19 +1158,36 @@ __global__ void __launch_bounds__(kSumThreads)
           mma_u8(out[mb], e, fq.x, fq.y);
         }
       }
-      // out[mb]: symbols 8f + 2t (regs 0, 2) and 8f + 2t + 1 (regs 1, 3)
-      // at columns 8g + mb (regs 0, 1) and 8g + 4 + mb (regs 2, 3).
+      // out[mb]: byte-symbols 8f + 2t (regs 0, 2) and 8f + 2t + 1 (regs 1,
+      // 3) at columns 8g + mb (regs 0, 1) and 8g + 4 + mb (regs 2, 3).
+      if constexpr (W == 16) {
+        // Those are the low and high bytes of symbol 4f + t.
+        const int sym = 4 * f + t;
+        if (sym < p) {
+          const uint4 v = make_uint4(low_bytes(out[0][0], out[0][1], out[1][0], out[1][1]),
+                                     low_bytes(out[2][0], out[2][1], out[3][0], out[3][1]),
+                                     low_bytes(out[0][2], out[0][3], out[1][2], out[1][3]),
+                                     low_bytes(out[2][2], out[2][3], out[3][2], out[3][3]));
+          uint16_t* dst = static_cast<uint16_t*>(Cv) + (size_t)sym * m + col0 + 8 * g;
+          if (full) {
+            *reinterpret_cast<uint4*>(dst) = v;
+          } else {
+            sum_store_edge16(dst, m - (col0 + 8 * g), v);
+          }
+        }
+      } else {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int sym = 8 * f + 2 * t + h;
-        if (sym >= p) continue;
-        const uint32_t lo = low_bytes(out[0][h], out[1][h], out[2][h], out[3][h]);
-        const uint32_t hi = low_bytes(out[0][2 + h], out[1][2 + h], out[2][2 + h], out[3][2 + h]);
-        uint8_t* dst = c_lane + (size_t)sym * m + col0;
-        if (full) {
-          *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
-        } else {
-          sum_store_edge(dst, m - (col0 + 8 * g), lo, hi);
+        for (int h = 0; h < 2; ++h) {
+          const int sym = 8 * f + 2 * t + h;
+          if (sym >= p) continue;
+          const uint32_t lo = low_bytes(out[0][h], out[1][h], out[2][h], out[3][h]);
+          const uint32_t hi = low_bytes(out[0][2 + h], out[1][2 + h], out[2][2 + h], out[3][2 + h]);
+          uint8_t* dst = static_cast<uint8_t*>(Cv) + (size_t)sym * m + col0 + 8 * g;
+          if (full) {
+            *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
+          } else {
+            sum_store_edge(dst, m - (col0 + 8 * g), lo, hi);
+          }
         }
       }
     }
@@ -1074,71 +1195,177 @@ __global__ void __launch_bounds__(kSumThreads)
   }
 }
 
-// Dynamic shared memory of gf_planes_sum_kernel and gf_planes_dot_kernel
-// with `stages` step buffers a warp, the operator in it or not.
-inline size_t sum_smem(int k, int p, int expand, int stages, bool op_smem) {
-  return (op_smem ? (size_t)sum_mtiles(p) * sum_chunks(k, expand) * 32 * sizeof(uint4) : 0) +
-         (size_t)kSumWarps * stages * 4 * ((k + 3) / 4) * kSumStepCols;
+// Store the first `left` (if below 4) of 4 int32 sums one by one: the
+// ragged edge, or rows that do not start 16-byte aligned.
+__device__ __noinline__ void none_store_edge(int* dst, long long left, int4 v) {
+  const int w[4] = {v.x, v.y, v.z, v.w};
+  for (int j = 0; j < 4 && j < left; ++j) dst[j] = w[j];
 }
 
-// The most step buffers a warp (kSumStages down to 1) that fit beside the
-// operator in shared memory; for nibble, where none does, the most that
-// fit alone (*op_smem false: the operator read through L1).  0: none fits.
-inline int sum_stages(int k, int p, int expand, bool* op_smem) {
-  for (int in_smem = 1; in_smem >= (expand == kNibble ? 0 : 1); --in_smem) {
-    for (int stages = kSumStages; stages >= 1; --stages) {
-      if (sum_smem(k, p, expand, stages, in_smem) <= (size_t)kMaxSmem) {
-        *op_smem = in_smem;
-        return stages;
+// C: the (p*8, m) int32 sums.  Shared memory: the operator (kStaged), each
+// warp's staging rows, the ring (not kDirect).
+template <int EXPAND, int SRC>
+__global__ void __launch_bounds__(kSumThreads)
+    gf_planes_none_kernel(const uint4* __restrict__ opA,
+                          const uint8_t* __restrict__ B,
+                          int* __restrict__ C, int k, int p, long long m,
+                          int tile, int pinned, int stages) {
+  static_assert(SRC != kOpL1, "the pre-parity form stages its operator or reads everything through L1");
+  extern __shared__ uint4 smem[];
+  const int mtn = sum_mtiles(p);
+  const int kc = sum_chunks(k, EXPAND);
+  const int na = stage_operator<SRC>(smem, opA, mtn * kc * 32);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const bool vec_out = ((uintptr_t)C & 15) == 0 && (m & 3) == 0;
+  int* stage = reinterpret_cast<int*>(smem + na) + warp * kNoneRows * kNoneStride;
+  uint8_t* ring_bufs = reinterpret_cast<uint8_t*>(smem + na) + kSumWarps * kNoneRows * kNoneStride * sizeof(int);
+
+  const long long blk0 = (long long)blockIdx.x * tile;
+  const int span = (int)(min(m, blk0 + tile) - blk0);
+  StepRing<8> ring(ring_bufs, B, k, m, blk0, span, pinned, stages, warp, lane);
+  ring.template start<SRC>();
+
+  // Staging: 16-byte chunk c of a row at c ^ (c >> 3).  Lane (g, t) writes
+  // chunks 4t..4t+3 of rows g and g + 8 of each m-tile (its columns
+  // 16t..16t+15); lane L reads chunk L % 16 of rows L / 16 + 2i.
+  int* st_w = stage + g * kNoneStride + 16 * t;
+  const int sw = t >> 1;
+  const int c_rd = lane & 15;
+  const int* st_r = stage + (lane >> 4) * kNoneStride + 4 * (c_rd ^ (c_rd >> 3));
+  for (int n = 0; n < ring.nsteps; ++n) {
+    const StepRows<8, SRC> rows = ring.template rows<SRC>(n, g);
+    const long long col0 = blk0 + ring.first + n * ring.stride;
+    const bool full = vec_out && col0 + kSumStepCols <= m;
+    for (int mg = 0; mg < mtn; mg += 2) {
+      int acc[2][kSumGroups][4];
+      sum_pass<8, EXPAND, SRC, true>(acc, rows, smem, opA, mg, kc, k, lane);
+      // acc[u][j]: regs 0, 2 rows g, g + 8 of m-tile mg + u at column
+      // 16t + j, regs 1, 3 at column 16t + 8 + j.
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int* row = st_w + (16 * u + 8 * h) * kNoneStride;
+          const int(&a)[kSumGroups][4] = acc[u];
+          *reinterpret_cast<int4*>(row + 4 * (0 ^ sw)) = make_int4(a[0][2 * h], a[1][2 * h], a[2][2 * h], a[3][2 * h]);
+          *reinterpret_cast<int4*>(row + 4 * (1 ^ sw)) = make_int4(a[4][2 * h], a[5][2 * h], a[6][2 * h], a[7][2 * h]);
+          *reinterpret_cast<int4*>(row + 4 * (2 ^ sw)) =
+              make_int4(a[0][2 * h + 1], a[1][2 * h + 1], a[2][2 * h + 1], a[3][2 * h + 1]);
+          *reinterpret_cast<int4*>(row + 4 * (3 ^ sw)) =
+              make_int4(a[4][2 * h + 1], a[5][2 * h + 1], a[6][2 * h + 1], a[7][2 * h + 1]);
+        }
+      __syncwarp();
+      // Two whole 256-byte row segments a store; rows past p*8 (the
+      // operator's padding) are not written.
+      const int nrows = min(kNoneRows, 8 * p - 16 * mg);
+      const int* src = st_r;
+      int* dst = C + (size_t)(16 * mg + (lane >> 4)) * m + col0 + 4 * c_rd;
+      for (int r = lane >> 4; r < nrows; r += 2) {
+        const int4 v = *reinterpret_cast<const int4*>(src);
+        if (full) {
+          __stcs(reinterpret_cast<int4*>(dst), v);
+        } else {
+          none_store_edge(dst, m - (col0 + 4 * c_rd), v);
+        }
+        src += 2 * kNoneStride;
+        dst += 2 * m;
       }
+      __syncwarp();
     }
   }
-  return 0;
 }
 
-template <int EXPAND, int REFOLD, bool OP_SMEM>
-int launch_folded(const void* opA, const void* opF, const void* B, void* C,
-                  int k, int p, long long m, int tile, int pinned, int stages,
-                  size_t smem, unsigned blocks, cudaStream_t stream) {
-  const void* fn = REFOLD == kSum ? (const void*)gf_planes_sum_kernel<EXPAND, OP_SMEM>
-                                  : (const void*)gf_planes_dot_kernel<EXPAND, OP_SMEM>;
+// Shared memory of a sum, dot or none kernel's launch (k, p in W-bit
+// symbols): the operator (kStaged), the none kernel's staging rows and
+// `stages` step buffers a warp (not kDirect).
+inline size_t mma_smem(int k, int p, int w, int expand, int refold, int src, int stages) {
+  const size_t op = (size_t)sum_mtiles(byte_syms(p, w)) * sum_chunks(byte_syms(k, w), expand) * 32 * sizeof(uint4);
+  const size_t ring = (size_t)kSumWarps * stages * ring_rows(k, w) * kSumStepCols * (w / 8);
+  const size_t staging = refold == kNone ? (size_t)kSumWarps * kNoneRows * kNoneStride * sizeof(int) : 0;
+  return (src == kStaged ? op : 0) + (src == kDirect ? 0 : ring) + staging;
+}
+
+struct Route {
+  int src;     // Src, or -1: nothing fits
+  int stages;  // step buffers a warp (0 under kDirect)
+};
+
+// The route of a launch: operator and ring in shared memory with the most
+// step buffers (kSumStages down to 1) that fit; else, for nibble's folded
+// forms, the operator through L1 beside the most that fit alone; else, at
+// w=16 and for the pre-parity form, both through L1 from device memory.
+inline Route mma_route(int k, int p, int w, int expand, int refold) {
+  for (int stages = kSumStages; stages >= 1; --stages) {
+    if (mma_smem(k, p, w, expand, refold, kStaged, stages) <= (size_t)kMaxSmem) return {kStaged, stages};
+  }
+  if (expand == kNibble && refold != kNone) {
+    for (int stages = kSumStages; stages >= 1; --stages) {
+      if (mma_smem(k, p, w, expand, refold, kOpL1, stages) <= (size_t)kMaxSmem) return {kOpL1, stages};
+    }
+  }
+  if (w == 16 || refold == kNone) return {kDirect, 0};
+  return {-1, 0};
+}
+
+// Whether (w, refold) runs the sum, dot or none kernels (else gf_planes_kernel).
+inline bool is_mma(int w, int refold) { return w == 8 || (w == 16 && refold != kNone); }
+
+template <int W, int EXPAND, int REFOLD, int SRC>
+int launch_src(const void* opA, const void* opF, const void* B, void* C, int k, int p,
+               long long m, int tile, int pinned, int stages, unsigned blocks,
+               cudaStream_t stream) {
+  const void* fn;
+  if constexpr (REFOLD == kSum) {
+    fn = (const void*)gf_planes_sum_kernel<W, EXPAND, SRC>;
+  } else if constexpr (REFOLD == kDot) {
+    fn = (const void*)gf_planes_dot_kernel<W, EXPAND, SRC>;
+  } else {
+    fn = (const void*)gf_planes_none_kernel<EXPAND, SRC>;
+  }
+  const size_t smem = mma_smem(k, p, W, EXPAND, REFOLD, SRC, stages);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
+  const uint8_t* Bb = static_cast<const uint8_t*>(B);
   if constexpr (REFOLD == kSum) {
-    gf_planes_sum_kernel<EXPAND, OP_SMEM><<<blocks, kSumThreads, smem, stream>>>(
-        static_cast<const uint4*>(opA), static_cast<const uint8_t*>(B),
-        static_cast<uint8_t*>(C), k, p, m, tile, pinned, stages);
+    gf_planes_sum_kernel<W, EXPAND, SRC><<<blocks, kSumThreads, smem, stream>>>(
+        static_cast<const uint4*>(opA), Bb, C, k, p, m, tile, pinned, stages);
+  } else if constexpr (REFOLD == kDot) {
+    gf_planes_dot_kernel<W, EXPAND, SRC><<<blocks, kSumThreads, smem, stream>>>(
+        static_cast<const uint4*>(opA), static_cast<const uint2*>(opF), Bb, C, k, p, m, tile, pinned, stages);
   } else {
-    gf_planes_dot_kernel<EXPAND, OP_SMEM><<<blocks, kSumThreads, smem, stream>>>(
-        static_cast<const uint4*>(opA), static_cast<const uint2*>(opF),
-        static_cast<const uint8_t*>(B), static_cast<uint8_t*>(C), k, p, m, tile,
-        pinned, stages);
+    gf_planes_none_kernel<EXPAND, SRC><<<blocks, kSumThreads, smem, stream>>>(
+        static_cast<const uint4*>(opA), Bb, static_cast<int*>(C), k, p, m, tile, pinned, stages);
   }
   return (int)cudaGetLastError();
 }
 
-// Launch gf_planes_sum_kernel (REFOLD kSum) or gf_planes_dot_kernel (kDot;
-// opF: F) on the operator packed for it.  Only nibble has the instance
-// that reads its operator through L1.
-template <int EXPAND, int REFOLD>
-int launch_planes_folded(const void* opA, const void* opF, const void* B, void* C,
-                         int k, int p, long long m, int tile, int pinned,
-                         cudaStream_t stream) {
-  bool op_smem = true;
-  const int stages = sum_stages(k, p, EXPAND, &op_smem);
-  if (stages == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sum_smem(k, p, EXPAND, stages, op_smem);
+// Launch the sum (REFOLD kSum), dot (kDot; opF: F) or none kernel on the
+// operator packed for it, by its route.
+template <int W, int EXPAND, int REFOLD>
+int launch_mma(const void* opA, const void* opF, const void* B, void* C, int k, int p,
+               long long m, int tile, int pinned, cudaStream_t stream) {
+  const Route r = mma_route(k, p, W, EXPAND, REFOLD);
   const long long blocks = (m + tile - 1) / tile;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (op_smem) {
-    return launch_folded<EXPAND, REFOLD, true>(opA, opF, B, C, k, p, m, tile, pinned, stages, smem,
-                                               (unsigned)blocks, stream);
+  const unsigned nb = (unsigned)blocks;
+  if (r.src == kStaged) {
+    return launch_src<W, EXPAND, REFOLD, kStaged>(opA, opF, B, C, k, p, m, tile, pinned, r.stages, nb, stream);
   }
-  if constexpr (EXPAND == kNibble) {
-    return launch_folded<EXPAND, REFOLD, false>(opA, opF, B, C, k, p, m, tile, pinned, stages, smem,
-                                                (unsigned)blocks, stream);
+  if constexpr (EXPAND == kNibble && REFOLD != kNone) {
+    if (r.src == kOpL1) {
+      return launch_src<W, EXPAND, REFOLD, kOpL1>(opA, opF, B, C, k, p, m, tile, pinned, r.stages, nb, stream);
+    }
+  }
+  if constexpr (W == 16 || REFOLD == kNone) {
+    if (r.src == kDirect) {
+      return launch_src<W, EXPAND, REFOLD, kDirect>(opA, opF, B, C, k, p, m, tile, pinned, 1, nb, stream);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1147,7 +1374,7 @@ template <int W, int EXPAND, int REFOLD>
 int launch_planes(const void* opA, const void* opF, const void* B, void* C,
                   int k, int p, long long m, int tile, int pinned,
                   cudaStream_t stream) {
-  const size_t smem = planes_smem(dims(k, p, W, EXPAND), REFOLD);
+  const size_t smem = planes_smem(dims(k, p, W), REFOLD);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1209,20 +1436,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The (w, expand, refold) instances gf_planes_kernel runs: at w=8 every
-// pre-parity form (refold none); at w=16 the three lane-width expansions
-// with every refold; at w=4 shift and shift_raw with every refold.  The
-// sum and dot refolds at w=8 are gf_planes_sum_kernel and
-// gf_planes_dot_kernel.
+// The (w, expand, refold) instances gf_planes_kernel runs: at w=4 shift
+// and shift_raw with every refold, at w=16 the pre-parity form of the
+// three lane-width expansions.
 #define RS_PLANES_INSTANCES(X)                                             \
-  X(8, kShift, kNone) X(8, kShiftRaw, kNone) X(8, kCmp, kNone)             \
-  X(8, kSign, kNone) X(8, kNibble, kNone)                                  \
-  X(16, kShift, kSum) X(16, kShiftRaw, kSum) X(16, kSign, kSum)            \
-  X(16, kShift, kDot) X(16, kShiftRaw, kDot) X(16, kSign, kDot)            \
   X(16, kShift, kNone) X(16, kShiftRaw, kNone) X(16, kSign, kNone)         \
   X(4, kShift, kSum) X(4, kShiftRaw, kSum) X(4, kShift, kDot)              \
   X(4, kShiftRaw, kDot) X(4, kShift, kNone) X(4, kShiftRaw, kNone)
+// The expansions of the sum, dot and none kernels at w=8 and of the sum and
+// dot kernels at w=16.
 #define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign) X(kNibble)
+#define RS_WIDE_EXPANDS(X) X(kShift) X(kShiftRaw) X(kSign)
 
 }  // namespace
 
@@ -1232,13 +1456,25 @@ const char* rs_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The route a launch at (k, p, w) takes: 0 operator and data staged in
+// shared memory, 1 the operator through L1 beside the staged data, 2 both
+// from device memory through L1, -1 refused (the shared memory does not
+// hold what the instance needs).  gf_planes_kernel stages everything (0).
+int rs_gf_planes_route(int k, int p, int w, int expand, int refold) {
+  if (is_mma(w, refold)) return mma_route(k, p, w, expand, refold).src;
+  return planes_smem(dims(k, p, w), refold) <= (size_t)kMaxSmem ? kStaged : -1;
+}
+
 // Dynamic shared memory the GEMM needs at (k, p, w), in bytes, and its
-// limit.  For the sum and dot refolds at w=8: the least, with one step
-// buffer a warp (the launch takes up to kSumStages that fit), beside the
-// operator, or for nibble without it.
+// limit.  For the sum, dot and none kernels: their route's, with one step
+// buffer a warp (the launch takes up to kSumStages that fit).
 long long rs_gf_planes_smem(int k, int p, int w, int expand, int refold) {
-  if (w == 8 && refold != kNone) return (long long)sum_smem(k, p, expand, 1, expand != kNibble);
-  return (long long)planes_smem(dims(k, p, w, expand), refold);
+  if (is_mma(w, refold)) {
+    const Route r = mma_route(k, p, w, expand, refold);
+    const int src = r.src < 0 ? kStaged : r.src;  // refused: the staged need, past the limit
+    return (long long)mma_smem(k, p, w, expand, refold, src, 1);
+  }
+  return (long long)planes_smem(dims(k, p, w), refold);
 }
 int rs_gf_planes_smem_limit() { return kMaxSmem; }
 
@@ -1247,10 +1483,10 @@ int rs_gf_planes_smem_limit() { return kMaxSmem; }
 //   B: (k, m) uint8 (w=4, 8) or uint16 (w=16), row-major.  C: (p, m) of
 //   B's type, or for refold none the (p*w, m) int32 accumulators.  tile:
 //   columns per block, a positive multiple of kSumStepCols.  pinned != 0:
-//   every block reads block 0.  The sum and dot refolds at w=8 run
-//   gf_planes_sum_kernel and gf_planes_dot_kernel (opA and opF packed for
-//   them), every other instance gf_planes_kernel.  An instance
-//   not in the source returns cudaErrorInvalidValue.
+//   every block reads block 0.  At w=8, and at w=16 with the sum and dot
+//   refolds, the sum, dot and none kernels run (opA and opF packed for
+//   them), every other instance gf_planes_kernel.  An instance not in the
+//   source returns cudaErrorInvalidValue.
 int rs_gf_planes(const void* opA, const void* opF, const void* B, void* C,
                  int k, int p, long long m, int tile, int w, int expand,
                  int refold, int pinned, void* stream) {
@@ -1264,16 +1500,16 @@ int rs_gf_planes(const void* opA, const void* opF, const void* B, void* C,
     return launch_planes<WW, E, R>(opA, opF, B, C, k, p, m, tile, pinned, s);
   RS_PLANES_INSTANCES(RS_CALL)
 #undef RS_CALL
-#define RS_CALL_SUM(E)                                                  \
-  if (w == 8 && expand == E && refold == kSum)                          \
-    return launch_planes_folded<E, kSum>(opA, opF, B, C, k, p, m, tile, pinned, s);
-  RS_SUM_EXPANDS(RS_CALL_SUM)
-#undef RS_CALL_SUM
-#define RS_CALL_DOT(E)                                                  \
-  if (w == 8 && expand == E && refold == kDot)                          \
-    return launch_planes_folded<E, kDot>(opA, opF, B, C, k, p, m, tile, pinned, s);
-  RS_SUM_EXPANDS(RS_CALL_DOT)
-#undef RS_CALL_DOT
+#define RS_CALL_MMA(WW, E, R)                                           \
+  if (w == WW && expand == E && refold == R)                            \
+    return launch_mma<WW, E, R>(opA, opF, B, C, k, p, m, tile, pinned, s);
+#define RS_CALL_W8(E) RS_CALL_MMA(8, E, kSum) RS_CALL_MMA(8, E, kDot) RS_CALL_MMA(8, E, kNone)
+#define RS_CALL_W16(E) RS_CALL_MMA(16, E, kSum) RS_CALL_MMA(16, E, kDot)
+  RS_SUM_EXPANDS(RS_CALL_W8)
+  RS_WIDE_EXPANDS(RS_CALL_W16)
+#undef RS_CALL_W16
+#undef RS_CALL_W8
+#undef RS_CALL_MMA
   return (int)cudaErrorInvalidValue;
 }
 

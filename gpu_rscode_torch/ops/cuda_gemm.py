@@ -229,12 +229,15 @@ def _dtype_name(x) -> str:
     return np.asarray(x).dtype.name
 
 
-def _autotune_refold(A, B: torch.Tensor, w: int, tile: int, expand: str) -> str:
+def _autotune_refold(A, B: torch.Tensor, w: int, tile: int | None, expand: str) -> str:
     """refold="autotune" resolved to "sum" or "dot": both K3 variants timed
-    once on the actual operands, the decision cached by dispatch class."""
+    once on the actual operands at the dispatch's tile (None: the kernels'
+    default, keyed as cuda_planes.DEFAULT_TILE), the decision cached by
+    dispatch class."""
     from . import cuda_planes
 
-    key = (tuple(np.shape(A)), _dtype_name(A), tuple(B.shape), _dtype_name(B), w, tile, expand, str(B.device))
+    key = (tuple(np.shape(A)), _dtype_name(A), tuple(B.shape), _dtype_name(B), w,
+           cuda_planes.DEFAULT_TILE if tile is None else tile, expand, str(B.device))
     with _AUTOTUNE_LOCK:
         hit = _AUTOTUNE_CACHE.get(key)
     if hit is not None:
@@ -374,7 +377,7 @@ def _gf_matmul_expand(A, B, w, fold_parity, expand, refold, tile) -> torch.Tenso
                                    "dispatch eagerly to calibrate", _default_refold(w))
         else:
             cuda_planes._check_data(B, "gf_matmul_cuda", w)
-            refold = _autotune_refold(A, B, w, cuda_planes.DEFAULT_TILE if tile is None else tile, expand)
+            refold = _autotune_refold(A, B, w, tile, expand)
     _obs_metrics.counter("rs_pallas_refold_total", "resolved refold choices at kernel dispatch").labels(
         refold=refold, expand=expand, w=w).inc()
     return cuda_planes.gf_matmul_planes(A, B, EXPANSIONS[expand], refold if fold_parity else "none", tile, w=w)

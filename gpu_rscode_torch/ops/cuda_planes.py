@@ -14,13 +14,15 @@ each accumulator is refolded into output symbols by a shift-sum
 expansion runs at w=8; ``shift``, ``shift_raw`` and ``sign`` also at w=16
 (:data:`WIDE_EXPANDS`), ``shift`` and ``shift_raw`` at w=4
 (:data:`NARROW_EXPANDS`; one symbol a uint8, bits 4-7 ignored).  The sum
-and dot refolds at w=8 (:data:`SUM_EXPANDS`: every expansion) run
-``gf_planes_sum_kernel`` and ``gf_planes_dot_kernel``, with the operator
-scaled by 2^s and packed for four-symbol plane words
-(:func:`sum_operator`; :func:`nibble_operator` for the nibble's PRMT
-tables; as B fragments for the dot kernel, whose F is
-:func:`dot_fold_operator`); every other instance (w=16, w=4, the
-pre-parity form) runs ``gf_planes_kernel``.
+and dot refolds at w=8 (:data:`SUM_EXPANDS`: every expansion) and at w=16
+run ``gf_planes_sum_kernel`` and ``gf_planes_dot_kernel`` (a 16-bit symbol
+as two byte-symbols), with the operator scaled by 2^s and packed for
+four-symbol plane words (:func:`sum_operator`; :func:`nibble_operator` for
+the nibble's PRMT tables; as B fragments for the dot kernel, whose F is
+:func:`dot_fold_operator`); the pre-parity form at w=8 runs
+``gf_planes_none_kernel`` on the same operators unscaled; w=4 and the
+pre-parity form at w=16 run ``gf_planes_kernel``.  :func:`route` says
+where a launch reads its operator and data from.
 With ``pinned=True`` every block of ``tile`` columns computes on the first
 block's columns: the compute-only ceiling, whose result is the first
 block's output repeated.
@@ -51,7 +53,7 @@ from .gemm import (PLAIN_BLOCK_COLS, _dot_bits, _narrow, _widen, coefficients, e
 # (which run nothing then) in CAPTURED, and those the plan layer's graph
 # replays ran in REPLAYED (added by the plan layer).  Every addition holds
 # COUNT_LOCK.
-KINDS = ("sum", "dot", "w4", "w16", "preparity", "copy")
+KINDS = ("sum", "dot", "w4", "w16", "preparity", "preparity_w4_w16", "copy")
 LAUNCHES = dict.fromkeys(KINDS, 0)
 CAPTURED = dict.fromkeys(KINDS, 0)
 REPLAYED = dict.fromkeys(KINDS, 0)
@@ -69,11 +71,17 @@ PAIRS = tuple((e, r) for e in EXPANDS for r in ("sum", "dot"))
 INSTANCES = (tuple((8, e, r) for e in EXPANDS for r in REFOLDS)
              + tuple((16, e, r) for e in WIDE_EXPANDS for r in REFOLDS)
              + tuple((4, e, r) for e in NARROW_EXPANDS for r in REFOLDS))
-# With refold "sum" at w=8 these run gf_planes_sum_kernel, with "dot"
-# gf_planes_dot_kernel.
+# At w=8 these run gf_planes_sum_kernel (refold "sum"), gf_planes_dot_kernel
+# ("dot") and gf_planes_none_kernel ("none"); at w=16 WIDE_EXPANDS run the
+# first two.
 SUM_EXPANDS = ("shift", "shift_raw", "cmp", "sign", "nibble")
-DEFAULT_TILE = 8192
+DEFAULT_TILE = 8192  # columns a block covers by default: gf_planes_kernel, the copy floor
 TILE_STEP = 64  # columns of gf_planes_sum_kernel's warp step; tiles are multiples
+# Columns a block of the sum, dot and none kernels covers by default: with
+# 8192, a grid the card holds at once left SMs idle (w=16's segment: 410
+# blocks), and 1024 was within 3 % of the best tile at every shape timed
+# (tools/k3_tile_sweep.py; PERF.md, section 6).
+MMA_TILE = 1024
 SOURCES = [_build.CSRC / "gf_planes.cu"]
 
 
@@ -85,6 +93,8 @@ def _lib() -> ctypes.CDLL:
         lib.rs_gf_planes.restype = i32
         lib.rs_gf_planes_smem.argtypes = [i32, i32, i32, i32, i32]
         lib.rs_gf_planes_smem.restype = i64
+        lib.rs_gf_planes_route.argtypes = [i32, i32, i32, i32, i32]
+        lib.rs_gf_planes_route.restype = i32
         lib.rs_gf_planes_smem_limit.argtypes = []
         lib.rs_gf_planes_smem_limit.restype = i32
         lib.rs_copy_floor.argtypes = [vp, vp, i32, i32, i64, i32, vp]
@@ -102,27 +112,54 @@ def tile_cols(tile: int | None, m: int) -> int:
     return min(-(-tile // TILE_STEP) * TILE_STEP, max(TILE_STEP, -(-m // TILE_STEP) * TILE_STEP))
 
 
+def block_cols(tile: int | None, m: int, expand: str, refold: str, w: int = 8) -> int:
+    """:func:`tile_cols` for an instance: without a ``tile``, MMA_TILE for
+    the sum, dot and none kernels, DEFAULT_TILE for the others."""
+    if tile is None and runs_mma(expand, refold, w):
+        tile = MMA_TILE
+    return tile_cols(tile, m)
+
+
+def _on_mma(expand: str, w: int) -> bool:
+    return (w == 8 and expand in SUM_EXPANDS) or (w == 16 and expand in WIDE_EXPANDS)
+
+
 def is_sum_pair(expand: str, refold: str, w: int = 8) -> bool:
     """Whether (expand, refold) at w runs gf_planes_sum_kernel."""
-    return w == 8 and refold == "sum" and expand in SUM_EXPANDS
+    return refold == "sum" and _on_mma(expand, w)
 
 
 def is_dot_pair(expand: str, refold: str, w: int = 8) -> bool:
     """Whether (expand, refold) at w runs gf_planes_dot_kernel."""
-    return w == 8 and refold == "dot" and expand in SUM_EXPANDS
+    return refold == "dot" and _on_mma(expand, w)
+
+
+def is_none_pair(expand: str, refold: str, w: int = 8) -> bool:
+    """Whether (expand, refold) at w runs gf_planes_none_kernel."""
+    return refold == "none" and w == 8 and expand in SUM_EXPANDS
+
+
+def runs_mma(expand: str, refold: str, w: int = 8) -> bool:
+    """Whether (expand, refold) at w runs the sum, dot or none kernel (on
+    their operator packing), not gf_planes_kernel."""
+    return is_sum_pair(expand, refold, w) or is_dot_pair(expand, refold, w) or is_none_pair(expand, refold, w)
 
 
 def kind(w: int, expand: str, refold: str) -> str:
-    """The count an instance's launch adds to: "sum" (gf_planes_sum_kernel),
-    "dot" (gf_planes_dot_kernel), "preparity" (gf_planes_kernel, refold
-    none), "w16" and "w4" (gf_planes_kernel at w=16 and w=4, folded)."""
+    """The count an instance's launch adds to: "sum" and "dot"
+    (gf_planes_sum_kernel and gf_planes_dot_kernel at w=8), "w16" (the same
+    two kernels at w=16), "preparity" (gf_planes_none_kernel, w=8),
+    "w4" (gf_planes_kernel at w=4, folded) and "preparity_w4_w16"
+    (gf_planes_kernel's pre-parity form at w=4 and 16)."""
+    if w == 16 and refold != "none":
+        return "w16"
     if is_sum_pair(expand, refold, w):
         return "sum"
     if is_dot_pair(expand, refold, w):
         return "dot"
     if refold == "none":
-        return "preparity"
-    return {16: "w16", 4: "w4"}[w]
+        return "preparity" if w == 8 else "preparity_w4_w16"
+    return "w4"
 
 
 def reset_counts() -> None:
@@ -193,19 +230,6 @@ def fold_operator(p: int, w: int = 8) -> np.ndarray:
     return np.kron(np.eye(p, dtype=np.int64), (1 << np.arange(w, dtype=np.int64))[None, :])
 
 
-def fold_operator_split(p: int) -> np.ndarray:
-    """The w=16 kernel's F': (16 * ceil(p/8), p*16), in tiles of 8 symbols.
-    Row 16f + g holds 2^s at column i*16 + s for s < 8 and row 16f + 8 + g
-    2^(s-8) for s >= 8, where i = 8f + g: the low and high bytes of symbol
-    i, each a sum below 256."""
-    F = np.zeros((16 * -(-p // 8), p * 16), dtype=np.int64)
-    for i in range(p):
-        f, g = divmod(i, 8)
-        F[16 * f + g, i * 16:i * 16 + 8] = 1 << np.arange(8)
-        F[16 * f + 8 + g, i * 16 + 8:i * 16 + 16] = 1 << np.arange(8)
-    return F
-
-
 def _operator_bits(A: np.ndarray, expand: str, w: int = 8, device=None) -> torch.Tensor:
     if expand == "nibble":
         return expand_nibblematrix(A, 8, device)
@@ -243,7 +267,7 @@ def gf_matmul_planes_plain(A, B: torch.Tensor, expand: str, refold: str, tile: i
     k, m = B.shape
     A = coefficients(A, k, w)
     if pinned:
-        t = min(tile_cols(tile, m), m)
+        t = min(block_cols(tile, m, expand, refold, w), m)
         first = _widen(gf_matmul_planes_plain(A, B[:, :t], expand, refold, w=w))
         picked = first[:, torch.arange(m, device=B.device) % max(t, 1)]
         return picked if refold == "none" else _narrow(picked, w)
@@ -286,31 +310,39 @@ def pack_fragments(op: np.ndarray, rows: int, depth: int) -> np.ndarray:
     return np.ascontiguousarray(x).reshape(mt, kc, 32, 4, 4).view("<u4").reshape(mt, kc, 32, 4)
 
 
-def sum_operator(A: np.ndarray) -> np.ndarray:
-    """gf_planes_sum_kernel's operator: the (p*8, k*8) bit operator with
-    row i*8 + s times 2^s, zero-padded to (16 * mt, 32 * kc) uint8 with mt
-    even (the kernel runs m-tiles in pairs), its columns in four-symbol
-    plane-word order: depth 32c + 16h + 4t + q of chunk c is plane 4h + t
-    of symbol 4c + q."""
+def sum_operator(A: np.ndarray, w: int = 8, scaled: bool = True) -> np.ndarray:
+    """The sum, dot and none kernels' operator: the (p*w, k*w) bit operator
+    read as the (p'*8, k'*8) one over byte-symbols (p' = p, k' = k at w=8;
+    2p, 2k at w=16, a symbol's low byte then its high byte), with row
+    i*8 + s times 2^s (``scaled``; the none kernel's is 0/1), zero-padded
+    to (16 * mt, 32 * kc) uint8 with mt even (the kernels run m-tiles in
+    pairs), its columns in four-symbol plane-word order: depth
+    32c + 16h + 4t + q of chunk c is plane 4h + t of byte-symbol 4c + q."""
     p, k = A.shape
-    mt, kc = 2 * -(-p // 4), -(-k // 4)
-    op = expand_bitmatrix(A, 8).numpy().astype(np.int64) << np.tile(np.arange(8), p)[:, None]
+    p8, k8 = p * w // 8, k * w // 8
+    mt, kc = 2 * -(-p8 // 4), -(-k8 // 4)
+    op = expand_bitmatrix(A, w).numpy().astype(np.int64)
+    if scaled:
+        op <<= np.tile(np.arange(8), p8)[:, None]
     padded = np.zeros((16 * mt, kc, 4, 8), dtype=np.uint8)  # (row, c, q, s)
-    padded[:p * 8].reshape(p * 8, 4 * kc, 8)[:, :k] = op.reshape(p * 8, k, 8)
+    padded[:p8 * 8].reshape(p8 * 8, 4 * kc, 8)[:, :k8] = op.reshape(p8 * 8, k8, 8)
     # s = 4h + t -> (c, h, t, q)
     return np.ascontiguousarray(padded.reshape(16 * mt, kc, 4, 2, 4).transpose(0, 1, 3, 4, 2)).reshape(16 * mt, 32 * kc)
 
 
-def nibble_operator(A: np.ndarray) -> np.ndarray:
-    """The sum and dot kernels' nibble operator: the (p*8, k*32)
-    one-hot-nibble operator with row i*8 + s times 2^s, zero-padded to
-    (16 * mt, 32 * nc) uint8 (mt even, nc: k rounded up to pairs), its
-    columns in the PRMT tables' order: depth 32c + 16h + 4t + q of chunk
-    c = 2j + e is one-hot plane v = 8e + 4h + t of symbol 2j + q // 2's low
-    (q even) or high (q odd) nibble."""
+def nibble_operator(A: np.ndarray, scaled: bool = True) -> np.ndarray:
+    """The sum, dot and none kernels' nibble operator: the (p*8, k*32)
+    one-hot-nibble operator with row i*8 + s times 2^s (``scaled``; the
+    none kernel's is 0/1), zero-padded to (16 * mt, 32 * nc) uint8 (mt
+    even, nc: k rounded up to pairs), its columns in the PRMT tables'
+    order: depth 32c + 16h + 4t + q of chunk c = 2j + e is one-hot plane
+    v = 8e + 4h + t of symbol 2j + q // 2's low (q even) or high (q odd)
+    nibble."""
     p, k = A.shape
     mt, nc = 2 * -(-p // 4), 2 * -(-k // 2)
-    op = expand_nibblematrix(A, 8).numpy().astype(np.int64) << np.tile(np.arange(8), p)[:, None]
+    op = expand_nibblematrix(A, 8).numpy().astype(np.int64)
+    if scaled:
+        op <<= np.tile(np.arange(8), p)[:, None]
     j, e, h, t, q = np.meshgrid(*(np.arange(n) for n in (nc // 2, 2, 2, 4, 4)), indexing="ij")
     sym, v = (2 * j + q // 2).ravel(), (8 * e + 4 * h + t).ravel()
     col = sym * 32 + np.where(q.ravel() % 2, v, 16 + v)  # high nibble's one-hot first, as the operator has it
@@ -342,30 +374,29 @@ def dot_fold_operator() -> np.ndarray:
     return frag.reshape(2, 32, 2, 4).view("<u4")[..., 0]
 
 
-def _dims(k: int, p: int, expand: str, w: int = 8) -> tuple[int, int, int, int]:
-    """(mt, kc, mf, kf): the operator's 16-row m-tiles and 32-deep chunks,
-    and F's (16 symbols a tile at w=8; F' holds 8 a tile at w=16)."""
+def _dims(k: int, p: int, w: int) -> tuple[int, int, int, int]:
+    """gf_planes_kernel's (mt, kc, mf, kf): the operator's 16-row m-tiles
+    and 32-deep chunks, and F's (16 symbols a tile)."""
     mt = -(-p * w // 16)
-    kc = k if expand == "nibble" else -(-k * w // 32)
-    return mt, kc, -(-p // 8) if w == 16 else -(-p // 16), -(-mt * 16 // 32)
+    return mt, -(-k * w // 32), -(-p // 16), -(-mt * 16 // 32)
 
 
 def _operators(A: np.ndarray, expand: str, refold: str, w: int, device: torch.device):
     def make():
         p, k = A.shape
-        mt, kc, mf, kf = _dims(k, p, expand, w)
         opF = None
-        if is_sum_pair(expand, refold, w) or is_dot_pair(expand, refold, w):
-            op = nibble_operator(A) if expand == "nibble" else sum_operator(A)
-            if refold == "sum":
-                opA = pack_fragments(op, *op.shape)
-            else:
+        if runs_mma(expand, refold, w):
+            scaled = refold != "none"
+            op = nibble_operator(A, scaled) if expand == "nibble" else sum_operator(A, w, scaled)
+            if refold == "dot":
                 opA, opF = pack_b_fragments(op), dot_fold_operator()
+            else:
+                opA = pack_fragments(op, *op.shape)
         else:
+            mt, kc, mf, kf = _dims(k, p, w)
             opA = pack_fragments(_operator_bits(A, expand, w).numpy(), 16 * mt, 32 * kc)
             if refold == "dot":
-                F = fold_operator_split(p) if w == 16 else fold_operator(p, w)
-                opF = pack_fragments(F, 16 * mf, 32 * kf)
+                opF = pack_fragments(fold_operator(p, w), 16 * mf, 32 * kf)
         opA = torch.from_numpy(opA.view(np.int32)).to(device)
         if opF is not None:
             opF = torch.from_numpy(np.ascontiguousarray(opF).view(np.int32)).to(device)
@@ -388,9 +419,23 @@ def _check_data(B: torch.Tensor, what: str, w: int = 8) -> None:
 
 def smem_bytes(k: int, p: int, expand: str, refold: str, w: int = 8) -> tuple[int, int]:
     """(needed, limit): the dynamic shared memory K3 takes at (k, p) for the
-    instance, and the most a block may have, from the kernel library."""
+    instance (by its :func:`route`, with one step buffer a warp), and the
+    most a block may have, from the kernel library."""
     lib = _lib()
     return lib.rs_gf_planes_smem(k, p, w, EXPANDS[expand], REFOLDS[refold]), lib.rs_gf_planes_smem_limit()
+
+
+ROUTES = {0: "smem", 1: "l1", 2: "direct"}
+
+
+def route(k: int, p: int, expand: str, refold: str, w: int = 8) -> str | None:
+    """Where a launch at (k, p) reads from, from the kernel library:
+    "smem" (operator and data staged in shared memory), "l1" (the operator
+    through L1 beside the staged data: nibble's sum and dot kernels past
+    their edge), "direct" (both through L1 from device memory: the w=16
+    sum and dot kernels and the pre-parity kernel past theirs), or None
+    (refused)."""
+    return ROUTES.get(_lib().rs_gf_planes_route(k, p, w, EXPANDS[expand], REFOLDS[refold]))
 
 
 def gf_matmul_planes(A, B: torch.Tensor, expand: str, refold: str, tile: int | None = None,
@@ -401,14 +446,14 @@ def gf_matmul_planes(A, B: torch.Tensor, expand: str, refold: str, tile: int | N
 
     ``A``: (p, k) coefficients; ``B``: (k, m) uint8 (w=4 or 8) or uint16
     (w=16) tensor.  ``tile``: columns per CUDA block (rounded up to a multiple of
-    :data:`TILE_STEP`; default 8192).  Returns (p, m) symbols of B's type,
+    :data:`TILE_STEP`; default :func:`block_cols`).  Returns (p, m) symbols of B's type,
     or for ``refold="none"`` the (p*w, m) int32 accumulators.  An operator
     past the card's shared memory raises ``ValueError`` before any launch.
     """
     _check_pair(expand, refold, w)
     _check_data(B, "gf_matmul_planes", w)
     k, m = B.shape
-    t = tile_cols(tile, m)
+    t = block_cols(tile, m, expand, refold, w)
     if B.device.type == "cpu":
         return gf_matmul_planes_plain(A, B, expand, refold, t, pinned, w)
     A = coefficients(A, k, w)

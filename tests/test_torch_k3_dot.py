@@ -89,16 +89,20 @@ def second_operand(acc: np.ndarray, keep) -> list:
 
 
 def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pinned: bool = False,
-          trace: list | None = None) -> np.ndarray:
-    """NumPy model of gf_planes_dot_kernel<expand>: (p, k) coefficients,
-    (k, m) uint8 -> (p, m) uint8.  ``tile`` as the wrapper rounds it.
-    ``trace`` collects every first-product accumulator after each depth
-    chunk."""
+          trace: list | None = None, direct: bool = False) -> np.ndarray:
+    """NumPy model of gf_planes_dot_kernel<W, expand>: (p, k) coefficients,
+    (k, m) uint8 (W=8) or uint16 (W=16) -> (p, m) of B's type.  ``tile`` as
+    the wrapper rounds it; ``direct``: the rows read from device memory
+    (the w=16 kernel past its shared-memory edge).  ``trace`` collects
+    every first-product accumulator after each depth chunk."""
     p, k = A.shape
     m = B.shape[1]
+    w16 = B.dtype == np.uint16
+    assert not direct or w16  # w=8's dot kernel always stages its rows
+    wd = 16 if w16 else 8
     tile = cuda_planes.tile_cols(tile, m)
     assert tile % STEP == 0
-    opB = cuda_planes.pack_b_fragments(operator(A, expand))  # (2 * npass, kc, 32, 4)
+    opB = cuda_planes.pack_b_fragments(operator(A, expand, wd))  # (2 * npass, kc, 32, 4)
     npass, kc = opB.shape[0] // 2, opB.shape[1]
     assert opB.shape[0] % 2 == 0
     opF = cuda_planes.dot_fold_operator()  # (2, 32, 2)
@@ -106,12 +110,12 @@ def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pi
     steps = warp_steps(m, tile, pinned)
     assert [w for w, _ in steps] == list(range(0, m, STEP))  # every step once, blocks ragged or not
     S = len(steps)
-    words, out = step_buffers(B, steps, p)
+    words, out = step_buffers(B, steps, p, direct)
     writes = np.zeros((p, m), dtype=np.int64)
     keep = np.uint32(0x02010201) << (2 * T).astype(np.uint32)
     col0 = np.array([w for w, _ in steps])
     signed = expand == "sign"
-    chunks = list(chunk_planes(words, k, expand))  # the same registers in every pass
+    chunks = list(chunk_planes(words, k * wd // 8, expand, wd))  # the same registers in every pass
     assert sorted(c for c, _, _ in chunks) == list(range(kc))  # every operator chunk once
     for f in range(-(-npass // 2)):
         o = np.zeros((4, S, 16, 8), dtype=np.int64)
@@ -136,6 +140,20 @@ def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pi
                 o[mb] += np.matmul(a_tile(*second_operand(acc[mb], keep), signed=False), f_tiles[q])
         assert o.min() >= 0 and o.max() < 256
         regs = [c_regs(o[mb]) for mb in range(4)]
+        if w16:  # byte-symbols 8f + 2t, 8f + 2t + 1: the low and high bytes of symbol 4f + t
+            words16 = [low_bytes(regs[mb][h], regs[mb][h + 1], regs[mb + 1][h], regs[mb + 1][h + 1])
+                       for h in (0, 2) for mb in (0, 2)]  # columns 8g + 2i, 8g + 2i + 1 in word i
+            for lane in range(LANES):
+                g, t = lane >> 2, lane & 3
+                sym = 4 * f + t
+                if sym >= p:
+                    continue
+                for b in range(8):
+                    cols = col0 + 8 * g + b
+                    ok = cols < m
+                    out[sym, cols[ok]] = (words16[b // 2][ok, lane] >> np.uint32(16 * (b & 1))) & 0xFFFF
+                    writes[sym, cols[ok]] += 1
+            continue
         for h in range(2):
             lo = low_bytes(*(regs[mb][h] for mb in range(4)))
             hi = low_bytes(*(regs[mb][2 + h] for mb in range(4)))
@@ -150,23 +168,24 @@ def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pi
                     word = lo[:, lane] if b < 4 else hi[:, lane]
                     out[sym, cols[ok]] = (word[ok] >> np.uint32(8 * (b & 3))) & 0xFF
                     writes[sym, cols[ok]] += 1
-    assert (writes == 1).all()  # every output byte written once, by the stores only
+    assert (writes == 1).all()  # every output symbol written once, by the stores only
     return out
 
 
 def test_source_constants():
     """The layout the model reads from the source, the routing of every
-    expansion's dot refold at w=8 to the new kernel, and the W=8 dot pairs
-    gone from gf_planes_kernel's instances."""
-    assert "#define RS_CALL_DOT(E)" in SOURCE and "RS_SUM_EXPANDS(RS_CALL_DOT)" in SOURCE
+    expansion's dot refold at w=8 (and the lane-width ones at w=16) to the
+    new kernel, and the dot pairs gone from gf_planes_kernel's instances
+    but W=4's."""
+    assert "RS_CALL_MMA(8, E, kDot)" in SOURCE and "RS_CALL_MMA(16, E, kDot)" in SOURCE
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32" in SOURCE
     assert "const uint32_t keep = 0x02010201u << (2 * t);" in SOURCE
     instances = re.search(r"#define RS_PLANES_INSTANCES\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
-    w8 = re.findall(r"X\(8, (k\w+), (k\w+)\)", instances)
-    assert w8 and not [e for e, r in w8 if r == "kDot"]
+    assert {w for w, r in re.findall(r"X\((\d+), k\w+, (k\w+)\)", instances) if r == "kDot"} == {"4"}
     assert all(cuda_planes.is_dot_pair(e, "dot") and cuda_planes.kind(8, e, "dot") == "dot"
                for e in EXPANDS + ("nibble",))
-    assert not cuda_planes.is_dot_pair("nibble", "none") and not cuda_planes.is_dot_pair("shift", "dot", 16)
+    assert not cuda_planes.is_dot_pair("nibble", "none") and cuda_planes.is_dot_pair("shift", "dot", 16)
+    assert cuda_planes.kind(16, "shift", "dot") == "w16" and not cuda_planes.is_dot_pair("cmp", "dot", 16)
     assert not cuda_planes.is_dot_pair("shift", "dot", 4) and cuda_planes.kind(4, "shift", "dot") == "w4"
 
 

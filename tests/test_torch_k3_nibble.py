@@ -74,19 +74,20 @@ def _edge(op_in_smem: bool, p: int = 16) -> int:
 def test_source_constants():
     """The kernels build the tables with PTX prmt.b32 (its sign rule; the
     documented __byte_perm reads 3-bit selectors), run nibble through the
-    sum and dot kernels' X-macro, keep its pre-parity form on
-    gf_planes_kernel, count one chunk a symbol, k rounded to pairs, stage
-    the operator in shared memory or read it through L1 (the <kNibble,
-    false> instance), and walk the chunks for both kernels in one loop."""
+    sum, dot and none kernels' X-macro (its pre-parity form no longer on
+    gf_planes_kernel), count one chunk a symbol, k rounded to pairs, stage
+    the operator in shared memory or read it through L1 (the kOpL1 route,
+    folded forms only), and walk the chunks for every kernel in one loop
+    (the sum and none kernels share sum_pass)."""
     assert 'asm("prmt.b32 %0, %1, %2, %3;\\n"' in SOURCE
     assert "const uint32_t e1 = 1u << (8 * t), e8 = 0x80u << (8 * t);" in SOURCE
     assert "return expand == kNibble ? (k + 1) / 2 * 2 : (k + 3) / 4;" in SOURCE
     assert "return OP_SMEM ? op_s[i] : __ldg(op_g + i);" in SOURCE
-    assert "for (int in_smem = 1; in_smem >= (expand == kNibble ? 0 : 1); --in_smem) {" in SOURCE
+    assert "if (expand == kNibble && refold != kNone) {" in SOURCE
     assert SOURCE.count("nibble_chunks(rows, k, e1, e8, [&](int c, const NibbleChunk& chunk) {") == 2
     assert "#define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign) X(kNibble)" in SOURCE
     instances = re.search(r"#define RS_PLANES_INSTANCES\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
-    assert re.findall(r"X\(8, kNibble, (k\w+)\)", instances) == ["kNone"]
+    assert not re.findall(r"X\(8, kNibble, (k\w+)\)", instances)
     assert f"constexpr int kMaxSmem = {SMEM_LIMIT // 1024} * 1024;" in SOURCE
     for refold in ("sum", "dot"):
         assert cuda_planes.is_sum_pair("nibble", refold) == (refold == "sum")

@@ -81,13 +81,14 @@ def transpose4(x0, x1, x2, x3):
     return [byte_perm(a, b, 0x5410), byte_perm(a, b, 0x7632), byte_perm(c, d, 0x5410), byte_perm(c, d, 0x7632)]
 
 
-def plane_word(r, s, expand):
-    """The kernel's ``plane_word<EXPAND>``: plane s (per lane) of the 4
-    symbols in word r."""
+def plane_word(r, s, expand, exact=False):
+    """The kernel's ``plane_word<EXPAND, EXACT>``: plane s (per lane) of the
+    4 symbols in word r; ``exact`` (the none kernel): JAX's values,
+    shift_raw without the next byte's bits."""
     s = np.asarray(s, dtype=np.uint32)
     bit = np.uint32(0x01010101) << s
     if expand == "shift_raw":
-        return r >> s
+        return (r >> s) & ((np.uint32(0xFF) >> s) * np.uint32(0x01010101)) if exact else r >> s
     if expand == "cmp":
         return vcmpne4(r & bit, 0) & np.uint32(0x01010101)
     if expand == "sign":
@@ -115,19 +116,32 @@ def prmt(x, y, sel):
 E1, E8 = np.uint32(1) << (8 * T).astype(np.uint32), np.uint32(0x80) << (8 * T).astype(np.uint32)
 
 
-def chunk_planes(words: np.ndarray, k: int, expand: str):
+def step_words(words: np.ndarray, c: int, w: int = 8) -> np.ndarray:
+    """The kernel's ``step_words<W>`` for chunk c of every step: (GROUPS, S,
+    32) words, r[j] of lane (g, t) column 8g + j, byte q byte-symbol
+    4c + q.  w=8: the LDS.64 of rows 4c..4c+3 and two PRMT transposes;
+    w=16: the LDS.128 of rows 2c and 2c + 1 and 8 PRMT splitting each
+    column's low and high bytes."""
+    if w == 16:
+        x, y = words[:, 2 * c][:, G], words[:, 2 * c + 1][:, G]  # (S, 32, 4)
+        return np.stack([byte_perm(x[..., u], y[..., u], sel) for u in range(4) for sel in (0x5410, 0x7632)])
+    x = [words[:, 4 * c + q][:, G] for q in range(4)]  # LDS.64 of row 4c + q: (S, 32, half)
+    return np.stack(transpose4(*(xq[..., 0] for xq in x)) + transpose4(*(xq[..., 1] for xq in x)))
+
+
+def chunk_planes(words: np.ndarray, k: int, expand: str, w: int = 8, exact: bool = False):
     """The kernels' depth-chunk loop over one step's words (S, rows, g,
-    half): yields (chunk c, pw0, pw1), pw0 and pw1 the plane registers
+    words): yields (chunk c, pw0, pw1), pw0 and pw1 the plane registers
     (GROUPS, S, 32) at depths 4t.. and 16 + 4t.. of each column group.
-    Byte expansions: chunk c is rows 4c..4c+3, planes t and 4 + t.
-    nibble: rows 4b..4b+3 are chunks 4b + 2h' + e (h' = 1 only if row
-    4b + 2 < k), planes 8e + t and 8e + 4 + t of the low (h' = 0) or high
-    16 bits of each transposed word, made by PRMT from lane t's tables."""
+    Byte expansions: chunk c is byte-symbols 4c..4c+3 (k of them), planes
+    t and 4 + t.  nibble: rows 4b..4b+3 are chunks 4b + 2h' + e (h' = 1
+    only if row 4b + 2 < k), planes 8e + t and 8e + 4 + t of the low
+    (h' = 0) or high 16 bits of each transposed word, made by PRMT from
+    lane t's tables; ``exact`` ANDs e = 1's planes to 0/1."""
     for b in range(-(-k // 4)):
-        x = [words[:, 4 * b + q][:, G] for q in range(4)]  # LDS.64 of row 4b + q: (S, 32, half)
-        r = np.stack(transpose4(*(xq[..., 0] for xq in x)) + transpose4(*(xq[..., 1] for xq in x)))
+        r = step_words(words, b, w)
         if expand != "nibble":
-            yield b, plane_word(r, T, expand), plane_word(r, T + 4, expand)
+            yield b, plane_word(r, T, expand, exact), plane_word(r, T + 4, expand, exact)
             continue
         for h2 in range(2):
             if h2 and 4 * b + 2 >= k:
@@ -135,26 +149,36 @@ def chunk_planes(words: np.ndarray, k: int, expand: str):
             sel = r >> np.uint32(16) if h2 else r
             for e in range(2):
                 tab = E8 if e else E1
-                yield 4 * b + 2 * h2 + e, prmt(tab, 0, sel), prmt(0, tab, sel)
+                keep = np.uint32(0x01010101 if exact and e else 0xFFFFFFFF)
+                yield 4 * b + 2 * h2 + e, prmt(tab, 0, sel) & keep, prmt(0, tab, sel) & keep
 
 
-def operator(A: np.ndarray, expand: str) -> np.ndarray:
-    """The sum and dot kernels' host-packed operator for ``expand``."""
-    return cuda_planes.nibble_operator(A) if expand == "nibble" else cuda_planes.sum_operator(A)
+def operator(A: np.ndarray, expand: str, w: int = 8, scaled: bool = True) -> np.ndarray:
+    """The sum, dot and none kernels' host-packed operator for ``expand``."""
+    if expand == "nibble":
+        return cuda_planes.nibble_operator(A, scaled=scaled)
+    return cuda_planes.sum_operator(A, w, scaled=scaled)
 
 
-def step_buffers(B: np.ndarray, steps: list, p: int):
-    """Each warp step's ring buffer as words (S, rows, g, half): rows < k
-    at the read columns below m, the rest whatever the shared memory held;
-    and the output as torch.empty leaves it."""
+def step_buffers(B: np.ndarray, steps: list, p: int, direct: bool = False):
+    """Each warp step's rows as the lanes read them, as words (S, rows, g,
+    words a lane: 2 at w=8, 4 at w=16 where B is uint16): from the ring,
+    rows < k at the read columns below m and the rest whatever the shared
+    memory held; under the direct route zero past k and past m.  And the
+    output as torch.empty leaves it."""
     k, m = B.shape
+    nb = B.dtype.itemsize
     rng = np.random.default_rng(k * 7919 + m)
-    buf = rng.integers(0, 256, size=(len(steps), 4 * -(-k // 4), STEP), dtype=np.uint8)
+    rows = 2 * -(-k // 2) if nb == 2 else 4 * -(-k // 4)
+    buf = rng.integers(0, 256, size=(len(steps), rows, STEP * nb), dtype=np.uint8)
+    if direct:
+        buf[:] = 0
     for i, (_, rcol) in enumerate(steps):
         n = max(0, min(STEP, m - rcol))
-        buf[i, :k, :n] = B[:, rcol:rcol + n]
-    words = buf.reshape(len(steps), buf.shape[1], 8, 2, 4).copy().view("<u4")[..., 0]
-    return words, rng.integers(0, 256, size=(p, m), dtype=np.uint8)
+        buf[i, :k, :n * nb] = np.ascontiguousarray(B[:, rcol:rcol + n]).view(np.uint8).reshape(k, n * nb)
+    words = buf.reshape(len(steps), rows, 8, 2 * nb, 4).copy().view("<u4")[..., 0]
+    out = rng.integers(0, 1 << (8 * nb), size=(p, m)).astype(B.dtype)
+    return words, out
 
 
 def unpack_a_tiles(frags: np.ndarray) -> np.ndarray:
@@ -190,49 +214,89 @@ def warp_steps(m: int, tile: int, pinned: bool):
     return sorted(steps)
 
 
-def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pinned: bool = False,
-          trace: list | None = None) -> np.ndarray:
-    """NumPy model of gf_planes_sum_kernel<expand>: (p, k) coefficients,
-    (k, m) uint8 -> (p, m) uint8.  ``tile`` as the wrapper rounds it.
-    ``trace`` collects every int32 accumulator after each depth chunk."""
+def first_product(A: np.ndarray, B: np.ndarray, expand: str, tile, pinned: bool, w: int = 8,
+                  direct: bool = False, exact: bool = False, trace: list | None = None):
+    """The sum and none kernels' first product: yields per pass (mg, acc,
+    col0, out), acc (2, GROUPS, S, 16, 8) the int32 sums of m-tiles mg and
+    mg + 1 for every warp step (column col0 of the step), and the output
+    array as torch.empty leaves it (shared by every pass).  The operator is
+    unscaled for ``exact`` (the none kernel, JAX's plane values)."""
     p, k = A.shape
     m = B.shape[1]
     tile = cuda_planes.tile_cols(tile, m)
     assert tile % STEP == 0
-    op = operator(A, expand)
+    op = operator(A, expand, w, scaled=not exact)
     mtn, kc = op.shape[0] // 16, op.shape[1] // 32
     assert mtn % 2 == 0  # m-tiles in pairs: a pass has no branch
     a = unpack_a_tiles(cuda_planes.pack_fragments(op, 16 * mtn, 32 * kc))
     steps = warp_steps(m, tile, pinned)
-    assert [w for w, _ in steps] == list(range(0, m, STEP))  # every step once, blocks ragged or not
-    S = len(steps)
-    words, out = step_buffers(B, steps, p)
-    writes = np.zeros((p, m), dtype=np.int64)
-    keep = np.uint32(0x01010101) << G.astype(np.uint32)
-    pick = (G & 3) | (((G & 3) + 4) << 4)
-    col0 = np.array([w for w, _ in steps])
-    chunks = list(chunk_planes(words, k, expand))  # the same registers in every pass
+    assert [c for c, _ in steps] == list(range(0, m, STEP))  # every step once, blocks ragged or not
+    words, out = step_buffers(B, steps, p, direct)
+    col0 = np.array([c for c, _ in steps])
+    chunks = list(chunk_planes(words, k * w // 8, expand, w, exact))  # the same registers in every pass
     assert sorted(c for c, _, _ in chunks) == list(range(kc))  # every operator chunk once
+    signed = expand == "sign" or (exact and expand == "shift_raw")
     for mg in range(0, mtn, 2):
-        acc = np.zeros((2, GROUPS, S, 16, 8), dtype=np.int64)
+        acc = np.zeros((2, GROUPS, len(steps), 16, 8), dtype=np.int64)
         for c, b0, b1 in chunks:
-            bt = b_tile(b0.reshape(-1, LANES), b1.reshape(-1, LANES), expand == "sign").reshape(GROUPS, S, 32, 8)
+            bt = b_tile(b0.reshape(-1, LANES), b1.reshape(-1, LANES), signed).reshape(GROUPS, len(steps), 32, 8)
             for u in range(2):
                 acc[u] += np.matmul(a[mg + u, c], bt)
                 if trace is not None:
                     trace.append(acc[u].copy())
         assert np.abs(acc).max(initial=0) < INT32
+        yield mg, acc, col0, out
+
+
+def sum_refold(acc: np.ndarray) -> list:
+    """The refold's gather, mask and xor-shuffles of one m-tile's sums
+    (GROUPS, S, 16, 8): the 8 group words w[j] (S, 32), byte b of w[j] bit
+    g's OR over g of byte-symbol 2mt + b / 2 at column 16t + 8(b & 1) + j."""
+    keep = np.uint32(0x01010101) << G.astype(np.uint32)
+    acc32 = acc.astype(np.uint32)  # two's complement, as the registers hold it
+    w = []
+    for j in range(GROUPS):
+        c0, c1 = acc32[j][:, G, 2 * T], acc32[j][:, G, 2 * T + 1]
+        c2, c3 = acc32[j][:, G + 8, 2 * T], acc32[j][:, G + 8, 2 * T + 1]
+        v = byte_perm(byte_perm(c0, c1, 0x0040), byte_perm(c2, c3, 0x4000), 0x7610) & keep
+        v |= v[:, IDX ^ 4]
+        v |= v[:, IDX ^ 8]
+        v |= v[:, IDX ^ 16]
+        w.append(v)
+    return w
+
+
+def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pinned: bool = False,
+          trace: list | None = None, direct: bool = False) -> np.ndarray:
+    """NumPy model of gf_planes_sum_kernel<W, expand>: (p, k) coefficients,
+    (k, m) uint8 (W=8) or uint16 (W=16) -> (p, m) of B's type.  ``tile`` as
+    the wrapper rounds it; ``direct``: the rows read from device memory
+    (the w=16 kernel past its shared-memory edge).  ``trace`` collects every
+    int32 accumulator after each depth chunk."""
+    p = A.shape[0]
+    m = B.shape[1]
+    w16 = B.dtype == np.uint16
+    assert not direct or w16  # w=8's sum kernel always stages its rows
+    out = None
+    writes = np.zeros((p, m), dtype=np.int64)
+    pick = (G & 3) | (((G & 3) + 4) << 4)
+    pick16 = 0x6420 + 0x1111 * (G & 1)
+    for mg, acc, col0, out in first_product(A, B, expand, tile, pinned, 16 if w16 else 8, direct, trace=trace):
         for u in range(2):
-            acc32 = acc[u].astype(np.uint32)  # two's complement, as the registers hold it
-            w = []
-            for j in range(GROUPS):
-                c0, c1 = acc32[j][:, G, 2 * T], acc32[j][:, G, 2 * T + 1]
-                c2, c3 = acc32[j][:, G + 8, 2 * T], acc32[j][:, G + 8, 2 * T + 1]
-                v = byte_perm(byte_perm(c0, c1, 0x0040), byte_perm(c2, c3, 0x4000), 0x7610) & keep
-                v |= v[:, IDX ^ 4]
-                v |= v[:, IDX ^ 8]
-                v |= v[:, IDX ^ 16]
-                w.append(v)
+            w = sum_refold(acc[u])
+            if w16:  # m-tile mg + u is one symbol: lanes g < 2 store 8 columns
+                words = [byte_perm(w[2 * i], w[2 * i + 1], pick16) for i in range(4)]
+                for lane in range(LANES):
+                    g, t = lane >> 2, lane & 3
+                    sym = mg + u
+                    if g >= 2 or sym >= p:
+                        continue
+                    for e in range(8):
+                        cols = col0 + 16 * t + 8 * g + e
+                        ok = cols < m
+                        out[sym, cols[ok]] = (words[e // 2][ok, lane] >> np.uint32(16 * (e & 1))) & 0xFFFF
+                        writes[sym, cols[ok]] += 1
+                continue
             lo = byte_perm(byte_perm(w[0], w[1], pick), byte_perm(w[2], w[3], pick), 0x5410)
             hi = byte_perm(byte_perm(w[4], w[5], pick), byte_perm(w[6], w[7], pick), 0x5410)
             for lane in range(LANES):
@@ -246,7 +310,7 @@ def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pi
                     word = lo[:, lane] if e < 4 else hi[:, lane]
                     out[sym, cols[ok]] = (word[ok] >> np.uint32(8 * (e & 3))) & 0xFF
                     writes[sym, cols[ok]] += 1
-    assert (writes == 1).all()  # every output byte written once, by the stores only
+    assert (writes == 1).all()  # every output symbol written once, by the stores only
     return out
 
 
@@ -282,7 +346,9 @@ def _densest_element() -> tuple[int, int]:
 def test_source_constants():
     """The layout the model reads from the source, the wrapper's tile
     granularity, the mma of each expansion, and the pairs the kernel takes
-    over from gf_planes_kernel: every expansion's sum refold at w=8."""
+    over from gf_planes_kernel: every expansion's sum refold at w=8 (and
+    the lane-width ones at w=16, test_torch_k3_w16.py); gf_planes_kernel
+    keeps no w=8 instance."""
     assert (WARPS, GROUPS, STAGES) == (4, 8, 3)
     assert "constexpr int kSumStepCols = 8 * kSumGroups;" in SOURCE
     assert cuda_planes.TILE_STEP == STEP
@@ -290,8 +356,8 @@ def test_source_constants():
     assert "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32" in SOURCE
     assert "#define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign) X(kNibble)" in SOURCE
     instances = re.search(r"#define RS_PLANES_INSTANCES\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
-    w8 = re.findall(r"X\(8, (k\w+), (k\w+)\)", instances)
-    assert w8 and {r for _, r in w8} == {"kNone"}
+    assert not re.findall(r"X\(8, (k\w+), (k\w+)\)", instances)
+    assert "RS_CALL_MMA(8, E, kSum)" in SOURCE and "RS_SUM_EXPANDS(RS_CALL_W8)" in SOURCE
     assert set(cuda_planes.SUM_EXPANDS) == set(cuda_planes.EXPANDS)
     assert all(cuda_planes.is_sum_pair(e, "sum") for e in cuda_planes.SUM_EXPANDS)
     assert not cuda_planes.is_sum_pair("nibble", "none") and not cuda_planes.is_sum_pair("shift", "dot")

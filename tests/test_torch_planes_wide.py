@@ -8,10 +8,12 @@ inputs: the folded symbols exactly and against ``GaloisField.matmul``; the
 pre-parity sums value for value against JAX's with ``acc_dtype=int8`` (the
 TPU's production contract, which the card's int8 tensor cores reproduce)
 and against its default accumulator mod 2 (``shift_raw``'s sums depend on
-the accumulator; their parity does not).  The CUDA kernel runs only on the
-card (chip_smoke.py phase 7); here a NumPy model of ``csrc/gf_planes.cu``
-at the level of mma fragments checks its w=16 loads, expansions and
-refolds (F' for dot) and the pre-parity stores."""
+the accumulator; their parity does not).  The CUDA kernels run only on the
+card (chip_smoke.py phase 7); here NumPy models of ``csrc/gf_planes.cu``
+at the level of mma fragments check each instance's kernel: the sum and
+dot kernels at w=16 (``test_torch_k3_w16.py``), the none kernel at w=8
+(``test_torch_k3_preparity.py``) and gf_planes_kernel's pre-parity form
+at w=16 (its two-symbol chunks and int32 stores, modelled here)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,9 @@ from gpu_rscode_torch.ops import cuda_gemm, cuda_planes
 from gpu_rscode_torch.ops.gemm import from_bitplanes, to_numpy, to_tensor
 from gpu_rscode_tpu.ops.gf import get_field
 from gpu_rscode_tpu.ops.pallas_gemm import gf_matmul_pallas
+from test_torch_k3_dot import model as dot_model
+from test_torch_k3_preparity import model as none_model
+from test_torch_k3_sum import model as sum_model
 from test_torch_planes import _a_matrix, _b_matrix, _expand4
 
 JAX_NAMES = ["shift", "shift_raw", "packed32", "sign16", "shift_u8", "nibble_const", "nibble32", "sign", "nibble"]
@@ -100,8 +105,9 @@ def test_instances_and_refusals():
         (4, e, r) for e in ("shift", "shift_raw") for r in ("sum", "dot", "none")}
     assert [cuda_planes.kind(*i) for i in ((8, "shift", "sum"), (8, "nibble", "sum"), (16, "shift", "sum"),
                                            (16, "sign", "none"), (8, "cmp", "none"), (8, "shift_raw", "dot"),
-                                           (8, "nibble", "dot"), (4, "shift", "dot"), (4, "shift_raw", "none"))] == [
-        "sum", "sum", "w16", "preparity", "preparity", "dot", "dot", "w4", "preparity"]
+                                           (8, "nibble", "dot"), (4, "shift", "dot"), (4, "shift_raw", "none"),
+                                           (16, "sign", "dot"))] == [
+        "sum", "sum", "w16", "preparity_w4_w16", "preparity", "dot", "dot", "w4", "preparity_w4_w16", "w16"]
     A, B = _operands(2, 3, 64, 16, 85)
     for expand in ("cmp", "nibble"):
         with pytest.raises(ValueError, match="byte-granular"):
@@ -112,34 +118,60 @@ def test_instances_and_refusals():
         cuda_planes.gf_matmul_planes(A % 16, torch.zeros((3, 64), dtype=torch.uint8), "shift", "sum", w=2)
 
 
-def test_fold_operator_split():
-    """F' at w=16: per symbol a low-byte row (2^s, s < 8) and a high-byte
-    row (2^(s-8), s >= 8), in tiles of 8 symbols; lo | hi << 8 is F's
-    2^s weighting."""
+def test_w16_dot_folds_bytes_with_the_w8_f():
+    """The w=16 dot kernel's F is w=8's over 2p byte-symbols: byte-symbol
+    2i weighs bits 0-7 of symbol i by 2^s and 2i + 1 bits 8-15 by 2^(s-8),
+    each a sum below 256, and lo | hi << 8 is fold_operator(p, 16)'s
+    2^s weighting; gf_planes_kernel's F keeps 16 symbols a tile."""
     for p in (1, 8, 9, 17):
-        Fs = cuda_planes.fold_operator_split(p)
-        assert Fs.shape == (16 * -(-p // 8), 16 * p) and Fs.max() <= 128
-        rows = np.array([16 * (i // 8) + i % 8 for i in range(p)])
-        np.testing.assert_array_equal(Fs[rows] + (Fs[rows + 8] << 8), cuda_planes.fold_operator(p, 16))
-        assert cuda_planes._dims(10, p, "shift", 16) == (p, 5, -(-p // 8), -(-p * 16 // 32))
+        F8 = cuda_planes.fold_operator(2 * p, 8)
+        assert F8.max() <= 128 and F8.sum(axis=1).max() < 256
+        np.testing.assert_array_equal(F8[0::2] + (F8[1::2] << 8), cuda_planes.fold_operator(p, 16))
+        assert cuda_planes._dims(10, p, 16) == (p, 5, -(-p // 16), -(-p * 16 // 32))
 
 
-# --- NumPy model of gf_planes_kernel at w=16 and with refold none -----------
+@pytest.mark.parametrize("w", [4, 8, 16])
+def test_operators_are_each_kernels_packing(w):
+    """The wrapper's device operators for every instance are the packing
+    its kernel's model reads: the sum, dot and none kernels' operator
+    (scaled but for none; B fragments and F for dot), gf_planes_kernel's
+    bit operator (and its F at w=4)."""
+    p, k = 5, 7
+    A = np.random.default_rng(88 + w).integers(0, 1 << w, size=(p, k))
+    for iw, expand, refold in cuda_planes.INSTANCES:
+        if iw != w:
+            continue
+        opA, opF = cuda_planes._operators(A, expand, refold, w, torch.device("cpu"))
+        if cuda_planes.runs_mma(expand, refold, w):
+            op = (cuda_planes.nibble_operator(A, scaled=refold != "none") if expand == "nibble"
+                  else cuda_planes.sum_operator(A, w, scaled=refold != "none"))
+            want = cuda_planes.pack_b_fragments(op) if refold == "dot" else cuda_planes.pack_fragments(op, *op.shape)
+            want_f = cuda_planes.dot_fold_operator() if refold == "dot" else None
+        else:
+            mt, kc, mf, kf = cuda_planes._dims(k, p, w)
+            want = cuda_planes.pack_fragments(cuda_planes._operator_bits(A, expand, w).numpy(), 16 * mt, 32 * kc)
+            want_f = cuda_planes.pack_fragments(cuda_planes.fold_operator(p, w), 16 * mf, 32 * kf) if refold == "dot" \
+                else None
+        np.testing.assert_array_equal(opA.numpy().view(np.uint32).reshape(want.shape), want.view(np.uint32),
+                                      err_msg=f"w={w} {expand}+{refold}")
+        if want_f is None:
+            assert opF is None
+        else:
+            np.testing.assert_array_equal(opF.numpy().view(np.uint32).reshape(want_f.shape), want_f.view(np.uint32))
+    assert cuda_planes.runs_mma("shift", "none", 8) and not cuda_planes.runs_mma("shift", "none", 16)
 
-def _emulate(A, B, expand, refold, tile, w, pinned=False):
-    """gf_planes_kernel<W, EXPAND, REFOLD> lane by lane: the w=16 two-symbol
-    chunks (rows 2c, 2c + 1 at bits 4t..4t+3), the w=8 four-symbol ones, the
-    sum refold's xor-shuffles and w=16 stores, the dot refold's parity bits
-    through shared memory and F' (w=16), and refold none's int32 stores."""
+
+# --- NumPy model of gf_planes_kernel's pre-parity form at w=16 ----------------
+
+def _emulate(A, B, expand, tile, pinned=False):
+    """gf_planes_kernel<16, EXPAND, none> lane by lane: the two-symbol
+    chunks (rows 2c, 2c + 1 at bits 4t..4t+3) and the int32 stores."""
     k, m = B.shape
     p = A.shape[0]
-    mt, kc, mf, kf = cuda_planes._dims(k, p, expand, w)
-    opA = cuda_planes.pack_fragments(cuda_planes._operator_bits(A, expand, w).numpy(), 16 * mt, 32 * kc)
-    F = cuda_planes.fold_operator(p) if w == 8 else cuda_planes.fold_operator_split(p)
-    opF = cuda_planes.pack_fragments(F, 16 * mf, 32 * kf)
+    mt, kc, _, _ = cuda_planes._dims(k, p, 16)
+    opA = cuda_planes.pack_fragments(cuda_planes._operator_bits(A, expand, 16).numpy(), 16 * mt, 32 * kc)
     Am = [[_a_matrix(opA[i, c]) for c in range(kc)] for i in range(mt)]
-    Fm = [[_a_matrix(opF[i, c]) for c in range(kf)] for i in range(mf)]
-    C = np.full((p * w if refold == "none" else p, m), -(1 << 40), dtype=np.int64)
+    C = np.full((p * 16, m), -(1 << 40), dtype=np.int64)
 
     def sym(row, col):
         return int(B[row, col]) if row < k and col < m else 0
@@ -147,7 +179,6 @@ def _emulate(A, B, expand, refold, tile, w, pinned=False):
     for blk0 in range(0, m, tile):
         for base in range(blk0, min(m, blk0 + tile), 32):
             rbase = base - (blk0 if pinned else 0)
-            bits = np.zeros((32, 32 * kf), dtype=np.int64)  # [column 4n + j, row]
             for i in range(mt):
                 acc = {j: np.zeros((16, 8), dtype=np.int64) for j in range(4)}
                 for c in range(kc):
@@ -156,67 +187,39 @@ def _emulate(A, B, expand, refold, tile, w, pinned=False):
                         g, t = lane >> 2, lane & 3
                         for j in range(4):
                             col = rbase + 4 * g + j
-                            if w == 16:
-                                pair = (sym(2 * c, col), sym(2 * c + 1, col))
-                                regs[j].append(tuple(_expand4(b, 4 * t, expand) for b in pair))
-                            elif expand == "nibble":
-                                b = sym(c, col)
-                                hi, lo = b >> 4, b & 0xF
-                                regs[j].append(((1 << (8 * (hi & 3))) if hi >> 2 == t else 0,
-                                                (1 << (8 * (lo & 3))) if lo >> 2 == t else 0))
-                            else:
-                                s0 = (t & 1) * 4
-                                regs[j].append((_expand4(sym(c * 4 + (t >> 1), col), s0, expand),
-                                                _expand4(sym(c * 4 + 2 + (t >> 1), col), s0, expand)))
+                            pair = (sym(2 * c, col), sym(2 * c + 1, col))
+                            regs[j].append(tuple(_expand4(b, 4 * t, expand) for b in pair))
                     for j in range(4):
                         acc[j] += Am[i][c] @ _b_matrix(regs[j], signed=True)
                 for j in range(4):
                     for n in range(8):
                         col = base + 4 * n + j
-                        if refold == "none":
-                            for r in range(16):
-                                if 16 * i + r < p * w and col < m:
-                                    C[16 * i + r, col] = acc[j][r, n]
-                        elif refold == "dot":
-                            bits[4 * n + j, 16 * i:16 * i + 16] = acc[j][:, n] & 1
-                    if refold == "sum":  # w=16 only here: m-tile i is symbol i
-                        for t in range(4):
-                            v = 0
-                            for g in range(8):
-                                d = acc[j][:, 2 * t:2 * t + 2]
-                                v |= ((d[g, 0] & 1) | (d[g, 1] & 1) << 8 | (d[g + 8, 0] & 1) << 16
-                                      | (d[g + 8, 1] & 1) << 24) << g
-                            for off, val in ((0, (v & 0xFF) | ((v >> 8) & 0xFF00)),
-                                             (4, ((v >> 8) & 0xFF) | ((v >> 16) & 0xFF00))):
-                                if base + 8 * t + off + j < m:
-                                    C[i, base + 8 * t + off + j] = val
-            if refold == "dot":
-                for f in range(mf):
-                    for j in range(4):
-                        out = sum(Fm[f][c] @ bits[[4 * g + j for g in range(8)], 32 * c:32 * c + 32].T
-                                  for c in range(kf))
-                        for t in range(4):
-                            for n, off in ((2 * t, 0), (2 * t + 1, 4)):
-                                col = base + 8 * t + off + j
-                                for g in range(8 if w == 16 else 16):
-                                    s = (8 if w == 16 else 16) * f + g
-                                    if s < p and col < m:
-                                        C[s, col] = ((out[g, n] & 0xFF) | (out[g + 8, n] & 0xFF) << 8 if w == 16
-                                                     else out[g, n] & 0xFF)
+                        for r in range(16):
+                            if 16 * i + r < p * 16 and col < m:
+                                C[16 * i + r, col] = acc[j][r, n]
     return C
+
+
+def _kernel_model(A, B, expand, refold, w, tile, pinned=False):
+    """The model of the kernel that runs (w, expand, refold)."""
+    if w == 16 and refold == "none":
+        return _emulate(A, B, expand, tile, pinned)
+    if refold == "none":
+        return none_model(A, B, expand, tile, pinned)
+    return (sum_model if refold == "sum" else dot_model)(A, B, expand, tile, pinned).astype(np.int64)
 
 
 @pytest.mark.parametrize("expand,refold,w", [(e, r, 16) for e in cuda_planes.WIDE_EXPANDS
                                              for r in ("sum", "dot", "none")]
                          + [(e, "none", 8) for e in cuda_planes.EXPANDS])
 def test_kernel_model_matches_plain(expand, refold, w):
-    """Odd p (w=8's half m-tile of padding rows is not stored), odd k (a
-    w=16 chunk whose second symbol is past k), a ragged edge, and p past
-    one F' tile at w=16."""
+    """Odd p (a padded m-tile, not stored), odd k (a w=16 chunk whose second
+    symbol is past k), a ragged edge, and p past one 4-symbol dot tile at
+    w=16, through the model of the kernel that runs each instance."""
     p, k, m = (9, 3, 70) if w == 16 and refold == "dot" else (3, 5, 70)
     A, B = _operands(p, k, m, w, 86)
     want = cuda_planes.gf_matmul_planes_plain(A, to_tensor(B), expand, refold, w=w)
-    np.testing.assert_array_equal(_emulate(A, B, expand, refold, 64, w), _widen64(want))
+    np.testing.assert_array_equal(_kernel_model(A, B, expand, refold, w, 64), _widen64(want))
 
 
 def test_kernel_model_w16_pinned_and_largest_sums():
@@ -225,13 +228,13 @@ def test_kernel_model_w16_pinned_and_largest_sums():
     the densest element of the w=16 field."""
     A, B = _operands(2, 4, 100, 16, 87)
     want = get_field(16).matmul(A, B)
-    np.testing.assert_array_equal(_emulate(A, B, "shift_raw", "sum", 64, 16, pinned=True),
+    np.testing.assert_array_equal(_kernel_model(A, B, "shift_raw", "sum", 16, 64, pinned=True),
                                   want[:, np.arange(100) % 64])
     dense = int(get_field(16).bitmats.sum(axis=2).max(axis=1).argmax())
     A = np.full((2, 3), dense, dtype=np.uint16)
     B = np.full((3, 40), 0xFFFF, dtype=np.uint16)
     for refold in ("none", "dot"):
-        got = _emulate(A, B, "shift_raw", refold, 64, 16)
+        got = _kernel_model(A, B, "shift_raw", refold, 16, 64)
         want = cuda_planes.gf_matmul_planes_plain(A, to_tensor(B), "shift_raw", refold, w=16)
         np.testing.assert_array_equal(got, _widen64(want))
 

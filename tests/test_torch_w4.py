@@ -266,7 +266,7 @@ def emulate_planes4(A, B, expand, refold, tile, pinned=False):
     refold none's int32 stores."""
     k, m = B.shape
     p = A.shape[0]
-    mt, kc, mf, kf = cuda_planes._dims(k, p, expand, 4)
+    mt, kc, mf, kf = cuda_planes._dims(k, p, 4)
     opA = cuda_planes.pack_fragments(cuda_planes._operator_bits(A, expand, 4).numpy(), 16 * mt, 32 * kc)
     opF = cuda_planes.pack_fragments(cuda_planes.fold_operator(p, 4), 16 * mf, 32 * kf)
     Am = [[_a_matrix(opA[i, c]) for c in range(kc)] for i in range(mt)]
@@ -363,7 +363,7 @@ def test_planes_w4_dims_and_refusals():
     """W=4's m-tiles are 4 symbols and its depth chunks 8; F holds 2^s up to
     8 in tiles of 16 symbols; sign and the byte-granular expansions are
     refused at w=4, and the data must be uint8."""
-    assert cuda_planes._dims(10, 5, "shift", 4) == (2, 2, 1, 1)
+    assert cuda_planes._dims(10, 5, 4) == (2, 2, 1, 1)
     assert cuda_planes.fold_operator(3, 4).max() == 8
     A, B = _operands(2, 3, 64, 14)
     with pytest.raises(ValueError, match="lane-width"):
