@@ -254,14 +254,16 @@ Phases, each fatal on failure:
      symbol 0xFFFF, the densest element); per instance at p=16 the largest
      k its staged route takes and the next (the route through L1, or the
      ValueError with no launch), the largest k each instance the sum, dot
-     and none kernels took over from gf_planes_kernel had, and w=16 at k =
-     16,400 (sums past 2^31); the pre-parity form (refold none) of every
-     instance at w=4, 8 (gf_planes_none_kernel) and 16, exact int32, with
-     the stripe mesh's k=32, p=16; the public dispatch of every JAX name at
-     w=16 (refold none, sum, dot, autotune) and with fold_parity=False;
-     K3's six W=4 instances (shift, shift_raw x sum, dot, none) at k 1-33,
-     p 1-17, m 37-100,003, pinned, at their largest sums and through the
-     public dispatch (bytes with the high nibble set); the dot refold of
+     and none kernels took over from the retired generic kernel had (w=4
+     and w=16's pre-parity form included), and w=16 at k = 16,400 (sums
+     past 2^31); the pre-parity form (refold none) of every instance at
+     w=4, 8 and 16 (gf_planes_none_kernel), exact int32, with the stripe
+     mesh's k=32, p=16; the public dispatch of every JAX name at w=16
+     (refold none, sum, dot, autotune) and with fold_parity=False; K3's six
+     W=4 instances (shift, shift_raw x sum, dot, none: the sum, dot and
+     none kernels) at k 1-33, p 1-17, m 37-100,003, pinned, at their
+     largest sums and through the public dispatch (bytes with the high
+     nibble set); the dot refold of
      every w=8 expansion (gf_planes_dot_kernel) on the dot pairs' grid, at
      depths 1-33, p 1-16, its largest sums, and the largest k that fits at
      p=16 with the refusal one past it; and nibble on the sum and dot
@@ -307,15 +309,18 @@ Phases, each fatal on failure:
      replays, the calibrated choices, rs_pallas_autotune_total and the
      plans' refolds logged; under RS_PALLAS_EXPAND=shift_raw the same file
      encoded on a (2, 1) stripe mesh of the card (K3's pre-parity form,
-     gf_planes_none_kernel alone; the archive equal to phase 4's); under RS_PALLAS_EXPAND=pack2 its
-     encode through K2 captured into the plans' graphs (equal to phase
-     4's); a 256 MiB w=16 CLI round trip under RS_PALLAS_REFOLD=
-     autotune (the sum and dot kernels at w=16, inside replays too, and no
-     gf_planes_kernel); RSCodec(10, 4,
-     w=4) on the card (encode, decode with the first 4 natives lost, an
-     update) on staged 64 MiB segments, three times each, under no knob
-     (K1) and under RS_PALLAS_EXPAND=shift_raw (K3 at W=4, sum), each
-     against K1's plain version and inside graph replays; and a seeded
+     gf_planes_none_kernel alone; the archive equal to phase 4's), and a
+     seeded 256 MiB w=16 file the same way (the none kernel at w=16; the
+     archive equal to K1's of the same file); under RS_PALLAS_EXPAND=pack2
+     its encode through K2 captured into the plans' graphs (equal to phase
+     4's); a 256 MiB w=16 CLI round trip under RS_PALLAS_REFOLD=autotune
+     (the sum and dot kernels at w=16, inside replays too, and no other K3
+     kernel); RSCodec(10, 4, w=4) on the card (encode, decode with the
+     first 4 natives lost, an update) on staged 64 MiB segments, three
+     times each, under no knob (K1), under RS_PALLAS_EXPAND=shift_raw (K3
+     at W=4: the sum kernel) and under it with RS_PALLAS_REFOLD=dot (the
+     dot kernel), each against K1's plain version and inside graph
+     replays; and a seeded
      256 MiB w=8 file encoded under no knob (K1) and then under
      RS_PALLAS_EXPAND=shift_raw alone (the dot refold: gf_planes_dot_kernel,
      inside replays), the two archives byte-identical, then decoded with
@@ -328,12 +333,12 @@ Phases, each fatal on failure:
      nibble+sum pinned) and the copy floor timed at
      the main path's encode segment next to the bound, the plain version
      and, for the copy floor, B[:p].clone() (which moves 2·p·m bytes, not
-     the floor's (k + p)·m); K3's w=16 pairs at the w=16 encode segment
-     (m = 3,355,392) and its pre-parity form at the w=8 segment (bound: B
-     read and the int32 sums written once); K1 in both forms and K3's six
-     W=4 instances at w=4 on the same bytes (one symbol a byte); K2 and
-     K3's sum, dot and none kernels (w=16 too) beside the instruction
-     estimate of their designs and the tensor-core bound of their product
+     the floor's (k + p)·m); K3's w=16 pairs and pre-parity form at the
+     w=16 encode segment (m = 3,355,392) and its pre-parity form at the w=8
+     segment (bound: B read and the int32 sums written once); K1 in both
+     forms and K3's six W=4 instances at w=4 on the same bytes (one symbol
+     a byte); K2 and every K3 row beside the instruction estimate of its
+     design and the tensor-core bound of its product
      (nibble's k*32 planes: past the bytes bound), each row with the tile
      it ran at.  tools/k3_timings_ab.py runs this phase in a parent tree
      and this one in turns.
@@ -503,9 +508,14 @@ def _k3_depth(k: int, expand: str, w: int = 8, exact: bool = False) -> tuple[int
     expansions then make one chunk's 16 plane registers, nibble shifts the
     8 words' high halves (8) and makes 16 a chunk in 2-4 chunks (one a
     symbol, k rounded up to pairs).  At w=16 a chunk is two rows (2
-    LDS.128 and 8 PRMT that split the bytes) and 16 plane registers.
+    LDS.128 and 8 PRMT that split the bytes) and 16 plane registers.  At
+    w=4 a chunk is 8 rows: per four rows read (none past k) the same 4
+    LDS.64 and 16 PRMT and 8 plane registers (plane t alone; the dot
+    kernel also makes the zero words' planes past k, not counted).
     ``exact``: the pre-parity form's plane values."""
     ops = (K3_EXACT_PLANE_OPS if exact else K3_PLANE_OPS)[expand]
+    if w == 4:
+        return -(-k // 4) * (4 + 16 + 8 * ops), -(-k // 8)
     if w == 16:
         chunks = -(-k // 2)
         return chunks * (2 + 8 + 16 * ops), chunks
@@ -528,19 +538,20 @@ def k3_ops_per_col(p: int, k: int, expand: str, w: int = 8) -> float:
     measurement: thread instructions per column besides the mma, for the
     sum refold.  A warp step covers 64 columns as 8 mma column groups.  Per
     step it copies its k rows (_k3_copies).  Per pass over a pair of
-    m-tiles it zeroes 64 accumulators (32) and controls its loop (10), runs
-    the depth (_k3_depth) and reads one A fragment per chunk and m-tile.
-    Per m-tile it refolds 8 groups at 10 instructions each (3 PRMT, a mask,
-    3 shuffles, 3 OR) and stores: w=8, 6 PRMT, its address and one 8-byte
+    m-tiles (at w=4 the last one may run alone) it zeroes 64 accumulators
+    (32) and controls its loop (10), runs the depth (_k3_depth) and reads
+    one A fragment per chunk and m-tile.  Per m-tile it refolds 8 groups
+    at 10 instructions each (3 PRMT, a mask, 3 shuffles, 3 OR; w=4: 2
+    shuffles, 8) and stores: w=4 and 8, 6 PRMT, its address and one 8-byte
     store (10); w=16 (an m-tile a symbol), 4 PRMT, its address and one
     16-byte store (8).  Each instruction runs on 32 threads, over 64
     columns."""
     groups, step = 8, 64
-    mt = -(-p * 8 // 16) if w == 8 else p
+    mt = -(-p * w // 16)
     passes = -(-mt // 2)
     depth, chunks = _k3_depth(k, expand, w)
-    warp_instr = (_k3_copies(k, w) + passes * (32 + 10) + passes * depth + chunks * mt
-                  + mt * (10 * groups + (10 if w == 8 else 8)))
+    warp_instr = (_k3_copies(k, max(w, 8)) + passes * (32 + 10) + passes * depth + chunks * mt
+                  + mt * ((8 if w == 4 else 10) * groups + (8 if w == 16 else 10)))
     return warp_instr * 32 / step
 
 
@@ -562,29 +573,31 @@ def k3_dot_ops_per_col(p: int, k: int, expand: str, w: int = 8) -> float:
     mask each, 64).  Per 8-byte-symbol output tile it zeroes 16 sums (8),
     controls its loop (10) and stores: w=8, 2 symbols with 6 PRMT, an
     address and a test and one 8-byte store each (22); w=16, one symbol
-    with 12 PRMT, an address, a test and one 16-byte store (15).  Each
-    instruction runs on 32 threads, over 64 columns."""
+    with 12 PRMT, an address, a test and one 16-byte store (15).  At w=4 a
+    pass (8 symbols) is a whole output tile.  Each instruction runs on 32
+    threads, over 64 columns."""
     step = 64
-    mt = cuda_planes.sum_operator(np.zeros((p, 1), dtype=np.uint8 if w == 8 else np.uint16), w).shape[0] // 16
-    passes, tiles = mt // 2, -(-mt // 4)
+    mt = cuda_planes.sum_operator(np.zeros((p, 1), dtype=np.uint16 if w == 16 else np.uint8), w).shape[0] // 16
+    passes = mt // 2
+    tiles = passes if w == 4 else -(-mt // 4)
     depth, chunks = _k3_depth(k, expand, w)
-    warp_instr = (_k3_copies(k, w) + tiles * (8 + 10 + (22 if w == 8 else 15)) + passes * (32 + 10 + 64)
+    warp_instr = (_k3_copies(k, max(w, 8)) + tiles * (8 + 10 + (15 if w == 16 else 22)) + passes * (32 + 10 + 64)
                   + passes * depth + chunks * mt)
     return warp_instr * 32 / step
 
 
-def k3_none_ops_per_col(p: int, k: int, expand: str) -> float:
+def k3_none_ops_per_col(p: int, k: int, expand: str, w: int = 8) -> float:
     """An estimate from the design of gf_planes_none_kernel, not a
     measurement: thread instructions per column besides the mma, for the
-    pre-parity form at w=8.  The sum kernel's copies, passes and depth with
-    the exact planes (_k3_depth); per pass, instead of the refold, 16
-    STS.128 into the staging rows, two warp barriers, and 16 LDS.128 and
-    16 STG.128 with their loop and addresses (about 16).  Each instruction
+    pre-parity form.  The sum kernel's copies, passes and depth with the
+    exact planes (_k3_depth); per pass, instead of the refold, 16 STS.128
+    into the staging rows, two warp barriers, and 16 LDS.128 and 16
+    STG.128 with their loop and addresses (about 16).  Each instruction
     runs on 32 threads, over 64 columns."""
-    mt = -(-p * 8 // 16)
+    mt = -(-p * w // 16)
     passes = -(-mt // 2)
-    depth, chunks = _k3_depth(k, expand, 8, exact=True)
-    warp_instr = (_k3_copies(k, 8) + passes * (32 + 10) + passes * depth + chunks * 2 * passes
+    depth, chunks = _k3_depth(k, expand, w, exact=True)
+    warp_instr = (_k3_copies(k, max(w, 8)) + passes * (32 + 10) + passes * depth + chunks * mt
                   + passes * (16 + 2 + 16 + 16 + 16))
     return warp_instr * 32 / 64
 
@@ -1672,11 +1685,23 @@ def _limit_case(grids: dict, rng, gen, device, w: int, expand: str, refold: str,
     return cuda_planes.route(k, p, expand, refold, w)
 
 
-# The largest k the generic gf_planes_kernel took, at p=16 and p=1, for the
+# The largest k the retired generic kernel took, at p=16 and p=1, for the
 # instances the sum, dot and none kernels took over from it (w=16 sum /
-# dot, w=8 none, nibble apart): every one must still run.
+# dot / none, w=8 none, nibble apart, w=4 every refold): every one must
+# still run.
 _EARLIER_EDGES = {(16, "sum"): {16: 56, 1: 908}, (16, "dot"): {16: 38, 1: 874},
-                 (8, "none"): {16: 224, 1: 1816}, (8, "nibble+none"): {16: 56, 1: 454}}
+                 (8, "none"): {16: 224, 1: 1816}, (8, "nibble+none"): {16: 56, 1: 454},
+                 (16, "none"): {16: 56, 1: 908}, (4, "sum"): {16: 904, 1: 3632}, (4, "dot"): {16: 840, 1: 3496},
+                 (4, "none"): {16: 904, 1: 3632}}
+
+
+def _edge_pairs(w: int, what: str) -> list:
+    """The (expand, refold) pairs of an _EARLIER_EDGES entry."""
+    if what == "nibble+none":
+        return [("nibble", "none")]
+    expands = {4: cuda_planes.NARROW_EXPANDS, 16: cuda_planes.WIDE_EXPANDS}.get(
+        w, [e for e in cuda_planes.SUM_EXPANDS if e != "nibble"])
+    return [(e, what) for e in expands]
 
 
 def _new_instances_vs_plain(device, gen, rng, dense8: int, grids: dict) -> None:
@@ -1686,10 +1711,9 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int, grids: dict) -> None:
     largest sums (every symbol 0xFFFF, every coefficient the densest
     element); per instance at p=16 the largest k whose staged route fits
     and the first past it (the direct route, or the refusal with no
-    launch where the instance has none); the edges the generic
-    gf_planes_kernel had for the instances the sum, dot and none kernels
-    took over, and
-    w=16 at k=16,400 (sums past 2^31, which the mma adds modulo 2^32); the
+    launch where the instance has none); the edges the retired generic
+    kernel had for every instance the sum, dot and none kernels took over
+    from it (w=4 and w=16 included), and w=16 at k=16,400 (sums past 2^31, which the mma adds modulo 2^32); the
     pre-parity form of every instance, exact int32, with the stripe mesh's
     k-slice (k=32, p=16); and the public dispatch of every JAX name at
     w=16 and pre-parity.  ``grids``: phase 7's K3 grids by name."""
@@ -1758,9 +1782,7 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int, grids: dict) -> None:
     # (and one past at p=16), and w=16 past the exact-sum depth.
     routes = {}
     for (w, what), edges in _EARLIER_EDGES.items():
-        pairs = ([(e, "none") for e in cuda_planes.SUM_EXPANDS if e != "nibble"] if what == "none" else
-                 [("nibble", "none")] if what == "nibble+none" else [(e, what) for e in cuda_planes.WIDE_EXPANDS])
-        for expand, refold in pairs:
+        for expand, refold in _edge_pairs(w, what):
             for p, k in edges.items():
                 for kk in ((k, k + 1) if p == 16 else (k,)):
                     routes[f"w={w} {expand}+{refold} p={p} k={kk}"] = _limit_case(
@@ -1829,17 +1851,20 @@ def _new_instances_vs_plain(device, gen, rng, dense8: int, grids: dict) -> None:
 
 def _w4_instances_vs_plain(device, gen, rng, narrow: Grid, pre: Grid) -> None:
     """Phase 7's W=4 cases (bytes with the high nibble set): K3's folded
-    W=4 instances at k 1-33, p 1-17 (past one F tile), m 37-100,003, tiles
-    256 and 8192, pinned, and at their largest sums (every byte 0xFF, the
-    densest element), with the pre-parity form beside each; and the public
-    dispatch of shift and shift_raw at w=4 (refold None, sum, dot,
-    autotune; fold_parity=False) against K1's plain version."""
+    W=4 instances (the sum and dot kernels) at k 1-33, p 1-17 (p = 8: a
+    pair of m-tiles; 1, 3, 4, 10, 17: a lone last one, which the sum and
+    none kernels run alone; 17: past one 8-symbol tile), m 37-100,003,
+    tiles 256 and 8192, pinned, and at their largest sums (every byte
+    0xFF, the densest element), with the pre-parity form (the none kernel)
+    beside each; and the public dispatch of shift and shift_raw at w=4
+    (refold None, sum, dot, autotune; fold_parity=False) against K1's
+    plain version."""
     dense4 = int(get_field(4).bitmats.sum(axis=2).max(axis=1).argmax())
     for expand in cuda_planes.NARROW_EXPANDS:
         for k in (1, 3, 8, 9, 33):
             for m in (37, 4097, 100003):
                 B = _rand_u8(gen, (k, m), device)
-                for p in (1, 3, 4, 10, 17):
+                for p in (1, 3, 4, 8, 10, 17):
                     A = rng.integers(0, 16, size=(p, k))
                     for refold in ("sum", "dot", "none"):
                         grid = pre if refold == "none" else narrow
@@ -1887,7 +1912,9 @@ def k1_runs() -> int:
     return cuda_gemm.LAUNCHES + cuda_gemm.REPLAYED
 
 
-# Kernel (the kernels line's and the grids' names) -> cuda_planes' count.
+# Kernel (the kernels line's and the grids' names) -> cuda_planes' count:
+# the sum and dot kernels at w=8 ("sum", "dot"), at w=4 ("w4") and at w=16
+# ("w16"); the none kernel at w=8 ("preparity") and at w=4 and 16.
 K3_KINDS = {"K3-planes-sum": "sum", "K3-planes-dot": "dot", "K3-copy-floor": "copy",
             "K3-planes-w4": "w4", "K3-planes-w16": "w16", "K3-planes-preparity": "preparity",
             "K3-planes-preparity-w4-w16": "preparity_w4_w16"}
@@ -2076,13 +2103,12 @@ def preparity_bound_ms(p: int, k: int, m: int, w: int) -> float:
 @_named("9 K2/K3 timings")
 def phase_new_timings(device) -> dict:
     """K2, each K3 pair, the pinned ceiling and the copy floor at the main
-    path's encode segment shape; K3's w=16 pairs (the sum and dot kernels
-    at w=16) at the w=16 encode segment (the same 64 MiB: m = 3,355,392
-    symbols) and its pre-parity form (the none kernel) at the w=8 segment;
-    K1 (both forms) and K3's W=4 instances at w=4 on the w=8 segment's
-    bytes.  Each K3 row of the sum, dot and none kernels carries its
-    design's instruction estimate (est_ops_per_col, est_ops_ms) and its
-    tensor floor (ops_bound_ms).  tools/k3_timings_ab.py runs this phase in
+    path's encode segment shape; K3's w=16 instances (the sum, dot and none
+    kernels at w=16) at the w=16 encode segment (the same 64 MiB: m =
+    3,355,392 symbols) and its w=8 pre-parity form (the none kernel) at the
+    w=8 segment; K1 (both forms) and K3's W=4 instances at w=4 on the w=8
+    segment's bytes.  Each K3 row carries its design's instruction estimate
+    (est_ops_per_col, est_ops_ms) and its tensor floor (ops_bound_ms).  tools/k3_timings_ab.py runs this phase in
     two trees in turns (a parent and a change, on one card)."""
     k, p, m = 10, 4, SEGMENT_COLS
     m16 = SEGMENT_COLS // 2
@@ -2115,6 +2141,11 @@ def phase_new_timings(device) -> dict:
                           functools.partial(cuda_planes.gf_matmul_planes, A16, B16, expand, refold, w=16),
                           functools.partial(cuda_planes.gf_matmul_planes_plain, A16, B16, expand, refold, w=16), None,
                           (m16, 16, bound_ms(p, k, m16, 16))))
+    for expand in cuda_planes.WIDE_EXPANDS:
+        cases.append((k3_grid_name(expand, "none", 16), f"w16 {expand}+none",
+                      functools.partial(cuda_planes.gf_matmul_planes, A16, B16, expand, "none", w=16),
+                      functools.partial(cuda_planes.gf_matmul_planes_plain, A16, B16, expand, "none", w=16), None,
+                      (m16, 16, preparity_bound_ms(p, k, m16, 16))))
     for expand in cuda_planes.EXPANDS:
         cases.append(("K3-planes-preparity", f"{expand}+none",
                       functools.partial(cuda_planes.gf_matmul_planes, A, B, expand, "none"),
@@ -2148,10 +2179,10 @@ def phase_new_timings(device) -> dict:
         expand, refold = (label.split(" ")[label.startswith(("w16 ", "w4 "))].split("+") + [None])[:2]
         row.update(tile=cuda_pack2.DEFAULT_TILE if kernel == "K2" else None if kernel == "K1" else
                    cuda_planes.tile_cols(None, cols) if refold is None else
-                   cuda_planes.block_cols(None, cols, expand, refold, w))
-        if kernel in ("K3-planes-sum", "K3-planes-dot", "K3-planes-w16", "K3-planes-preparity"):
-            if kernel == "K3-planes-preparity":
-                ops = k3_none_ops_per_col(p, k, expand)
+                   cuda_planes.block_cols(None, cols))
+        if kernel.startswith("K3-planes"):
+            if refold == "none":
+                ops = k3_none_ops_per_col(p, k, expand, w)
             else:
                 ops = (k3_ops_per_col if refold == "sum" else k3_dot_ops_per_col)(p, k, expand, w)
             # The floor of this formulation's tensor work, beside the bytes
@@ -4695,6 +4726,30 @@ def phase_knobs(work: str, device, cuda_digests: dict) -> dict:
         log(phase="knobs", step="stripe shift_raw pre-parity", **stripe)
         _clean_archive(path)
 
+        # (b') a w=16 file on the same mesh under shift_raw: the none
+        # kernel at w=16, its archive against K1's of the same file.
+        os.environ.pop("RS_PALLAS_EXPAND")
+        plan.PLAN_CACHE.clear()
+        wide = os.path.join(d, "wide16.bin")
+        write_seeded(wide, SEED + 18, KNOBS_W16_BYTES)
+        api.encode_file(wide, k, n - k, strategy="cuda", device=device, w=16)
+        k1_wide = archive_digests(wide, n)
+        _clean_archive(wide)
+        os.environ["RS_PALLAS_EXPAND"] = "shift_raw"
+        plan.PLAN_CACHE.clear()
+        stripe16 = _knob_step("stripe encode (2, 1) mesh w=16 shift_raw",
+                              lambda: api.encode_file(wide, k, n - k, strategy="cuda", device=device, mesh=stripe_mesh,
+                                                      stripe_sharded=True, w=16), KNOBS_W16_BYTES)
+        if archive_digests(wide, n) != k1_wide:
+            raise AssertionError("5m: the w=16 stripe archive under shift_raw differs from K1's archive of the same file")
+        stripe16["archive_equals_k1"] = True
+        if stripe16["runs"]["K3-planes-preparity-w4-w16"] <= 0 or stripe16["runs"]["K3-planes-preparity"]:
+            raise AssertionError(f"5m w=16 stripe encode: the none kernel at w=16 did not run alone: {stripe16['runs']}")
+        res["stripe16"] = stripe16
+        log(phase="knobs", step="stripe w=16 shift_raw pre-parity", **stripe16)
+        _clean_archive(wide)
+        os.unlink(wide)
+
         # (c) pack2: K2 captured into the plans' graphs.
         os.environ["RS_PALLAS_EXPAND"] = "pack2"
         plan.PLAN_CACHE.clear()
@@ -4718,7 +4773,7 @@ def phase_knobs(work: str, device, cuda_digests: dict) -> dict:
         if (w16["runs"]["K3-planes-w16"] <= 0 or w16["k3_replayed"]["w16"] <= 0
                 or w16["runs"]["K3-planes-preparity-w4-w16"] or w16["runs"]["K3-planes-w4"]):
             raise AssertionError(f"5m w=16: the sum and dot kernels at w=16 ran {w16['runs']['K3-planes-w16']} times, "
-                                 f"{w16['k3_replayed']['w16']} inside replays; gf_planes_kernel {w16['runs']}")
+                                 f"{w16['k3_replayed']['w16']} inside replays; every kernel's runs {w16['runs']}")
         w16["decisions"] = sorted(set(cuda_gemm.autotune_decisions().values()))
         w16["plans_refold"] = sorted({str(p["refold"]) for p in plan.PLAN_CACHE.stats()["plans"] if p["w"] == 16})
         res["w16"] = w16
@@ -4732,6 +4787,17 @@ def phase_knobs(work: str, device, cuda_digests: dict) -> dict:
         plan.PLAN_CACHE.clear()
         res["w4_k3"] = _codec_w4_step("RSCodec w=4 round trip shift_raw (K3 W=4 sum)", device, SEED + 16,
                                       "K3-planes-w4")
+        # ... and under RS_PALLAS_REFOLD=dot: the dot kernel at W=4.
+        os.environ["RS_PALLAS_REFOLD"] = "dot"
+        plan.PLAN_CACHE.clear()
+        res["w4_k3_dot"] = _codec_w4_step("RSCodec w=4 round trip shift_raw+dot (K3 W=4 dot)", device, SEED + 16,
+                                          "K3-planes-w4")
+        w4_refolds = sorted({str(p["refold"]) for p in plan.PLAN_CACHE.stats()["plans"]
+                             if p["w"] == 4 and (p["captures"] or p["calls"] > 1)})  # pinned plans
+        if w4_refolds != ["dot"]:
+            raise AssertionError(f"5m w=4 under RS_PALLAS_REFOLD=dot: the plans' refolds {w4_refolds}")
+        res["w4_k3_dot"]["plans_refold"] = w4_refolds
+        os.environ.pop("RS_PALLAS_REFOLD")
 
         # (f) 256 MiB at w=8 under shift_raw alone: the dot refold's kernel,
         # against K1's archive of the same file.
@@ -4803,9 +4869,9 @@ def phase_knobs(work: str, device, cuda_digests: dict) -> dict:
         metrics.REGISTRY.reset()
         if os.path.isdir(d):
             shutil.rmtree(d)
-    steps = (res["w8"]["encode"], res["w8"]["decode"], res["stripe"], res["pack2"], res["w16"], res["w4_k1"],
-             res["w4_k3"], res["dot"]["encode"], res["dot"]["decode"], res["nibble"]["encode"],
-             res["nibble"]["decode"])
+    steps = (res["w8"]["encode"], res["w8"]["decode"], res["stripe"], res["stripe16"], res["pack2"], res["w16"],
+             res["w4_k1"], res["w4_k3"], res["w4_k3_dot"], res["dot"]["encode"], res["dot"]["decode"],
+             res["nibble"]["encode"], res["nibble"]["decode"])
     res["launches"] = {name: sum(step["runs"][name] for step in steps) for name in ("K1", "K2", *K3_KINDS)}
     res["walls"] = {step["op"]: step["wall_s"] for step in steps}
     res["seconds"] = time.perf_counter() - t_phase
@@ -4893,11 +4959,15 @@ def kernel_entries(k1_err, grids, k1_timing=None, main_launches=None, new_timing
               "staged through shared memory; timed: shift_raw+none)",
               "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307",
               tl.get("K3-planes-preparity"), grids["K3-planes-preparity"].worst, t.get("shift_raw+none")),
-        entry("K3 gf_planes_kernel (w=4: shift, shift_raw x sum, dot, none; w=16's pre-parity form; "
-              "timed: w4 shift_raw+sum)",
+        entry("K3 gf_planes_sum_kernel and gf_planes_dot_kernel at w=4 (shift, shift_raw x sum, dot: 8 symbols a "
+              "32-deep chunk, the last m-tile alone where it has no pair; timed: w4 shift_raw+sum)",
+              "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307", tl.get("K3-planes-w4"),
+              grids["K3-planes-w4"].worst, t.get("w4 shift_raw+sum")),
+        entry("K3 gf_planes_none_kernel at w=4 and w=16 (the pre-parity form: shift, shift_raw at w=4; shift, "
+              "shift_raw, sign at w=16, two byte-symbols a symbol; timed: w16 shift_raw+none)",
               "gpu_rscode_torch/ops/csrc/gf_planes.cu", "gpu_rscode_tpu/ops/pallas_gemm.py:307",
-              None if tool_launches is None else tl.get("K3-planes-w4", 0) + tl.get("K3-planes-preparity-w4-w16", 0),
-              max(grids["K3-planes-w4"].worst, grids["K3-planes-preparity-w4-w16"].worst), t.get("w4 shift_raw+sum")),
+              tl.get("K3-planes-preparity-w4-w16"), grids["K3-planes-preparity-w4-w16"].worst,
+              t.get("w16 shift_raw+none")),
     ]
 
 
@@ -4905,8 +4975,8 @@ def ptxas_kernels(ptxas: str) -> list[dict]:
     """Registers and spilled bytes of each kernel instance in ``-Xptxas=-v``
     output, named ``gf_bitslice_kernel<w,rt>`` / ``gf_popcount_kernel<w,nw,cpt>`` /
     ``gf_pack2_kernel<1>`` (1: operator in shared memory, 0: read from device
-    memory) / ``gf_planes_kernel<w,expand,refold>`` / ``gf_planes_sum_kernel<w,expand,src>`` (and
-    the dot kernel's) / ``gf_planes_none_kernel<expand,src>``."""
+    memory) / ``gf_planes_sum_kernel<w,expand,src>`` (and the dot and none
+    kernels')."""
     out = []
     for block in ptxas.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
@@ -4942,10 +5012,9 @@ def phase_build() -> None:
         per_kernel = ptxas_kernels(ptxas)
         log(phase="build", library=name, per_kernel=per_kernel)
         if name == "gf_planes":
-            # gf_planes_kernel<w, expand, refold> (w=4, w=16's pre-parity
-            # form); gf_planes_sum_kernel, gf_planes_dot_kernel<w, expand,
-            # src> and gf_planes_none_kernel<expand, src>; with their spills.
-            new = [row for row in per_kernel if re.search(r"gf_planes_(dot|sum|none)?_?kernel", row["kernel"])]
+            # gf_planes_sum_kernel, gf_planes_dot_kernel and
+            # gf_planes_none_kernel<w, expand, src>, with their spills.
+            new = [row for row in per_kernel if re.search(r"gf_planes_(dot|sum|none)_kernel", row["kernel"])]
             log(phase="build", library=name, new_instances=new,
                 spilling=[row["kernel"] for row in new if row["spill_store_bytes"]])
     for name, lib_path in (("rs_native_io", native.library_path), ("rs_native_gemm", native.gemm_library_path)):
@@ -5052,6 +5121,9 @@ def run(args) -> int:
         new_timings = phase_new_timings(device)
         path_launches = {name: tools["launches"].get(name, 0) + knobs_res["launches"].get(name, 0)
                          for name in ("K2", *K3_KINDS)}
+        idle = sorted(name for name, n in path_launches.items() if n <= 0)
+        if idle:
+            raise AssertionError(f"kernels the path never launched: {idle} ({path_launches})")
         kernels = kernel_entries(k1_err, grids, timings[0],
                                  main_res["pipelined"]["launches"] + resilience["k1_launches"]
                                  + updates["k1_launches"] + store_res["k1_launches"] + serve_res["k1_launches"]

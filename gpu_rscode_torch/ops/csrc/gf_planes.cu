@@ -10,26 +10,25 @@
 // fold=False, the pre-parity accumulators), at w=8, for the three
 // lane-width expansions at w=16, and for shift and shift_raw at w=4.
 //
-// Which kernel runs which (w, expand, refold):
-//   w=8,  every expansion, sum        gf_planes_sum_kernel<8, E, SRC>
-//   w=8,  every expansion, dot        gf_planes_dot_kernel<8, E, SRC>
-//   w=16, shift / shift_raw / sign,
-//         sum and dot                 gf_planes_sum_kernel<16, E, SRC>,
-//                                     gf_planes_dot_kernel<16, E, SRC>
-//   w=8,  every expansion, none       gf_planes_none_kernel<E, SRC>
-//   w=4 (every refold), w=16 none     gf_planes_kernel<W, E, R>
+// Which kernel runs which (w, expand, refold): the refold picks it, the
+// width is its template argument W.
+//   sum    gf_planes_sum_kernel<W, E, SRC>    w=8: every expansion;
+//   dot    gf_planes_dot_kernel<W, E, SRC>    w=16: shift, shift_raw, sign;
+//   none   gf_planes_none_kernel<W, E, SRC>   w=4: shift, shift_raw
 // SRC is where a launch reads its operator and data from (route()): both
 // through shared memory (kStaged), the operator through L1 beside the ring
 // (kOpL1: nibble's sum and dot past its shared-memory edge), or both
-// through L1 from device memory (kDirect: w=16 folded and the pre-parity
-// form past theirs).  Every (k, p) that fits no route is refused.
+// through L1 from device memory (kDirect: w=4 and w=16, and the pre-parity
+// form at w=8, past their edge).  w=8's folded byte expansions are refused
+// past theirs.
 //
 // gf_planes_sum_kernel<W, EXPAND, SRC>: C = A . B with the sum refold.
-//   Bound on the card: device-memory bytes, (k + p) * m * W / 8.  The
-//   product is p*W x k*W (k*32 for nibble) int8 multiply-adds per column,
-//   about 1 % of the int8 tensor-core rate at the main path's shape; what
-//   costs instruction slots is building the planes and refolding, so the
-//   design cuts both per column:
+//   Bound on the card: device-memory bytes, (k + p) * m * b, b the bytes a
+//   symbol takes (2 at W=16, else 1).  The product is p*W x k*W (k*32 for
+//   nibble) int8 multiply-adds per column, about 1 % of the int8
+//   tensor-core rate at the main path's shape; what costs instruction
+//   slots is building the planes and refolding, so the design cuts both
+//   per column:
 //   * The operator scaled by 2^s.  The host packs output plane s's operator
 //     row times 2^s (0 or 2^s <= 128: u8), so bit s of the int32
 //     accumulator is already output bit s (every term is a multiple of
@@ -75,6 +74,20 @@
 //     lo(2c + 1), hi(2c + 1)).  An m-tile is one 16-bit symbol: after the
 //     refold, lanes g < 2 interleave the low and high bytes of 8 columns
 //     with 4 PRMT and store them as one 16-byte word.
+//   * W=4: a symbol is one byte, its bits 4-7 ignored (shift masks them
+//     off; shift_raw's r >> t carries them, and the next byte's bits, only
+//     at 2^1 and up).  A 32-deep chunk c is 8 symbols: depth 16h + 4t + q
+//     is plane t of symbol 8c + 4h + q, so b0 of lane (g, t) is plane t of
+//     the transposed word of rows 8c..8c+3 and b1 of rows 8c + 4..8c + 7
+//     (zero, with no reads, where row 8c + 4 is past k): step_words runs
+//     twice a chunk, 2 chunks a step at k=10 against w=8's 3.  A 16-row
+//     m-tile is 4 symbols: row g of the C fragment is bit g & 3 of symbol
+//     4mt + g / 4 and row g + 8 of symbol 4mt + 2 + g / 4, so the mask
+//     keeps bit g & 3 and two xor-shuffles (g ^ 1, g ^ 2) collect a
+//     symbol's 4 bits; every lane then stores 8 bytes (byte g & 3 of the
+//     group words), symbol 4mt + g / 4 + 2((g / 2) & 1).  Where the p*4
+//     rows leave the last m-tile unpaired (p=4: one m-tile), the last pass
+//     runs it alone (kW4Single), not beside an m-tile of padding.
 //   * tile (columns a block covers) is a multiple of the 64-column step;
 //     pinned: every block reads the columns of block 0 and writes its own
 //     block, the compute-only ceiling (the input is served from L2).
@@ -116,17 +129,32 @@
 //     one 8-byte word each (byte by byte at the ragged edge).  At W=16
 //     those two byte-symbols are the low and high bytes of symbol 4f + t:
 //     12 PRMT make its 8 columns, stored as one 16-byte word.
+//   * W=4: the sum kernel's 8-symbol chunks, so a0..a3 are plane t of rows
+//     8c..8c+3 (columns 8g + mb, 8g + 4 + mb) and of rows 8c + 4..8c + 7.
+//     An 8-row n-tile is 2 symbols: register 2t (+1) of n-tile nt is bit
+//     2(t & 1) (+1) of symbol 8 pass + 2nt + t / 2, so the move keeps the
+//     same PRMT with the mask 0x02010201 << 2(t & 1), and F takes depth
+//     16h + 4t + e to symbol 4h + 2(e / 2) + t / 2: one pass is a whole
+//     8-symbol tile, and the stores are W=8's.
 //
-// gf_planes_none_kernel<EXPAND, SRC>: the pre-parity form at w=8 (JAX's
-//   fold=False), the (p*8, m) int32 sums, equal value for value to JAX's
-//   with acc_dtype=int8.  Bound: (k + 4 * p * 8) * m bytes, the sums'
-//   stores most of it.  The sum kernel's first product (its ring,
-//   transposes, four-symbol plane words and m-tile pairs) with:
+// gf_planes_none_kernel<W, EXPAND, SRC>: the pre-parity form (JAX's
+//   fold=False), the (p*W, m) int32 sums, equal value for value to JAX's
+//   with acc_dtype=int8.  Bound: (k * b + 4 * p * W) * m bytes, the sums'
+//   stores most of it.  The sum kernel's first product
+//   (its ring, transposes, four-symbol plane words, m-tile pairs and at
+//   W=4 its lone last m-tile) with:
 //   * The unscaled 0/1 operator in the same depth order, and JAX's plane
 //     values exactly: shift and cmp 0/1, sign {0, -1}, shift_raw
 //     int8(b >> s) (the next byte's bits that r >> s carries masked off, a
 //     signed operand), nibble 0/1 (the PRMT sign rule's 0xFF and 0x80 for
-//     v >= 8 ANDed to 1 and 0).  u8 x s8 for sign and shift_raw.
+//     v >= 8 ANDed to 1 and 0).  u8 x s8 for sign and shift_raw.  At W=16
+//     JAX's shift_raw plane s < 8 is the low byte of the whole 16-bit
+//     b >> s: in the word lo(2c), hi(2c), lo(2c + 1), hi(2c + 1), r >> s
+//     is exactly that for a low byte, and a high byte's plane is w=8's, so
+//     one AND with 0x00FF00FF | (0xFF >> s) * 0x01000100 makes all four.
+//     The unscaled operator's rows i*16 + 8h + s' are JAX's rows i*16 + s
+//     (sum_operator(A, 16, scaled=False)), so the 16p rows are staged and
+//     stored as w=8's 2p byte-symbols' are.
 //   * An epilogue through shared memory.  Lane (g, t) holds rows g and
 //     g + 8 of each m-tile at columns 16t..16t+15: 4 STS.128 a row into a
 //     warp's staging rows (32 rows of 64 int32, 288 bytes apart, 16-byte
@@ -172,44 +200,6 @@
 //     kernel and hands each chunk's table and selectors (NibbleChunk) to
 //     the kernel's mma, which makes each plane word just before its use.
 //
-// gf_planes_kernel<W, EXPAND, REFOLD>: the first, generic design, kept for
-//   w=4 (every refold) and the pre-parity form at w=16.
-//   * The operator, zero-padded to (16*MT rows, 32*KC depth), is the A
-//     operand of mma.sync.m16n8k32.s8.  The wrapper packs it on the host in
-//     fragment order (uint4 per lane per (m-tile, depth chunk)); each block
-//     stages it in shared memory once and every lane reads its uint4.
-//   * The expanded planes are the B operand, built in registers.  In the
-//     .col B fragment a lane (g = lane/4, t = lane%4) holds depth rows
-//     t*4..t*4+3 and 16+t*4..16+t*4+3 of column g.
-//   * A warp takes 32 columns per step as 4 mma column groups; n-index n of
-//     group j is column 4n + j.  So lane (g, t) loads the 4 columns
-//     4g..4g+3 of each data row it needs.
-//   * W=16 (refold none).  Depth row i*16 + s is bit s of symbol i, so a
-//     32-deep chunk c is two symbols: b0 of lane (g, t) is bits 4t..4t+3 of
-//     symbol 2c and b1 the same bits of symbol 2c + 1, read as one 8-byte
-//     word each.  shift_raw's plane is the low byte of b >> s (JAX's int8
-//     wrap), sign's {0, -1}.  Each lane writes its C fragment's int32
-//     accumulators, rows g and g + 8 of the m-tile at its 8 consecutive
-//     columns, as two 16-byte words a row.  The operator is the unscaled
-//     bit operator, so the sums are JAX's with acc_dtype=int8.
-//   * W=4 (shift, shift_raw).  A symbol is one byte, in the low nibble
-//     (bits 4-7 are ignored: shift masks them off, shift_raw's plane
-//     int8(b >> s) carries them only at 2^1 and up).  Depth row i*4 + s is
-//     bit s of symbol i, so a 32-deep chunk c is 8 symbols: b0 of lane
-//     (g, t) is bits 0-3 of symbol 8c + t and b1 of symbol 8c + 4 + t.
-//     A 16-row m-tile is 4 symbols (rows 4j + s): a C fragment's row g is
-//     bit g & 3 of symbol 4mt + g / 4 and row g + 8 of symbol 4mt + 2 +
-//     g / 4.  Refold sum: each lane shifts its 4 parities to bit g of 4
-//     bytes and three xor-shuffles OR them over g, so byte 0 of the word
-//     holds symbols 4mt (bits 0-3) and 4mt + 1 (bits 4-7) and byte 2
-//     symbols 4mt + 2 and 4mt + 3; lane g < 4 stores symbol 4mt + g.
-//     Refold dot: the parity bits go through shared memory (column-major,
-//     a warp's own region) from the C fragment layout into the B fragment
-//     layout, then a second mma (u8) multiplies them by the (p, p*4)
-//     bit-weight operator F = fold_operator(p, 4) (2^s up to 8).
-//   * tile is the number of columns a block covers (a multiple of 32); the
-//     ragged edge is masked per lane.
-//
 // copy_floor_kernel: C = B[:p], moving exactly K1's traffic.  Each block
 // brings its whole (k, tile) block of B into shared memory, in chunks that
 // fit, with cp.async (16 bytes a thread), then writes rows 0..p-1 out.
@@ -239,6 +229,13 @@ constexpr int kSumStages = 3;                  // step buffers a warp, at most
 // int32 sums, a row 72 int32 (288 bytes) apart.
 constexpr int kNoneRows = 32;
 constexpr int kNoneStride = 72;
+// W=4: the sum and none kernels run the operator's last m-tile alone where
+// p*4 rows leave it unpaired (p=4: one m-tile).  false: every pass covers
+// a pair of m-tiles, the padding's products included.  (A like half pass
+// of the dot kernel, its first 2 n-tiles alone, ran 1-1.5 % slower than
+// the whole pass at k=10, p=4 on an H100 (PERF.md, section 6), so the dot
+// kernel runs whole passes.)
+constexpr bool kW4Single = true;
 
 enum Expand { kShift = 0, kShiftRaw = 1, kCmp = 2, kSign = 3, kNibble = 4 };
 enum Refold { kSum = 0, kDot = 1, kNone = 2 };
@@ -247,304 +244,12 @@ enum Refold { kSum = 0, kDot = 1, kNone = 2 };
 // ring; both through L1 from device memory.
 enum Src { kStaged = 0, kOpL1 = 1, kDirect = 2 };
 
-struct Dims {
-  int mt;  // 16-row m-tiles of the operator (p*w rows)
-  int kc;  // 32-deep chunks of the operator's depth
-  int mf;  // 16-row m-tiles of F (16 symbols a tile)
-  int kf;  // 32-deep chunks of F (16*mt columns)
-};
-
-__host__ __device__ inline Dims dims(int k, int p, int w) {
-  Dims d;
-  d.mt = (p * w + 15) / 16;
-  d.kc = (k * w + 31) / 32;
-  d.mf = (p + 15) / 16;
-  d.kf = (d.mt * 16 + 31) / 32;
-  return d;
-}
-
-inline size_t planes_smem(const Dims& d, int refold) {
-  size_t bytes = (size_t)d.mt * d.kc * 32 * sizeof(uint4);
-  if (refold == kDot) {
-    bytes += (size_t)d.mf * d.kf * 32 * sizeof(uint4);  // F fragments
-    bytes += (size_t)kWarps * 32 * d.kf * 32;            // parity bits
-  }
-  return bytes;
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint4& a,
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void mma_u8(int (&d)[4], const uint4& a,
                                        uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-// Four int8 planes (bits s0..s0+3 of symbol b), plane s0 in the low byte.
-template <int W, int EXPAND>
-__device__ __forceinline__ uint32_t expand4(uint32_t b, int s0) {
-  if (EXPAND == kShiftRaw) {
-    if (W == 16) {  // the low byte of each b >> s: JAX's int8 wrap
-      return ((b >> s0) & 0xFFu) | (((b >> (s0 + 1)) & 0xFFu) << 8) |
-             (((b >> (s0 + 2)) & 0xFFu) << 16) | ((b >> (s0 + 3)) << 24);
-    }
-    return (b >> s0) | ((b >> (s0 + 1)) << 8) | ((b >> (s0 + 2)) << 16) |
-           ((b >> (s0 + 3)) << 24);
-  }
-  // Spread the 4 bits to 4 bytes: the shifted copies at 0, 7, 14, 21 do
-  // not overlap, so the product has no carries.
-  const uint32_t bits = (((b >> s0) & 0xFu) * 0x00204081u) & 0x01010101u;
-  return EXPAND == kSign ? bits * 0xFFu : bits;  // sign: {0, -1}
-}
-
-// The data word of 4 columns (col0 .. col0+3) of one row, zero past the
-// edge.  Little-endian: column col0 + j is byte j.
-__device__ __forceinline__ uint32_t load4(const uint8_t* __restrict__ B,
-                                          int row, int k, long long m,
-                                          long long col0) {
-  if (row >= k) return 0u;
-  const uint8_t* src = B + (size_t)row * m + col0;
-  if ((m & 3) == 0 && col0 + 3 < m) {
-    return *reinterpret_cast<const uint32_t*>(src);
-  }
-  uint32_t w = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (col0 + j < m) w |= (uint32_t)src[j] << (8 * j);
-  }
-  return w;
-}
-
-// The 16-bit symbols of 4 columns (col0 .. col0+3) of one row, zero past
-// the edge.  `vec`: rows start 8-byte aligned (one 8-byte load).
-__device__ __forceinline__ void load4_16(const uint16_t* __restrict__ B,
-                                         int row, int k, long long m,
-                                         long long col0, bool vec,
-                                         uint32_t (&s)[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) s[j] = 0u;
-  if (row >= k) return;
-  const uint16_t* src = B + (size_t)row * m + col0;
-  if (vec && col0 + 3 < m) {
-    const uint2 v = *reinterpret_cast<const uint2*>(src);
-    s[0] = v.x & 0xFFFFu;
-    s[1] = v.x >> 16;
-    s[2] = v.y & 0xFFFFu;
-    s[3] = v.y >> 16;
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (col0 + j < m) s[j] = src[j];
-  }
-}
-
-// Store 8 consecutive output bytes of one symbol row.
-__device__ __forceinline__ void store8(uint8_t* __restrict__ C, int sym,
-                                       long long m, long long col0,
-                                       uint32_t lo, uint32_t hi) {
-  uint8_t* dst = C + (size_t)sym * m + col0;
-  if ((m & 7) == 0 && col0 + 7 < m) {
-    *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (col0 + j < m) dst[j] = (uint8_t)((j < 4 ? lo : hi) >> (8 * (j & 3)));
-  }
-}
-
-// Store 8 consecutive int32 accumulators v[0..7] of one operator row.
-// `vec`: rows start 16-byte aligned.
-__device__ __forceinline__ void store8_32(int* __restrict__ C, int row,
-                                          long long m, long long col0,
-                                          const int (&v)[8], bool vec) {
-  int* dst = C + (size_t)row * m + col0;
-  if (vec && col0 + 7 < m) {
-    reinterpret_cast<int4*>(dst)[0] = make_int4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<int4*>(dst)[1] = make_int4(v[4], v[5], v[6], v[7]);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (col0 + j < m) dst[j] = v[j];
-  }
-}
-
-template <int W, int EXPAND, int REFOLD>
-__global__ void __launch_bounds__(kThreads)
-    gf_planes_kernel(const uint4* __restrict__ opA,
-                     const uint4* __restrict__ opF,
-                     const void* __restrict__ Bv, void* __restrict__ Cv,
-                     int k, int p, long long m, int tile, int pinned) {
-  static_assert(W == 4 || (W == 16 && REFOLD == kNone), "w=4, and w=16's pre-parity form");
-  extern __shared__ uint4 smem[];
-  const Dims d = dims(k, p, W);
-  const int na = d.mt * d.kc * 32;
-  const int nf = REFOLD == kDot ? d.mf * d.kf * 32 : 0;
-  uint4* a_s = smem;
-  uint4* f_s = smem + na;
-  for (int i = threadIdx.x; i < na; i += kThreads) a_s[i] = opA[i];
-  for (int i = threadIdx.x; i < nf; i += kThreads) f_s[i] = opF[i];
-  __syncthreads();
-
-  const uint8_t* B = static_cast<const uint8_t*>(Bv);
-  const uint16_t* B16 = static_cast<const uint16_t*>(Bv);
-  uint8_t* C = static_cast<uint8_t*>(Cv);
-  int* C32 = static_cast<int*>(Cv);
-  const bool vec_in = ((uintptr_t)Bv & 7) == 0 && (m & 3) == 0;
-  const bool vec_out = ((uintptr_t)Cv & 15) == 0 && (m & 3) == 0;
-  const int rows_out = p * W;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bits_rows = d.kf * 32;
-  uint8_t* bits_s =
-      reinterpret_cast<uint8_t*>(f_s + nf) + (size_t)warp * 32 * bits_rows;
-
-  const long long blk0 = (long long)blockIdx.x * tile;
-  const long long blk1 = min(m, blk0 + tile);
-  const long long rd_off = pinned ? blk0 : 0;
-  for (long long base = blk0 + warp * 32; base < blk1;
-       base += kWarps * 32) {
-    const long long rcol = base - rd_off + 4 * g;  // this lane's 4 columns
-    for (int mg = 0; mg < d.mt; mg += 2) {
-      int acc[2][4][4];
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[u][j][r] = 0;
-
-      for (int c = 0; c < d.kc; ++c) {
-        uint32_t bf[4][2];
-        if (W == 4) {
-          // Chunk c: bits 0-3 of symbols 8c + t (b0) and 8c + 4 + t (b1).
-          const uint32_t w0 = load4(B, 8 * c + t, k, m, rcol);
-          const uint32_t w1 = load4(B, 8 * c + 4 + t, k, m, rcol);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            bf[j][0] = expand4<8, EXPAND>((w0 >> (8 * j)) & 0xFFu, 0);
-            bf[j][1] = expand4<8, EXPAND>((w1 >> (8 * j)) & 0xFFu, 0);
-          }
-        } else {
-          // Chunk c: bits 4t..4t+3 of symbols 2c (b0) and 2c + 1 (b1).
-          uint32_t s0[4], s1[4];
-          load4_16(B16, 2 * c, k, m, rcol, vec_in, s0);
-          load4_16(B16, 2 * c + 1, k, m, rcol, vec_in, s1);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            bf[j][0] = expand4<W, EXPAND>(s0[j], 4 * t);
-            bf[j][1] = expand4<W, EXPAND>(s1[j], 4 * t);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          if (mg + u < d.mt) {
-            const uint4 a = a_s[((mg + u) * d.kc + c) * 32 + lane];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_s8(acc[u][j], a, bf[j][0], bf[j][1]);
-          }
-        }
-      }
-
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int mt = mg + u;
-        if (mt >= d.mt) continue;
-        if (REFOLD == kNone) {
-          // Row mt*16 + g (regs 0, 1) and + 8 (regs 2, 3); regs 0 and 2 at
-          // column 8t + j, regs 1 and 3 at 8t + 4 + j.
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = mt * 16 + g + 8 * h;
-            int v[8];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              v[j] = acc[u][j][2 * h];
-              v[4 + j] = acc[u][j][2 * h + 1];
-            }
-            if (row < rows_out) store8_32(C32, row, m, base + 8 * t, v, vec_out);
-          }
-        } else if (REFOLD == kSum) {
-          // Rows 4j..4j+3 are symbol 4*mt + j; lane g holds bit g (and
-          // g + 8).
-          uint32_t lo = 0, hi = 0;
-          const int sel = (g >> 1) * 16 + (g & 1) * 4;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            uint32_t v = ((uint32_t)acc[u][j][0] & 1u) |
-                         (((uint32_t)acc[u][j][1] & 1u) << 8) |
-                         (((uint32_t)acc[u][j][2] & 1u) << 16) |
-                         (((uint32_t)acc[u][j][3] & 1u) << 24);
-            v <<= g;
-            v |= __shfl_xor_sync(0xffffffffu, v, 4);
-            v |= __shfl_xor_sync(0xffffffffu, v, 8);
-            v |= __shfl_xor_sync(0xffffffffu, v, 16);
-            lo |= ((v >> sel) & 0xFu) << (8 * j);
-            hi |= ((v >> (sel + 8)) & 0xFu) << (8 * j);
-          }
-          const int sym = 4 * mt + g;
-          if (g < 4 && sym < p) store8(C, sym, m, base + 8 * t, lo, hi);
-        } else {
-          // Parity bits, column-major per warp: bits_s[col * rows + row],
-          // col = 4n + j for n-index n of column group j.
-          const int r0 = mt * 16 + g;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            bits_s[(8 * t + j) * bits_rows + r0] = (uint8_t)(acc[u][j][0] & 1);
-            bits_s[(8 * t + 4 + j) * bits_rows + r0] = (uint8_t)(acc[u][j][1] & 1);
-            bits_s[(8 * t + j) * bits_rows + r0 + 8] = (uint8_t)(acc[u][j][2] & 1);
-            bits_s[(8 * t + 4 + j) * bits_rows + r0 + 8] = (uint8_t)(acc[u][j][3] & 1);
-          }
-        }
-      }
-    }
-
-    if (REFOLD == kDot) {
-      // Rows past 16*mt up to 32*kf are left as they are: F is zero there.
-      __syncwarp();
-      for (int f = 0; f < d.mf; ++f) {
-        int out[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) out[j][r] = 0;
-        for (int c = 0; c < d.kf; ++c) {
-          const uint4 a = f_s[(f * d.kf + c) * 32 + lane];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint8_t* col = bits_s + (4 * g + j) * bits_rows + c * 32 + t * 4;
-            mma_u8(out[j], a, *reinterpret_cast<const uint32_t*>(col),
-                   *reinterpret_cast<const uint32_t*>(col + 16));
-          }
-        }
-        uint32_t lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          lo0 |= ((uint32_t)out[j][0] & 0xFFu) << (8 * j);
-          hi0 |= ((uint32_t)out[j][1] & 0xFFu) << (8 * j);
-          lo1 |= ((uint32_t)out[j][2] & 0xFFu) << (8 * j);
-          hi1 |= ((uint32_t)out[j][3] & 0xFFu) << (8 * j);
-        }
-        const int sym = f * 16 + g;
-        if (sym < p) store8(C, sym, m, base + 8 * t, lo0, hi0);
-        if (sym + 8 < p) store8(C, sym + 8, m, base + 8 * t, lo1, hi1);
-      }
-      __syncwarp();
-    }
-  }
 }
 
 __device__ __forceinline__ void mma_u8s8(int (&d)[4], const uint4& a,
@@ -579,12 +284,16 @@ __device__ __forceinline__ void transpose4(uint32_t x0, uint32_t x1,
 }
 
 // Byte-symbols of n W-bit symbols: the sum, dot and none kernels take a
-// 16-bit symbol as two bytes, low then high.
+// 16-bit symbol as two bytes, low then high (a 4-bit symbol is one byte).
 __host__ __device__ inline int byte_syms(int n, int w) { return w == 16 ? 2 * n : n; }
 
-// Rows of a step buffer: whole chunks of symbol rows (4 at w=8, 2 at w=16).
+// Bytes a symbol takes in memory: one at w=4 and 8, two at w=16.
+__host__ __device__ constexpr int sym_bytes(int w) { return w == 16 ? 2 : 1; }
+
+// Rows of a step buffer: whole chunks of symbol rows (8 at w=4, 4 at w=8,
+// 2 at w=16).
 __host__ __device__ inline int ring_rows(int k, int w) {
-  return w == 16 ? (k + 1) / 2 * 2 : (k + 3) / 4 * 4;
+  return w == 16 ? (k + 1) / 2 * 2 : w == 4 ? (k + 7) / 8 * 8 : (k + 3) / 4 * 4;
 }
 
 // The bytes past the row's end are zero: the ragged edge, or rows that do
@@ -612,12 +321,13 @@ struct StepRows {
   const uint8_t* B;
   long long m, col;
   int k;
-  bool vec;  // kDirect: rows start aligned for one 8-byte (W=8) or 16-byte (W=16) load
+  bool vec;  // kDirect: rows start aligned for one 8-byte (W=4, 8) or 16-byte (W=16) load
 };
 
-// Row r's 8 bytes at W=8 (8 columns).
-template <int SRC>
-__device__ __forceinline__ uint2 row8(const StepRows<8, SRC>& rows, int r) {
+// Row r's 8 bytes at W=4 and 8 (8 columns, a symbol a byte).
+template <int W, int SRC>
+__device__ __forceinline__ uint2 row8(const StepRows<W, SRC>& rows, int r) {
+  static_assert(W != 16, "w=16 reads 16 bytes a row");
   if (SRC != kDirect) return *reinterpret_cast<const uint2*>(rows.s + r * kSumStepCols);
   if (r >= rows.k) return make_uint2(0u, 0u);
   const uint8_t* row = rows.B + (size_t)r * rows.m;
@@ -636,10 +346,11 @@ __device__ __forceinline__ uint4 row16(const StepRows<16, SRC>& rows, int r) {
   return row_edge(row, 2 * rows.m, 2 * rows.col, 16);
 }
 
-// The transposed words of chunk c of one warp step: r[j] is column 8g + j,
-// byte q byte-symbol 4c + q.  W=8: rows 4c..4c+3, 4 LDS.64 and 8 PRMT (two
-// transposes).  W=16: rows 2c and 2c + 1, 2 LDS.128 and 8 PRMT that split
-// each column's low and high bytes: lo(2c), hi(2c), lo(2c + 1), hi(2c + 1).
+// The transposed words of word chunk c of one warp step: r[j] is column
+// 8g + j, byte q byte-symbol 4c + q.  W=4 and 8: rows 4c..4c+3, 4 LDS.64 and
+// 8 PRMT (two transposes).  W=16: rows 2c and 2c + 1, 2 LDS.128 and 8 PRMT
+// that split each column's low and high bytes: lo(2c), hi(2c), lo(2c + 1),
+// hi(2c + 1).
 template <int W, int SRC>
 __device__ __forceinline__ void step_words(const StepRows<W, SRC>& rows, int c, uint32_t (&r)[kSumGroups]) {
   if constexpr (W == 16) {
@@ -717,11 +428,15 @@ __device__ __forceinline__ void nibble_chunks(const StepRows<8, SRC>& rows, int 
 
 // Plane s of the 4 symbols in word r, one per byte.  `bit` is
 // 0x01010101 << s.  EXACT (the pre-parity form): JAX's values, shift_raw's
-// int8(b >> s) without the next byte's bits.
-template <int EXPAND, bool EXACT>
+// int8(b >> s) without the next byte's bits; at W=16 (r: lo(2c), hi(2c),
+// lo(2c + 1), hi(2c + 1)) a low byte's plane is the low byte of the whole
+// 16-bit b >> s, so it keeps its high byte's bits and only a high byte's
+// plane is masked.
+template <int EXPAND, bool EXACT, int W = 8>
 __device__ __forceinline__ uint32_t plane_word(uint32_t r, int s,
                                                uint32_t bit) {
   if (EXPAND == kShiftRaw) {  // folded: bits from the next byte land at 2^1 and up
+    if (EXACT && W == 16) return (r >> s) & (0x00FF00FFu | ((0xFFu >> s) * 0x01000100u));
     return EXACT ? (r >> s) & ((0xFFu >> s) * 0x01010101u) : r >> s;
   }
   if (EXPAND == kCmp) return __vcmpne4(r & bit, 0u) & 0x01010101u;
@@ -780,10 +495,10 @@ __device__ __noinline__ void sum_store_edge16(uint16_t* dst, long long left,
   for (int j = 0; j < 8 && j < left; ++j) dst[j] = (uint16_t)(w[j >> 1] >> (16 * (j & 1)));
 }
 
-// m-tiles of the sum, dot and none kernels' operator (p byte-symbols):
-// rounded up to pairs.
-__host__ __device__ inline int sum_mtiles(int p) {
-  return ((p * 8 + 15) / 16 + 1) & ~1;
+// m-tiles of the sum, dot and none kernels' operator (p W-bit symbols,
+// p*w rows): rounded up to pairs.
+__host__ __device__ inline int sum_mtiles(int p, int w) {
+  return ((p * w + 15) / 16 + 1) & ~1;
 }
 
 // 32-deep operator chunks of the sum, dot and none kernels (k
@@ -793,6 +508,12 @@ __host__ __device__ inline int sum_chunks(int k, int expand) {
   return expand == kNibble ? (k + 1) / 2 * 2 : (k + 3) / 4;
 }
 
+// The same for k W-bit symbols: at w=4 one chunk per 8 symbols (their 4
+// planes each), else sum_chunks of the byte-symbols.
+__host__ __device__ inline int op_chunks(int k, int w, int expand) {
+  return w == 4 ? (k + 7) / 8 : sum_chunks(byte_syms(k, w), expand);
+}
+
 // One warp's ring of step buffers (the sum, dot and none kernels): step n
 // of the warp covers the block's columns first + n * stride ..+63 and is
 // copied into buffer n % stages, up to stages - 1 steps ahead of the
@@ -800,7 +521,8 @@ __host__ __device__ inline int sum_chunks(int k, int expand) {
 // device memory.
 template <int W>
 struct StepRing {
-  static constexpr int kRowBytes = kSumStepCols * W / 8;  // a step's bytes of one row
+  static constexpr int kSym = sym_bytes(W);                // bytes a symbol
+  static constexpr int kRowBytes = kSumStepCols * kSym;    // a step's bytes of one row
   static constexpr int kPieces = kRowBytes / 16;          // 16-byte pieces of them
   uint8_t* bufs;
   int buf_bytes, stages, nsteps, first, stride, k, lane;
@@ -815,14 +537,14 @@ struct StepRing {
                       int lane_)
       : bufs(smem_bufs), buf_bytes(ring_rows(k_, W) * kRowBytes), stages(stages_),
         first(warp * kSumStepCols), stride(kSumWarps * kSumStepCols), k(k_), lane(lane_),
-        B(B_), m(m_), row_bytes(m_ * (W / 8)), rd0(pinned ? 0 : blk0),
-        rows_stride((32 / kPieces) * m_ * (W / 8)),
-        vec_in(((uintptr_t)B_ & 15) == 0 && ((m_ * (W / 8)) & 15) == 0),
-        vec_direct(((uintptr_t)B_ & (W - 1)) == 0 && (m_ & 7) == 0), f_step(0), f_buf(0),
+        B(B_), m(m_), row_bytes(m_ * kSym), rd0(pinned ? 0 : blk0),
+        rows_stride((32 / kPieces) * m_ * kSym),
+        vec_in(((uintptr_t)B_ & 15) == 0 && ((m_ * kSym) & 15) == 0),
+        vec_direct(((uintptr_t)B_ & (8 * kSym - 1)) == 0 && (m_ & 7) == 0), f_step(0), f_buf(0),
         c_buf(0) {
     bufs += warp * stages * buf_bytes;
     nsteps = first < span ? (span - first + stride - 1) / stride : 0;
-    lane_src = B + (size_t)(lane / kPieces) * row_bytes + rd0 * (W / 8) + 16 * (lane % kPieces);
+    lane_src = B + (size_t)(lane / kPieces) * row_bytes + rd0 * kSym + 16 * (lane % kPieces);
   }
 
   // Start copying the next step (an empty commit group past the last).
@@ -831,10 +553,10 @@ struct StepRing {
       const int col = first + f_step * stride;
       uint8_t* buf = bufs + f_buf * buf_bytes;
       if (vec_in) {
-        sum_fetch<kPieces>(buf, lane_src + (long long)col * (W / 8), rows_stride,
-                           row_bytes - (rd0 + col) * (W / 8) - 16 * (lane % kPieces), k, lane);
+        sum_fetch<kPieces>(buf, lane_src + (long long)col * kSym, rows_stride,
+                           row_bytes - (rd0 + col) * kSym - 16 * (lane % kPieces), k, lane);
       } else {
-        sum_fetch_bytes(buf, B, k, row_bytes, (rd0 + col) * (W / 8), kRowBytes, lane);
+        sum_fetch_bytes(buf, B, k, row_bytes, (rd0 + col) * kSym, kRowBytes, lane);
       }
     }
     asm volatile("cp.async.commit_group;\n" ::);
@@ -874,7 +596,7 @@ struct StepRing {
     StepRows<W, SRC> out;
     if (SRC != kDirect) {
       fetch_next();
-      out.s = wait() + g * 8 * (W / 8);
+      out.s = wait() + g * 8 * kSym;
     } else {
       out.B = B;
       out.m = m;
@@ -886,11 +608,44 @@ struct StepRing {
   }
 };
 
-// The first product of the sum and none kernels over one warp step: m-tiles
-// mg and mg + 1 of the operator times every chunk of the step's planes
-// (kc chunks, k byte-symbols), into acc.  EXACT (the none kernel): JAX's
-// plane values against the unscaled operator.
+// The plane registers of operator chunk c of one warp step: b0 (depths
+// 4t..4t+3) and b1 (16 + 4t..) of each column group j.  W=8 and 16: the
+// words of word chunk c, planes t and 4 + t of byte-symbols 4c..4c+3.
+// W=4: plane t of the words of word chunks 2c (symbols 8c..8c+3) and
+// 2c + 1 (8c + 4..8c + 7), the latter zero where it starts past k.
 template <int W, int EXPAND, int SRC, bool EXACT>
+__device__ __forceinline__ void chunk_planes(const StepRows<W, SRC>& rows, int c, int k, int t,
+                                             uint32_t (&b0)[kSumGroups], uint32_t (&b1)[kSumGroups]) {
+  uint32_t r[kSumGroups];
+  if constexpr (W == 4) {
+    const uint32_t bit = 0x01010101u << t;
+    step_words(rows, 2 * c, r);
+#pragma unroll
+    for (int j = 0; j < kSumGroups; ++j) b0[j] = plane_word<EXPAND, EXACT>(r[j], t, bit);
+    if (8 * c + 4 < k) {
+      step_words(rows, 2 * c + 1, r);
+#pragma unroll
+      for (int j = 0; j < kSumGroups; ++j) b1[j] = plane_word<EXPAND, EXACT>(r[j], t, bit);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kSumGroups; ++j) b1[j] = 0u;
+    }
+  } else {
+    const uint32_t bit0 = 0x01010101u << t, bit1 = 0x01010101u << (t + 4);
+    step_words(rows, c, r);
+#pragma unroll
+    for (int j = 0; j < kSumGroups; ++j) {
+      b0[j] = plane_word<EXPAND, EXACT, W>(r[j], t, bit0);
+      b1[j] = plane_word<EXPAND, EXACT, W>(r[j], t + 4, bit1);
+    }
+  }
+}
+
+// The first product of the sum and none kernels over one warp step: m-tiles
+// mg and mg + 1 (NT = 2) or mg alone (NT = 1) of the operator times every
+// chunk of the step's planes (kc chunks, k symbols), into acc.  EXACT (the
+// none kernel): JAX's plane values against the unscaled operator.
+template <int W, int EXPAND, int SRC, bool EXACT, int NT = 2>
 __device__ __forceinline__ void sum_pass(int (&acc)[2][kSumGroups][4], const StepRows<W, SRC>& rows,
                                          const uint4* op_s, const uint4* __restrict__ opA, int mg, int kc,
                                          int k, int lane) {
@@ -917,32 +672,33 @@ __device__ __forceinline__ void sum_pass(int (&acc)[2][kSumGroups][4], const Ste
       }
     });
   } else {
-    const int sh0 = t, sh1 = t + 4;
-    const uint32_t bit0 = 0x01010101u << sh0, bit1 = 0x01010101u << sh1;
     constexpr bool kSigned = EXPAND == kSign || (EXACT && EXPAND == kShiftRaw);
     for (int c = 0; c < kc; ++c) {
-      uint32_t r[kSumGroups];
-      step_words(rows, c, r);
       uint32_t b0[kSumGroups], b1[kSumGroups];
-#pragma unroll
-      for (int j = 0; j < kSumGroups; ++j) {
-        b0[j] = plane_word<EXPAND, EXACT>(r[j], sh0, bit0);
-        b1[j] = plane_word<EXPAND, EXACT>(r[j], sh1, bit1);
-      }
+      chunk_planes<W, EXPAND, SRC, EXACT>(rows, c, k, t, b0, b1);
       const uint4 a0 = op_frag<SRC == kStaged>(op_s, opA, (mg * kc + c) * 32 + lane);
-      const uint4 a1 = op_frag<SRC == kStaged>(op_s, opA, ((mg + 1) * kc + c) * 32 + lane);
+      uint4 a1 = a0;
+      if constexpr (NT == 2) a1 = op_frag<SRC == kStaged>(op_s, opA, ((mg + 1) * kc + c) * 32 + lane);
 #pragma unroll
       for (int j = 0; j < kSumGroups; ++j) {
         if (kSigned) {
           mma_u8s8(acc[0][j], a0, b0[j], b1[j]);
-          mma_u8s8(acc[1][j], a1, b0[j], b1[j]);
+          if constexpr (NT == 2) mma_u8s8(acc[1][j], a1, b0[j], b1[j]);
         } else {
           mma_u8(acc[0][j], a0, b0[j], b1[j]);
-          mma_u8(acc[1][j], a1, b0[j], b1[j]);
+          if constexpr (NT == 2) mma_u8(acc[1][j], a1, b0[j], b1[j]);
         }
       }
     }
   }
+}
+
+// Whether the pass over m-tiles mg, mg + 1 covers both (else mg alone):
+// at W=4 (kW4Single) the last of an odd count of the operator's p*4 rows'
+// m-tiles runs alone.
+template <int W>
+__device__ __forceinline__ bool pass_pair(int mg, int p) {
+  return W != 4 || !kW4Single || mg + 1 < (p * W + 15) / 16;
 }
 
 // Stage the operator's fragments in shared memory (kStaged).
@@ -954,19 +710,21 @@ __device__ __forceinline__ int stage_operator(uint4* smem, const uint4* __restri
   return na;
 }
 
-// C: (p, m) uint8 at W=8, uint16 at W=16; k and p count W-bit symbols.
+// C: (p, m) uint8 at W=4 and 8, uint16 at W=16; k and p count W-bit symbols.
 template <int W, int EXPAND, int SRC>
 __global__ void __launch_bounds__(kSumThreads)
     gf_planes_sum_kernel(const uint4* __restrict__ opA,
                          const uint8_t* __restrict__ B,
                          void* __restrict__ Cv, int k, int p, long long m,
                          int tile, int pinned, int stages) {
-  static_assert(W == 8 || (W == 16 && EXPAND != kNibble && EXPAND != kCmp), "w=16: shift, shift_raw, sign");
+  static_assert(W == 8 || ((W == 16 || W == 4) && EXPAND != kNibble && EXPAND != kCmp),
+                "w=16: shift, shift_raw, sign; w=4: shift, shift_raw");
+  static_assert(W != 4 || EXPAND != kSign, "w=4: shift, shift_raw");
   static_assert(SRC != kOpL1 || EXPAND == kNibble, "only nibble reads its operator through L1 beside the ring");
-  static_assert(SRC != kDirect || W == 16, "w=8's folded forms stage their rows");
+  static_assert(SRC != kDirect || W != 8, "w=8's folded forms stage their rows");
   extern __shared__ uint4 smem[];
-  const int mtn = sum_mtiles(byte_syms(p, W));
-  const int kc = sum_chunks(byte_syms(k, W), EXPAND);
+  const int mtn = sum_mtiles(p, W);
+  const int kc = op_chunks(k, W, EXPAND);
   const int na = stage_operator<SRC>(smem, opA, mtn * kc * 32);
 
   const int warp = threadIdx.x >> 5;
@@ -982,10 +740,13 @@ __global__ void __launch_bounds__(kSumThreads)
   StepRing<W> ring(reinterpret_cast<uint8_t*>(smem + na), B, k, m, blk0, span, pinned, stages, warp, lane);
   ring.template start<SRC>();
 
-  const uint32_t keep = 0x01010101u << g;
+  // Row g of an m-tile is output bit g (W=8, 16) or g & 3 (W=4: 4 symbols
+  // of 4 bits a tile).
+  const uint32_t keep = 0x01010101u << (W == 4 ? (g & 3) : g);
   // W=8: this lane's output bytes of a step, symbol 2mt + g / 2, columns
-  // 16t + 8(g & 1) .. + 7.  W=16: lanes g < 2, symbol mt, columns
-  // 16t + 8g .. + 7 (low bytes of w[j] at byte g, high at 2 + g).
+  // 16t + 8(g & 1) .. + 7.  W=4: every lane, symbol 4mt + g / 4 +
+  // 2((g / 2) & 1), the same columns.  W=16: lanes g < 2, symbol mt,
+  // columns 16t + 8g .. + 7 (low bytes of w[j] at byte g, high at 2 + g).
   const uint32_t pick = (uint32_t)(g & 3) | ((uint32_t)((g & 3) + 4) << 4);
   const uint32_t pick16 = 0x6420u + 0x1111u * (uint32_t)(g & 1);
   const int c_off = W == 16 ? 16 * t + 8 * g : 16 * t + 8 * (g & 1);
@@ -995,9 +756,15 @@ __global__ void __launch_bounds__(kSumThreads)
     const bool full = vec_out && col0 + kSumStepCols <= m;
     for (int mg = 0; mg < mtn; mg += 2) {
       int acc[2][kSumGroups][4];
-      sum_pass<W, EXPAND, SRC, false>(acc, rows, smem, opA, mg, kc, k, lane);
+      const bool pair = pass_pair<W>(mg, p);
+      if (pair) {
+        sum_pass<W, EXPAND, SRC, false>(acc, rows, smem, opA, mg, kc, k, lane);
+      } else {
+        sum_pass<W, EXPAND, SRC, false, W == 4 ? 1 : 2>(acc, rows, smem, opA, mg, kc, k, lane);
+      }
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
+        if (u == 1 && !pair) break;
         uint32_t w[kSumGroups];
 #pragma unroll
         for (int j = 0; j < kSumGroups; ++j) {
@@ -1006,10 +773,11 @@ __global__ void __launch_bounds__(kSumThreads)
           uint32_t v = __byte_perm(lo, hi, 0x7610) & keep;
           v |= __shfl_xor_sync(0xffffffffu, v, 4);
           v |= __shfl_xor_sync(0xffffffffu, v, 8);
-          v |= __shfl_xor_sync(0xffffffffu, v, 16);
+          if (W != 4) v |= __shfl_xor_sync(0xffffffffu, v, 16);  // W=4: g ^ 1, g ^ 2 hold a symbol's 4 bits
           w[j] = v;
         }
-        // Byte b of w[j]: byte-symbol 2mt + b / 2 at column 16t + 8(b & 1) + j.
+        // Byte b of w[j]: byte-symbol 2mt + b / 2 (W=4: symbol 4mt + g / 4
+        // + 2(b / 2)) at column 16t + 8(b & 1) + j.
         if constexpr (W == 16) {
           const int sym = mg + u;  // byte-symbols 2mt, 2mt + 1: its low and high bytes
           if (g < 2 && sym < p) {
@@ -1023,8 +791,8 @@ __global__ void __launch_bounds__(kSumThreads)
             }
           }
         } else {
-          const int sym = 2 * (mg + u) + (g >> 1);
-          if (g < 4 && sym < p) {
+          const int sym = W == 4 ? 4 * (mg + u) + (g >> 2) + 2 * ((g >> 1) & 1) : 2 * (mg + u) + (g >> 1);
+          if ((W == 4 || g < 4) && sym < p) {
             const uint32_t lo = __byte_perm(__byte_perm(w[0], w[1], pick), __byte_perm(w[2], w[3], pick), 0x5410);
             const uint32_t hi = __byte_perm(__byte_perm(w[4], w[5], pick), __byte_perm(w[6], w[7], pick), 0x5410);
             uint8_t* dst = static_cast<uint8_t*>(Cv) + (size_t)sym * m + col0 + c_off;
@@ -1047,10 +815,43 @@ __device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b,
   return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x4000), 0x7610);
 }
 
+// The dot kernel's first product at W=4 over one pass: its 4 n-tiles of
+// every chunk, into acc.  A register a of m-block mb holds plane t of rows
+// 8c..8c+3 (a.x: column 8g + mb, a.y: 8g + 4 + mb) and of rows
+// 8c + 4..8c + 7 (a.z, a.w), zero past k.
+template <int EXPAND, int SRC>
+__device__ __forceinline__ void dot_pass4(int (&acc)[4][4][4], const StepRows<4, SRC>& rows, const uint4* op_s,
+                                          const uint4* __restrict__ opB, int pass, int kc, int k, int lane) {
+  const int t = lane & 3;
+  const uint32_t bit = 0x01010101u << t;
+  for (int c = 0; c < kc; ++c) {
+    uint32_t lo[kSumGroups], hi[kSumGroups];
+    step_words(rows, 2 * c, lo);
+    if (8 * c + 4 < k) {
+      step_words(rows, 2 * c + 1, hi);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kSumGroups; ++j) hi[j] = 0u;  // a zero word's planes are zero
+    }
+    const uint4 b01 = op_frag<SRC == kStaged>(op_s, opB, ((2 * pass) * kc + c) * 32 + lane);
+    const uint4 b23 = op_frag<SRC == kStaged>(op_s, opB, ((2 * pass + 1) * kc + c) * 32 + lane);
+#pragma unroll
+    for (int mb = 0; mb < 4; ++mb) {
+      const uint4 a = make_uint4(plane_word<EXPAND, false>(lo[mb], t, bit), plane_word<EXPAND, false>(lo[4 + mb], t, bit),
+                                 plane_word<EXPAND, false>(hi[mb], t, bit), plane_word<EXPAND, false>(hi[4 + mb], t, bit));
+      mma_u8(acc[mb][0], a, b01.x, b01.y);
+      mma_u8(acc[mb][1], a, b01.z, b01.w);
+      mma_u8(acc[mb][2], a, b23.x, b23.y);
+      mma_u8(acc[mb][3], a, b23.z, b23.w);
+    }
+  }
+}
+
 // opB: the scaled operator as B fragments, (16 * mtn rows / 16, kc, 32
 // lanes) uint4, two 8-row n-tiles each (x, y: rows g; z, w: rows 8 + g);
-// opF: F's B fragments for the two passes of an 8-symbol tile, (2, 32)
-// uint2.  Everything else as gf_planes_sum_kernel.
+// opF: F's B fragments for the passes of an 8-symbol tile, (2, 32) uint2
+// (W=4: one pass a tile, (1, 32)).  Everything else as
+// gf_planes_sum_kernel.
 template <int W, int EXPAND, int SRC>
 __global__ void __launch_bounds__(kSumThreads)
     gf_planes_dot_kernel(const uint4* __restrict__ opB,
@@ -1058,19 +859,24 @@ __global__ void __launch_bounds__(kSumThreads)
                          const uint8_t* __restrict__ B,
                          void* __restrict__ Cv, int k, int p, long long m,
                          int tile, int pinned, int stages) {
-  static_assert(W == 8 || (W == 16 && EXPAND != kNibble && EXPAND != kCmp), "w=16: shift, shift_raw, sign");
+  static_assert(W == 8 || ((W == 16 || W == 4) && EXPAND != kNibble && EXPAND != kCmp),
+                "w=16: shift, shift_raw, sign; w=4: shift, shift_raw");
+  static_assert(W != 4 || EXPAND != kSign, "w=4: shift, shift_raw");
   static_assert(SRC != kOpL1 || EXPAND == kNibble, "only nibble reads its operator through L1 beside the ring");
-  static_assert(SRC != kDirect || W == 16, "w=8's folded forms stage their rows");
+  static_assert(SRC != kDirect || W != 8, "w=8's folded forms stage their rows");
   extern __shared__ uint4 smem[];
-  const int npass = sum_mtiles(byte_syms(p, W)) / 2;  // 32 operator rows (4 byte-symbols) a pass
-  const int kc = sum_chunks(byte_syms(k, W), EXPAND);
+  // 32 operator rows a pass: 4 byte-symbols (W=8, 16) or 8 symbols (W=4);
+  // an 8-symbol output tile is kTilePasses passes.
+  constexpr int kTilePasses = W == 4 ? 1 : 2;
+  const int npass = sum_mtiles(p, W) / 2;
+  const int kc = op_chunks(k, W, EXPAND);
   const int nb = stage_operator<SRC>(smem, opB, 2 * npass * kc * 32);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const uint2 f0 = opF[lane], f1 = opF[32 + lane];
+  const uint2 f0 = opF[lane], f1 = kTilePasses == 2 ? opF[32 + lane] : f0;
   const bool vec_out = ((uintptr_t)Cv & (W == 16 ? 15 : 7)) == 0 && (m & 7) == 0;
 
   const long long blk0 = (long long)blockIdx.x * tile;
@@ -1081,21 +887,22 @@ __global__ void __launch_bounds__(kSumThreads)
   const int sh0 = t, sh1 = t + 4;
   const uint32_t bit0 = 0x01010101u << sh0, bit1 = 0x01010101u << sh1;
   const uint32_t e1 = 1u << (8 * t), e8 = 0x80u << (8 * t);  // nibble's tables
-  // Byte e of a second-product A register is output bit 2t + (e & 1).
-  const uint32_t keep = 0x02010201u << (2 * t);
+  // Byte e of a second-product A register is output bit 2t + (e & 1), at
+  // W=4 bit 2(t & 1) + (e & 1) of symbol t / 2 of its n-tile.
+  const uint32_t keep = 0x02010201u << (2 * (W == 4 ? t & 1 : t));
   for (int n = 0; n < ring.nsteps; ++n) {
     const StepRows<W, SRC> rows = ring.template rows<SRC>(n, g);
     const long long col0 = blk0 + ring.first + n * ring.stride;
     const bool full = vec_out && col0 + kSumStepCols <= m;
-    for (int f = 0; 2 * f < npass; ++f) {
+    for (int f = 0; kTilePasses * f < npass; ++f) {
       int out[4][4];
 #pragma unroll
       for (int mb = 0; mb < 4; ++mb)
 #pragma unroll
         for (int r = 0; r < 4; ++r) out[mb][r] = 0;
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int pass = 2 * f + q;
+      for (int q = 0; q < kTilePasses; ++q) {
+        const int pass = kTilePasses * f + q;
         if (pass >= npass) break;
         int acc[4][4][4];
 #pragma unroll
@@ -1118,6 +925,8 @@ __global__ void __launch_bounds__(kSumThreads)
               mma_u8(acc[mb][3], a, b23.z, b23.w);
             }
           });
+        } else if constexpr (W == 4) {
+          dot_pass4<EXPAND, SRC>(acc, rows, smem, opB, pass, kc, k, lane);
         } else {
           for (int c = 0; c < kc; ++c) {
             uint32_t r[kSumGroups];
@@ -1146,7 +955,8 @@ __global__ void __launch_bounds__(kSumThreads)
         }
         // acc[mb][nt]: regs 0, 1 column 8g + mb, regs 2, 3 column
         // 8g + 4 + mb; bits 2t (regs 0, 2) and 2t + 1 of byte-symbol
-        // 4 pass + nt.
+        // 4 pass + nt (W=4: bits 2(t & 1), 2(t & 1) + 1 of symbol
+        // 8 pass + 2nt + t / 2).
         const uint2 fq = q == 0 ? f0 : f1;
 #pragma unroll
         for (int mb = 0; mb < 4; ++mb) {
@@ -1159,7 +969,8 @@ __global__ void __launch_bounds__(kSumThreads)
         }
       }
       // out[mb]: byte-symbols 8f + 2t (regs 0, 2) and 8f + 2t + 1 (regs 1,
-      // 3) at columns 8g + mb (regs 0, 1) and 8g + 4 + mb (regs 2, 3).
+      // 3) at columns 8g + mb (regs 0, 1) and 8g + 4 + mb (regs 2, 3); at
+      // W=4 symbols, the same.
       if constexpr (W == 16) {
         // Those are the low and high bytes of symbol 4f + t.
         const int sym = 4 * f + t;
@@ -1202,18 +1013,22 @@ __device__ __noinline__ void none_store_edge(int* dst, long long left, int4 v) {
   for (int j = 0; j < 4 && j < left; ++j) dst[j] = w[j];
 }
 
-// C: the (p*8, m) int32 sums.  Shared memory: the operator (kStaged), each
-// warp's staging rows, the ring (not kDirect).
-template <int EXPAND, int SRC>
+// C: the (p*W, m) int32 sums (row i*W + s: bit s of symbol i; at W=16 the
+// byte-symbols' rows i*16 + 8h + s' are that order too).  Shared memory:
+// the operator (kStaged), each warp's staging rows, the ring (not kDirect).
+template <int W, int EXPAND, int SRC>
 __global__ void __launch_bounds__(kSumThreads)
     gf_planes_none_kernel(const uint4* __restrict__ opA,
                           const uint8_t* __restrict__ B,
                           int* __restrict__ C, int k, int p, long long m,
                           int tile, int pinned, int stages) {
+  static_assert(W == 8 || ((W == 16 || W == 4) && EXPAND != kNibble && EXPAND != kCmp),
+                "w=16: shift, shift_raw, sign; w=4: shift, shift_raw");
+  static_assert(W != 4 || EXPAND != kSign, "w=4: shift, shift_raw");
   static_assert(SRC != kOpL1, "the pre-parity form stages its operator or reads everything through L1");
   extern __shared__ uint4 smem[];
-  const int mtn = sum_mtiles(p);
-  const int kc = sum_chunks(k, EXPAND);
+  const int mtn = sum_mtiles(p, W);
+  const int kc = op_chunks(k, W, EXPAND);
   const int na = stage_operator<SRC>(smem, opA, mtn * kc * 32);
 
   const int warp = threadIdx.x >> 5;
@@ -1226,7 +1041,7 @@ __global__ void __launch_bounds__(kSumThreads)
 
   const long long blk0 = (long long)blockIdx.x * tile;
   const int span = (int)(min(m, blk0 + tile) - blk0);
-  StepRing<8> ring(ring_bufs, B, k, m, blk0, span, pinned, stages, warp, lane);
+  StepRing<W> ring(ring_bufs, B, k, m, blk0, span, pinned, stages, warp, lane);
   ring.template start<SRC>();
 
   // Staging: 16-byte chunk c of a row at c ^ (c >> 3).  Lane (g, t) writes
@@ -1237,18 +1052,25 @@ __global__ void __launch_bounds__(kSumThreads)
   const int c_rd = lane & 15;
   const int* st_r = stage + (lane >> 4) * kNoneStride + 4 * (c_rd ^ (c_rd >> 3));
   for (int n = 0; n < ring.nsteps; ++n) {
-    const StepRows<8, SRC> rows = ring.template rows<SRC>(n, g);
+    const StepRows<W, SRC> rows = ring.template rows<SRC>(n, g);
     const long long col0 = blk0 + ring.first + n * ring.stride;
     const bool full = vec_out && col0 + kSumStepCols <= m;
     for (int mg = 0; mg < mtn; mg += 2) {
       int acc[2][kSumGroups][4];
-      sum_pass<8, EXPAND, SRC, true>(acc, rows, smem, opA, mg, kc, k, lane);
+      const bool pair = pass_pair<W>(mg, p);
+      if (pair) {
+        sum_pass<W, EXPAND, SRC, true>(acc, rows, smem, opA, mg, kc, k, lane);
+      } else {
+        sum_pass<W, EXPAND, SRC, true, W == 4 ? 1 : 2>(acc, rows, smem, opA, mg, kc, k, lane);
+      }
       // acc[u][j]: regs 0, 2 rows g, g + 8 of m-tile mg + u at column
-      // 16t + j, regs 1, 3 at column 16t + 8 + j.
+      // 16t + j, regs 1, 3 at column 16t + 8 + j.  A single m-tile's pass
+      // stages rows 0-15 alone (nrows <= 16 reads no more).
 #pragma unroll
       for (int u = 0; u < 2; ++u)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
+          if (u == 1 && !pair) break;
           int* row = st_w + (16 * u + 8 * h) * kNoneStride;
           const int(&a)[kSumGroups][4] = acc[u];
           *reinterpret_cast<int4*>(row + 4 * (0 ^ sw)) = make_int4(a[0][2 * h], a[1][2 * h], a[2][2 * h], a[3][2 * h]);
@@ -1259,9 +1081,9 @@ __global__ void __launch_bounds__(kSumThreads)
               make_int4(a[4][2 * h + 1], a[5][2 * h + 1], a[6][2 * h + 1], a[7][2 * h + 1]);
         }
       __syncwarp();
-      // Two whole 256-byte row segments a store; rows past p*8 (the
+      // Two whole 256-byte row segments a store; rows past p*W (the
       // operator's padding) are not written.
-      const int nrows = min(kNoneRows, 8 * p - 16 * mg);
+      const int nrows = min(kNoneRows, W * p - 16 * mg);
       const int* src = st_r;
       int* dst = C + (size_t)(16 * mg + (lane >> 4)) * m + col0 + 4 * c_rd;
       for (int r = lane >> 4; r < nrows; r += 2) {
@@ -1283,8 +1105,8 @@ __global__ void __launch_bounds__(kSumThreads)
 // symbols): the operator (kStaged), the none kernel's staging rows and
 // `stages` step buffers a warp (not kDirect).
 inline size_t mma_smem(int k, int p, int w, int expand, int refold, int src, int stages) {
-  const size_t op = (size_t)sum_mtiles(byte_syms(p, w)) * sum_chunks(byte_syms(k, w), expand) * 32 * sizeof(uint4);
-  const size_t ring = (size_t)kSumWarps * stages * ring_rows(k, w) * kSumStepCols * (w / 8);
+  const size_t op = (size_t)sum_mtiles(p, w) * op_chunks(k, w, expand) * 32 * sizeof(uint4);
+  const size_t ring = (size_t)kSumWarps * stages * ring_rows(k, w) * kSumStepCols * sym_bytes(w);
   const size_t staging = refold == kNone ? (size_t)kSumWarps * kNoneRows * kNoneStride * sizeof(int) : 0;
   return (src == kStaged ? op : 0) + (src == kDirect ? 0 : ring) + staging;
 }
@@ -1297,7 +1119,8 @@ struct Route {
 // The route of a launch: operator and ring in shared memory with the most
 // step buffers (kSumStages down to 1) that fit; else, for nibble's folded
 // forms, the operator through L1 beside the most that fit alone; else, at
-// w=16 and for the pre-parity form, both through L1 from device memory.
+// w=4 and 16 and for the pre-parity form, both through L1 from device
+// memory.  Only w=8's folded byte expansions are refused past their edge.
 inline Route mma_route(int k, int p, int w, int expand, int refold) {
   for (int stages = kSumStages; stages >= 1; --stages) {
     if (mma_smem(k, p, w, expand, refold, kStaged, stages) <= (size_t)kMaxSmem) return {kStaged, stages};
@@ -1307,12 +1130,9 @@ inline Route mma_route(int k, int p, int w, int expand, int refold) {
       if (mma_smem(k, p, w, expand, refold, kOpL1, stages) <= (size_t)kMaxSmem) return {kOpL1, stages};
     }
   }
-  if (w == 16 || refold == kNone) return {kDirect, 0};
+  if (w != 8 || refold == kNone) return {kDirect, 0};
   return {-1, 0};
 }
-
-// Whether (w, refold) runs the sum, dot or none kernels (else gf_planes_kernel).
-inline bool is_mma(int w, int refold) { return w == 8 || (w == 16 && refold != kNone); }
 
 template <int W, int EXPAND, int REFOLD, int SRC>
 int launch_src(const void* opA, const void* opF, const void* B, void* C, int k, int p,
@@ -1324,7 +1144,7 @@ int launch_src(const void* opA, const void* opF, const void* B, void* C, int k, 
   } else if constexpr (REFOLD == kDot) {
     fn = (const void*)gf_planes_dot_kernel<W, EXPAND, SRC>;
   } else {
-    fn = (const void*)gf_planes_none_kernel<EXPAND, SRC>;
+    fn = (const void*)gf_planes_none_kernel<W, EXPAND, SRC>;
   }
   const size_t smem = mma_smem(k, p, W, EXPAND, REFOLD, SRC, stages);
   if (smem > 48 * 1024) {
@@ -1339,7 +1159,7 @@ int launch_src(const void* opA, const void* opF, const void* B, void* C, int k, 
     gf_planes_dot_kernel<W, EXPAND, SRC><<<blocks, kSumThreads, smem, stream>>>(
         static_cast<const uint4*>(opA), static_cast<const uint2*>(opF), Bb, C, k, p, m, tile, pinned, stages);
   } else {
-    gf_planes_none_kernel<EXPAND, SRC><<<blocks, kSumThreads, smem, stream>>>(
+    gf_planes_none_kernel<W, EXPAND, SRC><<<blocks, kSumThreads, smem, stream>>>(
         static_cast<const uint4*>(opA), Bb, static_cast<int*>(C), k, p, m, tile, pinned, stages);
   }
   return (int)cudaGetLastError();
@@ -1362,32 +1182,12 @@ int launch_mma(const void* opA, const void* opF, const void* B, void* C, int k, 
       return launch_src<W, EXPAND, REFOLD, kOpL1>(opA, opF, B, C, k, p, m, tile, pinned, r.stages, nb, stream);
     }
   }
-  if constexpr (W == 16 || REFOLD == kNone) {
+  if constexpr (W != 8 || REFOLD == kNone) {
     if (r.src == kDirect) {
       return launch_src<W, EXPAND, REFOLD, kDirect>(opA, opF, B, C, k, p, m, tile, pinned, 1, nb, stream);
     }
   }
   return (int)cudaErrorInvalidValue;
-}
-
-template <int W, int EXPAND, int REFOLD>
-int launch_planes(const void* opA, const void* opF, const void* B, void* C,
-                  int k, int p, long long m, int tile, int pinned,
-                  cudaStream_t stream) {
-  const size_t smem = planes_smem(dims(k, p, W), REFOLD);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gf_planes_kernel<W, EXPAND, REFOLD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long blocks = (m + tile - 1) / tile;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  gf_planes_kernel<W, EXPAND, REFOLD><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const uint4*>(opA), static_cast<const uint4*>(opF), B, C, k,
-      p, m, tile, pinned);
-  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
@@ -1436,17 +1236,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The (w, expand, refold) instances gf_planes_kernel runs: at w=4 shift
-// and shift_raw with every refold, at w=16 the pre-parity form of the
-// three lane-width expansions.
-#define RS_PLANES_INSTANCES(X)                                             \
-  X(16, kShift, kNone) X(16, kShiftRaw, kNone) X(16, kSign, kNone)         \
-  X(4, kShift, kSum) X(4, kShiftRaw, kSum) X(4, kShift, kDot)              \
-  X(4, kShiftRaw, kDot) X(4, kShift, kNone) X(4, kShiftRaw, kNone)
-// The expansions of the sum, dot and none kernels at w=8 and of the sum and
-// dot kernels at w=16.
+// The expansions of the sum, dot and none kernels at w=8, at w=16 and at
+// w=4: every (w, expand, refold) instance runs one of the three.
 #define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign) X(kNibble)
 #define RS_WIDE_EXPANDS(X) X(kShift) X(kShiftRaw) X(kSign)
+#define RS_NARROW_EXPANDS(X) X(kShift) X(kShiftRaw)
 
 }  // namespace
 
@@ -1459,22 +1253,18 @@ const char* rs_cuda_error_string(int err) {
 // The route a launch at (k, p, w) takes: 0 operator and data staged in
 // shared memory, 1 the operator through L1 beside the staged data, 2 both
 // from device memory through L1, -1 refused (the shared memory does not
-// hold what the instance needs).  gf_planes_kernel stages everything (0).
+// hold what the instance needs).
 int rs_gf_planes_route(int k, int p, int w, int expand, int refold) {
-  if (is_mma(w, refold)) return mma_route(k, p, w, expand, refold).src;
-  return planes_smem(dims(k, p, w), refold) <= (size_t)kMaxSmem ? kStaged : -1;
+  return mma_route(k, p, w, expand, refold).src;
 }
 
 // Dynamic shared memory the GEMM needs at (k, p, w), in bytes, and its
-// limit.  For the sum, dot and none kernels: their route's, with one step
-// buffer a warp (the launch takes up to kSumStages that fit).
+// limit: its route's, with one step buffer a warp (the launch takes up to
+// kSumStages that fit).
 long long rs_gf_planes_smem(int k, int p, int w, int expand, int refold) {
-  if (is_mma(w, refold)) {
-    const Route r = mma_route(k, p, w, expand, refold);
-    const int src = r.src < 0 ? kStaged : r.src;  // refused: the staged need, past the limit
-    return (long long)mma_smem(k, p, w, expand, refold, src, 1);
-  }
-  return (long long)planes_smem(dims(k, p, w), refold);
+  const Route r = mma_route(k, p, w, expand, refold);
+  const int src = r.src < 0 ? kStaged : r.src;  // refused: the staged need, past the limit
+  return (long long)mma_smem(k, p, w, expand, refold, src, 1);
 }
 int rs_gf_planes_smem_limit() { return kMaxSmem; }
 
@@ -1483,10 +1273,10 @@ int rs_gf_planes_smem_limit() { return kMaxSmem; }
 //   B: (k, m) uint8 (w=4, 8) or uint16 (w=16), row-major.  C: (p, m) of
 //   B's type, or for refold none the (p*w, m) int32 accumulators.  tile:
 //   columns per block, a positive multiple of kSumStepCols.  pinned != 0:
-//   every block reads block 0.  At w=8, and at w=16 with the sum and dot
-//   refolds, the sum, dot and none kernels run (opA and opF packed for
-//   them), every other instance gf_planes_kernel.  An instance not in the
-//   source returns cudaErrorInvalidValue.
+//   every block reads block 0.  Refold sum runs gf_planes_sum_kernel, dot
+//   gf_planes_dot_kernel, none gf_planes_none_kernel (opA and opF packed
+//   for them).  An instance not in the source returns
+//   cudaErrorInvalidValue.
 int rs_gf_planes(const void* opA, const void* opF, const void* B, void* C,
                  int k, int p, long long m, int tile, int w, int expand,
                  int refold, int pinned, void* stream) {
@@ -1495,18 +1285,16 @@ int rs_gf_planes(const void* opA, const void* opF, const void* B, void* C,
   }
   if (m == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RS_CALL(WW, E, R)                                                  \
-  if (w == WW && expand == E && refold == R)                               \
-    return launch_planes<WW, E, R>(opA, opF, B, C, k, p, m, tile, pinned, s);
-  RS_PLANES_INSTANCES(RS_CALL)
-#undef RS_CALL
 #define RS_CALL_MMA(WW, E, R)                                           \
   if (w == WW && expand == E && refold == R)                            \
     return launch_mma<WW, E, R>(opA, opF, B, C, k, p, m, tile, pinned, s);
 #define RS_CALL_W8(E) RS_CALL_MMA(8, E, kSum) RS_CALL_MMA(8, E, kDot) RS_CALL_MMA(8, E, kNone)
-#define RS_CALL_W16(E) RS_CALL_MMA(16, E, kSum) RS_CALL_MMA(16, E, kDot)
+#define RS_CALL_W16(E) RS_CALL_MMA(16, E, kSum) RS_CALL_MMA(16, E, kDot) RS_CALL_MMA(16, E, kNone)
+#define RS_CALL_W4(E) RS_CALL_MMA(4, E, kSum) RS_CALL_MMA(4, E, kDot) RS_CALL_MMA(4, E, kNone)
   RS_SUM_EXPANDS(RS_CALL_W8)
   RS_WIDE_EXPANDS(RS_CALL_W16)
+  RS_NARROW_EXPANDS(RS_CALL_W4)
+#undef RS_CALL_W4
 #undef RS_CALL_W16
 #undef RS_CALL_W8
 #undef RS_CALL_MMA

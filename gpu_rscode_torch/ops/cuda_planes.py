@@ -13,16 +13,16 @@ each accumulator is refolded into output symbols by a shift-sum
 (the pre-parity form, the JAX package's ``fold_parity=False``).  Every
 expansion runs at w=8; ``shift``, ``shift_raw`` and ``sign`` also at w=16
 (:data:`WIDE_EXPANDS`), ``shift`` and ``shift_raw`` at w=4
-(:data:`NARROW_EXPANDS`; one symbol a uint8, bits 4-7 ignored).  The sum
-and dot refolds at w=8 (:data:`SUM_EXPANDS`: every expansion) and at w=16
-run ``gf_planes_sum_kernel`` and ``gf_planes_dot_kernel`` (a 16-bit symbol
-as two byte-symbols), with the operator scaled by 2^s and packed for
-four-symbol plane words (:func:`sum_operator`; :func:`nibble_operator` for
-the nibble's PRMT tables; as B fragments for the dot kernel, whose F is
-:func:`dot_fold_operator`); the pre-parity form at w=8 runs
-``gf_planes_none_kernel`` on the same operators unscaled; w=4 and the
-pre-parity form at w=16 run ``gf_planes_kernel``.  :func:`route` says
-where a launch reads its operator and data from.
+(:data:`NARROW_EXPANDS`; one symbol a uint8, bits 4-7 ignored).  Every
+instance runs one of three kernels, by its refold: ``"sum"``
+``gf_planes_sum_kernel``, ``"dot"`` ``gf_planes_dot_kernel``, ``"none"``
+``gf_planes_none_kernel``, each templated on w (a 16-bit symbol as two
+byte-symbols; a 4-bit symbol a byte, 8 symbols a 32-deep chunk).  The
+operator is scaled by 2^s and packed for four-symbol plane words
+(:func:`sum_operator`; :func:`nibble_operator` for the nibble's PRMT
+tables; as B fragments for the dot kernel, whose F is
+:func:`dot_fold_operator`), and unscaled for the none kernel.
+:func:`route` says where a launch reads its operator and data from.
 With ``pinned=True`` every block of ``tile`` columns computes on the first
 block's columns: the compute-only ceiling, whose result is the first
 block's output repeated.
@@ -71,11 +71,9 @@ PAIRS = tuple((e, r) for e in EXPANDS for r in ("sum", "dot"))
 INSTANCES = (tuple((8, e, r) for e in EXPANDS for r in REFOLDS)
              + tuple((16, e, r) for e in WIDE_EXPANDS for r in REFOLDS)
              + tuple((4, e, r) for e in NARROW_EXPANDS for r in REFOLDS))
-# At w=8 these run gf_planes_sum_kernel (refold "sum"), gf_planes_dot_kernel
-# ("dot") and gf_planes_none_kernel ("none"); at w=16 WIDE_EXPANDS run the
-# first two.
+# The expansions at w=8 (all of them).
 SUM_EXPANDS = ("shift", "shift_raw", "cmp", "sign", "nibble")
-DEFAULT_TILE = 8192  # columns a block covers by default: gf_planes_kernel, the copy floor
+DEFAULT_TILE = 8192  # columns a block of the copy floor covers by default
 TILE_STEP = 64  # columns of gf_planes_sum_kernel's warp step; tiles are multiples
 # Columns a block of the sum, dot and none kernels covers by default: with
 # 8192, a grid the card holds at once left SMs idle (w=16's segment: 410
@@ -112,54 +110,42 @@ def tile_cols(tile: int | None, m: int) -> int:
     return min(-(-tile // TILE_STEP) * TILE_STEP, max(TILE_STEP, -(-m // TILE_STEP) * TILE_STEP))
 
 
-def block_cols(tile: int | None, m: int, expand: str, refold: str, w: int = 8) -> int:
-    """:func:`tile_cols` for an instance: without a ``tile``, MMA_TILE for
-    the sum, dot and none kernels, DEFAULT_TILE for the others."""
-    if tile is None and runs_mma(expand, refold, w):
-        tile = MMA_TILE
-    return tile_cols(tile, m)
+def block_cols(tile: int | None, m: int) -> int:
+    """:func:`tile_cols` for a GEMM instance: without a ``tile``, MMA_TILE
+    (the sum, dot and none kernels' default)."""
+    return tile_cols(MMA_TILE if tile is None else tile, m)
 
 
-def _on_mma(expand: str, w: int) -> bool:
-    return (w == 8 and expand in SUM_EXPANDS) or (w == 16 and expand in WIDE_EXPANDS)
+def runs_mma(expand: str, refold: str, w: int = 8) -> bool:
+    """Whether (w, expand, refold) is an instance of the kernel source: every
+    one runs the sum, dot or none kernel, by its refold."""
+    return (w, expand, refold) in INSTANCES
 
 
 def is_sum_pair(expand: str, refold: str, w: int = 8) -> bool:
     """Whether (expand, refold) at w runs gf_planes_sum_kernel."""
-    return refold == "sum" and _on_mma(expand, w)
+    return refold == "sum" and runs_mma(expand, refold, w)
 
 
 def is_dot_pair(expand: str, refold: str, w: int = 8) -> bool:
     """Whether (expand, refold) at w runs gf_planes_dot_kernel."""
-    return refold == "dot" and _on_mma(expand, w)
+    return refold == "dot" and runs_mma(expand, refold, w)
 
 
 def is_none_pair(expand: str, refold: str, w: int = 8) -> bool:
     """Whether (expand, refold) at w runs gf_planes_none_kernel."""
-    return refold == "none" and w == 8 and expand in SUM_EXPANDS
-
-
-def runs_mma(expand: str, refold: str, w: int = 8) -> bool:
-    """Whether (expand, refold) at w runs the sum, dot or none kernel (on
-    their operator packing), not gf_planes_kernel."""
-    return is_sum_pair(expand, refold, w) or is_dot_pair(expand, refold, w) or is_none_pair(expand, refold, w)
+    return refold == "none" and runs_mma(expand, refold, w)
 
 
 def kind(w: int, expand: str, refold: str) -> str:
-    """The count an instance's launch adds to: "sum" and "dot"
-    (gf_planes_sum_kernel and gf_planes_dot_kernel at w=8), "w16" (the same
-    two kernels at w=16), "preparity" (gf_planes_none_kernel, w=8),
-    "w4" (gf_planes_kernel at w=4, folded) and "preparity_w4_w16"
-    (gf_planes_kernel's pre-parity form at w=4 and 16)."""
-    if w == 16 and refold != "none":
-        return "w16"
-    if is_sum_pair(expand, refold, w):
-        return "sum"
-    if is_dot_pair(expand, refold, w):
-        return "dot"
+    """The count an instance's launch adds to, by width: "sum" and "dot"
+    (gf_planes_sum_kernel and gf_planes_dot_kernel at w=8), "w16" and "w4"
+    (the same two kernels at w=16 and w=4), "preparity"
+    (gf_planes_none_kernel at w=8) and "preparity_w4_w16" (the none kernel
+    at w=4 and 16)."""
     if refold == "none":
         return "preparity" if w == 8 else "preparity_w4_w16"
-    return "w4"
+    return refold if w == 8 else f"w{w}"
 
 
 def reset_counts() -> None:
@@ -267,7 +253,7 @@ def gf_matmul_planes_plain(A, B: torch.Tensor, expand: str, refold: str, tile: i
     k, m = B.shape
     A = coefficients(A, k, w)
     if pinned:
-        t = min(block_cols(tile, m, expand, refold, w), m)
+        t = min(block_cols(tile, m), m)
         first = _widen(gf_matmul_planes_plain(A, B[:, :t], expand, refold, w=w))
         picked = first[:, torch.arange(m, device=B.device) % max(t, 1)]
         return picked if refold == "none" else _narrow(picked, w)
@@ -317,8 +303,19 @@ def sum_operator(A: np.ndarray, w: int = 8, scaled: bool = True) -> np.ndarray:
     i*8 + s times 2^s (``scaled``; the none kernel's is 0/1), zero-padded
     to (16 * mt, 32 * kc) uint8 with mt even (the kernels run m-tiles in
     pairs), its columns in four-symbol plane-word order: depth
-    32c + 16h + 4t + q of chunk c is plane 4h + t of byte-symbol 4c + q."""
+    32c + 16h + 4t + q of chunk c is plane 4h + t of byte-symbol 4c + q.
+    At w=4 (4 planes a symbol) row i*4 + s is times 2^s and depth
+    32c + 16h + 4t + q is plane t of symbol 8c + 4h + q."""
     p, k = A.shape
+    if w == 4:
+        mt, kc = 2 * -(-p // 8), -(-k // 8)
+        op = expand_bitmatrix(A, 4).numpy().astype(np.int64)
+        if scaled:
+            op <<= np.tile(np.arange(4), p)[:, None]
+        padded = np.zeros((16 * mt, kc, 2, 4, 4), dtype=np.uint8)  # (row, c, h, q, s)
+        padded[:p * 4].reshape(p * 4, 8 * kc, 4)[:, :k] = op.reshape(p * 4, k, 4)
+        # s = t -> (c, h, t, q)
+        return np.ascontiguousarray(padded.transpose(0, 1, 2, 4, 3)).reshape(16 * mt, 32 * kc)
     p8, k8 = p * w // 8, k * w // 8
     mt, kc = 2 * -(-p8 // 4), -(-k8 // 4)
     op = expand_bitmatrix(A, w).numpy().astype(np.int64)
@@ -361,42 +358,31 @@ def pack_b_fragments(op: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(pack_fragments(op, *op.shape)[..., [0, 2, 1, 3]])
 
 
-def dot_fold_operator() -> np.ndarray:
+def dot_fold_operator(w: int = 8) -> np.ndarray:
     """gf_planes_dot_kernel's F, 0/1: (2, 32, 2) uint32 B fragments, one a
     pass of an 8-symbol output tile.  The second product's depth 16h + 4t + e
     of pass q is bit 2t + (e & 1) of n-tile 2h + e // 2, that is of the
-    tile's symbol 4q + 2h + e // 2, and F takes it to that column."""
-    F = np.zeros((2, 2, 4, 4, 8), dtype=np.uint8)  # (q, h, t, e, symbol)
-    for q, h, e in np.ndindex(2, 2, 4):
-        F[q, h, :, e, 4 * q + 2 * h + e // 2] = 1
+    tile's symbol 4q + 2h + e // 2, and F takes it to that column.  At w=4
+    a pass is a whole tile, (1, 32, 2): n-tile 2h + e // 2 holds symbols
+    2(2h + e // 2) and the next, and depth 16h + 4t + e is bit
+    2(t & 1) + (e & 1) of symbol 4h + 2(e // 2) + t // 2."""
+    passes = 1 if w == 4 else 2
+    F = np.zeros((passes, 2, 4, 4, 8), dtype=np.uint8)  # (q, h, t, e, symbol)
+    for q, h, t, e in np.ndindex(passes, 2, 4, 4):
+        F[q, h, t, e, 4 * h + 2 * (e // 2) + t // 2 if w == 4 else 4 * q + 2 * h + e // 2] = 1
     # lane g*4 + t, register h, byte e: depth 16h + 4t + e of column g
     frag = np.ascontiguousarray(F.transpose(0, 4, 2, 1, 3))  # (q, g, t, h, e)
-    return frag.reshape(2, 32, 2, 4).view("<u4")[..., 0]
-
-
-def _dims(k: int, p: int, w: int) -> tuple[int, int, int, int]:
-    """gf_planes_kernel's (mt, kc, mf, kf): the operator's 16-row m-tiles
-    and 32-deep chunks, and F's (16 symbols a tile)."""
-    mt = -(-p * w // 16)
-    return mt, -(-k * w // 32), -(-p // 16), -(-mt * 16 // 32)
+    return frag.reshape(passes, 32, 2, 4).view("<u4")[..., 0]
 
 
 def _operators(A: np.ndarray, expand: str, refold: str, w: int, device: torch.device):
     def make():
-        p, k = A.shape
         opF = None
-        if runs_mma(expand, refold, w):
-            scaled = refold != "none"
-            op = nibble_operator(A, scaled) if expand == "nibble" else sum_operator(A, w, scaled)
-            if refold == "dot":
-                opA, opF = pack_b_fragments(op), dot_fold_operator()
-            else:
-                opA = pack_fragments(op, *op.shape)
+        op = nibble_operator(A, refold != "none") if expand == "nibble" else sum_operator(A, w, refold != "none")
+        if refold == "dot":
+            opA, opF = pack_b_fragments(op), dot_fold_operator(w)
         else:
-            mt, kc, mf, kf = _dims(k, p, w)
-            opA = pack_fragments(_operator_bits(A, expand, w).numpy(), 16 * mt, 32 * kc)
-            if refold == "dot":
-                opF = pack_fragments(fold_operator(p, w), 16 * mf, 32 * kf)
+            opA = pack_fragments(op, *op.shape)
         opA = torch.from_numpy(opA.view(np.int32)).to(device)
         if opF is not None:
             opF = torch.from_numpy(np.ascontiguousarray(opF).view(np.int32)).to(device)
@@ -432,8 +418,8 @@ def route(k: int, p: int, expand: str, refold: str, w: int = 8) -> str | None:
     """Where a launch at (k, p) reads from, from the kernel library:
     "smem" (operator and data staged in shared memory), "l1" (the operator
     through L1 beside the staged data: nibble's sum and dot kernels past
-    their edge), "direct" (both through L1 from device memory: the w=16
-    sum and dot kernels and the pre-parity kernel past theirs), or None
+    their edge), "direct" (both through L1 from device memory: every
+    instance but w=8's folded byte expansions, past its edge), or None
     (refused)."""
     return ROUTES.get(_lib().rs_gf_planes_route(k, p, w, EXPANDS[expand], REFOLDS[refold]))
 
@@ -453,7 +439,7 @@ def gf_matmul_planes(A, B: torch.Tensor, expand: str, refold: str, tile: int | N
     _check_pair(expand, refold, w)
     _check_data(B, "gf_matmul_planes", w)
     k, m = B.shape
-    t = block_cols(tile, m, expand, refold, w)
+    t = block_cols(tile, m)
     if B.device.type == "cpu":
         return gf_matmul_planes_plain(A, B, expand, refold, t, pinned, w)
     A = coefficients(A, k, w)

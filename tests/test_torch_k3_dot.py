@@ -19,7 +19,6 @@ the JAX package's exactly (tolerance 0): ``GaloisField.matmul``,
 ``_body_signf`` and ``_body_raw_dot`` interpreted.
 """
 
-import re
 
 import numpy as np
 import pytest
@@ -89,38 +88,43 @@ def second_operand(acc: np.ndarray, keep) -> list:
 
 
 def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pinned: bool = False,
-          trace: list | None = None, direct: bool = False) -> np.ndarray:
+          trace: list | None = None, direct: bool = False, w: int | None = None) -> np.ndarray:
     """NumPy model of gf_planes_dot_kernel<W, expand>: (p, k) coefficients,
-    (k, m) uint8 (W=8) or uint16 (W=16) -> (p, m) of B's type.  ``tile`` as
-    the wrapper rounds it; ``direct``: the rows read from device memory
-    (the w=16 kernel past its shared-memory edge).  ``trace`` collects
-    every first-product accumulator after each depth chunk."""
+    (k, m) uint8 (W=4, 8) or uint16 (W=16) -> (p, m) of B's type.  ``w``:
+    16 for uint16, else 8 unless given (4).  ``tile`` as the wrapper rounds
+    it; ``direct``: the rows read from device memory (the w=4 and 16
+    kernels past their shared-memory edge).  ``trace`` collects every
+    first-product accumulator after each depth chunk."""
     p, k = A.shape
     m = B.shape[1]
     w16 = B.dtype == np.uint16
-    assert not direct or w16  # w=8's dot kernel always stages its rows
-    wd = 16 if w16 else 8
+    wd = 16 if w16 else w or 8
+    assert not direct or wd != 8  # w=8's dot kernel always stages its rows
     tile = cuda_planes.tile_cols(tile, m)
     assert tile % STEP == 0
     opB = cuda_planes.pack_b_fragments(operator(A, expand, wd))  # (2 * npass, kc, 32, 4)
     npass, kc = opB.shape[0] // 2, opB.shape[1]
     assert opB.shape[0] % 2 == 0
-    opF = cuda_planes.dot_fold_operator()  # (2, 32, 2)
-    f_tiles = [b_tile(opF[q, :, 0], opF[q, :, 1]) for q in range(2)]
+    opF = cuda_planes.dot_fold_operator(wd)  # (passes a tile, 32, 2): 2, or 1 at w=4
+    tile_passes = opF.shape[0]
+    f_tiles = [b_tile(opF[q, :, 0], opF[q, :, 1]) for q in range(tile_passes)]
     steps = warp_steps(m, tile, pinned)
     assert [w for w, _ in steps] == list(range(0, m, STEP))  # every step once, blocks ragged or not
     S = len(steps)
-    words, out = step_buffers(B, steps, p, direct)
+    words, out = step_buffers(B, steps, p, direct, wd)
     writes = np.zeros((p, m), dtype=np.int64)
-    keep = np.uint32(0x02010201) << (2 * T).astype(np.uint32)
+    # Byte e of a second-product register: output bit 2t + (e & 1), at w=4
+    # bit 2(t & 1) + (e & 1) of symbol t / 2 of its n-tile.
+    keep = np.uint32(0x02010201) << (2 * (T & 1 if wd == 4 else T)).astype(np.uint32)
     col0 = np.array([w for w, _ in steps])
     signed = expand == "sign"
-    chunks = list(chunk_planes(words, k * wd // 8, expand, wd))  # the same registers in every pass
+    kb = k if wd == 4 else k * wd // 8
+    chunks = list(chunk_planes(words, kb, expand, wd))  # the same registers in every pass
     assert sorted(c for c, _, _ in chunks) == list(range(kc))  # every operator chunk once
-    for f in range(-(-npass // 2)):
+    for f in range(-(-npass // tile_passes)):
         o = np.zeros((4, S, 16, 8), dtype=np.int64)
-        for q in range(2):
-            ps = 2 * f + q
+        for q in range(tile_passes):
+            ps = tile_passes * f + q
             if ps >= npass:
                 break
             acc = np.zeros((4, 4, S, 16, 8), dtype=np.int64)  # (m-block, n-tile, S, column, row)
@@ -174,19 +178,18 @@ def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pi
 
 def test_source_constants():
     """The layout the model reads from the source, the routing of every
-    expansion's dot refold at w=8 (and the lane-width ones at w=16) to the
-    new kernel, and the dot pairs gone from gf_planes_kernel's instances
-    but W=4's."""
+    expansion's dot refold at w=8 (and the lane-width ones at w=16, shift
+    and shift_raw at w=4) to the dot kernel, and no generic kernel left
+    in the source."""
     assert "RS_CALL_MMA(8, E, kDot)" in SOURCE and "RS_CALL_MMA(16, E, kDot)" in SOURCE
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32" in SOURCE
-    assert "const uint32_t keep = 0x02010201u << (2 * t);" in SOURCE
-    instances = re.search(r"#define RS_PLANES_INSTANCES\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
-    assert {w for w, r in re.findall(r"X\((\d+), k\w+, (k\w+)\)", instances) if r == "kDot"} == {"4"}
+    assert "const uint32_t keep = 0x02010201u << (2 * (W == 4 ? t & 1 : t));" in SOURCE
+    assert "RS_CALL_MMA(4, E, kDot)" in SOURCE and "RS_PLANES_INSTANCES" not in SOURCE
     assert all(cuda_planes.is_dot_pair(e, "dot") and cuda_planes.kind(8, e, "dot") == "dot"
                for e in EXPANDS + ("nibble",))
     assert not cuda_planes.is_dot_pair("nibble", "none") and cuda_planes.is_dot_pair("shift", "dot", 16)
     assert cuda_planes.kind(16, "shift", "dot") == "w16" and not cuda_planes.is_dot_pair("cmp", "dot", 16)
-    assert not cuda_planes.is_dot_pair("shift", "dot", 4) and cuda_planes.kind(4, "shift", "dot") == "w4"
+    assert cuda_planes.is_dot_pair("shift", "dot", 4) and cuda_planes.kind(4, "shift", "dot") == "w4"
 
 
 def test_fold_operator():

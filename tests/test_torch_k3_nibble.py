@@ -18,7 +18,6 @@ interpret=True)`` and ``kernel_sweep``'s ``_body_nibble`` interpreted,
 normal and pinned.
 """
 
-import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -74,8 +73,8 @@ def _edge(op_in_smem: bool, p: int = 16) -> int:
 def test_source_constants():
     """The kernels build the tables with PTX prmt.b32 (its sign rule; the
     documented __byte_perm reads 3-bit selectors), run nibble through the
-    sum, dot and none kernels' X-macro (its pre-parity form no longer on
-    gf_planes_kernel), count one chunk a symbol, k rounded to pairs, stage
+    sum, dot and none kernels' X-macro (no generic kernel left), count one
+    chunk a symbol, k rounded to pairs, stage
     the operator in shared memory or read it through L1 (the kOpL1 route,
     folded forms only), and walk the chunks for every kernel in one loop
     (the sum and none kernels share sum_pass)."""
@@ -86,8 +85,7 @@ def test_source_constants():
     assert "if (expand == kNibble && refold != kNone) {" in SOURCE
     assert SOURCE.count("nibble_chunks(rows, k, e1, e8, [&](int c, const NibbleChunk& chunk) {") == 2
     assert "#define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign) X(kNibble)" in SOURCE
-    instances = re.search(r"#define RS_PLANES_INSTANCES\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
-    assert not re.findall(r"X\(8, kNibble, (k\w+)\)", instances)
+    assert "RS_PLANES_INSTANCES" not in SOURCE and "RS_SUM_EXPANDS(RS_CALL_W8)" in SOURCE
     assert f"constexpr int kMaxSmem = {SMEM_LIMIT // 1024} * 1024;" in SOURCE
     for refold in ("sum", "dot"):
         assert cuda_planes.is_sum_pair("nibble", refold) == (refold == "sum")

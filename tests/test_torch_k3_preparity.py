@@ -1,6 +1,6 @@
-"""K3's pre-parity form at w=8 (``ops/csrc/gf_planes.cu``,
-``gf_planes_none_kernel``), modelled in NumPy and held against the JAX
-package.
+"""K3's pre-parity form (``ops/csrc/gf_planes.cu``,
+``gf_planes_none_kernel<W, ...>``) at w=8 and w=16, modelled in NumPy and
+held against the JAX package (w=4: ``test_torch_k3_w4.py``).
 
 The kernel is the sum kernel's first product (``test_torch_k3_sum.py``'s
 register model: the ring or the direct route, the PRMT transposes, the
@@ -13,12 +13,16 @@ lane's C fragments go to its warp's staging rows with 4 STS.128 a row
 LDS.128 / STG.128 pair moves two whole 256-byte row segments.  The model
 follows every store to its staging word and every staging word to the
 output, and checks that no quarter-warp's 16-byte accesses share a bank.
-Its int32 sums must equal the JAX package's exactly (tolerance 0):
-``gf_matmul_pallas(fold_parity=False, acc_dtype=jnp.int8,
+At w=16 a symbol is two byte-symbols (128-byte step rows, the low and
+high bytes split by PRMT) over the unscaled ``sum_operator(A, 16)``,
+whose rows i*16 + 8h + s' are JAX's rows i*16 + s, so the 16p rows are
+staged as w=8's 2p byte-symbols' are; shift_raw's exact word keeps a low
+byte's bits from its high byte (JAX's plane is the low byte of the whole
+16-bit b >> s).  Its int32 sums must equal the JAX package's exactly
+(tolerance 0): ``gf_matmul_pallas(fold_parity=False, acc_dtype=jnp.int8,
 interpret=True)``, whose parity folds to ``GaloisField.matmul``.
 """
 
-import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -61,17 +65,19 @@ def conflict_free(offsets: np.ndarray) -> bool:
 
 
 def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pinned: bool = False,
-          direct: bool = False, trace: list | None = None) -> np.ndarray:
-    """NumPy model of gf_planes_none_kernel<expand>: (p, k) coefficients,
-    (k, m) uint8 -> (p*8, m) int32 sums."""
+          direct: bool = False, trace: list | None = None, w: int | None = None) -> np.ndarray:
+    """NumPy model of gf_planes_none_kernel<W, expand>: (p, k) coefficients,
+    (k, m) uint8 (W=4, 8) or uint16 (W=16) -> (p*W, m) int32 sums.  ``w``:
+    16 for uint16, else 8 unless given (4)."""
     p = A.shape[0]
     m = B.shape[1]
-    C = np.random.default_rng(m).integers(-(1 << 31), 1 << 31, size=(p * 8, m))  # as torch.empty leaves it
-    writes = np.zeros((p * 8, m), dtype=np.int64)
-    for mg, acc, col0, _ in first_product(A, B, expand, tile, pinned, 8, direct, exact=True, trace=trace):
+    wd = 16 if B.dtype == np.uint16 else w or 8
+    C = np.random.default_rng(m).integers(-(1 << 31), 1 << 31, size=(p * wd, m))  # as torch.empty leaves it
+    writes = np.zeros((p * wd, m), dtype=np.int64)
+    for mg, acc, col0, _ in first_product(A, B, expand, tile, pinned, wd, direct, exact=True, trace=trace):
         S = len(col0)
         stage = np.full((S, ROWS * STRIDE), np.iinfo(np.int64).min)  # unwritten
-        for u in range(2):
+        for u in range(len(acc)):  # a lone m-tile (w=4) stages rows 0-15 alone
             for h in range(2):
                 for v in range(4):
                     groups = range(4 * (v & 1), 4 * (v & 1) + 4)
@@ -79,7 +85,7 @@ def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pi
                     for e, j in enumerate(groups):  # reg 2h (v < 2: column 16t + j) or 2h + 1 (16t + 8 + j)
                         assert (stage[:, off + e] == np.iinfo(np.int64).min).all()
                         stage[:, off + e] = acc[u][j][:, G + 8 * h, 2 * T + (v >> 1)]
-        nrows = min(ROWS, 8 * p - 16 * mg)
+        nrows = min(ROWS, wd * p - 16 * mg)
         for i in range(-(-nrows // 2)):
             row = 2 * i + (IDX >> 4)
             off = lds_offsets(i)
@@ -124,19 +130,18 @@ def parent_edge(p: int, expand: str) -> int:
 
 def test_source_constants():
     """Every w=8 expansion's pre-parity form runs the none kernel through
-    the X-macro (routes kStaged and kDirect), none stays on
-    gf_planes_kernel, the launches count as "preparity"; the staging rows
-    and their swizzle are the model's."""
+    the X-macro (routes kStaged and kDirect), as w=4's and w=16's do, no
+    generic kernel is left, the w=8 launches count as "preparity"; the
+    staging rows and their swizzle are the model's."""
     assert (ROWS, STRIDE) == (32, 72)
     assert "#define RS_CALL_W8(E) RS_CALL_MMA(8, E, kSum) RS_CALL_MMA(8, E, kDot) RS_CALL_MMA(8, E, kNone)" in SOURCE
-    assert "sum_pass<8, EXPAND, SRC, true>(acc, rows, smem, opA, mg, kc, k, lane);" in SOURCE
+    assert "sum_pass<W, EXPAND, SRC, true>(acc, rows, smem, opA, mg, kc, k, lane);" in SOURCE
     assert "const int* st_r = stage + (lane >> 4) * kNoneStride + 4 * (c_rd ^ (c_rd >> 3));" in SOURCE
     assert "__stcs(reinterpret_cast<int4*>(dst), v);" in SOURCE
-    instances = re.search(r"#define RS_PLANES_INSTANCES\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
-    assert not re.findall(r"X\(8, ", instances)
+    assert "RS_PLANES_INSTANCES" not in SOURCE and "RS_CALL_MMA(16, E, kNone)" in SOURCE
     for e in EXPANDS:
         assert cuda_planes.is_none_pair(e, "none") and cuda_planes.kind(8, e, "none") == "preparity"
-        assert not cuda_planes.is_none_pair(e, "none", 16)
+        assert cuda_planes.is_none_pair(e, "none", 16) == (e in cuda_planes.WIDE_EXPANDS)
     assert cuda_planes.kind(4, "shift", "none") == "preparity_w4_w16"
 
 
@@ -275,4 +280,108 @@ def test_model_at_the_shared_memory_edge(expand):
         A, B = _operands(p, k, m, k + p)
         got = model(A, B, expand, tile=64, direct=route(k, p, expand) == "direct")
         want = cuda_planes.gf_matmul_planes_plain(A, torch.from_numpy(B), expand, "none").numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"p={p} k={k}")
+
+
+# --- w=16 ---------------------------------------------------------------
+
+def _operands16(p, k, m, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 1 << 16, size=(p, k)).astype(np.uint16),
+            rng.integers(0, 1 << 16, size=(k, m)).astype(np.uint16))
+
+
+def route16(k: int, p: int) -> str:
+    """The source's mma_route for the none kernel at w=16: "smem" while the
+    operator (16p rows in m-tile pairs x chunks of two symbols), the staging
+    rows and one 128-byte-row step buffer a warp fit, else "direct"."""
+    mtn, kc = 2 * -(-(2 * p) // 4), -(-k // 2)
+    need = mtn * kc * 512 + WARPS * ROWS * STRIDE * 4 + WARPS * 2 * kc * 2 * STEP
+    return "smem" if need <= SMEM_LIMIT else "direct"
+
+
+@pytest.mark.parametrize("expand", cuda_planes.WIDE_EXPANDS)
+def test_exact_planes_w16_are_the_jax_planes(expand):
+    """One warp step of 16-bit symbols (every byte value in both halves,
+    k = 3: a chunk's second symbol past k): the exact plane registers, read
+    back as B tiles at their depths, are JAX's w=16 planes cast to int8
+    value for value.  shift_raw's low byte-symbol keeps the high byte's
+    bits that b >> s brings down (one AND with 0x00FF00FF | (0xFF >> s) *
+    0x01000100); its high byte-symbol's plane is w=8's."""
+    k = 3
+    B = np.random.default_rng(5).integers(0, 1 << 16, size=(k, STEP)).astype(np.uint16)
+    B[0] = np.arange(STEP) * 0x0101 + 0x80
+    B[1] = (np.arange(STEP) << 8) | (255 - np.arange(STEP))
+    words, _ = step_buffers(B, [(0, 0)], 1, direct=True)
+    signed = expand in ("sign", "shift_raw")
+    chunks = list(chunk_planes(words, 2 * k, expand, 16, exact=True))
+    planes = np.zeros((32 * len(chunks), STEP), dtype=np.int64)
+    for c, b0, b1 in chunks:
+        for j in range(GROUPS):
+            planes[32 * c:32 * c + 32, j::GROUPS] = b_tile(b0[j], b1[j], signed)[0]
+    fn = getattr(pallas_gemm, f"_expand_{expand}")
+    jax_planes = np.asarray(fn(jnp.asarray(B), 16, k, STEP).astype(jnp.int8)).astype(np.int64)
+    d = np.arange(32 * len(chunks))
+    byte_sym, s = 4 * (d // 32) + d % 4, 4 * (d % 32 // 16) + d % 16 // 4
+    sym, bit = byte_sym // 2, 8 * (byte_sym % 2) + s
+    rows = np.where(sym < k, 16 * sym + bit, -1)
+    np.testing.assert_array_equal(planes[rows >= 0], jax_planes[rows[rows >= 0]])
+    assert "if (EXACT && W == 16) return (r >> s) & (0x00FF00FFu | ((0xFFu >> s) * 0x01000100u));" in SOURCE
+
+
+@pytest.mark.parametrize("expand", cuda_planes.WIDE_EXPANDS)
+def test_model_w16_matches_jax(expand):
+    """The w=16 model equals gf_matmul_pallas(w=16, fold_parity=False,
+    acc_dtype=int8) interpreted value for value, and its parity folds to
+    the GF(2^16) oracle: p = 1 (one m-tile beside a padded one), 3 (48 rows:
+    a pass that stages 16), 4, k = 1 and 5 (a chunk's second symbol past
+    k), m ragged over two blocks of 128 columns (k = 5) and below one warp
+    step."""
+    for k, m in ((1, 37), (5, 203)):
+        A, B = _operands16(8, k, m, 30 * k + m)
+        want = cuda_planes.gf_matmul_planes_plain(
+            A, torch.from_numpy(B.view(np.int16)).view(torch.uint16), expand, "none", w=16).numpy()
+        if k == 5:
+            np.testing.assert_array_equal(np.asarray(pallas_gemm.gf_matmul_pallas(
+                A, B, w=16, expand=expand, fold_parity=False, acc_dtype=jnp.int8, interpret=True)), want)
+        folded = get_field(16).matmul(A, B)
+        for lo, hi in ((0, 1), (1, 4), (4, 8)):
+            got = model(A[lo:hi], B, expand, tile=128)
+            np.testing.assert_array_equal(got, want[16 * lo:16 * hi], err_msg=f"p={hi - lo} k={k} m={m}")
+            np.testing.assert_array_equal(
+                from_bitplanes(torch.from_numpy(got & 1).int(), 16).numpy().view(np.uint16), folded[lo:hi])
+
+
+def test_model_w16_pinned_direct_and_largest_sums():
+    """Pinned blocks repeat block 0's sums and the direct route gives the
+    staged one's; every symbol 0xFFFF with the densest element keeps every
+    expansion's sums exact (shift_raw's low-byte planes int8(0xFF): -1)."""
+    A, B = _operands16(3, 7, 301, 49)
+    Bt = torch.from_numpy(B.view(np.int16)).view(torch.uint16)
+    want = cuda_planes.gf_matmul_planes_plain(A, Bt, "shift_raw", "none", w=16).numpy()
+    np.testing.assert_array_equal(model(A, B, "shift_raw", tile=192, pinned=True), want[:, np.arange(301) % 192])
+    np.testing.assert_array_equal(model(A, B, "shift_raw", tile=128, direct=True), want)
+    dense = int(get_field(16).bitmats.sum(axis=2).max(axis=1).argmax())
+    A = np.full((2, 4), dense, dtype=np.uint16)
+    B = np.full((4, 40), 0xFFFF, dtype=np.uint16)
+    Bt = torch.from_numpy(B.view(np.int16)).view(torch.uint16)
+    for expand in cuda_planes.WIDE_EXPANDS:
+        trace = []
+        got = model(A, B, expand, trace=trace)
+        np.testing.assert_array_equal(got, cuda_planes.gf_matmul_planes_plain(A, Bt, expand, "none", w=16).numpy())
+        assert max(int(np.abs(acc).max()) for acc in trace) < INT32
+
+
+def test_model_w16_at_the_shared_memory_edge():
+    """p = 16: the largest k the staged route takes at w=16 (42) and the
+    first past it, read from device memory, and one past the generic
+    kernel's edge there (56; its p = 1 edge, 908, runs on the card in
+    chip_smoke.py): every (k, p) taken before still runs, the route
+    changes no sum."""
+    assert [route16(k, 16) for k in (42, 43)] == ["smem", "direct"]
+    for p, k, m in ((16, 42, 70), (16, 43, 9), (16, 57, 9)):
+        A, B = _operands16(p, k, m, k + p)
+        got = model(A, B, "shift_raw", tile=64, direct=route16(k, p) == "direct")
+        want = cuda_planes.gf_matmul_planes_plain(A, torch.from_numpy(B.view(np.int16)).view(torch.uint16),
+                                                  "shift_raw", "none", w=16).numpy()
         np.testing.assert_array_equal(got, want, err_msg=f"p={p} k={k}")

@@ -41,9 +41,14 @@ def _const(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE).group(1))
 
 
+def _flag(name: str) -> bool:
+    return re.search(rf"constexpr bool {name} = (true|false);", SOURCE).group(1) == "true"
+
+
 WARPS = _const("kSumWarps")
 GROUPS = _const("kSumGroups")
 STAGES = _const("kSumStages")
+W4_SINGLE = _flag("kW4Single")  # W=4: the sum and none kernels run a lone last m-tile alone
 STEP = 8 * GROUPS  # columns a warp step (kSumStepCols)
 IDX = np.arange(LANES)
 G, T = IDX >> 2, IDX & 3
@@ -81,13 +86,17 @@ def transpose4(x0, x1, x2, x3):
     return [byte_perm(a, b, 0x5410), byte_perm(a, b, 0x7632), byte_perm(c, d, 0x5410), byte_perm(c, d, 0x7632)]
 
 
-def plane_word(r, s, expand, exact=False):
-    """The kernel's ``plane_word<EXPAND, EXACT>``: plane s (per lane) of the
-    4 symbols in word r; ``exact`` (the none kernel): JAX's values,
-    shift_raw without the next byte's bits."""
+def plane_word(r, s, expand, exact=False, w=8):
+    """The kernel's ``plane_word<EXPAND, EXACT, W>``: plane s (per lane) of
+    the 4 symbols in word r; ``exact`` (the none kernel): JAX's values,
+    shift_raw without the next byte's bits, but at w=16 (r: lo(2c),
+    hi(2c), lo(2c + 1), hi(2c + 1)) a low byte keeps its high byte's bits
+    (JAX's plane is the low byte of the 16-bit b >> s)."""
     s = np.asarray(s, dtype=np.uint32)
     bit = np.uint32(0x01010101) << s
     if expand == "shift_raw":
+        if exact and w == 16:
+            return (r >> s) & (np.uint32(0x00FF00FF) | ((np.uint32(0xFF) >> s) * np.uint32(0x01000100)))
         return (r >> s) & ((np.uint32(0xFF) >> s) * np.uint32(0x01010101)) if exact else r >> s
     if expand == "cmp":
         return vcmpne4(r & bit, 0) & np.uint32(0x01010101)
@@ -117,11 +126,11 @@ E1, E8 = np.uint32(1) << (8 * T).astype(np.uint32), np.uint32(0x80) << (8 * T).a
 
 
 def step_words(words: np.ndarray, c: int, w: int = 8) -> np.ndarray:
-    """The kernel's ``step_words<W>`` for chunk c of every step: (GROUPS, S,
-    32) words, r[j] of lane (g, t) column 8g + j, byte q byte-symbol
-    4c + q.  w=8: the LDS.64 of rows 4c..4c+3 and two PRMT transposes;
-    w=16: the LDS.128 of rows 2c and 2c + 1 and 8 PRMT splitting each
-    column's low and high bytes."""
+    """The kernel's ``step_words<W>`` for word chunk c of every step:
+    (GROUPS, S, 32) words, r[j] of lane (g, t) column 8g + j, byte q
+    byte-symbol 4c + q.  w=4 and 8: the LDS.64 of rows 4c..4c+3 and two
+    PRMT transposes; w=16: the LDS.128 of rows 2c and 2c + 1 and 8 PRMT
+    splitting each column's low and high bytes."""
     if w == 16:
         x, y = words[:, 2 * c][:, G], words[:, 2 * c + 1][:, G]  # (S, 32, 4)
         return np.stack([byte_perm(x[..., u], y[..., u], sel) for u in range(4) for sel in (0x5410, 0x7632)])
@@ -134,14 +143,23 @@ def chunk_planes(words: np.ndarray, k: int, expand: str, w: int = 8, exact: bool
     words): yields (chunk c, pw0, pw1), pw0 and pw1 the plane registers
     (GROUPS, S, 32) at depths 4t.. and 16 + 4t.. of each column group.
     Byte expansions: chunk c is byte-symbols 4c..4c+3 (k of them), planes
-    t and 4 + t.  nibble: rows 4b..4b+3 are chunks 4b + 2h' + e (h' = 1
-    only if row 4b + 2 < k), planes 8e + t and 8e + 4 + t of the low
-    (h' = 0) or high 16 bits of each transposed word, made by PRMT from
-    lane t's tables; ``exact`` ANDs e = 1's planes to 0/1."""
+    t and 4 + t.  w=4 (k symbols): chunk c is plane t of the words of rows
+    8c..8c+3 (pw0) and 8c + 4..8c + 7 (pw1, zero if row 8c + 4 is past k).
+    nibble: rows 4b..4b+3 are chunks 4b + 2h' + e (h' = 1 only if row
+    4b + 2 < k), planes 8e + t and 8e + 4 + t of the low (h' = 0) or high
+    16 bits of each transposed word, made by PRMT from lane t's tables;
+    ``exact`` ANDs e = 1's planes to 0/1."""
+    if w == 4:
+        for c in range(-(-k // 8)):
+            pw0 = plane_word(step_words(words, 2 * c, 4), T, expand, exact)
+            pw1 = (plane_word(step_words(words, 2 * c + 1, 4), T, expand, exact) if 8 * c + 4 < k
+                   else np.zeros_like(pw0))
+            yield c, pw0, pw1
+        return
     for b in range(-(-k // 4)):
         r = step_words(words, b, w)
         if expand != "nibble":
-            yield b, plane_word(r, T, expand, exact), plane_word(r, T + 4, expand, exact)
+            yield b, plane_word(r, T, expand, exact, w), plane_word(r, T + 4, expand, exact, w)
             continue
         for h2 in range(2):
             if h2 and 4 * b + 2 >= k:
@@ -160,16 +178,17 @@ def operator(A: np.ndarray, expand: str, w: int = 8, scaled: bool = True) -> np.
     return cuda_planes.sum_operator(A, w, scaled=scaled)
 
 
-def step_buffers(B: np.ndarray, steps: list, p: int, direct: bool = False):
+def step_buffers(B: np.ndarray, steps: list, p: int, direct: bool = False, w: int = 8):
     """Each warp step's rows as the lanes read them, as words (S, rows, g,
-    words a lane: 2 at w=8, 4 at w=16 where B is uint16): from the ring,
-    rows < k at the read columns below m and the rest whatever the shared
-    memory held; under the direct route zero past k and past m.  And the
-    output as torch.empty leaves it."""
+    words a lane: 2 at w=4 and 8, 4 at w=16 where B is uint16): from the
+    ring (whole chunks of rows: 8 at w=4, 4 at w=8, 2 at w=16), rows < k
+    at the read columns below m and the rest whatever the shared memory
+    held; under the direct route zero past k and past m.  And the output
+    as torch.empty leaves it."""
     k, m = B.shape
     nb = B.dtype.itemsize
     rng = np.random.default_rng(k * 7919 + m)
-    rows = 2 * -(-k // 2) if nb == 2 else 4 * -(-k // 4)
+    rows = 2 * -(-k // 2) if nb == 2 else 8 * -(-k // 8) if w == 4 else 4 * -(-k // 4)
     buf = rng.integers(0, 256, size=(len(steps), rows, STEP * nb), dtype=np.uint8)
     if direct:
         buf[:] = 0
@@ -214,13 +233,21 @@ def warp_steps(m: int, tile: int, pinned: bool):
     return sorted(steps)
 
 
+def pass_pair(mg: int, p: int, w: int) -> bool:
+    """The kernels' ``pass_pair<W>``: whether the pass over m-tiles mg and
+    mg + 1 covers both (at w=4 the last of an odd count of m-tiles of the
+    p*4 rows runs alone)."""
+    return w != 4 or not W4_SINGLE or mg + 1 < -(-p * w // 16)
+
+
 def first_product(A: np.ndarray, B: np.ndarray, expand: str, tile, pinned: bool, w: int = 8,
                   direct: bool = False, exact: bool = False, trace: list | None = None):
     """The sum and none kernels' first product: yields per pass (mg, acc,
-    col0, out), acc (2, GROUPS, S, 16, 8) the int32 sums of m-tiles mg and
-    mg + 1 for every warp step (column col0 of the step), and the output
-    array as torch.empty leaves it (shared by every pass).  The operator is
-    unscaled for ``exact`` (the none kernel, JAX's plane values)."""
+    col0, out), acc (NT, GROUPS, S, 16, 8) the int32 sums of m-tiles mg and
+    mg + 1 (NT = 2) or mg alone (NT = 1, :func:`pass_pair`) for every warp
+    step (column col0 of the step), and the output array as torch.empty
+    leaves it (shared by every pass).  The operator is unscaled for
+    ``exact`` (the none kernel, JAX's plane values)."""
     p, k = A.shape
     m = B.shape[1]
     tile = cuda_planes.tile_cols(tile, m)
@@ -231,16 +258,18 @@ def first_product(A: np.ndarray, B: np.ndarray, expand: str, tile, pinned: bool,
     a = unpack_a_tiles(cuda_planes.pack_fragments(op, 16 * mtn, 32 * kc))
     steps = warp_steps(m, tile, pinned)
     assert [c for c, _ in steps] == list(range(0, m, STEP))  # every step once, blocks ragged or not
-    words, out = step_buffers(B, steps, p, direct)
+    words, out = step_buffers(B, steps, p, direct, w)
     col0 = np.array([c for c, _ in steps])
-    chunks = list(chunk_planes(words, k * w // 8, expand, w, exact))  # the same registers in every pass
+    kb = k if w == 4 else k * w // 8  # rows of the step: symbols (w=4) or byte-symbols
+    chunks = list(chunk_planes(words, kb, expand, w, exact))  # the same registers in every pass
     assert sorted(c for c, _, _ in chunks) == list(range(kc))  # every operator chunk once
     signed = expand == "sign" or (exact and expand == "shift_raw")
     for mg in range(0, mtn, 2):
-        acc = np.zeros((2, GROUPS, len(steps), 16, 8), dtype=np.int64)
+        nt = 2 if pass_pair(mg, p, w) else 1
+        acc = np.zeros((nt, GROUPS, len(steps), 16, 8), dtype=np.int64)
         for c, b0, b1 in chunks:
             bt = b_tile(b0.reshape(-1, LANES), b1.reshape(-1, LANES), signed).reshape(GROUPS, len(steps), 32, 8)
-            for u in range(2):
+            for u in range(nt):
                 acc[u] += np.matmul(a[mg + u, c], bt)
                 if trace is not None:
                     trace.append(acc[u].copy())
@@ -248,42 +277,47 @@ def first_product(A: np.ndarray, B: np.ndarray, expand: str, tile, pinned: bool,
         yield mg, acc, col0, out
 
 
-def sum_refold(acc: np.ndarray) -> list:
+def sum_refold(acc: np.ndarray, w: int = 8) -> list:
     """The refold's gather, mask and xor-shuffles of one m-tile's sums
     (GROUPS, S, 16, 8): the 8 group words w[j] (S, 32), byte b of w[j] bit
-    g's OR over g of byte-symbol 2mt + b / 2 at column 16t + 8(b & 1) + j."""
-    keep = np.uint32(0x01010101) << G.astype(np.uint32)
+    g's OR over g of byte-symbol 2mt + b / 2 at column 16t + 8(b & 1) + j.
+    w=4: bit g & 3's OR over g ^ 1 and g ^ 2 (two shuffles) of symbol
+    4mt + g / 4 + 2(b / 2)."""
+    keep = np.uint32(0x01010101) << (G & 3 if w == 4 else G).astype(np.uint32)
     acc32 = acc.astype(np.uint32)  # two's complement, as the registers hold it
-    w = []
+    words = []
     for j in range(GROUPS):
         c0, c1 = acc32[j][:, G, 2 * T], acc32[j][:, G, 2 * T + 1]
         c2, c3 = acc32[j][:, G + 8, 2 * T], acc32[j][:, G + 8, 2 * T + 1]
         v = byte_perm(byte_perm(c0, c1, 0x0040), byte_perm(c2, c3, 0x4000), 0x7610) & keep
         v |= v[:, IDX ^ 4]
         v |= v[:, IDX ^ 8]
-        v |= v[:, IDX ^ 16]
-        w.append(v)
-    return w
+        if w != 4:
+            v |= v[:, IDX ^ 16]
+        words.append(v)
+    return words
 
 
 def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pinned: bool = False,
-          trace: list | None = None, direct: bool = False) -> np.ndarray:
+          trace: list | None = None, direct: bool = False, w: int | None = None) -> np.ndarray:
     """NumPy model of gf_planes_sum_kernel<W, expand>: (p, k) coefficients,
-    (k, m) uint8 (W=8) or uint16 (W=16) -> (p, m) of B's type.  ``tile`` as
-    the wrapper rounds it; ``direct``: the rows read from device memory
-    (the w=16 kernel past its shared-memory edge).  ``trace`` collects every
-    int32 accumulator after each depth chunk."""
+    (k, m) uint8 (W=4, 8) or uint16 (W=16) -> (p, m) of B's type.  ``w``:
+    16 for uint16, else 8 unless given (4).  ``tile`` as the wrapper rounds
+    it; ``direct``: the rows read from device memory (the w=4 and 16
+    kernels past their shared-memory edge).  ``trace`` collects every int32
+    accumulator after each depth chunk."""
     p = A.shape[0]
     m = B.shape[1]
     w16 = B.dtype == np.uint16
-    assert not direct or w16  # w=8's sum kernel always stages its rows
+    wd = 16 if w16 else w or 8
+    assert not direct or wd != 8  # w=8's sum kernel always stages its rows
     out = None
     writes = np.zeros((p, m), dtype=np.int64)
     pick = (G & 3) | (((G & 3) + 4) << 4)
     pick16 = 0x6420 + 0x1111 * (G & 1)
-    for mg, acc, col0, out in first_product(A, B, expand, tile, pinned, 16 if w16 else 8, direct, trace=trace):
-        for u in range(2):
-            w = sum_refold(acc[u])
+    for mg, acc, col0, out in first_product(A, B, expand, tile, pinned, wd, direct, trace=trace):
+        for u in range(len(acc)):
+            w = sum_refold(acc[u], wd)
             if w16:  # m-tile mg + u is one symbol: lanes g < 2 store 8 columns
                 words = [byte_perm(w[2 * i], w[2 * i + 1], pick16) for i in range(4)]
                 for lane in range(LANES):
@@ -301,8 +335,11 @@ def model(A: np.ndarray, B: np.ndarray, expand: str, tile: int | None = None, pi
             hi = byte_perm(byte_perm(w[4], w[5], pick), byte_perm(w[6], w[7], pick), 0x5410)
             for lane in range(LANES):
                 g, t = lane >> 2, lane & 3
-                sym = 2 * (mg + u) + (g >> 1)
-                if g >= 4 or sym >= p:
+                if wd == 4:  # every lane: byte g & 3 is symbol 4mt + g / 4 + 2((g / 2) & 1)
+                    sym = 4 * (mg + u) + (g >> 2) + 2 * ((g >> 1) & 1)
+                else:
+                    sym = 2 * (mg + u) + (g >> 1)
+                if (wd != 4 and g >= 4) or sym >= p:
                     continue
                 for e in range(8):
                     cols = col0 + 16 * t + 8 * (g & 1) + e
@@ -345,18 +382,17 @@ def _densest_element() -> tuple[int, int]:
 
 def test_source_constants():
     """The layout the model reads from the source, the wrapper's tile
-    granularity, the mma of each expansion, and the pairs the kernel takes
-    over from gf_planes_kernel: every expansion's sum refold at w=8 (and
-    the lane-width ones at w=16, test_torch_k3_w16.py); gf_planes_kernel
-    keeps no w=8 instance."""
+    granularity, the mma of each expansion, and the pairs the kernel runs:
+    every expansion's sum refold at w=8 (and the lane-width ones at w=16,
+    test_torch_k3_w16.py, and shift and shift_raw at w=4,
+    test_torch_k3_w4.py); no generic kernel is left in the source."""
     assert (WARPS, GROUPS, STAGES) == (4, 8, 3)
     assert "constexpr int kSumStepCols = 8 * kSumGroups;" in SOURCE
     assert cuda_planes.TILE_STEP == STEP
     assert "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32" in SOURCE
     assert "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32" in SOURCE
     assert "#define RS_SUM_EXPANDS(X) X(kShift) X(kShiftRaw) X(kCmp) X(kSign) X(kNibble)" in SOURCE
-    instances = re.search(r"#define RS_PLANES_INSTANCES\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
-    assert not re.findall(r"X\(8, (k\w+), (k\w+)\)", instances)
+    assert "gf_planes_kernel" not in SOURCE and "RS_PLANES_INSTANCES" not in SOURCE
     assert "RS_CALL_MMA(8, E, kSum)" in SOURCE and "RS_SUM_EXPANDS(RS_CALL_W8)" in SOURCE
     assert set(cuda_planes.SUM_EXPANDS) == set(cuda_planes.EXPANDS)
     assert all(cuda_planes.is_sum_pair(e, "sum") for e in cuda_planes.SUM_EXPANDS)

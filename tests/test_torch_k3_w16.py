@@ -75,17 +75,18 @@ def parent_edge(p: int, refold: str) -> int:
 
 
 def test_source_constants():
-    """The w=16 sum and dot pairs run the new kernels through the X-macro
-    (kStaged and kDirect routes); gf_planes_kernel keeps w=16's
-    pre-parity form only; the launches count as "w16"; the step row is
-    two bytes a column."""
+    """The w=16 sum, dot and none instances run the three kernels through
+    the X-macro (kStaged and kDirect routes), none of them a generic
+    kernel; the folded launches count as "w16", the pre-parity ones as
+    "preparity_w4_w16"; the step row is two bytes a column."""
     assert f"constexpr int kMaxSmem = {SMEM_LIMIT // 1024} * 1024;" in SOURCE
     assert "#define RS_WIDE_EXPANDS(X) X(kShift) X(kShiftRaw) X(kSign)" in SOURCE
     assert "RS_WIDE_EXPANDS(RS_CALL_W16)" in SOURCE
-    assert "#define RS_CALL_W16(E) RS_CALL_MMA(16, E, kSum) RS_CALL_MMA(16, E, kDot)" in SOURCE
-    assert "static constexpr int kRowBytes = kSumStepCols * W / 8;" in SOURCE
-    instances = re.search(r"#define RS_PLANES_INSTANCES\(X\)(.*?)\n#define", SOURCE, re.S).group(1)
-    assert set(re.findall(r"X\(16, k\w+, (k\w+)\)", instances)) == {"kNone"}
+    assert ("#define RS_CALL_W16(E) RS_CALL_MMA(16, E, kSum) RS_CALL_MMA(16, E, kDot) RS_CALL_MMA(16, E, kNone)"
+            in SOURCE)
+    assert "static constexpr int kRowBytes = kSumStepCols * kSym;" in SOURCE
+    assert "__host__ __device__ constexpr int sym_bytes(int w) { return w == 16 ? 2 : 1; }" in SOURCE
+    assert not re.search(r"RS_PLANES_INSTANCES|gf_planes_kernel\b", SOURCE)
     for e in EXPANDS:
         for refold in ("sum", "dot"):
             assert cuda_planes.kind(16, e, refold) == "w16"

@@ -189,28 +189,6 @@ def _a_matrix(frag):
     return M
 
 
-def _b_matrix(regs, signed):
-    """Per lane (b0, b1) -> the 32 x 8 B tile (column g holds depth t*4..
-    in b0 and 16 + t*4.. in b1)."""
-    M = np.zeros((32, 8), dtype=np.int64)
-    for lane in range(32):
-        g, t = lane >> 2, lane & 3
-        for reg, row in ((0, t * 4), (1, 16 + t * 4)):
-            M[row:row + 4, g] = _bytes4(regs[lane][reg])
-    return np.where(M >= 128, M - 256, M) if signed else M
-
-
-def _expand4(b, s0, expand):
-    """The device function expand4, in Python integers."""
-    if expand == "shift_raw":
-        return sum(((b >> (s0 + q)) & 0xFF) << (8 * q) for q in range(4))
-    if expand == "cmp":
-        x = (b * 0x01010101) & (0x08040201 << s0) & 0xFFFFFFFF
-        return sum((0x01 if (x >> (8 * q)) & 0xFF else 0) << (8 * q) for q in range(4))
-    bits = (((b >> s0) & 0xF) * 0x00204081) & 0x01010101
-    return (bits * 0xFF) & 0xFFFFFFFF if expand == "sign" else bits
-
-
 def _emulate_kernel(A, B, expand, refold, tile, pinned=False):
     """Every folded pair at w=8 runs the sum or the dot kernel: their
     register models."""

@@ -11,9 +11,9 @@ and against its default accumulator mod 2 (``shift_raw``'s sums depend on
 the accumulator; their parity does not).  The CUDA kernels run only on the
 card (chip_smoke.py phase 7); here NumPy models of ``csrc/gf_planes.cu``
 at the level of mma fragments check each instance's kernel: the sum and
-dot kernels at w=16 (``test_torch_k3_w16.py``), the none kernel at w=8
-(``test_torch_k3_preparity.py``) and gf_planes_kernel's pre-parity form
-at w=16 (its two-symbol chunks and int32 stores, modelled here)."""
+dot kernels at w=16 (``test_torch_k3_w16.py``) and the none kernel at w=8
+and 16 (``test_torch_k3_preparity.py``: at w=16 two byte-symbols a
+symbol, shift_raw's exact words keeping a low byte's high bits)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +27,6 @@ from gpu_rscode_tpu.ops.pallas_gemm import gf_matmul_pallas
 from test_torch_k3_dot import model as dot_model
 from test_torch_k3_preparity import model as none_model
 from test_torch_k3_sum import model as sum_model
-from test_torch_planes import _a_matrix, _b_matrix, _expand4
 
 JAX_NAMES = ["shift", "shift_raw", "packed32", "sign16", "shift_u8", "nibble_const", "nibble32", "sign", "nibble"]
 
@@ -122,88 +121,45 @@ def test_w16_dot_folds_bytes_with_the_w8_f():
     """The w=16 dot kernel's F is w=8's over 2p byte-symbols: byte-symbol
     2i weighs bits 0-7 of symbol i by 2^s and 2i + 1 bits 8-15 by 2^(s-8),
     each a sum below 256, and lo | hi << 8 is fold_operator(p, 16)'s
-    2^s weighting; gf_planes_kernel's F keeps 16 symbols a tile."""
+    2^s weighting; the kernel's F fragments are w=8's (two passes an
+    8-byte-symbol tile)."""
     for p in (1, 8, 9, 17):
         F8 = cuda_planes.fold_operator(2 * p, 8)
         assert F8.max() <= 128 and F8.sum(axis=1).max() < 256
         np.testing.assert_array_equal(F8[0::2] + (F8[1::2] << 8), cuda_planes.fold_operator(p, 16))
-        assert cuda_planes._dims(10, p, 16) == (p, 5, -(-p // 16), -(-p * 16 // 32))
+    np.testing.assert_array_equal(cuda_planes.dot_fold_operator(16), cuda_planes.dot_fold_operator(8))
 
 
 @pytest.mark.parametrize("w", [4, 8, 16])
 def test_operators_are_each_kernels_packing(w):
     """The wrapper's device operators for every instance are the packing
-    its kernel's model reads: the sum, dot and none kernels' operator
-    (scaled but for none; B fragments and F for dot), gf_planes_kernel's
-    bit operator (and its F at w=4)."""
+    its kernel's model reads: every instance runs the sum, dot or none
+    kernel, on the operator scaled by 2^s but for none (B fragments and F,
+    one pass a tile at w=4, for dot)."""
     p, k = 5, 7
     A = np.random.default_rng(88 + w).integers(0, 1 << w, size=(p, k))
     for iw, expand, refold in cuda_planes.INSTANCES:
         if iw != w:
             continue
         opA, opF = cuda_planes._operators(A, expand, refold, w, torch.device("cpu"))
-        if cuda_planes.runs_mma(expand, refold, w):
-            op = (cuda_planes.nibble_operator(A, scaled=refold != "none") if expand == "nibble"
-                  else cuda_planes.sum_operator(A, w, scaled=refold != "none"))
-            want = cuda_planes.pack_b_fragments(op) if refold == "dot" else cuda_planes.pack_fragments(op, *op.shape)
-            want_f = cuda_planes.dot_fold_operator() if refold == "dot" else None
-        else:
-            mt, kc, mf, kf = cuda_planes._dims(k, p, w)
-            want = cuda_planes.pack_fragments(cuda_planes._operator_bits(A, expand, w).numpy(), 16 * mt, 32 * kc)
-            want_f = cuda_planes.pack_fragments(cuda_planes.fold_operator(p, w), 16 * mf, 32 * kf) if refold == "dot" \
-                else None
+        assert cuda_planes.runs_mma(expand, refold, w)
+        op = (cuda_planes.nibble_operator(A, scaled=refold != "none") if expand == "nibble"
+              else cuda_planes.sum_operator(A, w, scaled=refold != "none"))
+        want = cuda_planes.pack_b_fragments(op) if refold == "dot" else cuda_planes.pack_fragments(op, *op.shape)
+        want_f = cuda_planes.dot_fold_operator(w) if refold == "dot" else None
         np.testing.assert_array_equal(opA.numpy().view(np.uint32).reshape(want.shape), want.view(np.uint32),
                                       err_msg=f"w={w} {expand}+{refold}")
         if want_f is None:
             assert opF is None
         else:
             np.testing.assert_array_equal(opF.numpy().view(np.uint32).reshape(want_f.shape), want_f.view(np.uint32))
-    assert cuda_planes.runs_mma("shift", "none", 8) and not cuda_planes.runs_mma("shift", "none", 16)
-
-
-# --- NumPy model of gf_planes_kernel's pre-parity form at w=16 ----------------
-
-def _emulate(A, B, expand, tile, pinned=False):
-    """gf_planes_kernel<16, EXPAND, none> lane by lane: the two-symbol
-    chunks (rows 2c, 2c + 1 at bits 4t..4t+3) and the int32 stores."""
-    k, m = B.shape
-    p = A.shape[0]
-    mt, kc, _, _ = cuda_planes._dims(k, p, 16)
-    opA = cuda_planes.pack_fragments(cuda_planes._operator_bits(A, expand, 16).numpy(), 16 * mt, 32 * kc)
-    Am = [[_a_matrix(opA[i, c]) for c in range(kc)] for i in range(mt)]
-    C = np.full((p * 16, m), -(1 << 40), dtype=np.int64)
-
-    def sym(row, col):
-        return int(B[row, col]) if row < k and col < m else 0
-
-    for blk0 in range(0, m, tile):
-        for base in range(blk0, min(m, blk0 + tile), 32):
-            rbase = base - (blk0 if pinned else 0)
-            for i in range(mt):
-                acc = {j: np.zeros((16, 8), dtype=np.int64) for j in range(4)}
-                for c in range(kc):
-                    regs = {j: [] for j in range(4)}
-                    for lane in range(32):
-                        g, t = lane >> 2, lane & 3
-                        for j in range(4):
-                            col = rbase + 4 * g + j
-                            pair = (sym(2 * c, col), sym(2 * c + 1, col))
-                            regs[j].append(tuple(_expand4(b, 4 * t, expand) for b in pair))
-                    for j in range(4):
-                        acc[j] += Am[i][c] @ _b_matrix(regs[j], signed=True)
-                for j in range(4):
-                    for n in range(8):
-                        col = base + 4 * n + j
-                        for r in range(16):
-                            if 16 * i + r < p * 16 and col < m:
-                                C[16 * i + r, col] = acc[j][r, n]
-    return C
+    assert cuda_planes.runs_mma("shift", "none", 8) and cuda_planes.runs_mma("shift", "none", 16)
+    assert not cuda_planes.runs_mma("cmp", "none", 16) and not cuda_planes.runs_mma("sign", "sum", 4)
 
 
 def _kernel_model(A, B, expand, refold, w, tile, pinned=False):
-    """The model of the kernel that runs (w, expand, refold)."""
-    if w == 16 and refold == "none":
-        return _emulate(A, B, expand, tile, pinned)
+    """The model of the kernel that runs (w, expand, refold): the sum, dot
+    or none kernel's (w=16 from B's uint16)."""
     if refold == "none":
         return none_model(A, B, expand, tile, pinned)
     return (sum_model if refold == "sum" else dot_model)(A, B, expand, tile, pinned).astype(np.int64)

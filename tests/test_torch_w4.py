@@ -4,8 +4,8 @@ JAX's ``RSCodec(k, p, w=4)`` runs K1 (``gf_matmul_pallas(A, B, 4)``), and
 ``gf_matmul_pallas`` takes ``expand="shift" | "shift_raw"`` with the sum,
 dot and autotune refolds and ``fold_parity=False`` at w=4.  The port runs
 the same through K1 (``csrc/gf_gemm.cu``: the bit-sliced kernel and the
-popcount kernel at W=4) and K3 (``csrc/gf_planes.cu``: ``gf_planes_kernel``
-at W=4).  A symbol is one uint8 with bits 4-7 ignored, as JAX ignores them.
+popcount kernel at W=4) and K3 (``csrc/gf_planes.cu``: the sum, dot and
+none kernels at W=4).  A symbol is one uint8 with bits 4-7 ignored, as JAX ignores them.
 Each output is held with tolerance 0 against ``gf_matmul_pallas(...,
 interpret=True)`` and ``GaloisField(4).matmul`` on seeded inputs whose
 bytes have the high nibble set: symbols exactly, pre-parity sums value for
@@ -31,7 +31,9 @@ from gpu_rscode_tpu.ops.gf import get_field
 from gpu_rscode_tpu.ops.pallas_gemm import gf_matmul_pallas
 from test_torch_gemm import _emulate_kernel as emulate_popcount
 from test_torch_k1_bitslice import COLS_PER_BLOCK, LANES, WARPS_PER_BLOCK, load16, store16, transpose_planes
-from test_torch_planes import _a_matrix, _b_matrix, _expand4
+from test_torch_k3_dot import model as dot_model
+from test_torch_k3_preparity import model as none_model
+from test_torch_k3_sum import model as sum_model
 from test_torch_sharded import _both
 
 GF4 = get_field(4)
@@ -256,75 +258,18 @@ def test_popcount_w4_model_matches_jax(fold):
     np.testing.assert_array_equal(got, ref)
 
 
-# --- K3 at W=4: gf_planes_kernel<4, shift | shift_raw, sum | dot | none> -----
+# --- K3 at W=4: the sum, dot and none kernels (shift | shift_raw) -----------
 
 def emulate_planes4(A, B, expand, refold, tile, pinned=False):
-    """gf_planes_kernel<4, EXPAND, REFOLD> lane by lane: the 8-symbol
-    chunks (b0 from symbol 8c + t, b1 from 8c + 4 + t), the sum refold's
-    xor-shuffles and the nibble a storing lane picks, the dot refold's
-    parity bits through shared memory and F = fold_operator(p, 4), and
-    refold none's int32 stores."""
-    k, m = B.shape
-    p = A.shape[0]
-    mt, kc, mf, kf = cuda_planes._dims(k, p, 4)
-    opA = cuda_planes.pack_fragments(cuda_planes._operator_bits(A, expand, 4).numpy(), 16 * mt, 32 * kc)
-    opF = cuda_planes.pack_fragments(cuda_planes.fold_operator(p, 4), 16 * mf, 32 * kf)
-    Am = [[_a_matrix(opA[i, c]) for c in range(kc)] for i in range(mt)]
-    Fm = [[_a_matrix(opF[i, c]) for c in range(kf)] for i in range(mf)]
-    C = np.full((p * 4 if refold == "none" else p, m), -(1 << 40), dtype=np.int64)
-
-    def sym(row, col):
-        return int(B[row, col]) if row < k and col < m else 0
-
-    for blk0 in range(0, m, tile):
-        for base in range(blk0, min(m, blk0 + tile), 32):
-            rbase = base - (blk0 if pinned else 0)
-            bits = np.zeros((32, 32 * kf), dtype=np.int64)
-            for i in range(mt):
-                acc = {j: np.zeros((16, 8), dtype=np.int64) for j in range(4)}
-                for c in range(kc):
-                    regs = {j: [] for j in range(4)}
-                    for lane in range(32):
-                        g, t = lane >> 2, lane & 3
-                        for j in range(4):
-                            col = rbase + 4 * g + j
-                            regs[j].append((_expand4(sym(8 * c + t, col), 0, expand),
-                                            _expand4(sym(8 * c + 4 + t, col), 0, expand)))
-                    for j in range(4):
-                        acc[j] += Am[i][c] @ _b_matrix(regs[j], signed=True)
-                for j in range(4):
-                    for n in range(8):
-                        col = base + 4 * n + j
-                        if refold == "none":
-                            for r in range(16):
-                                if 16 * i + r < p * 4 and col < m:
-                                    C[16 * i + r, col] = acc[j][r, n]
-                        elif refold == "dot":
-                            bits[4 * n + j, 16 * i:16 * i + 16] = acc[j][:, n] & 1
-                    if refold == "sum":
-                        for t in range(4):
-                            v = 0
-                            for g in range(8):
-                                d = acc[j][:, 2 * t:2 * t + 2]
-                                v |= ((d[g, 0] & 1) | (d[g, 1] & 1) << 8 | (d[g + 8, 0] & 1) << 16
-                                      | (d[g + 8, 1] & 1) << 24) << g
-                            for g in range(4):  # the storing lanes: symbol 4i + g
-                                sel = (g >> 1) * 16 + (g & 1) * 4
-                                for off, shift in ((0, sel), (4, sel + 8)):
-                                    if 4 * i + g < p and base + 8 * t + off + j < m:
-                                        C[4 * i + g, base + 8 * t + off + j] = (v >> shift) & 0xF
-            if refold == "dot":
-                for f in range(mf):
-                    for j in range(4):
-                        out = sum(Fm[f][c] @ bits[[4 * g + j for g in range(8)], 32 * c:32 * c + 32].T
-                                  for c in range(kf))
-                        for t in range(4):
-                            for n, off in ((2 * t, 0), (2 * t + 1, 4)):
-                                col = base + 8 * t + off + j
-                                for g in range(16):
-                                    if 16 * f + g < p and col < m:
-                                        C[16 * f + g, col] = out[g, n] & 0xFF
-    return C
+    """The kernel that runs (4, expand, refold), lane by lane: the register
+    models of gf_planes_sum_kernel, gf_planes_dot_kernel and
+    gf_planes_none_kernel at W=4 (test_torch_k3_sum.py, test_torch_k3_dot.py,
+    test_torch_k3_preparity.py; their W=4 checks in test_torch_k3_w4.py):
+    8-symbol chunks of four-symbol plane words, the sum refold's two
+    xor-shuffles and the byte a storing lane picks, the dot refold's F of
+    one pass a tile, and refold none's staged int32 rows."""
+    models = {"sum": sum_model, "dot": dot_model, "none": none_model}
+    return models[refold](A, B, expand, tile, pinned, w=4).astype(np.int64)
 
 
 @pytest.mark.parametrize("refold", ["sum", "dot", "none"])
@@ -360,10 +305,12 @@ def test_planes_w4_pinned_and_largest_sums():
 
 
 def test_planes_w4_dims_and_refusals():
-    """W=4's m-tiles are 4 symbols and its depth chunks 8; F holds 2^s up to
-    8 in tiles of 16 symbols; sign and the byte-granular expansions are
-    refused at w=4, and the data must be uint8."""
-    assert cuda_planes._dims(10, 5, 4) == (2, 2, 1, 1)
+    """W=4's m-tiles are 4 symbols (in pairs) and its depth chunks 8; the
+    dot kernel's F is one pass a tile; the plain version's F holds 2^s up
+    to 8; sign and the byte-granular expansions are refused at w=4, and the
+    data must be uint8."""
+    assert cuda_planes.sum_operator(np.ones((5, 10), dtype=np.uint8), 4).shape == (32, 64)
+    assert cuda_planes.dot_fold_operator(4).shape == (1, 32, 2)
     assert cuda_planes.fold_operator(3, 4).max() == 8
     A, B = _operands(2, 3, 64, 14)
     with pytest.raises(ValueError, match="lane-width"):
